@@ -1,4 +1,4 @@
-"""cswin_unet_tpu_torch — the CSWin-UNet serving path in PyTorch, with
+"""cswin_unet_tpu_torch — CSWin-UNet serving and training in PyTorch, with
 hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 It sits beside the JAX package ``cswin_unet_tpu``, which stays the
@@ -8,6 +8,11 @@ imports ``torch`` and never ``jax``.
 
 Layer map (entry point down to the kernels):
   serve       -> cswin_unet_tpu_torch.serve (VolumeServer, watch loop, CLI)
+  train       -> cswin_unet_tpu_torch.train (trainer_synapse, SGD + poly LR,
+                 CLI: python -m cswin_unet_tpu_torch.train)
+  data        -> cswin_unet_tpu_torch.data (Synapse readers, augmentations,
+                 threaded loader, device prefetch)
+  losses      -> cswin_unet_tpu_torch.losses (CE, Dice, Focal, KD)
   eval        -> cswin_unet_tpu_torch.eval.inference (VolumeInferencer)
   model       -> cswin_unet_tpu_torch.models (CSwinUnet wrapper, CSWinUNet)
   checkpoint  -> cswin_unet_tpu_torch.utils.checkpoint (the JAX .npz format,
@@ -17,8 +22,9 @@ Layer map (entry point down to the kernels):
   ops         -> cswin_unet_tpu_torch.ops: plain PyTorch compositions
                  (windows, stripe attention, CARAFE)
   kernels     -> cswin_unet_tpu_torch.ops.cuda: the CSWin block as a chain
-                 of CUDA kernels (layernorm, GEMM, stripe attention) and the
-                 fused CARAFE kernel, built with nvcc on first use
+                 of CUDA kernels (layernorm, GEMM, stripe attention) with a
+                 backward chain of CUDA kernels (CSWinBlockFn), and the fused
+                 CARAFE kernel, built with nvcc on first use
 
 Each kernel wrapper runs its plain PyTorch version for a tensor on the CPU
 and launches its CUDA kernel (or raises) for a tensor on the GPU.

@@ -18,14 +18,24 @@ deterministic path):
 reference the kernels are held against. The stem, merge convs, standalone
 LayerNorms and concat-linears are plain PyTorch ops on both routes.
 
-Forward only: dropout and drop-path are identity at inference and are not
-modelled.
+Training (autograd needs gradients), as the JAX package routes it
+(``cswin_unet_tpu/models/cswin_unet.py:141,242-260``): dual-branch blocks at
+resolution >= ``FUSE_TRAIN_MIN_RESO`` (stages 1 and 2 at 224²) run the
+kernel chain through ``CSWinBlockFn``, whose backward is kernels; the other
+blocks run ``composed_block`` under autograd; the fused CARAFE sites train
+through their kernel-forward / composition-vjp Functions. Drop-path
+(stochastic depth) follows the reference schedule ``linspace(0, rate,
+sum(depth))``, shared by encoder and decoder: in train mode each block
+draws per-sample keep masks / (1 − p) for its attention and MLP branches
+from the ``generator`` passed to ``forward``. Dropout rates are 0 in every
+config and are not modelled.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -33,8 +43,13 @@ from torch import nn
 from ..ops.carafe import carafe, carafe_with_classifier
 from ..ops.cuda.carafe_tail import carafe_tail, carafe_tail_argmax, carafe_up
 from ..ops.cuda.cswin_block import BlockParams, composed_block, fused_cswin_block
+from ..ops.cuda.kernels import needs_grad
 
 IMPLS = ("fused", "plain")
+# Smallest stage resolution whose dual-branch blocks train through the
+# kernel backward — the JAX package's _FUSE_TRAIN_MIN_RESO, measured on a
+# TPU; an H100 measurement of the 14x14 blocks is queued (ROADMAP).
+FUSE_TRAIN_MIN_RESO = 28
 
 
 def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, stride: int,
@@ -85,8 +100,10 @@ class CSWinBlock(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.split_size = split_size
+        self.reso = reso
         self.last = last_stage or reso == split_size
         self.impl = impl
+        self.drop_path = 0.0
         self.scale = qk_scale if qk_scale is not None else (dim // num_heads) ** -0.5
         self.norm1 = nn.LayerNorm(dim)
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
@@ -107,10 +124,30 @@ class CSWinBlock(nn.Module):
             self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight,
             self.mlp.fc2.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        fn = fused_cswin_block if self.impl == "fused" else composed_block
-        return fn(x, self.block_params(), heads=self.num_heads,
-                  split=self.split_size, last_stage=self.last, scale=self.scale)
+    def drop_path_multipliers(self, batch: int, generator: torch.Generator | None,
+                              device: torch.device):
+        """Per-sample drop-path multipliers (dp0, dp1), each (batch,) float32
+        keep mask / (1 − p), or None outside training or at p = 0."""
+        if not self.training or self.drop_path <= 0.0:
+            return None
+        if generator is None:
+            raise ValueError("training with drop-path needs forward(generator=...)")
+        keep = 1.0 - self.drop_path
+        u = torch.rand((2, batch), generator=generator, device=generator.device)
+        dp = (u < keep).float().div_(keep).to(device)
+        return dp[0], dp[1]
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        p = self.block_params()
+        dps = (self.drop_path_multipliers(x.shape[0], generator, x.device)
+               if self.training else None)
+        fn = fused_cswin_block
+        if self.impl == "plain" or ((self.last or self.reso < FUSE_TRAIN_MIN_RESO)
+                                    and needs_grad(x, *p)):
+            fn = composed_block
+        return fn(x, p, heads=self.num_heads, split=self.split_size,
+                  last_stage=self.last, scale=self.scale, dps=dps)
 
 
 class MergeBlock(nn.Module):
@@ -155,7 +192,7 @@ class CSWinUNet(nn.Module):
                  split_size: Sequence[int] = (1, 2, 7, 7),
                  num_heads: Sequence[int] = (2, 4, 8, 16),
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 qk_scale: float | None = None,
+                 qk_scale: float | None = None, drop_path_rate: float = 0.0,
                  dtype: torch.dtype = torch.bfloat16, impl: str = "fused"):
         super().__init__()
         if impl not in IMPLS:
@@ -192,7 +229,17 @@ class CSWinUNet(nn.Module):
         self.upsample1 = CarafeUpsample(ed, ed, up_factor=4)
         self.output = nn.Conv2d(ed, num_classes, 1, bias=False)
 
-    def forward(self, x: torch.Tensor, emit: str = "logits") -> torch.Tensor:
+        # Stochastic-depth schedule shared by encoder and decoder.
+        dpr = np.linspace(0, drop_path_rate, sum(depth))
+        offs = [sum(depth[:s]) for s in range(4)]
+        for s in range(4):
+            for prefix in ("stage", "stage_up"):
+                for i, blk in enumerate(getattr(self, f"{prefix}{s + 1}")):
+                    blk.drop_path = float(dpr[offs[s] + i])
+
+    def forward(self, x: torch.Tensor, emit: str = "logits",
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator`` draws the drop-path masks in train mode."""
         if x.shape[-1] != self.in_chans:
             raise ValueError(f"expected NHWC input with {self.in_chans} channels, "
                              f"got {tuple(x.shape)}")
@@ -206,7 +253,7 @@ class CSWinUNet(nn.Module):
         skips = []
         for s in range(4):
             for blk in getattr(self, f"stage{s + 1}"):
-                x = blk(x)
+                x = blk(x, generator)
             if s < 3:
                 skips.append(x)
                 x = getattr(self, f"merge{s + 1}")(x)
@@ -214,7 +261,7 @@ class CSWinUNet(nn.Module):
 
         for s in range(3, -1, -1):
             for blk in getattr(self, f"stage_up{s + 1}"):
-                x = blk(x)
+                x = blk(x, generator)
             if s > 0:
                 up = getattr(self, f"upsample{s + 1}")
                 x = up(x, fused=fused and self.resos[s] >= 28)

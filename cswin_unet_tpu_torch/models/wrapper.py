@@ -23,10 +23,11 @@ class CSwinUnet(nn.Module):
         super().__init__()
         self.cswin_unet = backbone
 
-    def forward(self, x: torch.Tensor, emit: str = "logits") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emit: str = "logits",
+                generator: torch.Generator | None = None) -> torch.Tensor:
         if x.shape[-1] == 1:
             x = x.expand(*x.shape[:-1], 3)
-        return self.cswin_unet(x, emit=emit)
+        return self.cswin_unet(x, emit=emit, generator=generator)
 
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -34,11 +35,13 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def build_model(config, img_size: int | None = None, num_classes: int = 9, *,
                 device: torch.device | str, dtype: torch.dtype | None = None,
-                impl: str = "fused", seed: int = 0) -> CSwinUnet:
+                impl: str = "fused", seed: int = 0,
+                train: bool = False) -> CSwinUnet:
     """Build the model from a frozen config, with weights drawn from
     ``torch.Generator().manual_seed(seed)`` on the CPU, moved to ``device``
-    and set to eval mode. Parameters are float32; activations run in
-    ``dtype`` (default ``config.TPU.COMPUTE_DTYPE``)."""
+    and set to eval mode, or with ``train=True`` to train mode with the
+    config's ``MODEL.DROP_PATH_RATE``. Parameters are float32; activations
+    run in ``dtype`` (default ``config.TPU.COMPUTE_DTYPE``)."""
     cs = config.MODEL.CSWIN
     if dtype is None:
         dtype = _DTYPES[config.TPU.COMPUTE_DTYPE]
@@ -54,10 +57,11 @@ def build_model(config, img_size: int | None = None, num_classes: int = 9, *,
             mlp_ratio=cs.MLP_RATIO,
             qkv_bias=cs.QKV_BIAS,
             qk_scale=cs.QK_SCALE,
+            drop_path_rate=config.MODEL.DROP_PATH_RATE if train else 0.0,
             dtype=dtype,
             impl=impl,
         )
         model = CSwinUnet(backbone)
     model.to_empty(device="cpu")
     init_weights(model, torch.Generator().manual_seed(seed))
-    return model.to(device).eval()
+    return model.to(device).train(train)

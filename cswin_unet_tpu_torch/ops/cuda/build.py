@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels on first use and bind them with ctypes.
 
-All ``csrc/*.cu`` files are compiled by one ``nvcc`` call for ``sm_90a``
-into a shared library with a plain C interface. The library's name carries
+Each ``csrc/*.cu`` file is compiled for ``sm_90a`` by its own ``nvcc``
+process, all started together, and the objects are linked into one shared
+library with a plain C interface. The library's name carries
 a hash of the sources and flags, and it lives in ``_build/`` beside this
 file (ignored by git), so a changed source rebuilds and an unchanged one
 loads at once. Nothing here runs at import time: the CPU tests import every
@@ -20,16 +21,21 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of csrc/*.cu; every function returns a cudaError_t as int.
 _SIGNATURES = {
     "cswin_layernorm": (_P, _P, _P, _P, _I, _I, _F, _P),
-    "cswin_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "cswin_layernorm_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "cswin_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "cswin_gemm_wgrad": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "cswin_stripe_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _F, _P),
+    "cswin_stripe_attention_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _F, _P),
     "cswin_carafe": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
@@ -68,14 +74,29 @@ def library() -> ctypes.CDLL:
     so = BUILD_DIR / f"libcswin_kernels_{_digest()}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+        tag = f"{so.stem}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+        tmp = so.with_name(f"{tag}.so.tmp")
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for src, obj in zip(_sources(), objs)]
+        logs = [p.communicate()[0] for p in procs]
+        build_log = "".join(logs)
+        failed = [src.name for src, p in zip(_sources(), procs) if p.returncode]
+        if not failed:
+            link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                                   *map(str, objs)], capture_output=True,
+                                  text=True, check=False)
+            build_log += link.stdout + link.stderr
+            failed = ["link"] if link.returncode else []
         build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

@@ -15,6 +15,12 @@ exact because the taps sum to 1 (see ``ops.carafe.carafe_with_classifier``).
 Without a classifier ``W_y = W_out`` and the bias is ``b_out``.
 
 Each public function has its plain PyTorch version beside it.
+
+Training: ``carafe_up`` and ``carafe_tail`` are differentiable through
+``CarafeFn``, as the JAX ``custom_vjp`` pair
+(``cswin_unet_tpu/ops/pallas/carafe_tail.py:295-399``): the forward is the
+kernels, the backward re-runs the plain composition (``ops.carafe``) under
+autograd and takes its vjp.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..carafe import carafe, carafe_with_classifier
-from .kernels import carafe_reassemble, gemm
+from .kernels import carafe_reassemble, gemm, needs_grad
 
 
 def carafe_fused(x: torch.Tensor, down_weight: torch.Tensor,
@@ -55,11 +61,33 @@ def carafe_fused(x: torch.Tensor, down_weight: torch.Tensor,
                              labels=emit == "argmax")
 
 
+class CarafeFn(torch.autograd.Function):
+    """A fused CARAFE site: the kernel forward (``carafe_fused``), and as
+    backward the vjp of ``plain``, its composition (``ops.carafe.carafe`` or
+    ``carafe_with_classifier``), re-run under autograd on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, plain, up_factor, *inputs):
+        ctx.save_for_backward(*inputs)
+        ctx.plain, ctx.up_factor = plain, up_factor
+        return carafe_fused(*inputs, up_factor=up_factor)
+
+    @staticmethod
+    def backward(ctx, grad):
+        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ctx.plain(*leaves, up_factor=ctx.up_factor)
+        return (None, None, *torch.autograd.grad(out, leaves, grad))
+
+
 def carafe_up(x, down_weight, down_bias, encoder_weight, encoder_bias,
               out_weight, out_bias, up_factor: int = 2) -> torch.Tensor:
     """CARAFE upsampler between decoder stages (no classifier)."""
-    return carafe_fused(x, down_weight, down_bias, encoder_weight, encoder_bias,
-                        out_weight, out_bias, None, up_factor=up_factor)
+    inputs = (x, down_weight, down_bias, encoder_weight, encoder_bias,
+              out_weight, out_bias)
+    if needs_grad(*inputs):
+        return CarafeFn.apply(carafe, up_factor, *inputs)
+    return carafe_fused(*inputs, up_factor=up_factor)
 
 
 def carafe_up_plain(x, down_weight, down_bias, encoder_weight, encoder_bias,
@@ -72,8 +100,11 @@ def carafe_tail(x, down_weight, down_bias, encoder_weight, encoder_bias,
                 out_weight, out_bias, cls_weight,
                 up_factor: int = 4) -> torch.Tensor:
     """The model tail: x4 CARAFE with the classifier folded in -> logits."""
-    return carafe_fused(x, down_weight, down_bias, encoder_weight, encoder_bias,
-                        out_weight, out_bias, cls_weight, up_factor=up_factor)
+    inputs = (x, down_weight, down_bias, encoder_weight, encoder_bias,
+              out_weight, out_bias, cls_weight)
+    if needs_grad(*inputs):
+        return CarafeFn.apply(carafe_with_classifier, up_factor, *inputs)
+    return carafe_fused(*inputs, up_factor=up_factor)
 
 
 def carafe_tail_plain(x, down_weight, down_bias, encoder_weight, encoder_bias,

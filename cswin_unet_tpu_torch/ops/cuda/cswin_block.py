@@ -1,4 +1,5 @@
-"""The CSWin block forward as a chain of hand-written CUDA kernels.
+"""The CSWin block, forward and backward, as chains of hand-written CUDA
+kernels.
 
 Counterpart of ``cswin_unet_tpu/ops/pallas/cswin_block.py``: the TPU ran a
 whole block per image in one Pallas program (``fused_cswin_block``); an H100
@@ -7,6 +8,14 @@ block of threads has 227 KB of shared memory, so here the block is a chain:
   LN1 (layernorm) -> qkv (gemm, bias) -> stripe attention + LePE per branch,
   written at the branch's channel offset -> proj (gemm, bias + residual) ->
   LN2 -> fc1 (gemm, bias + erf GELU) -> fc2 (gemm, bias + residual)
+
+with per-sample drop-path multipliers in the two residual epilogues. The
+backward (``CSWinBlockFn``, counterpart of ``_fused_block_bwd_xt``) runs
+
+  fc2 dX with the GELU backward (gemm_dgrad) and wgrad -> fc1 wgrad and dX
+  -> LN2 backward + residual -> proj wgrad and dX -> attention + LePE
+  backward per branch into one dqkv -> qkv wgrad and dX -> LN1 backward +
+  residual
 
 Channels ``[:C/2]`` are the vertical branch (windows ``H x split``,
 ``attns.0``), ``[C/2:]`` the horizontal one (``split x W``, ``attns.1``). A
@@ -25,7 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from ..attention import cswin_attention_xla
-from .kernels import gemm, layernorm, stripe_attention
+from .kernels import (gemm, gemm_dgrad, gemm_wgrad, layernorm, layernorm_bwd,
+                      needs_grad, stripe_attention, stripe_attention_bwd)
 
 
 class BlockParams(NamedTuple):
@@ -51,43 +61,145 @@ class BlockParams(NamedTuple):
     fc2_b: torch.Tensor
 
 
-def fused_cswin_block(x: torch.Tensor, p: BlockParams, *, heads: int,
-                      split: int, last_stage: bool,
-                      scale: float) -> torch.Tensor:
-    """Block forward (B, H, W, C) -> (B, H, W, C) through the kernel chain.
-
-    On a CUDA tensor every step is a CUDA kernel (bf16 activations); on a
-    CPU tensor each step runs that kernel's plain version.
-    """
+def _chain(x: torch.Tensor, p: BlockParams, dps, *, heads: int, split: int,
+           last_stage: bool, scale: float, keep: bool):
+    """The forward kernel chain. Returns (out, saved): ``saved`` holds what
+    the backward reads (None unless ``keep``); with ``keep`` the fc1 GEMM
+    also writes its rounded pre-activation h for the GELU backward."""
     B, H, W, C = x.shape
     dt = x.dtype
+    hw = H * W
+    dp0, dp1 = (None, None) if dps is None else (
+        d.to(dt).float().contiguous() for d in dps)
     rows = x.reshape(B * H * W, C).contiguous()
     xn = layernorm(rows, p.norm1_w, p.norm1_b)
     qkv = gemm(xn, p.qkv_w.to(dt), p.qkv_b).view(B, H, W, 3 * C)
     att = torch.empty((B, H, W, C), dtype=dt, device=x.device)
-    if last_stage:
-        stripe_attention(qkv, p.lepe0_w, p.lepe0_b, att, ch_off=0, heads=heads,
-                         h_sp=H, w_sp=W, scale=scale)
-    else:
-        half = C // 2
-        stripe_attention(qkv, p.lepe0_w, p.lepe0_b, att, ch_off=0,
-                         heads=heads // 2, h_sp=H, w_sp=split, scale=scale)
-        stripe_attention(qkv, p.lepe1_w, p.lepe1_b, att, ch_off=half,
-                         heads=heads // 2, h_sp=split, w_sp=W, scale=scale)
-    x1 = gemm(att.view(B * H * W, C), p.proj_w.to(dt), p.proj_b,
-              residual=rows, epilogue="residual")
+    for off, cb, nh, hs, ws, lw, lb in _branches(p, H, W, C, heads, split,
+                                                 last_stage):
+        stripe_attention(qkv, lw, lb, att, ch_off=off, heads=nh, h_sp=hs,
+                         w_sp=ws, scale=scale)
+    att = att.view(B * H * W, C)
+    x1 = gemm(att, p.proj_w.to(dt), p.proj_b, residual=rows,
+              epilogue="residual", dp=dp0, rows_per_sample=hw)
     y = layernorm(x1, p.norm2_w, p.norm2_b)
-    h = gemm(y, p.fc1_w.to(dt), p.fc1_b, epilogue="gelu")
-    out = gemm(h, p.fc2_w.to(dt), p.fc2_b, residual=x1, epilogue="residual")
-    return out.view(B, H, W, C)
+    h = (torch.empty((B * H * W, p.fc1_w.shape[0]), dtype=dt, device=x.device)
+         if keep else None)
+    g = gemm(y, p.fc1_w.to(dt), p.fc1_b, epilogue="gelu", pre=h)
+    out = gemm(g, p.fc2_w.to(dt), p.fc2_b, residual=x1, epilogue="residual",
+               dp=dp1, rows_per_sample=hw)
+    saved = (rows, xn, qkv, att, x1, y, h, g, dp0, dp1) if keep else None
+    return out.view(B, H, W, C), saved
+
+
+def _branches(p: BlockParams, H, W, C, heads, split, last_stage):
+    """(channel offset, width, heads, h_sp, w_sp, LePE weight, LePE bias) of
+    each stripe branch."""
+    if last_stage:
+        return [(0, C, heads, H, W, p.lepe0_w, p.lepe0_b)]
+    half = C // 2
+    return [(0, half, heads // 2, H, split, p.lepe0_w, p.lepe0_b),
+            (half, half, heads // 2, split, W, p.lepe1_w, p.lepe1_b)]
+
+
+class CSWinBlockFn(torch.autograd.Function):
+    """The block with a hand-written backward: the forward kernel chain
+    (drop-path in the residual epilogues), and a backward chain of CUDA
+    kernels in the order and with the rounding points of the JAX
+    ``_block_bwd_kernel_xt`` (cswin_block.py:1677-1785): cotangents rounded
+    to the activation dtype before each product, accumulation and LN
+    statistics in float32.
+
+    Saved for the backward (bf16 at bs 24, stage 1: M = 75,264 rows, C = 64):
+    the block input, LN1 out, qkv (3C), attention out, x1, LN2 out, fc1
+    pre-activation h (4C) and GELU out (4C) — 16·M·C values, 154 MB a
+    stage-1 block and 77 MB a stage-2 block. All but h are the forward
+    chain's own outputs, kept instead of recomputed.
+    """
+
+    @staticmethod
+    def forward(ctx, x, dp0, dp1, heads, split, last_stage, scale, *params):
+        p = BlockParams(*params)
+        kw = dict(heads=heads, split=split, last_stage=last_stage, scale=scale)
+        dps = None if dp0 is None else (dp0, dp1)
+        out, saved = _chain(x, p, dps, keep=True, **kw)
+        ctx.save_for_backward(*saved, *params)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        rows, xn, qkv, att, x1, y, h, g, dp0, dp1, *params = ctx.saved_tensors
+        p = BlockParams(*params)
+        kw = ctx.kw
+        B, H, W, C3 = qkv.shape
+        C = C3 // 3
+        hw = H * W
+        dt = rows.dtype
+        do = gout.reshape(B * H * W, C).to(dt).contiguous()
+
+        # MLP and the second residual (drop-path dp1)
+        dh = gemm_dgrad(do, p.fc2_w, dp=dp1, rows_per_sample=hw, gelu_h=h)
+        dfc2_w, dfc2_b = gemm_wgrad(g, do, dp=dp1, rows_per_sample=hw)
+        dfc1_w, dfc1_b = gemm_wgrad(y, dh)
+        dy = gemm_dgrad(dh, p.fc1_w)
+        dx1, dn2_w, dn2_b = layernorm_bwd(x1, dy, p.norm2_w, residual=do)
+        # proj and the first residual (drop-path dp0)
+        dproj_w, dproj_b = gemm_wgrad(att, dx1, dp=dp0, rows_per_sample=hw)
+        datt = gemm_dgrad(dx1, p.proj_w, dp=dp0, rows_per_sample=hw)
+        # attention + LePE, both branches into one dqkv buffer
+        dqkv = torch.empty_like(qkv)
+        dlepe = []
+        for off, cb, nh, hs, ws, lw, _ in _branches(
+                p, H, W, C, kw["heads"], kw["split"], kw["last_stage"]):
+            dlepe.append(stripe_attention_bwd(
+                qkv, datt.view(B, H, W, C), lw, dqkv, ch_off=off, heads=nh,
+                h_sp=hs, w_sp=ws, scale=kw["scale"]))
+        dqkv = dqkv.view(B * H * W, C3)
+        dqkv_w, dqkv_b = gemm_wgrad(xn, dqkv)
+        dxn = gemm_dgrad(dqkv, p.qkv_w)
+        dx, dn1_w, dn1_b = layernorm_bwd(rows, dxn, p.norm1_w, residual=dx1)
+
+        (dl0_w, dl0_b), (dl1_w, dl1_b) = (dlepe if len(dlepe) == 2
+                                          else (dlepe[0], (None, None)))
+        grads = BlockParams(
+            dn1_w, dn1_b, dqkv_w, None if p.qkv_b is None else dqkv_b,
+            dl0_w, dl0_b, dl1_w, dl1_b, dproj_w, dproj_b, dn2_w, dn2_b,
+            dfc1_w, dfc1_b, dfc2_w, dfc2_b)
+        return (dx.view(B, H, W, C), None, None, None, None, None, None,
+                *grads)
+
+
+def fused_cswin_block(x: torch.Tensor, p: BlockParams, *, heads: int,
+                      split: int, last_stage: bool, scale: float,
+                      dps: tuple[torch.Tensor, torch.Tensor] | None = None
+                      ) -> torch.Tensor:
+    """Block forward (B, H, W, C) -> (B, H, W, C) through the kernel chain.
+
+    ``dps``: None, or per-sample drop-path multipliers (dp0, dp1), each (B,)
+    float32 (keep mask / (1 − p)), applied in the activation dtype to the
+    attention and MLP branches before their residual adds. On a CUDA tensor
+    every step is a CUDA kernel (bf16 activations); on a CPU tensor each
+    step runs that kernel's plain version. Where autograd needs gradients,
+    the call goes through ``CSWinBlockFn``, whose backward is kernels too.
+    """
+    if needs_grad(x, *p):
+        dp0, dp1 = (None, None) if dps is None else dps
+        return CSWinBlockFn.apply(x, dp0, dp1, heads, split, last_stage, scale,
+                                  *p)
+    return _chain(x, p, dps, heads=heads, split=split, last_stage=last_stage,
+                  scale=scale, keep=False)[0]
 
 
 def composed_block(x: torch.Tensor, p: BlockParams, *, heads: int, split: int,
-                   last_stage: bool, scale: float) -> torch.Tensor:
+                   last_stage: bool, scale: float,
+                   dps: tuple[torch.Tensor, torch.Tensor] | None = None
+                   ) -> torch.Tensor:
     """Plain PyTorch composition of the same block (the kernel chain's
-    reference): float32 LN statistics, products accumulated in float32 and
-    rounded to ``x.dtype`` after the bias, exact erf GELU on the rounded
-    fc1 output, residual adds in ``x.dtype``."""
+    reference, differentiable by autograd): float32 LN statistics, products
+    accumulated in float32 and rounded to ``x.dtype`` after the bias, exact
+    erf GELU on the rounded fc1 output, drop-path multipliers and residual
+    adds in ``x.dtype``."""
     B, H, W, C = x.shape
     dt = x.dtype
 
@@ -120,9 +232,13 @@ def composed_block(x: torch.Tensor, p: BlockParams, *, heads: int, split: int,
         att = torch.cat([a0, a1], dim=-1)
 
     att = linear(att, p.proj_w, p.proj_b).to(dt).reshape(B, H, W, C)
+    if dps is not None:
+        att = att * dps[0].to(dt)[:, None, None, None]
     x1 = x + att
     y = ln(x1, p.norm2_w, p.norm2_b)
     y = linear(y, p.fc1_w, p.fc1_b).to(dt)
     y = F.gelu(y.float()).to(dt)
     y = linear(y, p.fc2_w, p.fc2_b).to(dt).reshape(B, H, W, C)
+    if dps is not None:
+        y = y * dps[1].to(dt)[:, None, None, None]
     return x1 + y

@@ -1,0 +1,157 @@
+"""Base trainer: SGD + momentum, poly LR decay, 0.4·CE + 0.6·Dice.
+
+Counterpart of ``cswin_unet_tpu.train.trainer`` (reference
+``trainer_synapse``): SGD(momentum 0.9, weight decay 1e-4), per-iteration
+poly decay ``lr = base·(1 − iter/max_iter)^0.9``, loss 0.4·CE + 0.6·Dice,
+TensorBoard scalars every iteration and image triptychs every 20,
+checkpoints every 3 epochs after the halfway point plus the final epoch, in
+the JAX package's ``.npz`` format, and the same log-line format.
+
+On one explicit device: batches come from a threaded host loader and are
+copied one batch ahead (``data.device_prefetch``); drop-path masks come
+from one ``torch.Generator`` on that device, seeded from ``--seed``; metrics
+reach the host every 20 steps (``MetricBuffer``), so the loop does not wait
+for the device per step.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..data import DataLoader, RandomGenerator, SynapseDataset, device_prefetch
+from ..losses import segmentation_loss
+from ..utils.checkpoint import save_checkpoint
+from ..utils.logging_utils import MetricBuffer, SummaryWriter, setup_logging
+
+
+def poly_lr(step: int, base_lr: float, max_iterations: int,
+            power: float = 0.9) -> float:
+    """``base·(1 − step/max)^power``, the fraction clipped to [0, 1]."""
+    frac = min(max(1.0 - step / max_iterations, 0.0), 1.0)
+    return base_lr * frac**power
+
+
+def make_optimizer(params, base_lr: float, max_iterations: int, *,
+                   momentum: float = 0.9, weight_decay: float = 1e-4):
+    """SGD with momentum and weight decay on every parameter, and a
+    per-iteration poly LR schedule (call ``scheduler.step()`` after each
+    ``optimizer.step()``). The update equals optax's
+    ``chain(add_decayed_weights(wd), sgd(poly, momentum))``: the decayed
+    gradient g + wd·p feeds the momentum trace, scaled by the step's LR."""
+    optimizer = torch.optim.SGD(params, lr=base_lr, momentum=momentum,
+                                weight_decay=weight_decay)
+    scheduler = torch.optim.lr_scheduler.LambdaLR(
+        optimizer, lambda step: poly_lr(step, 1.0, max_iterations))
+    return optimizer, scheduler
+
+
+def make_train_step(model, optimizer, scheduler, num_classes: int, *,
+                    loss_fn=None):
+    """``step(image, label, generator) -> aux``: forward, loss, backward,
+    SGD update and LR step. ``loss_fn(logits, labels)`` defaults to
+    0.4·CE + 0.6·Dice and returns (scalar, aux dict). ``aux`` holds the
+    detached losses and the argmax map of sample 1 (``pred_vis``), all on
+    the device."""
+    if loss_fn is None:
+        def loss_fn(logits, labels):
+            return segmentation_loss(logits, labels, num_classes)
+
+    def step(image: torch.Tensor, label: torch.Tensor,
+             generator: torch.Generator | None) -> dict:
+        optimizer.zero_grad(set_to_none=True)
+        logits = model(image, generator=generator)
+        total, aux = loss_fn(logits, label)
+        total.backward()
+        optimizer.step()
+        scheduler.step()
+        out = {k: v.detach() for k, v in aux.items()}
+        out["pred_vis"] = logits[min(1, logits.shape[0] - 1)].detach().argmax(-1)
+        return out
+
+    return step
+
+
+def trainer_synapse(args, model, snapshot_path: str) -> str:
+    """End-to-end base training of ``model`` (a ``CSwinUnet`` in train mode,
+    on ``args.device``)."""
+    setup_logging(snapshot_path)
+    logging.info(str(args))
+    device = torch.device(args.device)
+
+    base_lr = args.base_lr
+    num_classes = args.num_classes
+    batch_size = args.batch_size * getattr(args, "n_gpu", 1)
+    db_train = SynapseDataset(base_dir=args.root_path, list_dir=args.list_dir,
+                              split="train",
+                              transform=RandomGenerator(
+                                  output_size=[args.img_size, args.img_size]))
+    print(f"The length of train set is: {len(db_train)}")
+    trainloader = DataLoader(db_train, batch_size, shuffle=True, seed=args.seed,
+                             num_workers=getattr(args, "num_workers", 8))
+
+    max_epoch = args.max_epochs
+    max_iterations = max_epoch * len(trainloader)
+    logging.info(f"{len(trainloader)} iterations per epoch. {max_iterations} "
+                 "max iterations ")
+
+    model.train()
+    optimizer, scheduler = make_optimizer(model.parameters(), base_lr,
+                                          max_iterations)
+    train_step = make_train_step(model, optimizer, scheduler, num_classes)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+
+    writer = SummaryWriter(os.path.join(snapshot_path, "log"))
+    iter_num = 0
+    t_start = time.time()
+    metrics = MetricBuffer(flush_every=20)
+
+    def emit_step(it, v):
+        writer.add_scalar("info/lr", v["lr"], it)
+        writer.add_scalar("info/total_loss", v["loss"], it)
+        writer.add_scalar("info/loss_ce", v["loss_ce"], it)
+        logging.info("iteration %d : loss : %f, loss_ce: %f"
+                     % (it, v["loss"], v["loss_ce"]))
+        if "image" in v:
+            # Image triptych every 20 iterations (reference trainer.py:72-79).
+            img = np.asarray(v["image"])[..., 0]
+            span = img.max() - img.min()
+            writer.add_image("train/Image",
+                             ((img - img.min()) / (span if span > 0 else 1.0))[None], it)
+            writer.add_image("train/Prediction",
+                             np.asarray(v["pred_vis"])[None].astype(np.float32) * 50, it)
+            writer.add_image("train/GroundTruth",
+                             np.asarray(v["label"])[None].astype(np.float32) * 50, it)
+
+    for epoch_num in range(max_epoch):
+        for batch in device_prefetch(iter(trainloader), device):
+            aux = train_step(batch["image"], batch["label"], generator)
+            lr_ = poly_lr(iter_num, base_lr, max_iterations)
+            iter_num += 1
+            vals = {"lr": lr_, "loss": aux["loss"], "loss_ce": aux["loss_ce"]}
+            if iter_num % 20 == 0:
+                s = min(1, batch["image"].shape[0] - 1)
+                vals["image"] = batch["image"][s]
+                vals["label"] = batch["label"][s]
+                vals["pred_vis"] = aux["pred_vis"]
+            metrics.append(iter_num, vals, emit_step)
+        metrics.flush()
+
+        save_interval = 3
+        is_last = epoch_num >= max_epoch - 1
+        if (epoch_num > int(max_epoch / 2)
+                and (epoch_num + 1) % save_interval == 0) or is_last:
+            save_mode_path = os.path.join(snapshot_path, f"epoch_{epoch_num}.npz")
+            save_checkpoint(save_mode_path, model.cswin_unet.state_dict())
+            logging.info(f"save model to {save_mode_path}")
+        if is_last:
+            break
+
+    logging.info(f"Training finished in {time.time() - t_start:.1f}s "
+                 f"({iter_num} iterations)")
+    writer.close()
+    return "Training Finished!"

@@ -128,6 +128,116 @@ def test_carafe_tail_logits_and_labels(dev):
     assert int((mism & (margin > 0.02 * want.abs().max())).sum()) == 0
 
 
+@pytest.mark.parametrize("M,C", [(1000, 64), (333, 512), (75, 256)])
+def test_layernorm_bwd(dev, M, C):
+    rng = np.random.default_rng(5)
+    x, dy, res = (_rnd(rng, dev, M, C).bfloat16() for _ in range(3))
+    w = _rnd(rng, dev, C, sc=0.3, off=1.0)
+    before = K.layernorm_bwd.launches
+    got = K.layernorm_bwd(x, dy, w, residual=res)
+    assert K.layernorm_bwd.launches == before + 1
+    for g, want in zip(got, K.layernorm_bwd_plain(x, dy, w, residual=res)):
+        assert _rel_l2(g.float(), want.float()) <= 0.02
+
+
+@pytest.mark.parametrize("M,N,K_,hw", [(200, 96, 64, 50), (130, 24, 64, 65),
+                                       (64, 512, 2048, 16)])
+def test_gemm_dgrad_and_wgrad(dev, M, N, K_, hw):
+    rng = np.random.default_rng(6)
+    dy, x = _rnd(rng, dev, M, N).bfloat16(), _rnd(rng, dev, M, K_).bfloat16()
+    w = _rnd(rng, dev, N, K_, sc=N ** -0.5)
+    h = _rnd(rng, dev, M, K_).bfloat16()
+    dp = torch.from_numpy((rng.random(M // hw) < 0.7).astype(np.float32) / 0.7).to(dev)
+    for kw in ({}, dict(dp=dp, rows_per_sample=hw),
+               dict(dp=dp, rows_per_sample=hw, gelu_h=h)):
+        got, want = K.gemm_dgrad(dy, w, **kw), K.gemm_dgrad_plain(dy, w, **kw)
+        assert _rel_l2(got.float(), want.float()) <= 0.02, kw
+    for kw in ({}, dict(dp=dp, rows_per_sample=hw)):
+        got, want = K.gemm_wgrad(x, dy, **kw), K.gemm_wgrad_plain(x, dy, **kw)
+        for g, ww in zip(got, want):
+            assert g.dtype == torch.float32
+            assert _rel_l2(g, ww) <= 0.02, kw
+
+
+def test_gemm_training_epilogues(dev):
+    rng = np.random.default_rng(7)
+    M, N, K_, hw = 300, 128, 64, 100
+    a, res = _rnd(rng, dev, M, K_).bfloat16(), _rnd(rng, dev, M, N).bfloat16()
+    w, bias = _rnd(rng, dev, N, K_, sc=K_ ** -0.5).bfloat16(), _rnd(rng, dev, N, sc=0.1)
+    dp = torch.tensor([0.0, 1.25, 1.25], device=dev)
+    got = K.gemm(a, w, bias, residual=res, epilogue="residual", dp=dp,
+                 rows_per_sample=hw)
+    want = K.gemm_plain(a, w, bias, residual=res, epilogue="residual", dp=dp,
+                        rows_per_sample=hw)
+    assert _rel_l2(got.float(), want.float()) <= 0.02
+    assert torch.equal(got[:hw], res[:hw])  # a dropped sample keeps its residual
+    pre_k, pre_p = (torch.empty(M, N, dtype=torch.bfloat16, device=dev) for _ in range(2))
+    got = K.gemm(a, w, bias, epilogue="gelu", pre=pre_k)
+    want = K.gemm_plain(a, w, bias, epilogue="gelu", pre=pre_p)
+    assert _rel_l2(got.float(), want.float()) <= 0.02
+    assert _rel_l2(pre_k.float(), pre_p.float()) <= 0.02
+
+
+@pytest.mark.parametrize("H,C,heads,split,last", [
+    (56, 64, 2, 1, False), (28, 128, 4, 2, False), (14, 256, 8, 7, False),
+    (7, 512, 16, 7, True), (16, 48, 2, 4, False)])
+def test_stripe_attention_bwd(dev, H, C, heads, split, last):
+    rng = np.random.default_rng(8)
+    qkv = _rnd(rng, dev, 2, H, H, 3 * C).bfloat16()
+    dout = _rnd(rng, dev, 2, H, H, C).bfloat16()
+    branches = ([(0, C, heads, H, H)] if last else
+                [(0, C // 2, heads // 2, H, split), (C // 2, C // 2, heads // 2, split, H)])
+    for off, cb, nh, hs, ws in branches:
+        lw = _rnd(rng, dev, cb, 1, 3, 3, sc=0.3)
+        kw = dict(ch_off=off, heads=nh, h_sp=hs, w_sp=ws, scale=(C // heads) ** -0.5)
+        chans = torch.cat([torch.arange(off, off + cb) + i * C for i in range(3)]).to(dev)
+        outs = []
+        for fn in (K.stripe_attention_bwd, K.stripe_attention_bwd_plain):
+            dqkv = torch.zeros(2, H, H, 3 * C, dtype=torch.bfloat16, device=dev)
+            dw, db = fn(qkv, dout, lw, dqkv, **kw)
+            outs.append((dqkv[..., chans], dw, db))
+        for g, want in zip(*outs):
+            assert _rel_l2(g.float(), want.float()) <= 0.02
+
+
+@pytest.mark.parametrize("H,C,heads,split", [(56, 64, 2, 1), (28, 128, 4, 2),
+                                             (14, 256, 8, 7)])
+def test_block_fn_grads(dev, H, C, heads, split):
+    rng = np.random.default_rng(9)
+    t = lambda *s, sc=0.1, off=0.0: _rnd(rng, dev, *s, sc=sc, off=off)
+    p = [t(C, sc=0.3, off=1.0), t(C), t(3 * C, C), t(3 * C), t(C // 2, 1, 3, 3, sc=0.3),
+         t(C // 2), t(C // 2, 1, 3, 3, sc=0.3), t(C // 2), t(C, C), t(C),
+         t(C, sc=0.3, off=1.0), t(C), t(4 * C, C), t(4 * C), t(C, 4 * C), t(C)]
+    x, g = _rnd(rng, dev, 4, H, H, C).bfloat16(), _rnd(rng, dev, 4, H, H, C).bfloat16()
+    dps = (torch.tensor([0.0, 1.25, 1.25, 1.25], device=dev),
+           torch.tensor([1.25, 1.25, 0.0, 1.25], device=dev))
+    kw = dict(heads=heads, split=split, last_stage=False, scale=(C // heads) ** -0.5,
+              dps=dps)
+    res = []
+    for fn in (fused_cswin_block, composed_block):
+        leaves = [x.clone().requires_grad_()] + [q.clone().requires_grad_() for q in p]
+        out = fn(leaves[0], BlockParams(*leaves[1:]), **kw)
+        res.append([out] + list(torch.autograd.grad(out, leaves, g)))
+    for i, (a, b) in enumerate(zip(*res)):
+        assert _rel_l2(a.float(), b.float()) <= 0.02, i
+
+
+def test_carafe_fn_grads(dev):
+    rng = np.random.default_rng(10)
+    for fn, plain, C, up, nc, H in ((carafe_up, carafe_up_plain, 128, 2, None, 28),
+                                    (carafe_tail, carafe_tail_plain, 64, 4, 9, 20)):
+        p = _carafe_params(rng, dev, C, 64, up, nc)
+        x = _rnd(rng, dev, 2, H, H, C).bfloat16()
+        g = _rnd(rng, dev, 2, up * H, up * H, nc or 64).bfloat16()
+        res = []
+        for f in (fn, plain):
+            leaves = [x.clone().requires_grad_()] + [q.clone().requires_grad_() for q in p]
+            out = f(*leaves)
+            res.append([out] + list(torch.autograd.grad(out, leaves, g)))
+        for i, (a, b) in enumerate(zip(*res)):
+            assert _rel_l2(a.float(), b.float()) <= 0.02, i
+
+
 def test_kernel_wrappers_refuse_float32_on_gpu(dev):
     x = torch.zeros(4, 64, device=dev)
     with pytest.raises(TypeError):
