@@ -19,21 +19,37 @@ Phases, each of which raises on failure (the process then exits non-zero):
      (the train batch): ``layernorm_bwd``, ``gemm_dgrad`` (with its GELU
      backward and drop-path operand scale), ``gemm_wgrad``,
      ``stripe_attention_bwd``, and the forward GEMM's training epilogues
-     (drop-path residual, GELU keeping its pre-activation).
+     (drop-path residual, GELU keeping its pre-activation). The ``pallas``
+     route's ``cswin_attention`` at every branch geometry (B = 32, q, k, v
+     as channel slices of one qkv tensor) against the Pallas rounding's
+     plain version, and ``edt_pass`` along each axis of a (48, 512, 512)
+     volume, in ``edt_sq``'s order, bit for bit (max abs error 0).
+     Each kernel's line in the JSON also carries ``bound_ms`` (the larger
+     of bytes over 3.35 TB/s and operations over the peak of their type)
+     and ``library_ms`` (one PyTorch call computing the same function,
+     where there is one; timed here only).
   4. Modules: ``CSWinBlockFn`` forward and backward at stages 1, 2 and 3
-     (B = 24, the same drop-path multipliers) and the two CARAFE Functions,
-     each output and gradient against torch autograd through the plain
-     composition, relative L2 <= 0.02. The CARAFE Functions' backward is
-     autograd of that same plain composition, so their gradient lines check
-     only the wiring (argument order, up factor); the arithmetic of that
-     backward is held against ``jax.grad`` in
-     ``tests/test_torch_carafe_grad.py``.
+     (B = 24, the same drop-path multipliers), the two CARAFE Functions and
+     ``CSWinAttentionFn`` at the four branch geometries, each output and
+     gradient against torch autograd through the plain composition,
+     relative L2 <= 0.02. The CARAFE Functions' and ``CSWinAttentionFn``'s
+     backward is autograd of a plain composition, so their gradient lines
+     check the wiring (argument order, up factor, window); the arithmetic of
+     those backwards is held against ``jax.grad`` in
+     ``tests/test_torch_carafe_grad.py`` and
+     ``tests/test_torch_pallas_attention.py``. ``volume_metrics_device`` on
+     (48, 512, 512) organ-like pred / label volumes (classes 1-8 in both,
+     one pred-only, one empty) against the host ``metrics`` (scipy):
+     Dice and HD95 within rtol 1e-5 and atol 1e-4.
   5. Serve three volumes through ``VolumeServer`` from a seeded random
      tiny-224 checkpoint in the JAX package's ``.npz`` format: (40, 512, 512)
      ``.npy`` (zoom), (33, 224, 224) ``.npz`` (tail bucket), (64, 224, 224)
      ``.npy``. Checks the NIfTI outputs, the label range, each kernel's
      launch count against the routing, and one served chunk's labels against
      the plain path on the card; times the 32-slice forward on both paths.
+     The same chunk through the ``pallas`` route (``--opts TPU.ATTN_IMPL
+     pallas``): labels by the margin rule, 50 ``cswin_attention`` launches
+     and no other kernel's, and its forward time.
   6. Train: 48 synthetic 512x512 ``.npz`` slices with blob labels, the
      port's ``trainer_synapse`` for 2 epochs at bs 24 (4 steps, drop-path
      0.2 live), launch counts against the training routing, the log lines,
@@ -42,10 +58,20 @@ Phases, each of which raises on failure (the process then exits non-zero):
      plain route (same weights, same drop-path draws), one step's launch
      counts, 10 SGD steps whose loss must fall, and the train step's time
      on both routes.
-  7. One JSON line with the per-kernel results, then the contract line
+  7. Evaluate (48, 512, 512) and (37, 512, 512) organ-like CT volumes from
+     ``epoch_1.npz`` through ``eval.inference.inference`` (``test.py``'s
+     loop, an in-memory dataset): with device metrics (``edt_pass``
+     launches as routed, only the metric array copied back) and with host
+     metrics, per-class Dice and HD95 agreeing within rtol 1e-5 and atol
+     1e-4, the reference log lines, seconds per volume for segmenting and
+     for each metrics route, and the fused and plain routes' per-class
+     scores side by side (printed, not gated: the weights are barely
+     trained).
+  8. One JSON line with the per-kernel results, then the contract line
      ``{"ok": true, "device": {...}}``.
 
-Imports nothing of JAX. Exits non-zero without a result when no CUDA device
+Imports nothing of JAX or of the JAX package (``cswin_unet_tpu``); the config
+is the port's own YAML. Exits non-zero without a result when no CUDA device
 is available or when the package is not next to this file.
 """
 
@@ -53,6 +79,7 @@ from __future__ import annotations
 
 import gzip
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -63,7 +90,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-CFG = os.path.join(ROOT, "cswin_unet_tpu", "configs", "cswin_tiny_224_lite.yaml")
+CFG = os.path.join(ROOT, "cswin_unet_tpu_torch", "configs", "cswin_tiny_224_lite.yaml")
 B = 8            # batch of the module comparisons
 SERVE_BATCH = 32  # slices per forward chunk when serving (--batch_slices)
 TRAIN_BATCH = 24  # the reference recipe's batch
@@ -83,11 +110,22 @@ SOURCES = {
     "gemm_wgrad": ("cswin_unet_tpu_torch/ops/cuda/csrc/gemm.cu", BWD),
     "stripe_attention_bwd": ("cswin_unet_tpu_torch/ops/cuda/csrc/"
                              "stripe_attention_bwd.cu", BWD),
+    "cswin_attention": ("cswin_unet_tpu_torch/ops/cuda/csrc/stripe_attention.cu",
+                        "cswin_unet_tpu/ops/pallas/cswin_attention.py:169"),
+    "edt_pass": ("cswin_unet_tpu_torch/ops/cuda/csrc/edt.cu",
+                 "cswin_unet_tpu/ops/edt.py:73"),
 }
-# Kernels whose tally is per bs-24 train step; the others' per 32-slice
-# serving forward.
-TRAIN_KERNELS = ("layernorm_bwd", "gemm_dgrad", "gemm_wgrad",
-                 "stripe_attention_bwd")
+# What each kernel's ms, plain_ms, bound_ms and library_ms add up over.
+PER = dict.fromkeys(("layernorm", "gemm", "stripe_attention", "carafe_reassemble"),
+                    "32-slice serving forward, fused route")
+PER.update(dict.fromkeys(("layernorm_bwd", "gemm_dgrad", "gemm_wgrad",
+                          "stripe_attention_bwd"), "bs-24 train step"))
+PER["cswin_attention"] = "32-slice serving forward, pallas route"
+PER["edt_pass"] = "volume_metrics_device call, 9 classes, (48, 512, 512)"
+# H100 SXM peaks from NVIDIA's datasheet: memory, bf16 tensor cores,
+# float32 outside them.
+HBM_BPS, TC_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+EVAL_SHAPES = ((48, 512, 512), (37, 512, 512))  # Synapse-like CT volumes
 
 
 class SmokeFailure(RuntimeError):
@@ -119,8 +157,8 @@ def margin_mismatches(labels, ref_logits) -> tuple[int, int]:
 def judge(label: str, got, want, check: str) -> tuple[str, bool, float]:
     """Hold an output against its plain version: (text, ok, max abs error).
     ``check="labels"``: int32 labels against plain logits, by the margin
-    rule; ``"rel"``: finite values within relative L2 ``TOL``, each element
-    of a tuple on its own."""
+    rule; ``"exact"``: equal bit for bit; ``"rel"``: finite values within
+    relative L2 ``TOL``, each element of a tuple on its own."""
     import torch
 
     if isinstance(got, tuple):
@@ -132,6 +170,9 @@ def judge(label: str, got, want, check: str) -> tuple[str, bool, float]:
         require(got.dtype == torch.int32, f"{label}: labels dtype {got.dtype}")
         raw, above = margin_mismatches(got, want)
         return f"mismatches={raw} above_margin={above}", above == 0, 0.0
+    if check == "exact":
+        mx = float((got.double() - want.double()).abs().max())
+        return f"max_abs={mx:.3e}", mx == 0.0 and got.dtype == want.dtype, mx
     got, want = got.float(), want.float()
     require(bool(torch.isfinite(got).all()), f"{label}: non-finite")
     err = rel_l2(got, want)
@@ -210,33 +251,71 @@ def carafe_params(rng, C, C_out, up, nc, dev):
     return p
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 class KernelTally:
-    """Per-kernel worst error and time per serving forward (each case timed
-    at the serving chunk's shapes and weighted by its number of calls in one
-    forward)."""
+    """Per-kernel worst error, and times summed over one unit of work
+    (``PER``): each case timed at the main path's shapes and weighted by its
+    number of calls in that unit. ``bound_ms``: the larger of the bytes the
+    call must move (each input read once, each output written once) over
+    ``HBM_BPS`` and its operations over the peak of their type
+    (``tc_flops`` bf16 products, ``f32_ops`` the rest), per case;
+    ``library_ms``: one PyTorch call computing the same function, where
+    there is one, with ``library_vs_ms`` the kernel's ms over the same
+    cases."""
 
     def __init__(self):
-        self.rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0) for k in SOURCES}
+        self.rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                             bytes_ms=0.0, ops_ms=0.0, library_ms=None,
+                             library_vs_ms=0.0) for k in SOURCES}
 
-    def case(self, name, label, kernel_fn, plain_fn, calls, check="rel"):
+    def case(self, name, label, kernel_fn, plain_fn, calls, check="rel", *,
+             moved=0, tc_flops=0.0, f32_ops=0.0, library=None, reps=10):
         import torch
 
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         err_txt, ok, mx = judge(f"{name} {label}", got, want, check)
-        self.rows[name]["max_abs_err"] = max(self.rows[name]["max_abs_err"], mx)
-        ms, pms = time_ms(kernel_fn), time_ms(plain_fn)
-        self.rows[name]["ms"] += calls * ms
-        self.rows[name]["plain_ms"] += calls * pms
+        row = self.rows[name]
+        row["max_abs_err"] = max(row["max_abs_err"], mx)
+        ms, pms = time_ms(kernel_fn, reps=reps), time_ms(plain_fn, reps=reps)
+        bytes_ms = moved / HBM_BPS * 1e3
+        ops_ms = (tc_flops / TC_FLOPS + f32_ops / F32_FLOPS) * 1e3
+        row["ms"] += calls * ms
+        row["plain_ms"] += calls * pms
+        row["bound_ms"] += calls * max(bytes_ms, ops_ms)
+        row["bytes_ms"] += calls * bytes_ms
+        row["ops_ms"] += calls * ops_ms
+        lib = ""
+        if library is not None:
+            lms = time_ms(library, reps=reps)
+            row["library_ms"] = (row["library_ms"] or 0.0) + calls * lms
+            row["library_vs_ms"] += calls * ms
+            lib = f" library_ms={lms:.4f}"
         print(f"[kernel] {name} {label} x{calls}: {err_txt} ms={ms:.4f} "
-              f"plain_ms={pms:.4f} {'ok' if ok else 'FAIL'}", flush=True)
+              f"plain_ms={pms:.4f} bound_ms={max(bytes_ms, ops_ms):.4f} "
+              f"({'bytes' if bytes_ms >= ops_ms else 'operations'}){lib} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
         require(ok, f"{name} {label}: {err_txt}")
+
+
+def attention_work(pixels: int, cb: int, L: int, heads: int, lw, lb) -> dict:
+    """Bytes and operations of one stripe branch over ``pixels`` tokens:
+    q, k, v read and the output written (bf16), the LePE taps; Q·Kᵀ and P·V
+    (4·L·cb per token, tensor-core eligible), softmax (~5 per score) and
+    the 9-tap LePE in float32."""
+    return dict(moved=4 * pixels * cb * 2 + nbytes(lw, lb), tc_flops=4 * pixels * L * cb,
+                f32_ops=5 * pixels * heads * L + 18 * pixels * cb)
 
 
 def compare_kernels(cfg, dev, B: int) -> KernelTally:
     """Every kernel at every shape one forward of B slices gives it."""
     import torch
+    import torch.nn.functional as F
 
+    from cswin_unet_tpu_torch.ops.attention import cswin_attention_pallas_plain
     from cswin_unet_tpu_torch.ops.cuda import kernels as K
 
     rng = np.random.default_rng(0)
@@ -249,9 +328,12 @@ def compare_kernels(cfg, dev, B: int) -> KernelTally:
         M = B * H * H
         x, r = rnd(M, C).to(bf), rnd(M, C).to(bf)
         w, b = rnd(C, sc=0.3) + 1, rnd(C, sc=0.1)
+        w_bf, b_bf = w.to(bf), b.to(bf)  # F.layer_norm on CUDA takes one dtype
         tag = f"@{H}x{H}x{C}"
         tally.case("layernorm", tag, lambda: K.layernorm(x, w, b),
-                   lambda: K.layernorm_plain(x, w, b), 2 * blocks)
+                   lambda: K.layernorm_plain(x, w, b), 2 * blocks,
+                   moved=2 * nbytes(x) + nbytes(w, b), f32_ops=8 * M * C,
+                   library=lambda: F.layer_norm(x, (C,), w_bf, b_bf))
         h = rnd(M, 4 * C).to(bf)
         for what, a, n, epi, res in (("qkv", x, 3 * C, "bias", None),
                                      ("proj", x, C, "residual", r),
@@ -259,10 +341,15 @@ def compare_kernels(cfg, dev, B: int) -> KernelTally:
                                      ("fc2", h, C, "residual", r)):
             wt = rnd(n, a.shape[1], sc=a.shape[1] ** -0.5).to(bf)
             bias = rnd(n, sc=0.1)
+            bias_bf = bias.to(bf)
             tally.case("gemm", f"{what}{tag}",
                        lambda: K.gemm(a, wt, bias, residual=res, epilogue=epi),
                        lambda: K.gemm_plain(a, wt, bias, residual=res, epilogue=epi),
-                       blocks)
+                       blocks, moved=nbytes(a, wt, bias, res) + M * n * 2,
+                       tc_flops=2 * M * n * a.shape[1],
+                       f32_ops=M * n * (10 if epi == "gelu" else 2),
+                       library=(lambda: F.linear(a, wt, bias_bf)) if epi == "bias"
+                       else None)
         qkv = rnd(B, H, H, 3 * C).to(bf)
         scale = (C // g["heads"]) ** -0.5
         if g["last"]:
@@ -279,7 +366,15 @@ def compare_kernels(cfg, dev, B: int) -> KernelTally:
                        lambda: K.stripe_attention(qkv, lw, lb, out, **kw)[..., sl],
                        lambda: K.stripe_attention_plain(qkv, lw, lb, out.clone(),
                                                         **kw)[..., sl],
-                       blocks)
+                       blocks, **attention_work(B * H * H, cb, hs * ws, nh, lw, lb))
+            # The pallas route's kernel on the same branch: q, k, v as the
+            # channel slices of qkv that composed_block hands it.
+            q, k, v = (qkv.view(B, H, H, 3, C)[..., i, off:off + cb] for i in range(3))
+            akw = dict(h_sp=hs, w_sp=ws, num_heads=nh, scale=scale)
+            tally.case("cswin_attention", f"{tag} window {hs}x{ws}",
+                       lambda: K.cswin_attention(q, k, v, lw, lb, **akw),
+                       lambda: cswin_attention_pallas_plain(q, k, v, lw, lb, **akw),
+                       blocks, **attention_work(B * H * H, cb, hs * ws, nh, lw, lb))
     # CARAFE sites: upsample2 (28 -> 56, plain upsampler) and the x4 tail.
     C2 = cfg.MODEL.CSWIN.EMBED_DIM * 2
     for label, H, C, cm, nc, up, labels, calls in (
@@ -289,17 +384,25 @@ def compare_kernels(cfg, dev, B: int) -> KernelTally:
         a = rnd(B * H * H, C).to(bf)
         wt = rnd(cm + nc, C, sc=C ** -0.5).to(bf)
         bias_cat = torch.cat([rnd(cm, sc=0.1), torch.zeros(nc, device=dev)])
+        bias_bf = bias_cat.to(bf)
+        M, N = a.shape[0], cm + nc
         tally.case("gemm", f"carafe-{label}", lambda: K.gemm(a, wt, bias_cat),
-                   lambda: K.gemm_plain(a, wt, bias_cat), calls)
+                   lambda: K.gemm_plain(a, wt, bias_cat), calls,
+                   moved=nbytes(a, wt, bias_cat) + M * N * 2, tc_flops=2 * M * N * C,
+                   f32_ops=2 * M * N, library=lambda: F.linear(a, wt, bias_bf))
         gy = rnd(B, H, H, cm + nc).to(bf)
         ew, eb, bo = rnd(9 * up * up, cm, 3, 3, sc=0.2), rnd(9 * up * up), rnd(nc)
         kw = dict(c_mid=cm, up=up, labels=labels)
         plain = (lambda: K.carafe_reassemble_plain(gy, ew, eb, bo, c_mid=cm, up=up,
                                                    labels=False).float()) \
             if labels else (lambda: K.carafe_reassemble_plain(gy, ew, eb, bo, **kw))
+        px, taps = B * H * H, 9 * up * up
         tally.case("carafe_reassemble", label,
                    lambda: K.carafe_reassemble(gy, ew, eb, bo, **kw), plain, calls,
-                   check="labels" if labels else "rel")
+                   check="labels" if labels else "rel",
+                   moved=nbytes(gy, ew, eb, bo) + px * up * up * (4 if labels else 2 * nc),
+                   tc_flops=2 * px * taps * cm * 9,
+                   f32_ops=px * taps * (4 + 2 * nc))
     return tally
 
 
@@ -329,7 +432,8 @@ def compare_backward_kernels(cfg, dev, B: int, tally: KernelTally) -> None:
         w, b = rnd(C, sc=0.3) + 1, rnd(C, sc=0.1)
         tally.case("layernorm_bwd", tag,
                    lambda: K.layernorm_bwd(x, dy, w, residual=res),
-                   lambda: K.layernorm_bwd_plain(x, dy, w, residual=res), 2 * routed)
+                   lambda: K.layernorm_bwd_plain(x, dy, w, residual=res), 2 * routed,
+                   moved=4 * nbytes(x) + 3 * nbytes(w), f32_ops=14 * M * C)
         h = rnd(M, 4 * C).to(bf)
         pre_k, pre_p = (torch.empty(M, 4 * C, dtype=bf, device=dev) for _ in range(2))
         for what, a, n, epi, kw in (
@@ -345,26 +449,41 @@ def compare_backward_kernels(cfg, dev, B: int, tally: KernelTally) -> None:
             else:
                 kern = lambda: K.gemm(a, wt, bias, **kw)
                 plain = lambda: K.gemm_plain(a, wt, bias, **kw)
-            tally.case("gemm", f"train-{what}{tag}", kern, plain, 0)
+            tally.case("gemm", f"train-{what}{tag}", kern, plain, 0,
+                       moved=nbytes(a, wt, bias, kw.get("residual"), kw.get("dp"))
+                       + M * n * (4 if epi == "gelu" else 2),
+                       tc_flops=2 * M * n * a.shape[1])
         for what, n, k, kw in (("fc2-gelu_bwd", C, 4 * C, dict(dp=dp, gelu_h=h)),
                                ("fc1", 4 * C, C, {}),
                                ("proj+droppath", C, C, dict(dp=dp)),
                                ("qkv", 3 * C, C, {})):
             d = rnd(M, n).to(bf)
             wt = rnd(n, k, sc=n ** -0.5)
+            wt_bf = wt.to(bf)
+            plain_product = not kw
             kw = dict(kw, rows_per_sample=hw)
             tally.case("gemm_dgrad", f"{what}{tag}",
                        lambda: K.gemm_dgrad(d, wt, **kw),
-                       lambda: K.gemm_dgrad_plain(d, wt, **kw), routed)
+                       lambda: K.gemm_dgrad_plain(d, wt, **kw), routed,
+                       moved=nbytes(d, wt, kw.get("gelu_h"), kw.get("dp")) + M * k * 2,
+                       tc_flops=2 * M * n * k,
+                       f32_ops=M * k * (16 if "gelu_h" in kw else 1),
+                       library=(lambda: torch.matmul(d, wt_bf)) if plain_product
+                       else None)
         for what, k, n, kw in (("fc2+droppath", 4 * C, C, dict(dp=dp)),
                                ("fc1", C, 4 * C, {}),
                                ("proj+droppath", C, C, dict(dp=dp)),
                                ("qkv", C, 3 * C, {})):
             a, d = rnd(M, k).to(bf), rnd(M, n).to(bf)
+            plain_product = not kw
             kw = dict(kw, rows_per_sample=hw)
             tally.case("gemm_wgrad", f"{what}{tag}",
                        lambda: K.gemm_wgrad(a, d, **kw),
-                       lambda: K.gemm_wgrad_plain(a, d, **kw), routed)
+                       lambda: K.gemm_wgrad_plain(a, d, **kw), routed,
+                       moved=nbytes(a, d, kw.get("dp")) + (n * k + n) * 4,
+                       tc_flops=2 * M * n * k, f32_ops=M * n,
+                       library=(lambda: torch.matmul(d.t(), a)) if plain_product
+                       else None)
         qkv, dout = rnd(B, H, H, 3 * C).to(bf), rnd(B, H, H, C).to(bf)
         scale = (C // heads) ** -0.5
         for off, hs, ws in ((0, H, split), (C // 2, split, H)):
@@ -378,9 +497,64 @@ def compare_backward_kernels(cfg, dev, B: int, tally: KernelTally) -> None:
                 dw, db = fn(qkv, dout, lw, dqkv, **kw)
                 return dqkv[..., chans], dw, db
 
+            L, cb = hs * ws, C // 2
             tally.case("stripe_attention_bwd", f"{tag} window {hs}x{ws}",
                        lambda: run(K.stripe_attention_bwd),
-                       lambda: run(K.stripe_attention_bwd_plain), routed)
+                       lambda: run(K.stripe_attention_bwd_plain), routed,
+                       moved=M * cb * 2 * 7 + nbytes(lw) + 10 * cb * 4,
+                       tc_flops=10 * M * L * cb,
+                       f32_ops=M * (heads // 2) * 8 * L + 36 * M * cb)
+
+
+def organ_volume(rng, shape, nc: int, like=None):
+    """A CT-like volume: ellipsoid organs with labels 1..nc-1, intensity
+    tracking the label, noise on top. ``like``: another volume's organ list, each organ
+    shifted and resized a little (a prediction with real overlap). Returns
+    (image float32, label uint8, organs)."""
+    d, h, w = shape
+    zz = np.arange(d, dtype=np.float32)[:, None, None]
+    yy = np.arange(h, dtype=np.float32)[None, :, None]
+    xx = np.arange(w, dtype=np.float32)[None, None, :]
+    if like is None:  # on a jittered 4-column grid, so no organ hides another
+        rows = -(-(nc - 1) // 4)
+        organs = [(c, rng.uniform(0.4, 0.6) * d,
+                   ((c - 1) // 4 + 0.5 + rng.uniform(-0.1, 0.1)) / rows * h,
+                   ((c - 1) % 4 + 0.5 + rng.uniform(-0.1, 0.1)) / 4 * w,
+                   rng.uniform(0.2, 0.45) * d, rng.uniform(0.05, 0.09) * h,
+                   rng.uniform(0.05, 0.09) * w) for c in range(1, nc)]
+    else:
+        organs = [(c, z + rng.normal(0, 1), y + rng.normal(0, 4), x + rng.normal(0, 4),
+                   rz * rng.uniform(0.85, 1.15), ry * rng.uniform(0.85, 1.15),
+                   rx * rng.uniform(0.85, 1.15)) for c, z, y, x, rz, ry, rx in like]
+    label = np.zeros(shape, np.uint8)
+    for c, z, y, x, rz, ry, rx in organs:
+        label[((zz - z) / rz) ** 2 + ((yy - y) / ry) ** 2 + ((xx - x) / rx) ** 2 < 1] = c
+    image = rng.normal(0.2, 0.1, shape).astype(np.float32)
+    image += np.where(label > 0, 0.3 + 0.05 * label, 0).astype(np.float32)
+    return image, label, organs
+
+
+def compare_edt(dev, tally: KernelTally) -> None:
+    """``edt_pass`` along each axis of a (48, 512, 512) volume, in
+    ``edt_sq``'s order (W, H, D; each pass reads the previous one's
+    output), against its plain version bit for bit; weighted by the calls of
+    one ``volume_metrics_device`` call on 9 classes (two EDTs per class)."""
+    import torch
+
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.ops.edt import _INF, boundary
+
+    _, label, _ = organ_volume(np.random.default_rng(8), EVAL_SHAPES[0], 9)
+    seeds = boundary(torch.from_numpy(label > 0).to(dev))
+    f = torch.full(seeds.shape, _INF, dtype=torch.float32, device=dev)
+    f.masked_fill_(seeds, 0.0)
+    calls = 2 * 8
+    for ax in (2, 1, 0):
+        L, n = f.shape[ax], f.numel()
+        tally.case("edt_pass", f"axis {ax} of {tuple(f.shape)}",
+                   lambda: K.edt_pass(f, ax), lambda: K.edt_pass_plain(f, ax), calls,
+                   check="exact", moved=2 * nbytes(f), f32_ops=3 * n * L, reps=3)
+        f = K.edt_pass(f, ax)
 
 
 def grads_vs_plain(label, fn, plain, inputs, cotangent, names) -> None:
@@ -458,6 +632,62 @@ def compare_module_grads(cfg, dev, B: int) -> None:
                    CT.carafe_tail_plain, (x56, *tail), rnd(B, 224, 224, 9).to(bf),
                    carafe_names)
 
+    # The pallas route's branch: kernel forward, composition-vjp backward,
+    # against autograd of the Pallas rounding's plain version.
+    from cswin_unet_tpu_torch.ops.attention import cswin_attention_pallas_plain
+    from cswin_unet_tpu_torch.ops.cuda.cswin_attention import cswin_attention_kernel_route
+
+    for g in stage_geometries(cfg):
+        H, C = g["H"], g["C"]
+        cb, nh = (C, g["heads"]) if g["last"] else (C // 2, g["heads"] // 2)
+        windows = [(H, H)] if g["last"] else [(H, g["split"]), (g["split"], H)]
+        for hs, ws in windows:
+            kw = dict(h_sp=hs, w_sp=ws, num_heads=nh, scale=(C // g["heads"]) ** -0.5)
+            qkv = [rnd(B, H, H, cb).to(bf) for _ in range(3)]
+            lepe = (rnd(cb, 1, 3, 3, sc=0.3), rnd(cb, sc=0.1))
+            grads_vs_plain(
+                f"CSWinAttentionFn stage{g['stage']} ({B},{H},{H},{cb}) window {hs}x{ws}",
+                lambda *t: cswin_attention_kernel_route(*t, **kw),
+                lambda *t: cswin_attention_pallas_plain(*t, **kw),
+                (*qkv, *lepe), rnd(B, H, H, cb).to(bf),
+                ("dq", "dk", "dv", "lepe_w", "lepe_b"))
+
+
+def compare_volume_metrics(dev) -> None:
+    """``volume_metrics_device`` against the host ``metrics`` on (48, 512,
+    512) organ-like volumes: classes 1-8 in both (the prediction's organs
+    shifted and resized), class 9 in the prediction only, class 10 in
+    neither. Dice and HD95 within rtol 1e-5 and atol 1e-4 (float32 EDT on
+    the card against scipy's float64)."""
+    import torch
+
+    from cswin_unet_tpu_torch.metrics import volume_metrics
+    from cswin_unet_tpu_torch.ops.edt import volume_metrics_device
+
+    rng = np.random.default_rng(9)
+    shape, nc = EVAL_SHAPES[0], 11
+    _, label, organs = organ_volume(rng, shape, 9)
+    _, pred, _ = organ_volume(rng, shape, 9, like=organs)
+    d, h, w = shape
+    pred[d // 3:d // 3 + 4, :h // 16, :w // 16] = 9  # a corner no organ reaches
+    lab_d, pred_d = (torch.from_numpy(v).to(dev) for v in (label, pred))
+    dev_ms = time_ms(lambda: volume_metrics_device(pred_d, lab_d, nc), reps=1, rounds=3)
+    got = volume_metrics_device(pred_d, lab_d, nc).cpu().numpy()
+    t0 = time.perf_counter()
+    want = np.array(volume_metrics(pred, label, nc))
+    host_s = time.perf_counter() - t0
+    err = np.abs(got - want) - (1e-4 + 1e-5 * np.abs(want))
+    ok = bool(np.all(err <= 0)) and bool(np.all(want[:8, 1] > 0))
+    print(f"[module] volume_metrics_device {shape} {nc - 1} classes vs host: "
+          f"max |dice diff| {np.abs(got - want)[:, 0].max():.3e} max |hd95 diff| "
+          f"{np.abs(got - want)[:, 1].max():.3e} device_ms={dev_ms:.3f} "
+          f"host_s={host_s:.3f} {'ok' if ok else 'FAIL'}", flush=True)
+    print("[module]   dice/hd95 per class (device | host): " + "; ".join(
+        f"{c + 1}: {g[0]:.6f}/{g[1]:.6f} | {w[0]:.6f}/{w[1]:.6f}"
+        for c, (g, w) in enumerate(zip(got, want))), flush=True)
+    require(ok and tuple(want[8]) == (1.0, 0.0) and tuple(want[9]) == (0.0, 0.0),
+            f"volume_metrics_device vs host: {got.tolist()} vs {want.tolist()}")
+
 
 def compare_modules(cfg, dev) -> None:
     """The CSWin block at each stage and the CARAFE sites, kernels vs plain."""
@@ -520,7 +750,15 @@ def expected_launches(cfg, forwards: int) -> dict[str, int]:
     return {k: per.get(k, 0) * forwards for k in SOURCES}
 
 
-def serve_volumes(cfg, dev, workdir: str) -> dict[str, int]:
+def expected_pallas_launches(cfg, forwards: int) -> dict[str, int]:
+    """The ``pallas`` route: one ``cswin_attention`` launch per branch (2
+    per dual-branch block, 1 per last-stage block), no other kernel (the
+    blocks are compositions, CARAFE and the tail plain)."""
+    branches = sum(2 * g["depth"] * (1 if g["last"] else 2) for g in stage_geometries(cfg))
+    return {k: branches * forwards if k == "cswin_attention" else 0 for k in SOURCES}
+
+
+def serve_volumes(cfg, dev, workdir: str) -> tuple[dict[str, int], dict[str, int]]:
     import torch
 
     from cswin_unet_tpu_torch.models import build_model
@@ -613,7 +851,33 @@ def serve_volumes(cfg, dev, workdir: str) -> dict[str, int]:
     print(f"[e2e] forward {batch} slices to labels: fused_ms={fused_ms:.3f} "
           f"({batch / fused_ms * 1e3:.1f} slices/s) plain_ms={plain_ms:.3f} "
           f"({batch / plain_ms * 1e3:.1f} slices/s)", flush=True)
-    return counts
+
+    # The same chunk through the pallas route, chosen by the config as the
+    # CLIs choose it (the --opts rule, TPU.ATTN_IMPL pallas).
+    pcfg = type(cfg)(cfg.to_dict())
+    pcfg.merge_from_list(["TPU.ATTN_IMPL", "pallas"])
+    pcfg.freeze()
+    pallas = build_model(pcfg, num_classes=nc, device=dev, seed=1)
+    require(pallas.cswin_unet.impl == "pallas", "TPU.ATTN_IMPL pallas not routed")
+    require(load_into(pallas.cswin_unet, load_checkpoint(ck)[0])
+            == len(pallas.cswin_unet.state_dict()), "checkpoint into the pallas route")
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    pallas_lab = forward(pallas)
+    torch.cuda.synchronize()
+    pallas_counts = K.launch_counts()
+    want = expected_pallas_launches(cfg, 1)
+    raw, above = margin_mismatches(pallas_lab, ref)
+    print(f"[serve] pallas route, chunk ct64[0:{batch}] vs plain path: mismatches="
+          f"{raw}/{pallas_lab.numel()} above_margin={above}; launches {pallas_counts} "
+          f"expected {want}", flush=True)
+    require(above == 0, f"pallas route: {above} label mismatches above the margin")
+    require(pallas_counts == want, f"pallas route launches {pallas_counts} != {want}")
+    pallas_ms = time_ms(lambda: forward(pallas), reps=2, rounds=3)
+    print(f"[e2e] forward {batch} slices to labels, pallas route: pallas_ms="
+          f"{pallas_ms:.3f} ({batch / pallas_ms * 1e3:.1f} slices/s) beside fused_ms="
+          f"{fused_ms:.3f} plain_ms={plain_ms:.3f}", flush=True)
+    return counts, pallas_counts
 
 
 # ---------------------------------------------------------------------------
@@ -637,7 +901,7 @@ def expected_train_launches(cfg, steps: int) -> dict[str, int]:
                stripe_attention=2 * routed, carafe_reassemble=carafe_sites,
                layernorm_bwd=2 * routed, gemm_dgrad=4 * routed,
                gemm_wgrad=4 * routed, stripe_attention_bwd=2 * routed)
-    return {k: v * steps for k, v in per.items()}
+    return {k: per.get(k, 0) * steps for k in SOURCES}
 
 
 def write_train_slices(root: str, n: int, size: int, nc: int, seed: int) -> str:
@@ -670,7 +934,7 @@ def write_train_slices(root: str, n: int, size: int, nc: int, seed: int) -> str:
     return list_dir
 
 
-def train_run(cfg, dev, workdir: str) -> tuple[dict[str, int], str]:
+def train_run(cfg, dev, workdir: str) -> tuple[dict[str, int], str, str]:
     """The port's trainer_synapse for 2 epochs (4 steps at bs 24) on
     synthetic slices; checks launch counts, log lines and the checkpoint,
     then serves one volume from ``epoch_1.npz``."""
@@ -736,7 +1000,7 @@ def train_run(cfg, dev, workdir: str) -> tuple[dict[str, int], str]:
     require(bool(np.all((lab >= 0) & (lab < nc))), "served labels out of range")
     print(f"[train] {os.path.basename(ck)} served {st['case']}: {json.dumps(st)}",
           flush=True)
-    return counts, data
+    return counts, data, ck
 
 
 def train_step_checks(cfg, dev, data: str) -> None:
@@ -826,6 +1090,156 @@ def train_step_checks(cfg, dev, data: str) -> None:
           f"plain {p1:.3f}, plain {p2:.3f}, kernel {k2:.3f}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: evaluate volumes
+# ---------------------------------------------------------------------------
+
+class EvalLog(logging.Handler):
+    """Prints the evaluation's log lines and keeps them."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines: list[str] = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+        print(f"[eval] {record.getMessage()}", flush=True)
+
+
+def class_means(lines: list[str]) -> np.ndarray:
+    """(dice, hd95) per class from the 'Mean class' log lines."""
+    import re
+
+    rows = [m.groups() for m in map(re.compile(
+        r"^Mean class \d+ mean_dice (\S+) mean_hd95 (\S+)$").match, lines) if m]
+    return np.array(rows, dtype=np.float64)
+
+
+def metrics_agree(got, want) -> bool:
+    """Dice and HD95 within rtol 1e-5 and atol 1e-4 (the JAX package's
+    tolerance for its device metrics against the host's)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return got.shape == want.shape and bool(
+        np.all(np.abs(got - want) <= 1e-4 + 1e-5 * np.abs(want)))
+
+
+def eval_run(cfg, dev, ck: str) -> dict[str, int]:
+    """test.py's evaluation of two CT-like volumes from ``ck``: per volume,
+    segmenting and each metrics route timed apart; then ``inference`` with
+    device metrics (launches counted) and with host metrics, which must
+    agree; the plain route's per-class scores beside the fused route's."""
+    import argparse
+
+    import torch
+
+    from cswin_unet_tpu_torch.eval.inference import VolumeInferencer, inference
+    from cswin_unet_tpu_torch.metrics import volume_metrics
+    from cswin_unet_tpu_torch.models import build_model
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.ops.edt import volume_metrics_device, zoom_nearest
+    from cswin_unet_tpu_torch.utils.checkpoint import load_checkpoint, load_into
+    from scipy.ndimage import zoom as nd_zoom
+
+    nc, img = 9, cfg.DATA.IMG_SIZE
+    rng = np.random.default_rng(7)
+    db = []
+    for i, shape in enumerate(EVAL_SHAPES):
+        image, label, _ = organ_volume(rng, shape, nc)
+        db.append(dict(image=image, label=label, case_name=f"case{i:04d}"))
+
+    def inferencer(impl):
+        model = build_model(cfg, num_classes=nc, device=dev, impl=impl, seed=1)
+        require(load_into(model.cswin_unet, load_checkpoint(ck)[0])
+                == len(model.cswin_unet.state_dict()), f"{ck} into the {impl} route")
+        return VolumeInferencer(model, device=dev, patch_size=(img, img))
+
+    fused = inferencer("fused")
+    fused.predict_slices(np.zeros((1, img, img), np.float32))  # warm up
+    for sample in db:
+        image, label = sample["image"], sample["label"]
+        d, h, w = image.shape
+        t0 = time.perf_counter()
+        slices = np.stack([nd_zoom(s, (img / h, img / w), order=3)
+                           for s in image]).astype(np.float32)
+        t1 = time.perf_counter()
+        preds = zoom_nearest(fused.predict_slices_device(slices), (h, w))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        lab = torch.from_numpy(label.astype(np.int32)).to(dev)
+        K.reset_launch_counts()
+        t3 = time.perf_counter()
+        on_dev = volume_metrics_device(preds, lab, nc).cpu().numpy()
+        t4 = time.perf_counter()
+        edt = K.edt_pass.launches
+        host_pred = preds.cpu().numpy()
+        t5 = time.perf_counter()
+        on_host = np.array(volume_metrics(host_pred, label, nc))
+        t6 = time.perf_counter()
+        ok = metrics_agree(on_dev, on_host)
+        print(f"[eval] {sample['case_name']} {image.shape}: zoom_s={t1 - t0:.3f} "
+              f"segment_s={t2 - t1:.3f} device_metrics_s={t4 - t3:.3f} "
+              f"host_metrics_s={t6 - t5:.3f} (labels to host {t5 - t4:.3f}); edt_pass "
+              f"launches {edt}; device vs host max |diff| "
+              f"{np.abs(on_dev - on_host).max():.3e} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        require(ok, f"{sample['case_name']}: device {on_dev.tolist()} vs host "
+                f"{on_host.tolist()}")
+        require(edt == (nc - 1) * 2 * 3, f"edt_pass launches {edt}")
+
+    log = EvalLog()
+    root = logging.getLogger()
+    saved_handlers, saved_level = root.handlers[:], root.level
+    root.handlers[:] = [log]
+    root.setLevel(logging.INFO)
+    try:
+        args = argparse.Namespace(num_classes=nc, img_size=img, z_spacing=1,
+                                  device_metrics=True)
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inference(args, fused, db)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        counts = K.launch_counts()
+        forwards = sum(-(-s[0] // SERVE_BATCH) for s in EVAL_SHAPES)
+        want = expected_launches(cfg, forwards)
+        want["edt_pass"] = (nc - 1) * 2 * 3 * len(db)
+        dev_means, n_dev = class_means(log.lines), len(log.lines)
+        args.device_metrics = False
+        t0 = time.perf_counter()
+        inference(args, fused, db)
+        host_s = time.perf_counter() - t0
+        host_means = class_means(log.lines[n_dev:])
+        args.device_metrics = True
+        n_fused = len(log.lines)
+        inference(args, inferencer("plain"), db)
+        plain_means = class_means(log.lines[n_fused:])
+    finally:
+        root.handlers[:] = saved_handlers
+        root.setLevel(saved_level)
+    print(f"[eval] inference() over {len(db)} volumes: device metrics {dev_s:.3f}s, "
+          f"host metrics {host_s:.3f}s; launches {counts} expected {want}", flush=True)
+    require(counts == want, f"eval launches {counts} != routing {want}")
+    require(len(dev_means) == nc - 1 and metrics_agree(dev_means, host_means),
+            f"inference(): device {dev_means.tolist()} vs host {host_means.tolist()}")
+    print("[eval] per class dice / hd95, fused route | plain route (device "
+          "metrics; not gated): " + "; ".join(
+              f"{c + 1}: {f[0]:.4f}/{f[1]:.2f} | {p[0]:.4f}/{p[1]:.2f}"
+              for c, (f, p) in enumerate(zip(dev_means, plain_means))), flush=True)
+    return counts
+
+
+def smoke_config(opts=None):
+    """The tiny-224 config from the port's own YAML, with ``--opts``."""
+    from cswin_unet_tpu_torch.config import get_config
+
+    class _Args:
+        cfg = CFG
+
+    _Args.opts = opts
+    return get_config(_Args)
+
+
 def main() -> int:
     import torch
 
@@ -849,13 +1263,9 @@ def main() -> int:
           flush=True)
     print(smi, flush=True)
 
-    from cswin_unet_tpu_torch.config import get_config
     from cswin_unet_tpu_torch.ops.cuda import build
 
-    class _Args:
-        cfg, opts = CFG, None
-
-    cfg = get_config(_Args)
+    cfg = smoke_config()
     t0 = time.perf_counter()
     build.library()
     print(f"[build] kernels ready in {time.perf_counter() - t0:.1f}s "
@@ -867,19 +1277,26 @@ def main() -> int:
 
     tally = compare_kernels(cfg, dev, SERVE_BATCH)
     compare_backward_kernels(cfg, dev, TRAIN_BATCH, tally)
+    compare_edt(dev, tally)
     compare_modules(cfg, dev)
     compare_module_grads(cfg, dev, TRAIN_BATCH)
+    compare_volume_metrics(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        counts = serve_volumes(cfg, dev, workdir)
-        train_counts, data = train_run(cfg, dev, workdir)
+        serve_counts, pallas_counts = serve_volumes(cfg, dev, workdir)
+        train_counts, data, ck = train_run(cfg, dev, workdir)
         train_step_checks(cfg, dev, data)
+        eval_counts = eval_run(cfg, dev, ck)
 
-    kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
-                    launches=counts[k] + train_counts[k],
-                    launches_by_path=dict(serve=counts[k], train=train_counts[k]),
-                    per="train step" if k in TRAIN_KERNELS else "serving forward",
-                    **tally.rows[k])
-               for k, (src, rep) in SOURCES.items()]
+    paths = dict(serve=serve_counts, serve_pallas=pallas_counts, train=train_counts,
+                 eval=eval_counts)
+    kernels = []
+    for k, (src, rep) in SOURCES.items():
+        row = dict(tally.rows[k])
+        bound_by = "bytes" if row.pop("bytes_ms") >= row.pop("ops_ms") else "operations"
+        kernels.append(dict(name=k, route="cuda", source=src, replaces=rep,
+                            launches=sum(c[k] for c in paths.values()),
+                            launches_by_path={p: c[k] for p, c in paths.items()},
+                            per=PER[k], bound_by=bound_by, **row))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

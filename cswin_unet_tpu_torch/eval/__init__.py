@@ -1,1 +1,1 @@
-"""Batched volume inference."""
+"""Batched volume inference and evaluation with Dice / HD95."""

@@ -14,6 +14,12 @@ deterministic path):
     (7 -> 14, 14 -> 28);
   * the x4 tail with the folded classifier runs the fused CARAFE kernels,
     emitting int32 labels directly for ``emit="labels"``.
+``impl="pallas"`` (the JAX ``attn_impl="pallas"``) runs every block as the
+composition with each stripe branch through the CUDA ``cswin_attention``
+kernel (2 launches per dual-branch block, 1 per last-stage block: 50 per
+tiny-224 forward), in training too (its gradient is autograd of the
+composition, ``CSWinAttentionFn``); CARAFE and the tail run the plain
+composition, as in JAX, where the fused CARAFE exists only for ``fused``.
 ``impl="plain"`` runs the plain PyTorch composition everywhere: the
 reference the kernels are held against. The stem, merge convs, standalone
 LayerNorms and concat-linears are plain PyTorch ops on both routes.
@@ -45,7 +51,7 @@ from ..ops.cuda.carafe_tail import carafe_tail, carafe_tail_argmax, carafe_up
 from ..ops.cuda.cswin_block import BlockParams, composed_block, fused_cswin_block
 from ..ops.cuda.kernels import needs_grad
 
-IMPLS = ("fused", "plain")
+IMPLS = ("fused", "pallas", "plain")
 # Smallest stage resolution whose dual-branch blocks train through the
 # kernel backward — the JAX package's _FUSE_TRAIN_MIN_RESO, measured on a
 # TPU; an H100 measurement of the 14x14 blocks is queued (ROADMAP).
@@ -142,12 +148,14 @@ class CSWinBlock(nn.Module):
         p = self.block_params()
         dps = (self.drop_path_multipliers(x.shape[0], generator, x.device)
                if self.training else None)
-        fn = fused_cswin_block
+        kw = dict(heads=self.num_heads, split=self.split_size, last_stage=self.last,
+                  scale=self.scale, dps=dps)
+        if self.impl == "pallas":
+            return composed_block(x, p, attn_impl="pallas", **kw)
         if self.impl == "plain" or ((self.last or self.reso < FUSE_TRAIN_MIN_RESO)
                                     and needs_grad(x, *p)):
-            fn = composed_block
-        return fn(x, p, heads=self.num_heads, split=self.split_size,
-                  last_stage=self.last, scale=self.scale, dps=dps)
+            return composed_block(x, p, **kw)
+        return fused_cswin_block(x, p, **kw)
 
 
 class MergeBlock(nn.Module):

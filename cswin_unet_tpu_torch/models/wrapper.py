@@ -33,18 +33,29 @@ class CSwinUnet(nn.Module):
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+# The JAX package's TPU.ATTN_IMPL values -> the port's routes.
+_ROUTES = {"fused": "fused", "pallas": "pallas", "xla": "plain"}
+
+
 def build_model(config, img_size: int | None = None, num_classes: int = 9, *,
                 device: torch.device | str, dtype: torch.dtype | None = None,
-                impl: str = "fused", seed: int = 0,
+                impl: str | None = None, seed: int = 0,
                 train: bool = False) -> CSwinUnet:
     """Build the model from a frozen config, with weights drawn from
     ``torch.Generator().manual_seed(seed)`` on the CPU, moved to ``device``
     and set to eval mode, or with ``train=True`` to train mode with the
     config's ``MODEL.DROP_PATH_RATE``. Parameters are float32; activations
-    run in ``dtype`` (default ``config.TPU.COMPUTE_DTYPE``)."""
+    run in ``dtype`` (default ``config.TPU.COMPUTE_DTYPE``). ``impl`` picks
+    the route; by default the config does, as the JAX ``build_model`` does
+    (``cswin_unet_tpu/models/wrapper.py:45-49``): ``USE_PALLAS_ATTENTION``
+    False gives ``plain``, ``ATTN_IMPL`` fused / pallas / xla gives fused /
+    pallas / plain."""
     cs = config.MODEL.CSWIN
     if dtype is None:
         dtype = _DTYPES[config.TPU.COMPUTE_DTYPE]
+    if impl is None:
+        impl = (_ROUTES[config.TPU.get("ATTN_IMPL", "fused")]
+                if config.TPU.USE_PALLAS_ATTENTION else "plain")
     with torch.device("meta"):
         backbone = CSWinUNet(
             img_size=img_size or config.DATA.IMG_SIZE,

@@ -25,7 +25,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of csrc/*.cu; every function returns a cudaError_t as int.
 _SIGNATURES = {
     "cswin_layernorm": (_P, _P, _P, _P, _I, _I, _F, _P),
@@ -34,9 +34,12 @@ _SIGNATURES = {
     "cswin_gemm_wgrad": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "cswin_stripe_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _F, _P),
+    "cswin_cswin_attention": (_P, _P, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _F, _P),
     "cswin_stripe_attention_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _I, _F, _P),
     "cswin_carafe": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "cswin_edt_pass": (_P, _P, _LL, _I, _LL, _P),
 }
 
 _lib: ctypes.CDLL | None = None

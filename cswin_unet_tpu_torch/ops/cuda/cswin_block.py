@@ -23,7 +23,11 @@ last-stage block (``H == split``) runs one branch over the full window with
 all heads. ``scale`` is ``(C // heads) ** -0.5`` over the whole block.
 
 ``composed_block`` is the plain PyTorch version of the same function, with
-the rounding points of the JAX ``composed_block``.
+the rounding points of the JAX ``composed_block``. With
+``attn_impl="pallas"`` it is the ``pallas`` route's block: the same
+composition with each branch through the CUDA ``cswin_attention`` kernel
+(``ops.cuda.cswin_attention``), as the JAX block runs
+``cswin_attention_pallas`` per branch under ``attn_impl="pallas"``.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ..attention import cswin_attention_xla
+from ..attention import cswin_attention
 from .kernels import (gemm, gemm_dgrad, gemm_wgrad, layernorm, layernorm_bwd,
                       needs_grad, stripe_attention, stripe_attention_bwd)
 
@@ -193,13 +197,15 @@ def fused_cswin_block(x: torch.Tensor, p: BlockParams, *, heads: int,
 
 def composed_block(x: torch.Tensor, p: BlockParams, *, heads: int, split: int,
                    last_stage: bool, scale: float,
-                   dps: tuple[torch.Tensor, torch.Tensor] | None = None
-                   ) -> torch.Tensor:
+                   dps: tuple[torch.Tensor, torch.Tensor] | None = None,
+                   attn_impl: str = "xla") -> torch.Tensor:
     """Plain PyTorch composition of the same block (the kernel chain's
     reference, differentiable by autograd): float32 LN statistics, products
     accumulated in float32 and rounded to ``x.dtype`` after the bias, exact
     erf GELU on the rounded fc1 output, drop-path multipliers and residual
-    adds in ``x.dtype``."""
+    adds in ``x.dtype``. ``attn_impl`` picks each branch's attention
+    (``ops.attention.cswin_attention``): the composition (``"xla"``) or the
+    ``cswin_attention`` kernel (``"pallas"``)."""
     B, H, W, C = x.shape
     dt = x.dtype
 
@@ -218,8 +224,8 @@ def composed_block(x: torch.Tensor, p: BlockParams, *, heads: int, split: int,
     q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
 
     def attn(qq, kk, vv, lw, lb, h_sp, w_sp, nh):
-        return cswin_attention_xla(qq, kk, vv, lw, lb, h_sp=h_sp, w_sp=w_sp,
-                                   num_heads=nh, scale=scale)
+        return cswin_attention(qq, kk, vv, lw, lb, h_sp=h_sp, w_sp=w_sp,
+                               num_heads=nh, scale=scale, impl=attn_impl)
 
     if last_stage:
         att = attn(q, k, v, p.lepe0_w, p.lepe0_b, H, W, heads)

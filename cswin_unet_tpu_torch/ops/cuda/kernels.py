@@ -16,9 +16,15 @@ Kernels (``csrc/``):
                            epilogues (``gemm``), the backward's dX products
                            with a GELU-backward epilogue (``gemm_dgrad``) and
                            the split-M weight gradient (``gemm_wgrad``)
-  stripe_attention.cu      CSWin stripe-window attention + LePE, one branch
-  stripe_attention_bwd.cu  its backward
+  stripe_attention.cu      CSWin stripe-window attention + LePE, one branch:
+                           from the qkv GEMM output with the composition's
+                           rounding (``stripe_attention``), or from separate
+                           q, k, v with the Pallas kernel's
+                           (``cswin_attention``)
+  stripe_attention_bwd.cu  the backward of ``stripe_attention``
   carafe.cu                CARAFE kernel prediction, softmax and reassembly
+  edt.cu                   the exact 1-D squared-EDT min-plus pass along any
+                           axis (``edt_pass``)
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..attention import cswin_attention_xla
+from ..attention import cswin_attention_pallas_plain, cswin_attention_xla
 from ..windows import window_merge, window_partition
 from .build import check, library
 
@@ -90,6 +96,11 @@ def _check_scale(scale: torch.Tensor, rows: int, rows_per_sample: int,
     if rows_per_sample <= 0 or rows % rows_per_sample:
         raise ValueError(f"rows_per_sample={rows_per_sample} does not divide {rows}")
     _require(scale, "scale", torch.float32, device, (rows // rows_per_sample,))
+
+
+def _check_head_dim(cb: int, heads: int) -> None:
+    if cb % heads or cb // heads not in (16, 24, 32):
+        raise ValueError(f"head dim {cb / heads} not compiled (16/24/32)")
 
 
 def _gelu_grad(h: torch.Tensor) -> torch.Tensor:
@@ -419,8 +430,7 @@ def stripe_attention(qkv: torch.Tensor, lepe_weight: torch.Tensor,
     if H % h_sp or W % w_sp or ch_off + cb > C:
         raise ValueError(f"bad branch geometry H={H} W={W} window=({h_sp},"
                          f"{w_sp}) cb={cb} heads={heads} ch_off={ch_off}")
-    if cb % heads or cb // heads not in (16, 24, 32):
-        raise ValueError(f"head dim {cb / heads} not compiled (16/24/32)")
+    _check_head_dim(cb, heads)
     if B * (H // h_sp) * (W // w_sp) > 2**31 - 1:
         raise ValueError("too many windows for one launch")
     w9 = lepe_weight.reshape(cb, 9).t().to(torch.bfloat16).contiguous()
@@ -435,6 +445,71 @@ def stripe_attention(qkv: torch.Tensor, lepe_weight: torch.Tensor,
 
 
 stripe_attention.launches = 0
+
+
+def _pixel_stride(t: torch.Tensor, name: str) -> int:
+    """The pixel stride of a (B, H, W, c) view whose channels are contiguous
+    and whose pixels lie evenly apart (a channel slice of an NHWC tensor)."""
+    B, H, W, c = t.shape
+    # the stride of the innermost spatial axis longer than 1, per pixel
+    ps = next((st // span for n, st, span in zip((W, H, B), t.stride()[2::-1],
+                                                  (1, W, H * W)) if n > 1), c)
+    want = (H * W * ps, W * ps, ps, 1)
+    if any(n > 1 and st != w for n, st, w in zip(t.shape, t.stride(), want)):
+        raise ValueError(f"{name}: strides {t.stride()} are not a channel slice "
+                         "of an NHWC tensor")
+    return ps
+
+
+def cswin_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    lepe_weight: torch.Tensor, lepe_bias: torch.Tensor | None, *,
+                    h_sp: int, w_sp: int, num_heads: int,
+                    scale: float) -> torch.Tensor:
+    """One stripe branch from separate q, k, v with the Pallas kernel's
+    rounding (plain version: ``ops.attention.cswin_attention_pallas_plain``).
+
+    q, k, v: (B, H, W, cb) bf16, channels contiguous, pixels one common
+    stride apart, so they may be the q | k | v channel slices of one qkv
+    tensor (no copy). LePE weight (cb, 1, 3, 3) and bias (cb,) or None, read
+    as float32. Returns a new contiguous (B, H, W, cb) bf16 tensor.
+    """
+    if _on_cpu(q):
+        return cswin_attention_pallas_plain(q, k, v, lepe_weight, lepe_bias,
+                                            h_sp=h_sp, w_sp=w_sp,
+                                            num_heads=num_heads, scale=scale)
+    B, H, W, cb = q.shape
+    dev = q.device
+    strides = set()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} is {t.dtype}, the kernel takes torch.bfloat16")
+        if tuple(t.shape) != (B, H, W, cb):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{(B, H, W, cb)}")
+        strides.add(_pixel_stride(t, name))
+    if len(strides) != 1:
+        raise ValueError(f"q, k and v must share one pixel stride, got {strides}")
+    if H % h_sp or W % w_sp:
+        raise ValueError(f"bad branch geometry H={H} W={W} window=({h_sp},{w_sp})")
+    _check_head_dim(cb, num_heads)
+    if B * (H // h_sp) * (W // w_sp) > 2**31 - 1:
+        raise ValueError("too many windows for one launch")
+    w9 = lepe_weight.reshape(cb, 9).t().float().contiguous()
+    b = (torch.zeros(cb, dtype=torch.float32, device=dev) if lepe_bias is None
+         else lepe_bias.float().contiguous())
+    out = torch.empty((B, H, W, cb), dtype=torch.bfloat16, device=dev)
+    err = library().cswin_cswin_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), strides.pop(), w9.data_ptr(),
+        b.data_ptr(), out.data_ptr(), B, H, W, cb, num_heads, h_sp, w_sp, scale,
+        _stream(dev))
+    check(err, "cswin_attention")
+    cswin_attention.launches += 1
+    return out
+
+
+cswin_attention.launches = 0
 
 
 def _branch_windows(t: torch.Tensor, h_sp: int, w_sp: int,
@@ -508,8 +583,7 @@ def stripe_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
     if H % h_sp or W % w_sp or ch_off + cb > C:
         raise ValueError(f"bad branch geometry H={H} W={W} window=({h_sp},"
                          f"{w_sp}) cb={cb} heads={heads} ch_off={ch_off}")
-    if cb % heads or cb // heads not in (16, 24, 32):
-        raise ValueError(f"head dim {cb / heads} not compiled (16/24/32)")
+    _check_head_dim(cb, heads)
     L, d = h_sp * w_sp, cb // heads
     if (4 * L * (d + 1) + 2 * L * L) * 4 > 227 * 1024:
         raise ValueError(f"window of {L} tokens exceeds the backward kernel's "
@@ -597,8 +671,61 @@ def carafe_reassemble(gy: torch.Tensor, encoder_weight: torch.Tensor,
 
 carafe_reassemble.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# edt.cu
+# ---------------------------------------------------------------------------
+
+_EDT_MAX_L = 227 * 1024 // (33 * 4)  # the kernel stages L x 33 floats
+
+
+def edt_pass_plain(f: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """``g[..., i, ...] = min_j (i - j)² + f[..., j, ...]`` along ``axis``,
+    float32, in the order of the JAX ``_edt_pass_kernel``: the exact d·d
+    plus f, then the min. Lines go in chunks so that the (lines, L, L)
+    candidates stay near 256 MiB."""
+    x = f.movedim(axis, -1)
+    L = x.shape[-1]
+    lines = x.reshape(-1, L)
+    idx = torch.arange(L, device=f.device)
+    d = (idx[:, None] - idx[None, :]).float()
+    d2 = d * d
+    out = torch.empty_like(lines)
+    chunk = max(1, 2**26 // (L * L))
+    for s in range(0, lines.shape[0], chunk):
+        out[s:s + chunk] = (d2 + lines[s:s + chunk, None, :]).amin(-1)
+    return out.reshape(x.shape).movedim(-1, axis).contiguous()
+
+
+def edt_pass(f: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Exact 1-D squared-EDT min-plus pass along ``axis`` of a contiguous
+    float32 tensor (+inf written as 1e12 at non-seeds): ``g[i] = min_j
+    (i - j)² + f[j]`` per line. The kernel reads the volume in place as
+    (outer, L, inner), so no axis is moved; the result equals
+    ``edt_pass_plain`` bit for bit."""
+    if _on_cpu(f):
+        return edt_pass_plain(f, axis)
+    _require(f, "f", torch.float32, f.device)
+    axis %= f.dim()
+    L = f.shape[axis]
+    if L > _EDT_MAX_L:
+        raise ValueError(f"edt_pass: line length {L} exceeds {_EDT_MAX_L}")
+    g = torch.empty_like(f)
+    if f.numel() == 0:
+        return g
+    outer = f.shape[:axis].numel()
+    inner = f.shape[axis + 1:].numel()
+    err = library().cswin_edt_pass(f.data_ptr(), g.data_ptr(), outer, L, inner,
+                                   _stream(f.device))
+    check(err, "edt_pass")
+    edt_pass.launches += 1
+    return g
+
+
+edt_pass.launches = 0
+
 KERNELS = (layernorm, gemm, stripe_attention, carafe_reassemble, layernorm_bwd,
-           gemm_dgrad, gemm_wgrad, stripe_attention_bwd)
+           gemm_dgrad, gemm_wgrad, stripe_attention_bwd, cswin_attention, edt_pass)
 
 
 def reset_launch_counts() -> None:

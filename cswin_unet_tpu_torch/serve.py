@@ -26,9 +26,8 @@ import numpy as np
 import torch
 from scipy.ndimage import zoom as nd_zoom
 
-from cswin_unet_tpu.utils.nifti import write_nifti
-
 from .eval.inference import VolumeInferencer
+from .utils.nifti import write_nifti
 
 VOLUME_SUFFIXES = (".npy.h5", ".h5", ".npz", ".npy")
 

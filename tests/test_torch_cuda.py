@@ -242,3 +242,86 @@ def test_kernel_wrappers_refuse_float32_on_gpu(dev):
     x = torch.zeros(4, 64, device=dev)
     with pytest.raises(TypeError):
         K.layernorm(x, torch.ones(64, device=dev), torch.zeros(64, device=dev))
+
+
+@pytest.mark.parametrize("shape", [(6, 24, 24), (5, 17, 33), (3, 40, 512), (48, 64, 70)])
+def test_edt_pass_bit_for_bit(dev, shape):
+    """Every axis, including lines whose inner stride is not a multiple of
+    the kernel's 32-line tile; seeds, partial sums and +inf (1e12)."""
+    rng = np.random.default_rng(11)
+    f = np.where(rng.random(shape) < 0.1, 0.0, 1e12).astype(np.float32)
+    part = rng.random(shape) < 0.1
+    f[part] = rng.uniform(0, 300, part.sum())
+    ft = torch.from_numpy(f).to(dev)
+    for ax in range(3):
+        before = K.edt_pass.launches
+        got = K.edt_pass(ft, ax)
+        assert K.edt_pass.launches == before + 1
+        assert torch.equal(got, K.edt_pass_plain(ft, ax))
+
+
+@pytest.mark.parametrize("H,C,heads,split,last", [
+    (56, 64, 2, 1, False), (28, 128, 4, 2, False), (14, 256, 8, 7, False),
+    (7, 512, 16, 7, True)])
+def test_cswin_attention_kernel(dev, H, C, heads, split, last):
+    """The pallas route's kernel on q, k, v slices of one qkv tensor (no
+    copy), float32 LePE, against the Pallas rounding's plain version."""
+    from cswin_unet_tpu_torch.ops.attention import cswin_attention_pallas_plain
+
+    rng = np.random.default_rng(12)
+    qkv = _rnd(rng, dev, 2, H, H, 3, C).bfloat16()
+    branches = ([(0, C, heads, H, H)] if last else
+                [(0, C // 2, heads // 2, H, split), (C // 2, C // 2, heads // 2, split, H)])
+    for off, cb, nh, hs, ws in branches:
+        q, k, v = (qkv[..., i, off:off + cb] for i in range(3))
+        lw, lb = _rnd(rng, dev, cb, 1, 3, 3, sc=0.3), _rnd(rng, dev, cb, sc=0.1)
+        kw = dict(h_sp=hs, w_sp=ws, num_heads=nh, scale=(C // heads) ** -0.5)
+        before = K.cswin_attention.launches
+        got = K.cswin_attention(q, k, v, lw, lb, **kw)
+        assert K.cswin_attention.launches == before + 1
+        want = cswin_attention_pallas_plain(q, k, v, lw, lb, **kw)
+        assert got.is_contiguous() and got.shape == want.shape
+        assert _rel_l2(got.float(), want.float()) <= 0.02
+    with pytest.raises(ValueError):  # q, k, v must share one pixel stride
+        K.cswin_attention(q, k.contiguous(), v, lw, lb, **kw)
+
+
+def test_cswin_attention_fn_grads(dev):
+    from cswin_unet_tpu_torch.ops.attention import (cswin_attention,
+                                                    cswin_attention_pallas_plain)
+
+    rng = np.random.default_rng(13)
+    kw = dict(h_sp=14, w_sp=7, num_heads=4, scale=32 ** -0.5)
+    inputs = [_rnd(rng, dev, 4, 14, 14, 128).bfloat16() for _ in range(3)]
+    inputs += [_rnd(rng, dev, 128, 1, 3, 3, sc=0.3), _rnd(rng, dev, 128, sc=0.1)]
+    g = _rnd(rng, dev, 4, 14, 14, 128).bfloat16()
+    res = []
+    for fn in (lambda *t: cswin_attention(*t, impl="pallas", **kw),
+               lambda *t: cswin_attention_pallas_plain(*t, **kw)):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        res.append([out] + list(torch.autograd.grad(out, leaves, g)))
+    for i, (a, b) in enumerate(zip(*res)):
+        assert _rel_l2(a.float(), b.float()) <= 0.02, i
+
+
+def test_volume_metrics_device_on_the_card(dev):
+    from scipy import ndimage
+
+    from cswin_unet_tpu_torch.metrics import volume_metrics
+    from cswin_unet_tpu_torch.ops.edt import volume_metrics_device
+
+    rng = np.random.default_rng(14)
+    label = np.zeros((10, 96, 96), np.int32)
+    for c in (1, 2, 3):
+        x = ndimage.gaussian_filter(rng.standard_normal(label.shape), 2.0)
+        label[x > np.quantile(x, 0.9)] = c
+    pred = label.copy()
+    pred[rng.random(pred.shape) < 0.02] = 2
+    pred[2:4, :5, :5] = 4          # pred only -> (1, 0); class 5: empty -> (0, 0)
+    before = K.edt_pass.launches
+    got = volume_metrics_device(torch.from_numpy(pred).to(dev),
+                                torch.from_numpy(label).to(dev), 6)
+    assert got.device.type == "cuda" and K.edt_pass.launches == before + 5 * 2 * 3
+    np.testing.assert_allclose(got.cpu().numpy(), np.array(volume_metrics(pred, label, 6)),
+                               rtol=1e-5, atol=1e-4)
