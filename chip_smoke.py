@@ -24,10 +24,20 @@ Phases, each of which raises on failure (the process then exits non-zero):
      as channel slices of one qkv tensor) against the Pallas rounding's
      plain version, and ``edt_pass`` along each axis of a (48, 512, 512)
      volume, in ``edt_sq``'s order, bit for bit (max abs error 0).
+     ``block_pair`` (two blocks in one cooperative launch) at each pairable
+     stage (2 and 3), B = 32, against ``block_pair_plain`` and against two
+     single block chains, which it must equal bit for bit; ``ptxas`` must
+     report no spills for it.
      Each kernel's line in the JSON also carries ``bound_ms`` (the larger
      of bytes over 3.35 TB/s and operations over the peak of their type)
      and ``library_ms`` (one PyTorch call computing the same function,
      where there is one; timed here only).
+     The ``[pair]`` A/B: two block chains against one ``block_pair`` at
+     stages 2 and 3, B = 32 and 128, CUDA events around back-to-back calls
+     in interleaved rounds of both orders (medians and min-max spread) and
+     device-busy time from ``torch.profiler``; a stage pays where the pair
+     wins at B = 32 by more than the spread in both orders, which is
+     printed beside ``cswin_block.PAIR_GEOMETRIES``.
   4. Modules: ``CSWinBlockFn`` forward and backward at stages 1, 2 and 3
      (B = 24, the same drop-path multipliers), the two CARAFE Functions and
      ``CSWinAttentionFn`` at the four branch geometries, each output and
@@ -49,7 +59,13 @@ Phases, each of which raises on failure (the process then exits non-zero):
      the plain path on the card; times the 32-slice forward on both paths.
      The same chunk through the ``pallas`` route (``--opts TPU.ATTN_IMPL
      pallas``): labels by the margin rule, 50 ``cswin_attention`` launches
-     and no other kernel's, and its forward time.
+     and no other kernel's, and its forward time. The same chunk on the
+     fused route with pairing forced on at every pairable stage: logits
+     equal to the unpaired route's bit for bit, labels by the margin rule,
+     launches ``block_pair`` 10 / ``layernorm`` 12 / ``gemm`` 26 /
+     ``stripe_attention`` 10 / ``carafe_reassemble`` 2; then the forward
+     with pairing off, as committed and forced on, in 6 interleaved rounds
+     (medians [min-max]) with device busy from ``torch.profiler``.
   6. Train: 48 synthetic 512x512 ``.npz`` slices with blob labels, the
      port's ``trainer_synapse`` for 2 epochs at bs 24 (4 steps, drop-path
      0.2 live), launch counts against the training routing, the log lines,
@@ -114,6 +130,8 @@ SOURCES = {
                         "cswin_unet_tpu/ops/pallas/cswin_attention.py:169"),
     "edt_pass": ("cswin_unet_tpu_torch/ops/cuda/csrc/edt.cu",
                  "cswin_unet_tpu/ops/edt.py:73"),
+    "block_pair": ("cswin_unet_tpu_torch/ops/cuda/csrc/block_pair.cu",
+                   "cswin_unet_tpu/ops/pallas/cswin_block.py:1957"),
 }
 # What each kernel's ms, plain_ms, bound_ms and library_ms add up over.
 PER = dict.fromkeys(("layernorm", "gemm", "stripe_attention", "carafe_reassemble"),
@@ -122,6 +140,7 @@ PER.update(dict.fromkeys(("layernorm_bwd", "gemm_dgrad", "gemm_wgrad",
                           "stripe_attention_bwd"), "bs-24 train step"))
 PER["cswin_attention"] = "32-slice serving forward, pallas route"
 PER["edt_pass"] = "volume_metrics_device call, 9 classes, (48, 512, 512)"
+PER["block_pair"] = "32-slice serving forward, pairing forced on"
 # H100 SXM peaks from NVIDIA's datasheet: memory, bf16 tensor cores,
 # float32 outside them.
 HBM_BPS, TC_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -375,6 +394,8 @@ def compare_kernels(cfg, dev, B: int) -> KernelTally:
                        lambda: K.cswin_attention(q, k, v, lw, lb, **akw),
                        lambda: cswin_attention_pallas_plain(q, k, v, lw, lb, **akw),
                        blocks, **attention_work(B * H * H, cb, hs * ws, nh, lw, lb))
+        if not g["last"] and g["depth"] > 1:
+            compare_block_pair(tally, g, B, rng, dev)
     # CARAFE sites: upsample2 (28 -> 56, plain upsampler) and the x4 tail.
     C2 = cfg.MODEL.CSWIN.EMBED_DIM * 2
     for label, H, C, cm, nc, up, labels, calls in (
@@ -406,6 +427,132 @@ def compare_kernels(cfg, dev, B: int) -> KernelTally:
     return tally
 
 
+def pair_weight_bytes(p) -> int:
+    """Bytes of one block's parameters as ``block_pair`` reads them:
+    matrices, LePE taps and LePE biases in bf16, the rest float32."""
+    return sum(t.numel() * (2 if t.dim() > 1 or i in (5, 7) else 4)
+               for i, t in enumerate(p) if t is not None)
+
+
+def compare_block_pair(tally: KernelTally, g: dict, B: int, rng, dev) -> None:
+    """``block_pair`` at one stage geometry against ``block_pair_plain``,
+    weighted by its calls in a forward with pairing on (one per pair of
+    blocks, encoder and decoder); then against two single block chains on
+    the same inputs, which it must equal bit for bit."""
+    import torch
+
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.ops.cuda.cswin_block import fused_cswin_block
+
+    H, C, heads, split = g["H"], g["C"], g["heads"], g["split"]
+    p1, p2 = block_params(rng, C, False, dev), block_params(rng, C, False, dev)
+    x = torch.from_numpy(rng.standard_normal((B, H, H, C)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    kw = dict(heads=heads, split=split, scale=(C // heads) ** -0.5)
+    M = B * H * H
+    # Per block: qkv, proj, fc1 and fc2 products (2·M·12·C²) and two
+    # branches on tensor cores; softmax, LePE, two LNs (8 a value), GELU
+    # (~10 a hidden value) and the bias / residual epilogues in float32.
+    att = attention_work(M, C // 2, H * split, heads // 2, None, None)
+    tc = 2 * M * 12 * C * C + 2 * att["tc_flops"]
+    f32 = 2 * att["f32_ops"] + M * C * (16 + 40 + 18)
+    label = f"@{H}x{H}x{C} B={B}"
+    tally.case("block_pair", label, lambda: K.block_pair(x, p1, p2, **kw),
+               lambda: K.block_pair_plain(x, p1, p2, **kw), 2 * (g["depth"] // 2),
+               moved=2 * nbytes(x) + pair_weight_bytes(p1) + pair_weight_bytes(p2),
+               tc_flops=2 * tc, f32_ops=2 * f32)
+    got = K.block_pair(x, p1, p2, **kw)
+    chain = fused_cswin_block(fused_cswin_block(x, p1, last_stage=False, **kw), p2,
+                              last_stage=False, **kw)
+    torch.cuda.synchronize()
+    txt, ok, _ = judge(f"block_pair vs chain {label}", got, chain, "exact")
+    print(f"[kernel] block_pair vs chain {label}: {txt}; grid {K.block_pair.grid} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    require(ok, f"block_pair vs two chains {label}: {txt}")
+
+
+def device_busy_ms(fn, reps: int) -> float | None:
+    """Device-busy ms per call: the union of the device intervals that
+    ``torch.profiler`` records over ``reps`` back-to-back calls, over
+    ``reps``; None if the profiler records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return None
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy, lo, hi = busy + hi - lo, s, e
+        else:
+            hi = max(hi, e)
+    return (busy + hi - lo) / reps / 1e3  # the profiler counts µs
+
+
+def pair_ab(cfg, dev, batches=(SERVE_BATCH, 128), rounds: int = 8, reps: int = 10) -> None:
+    """The routing measurement: at each pairable stage geometry and batch,
+    two single block chains against one ``block_pair`` on the same inputs,
+    ms per call from CUDA events around ``reps`` back-to-back calls, in
+    ``rounds`` rounds whose order alternates (chain first, pair first);
+    medians and min-max spread per order, and device-busy ms beside them.
+    Prints the geometries where the pair wins at the serving batch by more
+    than the spread in both orders beside ``cswin_block.PAIR_GEOMETRIES``."""
+    import torch
+
+    from cswin_unet_tpu_torch.ops.cuda import cswin_block as CB
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+
+    rng = np.random.default_rng(5)
+    wins = set()
+    for g in stage_geometries(cfg):
+        if g["last"] or g["depth"] < 2:
+            continue
+        H, C = g["H"], g["C"]
+        p1, p2 = block_params(rng, C, False, dev), block_params(rng, C, False, dev)
+        kw = dict(heads=g["heads"], split=g["split"], scale=(C // g["heads"]) ** -0.5)
+        for b in batches:
+            x = torch.from_numpy(rng.standard_normal((b, H, H, C)).astype(np.float32)).to(
+                dev, torch.bfloat16)
+            fns = dict(chain=lambda: CB.fused_cswin_block(
+                CB.fused_cswin_block(x, p1, last_stage=False, **kw), p2,
+                last_stage=False, **kw), pair=lambda: K.block_pair(x, p1, p2, **kw))
+            times = {(first, n): [] for first in fns for n in fns}
+            with torch.inference_mode():
+                for r in range(rounds):
+                    order = ("chain", "pair") if r % 2 == 0 else ("pair", "chain")
+                    for n in order:
+                        times[(order[0], n)].append(time_ms(fns[n], reps=reps, rounds=1))
+                busy = {n: device_busy_ms(fns[n], reps) for n in fns}
+            wins_both, parts = True, []
+            for first in fns:
+                med = {n: statistics.median(times[(first, n)]) for n in fns}
+                spread = {n: max(times[(first, n)]) - min(times[(first, n)]) for n in fns}
+                wins_both &= med["chain"] - med["pair"] > max(spread.values())
+                parts.append(f"{first} first: " + " ".join(
+                    f"{n} {med[n]:.4f} [{min(times[(first, n)]):.4f}-"
+                    f"{max(times[(first, n)]):.4f}]" for n in fns))
+            busy_txt = " ".join(f"{n} {'not measured' if v is None else f'{v:.4f}'}"
+                                for n, v in busy.items())
+            print(f"[pair] stage{g['stage']} ({b},{H},{H},{C}) ms per pair of blocks, "
+                  f"median [min-max] of {rounds // 2} rounds per order: "
+                  f"{'; '.join(parts)}; device busy ms: {busy_txt}; pair wins in both "
+                  f"orders by more than the spread: {'yes' if wins_both else 'no'}",
+                  flush=True)
+            if b == SERVE_BATCH and wins_both:
+                wins.add((H, H, C))
+    print(f"[pair] measured routing (wins at B={SERVE_BATCH}): {sorted(wins)}; "
+          f"cswin_block.PAIR_GEOMETRIES: {sorted(CB.PAIR_GEOMETRIES)}; agree: "
+          f"{'yes' if wins == set(CB.PAIR_GEOMETRIES) else 'no'}", flush=True)
+
+
 def compare_backward_kernels(cfg, dev, B: int, tally: KernelTally) -> None:
     """The backward kernels and the forward GEMM's training epilogues at the
     224 stage-1/2/3 geometries, batch B; each case weighted by its calls in
@@ -430,10 +577,17 @@ def compare_backward_kernels(cfg, dev, B: int, tally: KernelTally) -> None:
         dp = torch.from_numpy((rng.random(B) < 0.8).astype(np.float32) / 0.8).to(dev)
         x, dy, res = (rnd(M, C).to(bf) for _ in range(3))
         w, b = rnd(C, sc=0.3) + 1, rnd(C, sc=0.1)
+        # The library call: aten's LayerNorm backward on the same shapes in
+        # bf16 (its statistics from aten's forward); it leaves out the
+        # residual add that the kernel fuses.
+        w_bf, b_bf = w.to(bf), b.to(bf)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(x, [C], w_bf, b_bf, 1e-5)
         tally.case("layernorm_bwd", tag,
                    lambda: K.layernorm_bwd(x, dy, w, residual=res),
                    lambda: K.layernorm_bwd_plain(x, dy, w, residual=res), 2 * routed,
-                   moved=4 * nbytes(x) + 3 * nbytes(w), f32_ops=14 * M * C)
+                   moved=4 * nbytes(x) + 3 * nbytes(w), f32_ops=14 * M * C,
+                   library=lambda: torch.ops.aten.native_layer_norm_backward(
+                       dy, x, [C], mean, rstd, w_bf, b_bf, [True, True, True]))
         h = rnd(M, 4 * C).to(bf)
         pre_k, pre_p = (torch.empty(M, 4 * C, dtype=bf, device=dev) for _ in range(2))
         for what, a, n, epi, kw in (
@@ -734,19 +888,29 @@ def compare_modules(cfg, dev) -> None:
 # ---------------------------------------------------------------------------
 
 def expected_launches(cfg, forwards: int) -> dict[str, int]:
-    """Kernel launches per the routing: every block runs 2 layernorms, 4
-    GEMMs and one attention launch per branch; each fused CARAFE site
-    (upsamplers at stage resolution >= 28, and the tail) one GEMM and one
-    CARAFE launch; no backward kernel runs."""
-    blocks = dual = 0
+    """Kernel launches per the routing: in a dual-branch stage that
+    ``cswin_block.pair_fuse_ok`` accepts (looked up now, so a patched
+    routing counts), each two adjacent blocks are one ``block_pair``
+    launch; every other block runs 2 layernorms, 4 GEMMs and one attention
+    launch per branch; each fused CARAFE site (upsamplers at stage
+    resolution >= 28, and the tail) one GEMM and one CARAFE launch; no
+    backward kernel runs."""
+    from cswin_unet_tpu_torch.ops.cuda import cswin_block
+
+    blocks = dual = pairs = 0
     for g in stage_geometries(cfg):
-        blocks += 2 * g["depth"]
-        dual += 0 if g["last"] else 2 * g["depth"]
+        n = 2 * g["depth"]  # encoder and decoder
+        if not g["last"] and cswin_block.pair_fuse_ok(g["H"], g["H"], g["C"]):
+            pairs += 2 * (g["depth"] // 2)
+            n = 2 * (g["depth"] % 2)
+        blocks += n
+        dual += 0 if g["last"] else n
     attention = blocks + dual
     img = cfg.DATA.IMG_SIZE
     carafe_sites = 1 + sum(1 for s in (1, 2, 3) if img // (4 * 2**s) >= 28)
     per = dict(layernorm=2 * blocks, gemm=4 * blocks + carafe_sites,
-               stripe_attention=attention, carafe_reassemble=carafe_sites)
+               stripe_attention=attention, carafe_reassemble=carafe_sites,
+               block_pair=pairs)
     return {k: per.get(k, 0) * forwards for k in SOURCES}
 
 
@@ -758,10 +922,13 @@ def expected_pallas_launches(cfg, forwards: int) -> dict[str, int]:
     return {k: branches * forwards if k == "cswin_attention" else 0 for k in SOURCES}
 
 
-def serve_volumes(cfg, dev, workdir: str) -> tuple[dict[str, int], dict[str, int]]:
+def serve_volumes(cfg, dev, workdir: str) -> tuple[dict[str, int], ...]:
+    """Returns the launch counts of the three served volumes, of the
+    ``pallas`` chunk and of the forced-pair chunk."""
     import torch
 
     from cswin_unet_tpu_torch.models import build_model
+    from cswin_unet_tpu_torch.ops.cuda import cswin_block
     from cswin_unet_tpu_torch.ops.cuda import kernels as K
     from cswin_unet_tpu_torch.serve import ServeStats, VolumeServer
     from cswin_unet_tpu_torch.utils.checkpoint import (load_checkpoint, load_into,
@@ -877,7 +1044,54 @@ def serve_volumes(cfg, dev, workdir: str) -> tuple[dict[str, int], dict[str, int
     print(f"[e2e] forward {batch} slices to labels, pallas route: pallas_ms="
           f"{pallas_ms:.3f} ({batch / pallas_ms * 1e3:.1f} slices/s) beside fused_ms="
           f"{fused_ms:.3f} plain_ms={plain_ms:.3f}", flush=True)
-    return counts, pallas_counts
+
+    # The same chunk on the fused route with pairing forced off, as
+    # committed, and forced on at every pairable stage. The pair is the
+    # chain's arithmetic, so the logits agree bit for bit; the forward is
+    # timed in interleaved rounds of the three routings (the host's load
+    # moves it), with device busy beside.
+    model, committed = server.inferencer.model, cswin_block.pair_fuse_ok
+    routings = dict(off=lambda H, W, C: False, committed=committed,
+                    forced=lambda H, W, C: True)
+    times = {k: [] for k in routings}
+    try:
+        cswin_block.pair_fuse_ok = routings["off"]
+        with torch.inference_mode():
+            unpaired = model(x)
+        cswin_block.pair_fuse_ok = routings["forced"]
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        pair_lab = forward(model)
+        torch.cuda.synchronize()
+        pair_counts = K.launch_counts()
+        want = expected_launches(cfg, 1)
+        with torch.inference_mode():
+            paired = model(x)
+        for r in range(6):
+            for k in list(routings)[::1 if r % 2 == 0 else -1]:
+                cswin_block.pair_fuse_ok = routings[k]
+                times[k].append(time_ms(lambda: forward(model), reps=5, rounds=1))
+        busy = {}
+        for k, fn in routings.items():
+            cswin_block.pair_fuse_ok = fn
+            busy[k] = device_busy_ms(lambda: forward(model), 5)
+    finally:
+        cswin_block.pair_fuse_ok = committed
+    raw, above = margin_mismatches(pair_lab, ref)
+    same = torch.equal(paired, unpaired)
+    print(f"[serve] forced-pair route, chunk ct64[0:{batch}] vs plain path: mismatches="
+          f"{raw}/{pair_lab.numel()} above_margin={above}; logits equal to the unpaired "
+          f"route's bit for bit: {'yes' if same else 'no'}; launches {pair_counts} "
+          f"expected {want}", flush=True)
+    require(above == 0, f"forced-pair route: {above} label mismatches above the margin")
+    require(same, "forced-pair logits differ from the unpaired route's")
+    require(pair_counts == want, f"forced-pair launches {pair_counts} != {want}")
+    print(f"[e2e] forward {batch} slices to labels by pair routing, ms median "
+          f"[min-max] of 6 interleaved rounds, device busy ms: " + "; ".join(
+              f"{k} {statistics.median(v):.3f} [{min(v):.3f}-{max(v):.3f}] busy "
+              f"{'not measured' if busy[k] is None else f'{busy[k]:.3f}'}"
+              for k, v in times.items()), flush=True)
+    return counts, pallas_counts, pair_counts
 
 
 # ---------------------------------------------------------------------------
@@ -1229,6 +1443,25 @@ def eval_run(cfg, dev, ck: str) -> dict[str, int]:
     return counts
 
 
+def ptxas_spills(log: str, entry: str) -> list[tuple[str, int, int]]:
+    """(entry, spill store bytes, spill load bytes) from nvcc's ``-Xptxas
+    -v`` output, for every compiled entry whose mangled name holds
+    ``entry``."""
+    import re
+
+    found, current = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current is not None and entry in current:
+            found.append((current, int(m.group(1)), int(m.group(2))))
+            current = None
+    return found
+
+
 def smoke_config(opts=None):
     """The tiny-224 config from the port's own YAML, with ``--opts``."""
     from cswin_unet_tpu_torch.config import get_config
@@ -1274,21 +1507,28 @@ def main() -> int:
     for line in build.build_log.splitlines():  # ptxas -v: registers, spills
         if any(w in line for w in ("Compiling entry", "Used", "spill")):
             print(f"[build] {line.strip()}", flush=True)
+    if build.build_log:
+        spills = ptxas_spills(build.build_log, "block_pair_kernel")
+        print(f"[build] block_pair (entry, spill stores, spill loads): {spills}",
+              flush=True)
+        require(bool(spills) and all(st == ld == 0 for _, st, ld in spills),
+                f"block_pair: ptxas reports spills {spills}")
 
     tally = compare_kernels(cfg, dev, SERVE_BATCH)
     compare_backward_kernels(cfg, dev, TRAIN_BATCH, tally)
     compare_edt(dev, tally)
+    pair_ab(cfg, dev)
     compare_modules(cfg, dev)
     compare_module_grads(cfg, dev, TRAIN_BATCH)
     compare_volume_metrics(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        serve_counts, pallas_counts = serve_volumes(cfg, dev, workdir)
+        serve_counts, pallas_counts, pair_counts = serve_volumes(cfg, dev, workdir)
         train_counts, data, ck = train_run(cfg, dev, workdir)
         train_step_checks(cfg, dev, data)
         eval_counts = eval_run(cfg, dev, ck)
 
-    paths = dict(serve=serve_counts, serve_pallas=pallas_counts, train=train_counts,
-                 eval=eval_counts)
+    paths = dict(serve=serve_counts, serve_pallas=pallas_counts, serve_pair=pair_counts,
+                 train=train_counts, eval=eval_counts)
     kernels = []
     for k, (src, rep) in SOURCES.items():
         row = dict(tally.rows[k])

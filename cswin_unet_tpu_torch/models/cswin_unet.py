@@ -8,7 +8,12 @@ package maps this model's weights onto the JAX tree and back
 
 Routing (``impl="fused"``, as the JAX package's ``attn_impl="fused"`` on its
 deterministic path):
-  * all 26 blocks run the CSWin block kernel chain (``ops.cuda.cswin_block``);
+  * all 26 blocks run the CSWin block kernel chain (``ops.cuda.cswin_block``),
+    except where the stage runner pairs them (``_run_stage``, the JAX
+    ``CSWinUNet._run_stage``): in eval mode without gradients, in a
+    dual-branch stage (not the last, ``reso != split``) whose geometry
+    ``cswin_block.pair_fuse_ok`` accepts, blocks i and i+1 run as one
+    ``fused_block_pair`` launch and an odd last block runs alone;
   * the CARAFE upsampler runs the fused CARAFE kernels at stage resolutions
     >= 28 (``upsample2``, 28 -> 56 at 224²) and the plain composition below
     (7 -> 14, 14 -> 28);
@@ -48,6 +53,7 @@ from torch import nn
 
 from ..ops.carafe import carafe, carafe_with_classifier
 from ..ops.cuda.carafe_tail import carafe_tail, carafe_tail_argmax, carafe_up
+from ..ops.cuda import cswin_block
 from ..ops.cuda.cswin_block import BlockParams, composed_block, fused_cswin_block
 from ..ops.cuda.kernels import needs_grad
 
@@ -245,6 +251,29 @@ class CSWinUNet(nn.Module):
                 for i, blk in enumerate(getattr(self, f"{prefix}{s + 1}")):
                     blk.drop_path = float(dpr[offs[s] + i])
 
+    def _run_stage(self, blocks: nn.ModuleList, x: torch.Tensor,
+                   generator: torch.Generator | None) -> torch.Tensor:
+        """Run a stage's blocks, adjacent pairs through one
+        ``fused_block_pair`` where the routing allows (module docstring);
+        the parameters and ``state_dict`` are the same either way."""
+        first = blocks[0]
+        pair_ok = (len(blocks) > 1 and self.impl == "fused" and not self.training
+                   and not first.last
+                   and cswin_block.pair_fuse_ok(first.reso, first.reso, x.shape[-1]))
+        i = 0
+        while i < len(blocks):
+            if pair_ok and i + 1 < len(blocks):
+                p1, p2 = blocks[i].block_params(), blocks[i + 1].block_params()
+                if not needs_grad(x, *p1, *p2):
+                    x = cswin_block.fused_block_pair(
+                        x, p1, p2, heads=first.num_heads, split=first.split_size,
+                        scale=first.scale)
+                    i += 2
+                    continue
+            x = blocks[i](x, generator)
+            i += 1
+        return x
+
     def forward(self, x: torch.Tensor, emit: str = "logits",
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """``generator`` draws the drop-path masks in train mode."""
@@ -260,16 +289,14 @@ class CSWinUNet(nn.Module):
 
         skips = []
         for s in range(4):
-            for blk in getattr(self, f"stage{s + 1}"):
-                x = blk(x, generator)
+            x = self._run_stage(getattr(self, f"stage{s + 1}"), x, generator)
             if s < 3:
                 skips.append(x)
                 x = getattr(self, f"merge{s + 1}")(x)
         x = layer_norm(x, self.norm)
 
         for s in range(3, -1, -1):
-            for blk in getattr(self, f"stage_up{s + 1}"):
-                x = blk(x, generator)
+            x = self._run_stage(getattr(self, f"stage_up{s + 1}"), x, generator)
             if s > 0:
                 up = getattr(self, f"upsample{s + 1}")
                 x = up(x, fused=fused and self.resos[s] >= 28)

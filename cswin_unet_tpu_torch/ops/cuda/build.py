@@ -40,6 +40,7 @@ _SIGNATURES = {
                                    _I, _I, _I, _I, _F, _P),
     "cswin_carafe": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "cswin_edt_pass": (_P, _P, _LL, _I, _LL, _P),
+    "cswin_block_pair": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -43,41 +43,25 @@
 //   memory. The weight gradient reads dY tiles m-major and feeds them to
 //   WMMA as a column-major A (that is dYᵀ) without a transpose pass, and
 //   sums the bias gradient from the same shared tile. No cp.async / TMA /
-//   wgmma yet: first right, then fast.
+//   wgmma yet: first right, then fast. The forward tile's body lives in
+//   gemm_tile.cuh, shared with the persistent pair kernel (block_pair.cu).
 
 #include <mma.h>
 
-#include "common.cuh"
+#include "gemm_tile.cuh"
 
 using namespace nvcuda;
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 32, PAD = 8, CPAD = 4, THREADS = 128;
+using gemm_tile::BM;
+using gemm_tile::BN;
+using gemm_tile::CPAD;
+using gemm_tile::PAD;
+using gemm_tile::THREADS;
+using gemm_tile::scale8;
 
-__device__ __forceinline__ float gelu_erf(float v) {
-  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
-
-// d/dh of h·Φ(h): Φ(h) + h·φ(h).
-__device__ __forceinline__ float gelu_erf_grad(float h) {
-  const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
-  const float pdf = expf(-0.5f * h * h) * 0.3989422804014327f;
-  return cdf + h * pdf;
-}
-
-// Eight bf16 values from a 16-byte chunk, each scaled by s and rounded back.
-__device__ __forceinline__ uint4 scale8(uint4 v, float s) {
-  bf16* e = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-  for (int t = 0; t < 8; ++t) e[t] = f2bf(bf2f(e[t]) * s);
-  return v;
-}
-
-// EPI is the epilogue (0-3 above); A_SCALED scales the rows of A on load by
-// a_scale; EXTRA makes epilogue 1 scale the branch by out_scale and epilogue
-// 2 write the pre-activation to aux. All three are compile-time, so the
-// serving path's instantiations carry no training branches.
+// One output tile per CTA: blockIdx.x walks N, blockIdx.y walks M.
 template <int EPI, bool A_SCALED, bool EXTRA>
 __global__ void __launch_bounds__(THREADS)
 gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
@@ -85,85 +69,10 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
             bf16* __restrict__ aux, const float* __restrict__ a_scale,
             const float* __restrict__ out_scale, bf16* __restrict__ out, int M,
             int N, int K, int rows_per_sample) {
-  __shared__ __align__(128) bf16 As[BM][BK + PAD];
-  __shared__ __align__(128) bf16 Bs[BN][BK + PAD];
-  __shared__ __align__(128) float Cs[BM][BN + CPAD];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;  // 2x2 warps of 32x32
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  constexpr int CHUNKS = BK / 8;  // 16-byte chunks per tile row
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * CHUNKS; i += THREADS) {
-      const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-      const int gm = m0 + r, gk = k0 + c;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gm < M && gk < K) {
-        v = *reinterpret_cast<const uint4*>(A + (size_t)gm * K + gk);
-        if constexpr (A_SCALED) v = scale8(v, a_scale[gm / rows_per_sample]);
-      }
-      *reinterpret_cast<uint4*>(&As[r][c]) = v;
-    }
-    for (int i = tid; i < BN * CHUNKS; i += THREADS) {
-      const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-      const int gn = n0 + r, gk = k0 + c;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gn < N && gk < K) v = *reinterpret_cast<const uint4*>(B + (size_t)gn * K + gk);
-      *reinterpret_cast<uint4*>(&Bs[r][c]) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[wm * 32 + i * 16][kk], BK + PAD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[wn * 32 + j * 16][kk], BK + PAD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wm * 32 + i * 16][wn * 32 + j * 16], acc[i][j],
-                              BN + CPAD, wmma::mem_row_major);
-  __syncthreads();
-
-  for (int i = tid; i < BM * BN; i += THREADS) {
-    const int r = i / BN, c = i % BN;
-    const int gm = m0 + r, gn = n0 + c;
-    if (gm >= M || gn >= N) continue;
-    float v = Cs[r][c] + (bias != nullptr ? bias[gn] : 0.f);
-    const size_t o = (size_t)gm * N + gn;
-    if constexpr (EPI == 1) {
-      float branch = round_bf16(v);
-      if constexpr (EXTRA) branch = round_bf16(branch * out_scale[gm / rows_per_sample]);
-      v = bf2f(res[o]) + branch;
-    } else if constexpr (EPI == 2) {
-      if constexpr (EXTRA) aux[o] = f2bf(v);
-      v = gelu_erf(v);
-    } else if constexpr (EPI == 3) {
-      v *= gelu_erf_grad(bf2f(aux[o]));
-    }
-    out[o] = f2bf(v);
-  }
+  __shared__ gemm_tile::Smem sm;
+  gemm_tile::tile<EPI, A_SCALED, EXTRA>(A, B, bias, res, aux, a_scale, out_scale, out,
+                                        M, N, K, rows_per_sample, blockIdx.y * BM,
+                                        blockIdx.x * BN, sm);
 }
 
 constexpr int WK = 32;  // rows of the M reduction per step of the weight gradient

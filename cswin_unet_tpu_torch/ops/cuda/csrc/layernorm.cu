@@ -21,8 +21,10 @@
 //   row's x̂ and dŷ in registers (C <= 512, C % 32 == 0: at most 16 values a
 //   lane), keeps each lane's dγ / dβ sums in registers across the CTA's rows
 //   and reduces them across the CTA's 8 warps through shared memory once.
+//   The forward row's body lives in layernorm_row.cuh, shared with the
+//   persistent pair kernel (block_pair.cu).
 
-#include "common.cuh"
+#include "layernorm_row.cuh"
 
 namespace {
 
@@ -36,22 +38,8 @@ layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ b, bf16* __restrict__ y, int rows,
                  int C, float eps) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // whole warp leaves together
-  const bf16* xr = x + (size_t)row * C;
-  bf16* yr = y + (size_t)row * C;
-
-  float s = 0.f;
-  for (int c = lane; c < C; c += 32) s += bf2f(xr[c]);
-  const float mu = warp_sum(s) / C;
-  float v = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float d = bf2f(xr[c]) - mu;
-    v += d * d;
-  }
-  const float rstd = rsqrtf(warp_sum(v) / C + eps);
-  for (int c = lane; c < C; c += 32)
-    yr[c] = f2bf((bf2f(xr[c]) - mu) * rstd * w[c] + b[c]);
+  ln_row::row(x, w, b, y, row, C, eps, threadIdx.x & 31);
 }
 
 __global__ void __launch_bounds__(LN_WARPS * 32)

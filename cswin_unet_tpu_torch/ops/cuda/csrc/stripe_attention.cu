@@ -35,20 +35,17 @@
 //   different banks. Each warp owns one query row at a time: lanes compute
 //   the row's scores, a warp-shuffle max / sum gives the softmax, and lanes
 //   then split the head dim for P·V and the 9-tap LePE. No L x L score tile
-//   is kept, so shared memory grows only with L·d.
+//   is kept, so shared memory grows only with L·d. The (window, head) body
+//   lives in attention_tile.cuh, shared with the persistent pair kernel
+//   (block_pair.cu).
 
-#include "common.cuh"
+#include "attention_tile.cuh"
 
 namespace {
 
-constexpr int WARPS = 4;
+using attn_tile::WARPS;
 
-__device__ __forceinline__ float to_f(bf16 v) { return bf2f(v); }
-__device__ __forceinline__ float to_f(float v) { return v; }
-
-// q, k, v point at channel 0 of the branch; pixel p of each starts at
-// p * in_ps, of the output at p * out_ps. TW: type of the LePE taps (9, cb)
-// and bias (cb,). PALLAS: the epilogue's rounding (see the top of the file).
+// One (window, head) per CTA: blockIdx.x is the window, blockIdx.y the head.
 template <int D, typename TW, bool PALLAS>
 __global__ void __launch_bounds__(WARPS * 32)
 stripe_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
@@ -56,83 +53,9 @@ stripe_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp
                         const TW* __restrict__ lepe_w, const TW* __restrict__ lepe_b,
                         bf16* __restrict__ out, size_t out_ps, int H, int W, int cb,
                         int h_sp, int w_sp, float scale) {
-  constexpr int LD = D + 1;
   extern __shared__ float smem[];
-  const int L = h_sp * w_sp;
-  float* Qs = smem;
-  float* Ks = Qs + L * LD;
-  float* Vs = Ks + L * LD;
-  float* Ps = Vs + L * LD;  // one probability row per warp
-
-  const int n_wh = H / h_sp, n_ww = W / w_sp;
-  const int win = blockIdx.x;
-  const int b = win / (n_wh * n_ww);
-  const int wi = (win / n_ww) % n_wh, wj = win % n_ww;
-  const int row0 = wi * h_sp, col0 = wj * w_sp;
-  const int head = blockIdx.y;
-  const int hc = head * D;         // branch-local channel of this head
-
-  for (int i = threadIdx.x; i < L * D; i += blockDim.x) {
-    const int t = i / D, dd = i % D;
-    const int y = row0 + t / w_sp, x = col0 + t % w_sp;
-    const size_t p = (((size_t)b * H + y) * W + x) * in_ps + hc + dd;
-    Qs[t * LD + dd] = round_bf16(bf2f(qp[p]) * scale);
-    Ks[t * LD + dd] = bf2f(kp[p]);
-    Vs[t * LD + dd] = bf2f(vp[p]);
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* P = Ps + warp * L;
-  for (int i = warp; i < L; i += WARPS) {
-    float q[D];
-#pragma unroll
-    for (int dd = 0; dd < D; ++dd) q[dd] = Qs[i * LD + dd];
-    float mx = -INFINITY;
-    for (int j = lane; j < L; j += 32) {
-      const float* kr = Ks + j * LD;
-      float s = 0.f;
-#pragma unroll
-      for (int dd = 0; dd < D; ++dd) s += q[dd] * kr[dd];
-      P[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const float e = expf(P[j] - mx);
-      P[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < L; j += 32) P[j] = round_bf16(P[j] / sum);
-    __syncwarp();
-
-    const int ti = i / w_sp, tj = i % w_sp;
-    const size_t m = ((size_t)b * H + row0 + ti) * W + col0 + tj;
-    for (int dd = lane; dd < D; dd += 32) {
-      float o = 0.f;
-      for (int j = 0; j < L; ++j) o += P[j] * Vs[j * LD + dd];
-      float conv = 0.f;
-      for (int di = -1; di <= 1; ++di) {
-        const int r = ti + di;
-        if (r < 0 || r >= h_sp) continue;
-        for (int dj = -1; dj <= 1; ++dj) {
-          const int c = tj + dj;
-          if (c < 0 || c >= w_sp) continue;
-          conv += to_f(lepe_w[((di + 1) * 3 + dj + 1) * cb + hc + dd]) *
-                  Vs[(r * w_sp + c) * LD + dd];
-        }
-      }
-      if (PALLAS) {
-        out[m * out_ps + hc + dd] = f2bf(o + (conv + to_f(lepe_b[hc + dd])));
-      } else {
-        const float lepe = round_bf16(round_bf16(conv) + to_f(lepe_b[hc + dd]));
-        out[m * out_ps + hc + dd] = f2bf(round_bf16(o) + lepe);
-      }
-    }
-    __syncwarp();
-  }
+  attn_tile::tile<D, TW, PALLAS>(qp, kp, vp, in_ps, lepe_w, lepe_b, out, out_ps, H, W,
+                                 cb, h_sp, w_sp, scale, blockIdx.x, blockIdx.y, smem);
 }
 
 template <int D, typename TW, bool PALLAS>
@@ -140,8 +63,7 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, size_t in_ps,
                    const TW* lw, const TW* lb, bf16* out, size_t out_ps, int B, int H,
                    int W, int cb, int heads, int h_sp, int w_sp, float scale,
                    cudaStream_t stream) {
-  const int L = h_sp * w_sp;
-  const size_t smem = (size_t)(3 * L * (D + 1) + WARPS * L) * sizeof(float);
+  const size_t smem = attn_tile::smem_bytes<D>(h_sp * w_sp);
   cudaError_t err = allow_smem(stripe_attention_kernel<D, TW, PALLAS>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * (H / h_sp) * (W / w_sp), heads);

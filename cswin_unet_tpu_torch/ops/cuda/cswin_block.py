@@ -22,6 +22,11 @@ Channels ``[:C/2]`` are the vertical branch (windows ``H x split``,
 last-stage block (``H == split``) runs one branch over the full window with
 all heads. ``scale`` is ``(C // heads) ** -0.5`` over the whole block.
 
+``fused_block_pair`` runs two consecutive dual-branch blocks of one stage
+through one launch of the ``block_pair`` kernel (inference only), the
+counterpart of ``_fused_block_pair_fwd``; ``pair_fuse_ok`` says where the
+model's stage runner takes it.
+
 ``composed_block`` is the plain PyTorch version of the same function, with
 the rounding points of the JAX ``composed_block``. With
 ``attn_impl="pallas"`` it is the ``pallas`` route's block: the same
@@ -38,8 +43,9 @@ import torch
 import torch.nn.functional as F
 
 from ..attention import cswin_attention
-from .kernels import (gemm, gemm_dgrad, gemm_wgrad, layernorm, layernorm_bwd,
-                      needs_grad, stripe_attention, stripe_attention_bwd)
+from .kernels import (block_pair, gemm, gemm_dgrad, gemm_wgrad, layernorm,
+                      layernorm_bwd, needs_grad, stripe_attention,
+                      stripe_attention_bwd)
 
 
 class BlockParams(NamedTuple):
@@ -193,6 +199,33 @@ def fused_cswin_block(x: torch.Tensor, p: BlockParams, *, heads: int,
                                   *p)
     return _chain(x, p, dps, heads=heads, split=split, last_stage=last_stage,
                   scale=scale, keep=False)[0]
+
+
+# (H, W, C) geometries whose adjacent blocks the stage runner pairs: those
+# where one block_pair launch beat two block chains on an H100 at B = 32 by
+# more than the spread in both orders (the [pair] A/B of chip_smoke.py):
+# 14x14x256, tiny-224's stage 3 (0.73 vs 0.84 ms a pair of blocks); not
+# 28x28x128, stage 2 (1.00 vs 0.72 ms). The JAX package's _pair_fuse_ok is
+# off everywhere, from a TPU measurement that does not carry over.
+PAIR_GEOMETRIES: frozenset[tuple[int, int, int]] = frozenset({(14, 14, 256)})
+
+
+def pair_fuse_ok(H: int, W: int, C: int) -> bool:
+    """Whether the stage runner fuses adjacent blocks of this geometry into
+    one ``fused_block_pair`` (counterpart of ``_pair_fuse_ok``)."""
+    return (H, W, C) in PAIR_GEOMETRIES
+
+
+def fused_block_pair(x: torch.Tensor, p1: BlockParams, p2: BlockParams, *,
+                     heads: int, split: int, scale: float) -> torch.Tensor:
+    """Two consecutive dual-branch blocks of one geometry, (B, H, W, C) ->
+    (B, H, W, C), in one ``block_pair`` launch: equal to two
+    ``fused_cswin_block`` calls. Inference only, as the JAX pair: there is
+    no backward, so a call that autograd would differentiate raises."""
+    if needs_grad(x, *p1, *p2):
+        raise ValueError("fused_block_pair has no backward: call it without "
+                         "gradients (torch.inference_mode) or run two blocks")
+    return block_pair(x, p1, p2, heads=heads, split=split, scale=scale)
 
 
 def composed_block(x: torch.Tensor, p: BlockParams, *, heads: int, split: int,

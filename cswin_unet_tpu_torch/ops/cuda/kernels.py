@@ -23,11 +23,16 @@ Kernels (``csrc/``):
                            (``cswin_attention``)
   stripe_attention_bwd.cu  the backward of ``stripe_attention``
   carafe.cu                CARAFE kernel prediction, softmax and reassembly
+  block_pair.cu            two consecutive dual-branch CSWin blocks in one
+                           cooperative launch (``block_pair``), on the
+                           device bodies of layernorm / gemm / attention
   edt.cu                   the exact 1-D squared-EDT min-plus pass along any
                            axis (``edt_pass``)
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -673,6 +678,102 @@ carafe_reassemble.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# block_pair.cu
+# ---------------------------------------------------------------------------
+
+def _block_plain(x: torch.Tensor, p, *, heads: int, split: int, scale: float,
+                 eps: float) -> torch.Tensor:
+    """One dual-branch block through the chain's plain steps, in the
+    chain's order (``cswin_block._chain`` on a CPU tensor)."""
+    B, H, W, C = x.shape
+    dt = x.dtype
+    (n1w, n1b, qkv_w, qkv_b, l0w, l0b, l1w, l1b, proj_w, proj_b, n2w, n2b,
+     fc1_w, fc1_b, fc2_w, fc2_b) = p
+    rows = x.reshape(B * H * W, C).contiguous()
+    xn = layernorm_plain(rows, n1w, n1b, eps)
+    qkv = gemm_plain(xn, qkv_w.to(dt), qkv_b).view(B, H, W, 3 * C)
+    att = torch.empty((B, H, W, C), dtype=dt, device=x.device)
+    half = C // 2
+    for off, lw, lb, hs, ws in ((0, l0w, l0b, H, split), (half, l1w, l1b, split, W)):
+        stripe_attention_plain(qkv, lw, lb, att, ch_off=off, heads=heads // 2,
+                               h_sp=hs, w_sp=ws, scale=scale)
+    x1 = gemm_plain(att.view(B * H * W, C), proj_w.to(dt), proj_b, residual=rows,
+                    epilogue="residual")
+    y = layernorm_plain(x1, n2w, n2b, eps)
+    g = gemm_plain(y, fc1_w.to(dt), fc1_b, epilogue="gelu")
+    out = gemm_plain(g, fc2_w.to(dt), fc2_b, residual=x1, epilogue="residual")
+    return out.view(B, H, W, C)
+
+
+def block_pair_plain(x: torch.Tensor, p1, p2, *, heads: int, split: int,
+                     scale: float, eps: float = 1e-5) -> torch.Tensor:
+    for p in (p1, p2):
+        x = _block_plain(x, p, heads=heads, split=split, scale=scale, eps=eps)
+    return x
+
+
+def block_pair(x: torch.Tensor, p1, p2, *, heads: int, split: int, scale: float,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Two consecutive dual-branch CSWin blocks of one geometry in one
+    launch (inference: no drop-path, no gradient).
+
+    x: (B, H, W, C); p1, p2: each block's 16 parameters in the order of
+    ``cswin_block.BlockParams`` (float32; Linear (out, in), LePE (C/2, 1, 3,
+    3)). Returns what two block chains return: on the CPU the same plain
+    steps in the same order, so the two agree bit for bit; on the GPU the
+    same device code per tile. Matrices and LePE are cast to bf16 per call,
+    as the chain casts them. A last-stage geometry (one full-window branch,
+    ``split >= H``) is refused.
+    """
+    if _on_cpu(x):
+        return block_pair_plain(x, p1, p2, heads=heads, split=split, scale=scale,
+                                eps=eps)
+    B, H, W, C = x.shape
+    dev = x.device
+    _require(x, "x", torch.bfloat16, dev)
+    if split >= H or H % split or W % split or C % 8 or heads % 2:
+        raise ValueError(f"block_pair takes two dual-branch blocks: H={H} W={W} "
+                         f"C={C} heads={heads} split={split}")
+    half = C // 2
+    _check_head_dim(half, heads // 2)
+    bf = torch.bfloat16
+    shapes = ((C,), (C,), (3 * C, C), (3 * C,), (half, 1, 3, 3), (half,),
+              (half, 1, 3, 3), (half,), (C, C), (C,), (C,), (C,), (4 * C, C),
+              (4 * C,), (C, 4 * C), (C,))
+    names = ("norm1_w", "norm1_b", "qkv_w", "qkv_b", "lepe0_w", "lepe0_b", "lepe1_w",
+             "lepe1_b", "proj_w", "proj_b", "norm2_w", "norm2_b", "fc1_w", "fc1_b",
+             "fc2_w", "fc2_b")
+    keep = []  # the cast tensors, alive until the launch is queued
+    for p in (p1, p2):
+        for i, (t, shape, name) in enumerate(zip(p, shapes, names)):
+            if t is None and i in (3, 5, 7):  # qkv without bias; LePE bias as zeros
+                keep.append(None if i == 3 else torch.zeros(half, dtype=bf, device=dev))
+                continue
+            _require(t, name, torch.float32, dev, shape)
+            if i in (4, 6):
+                keep.append(t.reshape(half, 9).t().to(bf).contiguous())
+            elif i in (5, 7) or t.dim() == 2:
+                keep.append(t.to(bf).contiguous())
+            else:
+                keep.append(t)
+    ptrs = (ctypes.c_void_p * 32)(*(_ptr(t) for t in keep))
+    info = (ctypes.c_int * 3)()
+    scratch = torch.empty(7 * x.numel(), dtype=bf, device=dev)
+    out = torch.empty_like(x)
+    err = library().cswin_block_pair(
+        x.data_ptr(), ctypes.addressof(ptrs), scratch.data_ptr(), out.data_ptr(), B, H,
+        W, C, heads, split, scale, eps, ctypes.addressof(info), _stream(dev))
+    check(err, "block_pair")
+    block_pair.launches += 1
+    block_pair.grid = dict(ctas=info[0], ctas_per_sm=info[1], smem_bytes=info[2])
+    return out
+
+
+block_pair.launches = 0
+block_pair.grid = None  # the last launch's grid, CTAs per SM and shared memory
+
+
+# ---------------------------------------------------------------------------
 # edt.cu
 # ---------------------------------------------------------------------------
 
@@ -725,7 +826,8 @@ def edt_pass(f: torch.Tensor, axis: int = -1) -> torch.Tensor:
 edt_pass.launches = 0
 
 KERNELS = (layernorm, gemm, stripe_attention, carafe_reassemble, layernorm_bwd,
-           gemm_dgrad, gemm_wgrad, stripe_attention_bwd, cswin_attention, edt_pass)
+           gemm_dgrad, gemm_wgrad, stripe_attention_bwd, cswin_attention, edt_pass,
+           block_pair)
 
 
 def reset_launch_counts() -> None:

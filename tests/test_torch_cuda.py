@@ -74,6 +74,16 @@ def test_gemm(dev, M, N, K_, epilogue):
     assert _rel_l2(got.float(), want.float()) <= 0.02
 
 
+def _block_params(rng, dev, C, last=False):
+    cb = C if last else C // 2
+    t = lambda *s, sc=0.1, off=0.0: _rnd(rng, dev, *s, sc=sc, off=off)
+    lk0, lb0 = t(cb, 1, 3, 3, sc=0.3), t(cb)
+    lk1, lb1 = (lk0, lb0) if last else (t(cb, 1, 3, 3, sc=0.3), t(cb))
+    return BlockParams(t(C, sc=0.3, off=1.0), t(C), t(3 * C, C), t(3 * C), lk0, lb0,
+                       lk1, lb1, t(C, C), t(C), t(C, sc=0.3, off=1.0), t(C),
+                       t(4 * C, C), t(4 * C), t(C, 4 * C), t(C))
+
+
 @pytest.mark.parametrize("H,C,heads,split,last", [
     (56, 64, 2, 1, False), (28, 128, 4, 2, False), (14, 256, 8, 7, False),
     (7, 512, 16, 7, True), (16, 32, 2, 2, False),
@@ -82,18 +92,42 @@ def test_gemm(dev, M, N, K_, epilogue):
     (24, 384, 16, 12, False), (12, 768, 32, 12, True)])
 def test_block_chain(dev, H, C, heads, split, last):
     rng = np.random.default_rng(2)
-    cb = C if last else C // 2
-    t = lambda *s, sc=0.1, off=0.0: _rnd(rng, dev, *s, sc=sc, off=off)
-    lk0, lb0 = t(cb, 1, 3, 3, sc=0.3), t(cb)
-    lk1, lb1 = (lk0, lb0) if last else (t(cb, 1, 3, 3, sc=0.3), t(cb))
-    p = BlockParams(t(C, sc=0.3, off=1.0), t(C), t(3 * C, C), t(3 * C), lk0, lb0,
-                    lk1, lb1, t(C, C), t(C), t(C, sc=0.3, off=1.0), t(C),
-                    t(4 * C, C), t(4 * C), t(C, 4 * C), t(C))
+    p = _block_params(rng, dev, C, last)
     x = _rnd(rng, dev, 2, H, H, C).bfloat16()
     kw = dict(heads=heads, split=split, last_stage=last, scale=(C // heads) ** -0.5)
     got = fused_cswin_block(x, p, **kw)
     want = composed_block(x, p, **kw)
     assert _rel_l2(got.float(), want.float()) <= 0.02
+
+
+@pytest.mark.parametrize("H,C,heads,split", [(28, 128, 4, 2), (14, 256, 8, 7)])
+def test_block_pair(dev, H, C, heads, split):
+    """The pair kernel at the stage-2 and stage-3 geometries, B = 32: bit for
+    bit against two block chains (the same device code per tile), within
+    0.02 of its plain version."""
+    rng = np.random.default_rng(15)
+    p1, p2 = _block_params(rng, dev, C), _block_params(rng, dev, C)
+    x = _rnd(rng, dev, 32, H, H, C).bfloat16()
+    kw = dict(heads=heads, split=split, scale=(C // heads) ** -0.5)
+    before = K.block_pair.launches
+    got = K.block_pair(x, p1, p2, **kw)
+    assert K.block_pair.launches == before + 1
+    chain = fused_cswin_block(fused_cswin_block(x, p1, last_stage=False, **kw), p2,
+                              last_stage=False, **kw)
+    assert torch.equal(got, chain)
+    assert _rel_l2(got.float(), K.block_pair_plain(x, p1, p2, **kw).float()) <= 0.02
+
+
+def test_block_pair_refuses_float32_and_last_stage(dev):
+    rng = np.random.default_rng(16)
+    p = _block_params(rng, dev, 128)
+    kw = dict(heads=4, split=2, scale=32 ** -0.5)
+    with pytest.raises(TypeError):
+        K.block_pair(_rnd(rng, dev, 2, 28, 28, 128), p, p, **kw)
+    last = _block_params(rng, dev, 512, last=True)
+    with pytest.raises(ValueError):
+        K.block_pair(_rnd(rng, dev, 2, 7, 7, 512).bfloat16(), last, last, heads=16,
+                     split=7, scale=32 ** -0.5)
 
 
 def _carafe_params(rng, dev, C, C_out, up, nc=None):
