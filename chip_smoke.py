@@ -83,7 +83,26 @@ Phases, each of which raises on failure (the process then exits non-zero):
      for each metrics route, and the fused and plain routes' per-class
      scores side by side (printed, not gated: the weights are barely
      trained).
-  8. One JSON line with the per-kernel results, then the contract line
+  8. The block lab (``cswin_unet_tpu_torch/tools/block_lab.py``), the parts
+     of the block as stand-alone kernels: ``lepe_windows``,
+     ``window_attention`` and ``ln_mlp`` against their plain versions on the
+     lab's own cases at full shapes, B = 128 (LePE at the three branch geometries with
+     the tap grid as given and transposed, V in place from packed qkv, two
+     tap sets, two sources stacked on channels with the fold; attention on
+     rows and columns of (128, 56, 56, 32) and on (512, 98, 128) with 4
+     heads, in each mode; the MLP half on (128, 56, 56, 64) in each mode),
+     relative L2 <= 0.02, each with its bound and, as yardsticks timed here
+     only, ``F.conv2d`` (groups = c) and ``F.scaled_dot_product_attention``;
+     for ``ln_mlp`` the block chain's three launches (``chain_ms``). These
+     cases are timed as the lab times its own, behind a spin kernel that
+     keeps the card busy while the host queues the calls. Two
+     identities tie the parts to the whole at stages 1-3 on one packed qkv:
+     ``window_attention`` + ``lepe_windows`` within 2 bf16 ulps of
+     ``stripe_attention``, and ``ln_mlp`` within relative L2 5e-3 of
+     ``layernorm`` -> ``gemm`` (GELU) -> ``gemm`` (residual). Then
+     ``block_lab.main`` once per subcommand at B = 128, its output shown,
+     with the launches of every kernel exactly as its cases imply.
+  9. One JSON line with the per-kernel results, then the contract line
      ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package (``cswin_unet_tpu``); the config
@@ -132,7 +151,14 @@ SOURCES = {
                  "cswin_unet_tpu/ops/edt.py:73"),
     "block_pair": ("cswin_unet_tpu_torch/ops/cuda/csrc/block_pair.cu",
                    "cswin_unet_tpu/ops/pallas/cswin_block.py:1957"),
+    "lepe_windows": ("cswin_unet_tpu_torch/ops/cuda/csrc/lepe_windows.cu",
+                     "scripts/exp_lepe_mm.py:56"),
+    "window_attention": ("cswin_unet_tpu_torch/ops/cuda/csrc/stripe_attention.cu",
+                         "scripts/exp_attn3.py:59"),
+    "ln_mlp": ("cswin_unet_tpu_torch/ops/cuda/csrc/ln_mlp.cu", "scripts/exp_pack.py:60"),
 }
+LAB_BATCH = 128   # the TPU experiments' batch
+LAB_REPS = 10  # as block_lab.REPS, so that both readings of a case use one method
 # What each kernel's ms, plain_ms, bound_ms and library_ms add up over.
 PER = dict.fromkeys(("layernorm", "gemm", "stripe_attention", "carafe_reassemble"),
                     "32-slice serving forward, fused route")
@@ -141,6 +167,8 @@ PER.update(dict.fromkeys(("layernorm_bwd", "gemm_dgrad", "gemm_wgrad",
 PER["cswin_attention"] = "32-slice serving forward, pallas route"
 PER["edt_pass"] = "volume_metrics_device call, 9 classes, (48, 512, 512)"
 PER["block_pair"] = "32-slice serving forward, pairing forced on"
+PER.update(dict.fromkeys(("lepe_windows", "window_attention", "ln_mlp"),
+                         f"the [kernel] cases of the lab phase, once each, B = {LAB_BATCH}"))
 # H100 SXM peaks from NVIDIA's datasheet: memory, bf16 tensor cores,
 # float32 outside them.
 HBM_BPS, TC_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -199,10 +227,15 @@ def judge(label: str, got, want, check: str) -> tuple[str, bool, float]:
     return f"rel_l2={err:.3e} max_abs={mx:.3e}", err <= TOL, mx
 
 
-def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
+def time_ms(fn, reps: int = 10, rounds: int = 5, primed: bool = False) -> float:
     """ms per call: CUDA events around ``reps`` back-to-back calls (so the
-    device queue stays full), median over ``rounds`` after a warm-up."""
+    device queue stays full), median over ``rounds`` after a warm-up.
+    ``primed``: the calls are queued behind a ~2 ms spin kernel, as the block
+    lab times its cases: for calls shorter than their host work the events
+    then read device time, not the host's enqueue rate."""
     import torch
+
+    from cswin_unet_tpu_torch.tools.block_lab import PRIME_CYCLES
 
     fn()
     torch.cuda.synchronize()
@@ -210,6 +243,8 @@ def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
     for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if primed:
+            torch.cuda._sleep(PRIME_CYCLES)
         start.record()
         for _ in range(reps):
             fn()
@@ -280,7 +315,8 @@ class KernelTally:
     number of calls in that unit. ``bound_ms``: the larger of the bytes the
     call must move (each input read once, each output written once) over
     ``HBM_BPS`` and its operations over the peak of their type
-    (``tc_flops`` bf16 products, ``f32_ops`` the rest), per case;
+    (``tc_flops`` bf16 products, ``f32_ops`` the rest: the two pipes run
+    side by side, so the slower of them counts), per case;
     ``library_ms``: one PyTorch call computing the same function, where
     there is one, with ``library_vs_ms`` the kernel's ms over the same
     cases."""
@@ -291,7 +327,7 @@ class KernelTally:
                              library_vs_ms=0.0) for k in SOURCES}
 
     def case(self, name, label, kernel_fn, plain_fn, calls, check="rel", *,
-             moved=0, tc_flops=0.0, f32_ops=0.0, library=None, reps=10):
+             moved=0, tc_flops=0.0, f32_ops=0.0, library=None, reps=10, primed=False):
         import torch
 
         got, want = kernel_fn(), plain_fn()
@@ -299,9 +335,9 @@ class KernelTally:
         err_txt, ok, mx = judge(f"{name} {label}", got, want, check)
         row = self.rows[name]
         row["max_abs_err"] = max(row["max_abs_err"], mx)
-        ms, pms = time_ms(kernel_fn, reps=reps), time_ms(plain_fn, reps=reps)
+        ms, pms = (time_ms(fn, reps=reps, primed=primed) for fn in (kernel_fn, plain_fn))
         bytes_ms = moved / HBM_BPS * 1e3
-        ops_ms = (tc_flops / TC_FLOPS + f32_ops / F32_FLOPS) * 1e3
+        ops_ms = max(tc_flops / TC_FLOPS, f32_ops / F32_FLOPS) * 1e3
         row["ms"] += calls * ms
         row["plain_ms"] += calls * pms
         row["bound_ms"] += calls * max(bytes_ms, ops_ms)
@@ -309,7 +345,7 @@ class KernelTally:
         row["ops_ms"] += calls * ops_ms
         lib = ""
         if library is not None:
-            lms = time_ms(library, reps=reps)
+            lms = time_ms(library, reps=reps, primed=primed)
             row["library_ms"] = (row["library_ms"] or 0.0) + calls * lms
             row["library_vs_ms"] += calls * ms
             lib = f" library_ms={lms:.4f}"
@@ -1443,6 +1479,171 @@ def eval_run(cfg, dev, ck: str) -> dict[str, int]:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the block lab
+# ---------------------------------------------------------------------------
+
+def compare_lab(dev, tally: KernelTally) -> None:
+    """``lepe_windows``, ``window_attention`` and ``ln_mlp`` against their
+    plain versions at the lab's full shapes: the lab's own cases
+    (``block_lab.Case``), each once in the tally, with the library yardsticks
+    built from the cases' inputs; then the launch counts the cases imply (one
+    check, one warm-up and 5 x ``LAB_REPS`` timed calls each)."""
+    import torch
+    import torch.nn.functional as F
+
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.ops.windows import window_partition
+    from cswin_unet_tpu_torch.tools import block_lab as L
+
+    inp = L.Inputs(dev, seed=21)
+    bf = torch.bfloat16
+
+    def conv2d(v, taps, bias, sp_h, sp_w, swap=False, nchw=False, **_):
+        """The library's depthwise conv on the window batch: on the
+        channels-last view of V as it lies, or on a contiguous NCHW copy
+        made outside the timed region."""
+        c = v.shape[-1]
+        x = v.reshape(-1, sp_h, sp_w, c).permute(0, 3, 1, 2)
+        x = x.contiguous() if nchw else x
+        taps = taps.transpose(0, 1) if swap else taps
+        w, b = taps.permute(2, 0, 1)[:, None].to(bf).contiguous(), bias.to(bf)
+        return lambda: F.conv2d(x, w, b, padding=1, groups=c)
+
+    def sdpa(q, k, v, heads, scale, h_sp=None, w_sp=None, **_):
+        """The library's attention on the same windows, (n, heads, L, d)
+        views. For windows that are not runs of pixels (columns) the call is
+        given a windowed copy made outside the timed region."""
+        if q.dim() == 4:
+            q, k, v = (window_partition(t, h_sp, w_sp) for t in (q, k, v))
+        n, Lw, C = q.shape
+        q, k, v = (t.reshape(n, Lw, heads, C // heads).permute(0, 2, 1, 3) for t in (q, k, v))
+        return lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+    pick = lambda st, rungs: [c for c in L.bisect_stage(inp, LAB_BATCH, st)
+                              if c.name.split()[1] in rungs]
+    g1 = L.STAGES[1]
+    x = inp.bf16(LAB_BATCH, g1["H"], g1["W"], g1["C"])
+    p = L.stage1_params(inp, g1["C"])
+    modes = ("attention", "no_softmax", "copy", "softmax", "stage")
+    plain_geometry = L.lepe_cases(inp, LAB_BATCH, (3, 2, 1))  # F.conv2d computes these
+    cases = (plain_geometry
+             + pick(3, ("d", "f")) + pick(1, ("k_taps", "k_full"))  # packed V, two tap
+             # sets, two sources stacked on channels, their fold
+             + L.attn_cases(inp, LAB_BATCH, (1,), modes=modes)
+             + [c for c in L.attn3_cases(inp, LAB_BATCH, (3,)) if "window_attention" in c.launches]
+             + [L.mlp_case(f"act={act} ln={int(ln)} fold={int(fold)}", x, p, act, ln, fold)
+                for act, ln, fold in (("gelu", True, False), ("clamp", True, False),
+                                      ("gelu", False, False), ("gelu", False, True),
+                                      ("clamp", False, True))])
+    n_cases = dict.fromkeys(("lepe_windows", "window_attention", "ln_mlp"), 0)
+    K.reset_launch_counts()
+    for c in cases:
+        (name, per_run), = c.launches.items()
+        require(per_run == 1, f"{c.name}: not one launch")
+        n_cases[name] += 1
+        library = None
+        if any(c is g for g in plain_geometry):
+            library = conv2d(**c.args)
+        elif name == "window_attention" and c.args["mode"] == "attention":
+            library = sdpa(**c.args)
+        tally.case(name, f"{c.name} {c.shape}", c.run, c.plain, 1, reps=LAB_REPS,
+                   primed=True, library=library, moved=c.moved, tc_flops=c.tc_flops,
+                   f32_ops=c.f32_ops)
+        if library is not None and name == "lepe_windows":
+            nchw = time_ms(conv2d(**c.args, nchw=True), reps=LAB_REPS, primed=True)
+            print(f"[kernel] lepe_windows {c.name}: F.conv2d on a contiguous NCHW copy "
+                  f"library_nchw_ms={nchw:.4f}", flush=True)
+    require(n_cases == dict(lepe_windows=10, window_attention=15, ln_mlp=5),
+            f"lab kernel cases: {n_cases}")
+    chain, = (c for c in L.mlp_cases(inp, LAB_BATCH, (1,)) if c.launches.get("gemm"))
+    chain_ms = time_ms(chain.run, reps=LAB_REPS, primed=True)
+    tally.rows["ln_mlp"]["chain_ms"] = chain_ms
+    print(f"[kernel] ln_mlp: the block chain's three launches on the same rows "
+          f"(layernorm, gemm + GELU, gemm + residual) chain_ms={chain_ms:.4f}; no single "
+          "PyTorch call computes the function (library_ms none)", flush=True)
+
+    counts = K.launch_counts()
+    per_case = 2 + 5 * LAB_REPS
+    want = {k: n * per_case for k, n in n_cases.items()}
+    got = {k: counts[k] for k in want}
+    print(f"[lab] launches of the [kernel] cases {got} expected {want}", flush=True)
+    require(got == want, f"lab kernel cases: launches {got} != {want}")
+
+
+def lab_identities(dev) -> None:
+    """The parts against the whole on the same inputs, stages 1-3, B = 128:
+    both branches' ``window_attention`` + ``lepe_windows`` on the thirds of
+    one packed qkv within 2 bf16 ulps of ``stripe_attention``; at stage 1
+    ``ln_mlp`` within relative L2 5e-3 of the chain's second half."""
+    import torch
+
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.tools import block_lab as L
+
+    inp = L.Inputs(dev, seed=22)
+    for st in (1, 2, 3):
+        g = L.STAGES[st]
+        H, W, C, split = g["H"], g["W"], g["C"], g["split"]
+        qkv = inp.bf16(LAB_BATCH, H, W, 3 * C)
+        for off, (sp_h, sp_w) in ((0, (H, split)), (C // 2, (split, W))):
+            taps, bias = inp.f32(3, 3, C // 2, sc=0.3), inp.f32(C // 2, sc=0.1)
+            att, lepe, whole = L.parts_vs_whole(
+                qkv, taps, bias, sp_h=sp_h, sp_w=sp_w, heads=g["heads"] // 2,
+                scale=(C // g["heads"]) ** -0.5, ch_off=off)
+            torch.cuda.synchronize()
+            try:
+                txt = L.check_parts_vs_whole(att, lepe, whole)
+            except L.LabFailure as e:
+                raise SmokeFailure(f"stage {st} window {sp_h}x{sp_w}: {e}") from e
+            print(f"[lab] identity stage{st} ({LAB_BATCH},{H},{W},{3 * C}) window "
+                  f"{sp_h}x{sp_w}: window_attention + lepe_windows {txt} ok", flush=True)
+    g = L.STAGES[1]
+    x = inp.bf16(LAB_BATCH, g["H"], g["W"], g["C"])
+    p = L.stage1_params(inp, g["C"])
+    one = K.ln_mlp(x, p["nw"], p["nb"], p["fc1_w"], p["fc1_b"], p["fc2_w"], p["fc2_b"])
+    chain = L.chain_mlp(x, p)
+    torch.cuda.synchronize()
+    err = rel_l2(one.float(), chain.float())
+    print(f"[lab] identity stage1 {tuple(x.shape)}: ln_mlp vs layernorm -> gemm(gelu) -> "
+          f"gemm(residual) rel_l2={err:.3e} max_abs="
+          f"{float((one.float() - chain.float()).abs().max()):.3e} "
+          f"{'ok' if err <= 5e-3 else 'FAIL'}", flush=True)
+    require(err <= 5e-3, f"ln_mlp vs the chain's second half: rel_l2 {err:.3e}")
+
+
+def lab_run() -> dict[str, int]:
+    """The lab's entry point once per subcommand at full width, output shown;
+    returns the launch counts of the runs, which must be exactly what the
+    printed cases imply: each case runs once for its check (once more where
+    it has a further check), once to warm up and ``ROUNDS`` x ``REPS`` times
+    under the clock."""
+    import torch
+
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.tools import block_lab
+
+    rows: list[dict] = []
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    for sub in sorted(block_lab.SUBCOMMANDS):
+        require(block_lab.main([sub, "--batch", str(LAB_BATCH)], rows) == 0,
+                f"block_lab {sub} failed")
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    for row in rows:
+        runs = 2 + block_lab.ROUNDS * block_lab.REPS + (1 if row["extra"] else 0)
+        for k, n in row["per_run"].items():
+            want[k] += n * runs
+    print(f"[lab] {len(rows)} cases over {len(block_lab.SUBCOMMANDS)} subcommands; "
+          f"launches {counts} expected {want}", flush=True)
+    require(counts == want, f"lab launches {counts} != implied by its cases {want}")
+    require(all(counts[k] > 0 for k in ("lepe_windows", "window_attention", "ln_mlp")),
+            f"the lab did not launch its kernels: {counts}")
+    return counts
+
+
 def ptxas_spills(log: str, entry: str) -> list[tuple[str, int, int]]:
     """(entry, spill store bytes, spill load bytes) from nvcc's ``-Xptxas
     -v`` output, for every compiled entry whose mangled name holds
@@ -1526,9 +1727,12 @@ def main() -> int:
         train_counts, data, ck = train_run(cfg, dev, workdir)
         train_step_checks(cfg, dev, data)
         eval_counts = eval_run(cfg, dev, ck)
+    compare_lab(dev, tally)
+    lab_identities(dev)
+    lab_counts = lab_run()
 
     paths = dict(serve=serve_counts, serve_pallas=pallas_counts, serve_pair=pair_counts,
-                 train=train_counts, eval=eval_counts)
+                 train=train_counts, eval=eval_counts, lab=lab_counts)
     kernels = []
     for k, (src, rep) in SOURCES.items():
         row = dict(tally.rows[k])

@@ -7,6 +7,20 @@
 // and round the same way. The function, the two epilogue roundings and the
 // layouts are documented at the top of stripe_attention.cu. Needs WARPS
 // warps and smem_bytes<D>(L) bytes of shared memory.
+//
+// MODE cuts the body down at compile time, for pricing its parts alone
+// (window_attention in stripe_attention.cu); FULL is the body as the block
+// runs it, and the other modes change nothing in it:
+//   NO_LEPE     softmax(q·scale · kᵀ) · v, one rounding of the output
+//   NO_SOFTMAX  both products with the softmax stubbed, P = bf16(s · 1e-4)
+//               (wrong math, the same shapes), no LePE
+//   COPY        out = bf16(bf16(q + k) + v): the tile's memory traffic alone
+//               (its own body, copy_tile: no shared memory, no arithmetic)
+//   SOFTMAX     the first product and the softmax alone: the row of P folded
+//               to the head's width, out[i, dd] = bf16(sum of P[i, j] over
+//               j = dd, dd + D, ...), no second product
+//   STAGE       the staging alone: q, k, v laid out in shared memory as the
+//               products want them, then out = bf16(k + v) read back from there
 #pragma once
 
 #include "common.cuh"
@@ -14,6 +28,8 @@
 namespace attn_tile {
 
 constexpr int WARPS = 4;
+
+enum Mode { FULL = 0, NO_LEPE = 1, NO_SOFTMAX = 2, COPY = 3, SOFTMAX = 4, STAGE = 5 };
 
 template <int D>
 constexpr size_t smem_bytes(int L) {
@@ -25,9 +41,10 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 
 // q, k, v point at channel 0 of the branch; pixel p of each starts at
 // p * in_ps, of the output at p * out_ps. TW: type of the LePE taps (9, cb)
-// and bias (cb,). PALLAS: the epilogue's rounding. win walks the batch's
-// windows (image-major, then window rows, then window columns).
-template <int D, typename TW, bool PALLAS>
+// and bias (cb,), unread outside FULL. PALLAS: the epilogue's rounding in
+// FULL. win walks the batch's windows (image-major, then window rows, then
+// window columns).
+template <int D, typename TW, bool PALLAS, int MODE = FULL>
 __device__ __forceinline__ void tile(const bf16* __restrict__ qp,
                                      const bf16* __restrict__ kp,
                                      const bf16* __restrict__ vp, size_t in_ps,
@@ -58,6 +75,14 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ qp,
     Vs[t * LD + dd] = bf2f(vp[p]);
   }
   __syncthreads();
+  if constexpr (MODE == STAGE) {
+    for (int i = threadIdx.x; i < L * D; i += blockDim.x) {
+      const int t = i / D, dd = i % D;
+      const size_t m = ((size_t)b * H + row0 + t / w_sp) * W + col0 + t % w_sp;
+      out[m * out_ps + hc + dd] = f2bf(Ks[t * LD + dd] + Vs[t * LD + dd]);
+    }
+    return;
+  }
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* P = Ps + warp * L;
@@ -74,22 +99,34 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ qp,
       P[j] = s;
       mx = fmaxf(mx, s);
     }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const float e = expf(P[j] - mx);
-      P[j] = e;
-      sum += e;
+    if constexpr (MODE == NO_SOFTMAX) {
+      for (int j = lane; j < L; j += 32) P[j] = round_bf16(P[j] * 1e-4f);
+    } else {
+      mx = warp_max(mx);
+      float sum = 0.f;
+      for (int j = lane; j < L; j += 32) {
+        const float e = expf(P[j] - mx);
+        P[j] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      for (int j = lane; j < L; j += 32) P[j] = round_bf16(P[j] / sum);
     }
-    sum = warp_sum(sum);
-    for (int j = lane; j < L; j += 32) P[j] = round_bf16(P[j] / sum);
     __syncwarp();
 
     const int ti = i / w_sp, tj = i % w_sp;
     const size_t m = ((size_t)b * H + row0 + ti) * W + col0 + tj;
     for (int dd = lane; dd < D; dd += 32) {
       float o = 0.f;
-      for (int j = 0; j < L; ++j) o += P[j] * Vs[j * LD + dd];
+      if constexpr (MODE == SOFTMAX) {
+        for (int j = dd; j < L; j += D) o += P[j];
+      } else {
+        for (int j = 0; j < L; ++j) o += P[j] * Vs[j * LD + dd];
+      }
+      if constexpr (MODE != FULL) {
+        out[m * out_ps + hc + dd] = f2bf(o);
+        continue;
+      }
       float conv = 0.f;
       for (int di = -1; di <= 1; ++di) {
         const int r = ti + di;
@@ -109,6 +146,26 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ qp,
       }
     }
     __syncwarp();
+  }
+}
+
+// The COPY mode's body: the tile's reads and its write, nothing between.
+template <int D>
+__device__ __forceinline__ void copy_tile(const bf16* __restrict__ qp,
+                                          const bf16* __restrict__ kp,
+                                          const bf16* __restrict__ vp, size_t in_ps,
+                                          bf16* __restrict__ out, size_t out_ps, int H,
+                                          int W, int h_sp, int w_sp, int win, int head) {
+  const int L = h_sp * w_sp;
+  const int n_wh = H / h_sp, n_ww = W / w_sp;
+  const int b = win / (n_wh * n_ww);
+  const int row0 = (win / n_ww) % n_wh * h_sp, col0 = win % n_ww * w_sp;
+  const int hc = head * D;
+  for (int i = threadIdx.x; i < L * D; i += blockDim.x) {
+    const int t = i / D, dd = i % D;
+    const size_t m = ((size_t)b * H + row0 + t / w_sp) * W + col0 + t % w_sp;
+    const size_t p = m * in_ps + hc + dd;
+    out[m * out_ps + hc + dd] = f2bf(round_bf16(bf2f(qp[p]) + bf2f(kp[p])) + bf2f(vp[p]));
   }
 }
 

@@ -1,7 +1,7 @@
 // CSWin stripe-window attention core with LePE, for one branch of a block.
 //
-// Two C entries over one device function, which differ only in where q, k
-// and v come from and in the epilogue's rounding:
+// Three C entries over one device function, which differ only in where q, k
+// and v come from, in the epilogue's rounding and in the parts they run:
 //
 // cswin_stripe_attention (the fused block chain): input is the block's qkv
 //   GEMM output, (B, H, W, 3C) bf16 NHWC: the branch reads q, k and v at
@@ -14,8 +14,18 @@
 //   channel slices of one qkv tensor. Per (window, head):
 //     out = bf16(P·V + conv(V, w) + b)
 //   with float32 taps and bias and one rounding, as the Pallas kernel.
-// In both, P = bf16(softmax(bf16(q·scale) · kᵀ)), scores, softmax and P·V
-// in float32, and LePE is a depthwise 3x3 conv on V inside the window, zero
+// cswin_window_attention (the block lab: attention alone, no LePE): q, k, v
+//   as for cswin_attention. Per (window, head), by mode:
+//     1  out = bf16(P·V)                      (attention, one rounding)
+//     2  the same with the softmax stubbed, P = bf16(s · 1e-4): the two
+//        products alone
+//     3  out = bf16(bf16(q + k) + v): the copy floor, no arithmetic
+//     4  the first product and the softmax alone, P's row folded to the
+//        head's width: out[i, dd] = bf16(sum of P[i, j], j = dd, dd + d, ...)
+//     5  out = bf16(k + v) through the tile's shared-memory staging of q, k
+//        and v: what laying the window out for the products costs
+// Wherever they are not stubbed, P = bf16(softmax(bf16(q·scale) · kᵀ)), scores,
+// softmax and P·V in float32, and LePE is a depthwise 3x3 conv on V inside the window, zero
 // padded at the window's borders (not the image's). The result lands at the
 // branch's channel offset of the output, so the two branches' concat costs
 // nothing.
@@ -24,7 +34,15 @@
 //   cswin_unet_tpu/ops/pallas/cswin_block.py::_block_kernel_xt (both stripe
 //   branches) and ::_block_kernel (last-stage full window); and
 //   cswin_unet_tpu/ops/pallas/cswin_attention.py::_cswin_attention_pallas_fwd
-//   (pallas_call :169, body _kernel :66).
+//   (pallas_call :169, body _kernel :66). cswin_window_attention replaces
+//   the attention-alone kernels of scripts/exp_attn.py:132, :140, :148 (one
+//   head on rows or columns of the image; their merged, mid-batch and
+//   pre-transposed variants are this function in other TPU layouts) and
+//   scripts/exp_attn3.py:59 (k_full / k_off / k_smg over _attn_windows_hb
+//   :868 and _attn_windows :1124 of cswin_block.py, k_dots, k_copy; k_softmax
+//   and k_tile price the softmax and the head-block tiling of K and V for a
+//   128-lane matrix unit: modes 4 and 5 price this tile's softmax and its
+//   own staging, the same questions asked of this design).
 // Bound on the H100: many tiny problems (L <= 98 tokens, head dim 32 at
 //   224²): ~4·L·d flops per token against 6·d bytes of q, k, v read, so
 //   memory bounds the function and latency and launch shape matter more
@@ -46,7 +64,7 @@ namespace {
 using attn_tile::WARPS;
 
 // One (window, head) per CTA: blockIdx.x is the window, blockIdx.y the head.
-template <int D, typename TW, bool PALLAS>
+template <int D, typename TW, bool PALLAS, int MODE>
 __global__ void __launch_bounds__(WARPS * 32)
 stripe_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
                         const bf16* __restrict__ vp, size_t in_ps,
@@ -54,32 +72,37 @@ stripe_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp
                         bf16* __restrict__ out, size_t out_ps, int H, int W, int cb,
                         int h_sp, int w_sp, float scale) {
   extern __shared__ float smem[];
-  attn_tile::tile<D, TW, PALLAS>(qp, kp, vp, in_ps, lepe_w, lepe_b, out, out_ps, H, W,
-                                 cb, h_sp, w_sp, scale, blockIdx.x, blockIdx.y, smem);
+  if constexpr (MODE == attn_tile::COPY)
+    attn_tile::copy_tile<D>(qp, kp, vp, in_ps, out, out_ps, H, W, h_sp, w_sp, blockIdx.x,
+                            blockIdx.y);
+  else
+    attn_tile::tile<D, TW, PALLAS, MODE>(qp, kp, vp, in_ps, lepe_w, lepe_b, out, out_ps, H,
+                                         W, cb, h_sp, w_sp, scale, blockIdx.x, blockIdx.y,
+                                         smem);
 }
 
-template <int D, typename TW, bool PALLAS>
+template <int D, typename TW, bool PALLAS, int MODE>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, size_t in_ps,
                    const TW* lw, const TW* lb, bf16* out, size_t out_ps, int B, int H,
                    int W, int cb, int heads, int h_sp, int w_sp, float scale,
                    cudaStream_t stream) {
   const size_t smem = attn_tile::smem_bytes<D>(h_sp * w_sp);
-  cudaError_t err = allow_smem(stripe_attention_kernel<D, TW, PALLAS>, smem);
+  cudaError_t err = allow_smem(stripe_attention_kernel<D, TW, PALLAS, MODE>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * (H / h_sp) * (W / w_sp), heads);
-  stripe_attention_kernel<D, TW, PALLAS><<<grid, WARPS * 32, smem, stream>>>(
+  stripe_attention_kernel<D, TW, PALLAS, MODE><<<grid, WARPS * 32, smem, stream>>>(
       q, k, v, in_ps, lw, lb, out, out_ps, H, W, cb, h_sp, w_sp, scale);
   return cudaGetLastError();
 }
 
-template <typename TW, bool PALLAS>
+template <typename TW, bool PALLAS, int MODE = attn_tile::FULL>
 int dispatch(const bf16* q, const bf16* k, const bf16* v, size_t in_ps, const TW* lw,
              const TW* lb, bf16* out, size_t out_ps, int B, int H, int W, int cb,
              int heads, int h_sp, int w_sp, float scale, cudaStream_t s) {
   switch (cb / heads) {
-    case 16: return (int)launch<16, TW, PALLAS>(q, k, v, in_ps, lw, lb, out, out_ps, B, H, W, cb, heads, h_sp, w_sp, scale, s);
-    case 24: return (int)launch<24, TW, PALLAS>(q, k, v, in_ps, lw, lb, out, out_ps, B, H, W, cb, heads, h_sp, w_sp, scale, s);
-    case 32: return (int)launch<32, TW, PALLAS>(q, k, v, in_ps, lw, lb, out, out_ps, B, H, W, cb, heads, h_sp, w_sp, scale, s);
+    case 16: return (int)launch<16, TW, PALLAS, MODE>(q, k, v, in_ps, lw, lb, out, out_ps, B, H, W, cb, heads, h_sp, w_sp, scale, s);
+    case 24: return (int)launch<24, TW, PALLAS, MODE>(q, k, v, in_ps, lw, lb, out, out_ps, B, H, W, cb, heads, h_sp, w_sp, scale, s);
+    case 32: return (int)launch<32, TW, PALLAS, MODE>(q, k, v, in_ps, lw, lb, out, out_ps, B, H, W, cb, heads, h_sp, w_sp, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -115,4 +138,27 @@ CSWIN_API int cswin_cswin_attention(const void* q, const void* k, const void* v,
                                (size_t)pix_stride, (const float*)lepe_w,
                                (const float*)lepe_b, (bf16*)out, cb, B, H, W, cb, heads,
                                h_sp, w_sp, scale, (cudaStream_t)stream);
+}
+
+// q, k, v, out as for cswin_cswin_attention; no LePE. mode 1: attention,
+// 2: the products with the softmax stubbed, 3: the copy floor, 4: the first
+// product and the softmax, 5: the staging (the modes of attention_tile.cuh).
+// Head dims as above.
+CSWIN_API int cswin_window_attention(const void* q, const void* k, const void* v,
+                                     long long pix_stride, void* out, int B, int H, int W,
+                                     int cb, int heads, int h_sp, int w_sp, float scale,
+                                     int mode, void* stream) {
+#define CSWIN_WINDOW_ATTENTION(MODE)                                                    \
+  dispatch<float, true, MODE>((const bf16*)q, (const bf16*)k, (const bf16*)v,            \
+                              (size_t)pix_stride, nullptr, nullptr, (bf16*)out, cb, B, H, \
+                              W, cb, heads, h_sp, w_sp, scale, (cudaStream_t)stream)
+  switch (mode) {
+    case attn_tile::NO_LEPE: return CSWIN_WINDOW_ATTENTION(attn_tile::NO_LEPE);
+    case attn_tile::NO_SOFTMAX: return CSWIN_WINDOW_ATTENTION(attn_tile::NO_SOFTMAX);
+    case attn_tile::COPY: return CSWIN_WINDOW_ATTENTION(attn_tile::COPY);
+    case attn_tile::SOFTMAX: return CSWIN_WINDOW_ATTENTION(attn_tile::SOFTMAX);
+    case attn_tile::STAGE: return CSWIN_WINDOW_ATTENTION(attn_tile::STAGE);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CSWIN_WINDOW_ATTENTION
 }

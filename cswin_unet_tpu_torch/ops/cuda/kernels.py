@@ -20,7 +20,9 @@ Kernels (``csrc/``):
                            from the qkv GEMM output with the composition's
                            rounding (``stripe_attention``), or from separate
                            q, k, v with the Pallas kernel's
-                           (``cswin_attention``)
+                           (``cswin_attention``); and the attention alone,
+                           without LePE, with its stubbed modes
+                           (``window_attention``, for the block lab)
   stripe_attention_bwd.cu  the backward of ``stripe_attention``
   carafe.cu                CARAFE kernel prediction, softmax and reassembly
   block_pair.cu            two consecutive dual-branch CSWin blocks in one
@@ -28,6 +30,11 @@ Kernels (``csrc/``):
                            device bodies of layernorm / gemm / attention
   edt.cu                   the exact 1-D squared-EDT min-plus pass along any
                            axis (``edt_pass``)
+  lepe_windows.cu          LePE alone, the depthwise 3x3 on windowed V
+                           (``lepe_windows``, for the block lab)
+  ln_mlp.cu                the MLP half of a block, LN -> fc1 -> activation ->
+                           fc2 -> residual in one launch with the hidden kept
+                           on chip (``ln_mlp``, for the block lab)
 """
 
 from __future__ import annotations
@@ -466,6 +473,32 @@ def _pixel_stride(t: torch.Tensor, name: str) -> int:
     return ps
 
 
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, h_sp: int,
+               w_sp: int, heads: int) -> int:
+    """Check separate q, k, v (B, H, W, cb) bf16 views for the attention
+    kernels and return the pixel stride they share."""
+    B, H, W, cb = q.shape
+    dev = q.device
+    strides = set()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} is {t.dtype}, the kernel takes torch.bfloat16")
+        if tuple(t.shape) != (B, H, W, cb):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{(B, H, W, cb)}")
+        strides.add(_pixel_stride(t, name))
+    if len(strides) != 1:
+        raise ValueError(f"q, k and v must share one pixel stride, got {strides}")
+    if H % h_sp or W % w_sp:
+        raise ValueError(f"bad branch geometry H={H} W={W} window=({h_sp},{w_sp})")
+    _check_head_dim(cb, heads)
+    if B * (H // h_sp) * (W // w_sp) > 2**31 - 1:
+        raise ValueError("too many windows for one launch")
+    return strides.pop()
+
+
 def cswin_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     lepe_weight: torch.Tensor, lepe_bias: torch.Tensor | None, *,
                     h_sp: int, w_sp: int, num_heads: int,
@@ -484,29 +517,13 @@ def cswin_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                             num_heads=num_heads, scale=scale)
     B, H, W, cb = q.shape
     dev = q.device
-    strides = set()
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} is {t.dtype}, the kernel takes torch.bfloat16")
-        if tuple(t.shape) != (B, H, W, cb):
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"{(B, H, W, cb)}")
-        strides.add(_pixel_stride(t, name))
-    if len(strides) != 1:
-        raise ValueError(f"q, k and v must share one pixel stride, got {strides}")
-    if H % h_sp or W % w_sp:
-        raise ValueError(f"bad branch geometry H={H} W={W} window=({h_sp},{w_sp})")
-    _check_head_dim(cb, num_heads)
-    if B * (H // h_sp) * (W // w_sp) > 2**31 - 1:
-        raise ValueError("too many windows for one launch")
+    stride = _check_qkv(q, k, v, h_sp, w_sp, num_heads)
     w9 = lepe_weight.reshape(cb, 9).t().float().contiguous()
     b = (torch.zeros(cb, dtype=torch.float32, device=dev) if lepe_bias is None
          else lepe_bias.float().contiguous())
     out = torch.empty((B, H, W, cb), dtype=torch.bfloat16, device=dev)
     err = library().cswin_cswin_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), strides.pop(), w9.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), stride, w9.data_ptr(),
         b.data_ptr(), out.data_ptr(), B, H, W, cb, num_heads, h_sp, w_sp, scale,
         _stream(dev))
     check(err, "cswin_attention")
@@ -825,9 +842,316 @@ def edt_pass(f: torch.Tensor, axis: int = -1) -> torch.Tensor:
 
 edt_pass.launches = 0
 
+# ---------------------------------------------------------------------------
+# The block lab's kernels: the parts of the block alone (tools/block_lab.py)
+# ---------------------------------------------------------------------------
+
+_ATTENTION_MODES = {"attention": 1, "no_softmax": 2, "copy": 3, "softmax": 4, "stage": 5}
+_ACTIVATIONS = {"gelu": 0, "clamp": 1}
+
+
+def _as_image(t: torch.Tensor, sp_h: int, sp_w: int, name: str) -> torch.Tensor:
+    """A stack of windows (n, L, c) as the image batch (n, sp_h, sp_w, c)
+    whose images are the windows (a view); an image batch (B, H, W, c) as it
+    is."""
+    if t.dim() == 3:
+        if t.shape[1] != sp_h * sp_w:
+            raise ValueError(f"{name}: windows of {t.shape[1]} tokens, expected "
+                             f"{sp_h}x{sp_w}")
+        return t.unflatten(1, (sp_h, sp_w))
+    if t.dim() != 4:
+        raise ValueError(f"{name}: expected (n, L, c) or (B, H, W, c), got "
+                         f"{tuple(t.shape)}")
+    return t
+
+
+def _lepe_taps(taps: torch.Tensor, bias: torch.Tensor | None, c: int, swap: bool,
+               tap_dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """Taps (3, 3, c) and bias (c,) as the kernel reads them: (9, c)
+    tap-major, the tap grid transposed with ``swap``, in ``tap_dtype``."""
+    if tuple(taps.shape) != (3, 3, c):
+        raise ValueError(f"taps have shape {tuple(taps.shape)}, expected (3, 3, {c})")
+    if bias is None:
+        bias = torch.zeros(c, dtype=taps.dtype, device=taps.device)
+    if tuple(bias.shape) != (c,):
+        raise ValueError(f"bias has shape {tuple(bias.shape)}, expected ({c},)")
+    if swap:
+        taps = taps.transpose(0, 1)
+    return taps.reshape(9, c).to(tap_dtype).contiguous(), bias.to(tap_dtype).contiguous()
+
+
+def lepe_windows_plain(v: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor | None,
+                       *, sp_h: int, sp_w: int, swap: bool = False,
+                       taps2: torch.Tensor | None = None,
+                       bias2: torch.Tensor | None = None, n0: int | None = None,
+                       v2: torch.Tensor | None = None, fold: bool = False,
+                       tap_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    img = _as_image(v, sp_h, sp_w, "v")
+    if v2 is not None:
+        img = torch.cat([img, _as_image(v2, sp_h, sp_w, "v2")], -1)
+    B, H, W, c = img.shape
+    win = window_partition(img, sp_h, sp_w).reshape(-1, sp_h, sp_w, c).float()
+    n = win.shape[0]
+    k0, b0 = _lepe_taps(taps, bias, c, swap, tap_dtype)
+    k, b = k0.float().expand(n, 9, c), b0.float().expand(n, c)
+    if taps2 is not None:
+        k1, b1 = _lepe_taps(taps2, bias2, c, False, tap_dtype)
+        second = torch.arange(n, device=v.device) >= n0
+        k = torch.where(second[:, None, None], k1.float(), k0.float())
+        b = torch.where(second[:, None], b1.float(), b0.float())
+    pad = F.pad(win, (0, 0, 1, 1, 1, 1))
+    acc = b[:, None, None, :]
+    for di in range(3):
+        for dj in range(3):
+            acc = acc + pad[:, di:di + sp_h, dj:dj + sp_w] * k[:, di * 3 + dj, None, None, :]
+    if fold:
+        acc = acc[..., :c // 2] + acc[..., c // 2:]
+    out = window_merge(acc.reshape(n, sp_h * sp_w, -1), sp_h, sp_w, H, W).to(v.dtype)
+    return out.reshape(*v.shape[:-1], out.shape[-1])
+
+
+def lepe_windows(v: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor | None, *,
+                 sp_h: int, sp_w: int, swap: bool = False,
+                 taps2: torch.Tensor | None = None, bias2: torch.Tensor | None = None,
+                 n0: int | None = None, v2: torch.Tensor | None = None,
+                 fold: bool = False,
+                 tap_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """LePE alone: the depthwise 3x3 convolution on V inside each
+    ``(sp_h, sp_w)`` window, zero beyond the window's edge.
+
+    ``out[.., i, j, ch] = bias[ch] + Σ_{a,b} taps[a, b, ch] · v[.., i+a-1,
+    j+b-1, ch]``, float32 accumulation, one rounding. v: a stack of windows
+    (n, L, c) or an image batch (B, H, W, c) tiled by windows, bf16 on the
+    GPU, channels contiguous and pixels evenly apart, so it may be the last
+    third of a packed (.., 3c) qkv tensor, read in place. taps: (3, 3, c),
+    bias: (c,) or None, read in ``tap_dtype`` (float32 or bfloat16).
+    ``swap`` transposes the tap grid (a branch computed in transposed image
+    coordinates). ``taps2`` / ``bias2``: a second set, unswapped, for the
+    windows from index ``n0`` on (two branches' windows stacked on the
+    batch). ``v2``: a second source whose channels follow v's (two branches
+    stacked on channels; the taps cover both); ``fold`` adds the two channel
+    halves of the result, ``out[.., :c/2] + out[.., c/2:]``. Returns a new
+    contiguous tensor in v's layout."""
+    if (taps2 is None) != (n0 is None):
+        raise ValueError("taps2 and n0 are given together")
+    if tap_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"tap_dtype {tap_dtype}: float32 or bfloat16")
+    kw = dict(sp_h=sp_h, sp_w=sp_w, swap=swap, taps2=taps2, bias2=bias2, n0=n0, v2=v2,
+              fold=fold, tap_dtype=tap_dtype)
+    if _on_cpu(v):
+        return lepe_windows_plain(v, taps, bias, **kw)
+    dev = v.device
+    views = [_as_image(v, sp_h, sp_w, "v")]
+    if v2 is not None:
+        views.append(_as_image(v2, sp_h, sp_w, "v2"))
+    B, H, W, c1 = views[0].shape
+    strides = []
+    for name, t in zip(("v", "v2"), views):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} is {t.dtype}, the kernel takes torch.bfloat16")
+        if tuple(t.shape[:3]) != (B, H, W):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected ({B}, {H}, "
+                             f"{W}, c)")
+        strides.append(_pixel_stride(t, name))
+        if t.shape[-1] % 8 or strides[-1] % 8 or t.data_ptr() % 16:
+            raise ValueError(f"{name}: channels and pixel stride must be multiples of "
+                             "8 and the data 16-byte aligned")
+    c = sum(t.shape[-1] for t in views)
+    if H % sp_h or W % sp_w or (fold and c % 16):
+        raise ValueError(f"bad geometry H={H} W={W} window=({sp_h},{sp_w}) c={c} "
+                         f"fold={fold}")
+    windows = B * (H // sp_h) * (W // sp_w)
+    if B * H * W > 2**31 - 1:
+        raise ValueError("too many pixels for one launch")
+    for name, t in (("taps", taps), ("bias", bias), ("taps2", taps2), ("bias2", bias2)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    w0, b0 = _lepe_taps(taps, bias, c, swap, tap_dtype)
+    w1, b1 = w0, b0
+    if taps2 is not None:
+        if not 0 <= n0 <= windows:
+            raise ValueError(f"n0={n0} outside the {windows} windows")
+        w1, b1 = _lepe_taps(taps2, bias2, c, False, tap_dtype)
+    c_out = c // 2 if fold else c
+    out = torch.empty((B, H, W, c_out), dtype=torch.bfloat16, device=dev)
+    second = views[1] if v2 is not None else None
+    err = library().cswin_lepe_windows(
+        views[0].data_ptr(), strides[0], _ptr(second), strides[-1], c1, w0.data_ptr(),
+        b0.data_ptr(), w1.data_ptr(), b1.data_ptr(), int(tap_dtype == torch.bfloat16),
+        out.data_ptr(), B, H, W, c, sp_h, sp_w, windows if n0 is None else n0, int(fold),
+        _stream(dev))
+    check(err, "lepe_windows")
+    lepe_windows.launches += 1
+    return out.reshape(*v.shape[:-1], c_out)
+
+
+lepe_windows.launches = 0
+
+
+def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                           heads: int, scale: float, h_sp: int | None = None,
+                           w_sp: int | None = None,
+                           mode: str = "attention") -> torch.Tensor:
+    image = q.dim() == 4
+    qw, kw, vw = ((window_partition(t, h_sp, w_sp) for t in (q, k, v)) if image
+                  else (q, k, v))
+    if mode == "copy":
+        out = (qw + kw) + vw
+    elif mode == "stage":
+        out = (kw.float() + vw.float()).to(q.dtype)
+    else:
+        n, L, C = qw.shape
+        d = C // heads
+        hd = lambda t: t.reshape(n, L, heads, d).permute(0, 2, 1, 3)
+        s = (hd(qw) * scale).float() @ hd(kw).float().transpose(-1, -2)
+        p = (s * 1e-4 if mode == "no_softmax" else torch.softmax(s, dim=-1)).to(q.dtype)
+        if mode == "softmax":  # P's row folded to the head's width
+            out = F.pad(p.float(), (0, -L % d)).reshape(n, heads, L, -1, d).sum(-2)
+        else:
+            out = p.float() @ hd(vw).float()
+        out = out.to(q.dtype).permute(0, 2, 1, 3).reshape(n, L, C)
+    return window_merge(out, h_sp, w_sp, q.shape[1], q.shape[2]) if image else out
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, heads: int,
+                     scale: float, h_sp: int | None = None, w_sp: int | None = None,
+                     mode: str = "attention") -> torch.Tensor:
+    """Stripe-window attention alone, without LePE: per window and head
+    ``bf16(P · v)`` with ``P = bf16(softmax(bf16(q·scale) · kᵀ))``, scores,
+    softmax and P·v in float32.
+
+    q, k, v: stacks of windows (n, L, C), or image batches (B, H, W, C) with
+    the window ``(h_sp, w_sp)`` (1 x W: rows, H x 1: columns); bf16 on the
+    GPU, channels contiguous, pixels one common stride apart (so they may be
+    the thirds of one packed qkv tensor). ``mode``: ``"attention"``;
+    ``"no_softmax"``, the two products with the softmax stubbed by
+    ``P = bf16(s · 1e-4)`` (wrong math, the same shapes); ``"copy"``,
+    ``bf16(bf16(q + k) + v)``, the traffic alone; ``"softmax"``, the first
+    product and the softmax without the second product, P's row folded to
+    the head's width d (``out[i, dd] = bf16(P[i, dd] + P[i, dd + d] + ...)``);
+    ``"stage"``, ``bf16(k + v)`` through the kernel's shared-memory staging of
+    q, k and v. Returns a new contiguous tensor in q's layout."""
+    if mode not in _ATTENTION_MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    if q.dim() not in (3, 4):
+        raise ValueError(f"q: expected (n, L, C) or (B, H, W, C), got {tuple(q.shape)}")
+    if (q.dim() == 4) != (h_sp is not None and w_sp is not None):
+        raise ValueError("h_sp and w_sp are given exactly for image batches (B, H, W, C)")
+    if _on_cpu(q):
+        return window_attention_plain(q, k, v, heads=heads, scale=scale, h_sp=h_sp,
+                                      w_sp=w_sp, mode=mode)
+    qi, ki, vi = q, k, v
+    if q.dim() == 3:  # each window an image of one row
+        qi, ki, vi = (t.unsqueeze(1) for t in (q, k, v))
+        h_sp, w_sp = 1, q.shape[1]
+    B, H, W, cb = qi.shape
+    stride = _check_qkv(qi, ki, vi, h_sp, w_sp, heads)
+    out = torch.empty((B, H, W, cb), dtype=torch.bfloat16, device=q.device)
+    err = library().cswin_window_attention(
+        qi.data_ptr(), ki.data_ptr(), vi.data_ptr(), stride, out.data_ptr(), B, H, W, cb,
+        heads, h_sp, w_sp, scale, _ATTENTION_MODES[mode], _stream(q.device))
+    check(err, "window_attention")
+    window_attention.launches += 1
+    return out.reshape(q.shape)
+
+
+window_attention.launches = 0
+
+
+def _activate(h: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "gelu":
+        return F.gelu(h)
+    return h * (h + 0.5).clamp(0.0, 1.0)
+
+
+def ln_mlp_plain(x: torch.Tensor, norm_w: torch.Tensor | None,
+                 norm_b: torch.Tensor | None, fc1_w: torch.Tensor,
+                 fc1_b: torch.Tensor | None, fc2_w: torch.Tensor | None = None,
+                 fc2_b: torch.Tensor | None = None, *, act: str = "gelu",
+                 ln: bool = True, fold: bool = False, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    C = x.shape[-1]
+    y = layernorm_plain(x, norm_w, norm_b, eps) if ln else x
+    h = y.float() @ fc1_w.to(dt).float().t()
+    if fc1_b is not None:
+        h = h + fc1_b.float()
+    a = _activate(h.to(dt).float(), act)
+    if fold:
+        return a.reshape(*x.shape[:-1], -1, C).sum(-2).to(dt)
+    o = a.to(dt).float() @ fc2_w.to(dt).float().t()
+    if fc2_b is not None:
+        o = o + fc2_b.float()
+    return (x.float() + o.to(dt).float()).to(dt)
+
+
+def ln_mlp(x: torch.Tensor, norm_w: torch.Tensor | None, norm_b: torch.Tensor | None,
+           fc1_w: torch.Tensor, fc1_b: torch.Tensor | None,
+           fc2_w: torch.Tensor | None = None, fc2_b: torch.Tensor | None = None, *,
+           act: str = "gelu", ln: bool = True, fold: bool = False,
+           eps: float = 1e-5) -> torch.Tensor:
+    """The MLP half of a block in one launch, the hidden never written to
+    memory: ``x + fc2(act(fc1(LN(x))))`` over the last axis, rounded to
+    ``x.dtype`` after LN, fc1 (with its bias), the activation and fc2 (with
+    its bias), then after the residual sum.
+
+    x: (..., C); norm_w, norm_b: (C,) float32; fc1_w: (4C, C) and fc2_w:
+    (C, 4C) in the torch Linear layout, in ``x.dtype`` on the GPU; fc1_b
+    (4C,), fc2_b (C,) float32 or None. ``act``: ``"gelu"`` (exact erf) or
+    ``"clamp"`` (``h · min(max(h + 0.5, 0), 1)``, a stand-in without the
+    erf); ``ln=False`` feeds x to fc1 as it is; ``fold=True`` stops after
+    the activation and returns the hidden, unrounded, summed over its four
+    C-wide groups in float32 and rounded once (no fc2, no residual). The
+    kernel is compiled for C = 64 (tiny-224's stage 1); other widths raise
+    on the GPU."""
+    if act not in _ACTIVATIONS:
+        raise ValueError(f"unknown activation {act!r}")
+    if ln and (norm_w is None or norm_b is None):
+        raise ValueError("ln=True needs norm_w and norm_b")
+    if not fold and fc2_w is None:
+        raise ValueError("fc2_w is needed unless fold=True")
+    if _on_cpu(x):
+        return ln_mlp_plain(x, norm_w, norm_b, fc1_w, fc1_b, fc2_w, fc2_b, act=act,
+                            ln=ln, fold=fold, eps=eps)
+    C = x.shape[-1]
+    hidden = fc1_w.shape[0]
+    dev = x.device
+    if C != 64 or hidden != 256:
+        raise ValueError(f"ln_mlp is compiled for C=64 with hidden 256, got C={C}, "
+                         f"hidden={hidden}")
+    _require(x, "x", torch.bfloat16, dev)
+    _require(fc1_w, "fc1_w", torch.bfloat16, dev, (hidden, C))
+    if ln:
+        _require(norm_w, "norm_w", torch.float32, dev, (C,))
+        _require(norm_b, "norm_b", torch.float32, dev, (C,))
+    if fc1_b is not None:
+        _require(fc1_b, "fc1_b", torch.float32, dev, (hidden,))
+    if not fold:
+        _require(fc2_w, "fc2_w", torch.bfloat16, dev, (C, hidden))
+        if fc2_b is not None:
+            _require(fc2_b, "fc2_b", torch.float32, dev, (C,))
+    rows = x.numel() // C
+    if rows < 1 or (rows + 63) // 64 > 2**31 - 1:
+        raise ValueError(f"ln_mlp: {rows} rows")
+    if fc1_w.data_ptr() % 16 or (not fold and fc2_w.data_ptr() % 16):
+        raise ValueError("ln_mlp needs 16-byte aligned weights")
+    out = torch.empty_like(x)
+    err = library().cswin_ln_mlp(
+        x.data_ptr(), _ptr(norm_w if ln else None), _ptr(norm_b if ln else None),
+        fc1_w.data_ptr(), _ptr(fc1_b), _ptr(None if fold else fc2_w),
+        _ptr(None if fold else fc2_b), out.data_ptr(), rows, C, hidden, eps,
+        _ACTIVATIONS[act], int(ln), int(fold), _stream(dev))
+    check(err, "ln_mlp")
+    ln_mlp.launches += 1
+    return out
+
+
+ln_mlp.launches = 0
+
 KERNELS = (layernorm, gemm, stripe_attention, carafe_reassemble, layernorm_bwd,
            gemm_dgrad, gemm_wgrad, stripe_attention_bwd, cswin_attention, edt_pass,
-           block_pair)
+           block_pair, lepe_windows, window_attention, ln_mlp)
 
 
 def reset_launch_counts() -> None:

@@ -359,3 +359,112 @@ def test_volume_metrics_device_on_the_card(dev):
     assert got.device.type == "cuda" and K.edt_pass.launches == before + 5 * 2 * 3
     np.testing.assert_allclose(got.cpu().numpy(), np.array(volume_metrics(pred, label, 6)),
                                rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("sp_h,sp_w,c", [(7, 14, 128), (2, 28, 64), (1, 56, 32), (7, 7, 512)])
+def test_lepe_windows(dev, sp_h, sp_w, c):
+    """LePE alone at the four branch geometries: windows and image layout,
+    transposed taps, V in place from packed qkv, two tap sets, two sources
+    stacked on channels with the fold, bf16 taps."""
+    rng = np.random.default_rng(17)
+    n, L = 6, sp_h * sp_w
+    qkv = _rnd(rng, dev, n, L, 3 * c).bfloat16()
+    v = qkv[..., 2 * c:]
+    taps, bias = _rnd(rng, dev, 3, 3, c, sc=0.3), _rnd(rng, dev, c, sc=0.1)
+    taps2, bias2 = _rnd(rng, dev, 3, 3, c, sc=0.3), _rnd(rng, dev, c, sc=0.1)
+    geo = dict(sp_h=sp_h, sp_w=sp_w)
+    img = _rnd(rng, dev, 2, 2 * sp_h, 3 * sp_w, c).bfloat16()
+    wide = torch.cat([taps, taps2], -1)
+    cases = [(v.contiguous(), taps, bias, {}), (v, taps, bias, dict(swap=True)),
+             (img, taps, None, {}), (v, taps, bias, dict(taps2=taps2, bias2=bias2, n0=4)),
+             (v, taps, bias, dict(tap_dtype=torch.bfloat16)),
+             (v, wide, None, dict(v2=qkv[..., :c])),
+             (v, wide, None, dict(v2=qkv[..., :c], fold=True))]
+    for src, t, b, kw in cases:
+        before = K.lepe_windows.launches
+        got = K.lepe_windows(src, t, b, **geo, **kw)
+        assert K.lepe_windows.launches == before + 1
+        want = K.lepe_windows_plain(src, t, b, **geo, **kw)
+        assert got.shape == want.shape and got.is_contiguous(), kw
+        assert _rel_l2(got.float(), want.float()) <= 0.02, kw
+    with pytest.raises(TypeError):
+        K.lepe_windows(v.float(), taps, bias, **geo)
+
+
+@pytest.mark.parametrize("mode", ["attention", "no_softmax", "copy", "softmax", "stage"])
+@pytest.mark.parametrize("shape,heads,window", [
+    ((3, 56, 56, 32), 1, (1, 56)), ((3, 56, 56, 32), 1, (56, 1)),
+    ((3, 14, 14, 128), 4, (7, 14)), ((8, 98, 128), 4, None), ((5, 49, 96), 4, None)])
+def test_window_attention(dev, mode, shape, heads, window):
+    """Attention alone on rows, columns and 7x14 windows of an image batch
+    and on stacked windows (head dims 32 and 24), q, k, v as slices of one
+    packed tensor, in each mode."""
+    rng = np.random.default_rng(18)
+    C = shape[-1]
+    packed = _rnd(rng, dev, *shape[:-1], 3 * C).bfloat16()
+    q, k, v = (packed[..., i * C:(i + 1) * C] for i in range(3))
+    kw = dict(heads=heads, scale=(C // heads) ** -0.5, mode=mode)
+    if window is not None:
+        kw.update(h_sp=window[0], w_sp=window[1])
+    before = K.window_attention.launches
+    got = K.window_attention(q, k, v, **kw)
+    assert K.window_attention.launches == before + 1
+    want = K.window_attention_plain(q, k, v, **kw)
+    assert got.shape == want.shape and got.is_contiguous()
+    assert _rel_l2(got.float(), want.float()) <= 0.02
+    with pytest.raises(ValueError):  # q, k, v must share one pixel stride
+        K.window_attention(q, k.contiguous(), v, **kw)
+
+
+@pytest.mark.parametrize("act,ln,fold", [("gelu", True, False), ("clamp", True, False),
+                                         ("gelu", False, False), ("gelu", False, True),
+                                         ("clamp", True, True)])
+@pytest.mark.parametrize("rows", [64 * 7, 1000])
+def test_ln_mlp(dev, act, ln, fold, rows):
+    """The one-launch MLP half at C = 64 in each mode, on a row count that
+    fills its 64-row tiles and on one that does not; against its plain
+    version and, in the block's own mode, against the chain's three
+    launches."""
+    rng = np.random.default_rng(19)
+    C = 64
+    x = _rnd(rng, dev, rows, C).bfloat16()
+    nw, nb = _rnd(rng, dev, C, sc=0.3, off=1.0), _rnd(rng, dev, C, sc=0.1)
+    w1 = _rnd(rng, dev, 4 * C, C, sc=C ** -0.5).bfloat16()
+    w2 = _rnd(rng, dev, C, 4 * C, sc=(4 * C) ** -0.5).bfloat16()
+    b1, b2 = _rnd(rng, dev, 4 * C, sc=0.1), _rnd(rng, dev, C, sc=0.1)
+    args = (nw, nb, w1, b1) + (() if fold else (w2, b2))
+    kw = dict(act=act, ln=ln, fold=fold)
+    before = K.ln_mlp.launches
+    got = K.ln_mlp(x, *args, **kw)
+    assert K.ln_mlp.launches == before + 1
+    assert _rel_l2(got.float(), K.ln_mlp_plain(x, *args, **kw).float()) <= 0.02
+    if (act, ln, fold) == ("gelu", True, False):
+        h = K.gemm(K.layernorm(x, nw, nb), w1, b1, epilogue="gelu")
+        chain = K.gemm(h, w2, b2, residual=x, epilogue="residual")
+        assert _rel_l2(got.float(), chain.float()) <= 5e-3
+
+
+def test_ln_mlp_refuses_other_widths(dev):
+    x = torch.zeros(8, 128, dtype=torch.bfloat16, device=dev)
+    w1 = torch.zeros(512, 128, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        K.ln_mlp(x, None, None, w1, None, ln=False, fold=True)
+
+
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_parts_add_up_to_stripe_attention(dev, stage):
+    """``window_attention`` + ``lepe_windows`` on the thirds of one packed
+    qkv against ``stripe_attention`` on it, both branches of the stage,
+    within 2 bf16 ulps of the output's scale."""
+    from cswin_unet_tpu_torch.tools import block_lab
+
+    g = block_lab.STAGES[stage]
+    H, W, C, split = g["H"], g["W"], g["C"], g["split"]
+    rng = np.random.default_rng(20)
+    qkv = _rnd(rng, dev, 4, H, W, 3 * C).bfloat16()
+    for off, (sp_h, sp_w) in ((0, (H, split)), (C // 2, (split, W))):
+        taps, bias = _rnd(rng, dev, 3, 3, C // 2, sc=0.3), _rnd(rng, dev, C // 2, sc=0.1)
+        att, lepe, whole = block_lab.parts_vs_whole(
+            qkv, taps, bias, sp_h=sp_h, sp_w=sp_w, heads=g["heads"] // 2,
+            scale=(C // g["heads"]) ** -0.5, ch_off=off)
+        block_lab.check_parts_vs_whole(att, lepe, whole)
