@@ -27,7 +27,9 @@ Phases, each of which raises on failure (the process then exits non-zero):
      ``block_pair`` (two blocks in one cooperative launch) at each pairable
      stage (2 and 3), B = 32, against ``block_pair_plain`` and against two
      single block chains, which it must equal bit for bit; ``ptxas`` must
-     report no spills for it.
+     report no spills for it. ``tools/probe_chain.py``'s tensors (the chain,
+     its training backward, the ``pallas`` route's kernel, the pair) equal
+     the digests of the parent commit's build (``probe_reference.json``).
      Each kernel's line in the JSON also carries ``bound_ms`` (the larger
      of bytes over 3.35 TB/s and operations over the peak of their type)
      and ``library_ms`` (one PyTorch call computing the same function,
@@ -35,7 +37,9 @@ Phases, each of which raises on failure (the process then exits non-zero):
      The ``[pair]`` A/B: two block chains against one ``block_pair`` at
      stages 2 and 3, B = 32 and 128, CUDA events around back-to-back calls
      in interleaved rounds of both orders (medians and min-max spread) and
-     device-busy time from ``torch.profiler``; a stage pays where the pair
+     device-busy time from ``torch.profiler`` where its record count of the
+     port's kernels matches the launch counters (else ``busy unread``); a
+     stage pays where the pair
      wins at B = 32 by more than the spread in both orders, which is
      printed beside ``cswin_block.PAIR_GEOMETRIES``.
   4. Modules: ``CSWinBlockFn`` forward and backward at stages 1, 2 and 3
@@ -85,10 +89,10 @@ Phases, each of which raises on failure (the process then exits non-zero):
      trained).
   8. The block lab (``cswin_unet_tpu_torch/tools/block_lab.py``), the parts
      of the block as stand-alone kernels: ``lepe_windows``,
-     ``window_attention`` and ``ln_mlp`` against their plain versions on the
-     lab's own cases at full shapes, B = 128 (LePE at the three branch geometries with
-     the tap grid as given and transposed, V in place from packed qkv, two
-     tap sets, two sources stacked on channels with the fold; attention on
+     ``window_attention``, ``ln_mlp`` and ``block_one`` against their plain
+     versions on the lab's own cases at full shapes, B = 128 (LePE at the
+     three branch geometries with the tap grid as given and transposed, V
+     in place from packed qkv, two tap sets, two sources stacked on channels with the fold; attention on
      rows and columns of (128, 56, 56, 32) and on (512, 98, 128) with 4
      heads, in each mode; the MLP half on (128, 56, 56, 64) in each mode),
      relative L2 <= 0.02, each with its bound and, as yardsticks timed here
@@ -99,9 +103,20 @@ Phases, each of which raises on failure (the process then exits non-zero):
      identities tie the parts to the whole at stages 1-3 on one packed qkv:
      ``window_attention`` + ``lepe_windows`` within 2 bf16 ulps of
      ``stripe_attention``, and ``ln_mlp`` within relative L2 5e-3 of
-     ``layernorm`` -> ``gemm`` (GELU) -> ``gemm`` (residual). Then
-     ``block_lab.main`` once per subcommand at B = 128, its output shown,
-     with the launches of every kernel exactly as its cases imply.
+     ``layernorm`` -> ``gemm`` (GELU) -> ``gemm`` (residual). ``block_one``
+     (the whole block in one cooperative launch) with every part on at
+     stages 1-4, B = 128, against its plain version, timed beside the block
+     chain on the same inputs (``chain_ms``), and equal to the chain bit for
+     bit at stages 1-3 and at the last stage's single branch; with weights
+     at 0.3 (where the residual does not hide the parts), every ``ablate``
+     variant at stages 1-4 and every ``cum`` level at stage 1 within
+     relative L2 0.02 of its plain version, each variant moving the output
+     from ``full`` and each level from the one before by more than that
+     (the last stage's ``no-transpose`` is ``full``, bit for bit). Then
+     ``block_lab.main`` once per subcommand at B = 128, its output shown
+     (``ablate``: eight variants at stages 1-4 with their deltas against
+     ``full``; ``cum``: eight levels at stage 1 with their deltas), with the
+     launches of every kernel exactly as its cases imply.
   9. One JSON line with the per-kernel results, then the contract line
      ``{"ok": true, "device": {...}}``.
 
@@ -116,6 +131,7 @@ import gzip
 import json
 import logging
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -156,6 +172,8 @@ SOURCES = {
     "window_attention": ("cswin_unet_tpu_torch/ops/cuda/csrc/stripe_attention.cu",
                          "scripts/exp_attn3.py:59"),
     "ln_mlp": ("cswin_unet_tpu_torch/ops/cuda/csrc/ln_mlp.cu", "scripts/exp_pack.py:60"),
+    "block_one": ("cswin_unet_tpu_torch/ops/cuda/csrc/block_one.cu",
+                  "scripts/ablate_block.py:181; scripts/exp_cum.py:137"),
 }
 LAB_BATCH = 128   # the TPU experiments' batch
 LAB_REPS = 10  # as block_lab.REPS, so that both readings of a case use one method
@@ -169,6 +187,15 @@ PER["edt_pass"] = "volume_metrics_device call, 9 classes, (48, 512, 512)"
 PER["block_pair"] = "32-slice serving forward, pairing forced on"
 PER.update(dict.fromkeys(("lepe_windows", "window_attention", "ln_mlp"),
                          f"the [kernel] cases of the lab phase, once each, B = {LAB_BATCH}"))
+PER["block_one"] = (f"the whole block at stages 1-4 (every part on), once each, "
+                    f"B = {LAB_BATCH}; chain_ms the block chain on the same four")
+# The kernels' __global__ functions (each wrapper launches one of them per
+# call; all in anonymous namespaces), as the profiler names them, demangled
+# or not: what device_busy_ms counts.
+KERNEL_SYMBOLS = re.compile(
+    r"(?:\(anonymous namespace\)::|_GLOBAL__N_\w*?\d)(?:layernorm|layernorm_bwd|gemm|"
+    r"wgrad|stripe_attention|stripe_attention_bwd|carafe|edt_pass|block_pair|lepe_windows|"
+    r"ln_mlp|block_one)_kernel")
 # H100 SXM peaks from NVIDIA's datasheet: memory, bf16 tensor cores,
 # float32 outside them.
 HBM_BPS, TC_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -510,18 +537,30 @@ def compare_block_pair(tally: KernelTally, g: dict, B: int, rng, dev) -> None:
 def device_busy_ms(fn, reps: int) -> float | None:
     """Device-busy ms per call: the union of the device intervals that
     ``torch.profiler`` records over ``reps`` back-to-back calls, over
-    ``reps``; None if the profiler records no device activity."""
+    ``reps``. The profiler can lose records, so its count of the port's
+    kernels (``KERNEL_SYMBOLS``) is held to the launch counters' count over
+    the same calls: where they differ it prints ``busy unread (records r of
+    n)`` and returns None, never a figure built from lost records; None too
+    if it records no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+
     fn()
     torch.cuda.synchronize()
+    before = sum(K.launch_counts().values())
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    launched = sum(K.launch_counts().values()) - before
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    records = sum(1 for e in events if KERNEL_SYMBOLS.search(e.name))
+    if records != launched:
+        print(f"busy unread (records {records} of {launched})", flush=True)
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     if not spans:
         return None
     busy, (lo, hi) = 0.0, spans[0]
@@ -587,6 +626,23 @@ def pair_ab(cfg, dev, batches=(SERVE_BATCH, 128), rounds: int = 8, reps: int = 1
     print(f"[pair] measured routing (wins at B={SERVE_BATCH}): {sorted(wins)}; "
           f"cswin_block.PAIR_GEOMETRIES: {sorted(CB.PAIR_GEOMETRIES)}; agree: "
           f"{'yes' if wins == set(CB.PAIR_GEOMETRIES) else 'no'}", flush=True)
+
+
+def probe_vs_parent(dev) -> None:
+    """``tools/probe_chain.py``'s tensors (the block chain, its training
+    forward and backward, the ``pallas`` route's kernel, the pair) from this
+    build, held bit for bit to the digests of the parent commit's build
+    (``probe_chain.REFERENCE``): the refactor of the shared device bodies
+    changed no result. A change meant to move these bits (a redesign of
+    ``stripe_attention`` or ``gemm``, say) regenerates the file from its own
+    build (``probe_chain.py --root . --digest <file>``) once its results are
+    held to the plain versions, so that the next change is held to it."""
+    from cswin_unet_tpu_torch.tools import probe_chain
+
+    ok, report = probe_chain.check(probe_chain.digests(probe_chain.probe(dev)))
+    print(f"[probe] chain, pallas route and pair vs the parent's build: {report} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    require(ok, f"probe_chain: {report}")
 
 
 def compare_backward_kernels(cfg, dev, B: int, tally: KernelTally) -> None:
@@ -1189,7 +1245,6 @@ def train_run(cfg, dev, workdir: str) -> tuple[dict[str, int], str, str]:
     synthetic slices; checks launch counts, log lines and the checkpoint,
     then serves one volume from ``epoch_1.npz``."""
     import argparse
-    import re
 
     import torch
 
@@ -1358,8 +1413,6 @@ class EvalLog(logging.Handler):
 
 def class_means(lines: list[str]) -> np.ndarray:
     """(dice, hd95) per class from the 'Mean class' log lines."""
-    import re
-
     rows = [m.groups() for m in map(re.compile(
         r"^Mean class \d+ mean_dice (\S+) mean_hd95 (\S+)$").match, lines) if m]
     return np.array(rows, dtype=np.float64)
@@ -1484,11 +1537,13 @@ def eval_run(cfg, dev, ck: str) -> dict[str, int]:
 # ---------------------------------------------------------------------------
 
 def compare_lab(dev, tally: KernelTally) -> None:
-    """``lepe_windows``, ``window_attention`` and ``ln_mlp`` against their
-    plain versions at the lab's full shapes: the lab's own cases
-    (``block_lab.Case``), each once in the tally, with the library yardsticks
-    built from the cases' inputs; then the launch counts the cases imply (one
-    check, one warm-up and 5 x ``LAB_REPS`` timed calls each)."""
+    """``lepe_windows``, ``window_attention``, ``ln_mlp`` and ``block_one``
+    (every part on at stages 1-4) against their plain versions at the lab's full shapes: the lab's own
+    cases (``block_lab.Case``), each once in the tally, with the library
+    yardsticks built from the cases' inputs; then the launch counts the
+    cases imply (one check, one warm-up and 5 x ``LAB_REPS`` timed calls
+    each), and the blocks' chain on the same inputs beside them
+    (``chain_ms``, the same four cases as ``block_one``'s ms)."""
     import torch
     import torch.nn.functional as F
 
@@ -1536,7 +1591,9 @@ def compare_lab(dev, tally: KernelTally) -> None:
                 for act, ln, fold in (("gelu", True, False), ("clamp", True, False),
                                       ("gelu", False, False), ("gelu", False, True),
                                       ("clamp", False, True))])
-    n_cases = dict.fromkeys(("lepe_windows", "window_attention", "ln_mlp"), 0)
+    cases += [c for c in L.ablate_cases(inp, LAB_BATCH, (1, 2, 3, 4))
+              if c.args["variant"] == "full"]
+    n_cases = dict.fromkeys(("lepe_windows", "window_attention", "ln_mlp", "block_one"), 0)
     K.reset_launch_counts()
     for c in cases:
         (name, per_run), = c.launches.items()
@@ -1554,7 +1611,7 @@ def compare_lab(dev, tally: KernelTally) -> None:
             nchw = time_ms(conv2d(**c.args, nchw=True), reps=LAB_REPS, primed=True)
             print(f"[kernel] lepe_windows {c.name}: F.conv2d on a contiguous NCHW copy "
                   f"library_nchw_ms={nchw:.4f}", flush=True)
-    require(n_cases == dict(lepe_windows=10, window_attention=15, ln_mlp=5),
+    require(n_cases == dict(lepe_windows=10, window_attention=15, ln_mlp=5, block_one=4),
             f"lab kernel cases: {n_cases}")
     chain, = (c for c in L.mlp_cases(inp, LAB_BATCH, (1,)) if c.launches.get("gemm"))
     chain_ms = time_ms(chain.run, reps=LAB_REPS, primed=True)
@@ -1570,11 +1627,33 @@ def compare_lab(dev, tally: KernelTally) -> None:
     print(f"[lab] launches of the [kernel] cases {got} expected {want}", flush=True)
     require(got == want, f"lab kernel cases: launches {got} != {want}")
 
+    from cswin_unet_tpu_torch.ops.cuda.cswin_block import fused_cswin_block
+
+    chain_total = 0.0
+    for c in cases:
+        if "block_one" not in c.launches:
+            continue
+        g = L.STAGES[c.args["stage"]]
+        x1, p1 = L.script_block(c.args["stage"], LAB_BATCH, dev)
+        kw = dict(heads=g["heads"], split=g["split"], scale=(g["C"] // g["heads"]) ** -0.5,
+                  last_stage=g["last"])
+        ms = time_ms(lambda: fused_cswin_block(x1, p1, **kw), reps=LAB_REPS, primed=True)
+        chain_total += ms
+        print(f"[kernel] block_one {c.name}: the block chain's launches on the same inputs "
+              f"chain_ms={ms:.4f}", flush=True)
+    tally.rows["block_one"]["chain_ms"] = chain_total
+
 
 def lab_identities(dev) -> None:
     """The parts against the whole on the same inputs, stages 1-3, B = 128:
     both branches' ``window_attention`` + ``lepe_windows`` on the thirds of
-    one packed qkv within 2 bf16 ulps of ``stripe_attention``; at stage 1
+    one packed qkv within 2 bf16 ulps of ``stripe_attention``; ``block_one``
+    with every part on equal to one block chain bit for bit at stages 1-4
+    (the last stage's single branch too), weights at scale 0.3; at that
+    scale each ``ablate`` variant and ``cum`` level of ``block_one`` within
+    ``TOL`` of its plain version and moving the output by more than ``TOL``
+    (a switch that did nothing would fail here; at the scripts' 0.05 the
+    residual hides some parts, stage 1's LePE to 0.013); at stage 1
     ``ln_mlp`` within relative L2 5e-3 of the chain's second half."""
     import torch
 
@@ -1598,6 +1677,38 @@ def lab_identities(dev) -> None:
                 raise SmokeFailure(f"stage {st} window {sp_h}x{sp_w}: {e}") from e
             print(f"[lab] identity stage{st} ({LAB_BATCH},{H},{W},{3 * C}) window "
                   f"{sp_h}x{sp_w}: window_attention + lepe_windows {txt} ok", flush=True)
+    from cswin_unet_tpu_torch.ops.cuda.cswin_block import fused_cswin_block
+
+    for st in (1, 2, 3, 4):  # the one-block kernel with every part on is the chain
+        g = L.STAGES[st]
+        x, p = L.script_block(st, LAB_BATCH, dev, scale=0.3)
+        kw = dict(heads=g["heads"], split=g["split"], scale=(g["C"] // g["heads"]) ** -0.5,
+                  last_stage=g["last"])
+        one, chain = K.block_one(x, p, **kw), fused_cswin_block(x, p, **kw)
+        torch.cuda.synchronize()
+        txt, ok, _ = judge(f"block_one vs chain stage {st}", one, chain, "exact")
+        print(f"[lab] identity stage{st} {tuple(x.shape)}: block_one (every part on) vs "
+              f"the {'single-branch ' if g['last'] else ''}block chain {txt}; grid "
+              f"{K.block_one.grid} {'ok' if ok else 'FAIL'}", flush=True)
+        require(ok, f"block_one vs the block chain at stage {st}: {txt}")
+        steps = [("variant", v) for v in K.BLOCK_VARIANTS if v != "full"]
+        steps += [("level", lv) for lv in range(K.CUM_LEVELS)] if st == 1 else []
+        before = "full"
+        for key, val in steps:
+            got = K.block_one(x, p, **kw, **{key: val})
+            want = K.block_one_plain(x, p, **kw, **{key: val})
+            torch.cuda.synchronize()
+            err, moved = rel_l2(got.float(), want.float()), rel_l2(got.float(), one.float())
+            same = g["last"] and val == "no-transpose"  # no vertical branch to window
+            ok = (err <= TOL and (bool(torch.equal(got, one)) if same else moved > TOL)
+                  and bool(torch.isfinite(got.float()).all()))
+            print(f"[lab] identity stage{st} block_one {key} {val}: rel_l2={err:.3e} vs plain, "
+                  f"moves the output {moved:.3e} from {before} "
+                  f"{'(equal to full) ' if same else ''}{'ok' if ok else 'FAIL'}", flush=True)
+            require(ok, f"block_one {key} {val} at stage {st}: rel_l2 {err:.3e}, moves "
+                        f"{moved:.3e}")
+            if key == "level":
+                one, before = got, f"level {val}"
     g = L.STAGES[1]
     x = inp.bf16(LAB_BATCH, g["H"], g["W"], g["C"])
     p = L.stage1_params(inp, g["C"])
@@ -1639,7 +1750,8 @@ def lab_run() -> dict[str, int]:
     print(f"[lab] {len(rows)} cases over {len(block_lab.SUBCOMMANDS)} subcommands; "
           f"launches {counts} expected {want}", flush=True)
     require(counts == want, f"lab launches {counts} != implied by its cases {want}")
-    require(all(counts[k] > 0 for k in ("lepe_windows", "window_attention", "ln_mlp")),
+    require(all(counts[k] > 0 for k in ("lepe_windows", "window_attention", "ln_mlp",
+                                        "block_one")),
             f"the lab did not launch its kernels: {counts}")
     return counts
 
@@ -1648,8 +1760,6 @@ def ptxas_spills(log: str, entry: str) -> list[tuple[str, int, int]]:
     """(entry, spill store bytes, spill load bytes) from nvcc's ``-Xptxas
     -v`` output, for every compiled entry whose mangled name holds
     ``entry``."""
-    import re
-
     found, current = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -1714,8 +1824,11 @@ def main() -> int:
               flush=True)
         require(bool(spills) and all(st == ld == 0 for _, st, ld in spills),
                 f"block_pair: ptxas reports spills {spills}")
+        print(f"[build] block_one (entry, spill stores, spill loads): "
+              f"{ptxas_spills(build.build_log, 'block_one_kernel')}", flush=True)
 
     tally = compare_kernels(cfg, dev, SERVE_BATCH)
+    probe_vs_parent(dev)
     compare_backward_kernels(cfg, dev, TRAIN_BATCH, tally)
     compare_edt(dev, tally)
     pair_ab(cfg, dev)

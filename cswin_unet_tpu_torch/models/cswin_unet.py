@@ -38,8 +38,13 @@ through their kernel-forward / composition-vjp Functions. Drop-path
 (stochastic depth) follows the reference schedule ``linspace(0, rate,
 sum(depth))``, shared by encoder and decoder: in train mode each block
 draws per-sample keep masks / (1 − p) for its attention and MLP branches
-from the ``generator`` passed to ``forward``. Dropout rates are 0 in every
-config and are not modelled.
+from the ``generator`` passed to ``forward``. With ``use_checkpoint`` (the
+config's ``TRAIN.USE_CHECKPOINT``, the JAX package's ``nn.remat`` of each
+block) a block keeps no activations for the backward and runs its forward
+again there (``torch.utils.checkpoint``); its drop-path multipliers are
+drawn before, outside the recomputed region, so both runs use the same
+draws. Dropout rates are 0 in every config and are not modelled
+(``models.build_model`` refuses another rate).
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.carafe import carafe, carafe_with_classifier
 from ..ops.cuda.carafe_tail import carafe_tail, carafe_tail_argmax, carafe_up
@@ -116,6 +122,7 @@ class CSWinBlock(nn.Module):
         self.last = last_stage or reso == split_size
         self.impl = impl
         self.drop_path = 0.0
+        self.use_checkpoint = False
         self.scale = qk_scale if qk_scale is not None else (dim // num_heads) ** -0.5
         self.norm1 = nn.LayerNorm(dim)
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
@@ -151,9 +158,14 @@ class CSWinBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        p = self.block_params()
         dps = (self.drop_path_multipliers(x.shape[0], generator, x.device)
                if self.training else None)
+        if self.use_checkpoint and torch.is_grad_enabled():
+            return checkpoint(self._block, x, dps, use_reentrant=False)
+        return self._block(x, dps)
+
+    def _block(self, x: torch.Tensor, dps) -> torch.Tensor:
+        p = self.block_params()
         kw = dict(heads=self.num_heads, split=self.split_size, last_stage=self.last,
                   scale=self.scale, dps=dps)
         if self.impl == "pallas":
@@ -207,7 +219,8 @@ class CSWinUNet(nn.Module):
                  num_heads: Sequence[int] = (2, 4, 8, 16),
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: float | None = None, drop_path_rate: float = 0.0,
-                 dtype: torch.dtype = torch.bfloat16, impl: str = "fused"):
+                 dtype: torch.dtype = torch.bfloat16, impl: str = "fused",
+                 use_checkpoint: bool = False):
         super().__init__()
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
@@ -250,6 +263,7 @@ class CSWinUNet(nn.Module):
             for prefix in ("stage", "stage_up"):
                 for i, blk in enumerate(getattr(self, f"{prefix}{s + 1}")):
                     blk.drop_path = float(dpr[offs[s] + i])
+                    blk.use_checkpoint = use_checkpoint
 
     def _run_stage(self, blocks: nn.ModuleList, x: torch.Tensor,
                    generator: torch.Generator | None) -> torch.Tensor:

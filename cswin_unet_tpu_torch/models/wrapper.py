@@ -49,7 +49,14 @@ def build_model(config, img_size: int | None = None, num_classes: int = 9, *,
     the route; by default the config does, as the JAX ``build_model`` does
     (``cswin_unet_tpu/models/wrapper.py:45-49``): ``USE_PALLAS_ATTENTION``
     False gives ``plain``, ``ATTN_IMPL`` fused / pallas / xla gives fused /
-    pallas / plain."""
+    pallas / plain. ``TRAIN.USE_CHECKPOINT`` recomputes each block's forward
+    in the backward. ``MODEL.DROP_RATE`` must be 0: the port has no dropout
+    (every config has 0)."""
+    if config.MODEL.DROP_RATE:
+        raise NotImplementedError(
+            f"MODEL.DROP_RATE={config.MODEL.DROP_RATE}: dropout is not ported (the JAX "
+            "model applies it after the patch embedding and in each block's MLP, "
+            "cswin_unet_tpu/models/cswin_unet.py:415,490)")
     cs = config.MODEL.CSWIN
     if dtype is None:
         dtype = _DTYPES[config.TPU.COMPUTE_DTYPE]
@@ -71,6 +78,7 @@ def build_model(config, img_size: int | None = None, num_classes: int = 9, *,
             drop_path_rate=config.MODEL.DROP_PATH_RATE if train else 0.0,
             dtype=dtype,
             impl=impl,
+            use_checkpoint=bool(config.TRAIN.USE_CHECKPOINT),
         )
         model = CSwinUnet(backbone)
     model.to_empty(device="cpu")

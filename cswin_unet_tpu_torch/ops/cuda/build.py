@@ -41,6 +41,8 @@ _SIGNATURES = {
     "cswin_carafe": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "cswin_edt_pass": (_P, _P, _LL, _I, _LL, _P),
     "cswin_block_pair": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P),
+    "cswin_block_one": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _P,
+                        _P),
     "cswin_lepe_windows": (_P, _LL, _P, _LL, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I,
                            _I, _I, _I, _I, _I, _P),
     "cswin_window_attention": (_P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I, _F,

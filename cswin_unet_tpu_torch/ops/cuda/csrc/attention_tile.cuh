@@ -21,6 +21,12 @@
 //               j = dd, dd + D, ...), no second product
 //   STAGE       the staging alone: q, k, v laid out in shared memory as the
 //               products want them, then out = bf16(k + v) read back from there
+// and the block's attention forms with one part switched off (block_one.cu),
+// where the form of P and the LePE switch are orthogonal:
+//   SCALE          P = bf16(s · (1/L)) in place of the softmax, LePE as FULL
+//   SCALE_NO_LEPE  the same without LePE, one rounding of the output
+//   VALUE          no attention: out = v + LePE, rounded as FULL (q and k
+//                  are not staged)
 #pragma once
 
 #include "common.cuh"
@@ -29,7 +35,18 @@ namespace attn_tile {
 
 constexpr int WARPS = 4;
 
-enum Mode { FULL = 0, NO_LEPE = 1, NO_SOFTMAX = 2, COPY = 3, SOFTMAX = 4, STAGE = 5 };
+enum Mode {
+  FULL = 0, NO_LEPE = 1, NO_SOFTMAX = 2, COPY = 3, SOFTMAX = 4, STAGE = 5,
+  SCALE = 6, SCALE_NO_LEPE = 7, VALUE = 8
+};
+
+// Whether a mode adds LePE to its output, and whether it runs the products.
+__host__ __device__ constexpr bool with_lepe(int mode) {
+  return mode == FULL || mode == SCALE || mode == VALUE;
+}
+__host__ __device__ constexpr bool attends(int mode) {
+  return mode != VALUE;
+}
 
 template <int D>
 constexpr size_t smem_bytes(int L) {
@@ -41,9 +58,9 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 
 // q, k, v point at channel 0 of the branch; pixel p of each starts at
 // p * in_ps, of the output at p * out_ps. TW: type of the LePE taps (9, cb)
-// and bias (cb,), unread outside FULL. PALLAS: the epilogue's rounding in
-// FULL. win walks the batch's windows (image-major, then window rows, then
-// window columns).
+// and bias (cb,), unread by the modes without LePE. PALLAS: the epilogue's
+// rounding where LePE is added. win walks the batch's windows (image-major,
+// then window rows, then window columns).
 template <int D, typename TW, bool PALLAS, int MODE = FULL>
 __device__ __forceinline__ void tile(const bf16* __restrict__ qp,
                                      const bf16* __restrict__ kp,
@@ -70,8 +87,10 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ qp,
     const int t = i / D, dd = i % D;
     const int y = row0 + t / w_sp, x = col0 + t % w_sp;
     const size_t p = (((size_t)b * H + y) * W + x) * in_ps + hc + dd;
-    Qs[t * LD + dd] = round_bf16(bf2f(qp[p]) * scale);
-    Ks[t * LD + dd] = bf2f(kp[p]);
+    if constexpr (attends(MODE)) {
+      Qs[t * LD + dd] = round_bf16(bf2f(qp[p]) * scale);
+      Ks[t * LD + dd] = bf2f(kp[p]);
+    }
     Vs[t * LD + dd] = bf2f(vp[p]);
   }
   __syncthreads();
@@ -87,32 +106,37 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ qp,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* P = Ps + warp * L;
   for (int i = warp; i < L; i += WARPS) {
-    float q[D];
+    if constexpr (attends(MODE)) {
+      float q[D];
 #pragma unroll
-    for (int dd = 0; dd < D; ++dd) q[dd] = Qs[i * LD + dd];
-    float mx = -INFINITY;
-    for (int j = lane; j < L; j += 32) {
-      const float* kr = Ks + j * LD;
-      float s = 0.f;
-#pragma unroll
-      for (int dd = 0; dd < D; ++dd) s += q[dd] * kr[dd];
-      P[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    if constexpr (MODE == NO_SOFTMAX) {
-      for (int j = lane; j < L; j += 32) P[j] = round_bf16(P[j] * 1e-4f);
-    } else {
-      mx = warp_max(mx);
-      float sum = 0.f;
+      for (int dd = 0; dd < D; ++dd) q[dd] = Qs[i * LD + dd];
+      float mx = -INFINITY;
       for (int j = lane; j < L; j += 32) {
-        const float e = expf(P[j] - mx);
-        P[j] = e;
-        sum += e;
+        const float* kr = Ks + j * LD;
+        float s = 0.f;
+#pragma unroll
+        for (int dd = 0; dd < D; ++dd) s += q[dd] * kr[dd];
+        P[j] = s;
+        mx = fmaxf(mx, s);
       }
-      sum = warp_sum(sum);
-      for (int j = lane; j < L; j += 32) P[j] = round_bf16(P[j] / sum);
+      if constexpr (MODE == NO_SOFTMAX) {
+        for (int j = lane; j < L; j += 32) P[j] = round_bf16(P[j] * 1e-4f);
+      } else if constexpr (MODE == SCALE || MODE == SCALE_NO_LEPE) {
+        const float inv_l = 1.f / (float)L;
+        for (int j = lane; j < L; j += 32) P[j] = round_bf16(P[j] * inv_l);
+      } else {
+        mx = warp_max(mx);
+        float sum = 0.f;
+        for (int j = lane; j < L; j += 32) {
+          const float e = expf(P[j] - mx);
+          P[j] = e;
+          sum += e;
+        }
+        sum = warp_sum(sum);
+        for (int j = lane; j < L; j += 32) P[j] = round_bf16(P[j] / sum);
+      }
+      __syncwarp();
     }
-    __syncwarp();
 
     const int ti = i / w_sp, tj = i % w_sp;
     const size_t m = ((size_t)b * H + row0 + ti) * W + col0 + tj;
@@ -120,10 +144,12 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ qp,
       float o = 0.f;
       if constexpr (MODE == SOFTMAX) {
         for (int j = dd; j < L; j += D) o += P[j];
+      } else if constexpr (!attends(MODE)) {
+        o = Vs[i * LD + dd];
       } else {
         for (int j = 0; j < L; ++j) o += P[j] * Vs[j * LD + dd];
       }
-      if constexpr (MODE != FULL) {
+      if constexpr (!with_lepe(MODE)) {
         out[m * out_ps + hc + dd] = f2bf(o);
         continue;
       }

@@ -1,14 +1,11 @@
 // Two consecutive dual-branch CSWin blocks of one stage in one launch
 // (inference: no drop-path).
 //
-// Per block, the seven steps of the block chain (cswin_block.py):
-//   LN1 -> qkv GEMM (+ bias) -> both stripe branches + LePE -> proj GEMM
-//   (+ bias + residual) -> LN2 -> fc1 GEMM (+ bias, erf GELU) -> fc2 GEMM
-//   (+ bias + residual)
-// then the same seven for the second block on the first block's output:
-// fourteen phases, each a grid-stride loop over that phase's tiles, with a
-// grid-wide barrier between phases. Every tile is the device body the chain's
-// own kernels run (layernorm_row.cuh, gemm_tile.cuh, attention_tile.cuh),
+// Per block, the seven steps of the block chain in the phases of
+// block_phases.cuh (LN1, qkv, both stripe branches + LePE, proj + residual,
+// LN2, fc1 + GELU, fc2 + residual), then the same seven for the second block
+// on the first block's output: fourteen phases with a grid-wide barrier
+// between them. Every tile is the device body the chain's own kernels run,
 // with the same tile shapes and K order, so the result equals two chains bit
 // for bit.
 //
@@ -35,175 +32,35 @@
 //   between the blocks need not reach HBM. A launch the card cannot make
 //   co-resident fails and is returned.
 
-#include <cooperative_groups.h>
-
-#include "attention_tile.cuh"
-#include "gemm_tile.cuh"
-#include "layernorm_row.cuh"
-
-namespace cg = cooperative_groups;
+#include "block_phases.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-static_assert(gemm_tile::THREADS == THREADS && attn_tile::WARPS * 32 == THREADS,
-              "the phases share one block shape");
-
-// One block's parameters as the kernels read them: matrices, LePE taps
-// (9, C/2) tap-major and LePE biases in bf16; LN and GEMM biases float32.
-struct BlockW {
-  const float *n1w, *n1b;
-  const bf16* qkv_w;
-  const float* qkv_b;  // may be null
-  const bf16 *l0w, *l0b, *l1w, *l1b;
-  const bf16* proj_w;
-  const float* proj_b;
-  const float *n2w, *n2b;
-  const bf16* fc1_w;
-  const float* fc1_b;
-  const bf16* fc2_w;
-  const float* fc2_b;
-};
-
-// a: (M, C) LN out / attention out; q: (M, 4C) qkv / fc1 out; x1: (M, C);
-// mid: (M, C), the first block's output.
-struct Scratch {
-  bf16 *a, *q, *x1, *mid;
-};
-
-struct Geom {
-  int B, H, W, C, heads, split;
-  float scale, eps;
-};
-
-__device__ __forceinline__ void ln_phase(const bf16* x, const float* w, const float* b,
-                                         bf16* y, int rows, int C, float eps) {
-  constexpr int ROWS = THREADS / 32;
-  for (int r = blockIdx.x * ROWS + (threadIdx.x >> 5); r < rows; r += gridDim.x * ROWS)
-    ln_row::row(x, w, b, y, r, C, eps, threadIdx.x & 31);
-}
-
-template <int EPI>
-__device__ __forceinline__ void gemm_phase(const bf16* A, const bf16* Bw,
-                                           const float* bias, const bf16* res,
-                                           bf16* out, int M, int N, int K,
-                                           gemm_tile::Smem& sm) {
-  const int tn = (N + gemm_tile::BN - 1) / gemm_tile::BN;
-  const int tiles = (M + gemm_tile::BM - 1) / gemm_tile::BM * tn;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    gemm_tile::tile<EPI, false, false>(A, Bw, bias, res, nullptr, nullptr, nullptr, out,
-                                       M, N, K, 1, t / tn * gemm_tile::BM,
-                                       t % tn * gemm_tile::BN, sm);
-    __syncthreads();  // the next tile restages the shared memory
-  }
-}
-
-// Both stripe branches of one block: the vertical one (H x split windows,
-// channels [0, C/2)) and then the horizontal one (split x W, [C/2, C)),
-// heads/2 heads each, one (window, head) per tile.
-template <int D>
-__device__ __forceinline__ void attention_phase(const bf16* qkv, const BlockW& p,
-                                                bf16* att, const Geom& g, float* smem) {
-  const int C = g.C, half = C / 2, nh = g.heads / 2;
-  const int tv = g.B * (g.W / g.split) * nh;
-  const int tiles = tv + g.B * (g.H / g.split) * nh;
-  const size_t ps = 3 * (size_t)C;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const bool vert = t < tv;
-    const int u = vert ? t : t - tv;
-    const int off = vert ? 0 : half;
-    const bf16* q = qkv + off;
-    attn_tile::tile<D, bf16, false>(q, q + C, q + 2 * C, ps, vert ? p.l0w : p.l1w,
-                                    vert ? p.l0b : p.l1b, att + off, C, g.H, g.W, half,
-                                    vert ? g.H : g.split, vert ? g.split : g.W, g.scale,
-                                    u / nh, u % nh, smem);
-    __syncthreads();
-  }
-}
-
-// One block, x -> xout, in seven phases; the grid syncs between them.
-template <int D>
-__device__ __forceinline__ void block(cg::grid_group& grid, const bf16* x, const BlockW& p,
-                                      const Scratch& s, bf16* xout, const Geom& g,
-                                      unsigned char* smem) {
-  auto& gs = *reinterpret_cast<gemm_tile::Smem*>(smem);
-  const int M = g.B * g.H * g.W, C = g.C;
-  ln_phase(x, p.n1w, p.n1b, s.a, M, C, g.eps);
-  grid.sync();
-  gemm_phase<0>(s.a, p.qkv_w, p.qkv_b, nullptr, s.q, M, 3 * C, C, gs);
-  grid.sync();
-  attention_phase<D>(s.q, p, s.a, g, reinterpret_cast<float*>(smem));
-  grid.sync();
-  gemm_phase<1>(s.a, p.proj_w, p.proj_b, x, s.x1, M, C, C, gs);
-  grid.sync();
-  ln_phase(s.x1, p.n2w, p.n2b, s.a, M, C, g.eps);
-  grid.sync();
-  gemm_phase<2>(s.a, p.fc1_w, p.fc1_b, nullptr, s.q, M, 4 * C, C, gs);
-  grid.sync();
-  gemm_phase<1>(s.q, p.fc2_w, p.fc2_b, s.x1, xout, M, C, 4 * C, gs);
-}
+using namespace block_phases;
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
-block_pair_kernel(const bf16* x, BlockW p1, BlockW p2, Scratch s, bf16* out, Geom g) {
+block_pair_kernel(const bf16* x, BlockW p1, BlockW p2, Plan plan1, Plan plan2, Scratch s,
+                  bf16* out, Geom g) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
-  block<D>(grid, x, p1, s, s.mid, g, smem);
+  block<D, attn_tile::FULL>(grid, x, p1, s, s.mid, g, plan1, smem);
   grid.sync();
-  block<D>(grid, s.mid, p2, s, out, g, smem);
-}
-
-BlockW unpack(const void* const* v) {
-  BlockW p;
-  p.n1w = (const float*)v[0];
-  p.n1b = (const float*)v[1];
-  p.qkv_w = (const bf16*)v[2];
-  p.qkv_b = (const float*)v[3];
-  p.l0w = (const bf16*)v[4];
-  p.l0b = (const bf16*)v[5];
-  p.l1w = (const bf16*)v[6];
-  p.l1b = (const bf16*)v[7];
-  p.proj_w = (const bf16*)v[8];
-  p.proj_b = (const float*)v[9];
-  p.n2w = (const float*)v[10];
-  p.n2b = (const float*)v[11];
-  p.fc1_w = (const bf16*)v[12];
-  p.fc1_b = (const float*)v[13];
-  p.fc2_w = (const bf16*)v[14];
-  p.fc2_b = (const float*)v[15];
-  return p;
+  block<D, attn_tile::FULL>(grid, s.mid, p2, s, out, g, plan2, smem);
 }
 
 template <int D>
 int launch(const bf16* x, const void* const* params, bf16* scratch, bf16* out,
            const Geom& g, int* info, cudaStream_t stream) {
-  const auto kernel = block_pair_kernel<D>;
-  const int L = (g.H > g.W ? g.H : g.W) * g.split;
-  size_t smem = attn_tile::smem_bytes<D>(L);
-  if (smem < sizeof(gemm_tile::Smem)) smem = sizeof(gemm_tile::Smem);
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
-                                                           smem)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-
   const size_t mc = (size_t)g.B * g.H * g.W * g.C;
-  Scratch s{scratch, scratch + mc, scratch + 5 * mc, scratch + 6 * mc};
+  Scratch s{scratch, scratch + mc, scratch + mc, scratch + 5 * mc, scratch, scratch + 6 * mc};
   BlockW p1 = unpack(params), p2 = unpack(params + 16);
+  Plan plan1 = full_dual_plan(p1, g), plan2 = full_dual_plan(p2, g);
   Geom geom = g;
-  void* args[] = {(void*)&x, &p1, &p2, &s, (void*)&out, &geom};
-  info[0] = per_sm * sms;
-  info[1] = per_sm;
-  info[2] = (int)smem;
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(per_sm * sms), dim3(THREADS),
-                                    args, smem, stream);
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+  void* args[] = {(void*)&x, &p1, &p2, &plan1, &plan2, &s, (void*)&out, &geom};
+  const int L = (g.H > g.W ? g.H : g.W) * g.split;
+  return launch_cooperative(block_pair_kernel<D>, block_phases::smem_bytes<D>(L), args, info,
+                            stream);
 }
 
 }  // namespace

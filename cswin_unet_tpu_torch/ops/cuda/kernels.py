@@ -28,6 +28,9 @@ Kernels (``csrc/``):
   block_pair.cu            two consecutive dual-branch CSWin blocks in one
                            cooperative launch (``block_pair``), on the
                            device bodies of layernorm / gemm / attention
+  block_one.cu             one block in one cooperative launch on the same
+                           bodies, with parts switched off or built up level
+                           by level (``block_one``, for the block lab)
   edt.cu                   the exact 1-D squared-EDT min-plus pass along any
                            axis (``edt_pass``)
   lepe_windows.cu          LePE alone, the depthwise 3x3 on windowed V
@@ -44,7 +47,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ..attention import cswin_attention_pallas_plain, cswin_attention_xla
+from ..attention import (cswin_attention_pallas_plain, cswin_attention_xla,
+                         depthwise_conv3x3)
 from ..windows import window_merge, window_partition
 from .build import check, library
 
@@ -698,6 +702,33 @@ carafe_reassemble.launches = 0
 # block_pair.cu
 # ---------------------------------------------------------------------------
 
+def _block_weights(p, C: int, cb: int, dev: torch.device) -> list:
+    """One block's 16 parameters as the whole-block kernels read them:
+    matrices and LePE biases in bf16, LePE taps (9, cb) tap-major bf16, LN
+    and GEMM biases float32 as given; a missing qkv bias stays None, a
+    missing LePE bias becomes zeros. The list keeps the cast tensors alive
+    until the launch is queued."""
+    bf = torch.bfloat16
+    shapes = ((C,), (C,), (3 * C, C), (3 * C,), (cb, 1, 3, 3), (cb,), (cb, 1, 3, 3), (cb,),
+              (C, C), (C,), (C,), (C,), (4 * C, C), (4 * C,), (C, 4 * C), (C,))
+    names = ("norm1_w", "norm1_b", "qkv_w", "qkv_b", "lepe0_w", "lepe0_b", "lepe1_w",
+             "lepe1_b", "proj_w", "proj_b", "norm2_w", "norm2_b", "fc1_w", "fc1_b",
+             "fc2_w", "fc2_b")
+    keep = []
+    for i, (t, shape, name) in enumerate(zip(p, shapes, names)):
+        if t is None and i in (3, 5, 7):  # qkv without bias; LePE bias as zeros
+            keep.append(None if i == 3 else torch.zeros(cb, dtype=bf, device=dev))
+            continue
+        _require(t, name, torch.float32, dev, shape)
+        if i in (4, 6):
+            keep.append(t.reshape(cb, 9).t().to(bf).contiguous())
+        elif i in (5, 7) or t.dim() == 2:
+            keep.append(t.to(bf).contiguous())
+        else:
+            keep.append(t)
+    return keep
+
+
 def _block_plain(x: torch.Tensor, p, *, heads: int, split: int, scale: float,
                  eps: float) -> torch.Tensor:
     """One dual-branch block through the chain's plain steps, in the
@@ -753,29 +784,10 @@ def block_pair(x: torch.Tensor, p1, p2, *, heads: int, split: int, scale: float,
                          f"C={C} heads={heads} split={split}")
     half = C // 2
     _check_head_dim(half, heads // 2)
-    bf = torch.bfloat16
-    shapes = ((C,), (C,), (3 * C, C), (3 * C,), (half, 1, 3, 3), (half,),
-              (half, 1, 3, 3), (half,), (C, C), (C,), (C,), (C,), (4 * C, C),
-              (4 * C,), (C, 4 * C), (C,))
-    names = ("norm1_w", "norm1_b", "qkv_w", "qkv_b", "lepe0_w", "lepe0_b", "lepe1_w",
-             "lepe1_b", "proj_w", "proj_b", "norm2_w", "norm2_b", "fc1_w", "fc1_b",
-             "fc2_w", "fc2_b")
-    keep = []  # the cast tensors, alive until the launch is queued
-    for p in (p1, p2):
-        for i, (t, shape, name) in enumerate(zip(p, shapes, names)):
-            if t is None and i in (3, 5, 7):  # qkv without bias; LePE bias as zeros
-                keep.append(None if i == 3 else torch.zeros(half, dtype=bf, device=dev))
-                continue
-            _require(t, name, torch.float32, dev, shape)
-            if i in (4, 6):
-                keep.append(t.reshape(half, 9).t().to(bf).contiguous())
-            elif i in (5, 7) or t.dim() == 2:
-                keep.append(t.to(bf).contiguous())
-            else:
-                keep.append(t)
+    keep = _block_weights(p1, C, half, dev) + _block_weights(p2, C, half, dev)
     ptrs = (ctypes.c_void_p * 32)(*(_ptr(t) for t in keep))
     info = (ctypes.c_int * 3)()
-    scratch = torch.empty(7 * x.numel(), dtype=bf, device=dev)
+    scratch = torch.empty(7 * x.numel(), dtype=torch.bfloat16, device=dev)
     out = torch.empty_like(x)
     err = library().cswin_block_pair(
         x.data_ptr(), ctypes.addressof(ptrs), scratch.data_ptr(), out.data_ptr(), B, H,
@@ -788,6 +800,225 @@ def block_pair(x: torch.Tensor, p1, p2, *, heads: int, split: int, scale: float,
 
 block_pair.launches = 0
 block_pair.grid = None  # the last launch's grid, CTAs per SM and shared memory
+
+
+# ---------------------------------------------------------------------------
+# block_one.cu
+# ---------------------------------------------------------------------------
+
+# The attention forms of the one-block kernel: (form of P, LePE) -> the
+# tile's mode (attention_tile.cuh).
+_BLOCK_FORMS = {("softmax", True): 0, ("softmax", False): 1, ("scale", True): 6,
+                ("scale", False): 7, ("value", True): 8}
+_LN, _GELU, _TRANSPOSE, _V_ONLY = 1, 2, 4, 8
+_STOP_NONE, _STOP_QKV, _STOP_ATTENTION, _STOP_PROJ, _STOP_ALL = 0, 2, 3, 4, 7
+
+# ``scripts/ablate_block.py``'s VARIANTS: the parts each switches off.
+# ``form``: "softmax", "scale" (P = bf16(s/L)) or "value" (out = v).
+BLOCK_VARIANTS = {
+    "full": {},
+    "no-lepe": dict(lepe=False),
+    "no-transpose": dict(transpose=False),
+    "no-softmax": dict(form="scale"),
+    "no-attn": dict(form="value"),
+    "no-ln": dict(ln=False),
+    "no-gelu": dict(gelu=False),
+    "matmuls-only": dict(lepe=False, transpose=False, form="scale", ln=False,
+                         gelu=False),
+}
+CUM_LEVELS = 8  # scripts/exp_cum.py's levels 0-7
+
+
+def block_plan(variant: str = "full", level: int | None = None) -> dict:
+    """What a ``block_one`` call runs: LN, GELU, the vertical branch's
+    transposed windows, the attention ``form``, LePE, the last phase
+    (``stop``: 0 none, 2 qkv, 3 attention, 4 proj, 7 all) and whether the
+    horizontal branch runs. A build-up ``level`` runs the phases its terms
+    need (levels 1 and 2 the same, LN1 + qkv; 3 the vertical branch without
+    LePE; 4 with it; 5 both branches; 6 + proj; 7 the whole block)."""
+    if variant not in BLOCK_VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of {sorted(BLOCK_VARIANTS)}")
+    plan = dict(dict(ln=True, gelu=True, transpose=True, form="softmax", lepe=True,
+                     stop=_STOP_ALL, v_only=False), **BLOCK_VARIANTS[variant])
+    if level is None:
+        return plan
+    if variant != "full" or not 0 <= level < CUM_LEVELS:
+        raise ValueError(f"a build-up level is 0-{CUM_LEVELS - 1} of the full block, got "
+                         f"level={level} variant={variant!r}")
+    plan["stop"] = (_STOP_NONE, _STOP_QKV, _STOP_QKV, _STOP_ATTENTION, _STOP_ATTENTION,
+                    _STOP_ATTENTION, _STOP_PROJ, _STOP_ALL)[level]
+    plan["v_only"] = level in (3, 4)
+    plan["lepe"] = level != 3
+    return plan
+
+
+def _plan_branches(p, H: int, W: int, C: int, heads: int, split: int, last_stage: bool,
+                   plan: dict):
+    """(channel offset, width, heads, h_sp, w_sp, LePE weight, LePE bias) of
+    each branch a plan runs."""
+    if last_stage:
+        return [(0, C, heads, H, W, p[4], p[5])]
+    half, nh = C // 2, heads // 2
+    vert = (H, split) if plan["transpose"] else (split, W)
+    branches = [(0, half, nh, *vert, p[4], p[5])]
+    if not plan["v_only"]:
+        branches.append((half, half, nh, split, W, p[6], p[7]))
+    return branches
+
+
+def attention_form_plain(qkv: torch.Tensor, lepe_weight: torch.Tensor,
+                         lepe_bias: torch.Tensor | None, out: torch.Tensor, *, ch_off: int,
+                         heads: int, h_sp: int, w_sp: int, scale: float,
+                         form: str = "softmax", lepe: bool = True) -> torch.Tensor:
+    """One stripe branch from packed qkv (B, H, W, 3C) in one of the
+    one-block kernel's forms, written into channels [ch_off, ch_off + cb) of
+    ``out``: P = bf16(softmax(s)) (``"softmax"``), P = bf16(s · (1/L))
+    (``"scale"``), or no attention (``"value"``, the branch's v), with
+    s = bf16(q·scale)·kᵀ and P·v in float32; then with ``lepe`` the chain's
+    LePE, bf16(bf16(o) + bf16(bf16(conv(v, w)) + b)), else bf16(o). The
+    softmax form with LePE is ``stripe_attention_plain``."""
+    if form == "softmax" and lepe:
+        return stripe_attention_plain(qkv, lepe_weight, lepe_bias, out, ch_off=ch_off,
+                                      heads=heads, h_sp=h_sp, w_sp=w_sp, scale=scale)
+    B, H, W, C3 = qkv.shape
+    C = C3 // 3
+    cb = lepe_weight.shape[0]
+    dt = qkv.dtype
+    q, k, v = (qkv[..., i * C + ch_off:i * C + ch_off + cb] for i in range(3))
+    vw = _branch_windows(v, h_sp, w_sp, heads).float()
+    if form == "value":
+        o = vw
+    elif form in ("softmax", "scale"):
+        s = (_branch_windows(q, h_sp, w_sp, heads) * scale).float() @ \
+            _branch_windows(k, h_sp, w_sp, heads).float().transpose(-1, -2)
+        p = torch.softmax(s, dim=-1) if form == "softmax" else s * (1.0 / (h_sp * w_sp))
+        o = p.to(dt).float() @ vw
+    else:
+        raise ValueError(f"unknown attention form {form!r}")
+    o = window_merge(o.to(dt).permute(0, 2, 1, 3).reshape(-1, h_sp * w_sp, cb), h_sp,
+                     w_sp, H, W)
+    if lepe:
+        v_img = window_partition(v, h_sp, w_sp).reshape(-1, h_sp, w_sp, cb)
+        term = depthwise_conv3x3(v_img, lepe_weight, lepe_bias)
+        o = o + window_merge(term.reshape(-1, h_sp * w_sp, cb), h_sp, w_sp, H, W)
+    out[..., ch_off:ch_off + cb] = o
+    return out
+
+
+def _cum_plain(x, qkv, att, x1, out, level: int) -> torch.Tensor:
+    """The build-up's accumulator (block_one.cu::cum_phase), in its order:
+    x + 1e-6·T(x), then each level's terms, rounded once to x.dtype."""
+    C = x.shape[-1]
+    half = C // 2
+    T = lambda t: t.transpose(1, 2)                       # pixel (h, w) <- (w, h)
+    D = lambda t: torch.cat([t, t], -1).float()           # both channel halves
+    F_ = lambda o: (qkv[..., o:o + half] + qkv[..., C + o:C + o + half]) \
+        + qkv[..., 2 * C + o:2 * C + o + half]            # q + k + v, bf16 adds
+    acc = x.float() + T(x).float() * 1e-6
+    if level >= 1:
+        acc = acc + D(F_(half))
+    if level >= 2:
+        acc = acc + T(D(F_(0)))
+    if level == 3:
+        acc = acc + T(D(att[..., :half]))
+    if level in (4, 5):
+        acc = acc + D(att[..., :half])
+    if level >= 5:
+        acc = acc + D(att[..., half:])
+    if level >= 6:
+        acc = acc + x1.float()
+    if level == 7:
+        acc = acc + out.float()
+    return acc.to(x.dtype)
+
+
+def block_one_plain(x: torch.Tensor, p, *, heads: int, split: int, scale: float,
+                    last_stage: bool, variant: str = "full", level: int | None = None,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """``block_one``'s plain version: the chain's plain steps in the chain's
+    order with the plan's parts switched off, then the build-up epilogue at a
+    ``level``. With every part on it is the chain on a CPU tensor, bit for
+    bit."""
+    plan = block_plan(variant, level)
+    B, H, W, C = x.shape
+    dt = x.dtype
+    (n1w, n1b, qkv_w, qkv_b, _, _, _, _, proj_w, proj_b, n2w, n2b,
+     fc1_w, fc1_b, fc2_w, fc2_b) = p
+    rows = x.reshape(B * H * W, C).contiguous()
+    qkv = att = x1 = out = None
+    if plan["stop"] >= _STOP_QKV:
+        xn = layernorm_plain(rows, n1w, n1b, eps) if plan["ln"] else rows
+        qkv = gemm_plain(xn, qkv_w.to(dt), qkv_b).view(B, H, W, 3 * C)
+    if plan["stop"] >= _STOP_ATTENTION:
+        att = torch.zeros((B, H, W, C), dtype=dt, device=x.device)
+        for off, cb, nh, hs, ws, lw, lb in _plan_branches(p, H, W, C, heads, split,
+                                                          last_stage, plan):
+            attention_form_plain(qkv, lw, lb, att, ch_off=off, heads=nh, h_sp=hs,
+                                 w_sp=ws, scale=scale, form=plan["form"],
+                                 lepe=plan["lepe"])
+    if plan["stop"] >= _STOP_PROJ:
+        x1 = gemm_plain(att.view(B * H * W, C), proj_w.to(dt), proj_b, residual=rows,
+                        epilogue="residual")
+    if plan["stop"] >= _STOP_ALL:
+        y = layernorm_plain(x1, n2w, n2b, eps) if plan["ln"] else x1
+        g = gemm_plain(y, fc1_w.to(dt), fc1_b, epilogue="gelu" if plan["gelu"] else "bias")
+        out = gemm_plain(g, fc2_w.to(dt), fc2_b, residual=x1,
+                         epilogue="residual").view(B, H, W, C)
+    if level is None:
+        return out
+    return _cum_plain(x, qkv, att, None if x1 is None else x1.view(B, H, W, C), out, level)
+
+
+def block_one(x: torch.Tensor, p, *, heads: int, split: int, scale: float,
+              last_stage: bool, variant: str = "full", level: int | None = None,
+              eps: float = 1e-5) -> torch.Tensor:
+    """One CSWin block in one cooperative launch, with one part switched off
+    (``variant``, a key of ``BLOCK_VARIANTS``: ``scripts/ablate_block.py``)
+    or built up to a ``level`` 0-7 (``scripts/exp_cum.py``: each level's
+    values summed into one float32 accumulator, returned in x.dtype).
+
+    x: (B, H, W, C); p: the block's 16 parameters in the order of
+    ``cswin_block.BlockParams`` (float32; a last-stage block passes its one
+    LePE in both slots). Inference only. ``last_stage``: one branch over the
+    full H x W window with all heads. The kernel is compiled for head dim
+    32 (tiny-224) and takes the build-up at square dual-branch stages only;
+    other geometries raise. The full block (``variant="full"``) equals the
+    block chain bit for bit."""
+    plan = block_plan(variant, level)
+    if _on_cpu(x):
+        return block_one_plain(x, p, heads=heads, split=split, scale=scale,
+                               last_stage=last_stage, variant=variant, level=level, eps=eps)
+    B, H, W, C = x.shape
+    dev = x.device
+    _require(x, "x", torch.bfloat16, dev)
+    if last_stage != (split >= H):
+        raise ValueError(f"last_stage={last_stage} but split={split}, H={H}: the kernel "
+                         "takes a last stage as split >= H")
+    if C % 8 or C % heads or C // heads != 32 or (not last_stage and (
+            heads % 2 or H % split or W % split)):
+        raise ValueError(f"block_one takes head dim 32 and windows that tile the image: "
+                         f"H={H} W={W} C={C} heads={heads} split={split}")
+    if level is not None and (last_stage or H != W):
+        raise ValueError("the build-up runs at square dual-branch stages")
+    keep = _block_weights(p, C, C if last_stage else C // 2, dev)
+    ptrs = (ctypes.c_void_p * 16)(*(_ptr(t) for t in keep))
+    info = (ctypes.c_int * 3)()
+    flags = ((_LN if plan["ln"] else 0) | (_GELU if plan["gelu"] else 0)
+             | (_TRANSPOSE if plan["transpose"] else 0) | (_V_ONLY if plan["v_only"] else 0))
+    scratch = torch.empty(10 * x.numel(), dtype=torch.bfloat16, device=dev)
+    out = torch.empty_like(x)
+    err = library().cswin_block_one(
+        x.data_ptr(), ctypes.addressof(ptrs), scratch.data_ptr(), out.data_ptr(), B, H, W,
+        C, heads, split, scale, eps, _BLOCK_FORMS[(plan["form"], plan["lepe"])], flags,
+        plan["stop"], -1 if level is None else level, ctypes.addressof(info), _stream(dev))
+    check(err, "block_one")
+    block_one.launches += 1
+    block_one.grid = dict(ctas=info[0], ctas_per_sm=info[1], smem_bytes=info[2])
+    return out
+
+
+block_one.launches = 0
+block_one.grid = None  # the last launch's grid, CTAs per SM and shared memory
 
 
 # ---------------------------------------------------------------------------
@@ -1151,7 +1382,7 @@ ln_mlp.launches = 0
 
 KERNELS = (layernorm, gemm, stripe_attention, carafe_reassemble, layernorm_bwd,
            gemm_dgrad, gemm_wgrad, stripe_attention_bwd, cswin_attention, edt_pass,
-           block_pair, lepe_windows, window_attention, ln_mlp)
+           block_pair, lepe_windows, window_attention, ln_mlp, block_one)
 
 
 def reset_launch_counts() -> None:

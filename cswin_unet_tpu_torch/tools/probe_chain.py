@@ -4,6 +4,7 @@ builds of the kernels bit for bit.
     python3 cswin_unet_tpu_torch/tools/probe_chain.py --root OLD --out old.pt
     python3 cswin_unet_tpu_torch/tools/probe_chain.py --root NEW --out new.pt
     python3 cswin_unet_tpu_torch/tools/probe_chain.py --compare old.pt new.pt
+    python3 cswin_unet_tpu_torch/tools/probe_chain.py --root OLD --digest ref.json
 
 ``--root`` names the checkout whose ``cswin_unet_tpu_torch`` is imported
 (and whose kernels are built), so one copy of this script probes any
@@ -16,19 +17,34 @@ in every process. Recorded at the tiny-224 stage geometries:
     1-3 (the training epilogues, ``gemm_dgrad`` with its operand scale and
     GELU backward, ``gemm_wgrad``, ``layernorm_bwd``,
     ``stripe_attention_bwd``);
-  * ``cswin_attention`` (the ``pallas`` route's entry) per branch, B = 32.
+  * ``cswin_attention`` (the ``pallas`` route's entry) per branch, B = 32;
+  * ``block_pair`` (two blocks in one cooperative launch) at stages 2 and 3,
+    B = 32.
 
 ``--compare`` prints each tensor's max abs difference and exits non-zero
 unless every one is 0.
+
+Without a second checkout on hand (``chip_smoke.py`` runs from one), a build
+is held to another through digests: ``--digest OUT.json`` writes each
+tensor's SHA-256 (of its dtype, shape and bytes); ``chip_smoke.py`` holds
+its own build's to ``REFERENCE`` (``check``). A change that is meant to
+move a probed tensor's bits regenerates ``REFERENCE`` with ``--digest``.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
+import json
 import os
 import sys
 
 import numpy as np
+
+# Digests of the probe's tensors from the build of commit f2d50d1 (the
+# kernels before block_phases.cuh took the block's phases out of
+# block_pair.cu), on an NVIDIA H100 80GB HBM3.
+REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "probe_reference.json")
 
 # stage, H, C, heads, split, last (tiny-224)
 STAGES = ((1, 56, 64, 2, 1, False), (2, 28, 128, 4, 2, False),
@@ -70,6 +86,8 @@ def probe(dev) -> dict:
                 num_heads=nh, scale=kw["scale"])
         if last:
             continue
+        out[f"pair_s{s}"] = K.block_pair(x, p, params(C, False), heads=heads, split=split,
+                                         scale=kw["scale"])
         leaves = [t(24, H, H, C, sc=1.0).bfloat16().requires_grad_()]
         leaves += [q.clone().requires_grad_() for q in params(C, False)]
         g = t(24, H, H, C, sc=1.0).bfloat16()
@@ -81,6 +99,28 @@ def probe(dev) -> dict:
             out[f"train_s{s}_grad{i}"] = gr
     torch.cuda.synchronize()
     return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def digests(tensors: dict) -> dict[str, str]:
+    """SHA-256 of each tensor's dtype, shape and bytes."""
+    import torch
+
+    out = {}
+    for k, v in sorted(tensors.items()):
+        h = hashlib.sha256(f"{v.dtype} {tuple(v.shape)}".encode())
+        h.update(v.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+        out[k] = h.hexdigest()
+    return out
+
+
+def check(got: dict[str, str], ref_path: str = REFERENCE) -> tuple[bool, str]:
+    """(equal, report) of probe digests against a reference file."""
+    with open(ref_path) as f:
+        want = json.load(f)["digests"]
+    differ = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+    report = (f"{len(want)} tensors, {len(want) - len(differ)} equal bit for bit to "
+              f"{os.path.basename(ref_path)}" + (f"; different: {differ}" if differ else ""))
+    return not differ, report
 
 
 def compare(a: str, b: str) -> int:
@@ -106,6 +146,7 @@ def main() -> int:
     ap.add_argument("--root", help="checkout whose cswin_unet_tpu_torch to probe")
     ap.add_argument("--out", help="where to write the probed tensors (torch.save)")
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"))
+    ap.add_argument("--digest", help="write the probed tensors' digests (JSON) here")
     args = ap.parse_args()
     if args.compare:
         return compare(*args.compare)
@@ -124,8 +165,15 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.save(probe(torch.device("cuda", 0)), args.out)
-    print(f"[probe] {root}: wrote {args.out}")
+    tensors = probe(torch.device("cuda", 0))
+    if args.out:
+        torch.save(tensors, args.out)
+        print(f"[probe] {root}: wrote {args.out}")
+    if args.digest:
+        with open(args.digest, "w") as f:
+            json.dump({"device": torch.cuda.get_device_name(0), "digests": digests(tensors)},
+                      f, indent=1)
+        print(f"[probe] {root}: wrote {args.digest}")
     return 0
 
 

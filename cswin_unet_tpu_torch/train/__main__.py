@@ -5,8 +5,12 @@
 
 The argparse surface of the root ``train.py`` (reference train.py:19-69),
 plus ``--device`` (default ``cuda``), so command lines are interchangeable.
-Weights come from a seeded init (``--seed``), or from ``MODEL.PRETRAIN_CKPT``
-when it names an existing ``.npz`` of the JAX package's format.
+Weights come from a seeded init (``--seed``), then from ``MODEL.PRETRAIN_CKPT``
+when it names an existing file: the JAX package's ``.npz`` or a reference
+``.pth``, loaded as the root ``train.py`` loads it
+(``utils.checkpoint.load_from_pretrained``: encoder weights seed the decoder
+stages the checkpoint lacks). ``--use-checkpoint`` recomputes each block's
+forward in the backward (``TRAIN.USE_CHECKPOINT``).
 """
 
 from __future__ import annotations
@@ -78,7 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> str:
     from ..models import build_model
-    from ..utils.checkpoint import load_checkpoint, load_into
+    from ..utils.checkpoint import load_from_pretrained
     from .trainer import trainer_synapse
 
     args = build_parser().parse_args(argv)
@@ -105,12 +109,8 @@ def main(argv=None) -> str:
                         seed=args.seed, train=True)
     ckpt_path = config.MODEL.PRETRAIN_CKPT
     if ckpt_path and os.path.exists(ckpt_path):
-        if not ckpt_path.endswith(".npz"):
-            raise NotImplementedError(f"{ckpt_path}: only the JAX package's .npz "
-                                      "checkpoints load so far")
         print(f"pretrained_path:{ckpt_path}")
-        flat, _ = load_checkpoint(ckpt_path)
-        load_into(model.cswin_unet, flat)
+        load_from_pretrained(model.cswin_unet, ckpt_path)
     else:
         print("none pretrain")
     return trainer_synapse(args, model, args.output_dir)

@@ -167,6 +167,85 @@ def jax_from_params(state_dict: dict[str, torch.Tensor]) -> dict[str, np.ndarray
     return out
 
 
+# ---------------------------------------------------------------------------
+# the reference's pretrained load (cswin_unet_tpu/utils/checkpoint.py:119-296)
+# on the port's names, which are the reference torch state_dict's
+# ---------------------------------------------------------------------------
+
+def strip_prefixes(state: dict, prefixes=("module.", "base_model.")) -> dict:
+    """Drop DataParallel / PEFT-style key prefixes."""
+    out = {}
+    for k, v in state.items():
+        for p in prefixes:
+            if k.startswith(p):
+                k = k[len(p):]
+        out[k] = v
+    return out
+
+
+def unwrap_envelope(ckpt: dict) -> dict:
+    """The state dict inside a ``{"state_dict_ema" | "state_dict" | "model":
+    ...}`` envelope, or the checkpoint itself."""
+    for key in ("state_dict_ema", "state_dict", "model"):
+        if key in ckpt and isinstance(ckpt[key], dict):
+            return ckpt[key]
+    return ckpt
+
+
+def load_torch_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """A reference ``.pth`` as a flat dict of CPU tensors. The reference's
+    files carry more than tensors (its config, optimizer state), so this
+    unpickles them in full, as the JAX loader does: load trusted files only."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return {k: torch.as_tensor(v) for k, v in unwrap_envelope(ckpt).items()}
+
+
+def mirror_encoder_to_decoder(flat: dict) -> dict:
+    """Add a ``stage_up*`` copy of every encoder ``stage*`` entry (not the
+    stem, ``stage1_conv_embed``) that lacks one: pretrained encoder weights
+    seed the mirrored decoder stages."""
+    out = dict(flat)
+    for k, v in flat.items():
+        if (k.startswith("stage") and not k.startswith("stage_up")
+                and not k.startswith("stage1_conv_embed")):
+            out.setdefault("stage_up" + k[len("stage"):], v)
+    return out
+
+
+def merge_matching(template: dict[str, torch.Tensor], incoming: dict,
+                   log=print) -> dict[str, torch.Tensor]:
+    """Overlay ``incoming`` onto ``template`` (a state_dict), in the
+    template's dtype, dropping unknown keys and logging each shape mismatch
+    as the reference does."""
+    out = dict(template)
+    for k, v in incoming.items():
+        if k not in out:
+            continue
+        v = torch.as_tensor(v)
+        if tuple(out[k].shape) == tuple(v.shape):
+            out[k] = v.to(out[k].dtype)
+        else:
+            log(f"delete:{k};shape pretrain:{tuple(v.shape)};shape model:{tuple(out[k].shape)}")
+    return out
+
+
+def load_from_pretrained(model: torch.nn.Module, ckpt_path: str, log=print) -> None:
+    """The reference's ``load_from`` onto a backbone in place: the JAX
+    package's ``.npz`` (also given as the path without ``.npz``) or a
+    reference ``.pth`` (envelope, ``module.`` / ``base_model.`` and
+    ``cswin_unet.`` prefixes stripped); encoder weights mirrored onto the
+    decoder where the checkpoint has no decoder entry; unknown keys dropped
+    and shape mismatches logged and dropped."""
+    if ckpt_path.endswith(".npz") or os.path.exists(ckpt_path + ".npz"):
+        incoming = params_from_jax(load_checkpoint(ckpt_path)[0])
+    else:
+        state = strip_prefixes(load_torch_state_dict(ckpt_path))
+        incoming = {k[len("cswin_unet."):] if k.startswith("cswin_unet.") else k: v
+                    for k, v in state.items()}
+    incoming = mirror_encoder_to_decoder(incoming)
+    model.load_state_dict(merge_matching(model.state_dict(), incoming, log))
+
+
 def load_into(model: torch.nn.Module, flat: dict[str, np.ndarray],
               log=print) -> int:
     """Overlay JAX flat params onto ``model`` (a backbone), dropping unknown

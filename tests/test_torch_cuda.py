@@ -130,6 +130,59 @@ def test_block_pair_refuses_float32_and_last_stage(dev):
                      split=7, scale=32 ** -0.5)
 
 
+ONE_STAGES = {1: (56, 64, 2, 1, False), 2: (28, 128, 4, 2, False),
+              3: (14, 256, 8, 7, False), 4: (7, 512, 16, 7, True)}
+
+
+@pytest.mark.parametrize("variant", list(K.BLOCK_VARIANTS))
+@pytest.mark.parametrize("stage", [1, 2, 3, 4])
+def test_block_one_variants(dev, stage, variant):
+    """The one-block kernel with one part switched off, at the tiny-224
+    stage geometries, B = 4, against its plain version; weights at 0.3 so
+    that the switched part moves the output."""
+    H, C, heads, split, last = ONE_STAGES[stage]
+    rng = np.random.default_rng(30 + stage)
+    p = BlockParams(*(t * 3 if t.dim() > 1 else t for t in _block_params(rng, dev, C, last)))
+    x = _rnd(rng, dev, 4, H, H, C).bfloat16()
+    kw = dict(heads=heads, split=split, last_stage=last, scale=(C // heads) ** -0.5)
+    before = K.block_one.launches
+    got = K.block_one(x, p, variant=variant, **kw)
+    assert K.block_one.launches == before + 1
+    assert _rel_l2(got.float(), K.block_one_plain(x, p, variant=variant, **kw).float()) <= 0.02
+    if variant == "full":
+        assert torch.equal(got, fused_cswin_block(x, p, **kw))
+
+
+@pytest.mark.parametrize("level", range(K.CUM_LEVELS))
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_block_one_levels(dev, stage, level):
+    """The build-up levels at the square dual-branch stages, B = 4."""
+    H, C, heads, split, last = ONE_STAGES[stage]
+    rng = np.random.default_rng(40 + stage)
+    p = BlockParams(*(t * 3 if t.dim() > 1 else t for t in _block_params(rng, dev, C)))
+    x = _rnd(rng, dev, 4, H, H, C).bfloat16()
+    kw = dict(heads=heads, split=split, last_stage=False, scale=(C // heads) ** -0.5)
+    got = K.block_one(x, p, level=level, **kw)
+    assert _rel_l2(got.float(), K.block_one_plain(x, p, level=level, **kw).float()) <= 0.02
+
+
+def test_block_one_refuses(dev):
+    rng = np.random.default_rng(17)
+    p = _block_params(rng, dev, 128)
+    kw = dict(heads=4, split=2, scale=32 ** -0.5, last_stage=False)
+    with pytest.raises(TypeError):
+        K.block_one(_rnd(rng, dev, 2, 28, 28, 128), p, **kw)
+    x = _rnd(rng, dev, 2, 28, 28, 128).bfloat16()
+    with pytest.raises(ValueError):
+        K.block_one(x, p, **dict(kw, heads=8))              # head dim 16
+    with pytest.raises(ValueError):
+        K.block_one(x, p, variant="no-lepe", level=3, **kw)  # a level of the full block
+    last = _block_params(rng, dev, 512, last=True)
+    with pytest.raises(ValueError):
+        K.block_one(_rnd(rng, dev, 2, 7, 7, 512).bfloat16(), last, heads=16, split=7,
+                    scale=32 ** -0.5, last_stage=True, level=1)
+
+
 def _carafe_params(rng, dev, C, C_out, up, nc=None):
     cm = C // 4
     t = lambda *s: _rnd(rng, dev, *s, sc=0.2)

@@ -62,7 +62,8 @@ def test_port_and_chip_smoke_import_no_jax_package():
     assert {"cswin_unet_tpu_torch.config", "cswin_unet_tpu_torch.serve",
             "cswin_unet_tpu_torch.eval.__main__", "cswin_unet_tpu_torch.train.__main__",
             "cswin_unet_tpu_torch.ops.edt", "cswin_unet_tpu_torch.ops.cuda.kernels",
-            "cswin_unet_tpu_torch.tools.block_lab", "chip_smoke"} <= names, sorted(names)
+            "cswin_unet_tpu_torch.tools.block_lab", "cswin_unet_tpu_torch.tools.probe_chain",
+            "cswin_unet_tpu_torch.utils.checkpoint", "chip_smoke"} <= names, sorted(names)
 
 
 @pytest.mark.parametrize("module", ["jax", "flax.linen", "cswin_unet_tpu.config",

@@ -325,7 +325,7 @@ def test_wrappers_refuse_bad_arguments():
     with pytest.raises(ValueError):
         K.ln_mlp(torch.zeros(4, 64), None, None, torch.zeros(256, 64), None, ln=False,
                  act="relu")
-    assert {"lepe_windows", "window_attention", "ln_mlp"} <= set(K.launch_counts())
+    assert {"lepe_windows", "window_attention", "ln_mlp", "block_one"} <= set(K.launch_counts())
 
 
 @pytest.mark.parametrize("sub", sorted(block_lab.SUBCOMMANDS))
@@ -356,6 +356,8 @@ def test_block_lab_refuses_a_missing_card_and_other_stages():
         block_lab.main(["mlp", "--device", "cpu", "--stage", "2"])
     with pytest.raises(SystemExit):
         block_lab.main(["lepe", "--device", "cpu", "--stage", "31"])     # data, not run
+    with pytest.raises(SystemExit):
+        block_lab.main(["cum", "--device", "cpu", "--stage", "4"])       # one branch
     assert block_lab.STAGES[33] == dict(H=24, W=24, C=384, heads=16, split=12, last=False)
     assert block_lab.branch_geometry(3) == (7, 14, 128, 4, 2)
     assert block_lab.branch_geometry(4) == (7, 7, 512, 16, 1)

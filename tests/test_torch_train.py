@@ -212,3 +212,61 @@ def test_trainer_synapse_one_epoch(synapse, tmp_path):
     assert load_into(fresh.cswin_unet, flat) == len(fresh.cswin_unet.state_dict())
     for k, v in model.cswin_unet.state_dict().items():
         torch.testing.assert_close(fresh.cswin_unet.state_dict()[k], v)
+
+
+def _tiny_config(*opts):
+    from cswin_unet_tpu_torch.config import get_config as port_get_config
+
+    class _Cfg:
+        cfg = "cswin_unet_tpu_torch/configs/cswin_tiny_224_lite.yaml"
+
+    _Cfg.opts = ["MODEL.CSWIN.EMBED_DIM", "16", "MODEL.CSWIN.DEPTH", "[1,1,1,1]",
+                 "MODEL.CSWIN.NUM_HEADS", "[2,2,4,8]", "MODEL.CSWIN.SPLIT_SIZE",
+                 "[1,2,2,2]", "DATA.IMG_SIZE", "128", "MODEL.DROP_PATH_RATE", "0.2",
+                 *opts]
+    return port_get_config(_Cfg)
+
+
+@pytest.mark.parametrize("impl", ["plain", "fused"])
+def test_use_checkpoint_gives_the_same_loss_and_gradients(monkeypatch, impl):
+    """``TRAIN.USE_CHECKPOINT`` (``--use-checkpoint``) recomputes each block
+    in the backward, as the JAX model's ``nn.remat``: on the CPU, with
+    drop-path 0.2 live (its draws made outside the recomputed region), the
+    loss and every gradient equal those without it bit for bit. At img 128
+    stage 1 (32x32) trains through ``CSWinBlockFn`` on the fused route, the
+    other blocks through the composition."""
+    from cswin_unet_tpu_torch.models import build_model
+    from cswin_unet_tpu_torch.models.cswin_unet import CSWinBlock
+
+    runs = []
+    body = CSWinBlock._block
+    monkeypatch.setattr(CSWinBlock, "_block", lambda self, *a: runs.append(1) or body(self, *a))
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((2, 128, 128, 1)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 5, (2, 128, 128)).astype(np.int64))
+    results = []
+    for flag in ("False", "True"):
+        model = build_model(_tiny_config("TRAIN.USE_CHECKPOINT", flag), num_classes=5,
+                            device="cpu", impl=impl, seed=3, train=True)
+        blocks = [m for m in model.modules() if hasattr(m, "use_checkpoint")]
+        assert blocks and all(b.use_checkpoint == (flag == "True") for b in blocks)
+        loss, _ = segmentation_loss(model(x, generator=torch.Generator().manual_seed(6)), y, 5)
+        names, params = zip(*model.named_parameters())
+        results.append((loss.detach(), dict(zip(names, torch.autograd.grad(loss, params)))))
+        results[-1] += (len(runs),)
+        runs.clear()
+    (l0, g0, n0), (l1, g1, n1) = results
+    assert (n0, n1) == (8, 16)  # 8 blocks; each runs again in the backward
+    assert torch.equal(l0, l1)
+    for k in g0:
+        assert torch.equal(g0[k], g1[k]), k
+
+
+def test_build_model_refuses_a_drop_rate():
+    """The port has no dropout: a non-zero ``MODEL.DROP_RATE`` raises rather
+    than train a different model than the JAX package would."""
+    from cswin_unet_tpu_torch.models import build_model
+
+    build_model(_tiny_config("MODEL.DROP_RATE", "0.0"), device="cpu")
+    with pytest.raises(NotImplementedError, match="DROP_RATE"):
+        build_model(_tiny_config("MODEL.DROP_RATE", "0.1"), device="cpu")
