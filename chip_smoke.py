@@ -6,7 +6,10 @@
 Phases, each of which raises on failure (the process then exits non-zero):
 
   1. torch / CUDA versions and the card's name and power limit.
-  2. Build the hand-written CUDA kernels from ``csrc/`` with nvcc.
+  2. Build the hand-written CUDA kernels from ``csrc/`` with nvcc; ``ptxas``
+     must report no spills for ``block_pair``, and the SASS of the attention
+     and GEMM kernels (``cuobjdump -sass``) must hold tensor-core
+     instructions (``HMMA`` / ``HGMMA``).
   3. Hold every kernel against its plain PyTorch version on the card, on
      bf16 inputs from a seeded numpy generator at the tiny-224 shapes: each
      kernel at every shape one 32-slice serving forward gives it, then at
@@ -77,7 +80,9 @@ Phases, each of which raises on failure (the process then exits non-zero):
      the loss and every parameter gradient of the kernel route against the
      plain route (same weights, same drop-path draws), one step's launch
      counts, 10 SGD steps whose loss must fall, and the train step's time
-     on both routes.
+     on both routes. ``--resume``: a fresh model continues the 2-epoch run
+     from its ``train_state.pt`` for a third epoch (starts at iteration 4,
+     logs 5-6, one epoch's launches, its own checkpoint and train state).
   7. Evaluate (48, 512, 512) and (37, 512, 512) organ-like CT volumes from
      ``epoch_1.npz`` through ``eval.inference.inference`` (``test.py``'s
      loop, an in-memory dataset): with device metrics (``edt_pass``
@@ -632,11 +637,13 @@ def probe_vs_parent(dev) -> None:
     """``tools/probe_chain.py``'s tensors (the block chain, its training
     forward and backward, the ``pallas`` route's kernel, the pair) from this
     build, held bit for bit to the digests of the parent commit's build
-    (``probe_chain.REFERENCE``): the refactor of the shared device bodies
-    changed no result. A change meant to move these bits (a redesign of
-    ``stripe_attention`` or ``gemm``, say) regenerates the file from its own
-    build (``probe_chain.py --root . --digest <file>``) once its results are
-    held to the plain versions, so that the next change is held to it."""
+    (``probe_chain.REFERENCE``): a change to the shared device bodies moved
+    no result. A change meant to move these bits (a redesign of
+    ``stripe_attention`` or ``gemm``, say) prints ``probe_chain.py
+    --compare`` of the parent's build against its own, then regenerates the
+    file from its own build (``probe_chain.py --root . --digest <file>``) once
+    its results are held to the plain versions, so that the next change is
+    held to it."""
     from cswin_unet_tpu_torch.tools import probe_chain
 
     ok, report = probe_chain.check(probe_chain.digests(probe_chain.probe(dev)))
@@ -1305,7 +1312,55 @@ def train_run(cfg, dev, workdir: str) -> tuple[dict[str, int], str, str]:
     require(bool(np.all((lab >= 0) & (lab < nc))), "served labels out of range")
     print(f"[train] {os.path.basename(ck)} served {st['case']}: {json.dumps(st)}",
           flush=True)
+    resume_run(cfg, dev, args, steps)
     return counts, data, ck
+
+
+def resume_run(cfg, dev, args, steps: int) -> None:
+    """``--resume``: a fresh model continues the finished run from the
+    ``train_state.pt`` in its output directory for one more epoch (the
+    trainer's ``args.resume``, as the CLI passes it): it starts at the saved
+    iteration and epoch, logs the next iterations, launches one epoch's
+    kernels and writes its own checkpoint and train state."""
+    import argparse
+
+    import torch
+
+    from cswin_unet_tpu_torch.models import build_model
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.train import trainer_synapse
+    from cswin_unet_tpu_torch.utils.checkpoint import TRAIN_STATE
+
+    epochs = args.max_epochs
+    out_dir = os.path.join(os.path.dirname(args.output_dir), "run_resumed")
+    rargs = argparse.Namespace(**dict(vars(args), max_epochs=epochs + 1,
+                                      resume=args.output_dir, output_dir=out_dir))
+    model = build_model(cfg, num_classes=args.num_classes, device=dev, seed=9, train=True)
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    require(trainer_synapse(rargs, model, out_dir) == "Training Finished!", "resumed trainer")
+    torch.cuda.synchronize()
+    counts, per_epoch = K.launch_counts(), steps // epochs
+    want = expected_train_launches(cfg, per_epoch)
+    with open(os.path.join(out_dir, "log.txt")) as f:
+        log = f.read()
+    its = re.findall(r"iteration (\d+) : loss : (\S+), loss_ce: (\S+)", log)
+    state = torch.load(os.path.join(out_dir, TRAIN_STATE), weights_only=True)
+    print(f"[train] resumed from {args.output_dir}: "
+          f"{'starts at' if f'at iteration {steps} (epoch {epochs})' in log else 'MISSES'} "
+          f"iteration {steps} (epoch {epochs}); logged iterations {[int(i) for i, _, _ in its]} "
+          f"losses {[float(a) for _, a, _ in its]} in {time.perf_counter() - t0:.1f}s; "
+          f"launches {counts} expected {want}; its train state: iteration "
+          f"{state['iteration']}, epoch {state['epoch']}", flush=True)
+    require(f"at iteration {steps} (epoch {epochs})" in log, "resume did not start at the "
+            "saved iteration")
+    require([int(i) for i, _, _ in its] == list(range(steps + 1, steps + per_epoch + 1))
+            and all(np.isfinite(float(a)) for _, a, _ in its), f"resumed log lines {its}")
+    require(counts == want, f"resumed run: launches {counts} != {want}")
+    require(os.path.exists(os.path.join(out_dir, f"epoch_{epochs}.npz"))
+            and (state["iteration"], state["epoch"]) == (steps + per_epoch, epochs + 1),
+            f"resumed run's checkpoint / train state {state['iteration']}, {state['epoch']}")
 
 
 def train_step_checks(cfg, dev, data: str) -> None:
@@ -1773,6 +1828,23 @@ def ptxas_spills(log: str, entry: str) -> list[tuple[str, int, int]]:
     return found
 
 
+def tensor_core_ops(so: str, tool: str) -> dict[str, int]:
+    """Tensor-core instructions (``HMMA``, ``HGMMA``) in the SASS of each
+    compiled kernel entry of the library, by mangled name, from ``cuobjdump
+    -sass``."""
+    sass = subprocess.run([tool, "-sass", so], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = m.group(1)
+            counts[current] = 0
+        elif current is not None and re.search(r"\bHG?MMA\b", line):
+            counts[current] += 1
+    return counts
+
+
 def smoke_config(opts=None):
     """The tiny-224 config from the port's own YAML, with ``--opts``."""
     from cswin_unet_tpu_torch.config import get_config
@@ -1826,6 +1898,14 @@ def main() -> int:
                 f"block_pair: ptxas reports spills {spills}")
         print(f"[build] block_one (entry, spill stores, spill loads): "
               f"{ptxas_spills(build.build_log, 'block_one_kernel')}", flush=True)
+    # The two tiles' products run on the tensor cores: the SASS of the
+    # attention and GEMM kernels holds HMMA (mma.sync) or HGMMA (wgmma).
+    tc = tensor_core_ops(str(build.library_path()), build.cuobjdump())
+    for family in ("stripe_attention_kernel", "gemm_kernel"):
+        per = [c for name, c in tc.items() if re.search(rf"\d{family}I", name)]
+        print(f"[build] {family}: {sum(per)} tensor-core instructions (HMMA / HGMMA in "
+              f"cuobjdump -sass) over {len(per)} instances, per instance {per}", flush=True)
+        require(sum(per) > 0, f"{family}: no tensor-core instruction in its SASS")
 
     tally = compare_kernels(cfg, dev, SERVE_BATCH)
     probe_vs_parent(dev)

@@ -77,12 +77,25 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def library_path() -> Path:
+    """Where the kernel library of the current sources lives (built or not)."""
+    return BUILD_DIR / f"libcswin_kernels_{_digest()}.so"
+
+
+def cuobjdump() -> str:
+    """The toolkit's ``cuobjdump``, beside ``nvcc``."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    if not os.path.isfile(tool):
+        raise RuntimeError(f"cuobjdump not found beside nvcc ({tool})")
+    return tool
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, compiling it first if needed."""
     global _lib, build_seconds, build_log
     if _lib is not None:
         return _lib
-    so = BUILD_DIR / f"libcswin_kernels_{_digest()}.so"
+    so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tag = f"{so.stem}.{os.getpid()}"

@@ -3,10 +3,38 @@
 // The body of stripe_attention.cu's stripe_attention_kernel: it takes its
 // window, head and shared memory as arguments instead of reading blockIdx,
 // so that the one-tile-per-CTA kernel (stripe_attention.cu) and the
-// persistent kernel that loops over tiles (block_pair.cu) run the same code
-// and round the same way. The function, the two epilogue roundings and the
-// layouts are documented at the top of stripe_attention.cu. Needs WARPS
-// warps and smem_bytes<D>(L) bytes of shared memory.
+// persistent kernels that loop over tiles (block_pair.cu, block_one.cu) run
+// the same code and round the same way. The function, the two epilogue
+// roundings and the layouts are documented at the top of stripe_attention.cu.
+// Needs WARPS warps and smem_bytes<D>(L) bytes of shared memory.
+//
+// Design (tensor cores; the roundings of the function, not of its sums):
+//   * staging: q, k and v of the (window, head) land in shared memory as
+//     bf16 through 16-byte cp.async copies (a pixel's head slice is D·2
+//     contiguous bytes), rows padded to row_stride<D>() so that ldmatrix
+//     reads them without bank conflicts; L is padded to a multiple of 16
+//     with zero rows, D = 24 to a depth of 32 with zero columns. The LePE
+//     taps and bias of the head are staged once as float32.
+//   * each warp owns 16-query slabs. S = Q·Kᵀ with mma.sync m16n8k16 (bf16
+//     in, float32 out), Q's fragments scaled and rounded to bf16 in
+//     registers (q·scale is rounded before the product, as the reference
+//     rounds it); keys past L are masked to -inf before the max.
+//   * the softmax runs on the accumulator fragments: a row lives in one quad
+//     of lanes, so its max and sum take two shuffles each, and P =
+//     bf16(exp(s - max) / sum) is formed in registers and repacked as the A
+//     fragments of O = P·V (V through ldmatrix.trans): P never goes through
+//     shared memory.
+//   * a warp holds KT n8-tiles of scores: 112 keys in the one-tile kernels,
+//     64 in the persistent ones (block_phases.cuh), whose other phases leave
+//     fewer registers. Longer windows take three passes over key blocks: the
+//     max, then the sum, then P and P·V, each recomputing its block's
+//     scores, so P is the same rounding of the same softmax (an online
+//     rescale would round a different P). Every lane adds its scores' terms
+//     in key order whatever KT is, and padded keys add exact zeros, so the
+//     result does not depend on KT: the pair equals the chain bit for bit.
+//   * LePE runs in the accumulator layout from the bf16 V already in shared
+//     memory, and each lane stores its two adjacent output channels as one
+//     bf16x2.
 //
 // MODE cuts the body down at compile time, for pricing its parts alone
 // (window_attention in stripe_attention.cu); FULL is the body as the block
@@ -34,6 +62,7 @@
 namespace attn_tile {
 
 constexpr int WARPS = 4;
+constexpr int KT_MAX = 14;  // n8 key tiles of scores a warp holds: 112 keys, L <= 98 in one pass
 
 enum Mode {
   FULL = 0, NO_LEPE = 1, NO_SOFTMAX = 2, COPY = 3, SOFTMAX = 4, STAGE = 5,
@@ -47,21 +76,35 @@ __host__ __device__ constexpr bool with_lepe(int mode) {
 __host__ __device__ constexpr bool attends(int mode) {
   return mode != VALUE;
 }
+__host__ __device__ constexpr bool softmaxed(int mode) {
+  return mode == FULL || mode == NO_LEPE || mode == SOFTMAX;
+}
 
+// Row stride of the staged q, k, v in bf16 elements: the head dim padded to
+// the products' depth (a multiple of 16) plus 8, so that the eight 16-byte
+// rows of an ldmatrix fall in distinct banks.
 template <int D>
-constexpr size_t smem_bytes(int L) {
-  return (size_t)(3 * L * (D + 1) + WARPS * L) * sizeof(float);
+__host__ __device__ constexpr int row_stride() {
+  return (D + 15) / 16 * 16 + 8;
 }
 
 __device__ __forceinline__ float to_f(bf16 v) { return bf2f(v); }
 __device__ __forceinline__ float to_f(float v) { return v; }
 
+template <int D>
+constexpr size_t smem_bytes(int L) {
+  return (size_t)3 * ((L + 15) / 16 * 16) * row_stride<D>() * sizeof(bf16) +
+         (size_t)10 * D * sizeof(float);
+}
+
 // q, k, v point at channel 0 of the branch; pixel p of each starts at
-// p * in_ps, of the output at p * out_ps. TW: type of the LePE taps (9, cb)
+// p * in_ps, of the output at p * out_ps (the pointers and in_ps·2 must be
+// 16-byte aligned: the wrappers check). TW: type of the LePE taps (9, cb)
 // and bias (cb,), unread by the modes without LePE. PALLAS: the epilogue's
 // rounding where LePE is added. win walks the batch's windows (image-major,
-// then window rows, then window columns).
-template <int D, typename TW, bool PALLAS, int MODE = FULL>
+// then window rows, then window columns). KT: n8 key tiles of scores held in
+// registers (even; the result does not depend on it).
+template <int D, typename TW, bool PALLAS, int MODE = FULL, int KT = KT_MAX>
 __device__ __forceinline__ void tile(const bf16* __restrict__ qp,
                                      const bf16* __restrict__ kp,
                                      const bf16* __restrict__ vp, size_t in_ps,
@@ -70,108 +113,253 @@ __device__ __forceinline__ void tile(const bf16* __restrict__ qp,
                                      bf16* __restrict__ out, size_t out_ps, int H, int W,
                                      int cb, int h_sp, int w_sp, float scale, int win,
                                      int head, float* smem) {
-  constexpr int LD = D + 1;
-  const int L = h_sp * w_sp;
-  float* Qs = smem;
-  float* Ks = Qs + L * LD;
-  float* Vs = Ks + L * LD;
-  float* Ps = Vs + L * LD;  // one probability row per warp
+  static_assert(D % 8 == 0 && D <= 32, "head dims 16, 24, 32");
+  static_assert(KT % 2 == 0, "P·V takes the scores in pairs of n8 tiles");
+  constexpr int DP = row_stride<D>();
+  constexpr int DK = (D + 15) / 16;  // k16 steps of Q·Kᵀ
+  constexpr int DZ = DK * 16;        // the depth they read, zero past D
+  constexpr int DN = D / 8;          // n8 tiles of P·V
+  constexpr int CH = D / 8;          // 16-byte chunks of a pixel's head slice
+  const int L = h_sp * w_sp, LP = (L + 15) & ~15;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + LP * DP;
+  bf16* Vs = Ks + LP * DP;
+  float* Tw = reinterpret_cast<float*>(Vs + LP * DP);  // 9 taps, then the bias; D each
 
   const int n_wh = H / h_sp, n_ww = W / w_sp;
   const int b = win / (n_wh * n_ww);
-  const int wi = (win / n_ww) % n_wh, wj = win % n_ww;
-  const int row0 = wi * h_sp, col0 = wj * w_sp;
-  const int hc = head * D;         // branch-local channel of this head
+  const int row0 = (win / n_ww) % n_wh * h_sp, col0 = win % n_ww * w_sp;
+  const int hc = head * D;  // branch-local channel of this head
+  const auto pixel = [&](int t) {
+    return ((size_t)b * H + row0 + t / w_sp) * W + col0 + t % w_sp;
+  };
 
-  for (int i = threadIdx.x; i < L * D; i += blockDim.x) {
-    const int t = i / D, dd = i % D;
-    const int y = row0 + t / w_sp, x = col0 + t % w_sp;
-    const size_t p = (((size_t)b * H + y) * W + x) * in_ps + hc + dd;
+  for (int i = threadIdx.x; i < L * CH; i += blockDim.x) {
+    const int t = i / CH, c = i % CH * 8;
+    const size_t p = pixel(t) * in_ps + hc + c;
     if constexpr (attends(MODE)) {
-      Qs[t * LD + dd] = round_bf16(bf2f(qp[p]) * scale);
-      Ks[t * LD + dd] = bf2f(kp[p]);
+      cp_async16(Qs + t * DP + c, qp + p);
+      cp_async16(Ks + t * DP + c, kp + p);
     }
-    Vs[t * LD + dd] = bf2f(vp[p]);
+    cp_async16(Vs + t * DP + c, vp + p);
   }
+  cp_async_commit();
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = threadIdx.x; i < (LP - L) * (DZ / 8); i += blockDim.x) {
+    const int off = (L + i / (DZ / 8)) * DP + i % (DZ / 8) * 8;
+    *reinterpret_cast<uint4*>(Qs + off) = zero;
+    *reinterpret_cast<uint4*>(Ks + off) = zero;
+    *reinterpret_cast<uint4*>(Vs + off) = zero;
+  }
+  if constexpr (DZ > D) {
+    static_assert(DZ - D == 8, "one zero chunk per row");
+    for (int t = threadIdx.x; t < L; t += blockDim.x) {
+      *reinterpret_cast<uint4*>(Qs + t * DP + D) = zero;
+      *reinterpret_cast<uint4*>(Ks + t * DP + D) = zero;
+    }
+  }
+  if constexpr (with_lepe(MODE)) {
+    for (int i = threadIdx.x; i < 10 * D; i += blockDim.x) {
+      const int tap = i / D, dd = i % D;
+      Tw[i] = tap < 9 ? to_f(lepe_w[tap * cb + hc + dd]) : to_f(lepe_b[hc + dd]);
+    }
+  }
+  cp_async_wait<0>();
   __syncthreads();
+
   if constexpr (MODE == STAGE) {
-    for (int i = threadIdx.x; i < L * D; i += blockDim.x) {
-      const int t = i / D, dd = i % D;
-      const size_t m = ((size_t)b * H + row0 + t / w_sp) * W + col0 + t % w_sp;
-      out[m * out_ps + hc + dd] = f2bf(Ks[t * LD + dd] + Vs[t * LD + dd]);
+    for (int i = threadIdx.x; i < L * (D / 2); i += blockDim.x) {
+      const int t = i / (D / 2), dd = i % (D / 2) * 2;
+      const float2 k2 = unpack_bf16(*reinterpret_cast<const uint32_t*>(Ks + t * DP + dd));
+      const float2 v2 = unpack_bf16(*reinterpret_cast<const uint32_t*>(Vs + t * DP + dd));
+      *reinterpret_cast<uint32_t*>(out + pixel(t) * out_ps + hc + dd) =
+          pack_bf16(k2.x + v2.x, k2.y + v2.y);
     }
     return;
   }
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* P = Ps + warp * L;
-  for (int i = warp; i < L; i += WARPS) {
+  const int g = lane >> 2, q4 = lane & 3;
+  const int nt = LP / 8;                  // n8 key tiles, even
+  const int nkb = (nt + KT - 1) / KT;     // key blocks
+  for (int s = warp; s < LP / 16; s += WARPS) {
+    const int r0 = s * 16;
+    float o[DN][4];
+#pragma unroll
+    for (int u = 0; u < DN; ++u) o[u][0] = o[u][1] = o[u][2] = o[u][3] = 0.f;
+
     if constexpr (attends(MODE)) {
-      float q[D];
+      float S[KT][4];
+      // S = Q·Kᵀ for key block kb; keys past L are -inf. Q's fragments are
+      // loaded here, so they hold no registers between the passes.
+      const auto scores = [&](int kb) {
+        uint32_t qa[DK][4];
 #pragma unroll
-      for (int dd = 0; dd < D; ++dd) q[dd] = Qs[i * LD + dd];
-      float mx = -INFINITY;
-      for (int j = lane; j < L; j += 32) {
-        const float* kr = Ks + j * LD;
-        float s = 0.f;
+        for (int kk = 0; kk < DK; ++kk) {
+          ldsm_x4(qa[kk], Qs + (r0 + (lane & 15)) * DP + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
-        for (int dd = 0; dd < D; ++dd) s += q[dd] * kr[dd];
-        P[j] = s;
-        mx = fmaxf(mx, s);
-      }
-      if constexpr (MODE == NO_SOFTMAX) {
-        for (int j = lane; j < L; j += 32) P[j] = round_bf16(P[j] * 1e-4f);
-      } else if constexpr (MODE == SCALE || MODE == SCALE_NO_LEPE) {
-        const float inv_l = 1.f / (float)L;
-        for (int j = lane; j < L; j += 32) P[j] = round_bf16(P[j] * inv_l);
-      } else {
-        mx = warp_max(mx);
-        float sum = 0.f;
-        for (int j = lane; j < L; j += 32) {
-          const float e = expf(P[j] - mx);
-          P[j] = e;
-          sum += e;
+          for (int e = 0; e < 4; ++e) qa[kk][e] = scale_bf16x2(qa[kk][e], scale);
         }
-        sum = warp_sum(sum);
-        for (int j = lane; j < L; j += 32) P[j] = round_bf16(P[j] / sum);
+#pragma unroll
+        for (int t2 = 0; t2 < KT / 2; ++t2) {
+          const int t = kb * KT + 2 * t2;  // global n8 tile of the pair's first
+#pragma unroll
+          for (int e = 0; e < 4; ++e) S[2 * t2][e] = S[2 * t2 + 1][e] = 0.f;
+          if (t < nt) {
+#pragma unroll
+            for (int kk = 0; kk < DK; ++kk) {
+              uint32_t kb4[4];
+              ldsm_x4(kb4, Ks + (t * 8 + (lane >> 4) * 8 + (lane & 7)) * DP + kk * 16 +
+                               ((lane >> 3) & 1) * 8);
+              mma_bf16(S[2 * t2], qa[kk], kb4[0], kb4[1]);
+              mma_bf16(S[2 * t2 + 1], qa[kk], kb4[2], kb4[3]);
+            }
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if ((t + h) * 8 + 2 * q4 + (e & 1) >= L) S[2 * t2 + h][e] = -INFINITY;
+        }
+      };
+      float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+      if constexpr (softmaxed(MODE)) {
+        for (int kb = 0; kb < nkb; ++kb) {
+          scores(kb);
+#pragma unroll
+          for (int t = 0; t < KT; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], S[t][e]);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        }
+        for (int kb = 0; kb < nkb; ++kb) {
+          if (nkb > 1) scores(kb);
+#pragma unroll
+          for (int t = 0; t < KT; ++t)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float ex = expf(S[t][e] - mx[e >> 1]);
+              sum[e >> 1] += ex;
+              if (nkb == 1) S[t][e] = ex;  // kept for P: one block is not recomputed
+            }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+          sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+        }
       }
-      __syncwarp();
+      const float inv_l = 1.f / (float)L;
+      for (int kb = 0; kb < nkb; ++kb) {
+        if (!softmaxed(MODE) || nkb > 1) scores(kb);
+#pragma unroll
+        for (int t = 0; t < KT; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool key = (kb * KT + t) * 8 + 2 * q4 + (e & 1) < L;
+            float p;
+            if constexpr (softmaxed(MODE)) {
+              const float ex = nkb == 1 ? S[t][e] : expf(S[t][e] - mx[e >> 1]);
+              p = round_bf16(ex / sum[e >> 1]);
+            } else if constexpr (MODE == NO_SOFTMAX) {
+              p = round_bf16(S[t][e] * 1e-4f);
+            } else {
+              p = round_bf16(S[t][e] * inv_l);
+            }
+            S[t][e] = key ? p : 0.f;
+          }
+        if constexpr (MODE == SOFTMAX) {
+          // o[a][·] gathers P's columns j with j / 8 % DN == a: lane q4 then
+          // holds output channels 8a + 2·q4 (+1) of rows g and g + 8.
+#pragma unroll
+          for (int t = 0; t < KT; ++t) {
+            const int tg = kb * KT + t;
+#pragma unroll
+            for (int a = 0; a < DN; ++a)
+              if (tg < nt && tg % DN == a)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) o[a][e] += S[t][e];
+          }
+        } else {
+#pragma unroll
+          for (int t2 = 0; t2 < KT / 2; ++t2) {
+            const int t = kb * KT + 2 * t2;
+            if (t >= nt) continue;
+            const uint32_t pa[4] = {pack_bf16(S[2 * t2][0], S[2 * t2][1]),
+                                    pack_bf16(S[2 * t2][2], S[2 * t2][3]),
+                                    pack_bf16(S[2 * t2 + 1][0], S[2 * t2 + 1][1]),
+                                    pack_bf16(S[2 * t2 + 1][2], S[2 * t2 + 1][3])};
+            const bf16* vrow = Vs + (t * 8 + ((lane >> 3) & 1) * 8 + (lane & 7)) * DP;
+#pragma unroll
+            for (int u = 0; u + 1 < DN; u += 2) {
+              uint32_t vb[4];
+              ldsm_x4<true>(vb, vrow + (u + (lane >> 4)) * 8);
+              mma_bf16(o[u], pa, vb[0], vb[1]);
+              mma_bf16(o[u + 1], pa, vb[2], vb[3]);
+            }
+            if constexpr (DN % 2) {
+              uint32_t vb[2];
+              ldsm_x2_trans(vb, vrow + (DN - 1) * 8);
+              mma_bf16(o[DN - 1], pa, vb[0], vb[1]);
+            }
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < DN; ++u)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 v2 = unpack_bf16(*reinterpret_cast<const uint32_t*>(
+              Vs + (r0 + g + 8 * h) * DP + 8 * u + 2 * q4));
+          o[u][2 * h] = v2.x;
+          o[u][2 * h + 1] = v2.y;
+        }
     }
 
-    const int ti = i / w_sp, tj = i % w_sp;
-    const size_t m = ((size_t)b * H + row0 + ti) * W + col0 + tj;
-    for (int dd = lane; dd < D; dd += 32) {
-      float o = 0.f;
-      if constexpr (MODE == SOFTMAX) {
-        for (int j = dd; j < L; j += D) o += P[j];
-      } else if constexpr (!attends(MODE)) {
-        o = Vs[i * LD + dd];
-      } else {
-        for (int j = 0; j < L; ++j) o += P[j] * Vs[j * LD + dd];
-      }
-      if constexpr (!with_lepe(MODE)) {
-        out[m * out_ps + hc + dd] = f2bf(o);
-        continue;
-      }
-      float conv = 0.f;
-      for (int di = -1; di <= 1; ++di) {
-        const int r = ti + di;
-        if (r < 0 || r >= h_sp) continue;
-        for (int dj = -1; dj <= 1; ++dj) {
-          const int c = tj + dj;
-          if (c < 0 || c >= w_sp) continue;
-          conv += to_f(lepe_w[((di + 1) * 3 + dj + 1) * cb + hc + dd]) *
-                  Vs[(r * w_sp + c) * LD + dd];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = r0 + g + 8 * h;
+      if (i >= L) continue;
+      const int ti = i / w_sp, tj = i % w_sp;
+      bf16* dst = out + pixel(i) * out_ps + hc;
+#pragma unroll
+      for (int u = 0; u < DN; ++u) {
+        const int dd = 8 * u + 2 * q4;
+        const float o0 = o[u][2 * h], o1 = o[u][2 * h + 1];
+        if constexpr (!with_lepe(MODE)) {
+          *reinterpret_cast<uint32_t*>(dst + dd) = pack_bf16(o0, o1);
+          continue;
+        }
+        float c0 = 0.f, c1 = 0.f;
+        for (int di = -1; di <= 1; ++di) {
+          const int r = ti + di;
+          if (r < 0 || r >= h_sp) continue;
+          for (int dj = -1; dj <= 1; ++dj) {
+            const int c = tj + dj;
+            if (c < 0 || c >= w_sp) continue;
+            const float2 w2 = *reinterpret_cast<const float2*>(Tw + ((di + 1) * 3 + dj + 1) * D + dd);
+            const float2 v2 =
+                unpack_bf16(*reinterpret_cast<const uint32_t*>(Vs + (r * w_sp + c) * DP + dd));
+            c0 += w2.x * v2.x;
+            c1 += w2.y * v2.y;
+          }
+        }
+        const float2 b2 = *reinterpret_cast<const float2*>(Tw + 9 * D + dd);
+        if (PALLAS) {
+          *reinterpret_cast<uint32_t*>(dst + dd) = pack_bf16(o0 + (c0 + b2.x), o1 + (c1 + b2.y));
+        } else {
+          const float l0 = round_bf16(round_bf16(c0) + b2.x);
+          const float l1 = round_bf16(round_bf16(c1) + b2.y);
+          *reinterpret_cast<uint32_t*>(dst + dd) =
+              pack_bf16(round_bf16(o0) + l0, round_bf16(o1) + l1);
         }
       }
-      if (PALLAS) {
-        out[m * out_ps + hc + dd] = f2bf(o + (conv + to_f(lepe_b[hc + dd])));
-      } else {
-        const float lepe = round_bf16(round_bf16(conv) + to_f(lepe_b[hc + dd]));
-        out[m * out_ps + hc + dd] = f2bf(round_bf16(o) + lepe);
-      }
     }
-    __syncwarp();
   }
 }
 

@@ -29,8 +29,7 @@
 //   (4·L·c a token a branch), bf16 operands at the tensor cores' 989
 //   TFLOP/s, beside the LN / softmax / GELU / LePE arithmetic at float32's
 //   67 TFLOP/s, against one read of x and the weights and one write of the
-//   output. The tile runs the attention's products on the float32 pipes
-//   (stripe_attention.cu's), which the bound does not credit.
+//   output.
 // Design: block_pair.cu's cooperative, persistent launch for one block:
 //   grid = (CTAs per SM from the occupancy API) x SMs, 128 threads, dynamic
 //   shared memory the larger of the GEMM tile's and the widest window's
@@ -87,7 +86,7 @@ __device__ __forceinline__ void cum_phase(const bf16* __restrict__ x, const Scra
 }
 
 template <int D, int MODE>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_CTAS)
 block_one_kernel(const bf16* x, BlockW p, Scratch s, bf16* out, Geom g, Plan plan,
                  int level) {
   extern __shared__ __align__(128) unsigned char smem[];

@@ -21,9 +21,11 @@
 //   occupancy API at this dynamic shared-memory size) x SMs, 128 threads
 //   (the GEMM's four warps; the attention's four warps; four LayerNorm rows
 //   per pass). The union of the phases takes the registers of the heaviest,
-//   the GEMM loop (128, no spills: 4 CTAs per SM, where the chain's own
-//   kernels run 5-8), so latency-bound phases have fewer warps to hide
-//   behind than in the chain. Dynamic shared memory is the larger of the
+//   the attention phase beside the two blocks' state: held to 128 (4 CTAs
+//   an SM, block_one's bound) it spills a few bytes, so the pair takes what
+//   ptxas gives it and runs the CTAs an SM the occupancy API allows for that
+//   (chip_smoke.py prints the grid), where the chain's own kernels run 4-8.
+//   Latency-bound phases have fewer warps to hide behind than in the chain. Dynamic shared memory is the larger of the
 //   GEMM tile's and the widest window's attention staging, reused by every
 //   phase. cooperative_groups' grid sync separates the phases (the grid
 //   workspace comes with the cooperative launch; no relocatable device

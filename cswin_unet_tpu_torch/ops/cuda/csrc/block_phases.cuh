@@ -27,6 +27,13 @@ namespace cg = cooperative_groups;
 constexpr int THREADS = 128;
 static_assert(gemm_tile::THREADS == THREADS && attn_tile::WARPS * 32 == THREADS,
               "the phases share one block shape");
+// CTAs an SM block_one.cu is built for (__launch_bounds__): 4 leaves 128
+// registers a thread. block_pair.cu, with two blocks' state, takes more.
+constexpr int MIN_CTAS = 4;
+// n8 key tiles of scores the attention phase holds in registers: 64 keys
+// (the one-tile kernels hold 112), so that it fits beside the kernels'
+// other state. The result does not depend on it.
+constexpr int ATTN_KT = 8;
 
 // One block's parameters as the kernels read them: matrices, LePE taps
 // (9, cb) tap-major and LePE biases in bf16; LN and GEMM biases float32.
@@ -122,7 +129,7 @@ __device__ __forceinline__ void attention_phase(const bf16* qkv, const Plan& pla
     const int u = first ? t : t - t0;
     const int off = first ? b0.off : b1.off, nh = first ? b0.nh : b1.nh;
     const bf16* q = qkv + off;
-    attn_tile::tile<D, bf16, false, MODE>(
+    attn_tile::tile<D, bf16, false, MODE, ATTN_KT>(
         q, q + C, q + 2 * C, ps, first ? b0.lw : b1.lw, first ? b0.lb : b1.lb, att + off, C,
         g.H, g.W, first ? b0.cb : b1.cb, first ? b0.h_sp : b1.h_sp,
         first ? b0.w_sp : b1.w_sp, g.scale, u / nh, u % nh, smem);

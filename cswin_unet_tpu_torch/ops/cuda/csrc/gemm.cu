@@ -35,16 +35,21 @@
 //   latency bound, with the tensor cores far from saturated. The weight
 //   gradient contracts over M = B·H·W (75,264 rows at stage 1, bs 24) into
 //   a tiny (N, K) output, so it must split M to fill 132 SMs.
-// Design: 64x64 output tile per 128-thread block, four warps of 32x32,
-//   bf16 WMMA 16x16x16 fragments with float32 accumulators, the reduction
-//   stepped 32 at a time through padded shared memory with 16-byte loads.
-//   The accumulator goes through shared memory to a fused epilogue, so bias,
-//   residual, drop-path, GELU and its derivative cost no extra pass over
-//   memory. The weight gradient reads dY tiles m-major and feeds them to
-//   WMMA as a column-major A (that is dYᵀ) without a transpose pass, and
-//   sums the bias gradient from the same shared tile. No cp.async / TMA /
-//   wgmma yet: first right, then fast. The forward tile's body lives in
-//   gemm_tile.cuh, shared with the persistent pair kernel (block_pair.cu).
+// Design: the forward / dX tile (gemm_tile.cuh, shared with the persistent
+//   block kernels block_pair.cu and block_one.cu) is 64x64 per 128-thread
+//   block, four warps of 32x32 on mma.sync m16n8k16 (bf16 in, float32
+//   accumulators) fed by a three-stage ring of 16-byte cp.async copies 32
+//   deep, so the next k-blocks are in flight during the products; the
+//   epilogue runs on the accumulator registers, so bias, residual,
+//   drop-path, GELU and its derivative cost no extra pass over memory and
+//   no staging tile. The grid is one-dimensional, M tiles outer and N tiles
+//   inner: the N tiles that share an A tile run side by side and read it
+//   from L2, and M may exceed 65535 tiles. The weight gradient is 64x64
+//   tiles of bf16 WMMA 16x16x16 over 32-row steps of M
+//   through padded shared memory with 16-byte loads: it reads dY tiles
+//   m-major and feeds them to WMMA as a column-major A (that is dYᵀ)
+//   without a transpose pass, and sums the bias gradient from the same
+//   shared tile.
 
 #include <mma.h>
 
@@ -54,28 +59,34 @@ using namespace nvcuda;
 
 namespace {
 
-using gemm_tile::BM;
-using gemm_tile::BN;
-using gemm_tile::CPAD;
-using gemm_tile::PAD;
 using gemm_tile::THREADS;
-using gemm_tile::scale8;
 
-// One output tile per CTA: blockIdx.x walks N, blockIdx.y walks M.
+// Eight bf16 values from a 16-byte chunk, each scaled by s and rounded back.
+__device__ __forceinline__ uint4 scale8(uint4 v, float s) {
+  bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+  for (int t = 0; t < 8; ++t) e[t] = f2bf(bf2f(e[t]) * s);
+  return v;
+}
+
+// One output tile per CTA: blockIdx.x walks the tiles, N inner (tn tiles
+// an M tile).
 template <int EPI, bool A_SCALED, bool EXTRA>
 __global__ void __launch_bounds__(THREADS)
 gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
             const float* __restrict__ bias, const bf16* __restrict__ res,
             bf16* __restrict__ aux, const float* __restrict__ a_scale,
             const float* __restrict__ out_scale, bf16* __restrict__ out, int M,
-            int N, int K, int rows_per_sample) {
+            int N, int K, int rows_per_sample, int tn) {
   __shared__ gemm_tile::Smem sm;
+  const int t = blockIdx.x;
   gemm_tile::tile<EPI, A_SCALED, EXTRA>(A, B, bias, res, aux, a_scale, out_scale, out,
-                                        M, N, K, rows_per_sample, blockIdx.y * BM,
-                                        blockIdx.x * BN, sm);
+                                        M, N, K, rows_per_sample, t / tn * gemm_tile::BM,
+                                        t % tn * gemm_tile::BN, sm);
 }
 
-constexpr int WK = 32;  // rows of the M reduction per step of the weight gradient
+// The weight gradient's tile: BM x BN of (K, N), WK rows of M a step.
+constexpr int BM = 64, BN = 64, WK = 32, PAD = 8, CPAD = 4;
 
 __global__ void __launch_bounds__(THREADS)
 wgrad_kernel(const bf16* __restrict__ X, const bf16* __restrict__ dY,
@@ -162,11 +173,13 @@ template <int EPI, bool A_SCALED, bool EXTRA>
 int launch_gemm(const void* A, const void* B, const void* bias, const void* res,
                 void* aux, const void* a_scale, const void* out_scale, void* out,
                 int M, int N, int K, int rows_per_sample, void* stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<EPI, A_SCALED, EXTRA><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  const int tn = (N + gemm_tile::BN - 1) / gemm_tile::BN;
+  const long long tiles = (long long)((M + gemm_tile::BM - 1) / gemm_tile::BM) * tn;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  gemm_kernel<EPI, A_SCALED, EXTRA><<<(unsigned)tiles, THREADS, 0, (cudaStream_t)stream>>>(
       (const bf16*)A, (const bf16*)B, (const float*)bias, (const bf16*)res,
       (bf16*)aux, (const float*)a_scale, (const float*)out_scale, (bf16*)out, M,
-      N, K, rows_per_sample);
+      N, K, rows_per_sample, tn);
   return (int)cudaGetLastError();
 }
 
@@ -177,7 +190,7 @@ int launch_gemm(const void* A, const void* B, const void* bias, const void* res,
 // by epilogue 3; a_scale (epilogues 0 and 3) and out_scale (epilogue 1) are
 // per-sample (row / rows_per_sample). Other combinations return
 // cudaErrorInvalidValue. Requires K % 8 == 0 and 16-byte aligned A and B
-// (checked by the wrapper).
+// (checked by the wrapper); at most 2^31 - 1 output tiles of 64 x 64.
 CSWIN_API int cswin_gemm(const void* A, const void* B, const void* bias,
                          const void* res, void* aux, const void* a_scale,
                          const void* out_scale, void* out, int M, int N, int K,

@@ -29,7 +29,7 @@
 // Design: a CTA of four warps takes 64 rows. Each warp normalises 16 of them
 //   into shared memory (layernorm_row.cuh), then the CTA walks the hidden in
 //   four chunks of 64: fc1 chunk (bf16 WMMA 16x16x16, four warps of 32x32 as
-//   in gemm_tile.cuh) -> float32 tile in shared memory -> bias, rounding,
+//   the GEMM tile's) -> float32 tile in shared memory -> bias, rounding,
 //   activation -> bf16 chunk in shared memory -> fc2 partial product into
 //   float32 accumulator fragments that stay in registers over the chunks.
 //   The weights (2 x 64 x 256 bf16 = 64 KB) are streamed by chunk through

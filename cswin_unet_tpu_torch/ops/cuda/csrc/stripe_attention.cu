@@ -45,17 +45,17 @@
 //   own staging, the same questions asked of this design).
 // Bound on the H100: many tiny problems (L <= 98 tokens, head dim 32 at
 //   224²): ~4·L·d flops per token against 6·d bytes of q, k, v read, so
-//   memory bounds the function and latency and launch shape matter more
-//   than tensor-core rate.
-// Design: one block of 4 warps per (window, head). q (pre-scaled and
-//   rounded), k and v of the window are staged in shared memory as float32
-//   with a padded row (d + 1) so that lanes reading different rows hit
-//   different banks. Each warp owns one query row at a time: lanes compute
-//   the row's scores, a warp-shuffle max / sum gives the softmax, and lanes
-//   then split the head dim for P·V and the 9-tap LePE. No L x L score tile
-//   is kept, so shared memory grows only with L·d. The (window, head) body
-//   lives in attention_tile.cuh, shared with the persistent pair kernel
-//   (block_pair.cu).
+//   memory bounds the function, and latency and launch shape decide how
+//   close the kernel comes to it.
+// Design: one block of 4 warps per (window, head), running the tile body of
+//   attention_tile.cuh (shared with the persistent block kernels
+//   block_pair.cu and block_one.cu): the window's q, k and v staged as bf16
+//   in padded shared memory by 16-byte cp.async copies, both products on
+//   the tensor cores (mma.sync m16n8k16, 16-query slabs a warp), the
+//   softmax and P on the accumulator fragments in registers, and LePE from
+//   the staged V in the accumulator layout. Shared memory grows with L·d
+//   only (no L x L tile); many blocks an SM overlap one window's copies with
+//   another's products.
 
 #include "attention_tile.cuh"
 
@@ -71,7 +71,7 @@ stripe_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp
                         const TW* __restrict__ lepe_w, const TW* __restrict__ lepe_b,
                         bf16* __restrict__ out, size_t out_ps, int H, int W, int cb,
                         int h_sp, int w_sp, float scale) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(128) float smem[];
   if constexpr (MODE == attn_tile::COPY)
     attn_tile::copy_tile<D>(qp, kp, vp, in_ps, out, out_ps, H, W, h_sp, w_sp, blockIdx.x,
                             blockIdx.y);
@@ -113,7 +113,8 @@ int dispatch(const bf16* q, const bf16* k, const bf16* v, size_t in_ps, const TW
 // lepe_b: (cb,) bf16; out: (B, H, W, C) bf16, written at channels
 // [ch_off, ch_off + cb). head_dim = cb / heads must be 16, 24 or 32 (the
 // head dims of the repo's configs: 32 at tiny-224, 24 at base-384, 16 in
-// the narrow test geometries).
+// the narrow test geometries). qkv + ch_off is 16-byte aligned and C % 8 ==
+// 0 (the tile copies 16-byte chunks; checked by the wrapper).
 CSWIN_API int cswin_stripe_attention(const void* qkv, const void* lepe_w,
                                      const void* lepe_b, void* out, int B, int H,
                                      int W, int C, int ch_off, int cb, int heads,
@@ -128,7 +129,8 @@ CSWIN_API int cswin_stripe_attention(const void* qkv, const void* lepe_w,
 // q, k, v: (B, H, W, cb) bf16 views whose pixels all lie `pix_stride`
 // elements apart, channels contiguous (for example q | k | v slices of one
 // (B, H, W, 3C) tensor); lepe_w: (9, cb) float32, tap-major; lepe_b: (cb,)
-// float32; out: (B, H, W, cb) bf16, contiguous. Head dims as above.
+// float32; out: (B, H, W, cb) bf16, contiguous. Head dims as above; q, k
+// and v 16-byte aligned and pix_stride % 8 == 0 (checked by the wrapper).
 CSWIN_API int cswin_cswin_attention(const void* q, const void* k, const void* v,
                                     long long pix_stride, const void* lepe_w,
                                     const void* lepe_b, void* out, int B, int H, int W,

@@ -202,11 +202,16 @@ def fused_cswin_block(x: torch.Tensor, p: BlockParams, *, heads: int,
 
 
 # (H, W, C) geometries whose adjacent blocks the stage runner pairs: those
-# where one block_pair launch beat two block chains on an H100 at B = 32 by
-# more than the spread in both orders (the [pair] A/B of chip_smoke.py):
-# 14x14x256, tiny-224's stage 3 (0.73 vs 0.84 ms a pair of blocks); not
-# 28x28x128, stage 2 (1.00 vs 0.72 ms). The JAX package's _pair_fuse_ok is
-# off everywhere, from a TPU measurement that does not carry over.
+# where one block_pair launch beats two block chains on an H100 at B = 32 by
+# more than the spread in both orders (the [pair] A/B of chip_smoke.py).
+# 14x14x256, tiny-224's stage 3: on the tensor-core tiles the pair (0.51-0.72
+# ms a pair of blocks) beat the chain (0.67-1.22) beyond the spread in three
+# of four runs, and by 0.16-0.20 ms inside a wider spread in the fourth. Not
+# 28x28x128, stage 2: the pair (0.57-0.63 ms) beat the chain in two runs
+# (0.83-1.07) and lost in two (0.48-0.54); the chain's time at B = 32 is
+# mostly its 16 launches' host work. Both lose at B = 128. The JAX package's
+# _pair_fuse_ok is off everywhere, from a TPU measurement that does not
+# carry over.
 PAIR_GEOMETRIES: frozenset[tuple[int, int, int]] = frozenset({(14, 14, 256)})
 
 

@@ -289,11 +289,14 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
 
 
 def _check_gemm_operands(a: torch.Tensor, w: torch.Tensor) -> None:
+    """The GEMM tile's operand rule: K % 8 == 0 and 16-byte aligned operands
+    (it copies 16-byte chunks), and at most 2^31 - 1 output tiles of 64 x 64
+    (its one-dimensional grid)."""
     M, K = a.shape
     if K % 8 or a.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("gemm needs K % 8 == 0 and 16-byte aligned operands")
-    if (M + 63) // 64 > 65535:
-        raise ValueError(f"gemm: M={M} exceeds the grid limit")
+    if -(-M // 64) * -(-w.shape[0] // 64) > 2**31 - 1:
+        raise ValueError(f"gemm: M={M}, N={w.shape[0]} exceed the grid limit")
 
 
 gemm.launches = 0
@@ -449,6 +452,9 @@ def stripe_attention(qkv: torch.Tensor, lepe_weight: torch.Tensor,
     _check_head_dim(cb, heads)
     if B * (H // h_sp) * (W // w_sp) > 2**31 - 1:
         raise ValueError("too many windows for one launch")
+    if C % 8 or (qkv.data_ptr() + 2 * ch_off) % 16:
+        raise ValueError("stripe_attention copies 16-byte chunks: C % 8 == 0 and a "
+                         "16-byte aligned branch")
     w9 = lepe_weight.reshape(cb, 9).t().to(torch.bfloat16).contiguous()
     b = (torch.zeros(cb, dtype=torch.bfloat16, device=dev) if lepe_bias is None
          else lepe_bias.to(torch.bfloat16).contiguous())
@@ -495,6 +501,9 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, h_sp: int,
         strides.add(_pixel_stride(t, name))
     if len(strides) != 1:
         raise ValueError(f"q, k and v must share one pixel stride, got {strides}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)) or next(iter(strides)) % 8:
+        raise ValueError("the attention tile copies 16-byte chunks: q, k and v 16-byte "
+                         "aligned, their pixel stride a multiple of 8")
     if H % h_sp or W % w_sp:
         raise ValueError(f"bad branch geometry H={H} W={W} window=({h_sp},{w_sp})")
     _check_head_dim(cb, heads)

@@ -459,11 +459,16 @@ def parts_vs_whole(qkv: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor, *,
 
 def check_parts_vs_whole(att: torch.Tensor, lepe: torch.Tensor,
                          whole: torch.Tensor) -> str:
-    """The parts round at other points than the whole (LePE once instead of
-    twice, then the sum): each of the two roundings can move a value by one
-    bf16 step at its own magnitude, so hold ``att + lepe`` within 2 bf16 ulps
-    of the output's scale (the larger of the output's and the LePE term's
-    largest magnitude)."""
+    """The rule the parts are held to: ``att + lepe`` (summed in bf16) within
+    2 bf16 ulps of ``whole`` at the scale max(|whole|, |lepe|) (the larger
+    largest magnitude of the two; ``ulp_bf16``), one ulp for each rounding
+    that differs between the parts and the whole. Two differ: the parts round
+    the LePE term once where the whole rounds it twice, and their sum rounds
+    at the scale of either term. The attention itself rounds alike on both
+    sides (``window_attention`` and ``stripe_attention`` run the same tile),
+    so a change of the tile's summation order moves both equally and leaves
+    the rule as it is; a break means the parts no longer compute the
+    whole."""
     scale = max(float(whole.float().abs().max()), float(lepe.float().abs().max()))
     mx = float(((att + lepe).float() - whole.float()).abs().max())
     bound = 2 * ulp_bf16(scale)

@@ -41,9 +41,9 @@ import sys
 
 import numpy as np
 
-# Digests of the probe's tensors from the build of commit f2d50d1 (the
-# kernels before block_phases.cuh took the block's phases out of
-# block_pair.cu), on an NVIDIA H100 80GB HBM3.
+# Digests of the probe's tensors from the build of the tensor-core attention
+# tile and the pipelined GEMM tile (attention_tile.cuh, gemm_tile.cuh), on an
+# NVIDIA H100 80GB HBM3.
 REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "probe_reference.json")
 
 # stage, H, C, heads, split, last (tiny-224)

@@ -10,7 +10,10 @@ when it names an existing file: the JAX package's ``.npz`` or a reference
 ``.pth``, loaded as the root ``train.py`` loads it
 (``utils.checkpoint.load_from_pretrained``: encoder weights seed the decoder
 stages the checkpoint lacks). ``--use-checkpoint`` recomputes each block's
-forward in the backward (``TRAIN.USE_CHECKPOINT``).
+forward in the backward (``TRAIN.USE_CHECKPOINT``). ``--resume PATH``
+continues a run exactly from the ``train_state.pt`` the trainer writes beside
+each checkpoint (PATH: the file, or the run's output directory): weights,
+SGD momentum, LR step, drop-path generator and loader epoch.
 """
 
 from __future__ import annotations
@@ -63,7 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="use zipped dataset instead of folder dataset")
     p.add_argument("--cache-mode", type=str, default="part",
                    choices=["no", "full", "part"])
-    p.add_argument("--resume", help="resume from checkpoint (not ported yet)")
+    p.add_argument("--resume", help="continue from a train_state.pt, or from the run "
+                                    "directory that holds one")
     p.add_argument("--accumulation-steps", type=int, help="gradient accumulation steps")
     p.add_argument("--use-checkpoint", action="store_true",
                    help="whether to use gradient checkpointing to save memory")
@@ -82,12 +86,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> str:
     from ..models import build_model
-    from ..utils.checkpoint import load_from_pretrained
+    from ..utils.checkpoint import load_from_pretrained, train_state_path
     from .trainer import trainer_synapse
 
     args = build_parser().parse_args(argv)
-    if args.resume or args.device_augment:
-        raise NotImplementedError("--resume and --device_augment are not ported yet")
+    if args.device_augment:
+        raise NotImplementedError("--device_augment is not ported yet")
+    if args.resume:
+        args.resume = train_state_path(args.resume)  # a missing state raises before any work
     if args.dataset == "Synapse":
         args.root_path = os.path.join(args.root_path, "train_npz")
     config = get_config(args)

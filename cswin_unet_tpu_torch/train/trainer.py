@@ -5,7 +5,8 @@ Counterpart of ``cswin_unet_tpu.train.trainer`` (reference
 poly decay ``lr = base·(1 − iter/max_iter)^0.9``, loss 0.4·CE + 0.6·Dice,
 TensorBoard scalars every iteration and image triptychs every 20,
 checkpoints every 3 epochs after the halfway point plus the final epoch, in
-the JAX package's ``.npz`` format, and the same log-line format.
+the JAX package's ``.npz`` format, each with ``train_state.pt`` beside it
+(``args.resume`` continues from one exactly), and the same log-line format.
 
 On one explicit device: batches come from a threaded host loader and are
 copied one batch ahead (``data.device_prefetch``); drop-path masks come
@@ -25,7 +26,8 @@ import torch
 
 from ..data import DataLoader, RandomGenerator, SynapseDataset, device_prefetch
 from ..losses import segmentation_loss
-from ..utils.checkpoint import save_checkpoint
+from ..utils.checkpoint import (TRAIN_STATE, restore_train_state, save_checkpoint,
+                                save_train_state)
 from ..utils.logging_utils import MetricBuffer, SummaryWriter, setup_logging
 
 
@@ -106,7 +108,15 @@ def trainer_synapse(args, model, snapshot_path: str) -> str:
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
     writer = SummaryWriter(os.path.join(snapshot_path, "log"))
-    iter_num = 0
+    iter_num = start_epoch = 0
+    resume = getattr(args, "resume", None)
+    if resume:
+        # The model, SGD momentum, LR step and drop-path generator as saved,
+        # and the loader at the next epoch: the run continues exactly.
+        iter_num, start_epoch = restore_train_state(resume, model, optimizer, scheduler,
+                                                    generator)
+        trainloader.epoch = start_epoch
+        logging.info(f"resumed from {resume} at iteration {iter_num} (epoch {start_epoch})")
     t_start = time.time()
     metrics = MetricBuffer(flush_every=20)
 
@@ -127,7 +137,7 @@ def trainer_synapse(args, model, snapshot_path: str) -> str:
             writer.add_image("train/GroundTruth",
                              np.asarray(v["label"])[None].astype(np.float32) * 50, it)
 
-    for epoch_num in range(max_epoch):
+    for epoch_num in range(start_epoch, max_epoch):
         for batch in device_prefetch(iter(trainloader), device):
             aux = train_step(batch["image"], batch["label"], generator)
             lr_ = poly_lr(iter_num, base_lr, max_iterations)
@@ -148,6 +158,8 @@ def trainer_synapse(args, model, snapshot_path: str) -> str:
             save_mode_path = os.path.join(snapshot_path, f"epoch_{epoch_num}.npz")
             save_checkpoint(save_mode_path, model.cswin_unet.state_dict())
             logging.info(f"save model to {save_mode_path}")
+            save_train_state(os.path.join(snapshot_path, TRAIN_STATE), model, optimizer,
+                             scheduler, generator, iter_num, epoch_num + 1)
         if is_last:
             break
 

@@ -77,6 +77,48 @@ def load_checkpoint(path: str) -> tuple[dict[str, np.ndarray], dict]:
     return flat, extra
 
 
+TRAIN_STATE = "train_state.pt"
+
+
+def save_train_state(path: str, model: torch.nn.Module, optimizer, scheduler,
+                     generator: torch.Generator, iteration: int, epoch: int) -> str:
+    """Write what a resumed run needs to continue exactly (the counterpart of
+    ``cswin_unet_tpu.utils.checkpoint.save_train_state``, with ``torch.save``
+    for orbax): the model's state dict, the optimizer's (SGD momentum
+    buffers), the LR scheduler's, the drop-path generator's state, the
+    iteration count and the loader epoch to start from. Returns the path."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                "scheduler": scheduler.state_dict(), "generator": generator.get_state(),
+                "iteration": int(iteration), "epoch": int(epoch)}, tmp)
+    os.replace(tmp, path)  # a run cut while writing leaves the previous state whole
+    return path
+
+
+def train_state_path(path: str) -> str:
+    """``path`` itself, or ``TRAIN_STATE`` inside it when it is a directory
+    (a run's output directory); raises FileNotFoundError if neither exists."""
+    if os.path.isdir(path):
+        path = os.path.join(path, TRAIN_STATE)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no train state at {path}")
+    return path
+
+
+def restore_train_state(path: str, model: torch.nn.Module, optimizer, scheduler,
+                        generator: torch.Generator) -> tuple[int, int]:
+    """Load a ``save_train_state`` file (or a directory holding one) into
+    ``model``, ``optimizer``, ``scheduler`` and ``generator`` in place.
+    Returns (iteration, epoch to start from)."""
+    state = torch.load(train_state_path(path), map_location="cpu", weights_only=True)
+    model.load_state_dict(state["model"])
+    optimizer.load_state_dict(state["optimizer"])
+    scheduler.load_state_dict(state["scheduler"])
+    generator.set_state(state["generator"])
+    return state["iteration"], state["epoch"]
+
+
 def _strip(key: str) -> str:
     for p in ("params", "backbone"):
         if key.startswith(p + SEP):

@@ -108,3 +108,20 @@ def test_block_bf16_matches_jax(H, W, C, heads, split, last, g):
     assert chain.dtype == plain.dtype == torch.bfloat16
     assert _rel_l2(chain.float().numpy(), pallas) <= 0.02
     assert _rel_l2(plain.float().numpy(), composed) <= 0.02
+
+
+def test_gemm_operand_rule_has_no_m_grid_limit():
+    """The GEMM's grid walks M and N tiles on one axis: M past 65535 tiles
+    of 64 rows passes the wrapper's operand rule; K % 8, alignment and 2^31
+    tiles are still refused (stride-0 views, nothing allocated)."""
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+
+    w = torch.zeros(64, 8, dtype=torch.bfloat16)
+    row = torch.zeros(1, 8, dtype=torch.bfloat16)
+    K._check_gemm_operands(row.expand(65535 * 64 + 1, 8), w)
+    K._check_gemm_operands(row.expand(2**24, 8), w)
+    with pytest.raises(ValueError, match="grid limit"):
+        K._check_gemm_operands(row.expand(2**31, 8), torch.zeros(8192, 8, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="K % 8"):
+        K._check_gemm_operands(torch.zeros(4, 12, dtype=torch.bfloat16),
+                               torch.zeros(4, 12, dtype=torch.bfloat16))

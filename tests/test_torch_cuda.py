@@ -74,6 +74,134 @@ def test_gemm(dev, M, N, K_, epilogue):
     assert _rel_l2(got.float(), want.float()) <= 0.02
 
 
+GEMM_EPILOGUES = ["bias", "residual", "residual-droppath", "gelu", "gelu-keep-pre",
+                  "dgrad", "dgrad-droppath", "dgrad-droppath-gelu"]
+
+
+@pytest.mark.parametrize("epilogue", GEMM_EPILOGUES)
+@pytest.mark.parametrize("N", [25, 96, 192, 256, 2048])
+@pytest.mark.parametrize("K_", [64, 256, 2048])
+def test_gemm_tile(dev, K_, N, epilogue):
+    """The GEMM tile (``gemm`` and ``gemm_dgrad``) at depths 64-2048 and
+    widths from the tail's 25 classes (odd: scalar stores) to 2048, on a
+    ragged M of 333 rows (9 samples of 37), in every epilogue: bias,
+    residual with and without the per-sample drop-path multiplier, GELU
+    with and without its kept pre-activation, and the dX product with the
+    operand scale (A_SCALED) and the GELU backward."""
+    rng = np.random.default_rng(21)
+    M, hw = 333, 37
+    dp = torch.from_numpy((rng.random(M // hw) < 0.7).astype(np.float32) / 0.7).to(dev)
+    a = _rnd(rng, dev, M, K_).bfloat16()
+    if epilogue.startswith("dgrad"):
+        w = _rnd(rng, dev, K_, N, sc=K_ ** -0.5)
+        kw = dict(rows_per_sample=hw)
+        if "droppath" in epilogue:
+            kw["dp"] = dp
+        if epilogue.endswith("gelu"):
+            kw["gelu_h"] = _rnd(rng, dev, M, N).bfloat16()
+        before = K.gemm_dgrad.launches
+        got, want = K.gemm_dgrad(a, w, **kw), K.gemm_dgrad_plain(a, w, **kw)
+        assert K.gemm_dgrad.launches == before + 1
+    else:
+        w = _rnd(rng, dev, N, K_, sc=K_ ** -0.5).bfloat16()
+        bias = _rnd(rng, dev, N, sc=0.1)
+        kw = dict(epilogue=epilogue.split("-")[0])
+        if epilogue.startswith("residual"):
+            kw["residual"] = _rnd(rng, dev, M, N).bfloat16()
+        if epilogue == "residual-droppath":
+            kw.update(dp=dp, rows_per_sample=hw)
+        pres = [None, None]
+        if epilogue == "gelu-keep-pre":
+            pres = [torch.empty(M, N, dtype=torch.bfloat16, device=dev) for _ in range(2)]
+        before = K.gemm.launches
+        got = K.gemm(a, w, bias, pre=pres[0], **kw)
+        assert K.gemm.launches == before + 1
+        want = K.gemm_plain(a, w, bias, pre=pres[1], **kw)
+        if pres[0] is not None:
+            assert _rel_l2(pres[0].float(), pres[1].float()) <= 0.02
+    assert got.shape == want.shape == (M, N)
+    assert _rel_l2(got.float(), want.float()) <= 0.02
+
+
+@pytest.mark.parametrize("N", [24, 96])
+def test_gemm_tile_unaligned_residual_and_pre(dev, N):
+    """A residual or kept pre-activation that starts one element into its
+    buffer (2 bytes off every wider boundary) is read and written one value
+    at a time, with the same results as aligned operands."""
+    rng = np.random.default_rng(24)
+    M, K_ = 200, 64
+    a = _rnd(rng, dev, M, K_).bfloat16()
+    w = _rnd(rng, dev, N, K_, sc=K_ ** -0.5).bfloat16()
+    bias = _rnd(rng, dev, N, sc=0.1)
+    buf = _rnd(rng, dev, M * N + 1).bfloat16()
+    res = buf[1:].view(M, N)
+    got = K.gemm(a, w, bias, residual=res, epilogue="residual")
+    assert torch.equal(got, K.gemm(a, w, bias, residual=res.clone(), epilogue="residual"))
+    pre = torch.empty(M * N + 1, dtype=torch.bfloat16, device=dev)[1:].view(M, N)
+    pre_aligned = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+    got = K.gemm(a, w, bias, epilogue="gelu", pre=pre)
+    assert torch.equal(got, K.gemm(a, w, bias, epilogue="gelu", pre=pre_aligned))
+    assert torch.equal(pre, pre_aligned)
+
+
+# One window of each length the tile is built for: L = 49 (tiny-224 stage 4),
+# 56 (stages 1-2), 98 (stage 3) and 288 (base-384's 12 x 24 stripes, three
+# passes over key blocks).
+ATTENTION_WINDOWS = [(7, 7), (2, 28), (7, 14), (12, 24)]
+ATTENTION_FORMS = ["attention", "no_softmax", "copy", "softmax", "stage", "stripe_attention",
+                   "cswin_attention"]
+
+
+@pytest.mark.parametrize("form", ATTENTION_FORMS)
+@pytest.mark.parametrize("D", [16, 24, 32])
+@pytest.mark.parametrize("window", ATTENTION_WINDOWS)
+def test_attention_tile(dev, window, D, form):
+    """The attention tile at every window length and head dim, in every
+    mode ``window_attention`` prices and in both LePE epilogues
+    (``stripe_attention``: the chain's roundings, bf16 taps;
+    ``cswin_attention``: the Pallas kernel's, float32 taps), on an image
+    batch of 2 x 2 windows a head and 2 heads, q, k, v as the thirds of one
+    packed tensor."""
+    from cswin_unet_tpu_torch.ops.attention import cswin_attention_pallas_plain
+
+    rng = np.random.default_rng(22)
+    h_sp, w_sp = window
+    C = 2 * D
+    packed = _rnd(rng, dev, 2, 2 * h_sp, 2 * w_sp, 3 * C).bfloat16()
+    q, k, v = (packed[..., i * C:(i + 1) * C] for i in range(3))
+    lw, lb = _rnd(rng, dev, C, 1, 3, 3, sc=0.3), _rnd(rng, dev, C, sc=0.1)
+    scale = D ** -0.5
+    if form == "stripe_attention":
+        out = torch.zeros(2, 2 * h_sp, 2 * w_sp, C, dtype=torch.bfloat16, device=dev)
+        kw = dict(ch_off=0, heads=2, h_sp=h_sp, w_sp=w_sp, scale=scale)
+        before = K.stripe_attention.launches
+        got = K.stripe_attention(packed, lw, lb, out, **kw)
+        assert K.stripe_attention.launches == before + 1
+        want = K.stripe_attention_plain(packed, lw, lb, torch.zeros_like(out), **kw)
+    elif form == "cswin_attention":
+        kw = dict(h_sp=h_sp, w_sp=w_sp, num_heads=2, scale=scale)
+        got = K.cswin_attention(q, k, v, lw, lb, **kw)
+        want = cswin_attention_pallas_plain(q, k, v, lw, lb, **kw)
+    else:
+        kw = dict(heads=2, scale=scale, h_sp=h_sp, w_sp=w_sp, mode=form)
+        before = K.window_attention.launches
+        got = K.window_attention(q, k, v, **kw)
+        assert K.window_attention.launches == before + 1
+        want = K.window_attention_plain(q, k, v, **kw)
+    assert got.shape == want.shape
+    assert _rel_l2(got.float(), want.float()) <= 0.02
+
+
+def test_attention_tile_refuses_unaligned_operands(dev):
+    """The tile copies 16-byte chunks: q, k, v off a 16-byte boundary (here
+    one channel in) are refused, not read wrong."""
+    rng = np.random.default_rng(23)
+    packed = _rnd(rng, dev, 2, 7, 14, 3 * 64 + 1).bfloat16()
+    q, k, v = (packed[..., 1 + i * 64:1 + (i + 1) * 64] for i in range(3))
+    with pytest.raises(ValueError, match="16-byte"):
+        K.window_attention(q, k, v, heads=2, scale=0.2, h_sp=7, w_sp=14)
+
+
 def _block_params(rng, dev, C, last=False):
     cb = C if last else C // 2
     t = lambda *s, sc=0.1, off=0.0: _rnd(rng, dev, *s, sc=sc, off=off)

@@ -361,3 +361,47 @@ def test_block_lab_refuses_a_missing_card_and_other_stages():
     assert block_lab.STAGES[33] == dict(H=24, W=24, C=384, heads=16, split=12, last=False)
     assert block_lab.branch_geometry(3) == (7, 14, 128, 4, 2)
     assert block_lab.branch_geometry(4) == (7, 7, 512, 16, 1)
+
+
+def test_ulp_bf16_is_the_spacing_of_bf16_values():
+    """8 significant bits: the step at [1, 2) is 2^-7, at [2, 4) 2^-6, at
+    [0.5, 1) 2^-8; a value that adds half a step rounds, one step does not."""
+    assert [block_lab.ulp_bf16(v) for v in (1.0, 1.99, 3.0, 0.75)] == \
+        [2.0 ** -7, 2.0 ** -7, 2.0 ** -6, 2.0 ** -8]
+    one = torch.tensor([1.0], dtype=torch.bfloat16)
+    assert float(one + torch.tensor([2.0 ** -7], dtype=torch.bfloat16)) == 1.0 + 2.0 ** -7
+    assert float(one + torch.tensor([2.0 ** -9], dtype=torch.bfloat16)) == 1.0
+
+
+def _bf16(*v):
+    return torch.tensor(v, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("ulps,ok", [(0, True), (1, True), (2, True), (3, False)])
+def test_parts_vs_whole_rule_at_the_output_scale(ulps, ok):
+    """At scale 3 (the whole's largest magnitude; LePE 0) a bf16 step is
+    2^-6: the parts may sit 2 steps off the whole and not 3."""
+    whole, lepe = _bf16(3.0, -0.5), _bf16(0.0, 0.0)
+    att = _bf16(3.0 + ulps * 2.0 ** -6, -0.5)
+    assert float(att[0]) == 3.0 + ulps * 2.0 ** -6  # exact in bf16
+    if ok:
+        assert "2 ulps 3.125e-02" in block_lab.check_parts_vs_whole(att, lepe, whole)
+    else:
+        with pytest.raises(block_lab.LabFailure, match="> 2 ulps"):
+            block_lab.check_parts_vs_whole(att, lepe, whole)
+
+
+@pytest.mark.parametrize("ulps,ok", [(2, True), (3, False)])
+def test_parts_vs_whole_rule_at_the_lepe_scale(ulps, ok):
+    """The LePE term's magnitude sets the scale when it is the larger: whole
+    1.0, LePE -4 (a step of 2^-5 at the sum's terms), so the parts' bf16 sum
+    may land 2 such steps off (0.0625, 8 steps of the whole's own 2^-7) and
+    not 3."""
+    whole, lepe = _bf16(1.0), _bf16(-4.0)
+    att = _bf16(5.0 + ulps * 2.0 ** -5)
+    assert float((att + lepe)[0]) == 1.0 + ulps * 2.0 ** -5
+    if ok:
+        assert "2 ulps 6.250e-02" in block_lab.check_parts_vs_whole(att, lepe, whole)
+    else:
+        with pytest.raises(block_lab.LabFailure, match="at scale 4.000"):
+            block_lab.check_parts_vs_whole(att, lepe, whole)
