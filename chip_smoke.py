@@ -8,7 +8,8 @@ Phases, each of which raises on failure (the process then exits non-zero):
   1. torch / CUDA versions and the card's name and power limit.
   2. Build the hand-written CUDA kernels from ``csrc/`` with nvcc; ``ptxas``
      must report no spills for ``block_pair``, and the SASS of the attention
-     and GEMM kernels (``cuobjdump -sass``) must hold tensor-core
+     and GEMM kernels and of the block backward's weight-gradient and
+     attention kernels (``cuobjdump -sass``) must hold tensor-core
      instructions (``HMMA`` / ``HGMMA``).
   3. Hold every kernel against its plain PyTorch version on the card, on
      bf16 inputs from a seeded numpy generator at the tiny-224 shapes: each
@@ -21,8 +22,12 @@ Phases, each of which raises on failure (the process then exits non-zero):
      The backward kernels likewise at the 224 stage-1/2/3 geometries, B = 24
      (the train batch): ``layernorm_bwd``, ``gemm_dgrad`` (with its GELU
      backward and drop-path operand scale), ``gemm_wgrad``,
-     ``stripe_attention_bwd``, and the forward GEMM's training epilogues
-     (drop-path residual, GELU keeping its pre-activation). The ``pallas``
+     ``stripe_attention_bwd`` (also at base-384's 288-token windows, weight
+     0: checked and timed, not on the tiny-224 path; its shared memory
+     held to the wrapper's count; its yardstick aten's flash-attention
+     backward on the same windows, attention only, no LePE), and the
+     forward GEMM's training epilogues (drop-path residual, GELU keeping
+     its pre-activation). The ``pallas``
      route's ``cswin_attention`` at every branch geometry (B = 32, q, k, v
      as channel slices of one qkv tensor) against the Pallas rounding's
      plain version, and ``edt_pass`` along each axis of a (48, 512, 512)
@@ -359,7 +364,11 @@ class KernelTally:
                              library_vs_ms=0.0) for k in SOURCES}
 
     def case(self, name, label, kernel_fn, plain_fn, calls, check="rel", *,
-             moved=0, tc_flops=0.0, f32_ops=0.0, library=None, reps=10, primed=False):
+             moved=0, tc_flops=0.0, f32_ops=0.0, library=None, reps=10, primed=False,
+             timed=None):
+        """``timed``: the (kernel, plain) calls to time where the checked
+        calls also do the harness's own work (allocating and gathering the
+        outputs to compare)."""
         import torch
 
         got, want = kernel_fn(), plain_fn()
@@ -367,7 +376,8 @@ class KernelTally:
         err_txt, ok, mx = judge(f"{name} {label}", got, want, check)
         row = self.rows[name]
         row["max_abs_err"] = max(row["max_abs_err"], mx)
-        ms, pms = (time_ms(fn, reps=reps, primed=primed) for fn in (kernel_fn, plain_fn))
+        ms, pms = (time_ms(fn, reps=reps, primed=primed)
+                   for fn in (timed or (kernel_fn, plain_fn)))
         bytes_ms = moved / HBM_BPS * 1e3
         ops_ms = max(tc_flops / TC_FLOPS, f32_ops / F32_FLOPS) * 1e3
         row["ms"] += calls * ms
@@ -737,26 +747,83 @@ def compare_backward_kernels(cfg, dev, B: int, tally: KernelTally) -> None:
                        tc_flops=2 * M * n * k, f32_ops=M * n,
                        library=(lambda: torch.matmul(d.t(), a)) if plain_product
                        else None)
-        qkv, dout = rnd(B, H, H, 3 * C).to(bf), rnd(B, H, H, C).to(bf)
-        scale = (C // heads) ** -0.5
-        for off, hs, ws in ((0, H, split), (C // 2, split, H)):
-            lw = rnd(C // 2, 1, 3, 3, sc=0.3)
-            kw = dict(ch_off=off, heads=heads // 2, h_sp=hs, w_sp=ws, scale=scale)
-            chans = torch.cat([torch.arange(off, off + C // 2) + i * C
-                               for i in range(3)]).to(dev)
+        attention_bwd_cases(tally, dev, rnd, B, H, C, heads, split, routed, tag)
 
-            def run(fn):
-                dqkv = torch.zeros(B, H, H, 3 * C, dtype=bf, device=dev)
-                dw, db = fn(qkv, dout, lw, dqkv, **kw)
-                return dqkv[..., chans], dw, db
 
-            L, cb = hs * ws, C // 2
-            tally.case("stripe_attention_bwd", f"{tag} window {hs}x{ws}",
-                       lambda: run(K.stripe_attention_bwd),
-                       lambda: run(K.stripe_attention_bwd_plain), routed,
-                       moved=M * cb * 2 * 7 + nbytes(lw) + 10 * cb * 4,
-                       tc_flops=10 * M * L * cb,
-                       f32_ops=M * (heads // 2) * 8 * L + 36 * M * cb)
+def compare_base384_backward(dev, B: int, tally: KernelTally) -> None:
+    """``stripe_attention_bwd`` at base-384's stage 3 (24 x 24, C 384, 16
+    heads of 24): 288-token windows, beyond one key block of the kernel;
+    weight 0 (not on the tiny-224 path). Its shared memory is held to the
+    wrapper's count at every window this run gives the kernel."""
+    import torch
+
+    from cswin_unet_tpu_torch.ops.cuda import build
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+
+    rng = np.random.default_rng(4)
+    rnd = lambda *s, sc=1.0: torch.from_numpy(
+        (rng.standard_normal(s) * sc).astype(np.float32)).to(dev)
+    attention_bwd_cases(tally, dev, rnd, B, 24, 384, 16, 12, 0, "@24x24x384 (base-384)")
+    lib = build.library()
+    for L, d in ((56, 32), (98, 32), (288, 24)):
+        got, want = lib.cswin_stripe_attention_bwd_smem(L, d), K.stripe_attention_bwd_smem(L, d)
+        print(f"[kernel] stripe_attention_bwd shared memory at L={L} d={d}: kernel {got} "
+              f"B, wrapper {want} B {'ok' if got == want else 'FAIL'}", flush=True)
+        require(got == want, f"stripe_attention_bwd smem at L={L} d={d}: {got} != {want}")
+
+
+def flash_attention_bwd(q, k, v, do, scale: float):
+    """aten's flash-attention backward on (windows, heads, L, d) bf16: the
+    softmax attention's dq, dk, dv without LePE. Its forward (out, logsumexp)
+    runs here, once; the returned call is the backward alone."""
+    import torch
+
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0, False, False,
+                                                              scale=scale)
+    out, lse, cq, ck, mq, mk, seed, offset = fwd[:8]
+    return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, False, seed, offset, scale=scale)
+
+
+def attention_bwd_cases(tally: KernelTally, dev, rnd, B: int, H: int, C: int, heads: int,
+                        split: int, calls: int, tag: str) -> None:
+    """``stripe_attention_bwd`` on both branches of a dual-branch stage,
+    against its plain version, ``calls`` times a step, aten's
+    flash-attention backward on the same windows as its yardstick
+    (attention only, no LePE). Timed: the wrapper's call alone, into a
+    buffer allocated once."""
+    import torch
+
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+
+    bf = torch.bfloat16
+    qkv, dout = rnd(B, H, H, 3 * C).to(bf), rnd(B, H, H, C).to(bf)
+    scale = (C // heads) ** -0.5
+    cb, nh = C // 2, heads // 2
+    M = B * H * H
+    for off, hs, ws in ((0, H, split), (C // 2, split, H)):
+        lw = rnd(cb, 1, 3, 3, sc=0.3)
+        kw = dict(ch_off=off, heads=nh, h_sp=hs, w_sp=ws, scale=scale)
+        chans = torch.cat([torch.arange(off, off + cb) + i * C for i in range(3)]).to(dev)
+
+        def run(fn):
+            dqkv = torch.zeros(B, H, H, 3 * C, dtype=bf, device=dev)
+            dw, db = fn(qkv, dout, lw, dqkv, **kw)
+            return dqkv[..., chans], dw, db
+
+        L = hs * ws
+        win = lambda t: K._branch_windows(t[..., off:off + cb], hs, ws, nh).contiguous()
+        thirds = [win(qkv[..., i * C:(i + 1) * C]) for i in range(3)]
+        buf = torch.zeros(B, H, H, 3 * C, dtype=bf, device=dev)
+        tally.case("stripe_attention_bwd", f"{tag} window {hs}x{ws}",
+                   lambda: run(K.stripe_attention_bwd),
+                   lambda: run(K.stripe_attention_bwd_plain), calls,
+                   timed=(lambda: K.stripe_attention_bwd(qkv, dout, lw, buf, **kw),
+                          lambda: K.stripe_attention_bwd_plain(qkv, dout, lw, buf, **kw)),
+                   moved=M * cb * 2 * 7 + nbytes(lw) + 10 * cb * 4,
+                   tc_flops=10 * M * L * cb,
+                   f32_ops=M * nh * 8 * L + 36 * M * cb,
+                   library=flash_attention_bwd(*thirds, win(dout), scale))
 
 
 def organ_volume(rng, shape, nc: int, like=None):
@@ -1898,11 +1965,14 @@ def main() -> int:
                 f"block_pair: ptxas reports spills {spills}")
         print(f"[build] block_one (entry, spill stores, spill loads): "
               f"{ptxas_spills(build.build_log, 'block_one_kernel')}", flush=True)
-    # The two tiles' products run on the tensor cores: the SASS of the
-    # attention and GEMM kernels holds HMMA (mma.sync) or HGMMA (wgmma).
+    # The tiles' products run on the tensor cores: the SASS of the attention
+    # and GEMM kernels and of the backward's weight gradient and attention
+    # holds HMMA (mma.sync) or HGMMA (wgmma). A mangled name carries the
+    # length of the kernel's name before it, then I (template) or E.
     tc = tensor_core_ops(str(build.library_path()), build.cuobjdump())
-    for family in ("stripe_attention_kernel", "gemm_kernel"):
-        per = [c for name, c in tc.items() if re.search(rf"\d{family}I", name)]
+    for family in ("stripe_attention_kernel", "gemm_kernel", "wgrad_kernel",
+                   "stripe_attention_bwd_kernel"):
+        per = [c for name, c in tc.items() if re.search(rf"\d{family}[IE]", name)]
         print(f"[build] {family}: {sum(per)} tensor-core instructions (HMMA / HGMMA in "
               f"cuobjdump -sass) over {len(per)} instances, per instance {per}", flush=True)
         require(sum(per) > 0, f"{family}: no tensor-core instruction in its SASS")
@@ -1910,6 +1980,7 @@ def main() -> int:
     tally = compare_kernels(cfg, dev, SERVE_BATCH)
     probe_vs_parent(dev)
     compare_backward_kernels(cfg, dev, TRAIN_BATCH, tally)
+    compare_base384_backward(dev, TRAIN_BATCH, tally)
     compare_edt(dev, tally)
     pair_ab(cfg, dev)
     compare_modules(cfg, dev)

@@ -64,6 +64,17 @@ class CfgNode(dict):
     def is_frozen(self) -> bool:
         return object.__getattribute__(self, CfgNode._FROZEN)
 
+    def __deepcopy__(self, memo: dict) -> "CfgNode":
+        # copy's default rebuilds a dict subclass with its instance state
+        # (the frozen flag) set before its items, so a frozen node refused
+        # its own items. Items first, then the flag.
+        c = CfgNode()
+        memo[id(self)] = c
+        for k, v in self.items():
+            dict.__setitem__(c, k, copy.deepcopy(v, memo))
+        object.__setattr__(c, CfgNode._FROZEN, self.is_frozen())
+        return c
+
     # -- merging ------------------------------------------------------------
     def merge_from_dict(self, other: dict) -> None:
         for k, v in other.items():

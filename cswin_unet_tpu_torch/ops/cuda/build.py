@@ -26,18 +26,22 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C signatures of csrc/*.cu; every function returns a cudaError_t as int.
+# C signatures of csrc/*.cu; a function returns a cudaError_t as int unless
+# _RESTYPES says otherwise.
 _SIGNATURES = {
     "cswin_layernorm": (_P, _P, _P, _P, _I, _I, _F, _P),
     "cswin_layernorm_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     "cswin_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "cswin_gemm_wgrad": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "cswin_gemm_wgrad": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _P),
+    "cswin_gemm_wgrad_max_clusters": (_I, _I, _I),
     "cswin_stripe_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _F, _P),
     "cswin_cswin_attention": (_P, _P, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _F, _P),
-    "cswin_stripe_attention_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _I, _I, _I, _I, _F, _P),
+    "cswin_stripe_attention_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _F, _P),
+    "cswin_stripe_attention_bwd_smem": (_I, _I),
     "cswin_carafe": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "cswin_edt_pass": (_P, _P, _LL, _I, _LL, _P),
     "cswin_block_pair": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P),
@@ -49,6 +53,9 @@ _SIGNATURES = {
                                _I, _P),
     "cswin_ln_mlp": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P),
 }
+
+# Entry points that return something other than a cudaError_t (a count).
+_RESTYPES = {"cswin_stripe_attention_bwd_smem": ctypes.c_longlong}
 
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None   # wall time of the last build, if any
@@ -126,7 +133,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     _lib = lib
     return lib
 

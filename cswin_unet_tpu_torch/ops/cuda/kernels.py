@@ -43,6 +43,7 @@ Kernels (``csrc/``):
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -54,7 +55,7 @@ from .build import check, library
 
 _EPILOGUES = {"bias": 0, "residual": 1, "gelu": 2}
 _GELU_BWD = 3
-_SMS = 132  # streaming multiprocessors of an H100 SXM: split-M work targets 4x
+_SMS = 132  # SMs of an H100 SXM: wgrad_plan's wave where the occupancy API is not asked
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -357,13 +358,91 @@ def gemm_wgrad_plain(x: torch.Tensor, dy: torch.Tensor, *,
     return dyf.t() @ x.float(), dyf.sum(0)
 
 
-def _wgrad_split(M: int, tiles: int) -> tuple[int, int]:
-    """(rows per split, splits): about 4 CTAs per SM over all output tiles,
-    each split a multiple of the kernel's 32-row step."""
-    splits = max(1, min(-(-M // 32), -(-4 * _SMS // tiles)))
-    per_split = -(-M // splits)
-    chunk = -(-per_split // 32) * 32
-    return chunk, -(-M // chunk)
+class WgradPlan(NamedTuple):
+    """How ``gemm_wgrad`` cuts its work: ``bn`` x ``bk`` output tiles
+    (``tiles`` of them), M in ``splits`` chunks of ``chunk`` rows per tile
+    (the last ones may be short or empty), in clusters of ``cluster`` CTAs;
+    ``partial_bytes`` is what the kernel writes to L2 between its two sums
+    (0 with one cluster a tile)."""
+    chunk: int
+    splits: int
+    cluster: int
+    tiles: int
+    partial_bytes: int
+    bn: int
+    bk: int
+
+
+_WGRAD_ROWS = 64      # gemm.cu wgrad::MS, the rows of a ring stage
+_WGRAD_CLUSTER = 8    # wgrad::MAX_CLUSTER
+
+
+def wgrad_plan(M: int, N: int, K: int, max_clusters=None) -> WgradPlan:
+    """Tiles 128 wide along N or K where it divides, else 64, so that the
+    narrow operand is read by fewer tiles; then one wave of CTAs: each
+    tile's M split over as many CTAs as fit the card at once beside the other
+    tiles' (each chunk a multiple of the ring's row step), in the largest
+    cluster (8, 4, 2 or 1) that keeps at least 7/8 of the best split count
+    and whose partials stay under an eighth of the operands' bytes.
+    ``max_clusters(bn, bk, cl)``: how many clusters of ``cl`` CTAs the card
+    runs at once (the wrapper asks the occupancy API); by default one CTA on
+    each of the H100's SMs."""
+    bn = 128 if N % 128 == 0 else 64
+    bk = 128 if K % 128 == 0 else 64
+    tn = -(-N // bn)
+    tiles = tn * -(-K // bk)
+    steps = -(-M // _WGRAD_ROWS)
+    fit = max_clusters or (lambda bn_, bk_, cl: _SMS // cl)
+
+    def cut(cl: int, want: int):
+        chunk = -(-max(1, -(-M // want)) // _WGRAD_ROWS) * _WGRAD_ROWS
+        splits = -(-(-(-M // chunk)) // cl) * cl
+        clusters = splits // cl
+        partial = 4 * clusters * bn * (tiles * bk + tn) if clusters > 1 else 0
+        return WgradPlan(chunk, splits, cl, tiles, partial, bn, bk)
+
+    # Each cluster size's widest cut whose partials stay under an eighth of
+    # the operands' bytes (one cluster a tile writes none): at most `most`
+    # clusters a tile.
+    most = max(1, 2 * M * (N + K) // (8 * 4 * bn * (tiles * bk + tn)))
+    plans = [cut(1, 1)]
+    for cl in (8, 4, 2, 1):
+        want = min(fit(bn, bk, cl) * cl // tiles, steps, most * cl) // cl * cl
+        if want:
+            plans.append(cut(cl, want))
+    best = max(p.splits for p in plans)
+    return max((p for p in plans if 8 * p.splits >= 7 * best),
+               key=lambda p: (p.cluster, p.splits))
+
+
+_wgrad_arrivals: dict[torch.device, torch.Tensor] = {}
+_wgrad_fit: dict[tuple, int] = {}
+_wgrad_plans: dict[tuple, WgradPlan] = {}  # by (device, M, N, K): planned once a shape
+
+
+def _wgrad_max_clusters(bn: int, bk: int, cl: int) -> int:
+    """Clusters of ``cl`` CTAs of the ``bn`` x ``bk`` weight-gradient kernel
+    the card runs at once, from the occupancy API (asked once a shape); 0
+    where none fits, and the planner then takes a smaller cluster."""
+    key = (torch.cuda.current_device(), bn, bk, cl)
+    if key not in _wgrad_fit:
+        n = library().cswin_gemm_wgrad_max_clusters(bn, bk, cl)
+        if n < 0 or (cl == 1 and n == 0):
+            raise RuntimeError(f"gemm_wgrad: the occupancy API gave {n} for clusters of "
+                               f"{cl} CTAs of the {bn}x{bk} tile")
+        _wgrad_fit[key] = n
+    return _wgrad_fit[key]
+
+
+def _arrivals(dev: torch.device, n: int) -> torch.Tensor:
+    """The wgrad kernel's per-slice arrival counters on ``dev``: zero, and
+    left zero by every launch (the last arrival resets its counter). Kernels
+    on one stream run in order, so calls share them."""
+    buf = _wgrad_arrivals.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _wgrad_arrivals[dev] = buf
+    return buf
 
 
 def gemm_wgrad(x: torch.Tensor, dy: torch.Tensor, *,
@@ -372,8 +451,8 @@ def gemm_wgrad(x: torch.Tensor, dy: torch.Tensor, *,
     ``(dW = dY'ᵀ·x (N, K), db = Σ_rows dY' (N,))``, both float32.
 
     x: (M, K), dy: (M, N) in one dtype; dY' as in ``gemm_dgrad``. On the GPU
-    the kernel splits M, writes float32 partials per split, and the splits
-    are summed here."""
+    one launch (``wgrad_plan``) splits M over one wave of CTAs and sums the
+    splits itself, in a fixed order: two calls give the same bits."""
     if _on_cpu(x):
         return gemm_wgrad_plain(x, dy, dp=dp, rows_per_sample=rows_per_sample)
     M, K = x.shape
@@ -386,17 +465,25 @@ def gemm_wgrad(x: torch.Tensor, dy: torch.Tensor, *,
     if K % 8 or N % 8 or x.data_ptr() % 16 or dy.data_ptr() % 16:
         raise ValueError("gemm_wgrad needs K % 8 == N % 8 == 0 and 16-byte "
                          "aligned operands")
-    chunk, splits = _wgrad_split(M, -(-N // 64) * -(-K // 64))
-    if splits > 65535 or -(-N // 64) > 65535:
-        raise ValueError(f"gemm_wgrad: M={M}, N={N} exceed the grid limit")
-    dw = torch.empty((splits, N, K), dtype=torch.float32, device=dev)
-    db = torch.empty((splits, N), dtype=torch.float32, device=dev)
+    plan = _wgrad_plans.get((dev, M, N, K))
+    if plan is None:
+        with torch.cuda.device(dev):
+            plan = _wgrad_plans[dev, M, N, K] = wgrad_plan(M, N, K, _wgrad_max_clusters)
+    if plan.tiles > 65535 or plan.splits * plan.chunk >= 2**31:
+        raise ValueError(f"gemm_wgrad: M={M}, N={N}, K={K} exceed the grid limit")
+    dw = torch.empty((N, K), dtype=torch.float32, device=dev)
+    db = torch.empty((N,), dtype=torch.float32, device=dev)
+    part = torch.empty((plan.partial_bytes // 4,), dtype=torch.float32, device=dev)
+    part_b = part[plan.tiles * (plan.splits // plan.cluster) * plan.bn * plan.bk:]
     err = library().cswin_gemm_wgrad(
-        x.data_ptr(), dy.data_ptr(), _ptr(dp), dw.data_ptr(), db.data_ptr(), M, N,
-        K, max(rows_per_sample, 1), chunk, splits, _stream(dev))
+        x.data_ptr(), dy.data_ptr(), _ptr(dp), dw.data_ptr(), db.data_ptr(),
+        part.data_ptr(), part_b.data_ptr(),
+        _arrivals(dev, plan.tiles * _WGRAD_CLUSTER).data_ptr(), M, N, K,
+        max(rows_per_sample, 1), plan.chunk, plan.splits, plan.cluster, plan.bn, plan.bk,
+        _stream(dev))
     check(err, "gemm_wgrad")
     gemm_wgrad.launches += 1
-    return dw.sum(0), db.sum(0)
+    return dw, db
 
 
 gemm_wgrad.launches = 0
@@ -592,6 +679,27 @@ def stripe_attention_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor,
     return dw.reshape(cb, 1, 3, 3), do_img.sum((0, 1, 2))
 
 
+SMEM_LIMIT = 227 * 1024  # bytes of shared memory a block may use on an H100
+_ATT_BWD_KEYS = 64        # stripe_attention_bwd.cu's key block (KB)
+_ATT_BWD_WARPS = 4        # and its warps (WARPS), each with two 16-row output tiles
+
+
+def stripe_attention_bwd_smem(L: int, d: int) -> int:
+    """Bytes of shared memory ``stripe_attention_bwd`` takes for a window of
+    ``L`` tokens at head dim ``d``, as ``stripe_attention_bwd.cu::smem_bytes``
+    counts them: q, k, v and dO in bf16 rows padded for ldmatrix, the bf16
+    P_b and dS_b tiles of one key block, each warp's two 16-row output tiles,
+    the LePE taps; beyond one key block also the row statistics and the
+    float32 dQ accumulators."""
+    lp = -(-L // 16) * 16
+    stride = -(-d // 16) * 16 + 8
+    size = (4 * lp * stride * 2 + 2 * lp * (_ATT_BWD_KEYS + 8) * 2
+            + _ATT_BWD_WARPS * 2 * 16 * stride * 2 + 9 * d * 4)
+    if lp > _ATT_BWD_KEYS:
+        size += lp * (3 + d) * 4
+    return size
+
+
 def stripe_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
                          lepe_weight: torch.Tensor, dqkv: torch.Tensor, *,
                          ch_off: int, heads: int, h_sp: int, w_sp: int,
@@ -620,22 +728,25 @@ def stripe_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
                          f"{w_sp}) cb={cb} heads={heads} ch_off={ch_off}")
     _check_head_dim(cb, heads)
     L, d = h_sp * w_sp, cb // heads
-    if (4 * L * (d + 1) + 2 * L * L) * 4 > 227 * 1024:
-        raise ValueError(f"window of {L} tokens exceeds the backward kernel's "
-                         "shared memory")
+    if stripe_attention_bwd_smem(L, d) > SMEM_LIMIT:
+        raise ValueError(f"a window of {L} tokens at head dim {d} needs "
+                         f"{stripe_attention_bwd_smem(L, d)} bytes of shared memory, "
+                         f"more than the {SMEM_LIMIT} a block may use")
+    if C % 8 or ch_off % 8 or any(t.data_ptr() % 16 for t in (qkv, dout, dqkv)):
+        raise ValueError("stripe_attention_bwd copies 16-byte chunks: C % 8 == 0, "
+                         "ch_off % 8 == 0 and 16-byte aligned qkv, dout and dqkv")
     windows = B * (H // h_sp) * (W // w_sp)
     if windows > 2**31 - 1:
         raise ValueError("too many windows for one launch")
     w9 = lepe_weight.reshape(cb, 9).t().to(torch.bfloat16).contiguous()
-    dw = torch.empty((windows, 9, cb), dtype=torch.float32, device=dev)
-    db = torch.empty((windows, cb), dtype=torch.float32, device=dev)
+    part = torch.empty((windows, cb, 10), dtype=torch.float32, device=dev)
     err = library().cswin_stripe_attention_bwd(
         qkv.data_ptr(), dout.data_ptr(), w9.data_ptr(), dqkv.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), B, H, W, C, ch_off, cb, heads, h_sp, w_sp,
-        scale, _stream(dev))
+        part.data_ptr(), B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, _stream(dev))
     check(err, "stripe_attention_bwd")
     stripe_attention_bwd.launches += 1
-    return dw.sum(0).t().reshape(cb, 1, 3, 3), db.sum(0)
+    lepe = part.sum(0)  # (cb, 10): the nine taps, then the bias
+    return lepe[:, :9].reshape(cb, 1, 3, 3), lepe[:, 9]
 
 
 stripe_attention_bwd.launches = 0

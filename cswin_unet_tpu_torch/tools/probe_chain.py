@@ -41,9 +41,10 @@ import sys
 
 import numpy as np
 
-# Digests of the probe's tensors from the build of the tensor-core attention
-# tile and the pipelined GEMM tile (attention_tile.cuh, gemm_tile.cuh), on an
-# NVIDIA H100 80GB HBM3.
+# Digests of the probe's tensors from the build of the tensor-core weight
+# gradient and attention backward (gemm.cu's wgrad_kernel,
+# stripe_attention_bwd.cu) beside the tensor-core attention and GEMM tiles,
+# on an NVIDIA H100 80GB HBM3.
 REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "probe_reference.json")
 
 # stage, H, C, heads, split, last (tiny-224)

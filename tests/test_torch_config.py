@@ -56,3 +56,40 @@ def test_defaults_and_opts_rules_match_jax():
     assert port.MODEL.NAME == "123" and port.DATA.IMG_SIZE == 64
     with pytest.raises(ValueError):
         port.merge_from_list(["MODEL.NAME"])
+
+
+@pytest.mark.parametrize("frozen", [True, False])
+def test_clone_is_an_unfrozen_deep_copy(frozen):
+    """``clone()`` of a frozen or unfrozen two-level node: equal, unfrozen
+    at every depth, independent of the original, which keeps its state.
+    (``copy.deepcopy`` used to set the frozen flag before the items.)"""
+    node = port_config.CfgNode({"A": 1, "B": {"C": [1, 2], "D": "x"}})
+    if frozen:
+        node.freeze()
+    c = node.clone()
+    assert c.to_dict() == node.to_dict()
+    assert not c.is_frozen() and not c.B.is_frozen()
+    assert node.is_frozen() == frozen and node.B.is_frozen() == frozen
+    c.A, c.B.D = 2, "y"
+    c.B.C.append(3)
+    assert node.to_dict() == {"A": 1, "B": {"C": [1, 2], "D": "x"}}
+
+
+def test_deepcopy_keeps_the_frozen_state():
+    import copy
+
+    node = port_config.CfgNode({"A": {"B": {"C": 1}}})
+    node.freeze()
+    c = copy.deepcopy(node)
+    assert c.to_dict() == node.to_dict() and c.is_frozen() and c.A.B.is_frozen()
+    with pytest.raises(AttributeError):
+        c.A.B.C = 2
+
+
+@pytest.mark.parametrize("yaml", YAMLS)
+def test_clone_of_a_loaded_config(yaml):
+    cfg = port_config.get_config(_args("cswin_unet_tpu_torch", yaml, None))
+    c = cfg.clone()
+    assert c.to_dict() == cfg.to_dict() and cfg.is_frozen() and not c.is_frozen()
+    c.MODEL.CSWIN.EMBED_DIM = 8
+    assert cfg.MODEL.CSWIN.EMBED_DIM != 8

@@ -649,3 +649,82 @@ def test_parts_add_up_to_stripe_attention(dev, stage):
             qkv, taps, bias, sp_h=sp_h, sp_w=sp_w, heads=g["heads"] // 2,
             scale=(C // g["heads"]) ** -0.5, ch_off=off)
         block_lab.check_parts_vs_whole(att, lepe, whole)
+
+
+# The weight gradient at the train shapes of stages 1 and 2 (bs 24: M =
+# 24·56², 24·28²) and at an odd M, with and without the drop-path scale:
+# within 0.02 of its plain version, and the same bits from two calls (the
+# kernel adds its splits in a fixed order).
+WGRAD_SHAPES = [(24 * 56 * 56, 56 * 56, C, n, k) for C in (64,)
+                for n, k in ((C, 4 * C), (4 * C, C), (C, C), (3 * C, C))]
+WGRAD_SHAPES += [(24 * 28 * 28, 28 * 28, C, n, k) for C in (128,)
+                 for n, k in ((C, 4 * C), (4 * C, C), (C, C), (3 * C, C))]
+WGRAD_SHAPES += [(1001, 77, 0, 96, 64), (4099, 4099, 0, 40, 136)]
+
+
+@pytest.mark.parametrize("droppath", [False, True])
+@pytest.mark.parametrize("M,hw,C,N,K_", WGRAD_SHAPES)
+def test_gemm_wgrad_train_shapes(dev, M, hw, C, N, K_, droppath):
+    rng = np.random.default_rng(21)
+    x, dy = _rnd(rng, dev, M, K_).bfloat16(), _rnd(rng, dev, M, N).bfloat16()
+    kw = {}
+    if droppath:
+        dp = (rng.random(M // hw) < 0.8).astype(np.float32) / 0.8
+        kw = dict(dp=torch.from_numpy(dp).to(dev), rows_per_sample=hw)
+    before = K.gemm_wgrad.launches
+    got, again = K.gemm_wgrad(x, dy, **kw), K.gemm_wgrad(x, dy, **kw)
+    assert K.gemm_wgrad.launches == before + 2
+    for g, a, want in zip(got, again, K.gemm_wgrad_plain(x, dy, **kw)):
+        assert g.dtype == torch.float32 and g.shape == want.shape
+        assert _rel_l2(g, want) <= 0.02
+        assert torch.equal(g, a)
+    plan = K.wgrad_plan(M, N, K_)
+    if C:
+        assert plan.partial_bytes <= 0.25 * (x.numel() + dy.numel()) * 2
+
+
+# The attention backward at L = 49, 56, 98 and at base-384's 288-token
+# windows (24x12 and 12x24, d = 24, stage 3's width): within 0.02 of its
+# plain version, the same bits from two calls.
+ATTENTION_BWD_CASES = [
+    # (B, H, W, C, heads of the branch, h_sp, w_sp, ch_off)
+    (2, 14, 14, 128, 2, 7, 7, 64),      # L = 49
+    (4, 56, 56, 64, 1, 56, 1, 0),       # L = 56, stage 1 vertical
+    (4, 56, 56, 64, 1, 1, 56, 32),      # stage 1 horizontal
+    (4, 28, 28, 128, 2, 28, 2, 0),      # stage 2
+    (4, 14, 14, 256, 4, 14, 7, 128),    # L = 98, stage 3
+    (2, 24, 24, 384, 8, 24, 12, 0),     # base-384 stage 3, L = 288, d = 24
+    (2, 24, 24, 384, 8, 12, 24, 192),
+    (1, 24, 24, 512, 8, 12, 24, 256),   # L = 288 at d = 32
+]
+
+
+@pytest.mark.parametrize("B,H,W,C,nh,hs,ws,off", ATTENTION_BWD_CASES)
+def test_stripe_attention_bwd_windows(dev, B, H, W, C, nh, hs, ws, off):
+    rng = np.random.default_rng(22)
+    cb = C // 2
+    qkv = _rnd(rng, dev, B, H, W, 3 * C).bfloat16()
+    dout = _rnd(rng, dev, B, H, W, C).bfloat16()
+    lw = _rnd(rng, dev, cb, 1, 3, 3, sc=0.3)
+    kw = dict(ch_off=off, heads=nh, h_sp=hs, w_sp=ws, scale=(cb // nh) ** -0.5)
+    chans = torch.cat([torch.arange(off, off + cb) + i * C for i in range(3)]).to(dev)
+
+    def run(fn):
+        dqkv = torch.zeros(B, H, W, 3 * C, dtype=torch.bfloat16, device=dev)
+        dw, db = fn(qkv, dout, lw, dqkv, **kw)
+        return dqkv[..., chans], dw, db
+
+    before = K.stripe_attention_bwd.launches
+    got, again = run(K.stripe_attention_bwd), run(K.stripe_attention_bwd)
+    assert K.stripe_attention_bwd.launches == before + 2
+    for g, a, want in zip(got, again, run(K.stripe_attention_bwd_plain)):
+        assert _rel_l2(g.float(), want.float()) <= 0.02
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("L", [49, 56, 64, 65, 98, 288, 304])
+@pytest.mark.parametrize("d", [16, 24, 32])
+def test_stripe_attention_bwd_smem_matches_the_kernel(dev, L, d):
+    from cswin_unet_tpu_torch.ops.cuda.build import library
+
+    assert library().cswin_stripe_attention_bwd_smem(L, d) == K.stripe_attention_bwd_smem(L, d)
