@@ -7,18 +7,21 @@ Phases, each of which raises on failure (the process then exits non-zero):
 
   1. torch / CUDA versions and the card's name and power limit.
   2. Build the hand-written CUDA kernels from ``csrc/`` with nvcc; ``ptxas``
-     must report no spills for ``block_pair``, and the SASS of the attention
-     and GEMM kernels and of the block backward's weight-gradient and
-     attention kernels (``cuobjdump -sass``) must hold tensor-core
-     instructions (``HMMA`` / ``HGMMA``).
+     must report no spills for ``block_pair`` (registers and spills are
+     printed for ``block_one``, ``layernorm_bwd`` and CARAFE too), and the
+     SASS of the attention and GEMM kernels, of the block backward's
+     weight-gradient and attention kernels and of the CARAFE kernel
+     (``cuobjdump -sass``) must hold tensor-core instructions (``HMMA`` /
+     ``HGMMA``).
   3. Hold every kernel against its plain PyTorch version on the card, on
      bf16 inputs from a seeded numpy generator at the tiny-224 shapes: each
      kernel at every shape one 32-slice serving forward gives it, then at
      B = 8 the CSWin block at the four stage geometries, ``carafe_up`` @28
-     and the tail (logits and labels) @56. Tolerance: relative L2 error
-     <= 0.02 (the reference gate's bf16 default); labels by the margin rule
-     (a mismatch counts only where the plain top-2 logit gap exceeds
-     0.02·max|logit|). Times are CUDA-event medians of back-to-back runs.
+     and the tail (logits and labels) @56 (the CARAFE kernel on ``gy`` with
+     the GEMM's padded channels, as the main path gives it). Tolerance:
+     relative L2 error <= 0.02 (the reference gate's bf16 default); labels
+     by the margin rule (a mismatch counts only where the plain top-2 logit
+     gap exceeds 0.02·max|logit|). Times are CUDA-event medians of back-to-back runs.
      The backward kernels likewise at the 224 stage-1/2/3 geometries, B = 24
      (the train batch): ``layernorm_bwd``, ``gemm_dgrad`` (with its GELU
      backward and drop-path operand scale), ``gemm_wgrad``,
@@ -36,8 +39,9 @@ Phases, each of which raises on failure (the process then exits non-zero):
      stage (2 and 3), B = 32, against ``block_pair_plain`` and against two
      single block chains, which it must equal bit for bit; ``ptxas`` must
      report no spills for it. ``tools/probe_chain.py``'s tensors (the chain,
-     its training backward, the ``pallas`` route's kernel, the pair) equal
-     the digests of the parent commit's build (``probe_reference.json``).
+     its training backward, the ``pallas`` route's kernel, the pair, the
+     three CARAFE sites) equal the digests of the parent commit's build
+     (``probe_reference.json``).
      Each kernel's line in the JSON also carries ``bound_ms`` (the larger
      of bytes over 3.35 TB/s and operations over the peak of their type)
      and ``library_ms`` (one PyTorch call computing the same function,
@@ -474,32 +478,43 @@ def compare_kernels(cfg, dev, B: int) -> KernelTally:
                        blocks, **attention_work(B * H * H, cb, hs * ws, nh, lw, lb))
         if not g["last"] and g["depth"] > 1:
             compare_block_pair(tally, g, B, rng, dev)
-    # CARAFE sites: upsample2 (28 -> 56, plain upsampler) and the x4 tail.
+    # CARAFE sites: upsample2 (28 -> 56, plain upsampler) and the x4 tail, in
+    # the layout the main path gives them: the GEMM's output channels padded
+    # as carafe_fused pads them (a build without the padding: cm + nc).
+    from cswin_unet_tpu_torch.ops.cuda import carafe_tail as CT
+
+    gy_channels = getattr(CT, "gy_channels", lambda cm, nc: cm + nc)
     C2 = cfg.MODEL.CSWIN.EMBED_DIM * 2
     for label, H, C, cm, nc, up, labels, calls in (
             ("up@28", 28, C2, C2 // 4, C2 // 2, 2, False, 1),
             ("tail-logits@56", 56, C2 // 2, C2 // 8, 9, 4, False, 0),
             ("tail-labels@56", 56, C2 // 2, C2 // 8, 9, 4, True, 1)):
+        N = gy_channels(cm, nc)
         a = rnd(B * H * H, C).to(bf)
-        wt = rnd(cm + nc, C, sc=C ** -0.5).to(bf)
-        bias_cat = torch.cat([rnd(cm, sc=0.1), torch.zeros(nc, device=dev)])
+        wt = torch.cat([rnd(cm + nc, C, sc=C ** -0.5),
+                        torch.zeros(N - cm - nc, C, device=dev)]).to(bf)
+        bias_cat = torch.cat([rnd(cm, sc=0.1), torch.zeros(N - cm, device=dev)])
         bias_bf = bias_cat.to(bf)
-        M, N = a.shape[0], cm + nc
+        M = a.shape[0]
         tally.case("gemm", f"carafe-{label}", lambda: K.gemm(a, wt, bias_cat),
                    lambda: K.gemm_plain(a, wt, bias_cat), calls,
                    moved=nbytes(a, wt, bias_cat) + M * N * 2, tc_flops=2 * M * N * C,
                    f32_ops=2 * M * N, library=lambda: F.linear(a, wt, bias_bf))
-        gy = rnd(B, H, H, cm + nc).to(bf)
+        gy = torch.cat([rnd(B, H, H, cm + nc),
+                        torch.zeros(B, H, H, N - cm - nc, device=dev)], -1).to(bf)
         ew, eb, bo = rnd(9 * up * up, cm, 3, 3, sc=0.2), rnd(9 * up * up), rnd(nc)
         kw = dict(c_mid=cm, up=up, labels=labels)
         plain = (lambda: K.carafe_reassemble_plain(gy, ew, eb, bo, c_mid=cm, up=up,
                                                    labels=False).float()) \
             if labels else (lambda: K.carafe_reassemble_plain(gy, ew, eb, bo, **kw))
         px, taps = B * H * H, 9 * up * up
+        # Bytes: the cm + nc channels of gy the function needs (not the
+        # padding), the weights, and the high-res output.
         tally.case("carafe_reassemble", label,
                    lambda: K.carafe_reassemble(gy, ew, eb, bo, **kw), plain, calls,
                    check="labels" if labels else "rel",
-                   moved=nbytes(gy, ew, eb, bo) + px * up * up * (4 if labels else 2 * nc),
+                   moved=px * (cm + nc) * 2 + nbytes(ew, eb, bo)
+                   + px * up * up * (4 if labels else 2 * nc),
                    tc_flops=2 * px * taps * cm * 9,
                    f32_ops=px * taps * (4 + 2 * nc))
     return tally
@@ -645,19 +660,19 @@ def pair_ab(cfg, dev, batches=(SERVE_BATCH, 128), rounds: int = 8, reps: int = 1
 
 def probe_vs_parent(dev) -> None:
     """``tools/probe_chain.py``'s tensors (the block chain, its training
-    forward and backward, the ``pallas`` route's kernel, the pair) from this
-    build, held bit for bit to the digests of the parent commit's build
-    (``probe_chain.REFERENCE``): a change to the shared device bodies moved
-    no result. A change meant to move these bits (a redesign of
-    ``stripe_attention`` or ``gemm``, say) prints ``probe_chain.py
-    --compare`` of the parent's build against its own, then regenerates the
-    file from its own build (``probe_chain.py --root . --digest <file>``) once
-    its results are held to the plain versions, so that the next change is
-    held to it."""
+    forward and backward, the ``pallas`` route's kernel, the pair, the three
+    CARAFE sites) from this build, held bit for bit to the digests of the
+    parent commit's build (``probe_chain.REFERENCE``): a change to the
+    shared device bodies moved no result. A change meant to move these bits
+    (a redesign of ``stripe_attention`` or ``gemm``, say) prints
+    ``probe_chain.py --compare`` of the parent's build against its own, then
+    regenerates the file from its own build (``probe_chain.py --root .
+    --digest <file>``) once its results are held to the plain versions, so
+    that the next change is held to it."""
     from cswin_unet_tpu_torch.tools import probe_chain
 
     ok, report = probe_chain.check(probe_chain.digests(probe_chain.probe(dev)))
-    print(f"[probe] chain, pallas route and pair vs the parent's build: {report} "
+    print(f"[probe] chain, pallas route, pair and CARAFE vs the parent's build: {report} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     require(ok, f"probe_chain: {report}")
 
@@ -1878,19 +1893,24 @@ def lab_run() -> dict[str, int]:
     return counts
 
 
-def ptxas_spills(log: str, entry: str) -> list[tuple[str, int, int]]:
-    """(entry, spill store bytes, spill load bytes) from nvcc's ``-Xptxas
-    -v`` output, for every compiled entry whose mangled name holds
+def ptxas_resources(log: str, entry: str) -> list[tuple[str, int, int, int]]:
+    """(entry, registers, spill store bytes, spill load bytes) from nvcc's
+    ``-Xptxas -v`` output, for every compiled entry whose mangled name holds
     ``entry``."""
-    found, current = [], None
+    found, current, spills = [], None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            current = m.group(1)
+            current, spills = m.group(1), None
+            continue
+        if current is None or entry not in current:
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and current is not None and entry in current:
-            found.append((current, int(m.group(1)), int(m.group(2))))
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and spills is not None:
+            found.append((current, int(m.group(1)), *spills))
             current = None
     return found
 
@@ -1958,20 +1978,24 @@ def main() -> int:
         if any(w in line for w in ("Compiling entry", "Used", "spill")):
             print(f"[build] {line.strip()}", flush=True)
     if build.build_log:
-        spills = ptxas_spills(build.build_log, "block_pair_kernel")
-        print(f"[build] block_pair (entry, spill stores, spill loads): {spills}",
+        spills = ptxas_resources(build.build_log, "block_pair_kernel")
+        print(f"[build] block_pair (entry, registers, spill stores, spill loads): {spills}",
               flush=True)
-        require(bool(spills) and all(st == ld == 0 for _, st, ld in spills),
+        require(bool(spills) and all(st == ld == 0 for _, _, st, ld in spills),
                 f"block_pair: ptxas reports spills {spills}")
-        print(f"[build] block_one (entry, spill stores, spill loads): "
-              f"{ptxas_spills(build.build_log, 'block_one_kernel')}", flush=True)
+        for entry in ("block_one_kernel", "layernorm_bwd_kernel", "carafe_kernel"):
+            res = ptxas_resources(build.build_log, entry)
+            print(f"[build] {entry} (entry, registers, spill stores, spill loads): {res}",
+                  flush=True)
+            require(bool(res), f"{entry}: no ptxas resource line")
     # The tiles' products run on the tensor cores: the SASS of the attention
-    # and GEMM kernels and of the backward's weight gradient and attention
-    # holds HMMA (mma.sync) or HGMMA (wgmma). A mangled name carries the
-    # length of the kernel's name before it, then I (template) or E.
+    # and GEMM kernels, of the backward's weight gradient and attention and
+    # of the CARAFE kernel's encoder conv holds HMMA (mma.sync) or HGMMA
+    # (wgmma). A mangled name carries the length of the kernel's name before
+    # it, then I (template) or E.
     tc = tensor_core_ops(str(build.library_path()), build.cuobjdump())
     for family in ("stripe_attention_kernel", "gemm_kernel", "wgrad_kernel",
-                   "stripe_attention_bwd_kernel"):
+                   "stripe_attention_bwd_kernel", "carafe_kernel"):
         per = [c for name, c in tc.items() if re.search(rf"\d{family}[IE]", name)]
         print(f"[build] {family}: {sum(per)} tensor-core instructions (HMMA / HGMMA in "
               f"cuobjdump -sass) over {len(per)} instances, per instance {per}", flush=True)

@@ -31,6 +31,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _SIGNATURES = {
     "cswin_layernorm": (_P, _P, _P, _P, _I, _I, _F, _P),
     "cswin_layernorm_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "cswin_layernorm_bwd_ctas_per_sm": (_I,),
     "cswin_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "cswin_gemm_wgrad": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _P),
@@ -42,7 +43,7 @@ _SIGNATURES = {
     "cswin_stripe_attention_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _F, _P),
     "cswin_stripe_attention_bwd_smem": (_I, _I),
-    "cswin_carafe": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "cswin_carafe": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "cswin_edt_pass": (_P, _P, _LL, _I, _LL, _P),
     "cswin_block_pair": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P),
     "cswin_block_one": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _P,

@@ -3,8 +3,9 @@
 Counterpart of ``cswin_unet_tpu/ops/pallas/carafe_tail.py``. ``carafe_fused``
 runs the whole CARAFE upsampler as two kernels:
 
-  1. one GEMM of x against [W_down ; W_y] (bias [b_down ; 0]) gives the 1x1
-     down conv ``mid`` and the classes-before-reassembly ``y`` together;
+  1. one GEMM of x against [W_down ; W_y ; 0] (bias [b_down ; 0]) gives the
+     1x1 down conv ``mid`` and the classes-before-reassembly ``y`` together,
+     padded with zero channels to a multiple of 8 (``gy_channels``);
   2. the CARAFE kernel runs the 3x3 encoder conv, the softmax over the 9
      taps of each up-position and the 9-tap reassembly, and writes bf16
      logits with the depth-to-space done, or int32 labels.
@@ -31,6 +32,14 @@ from ..carafe import carafe, carafe_with_classifier
 from .kernels import carafe_reassemble, gemm, needs_grad
 
 
+def gy_channels(c_mid: int, nc: int) -> int:
+    """Channels of the (down | classes) GEMM's output: ``c_mid + nc``
+    rounded up to a multiple of 8, so that the CARAFE kernel loads a pixel
+    in 16-byte copies and the GEMM stores whole 16-byte chunks (the tail's
+    16 + 9 become 32). The padding channels are zero and reach no output."""
+    return -(-(c_mid + nc) // 8) * 8
+
+
 def carafe_fused(x: torch.Tensor, down_weight: torch.Tensor,
                  down_bias: torch.Tensor, encoder_weight: torch.Tensor,
                  encoder_bias: torch.Tensor, out_weight: torch.Tensor,
@@ -53,8 +62,10 @@ def carafe_fused(x: torch.Tensor, down_weight: torch.Tensor,
         bias = w_cls @ out_bias.float()                      # (NC,)
     else:
         w_y, bias = w_out, out_bias.float()
-    w_cat = torch.cat([down_weight[:, :, 0, 0].float(), w_y]).to(x.dtype)
-    b_cat = torch.cat([down_bias.float(), torch.zeros_like(bias)])
+    pad = gy_channels(c_mid, w_y.shape[0]) - c_mid - w_y.shape[0]
+    w_cat = torch.cat([down_weight[:, :, 0, 0].float(), w_y,
+                       w_y.new_zeros(pad, C)]).to(x.dtype)
+    b_cat = torch.cat([down_bias.float(), bias.new_zeros(bias.shape[0] + pad)])
     gy = gemm(x.reshape(B * H * W, C).contiguous(), w_cat.contiguous(), b_cat)
     return carafe_reassemble(gy.view(B, H, W, -1), encoder_weight, encoder_bias,
                              bias.contiguous(), c_mid=c_mid, up=up_factor,

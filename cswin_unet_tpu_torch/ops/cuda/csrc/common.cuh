@@ -98,6 +98,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
+// Eight bf16 values of a 16-byte vector as floats.
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = unpack_bf16(w[i]);
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
+  }
+}
 // Both halves of a bf16x2 register multiplied by s and rounded back to bf16.
 __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t v, float s) {
   const float2 f = unpack_bf16(v);

@@ -4,9 +4,9 @@
 // Forward: float32 statistics, bf16 out.
 // Backward, per row, with float32 statistics recomputed from x:
 //   dx = res + rstd·(dŷ − mean(dŷ) − x̂·mean(dŷ·x̂)),   dŷ = dy·γ
-// plus per-CTA float32 partials of dγ = Σ dy·x̂ and dβ = Σ dy over the CTA's
-// rows (the wrapper sums them). `res` is the residual stream's gradient
-// that the block adds here (dout for LN2, dx1 for LN1), or null.
+// and dγ = Σ dy·x̂, dβ = Σ dy over all rows, float32, summed in the kernel.
+// `res` is the residual stream's gradient that the block adds here (dout
+// for LN2, dx1 for LN1), or null.
 //
 // Replaces: the two in-kernel LayerNorms of the fused TPU block,
 //   cswin_unet_tpu/ops/pallas/cswin_block.py::_block_kernel_xt /
@@ -15,23 +15,29 @@
 // Bound on the H100: memory bandwidth — the forward reads and writes each
 //   element once (2 + 2 bytes) and does ~8 flops on it; the backward reads
 //   x, dy and res and writes dx (8 bytes) for ~15 flops.
-// Design: one warp per row, two-pass mean / variance as the reference
-//   computes them. The forward re-reads the row from L1 rather than holding
-//   it in registers, so one kernel serves every C. The backward holds the
-//   row's x̂ and dŷ in registers (C <= 512, C % 32 == 0: at most 16 values a
-//   lane), keeps each lane's dγ / dβ sums in registers across the CTA's rows
-//   and reduces them across the CTA's 8 warps through shared memory once.
-//   The forward row's body lives in layernorm_row.cuh, shared with the
-//   persistent pair kernel (block_pair.cu).
+// Design: the forward runs one warp per row, two-pass mean / variance as
+//   the reference computes them, re-reading the row from L1 rather than
+//   holding it in registers, so one kernel serves every C; its row body
+//   lives in layernorm_row.cuh, shared with the persistent kernels.
+//   The backward is one launch of one wave of CTAs (the wrapper sizes it
+//   with the occupancy API) that stride over the rows. The channels a lane
+//   holds are a template parameter (Shape<C>), so registers fit the row: a
+//   group of G lanes takes a row in 16-byte vectors (C = 64: 8 lanes, a warp
+//   4 rows at once) and reduces it with shuffles inside the group, with the
+//   group's next row's loads issued before this row's reductions. dγ / dβ
+//   are summed in a fixed order without float atomics: lanes over the rows
+//   they took, groups of a warp by a butterfly, warps through shared
+//   memory, then in two levels: the last CTA to arrive of each group of 16
+//   (a counter read after a fence, reset by that CTA) adds the group's
+//   partial rows in CTA order, and the last group the groups' rows in group
+//   order, so that no one CTA reads all the partials from L2. Two calls
+//   give the same bits.
 
 #include "layernorm_row.cuh"
 
+// Both kernels live in the anonymous namespace, as every kernel of the
+// library does: the profiler then names them "(anonymous namespace)::...".
 namespace {
-
-constexpr int LN_WARPS = 8;
-constexpr int LN_MAXJ = 16;  // channels per lane in the backward: C <= 512
-
-}  // namespace
 
 __global__ void __launch_bounds__(256)
 layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
@@ -42,83 +48,243 @@ layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
   ln_row::row(x, w, b, y, row, C, eps, threadIdx.x & 31);
 }
 
-__global__ void __launch_bounds__(LN_WARPS * 32)
-layernorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-                     const float* __restrict__ w, const bf16* __restrict__ res,
-                     bf16* __restrict__ dx, float* __restrict__ dw_part,
-                     float* __restrict__ db_part, int rows, int C, int rows_per_cta,
-                     float eps) {
-  __shared__ float red_w[LN_WARPS][LN_MAXJ * 32];
-  __shared__ float red_b[LN_WARPS][LN_MAXJ * 32];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int J = C / 32;
-  const int row0 = blockIdx.x * rows_per_cta;
-  const int row_end = min(rows, row0 + rows_per_cta);
+constexpr int WARPS = 8, THREADS = WARPS * 32;
+constexpr int GROUP = 16;  // CTAs whose partial rows the last of them adds
 
-  float gw[LN_MAXJ], gb[LN_MAXJ];
-#pragma unroll
-  for (int j = 0; j < LN_MAXJ; ++j) gw[j] = gb[j] = 0.f;
+// How the backward cuts a row of C channels (C % 32 == 0, C <= 512):
+// N 16-byte vectors of 8 bf16; G lanes a row (the power of two >= N, at
+// most 32), V vectors a lane (lane j of a group holds vectors j, j + G, ...;
+// past N it holds none); ROWS rows a CTA takes per step, one a group.
+// Mirrored by kernels.py::layernorm_bwd_plan.
+template <int C>
+struct Shape {
+  static_assert(C % 32 == 0 && C <= 512, "C % 32 == 0, C <= 512");
+  static constexpr int N = C / 8;
+  static constexpr int G = N <= 4 ? 4 : N <= 8 ? 8 : N <= 16 ? 16 : 32;
+  static constexpr int V = (N + G - 1) / G;
+  static constexpr int ROWS = THREADS / G;
+};
 
-  for (int row = row0 + warp; row < row_end; row += LN_WARPS) {
-    const size_t base = (size_t)row * C + lane;
-    float xh[LN_MAXJ], dh[LN_MAXJ];
-    float s = 0.f;
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
-    for (int j = 0; j < LN_MAXJ; ++j)
-      if (j < J) {
-        xh[j] = bf2f(x[base + 32 * j]);
-        s += xh[j];
-      }
-    const float mu = warp_sum(s) / C;
-    float v = 0.f;
-#pragma unroll
-    for (int j = 0; j < LN_MAXJ; ++j)
-      if (j < J) {
-        const float d = xh[j] - mu;
-        v += d * d;
-      }
-    const float rstd = rsqrtf(warp_sum(v) / C + eps);
-    float m1 = 0.f, m2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < LN_MAXJ; ++j)
-      if (j < J) {
-        xh[j] = (xh[j] - mu) * rstd;
-        const float g = bf2f(dy[base + 32 * j]);
-        gw[j] += g * xh[j];
-        gb[j] += g;
-        dh[j] = g * w[lane + 32 * j];
-        m1 += dh[j];
-        m2 += dh[j] * xh[j];
-      }
-    m1 = warp_sum(m1) / C;
-    m2 = warp_sum(m2) / C;
-#pragma unroll
-    for (int j = 0; j < LN_MAXJ; ++j)
-      if (j < J) {
-        float o = rstd * (dh[j] - m1 - xh[j] * m2);
-        if (res != nullptr) o += bf2f(res[base + 32 * j]);
-        dx[base + 32 * j] = f2bf(o);
-      }
-  }
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
 
-#pragma unroll
-  for (int j = 0; j < LN_MAXJ; ++j)
-    if (j < J) {
-      red_w[warp][lane + 32 * j] = gw[j];
-      red_b[warp][lane + 32 * j] = gb[j];
-    }
+// Whether this CTA is the last of `n` to arrive at `counter`, after its
+// stores (fenced) and before its loads of the others' (fenced again).
+__device__ __forceinline__ bool arrive(int* counter, int n, bool& last) {
+  __threadfence();
   __syncthreads();
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float sw = 0.f, sb = 0.f;
+  if (threadIdx.x == 0) last = atomicAdd(counter, 1) == n - 1;
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+// dst = the sum of n rows of 2C floats at `rows`, in row order: float4
+// columns, the rows cut into SLICES runs summed in order (eight loads in
+// flight), then the runs in order.
+template <int C>
+__device__ __forceinline__ void sum_rows(const float* rows, int n, float* dst, float4* fin) {
+  constexpr int COLS = 2 * C / 4, SLICES = THREADS / COLS;
+  static_assert(COLS <= THREADS, "one float4 column a thread");
+  const int tid = threadIdx.x, col = tid % COLS, slice = tid / COLS;
+  const int run = (n + SLICES - 1) / SLICES;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (slice < SLICES) {
+    const int b0 = slice * run, b1 = min(n, b0 + run);
+    for (int q0 = b0; q0 < b1; q0 += 8) {
+      float4 v[8];
 #pragma unroll
-    for (int k = 0; k < LN_WARPS; ++k) {
-      sw += red_w[k][c];
-      sb += red_b[k][c];
+      for (int q = 0; q < 8; ++q)
+        if (q0 + q < b1)
+          v[q] = __ldcg(reinterpret_cast<const float4*>(rows + (size_t)(q0 + q) * 2 * C) + col);
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (q0 + q < b1) {
+          acc.x += v[q].x;
+          acc.y += v[q].y;
+          acc.z += v[q].z;
+          acc.w += v[q].w;
+        }
     }
-    dw_part[(size_t)blockIdx.x * C + c] = sw;
-    db_part[(size_t)blockIdx.x * C + c] = sb;
+  }
+  fin[tid] = acc;
+  __syncthreads();
+  if (tid < COLS) {
+    float4 sum = fin[tid];
+    for (int k = 1; k < SLICES; ++k) {
+      const float4 f = fin[k * COLS + tid];
+      sum.x += f.x;
+      sum.y += f.y;
+      sum.z += f.z;
+      sum.w += f.w;
+    }
+    reinterpret_cast<float4*>(dst)[tid] = sum;
   }
 }
+
+template <int C>
+__global__ void __launch_bounds__(THREADS)
+layernorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                     const float* __restrict__ w, const bf16* __restrict__ res,
+                     bf16* __restrict__ dx, float* __restrict__ out,
+                     int* __restrict__ arrival, int rows, float eps) {
+  using S = Shape<C>;
+  constexpr int G = S::G, V = S::V, N = S::N;
+  __shared__ float red[2][WARPS][C];
+  __shared__ float4 fin[THREADS];
+  __shared__ bool last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int j = lane % G, group = tid / G;
+
+  bool has[V];
+  float gam[V][8], gw[V][8], gb[V][8];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    has[v] = v * G + j < N;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      gam[v][e] = has[v] ? w[(v * G + j) * 8 + e] : 0.f;
+      gw[v][e] = gb[v][e] = 0.f;
+    }
+  }
+
+  // A row's raw 16-byte vectors: x, dy, res.
+  struct Row {
+    uint4 x[V], dy[V], res[V];
+  };
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const auto load = [&](int row, Row& t) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const bool ok = row < rows && has[v];
+      const size_t o = (size_t)row * C + (v * G + j) * 8;
+      t.x[v] = ok ? *reinterpret_cast<const uint4*>(x + o) : zero;
+      t.dy[v] = ok ? *reinterpret_cast<const uint4*>(dy + o) : zero;
+      t.res[v] = ok && res != nullptr ? *reinterpret_cast<const uint4*>(res + o) : zero;
+    }
+  };
+
+  const int steps = (rows + S::ROWS - 1) / S::ROWS;
+  Row cur;
+  if ((int)blockIdx.x < steps) load(blockIdx.x * S::ROWS + group, cur);
+  for (int step = blockIdx.x; step < steps; step += gridDim.x) {
+    const int row = step * S::ROWS + group, next = step + (int)gridDim.x;
+    Row nxt;
+    if (next < steps) load(next * S::ROWS + group, nxt);  // in flight below
+    float xh[V][8], s = 0.f;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      unpack8(cur.x[v], xh[v]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s += xh[v][e];
+    }
+    const float mu = group_sum<G>(s) / C;
+    float var = 0.f;
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float d = has[v] ? xh[v][e] - mu : 0.f;
+        var += d * d;
+      }
+    const float rstd = rsqrtf(group_sum<G>(var) / C + eps);
+    const bool ok = row < rows;
+    float m1 = 0.f, m2 = 0.f, dh[V][8];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      float g[8];
+      unpack8(cur.dy[v], g);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        xh[v][e] = (xh[v][e] - mu) * rstd;
+        if (ok) {
+          gw[v][e] += g[e] * xh[v][e];
+          gb[v][e] += g[e];
+        }
+        dh[v][e] = g[e] * gam[v][e];
+        m1 += dh[v][e];
+        m2 += dh[v][e] * xh[v][e];
+      }
+    }
+    m1 = group_sum<G>(m1) / C;
+    m2 = group_sum<G>(m2) / C;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      if (!ok || !has[v]) continue;
+      float rv[8];
+      unpack8(cur.res[v], rv);
+      uint32_t o[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float a[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = 2 * i + h;
+          a[h] = rstd * (dh[v][e] - m1 - xh[v][e] * m2);
+          if (res != nullptr) a[h] += rv[e];
+        }
+        o[i] = pack_bf16(a[0], a[1]);
+      }
+      *reinterpret_cast<uint4*>(dx + (size_t)row * C + (v * G + j) * 8) =
+          make_uint4(o[0], o[1], o[2], o[3]);
+    }
+    cur = nxt;
+  }
+
+  // The CTA's partial row: the groups of a warp (same channels, lanes j
+  // apart by G), then the warps in order.
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+#pragma unroll
+      for (int o = G; o < 32; o <<= 1) {
+        gw[v][e] += __shfl_xor_sync(0xffffffffu, gw[v][e], o);
+        gb[v][e] += __shfl_xor_sync(0xffffffffu, gb[v][e], o);
+      }
+  if (lane < G) {
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      if (has[v])
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          red[0][warp][(v * G + j) * 8 + e] = gw[v][e];
+          red[1][warp][(v * G + j) * 8 + e] = gb[v][e];
+        }
+  }
+  __syncthreads();
+  // out: dγ (C), dβ (C), then gridDim.x partial rows of 2C, then a row a
+  // group of GROUP CTAs.
+  float* part = out + 2 * C;
+  float* group_part = part + (size_t)gridDim.x * 2 * C;
+  const bool alone = gridDim.x == 1;
+  for (int c = tid; c < 2 * C; c += THREADS) {
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < WARPS; ++k) sum += red[c / C][k][c % C];
+    (alone ? out : part + (size_t)blockIdx.x * 2 * C)[c] = sum;
+  }
+  if (alone) return;
+
+  // The last CTA of each group adds its group's rows in CTA order; the
+  // last group to finish adds the groups' rows in group order. A counter
+  // read after a fence tells each who is last, and the last resets it.
+  const int groups = (gridDim.x + GROUP - 1) / GROUP, grp = blockIdx.x / GROUP;
+  const int g0 = grp * GROUP, gn = min((int)gridDim.x, g0 + GROUP) - g0;
+  if (!arrive(arrival + 1 + grp, gn, last)) return;
+  sum_rows<C>(part + (size_t)g0 * 2 * C, gn, groups == 1 ? out : group_part + (size_t)grp * 2 * C,
+              fin);
+  if (tid == 0) arrival[1 + grp] = 0;  // ready for the next call on the stream
+  if (groups == 1 || !arrive(arrival, groups, last)) return;
+  sum_rows<C>(group_part, groups, out, fin);
+  if (tid == 0) arrival[0] = 0;
+}
+
+}  // namespace
 
 CSWIN_API int cswin_layernorm(const void* x, const void* w, const void* b,
                               void* y, int rows, int C, float eps,
@@ -130,17 +296,41 @@ CSWIN_API int cswin_layernorm(const void* x, const void* w, const void* b,
   return (int)cudaGetLastError();
 }
 
-// x, dy, res, dx: (rows, C) bf16 (res may be null); w: (C,) float32;
-// dw_part, db_part: (ceil(rows / rows_per_cta), C) float32. Requires
-// C % 32 == 0 and C <= 512 (checked by the wrapper).
+#define CSWIN_LN_BWD_CHANNELS(X) \
+  X(32) X(64) X(96) X(128) X(160) X(192) X(224) X(256) X(288) X(320) X(352) X(384) \
+  X(416) X(448) X(480) X(512)
+
+// x, dy, res, dx: (rows, C) bf16, 16-byte aligned (res may be null); w: (C,)
+// float32; out: float32, dγ (C), dβ (C), then `grid` partial rows of 2C
+// and ceil(grid / 16) group rows of 2C (unused when grid == 1); arrival:
+// 1 + ceil(grid / 16) ints, zero, left zero. `grid` CTAs of 256 threads;
+// C % 32 == 0, C <= 512 (checked by the wrapper).
 CSWIN_API int cswin_layernorm_bwd(const void* x, const void* dy, const void* w,
-                                  const void* res, void* dx, void* dw_part,
-                                  void* db_part, int rows, int C, int rows_per_cta,
-                                  float eps, void* stream) {
-  if (C % 32 || C > LN_MAXJ * 32) return (int)cudaErrorInvalidValue;
-  const int blocks = (rows + rows_per_cta - 1) / rows_per_cta;
-  layernorm_bwd_kernel<<<blocks, LN_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)dy, (const float*)w, (const bf16*)res,
-      (bf16*)dx, (float*)dw_part, (float*)db_part, rows, C, rows_per_cta, eps);
-  return (int)cudaGetLastError();
+                                  const void* res, void* dx, void* out, void* arrival,
+                                  int rows, int C, int grid, float eps, void* stream) {
+  if (grid < 1) return (int)cudaErrorInvalidValue;
+#define CSWIN_LN_BWD(CH)                                                                   \
+  case CH:                                                                                 \
+    layernorm_bwd_kernel<CH><<<grid, THREADS, 0, (cudaStream_t)stream>>>(        \
+        (const bf16*)x, (const bf16*)dy, (const float*)w, (const bf16*)res, (bf16*)dx,     \
+        (float*)out, (int*)arrival, rows, eps);                                            \
+    return (int)cudaGetLastError();
+  switch (C) { CSWIN_LN_BWD_CHANNELS(CSWIN_LN_BWD) }
+#undef CSWIN_LN_BWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// CTAs of the backward at C that an SM runs at once (the occupancy API), or
+// -1: what sizes the wrapper's one wave.
+CSWIN_API int cswin_layernorm_bwd_ctas_per_sm(int C) {
+  int n = -1;
+  cudaError_t err = cudaErrorInvalidValue;
+#define CSWIN_LN_BWD(CH)                                                                   \
+  case CH:                                                                                 \
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, layernorm_bwd_kernel<CH>, \
+                                                        THREADS, 0);                  \
+    break;
+  switch (C) { CSWIN_LN_BWD_CHANNELS(CSWIN_LN_BWD) }
+#undef CSWIN_LN_BWD
+  return err == cudaSuccess ? n : -1;
 }

@@ -181,13 +181,77 @@ def layernorm_bwd_plain(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
             dyf.reshape(-1, C).sum(0))
 
 
+class LnBwdPlan(NamedTuple):
+    """How ``layernorm_bwd`` cuts its rows (``layernorm.cu``'s ``Shape<C>``):
+    ``lanes`` lanes a row in 16-byte vectors, a row a lane group,
+    ``rows_per_step`` rows a CTA per step; ``grid`` CTAs (at
+    most one wave) stride over the steps, each writing one partial row of
+    dγ | dβ, summed within ``groups`` groups of 16 CTAs and then across
+    them."""
+    grid: int
+    rows_per_step: int
+    lanes: int
+    groups: int
+
+
+_LN_THREADS = 256  # layernorm.cu THREADS
+_LN_GROUP = 16     # layernorm.cu GROUP
+
+
+def layernorm_bwd_plan(rows: int, C: int, ctas_per_sm: int = 1, sms: int = _SMS) -> LnBwdPlan:
+    """One wave of ``sms * ctas_per_sm`` CTAs (the wrapper asks the
+    occupancy API for ``ctas_per_sm``), fewer where the rows run out first:
+    every CTA gets at least one step of rows. Only the grid reaches the
+    kernel, which cuts its rows itself: a plan that differed from
+    ``Shape<C>`` would size the wave wrongly, never drop a row."""
+    n = C // 8
+    lanes = 4 if n <= 4 else 8 if n <= 8 else 16 if n <= 16 else 32
+    step = _LN_THREADS // lanes
+    grid = max(1, min(sms * ctas_per_sm, -(-rows // step)))
+    return LnBwdPlan(grid, step, lanes, -(-grid // _LN_GROUP))
+
+
+def layernorm_bwd_rows(plan: LnBwdPlan, rows: int, cta: int) -> list[int]:
+    """The rows CTA ``cta`` takes, in the kernel's loop order: steps
+    ``cta, cta + grid, ...``; in a step, row ``step·rows_per_step + group``
+    for each lane group."""
+    steps = -(-rows // plan.rows_per_step)
+    return [row for step in range(cta, steps, plan.grid)
+            for g in range(plan.rows_per_step)
+            if (row := step * plan.rows_per_step + g) < rows]
+
+
+_ln_bwd_fit: dict[tuple, int] = {}
+_ln_bwd_plans: dict[tuple, LnBwdPlan] = {}  # by (device, rows, C): planned once a shape
+_ln_bwd_arrival: dict[torch.device, torch.Tensor] = {}
+
+
+def _layernorm_bwd_plan(dev: torch.device, rows: int, C: int) -> LnBwdPlan:
+    plan = _ln_bwd_plans.get((dev, rows, C))
+    if plan is None:
+        with torch.cuda.device(dev):
+            key = (torch.cuda.current_device(), C)
+            if key not in _ln_bwd_fit:
+                n = library().cswin_layernorm_bwd_ctas_per_sm(C)
+                if n < 1:
+                    raise RuntimeError(f"layernorm_bwd: the occupancy API gave {n} CTAs "
+                                       f"an SM at C={C}")
+                _ln_bwd_fit[key] = n
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            plan = _ln_bwd_plans[dev, rows, C] = layernorm_bwd_plan(rows, C, _ln_bwd_fit[key],
+                                                                    sms)
+    return plan
+
+
 def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
                   residual: torch.Tensor | None = None, eps: float = 1e-5):
     """Backward of ``layernorm`` with float32 statistics recomputed from x.
 
     x, dy, residual: (rows, C) in ``x.dtype``; weight (C,) float32. Returns
     (dx = residual + LN-vjp(dy) in ``x.dtype``, dweight, dbias), the last
-    two float32 (C,), summed from per-CTA partials."""
+    two float32 (C,). On the GPU one launch (``layernorm_bwd_plan``) sums
+    dweight and dbias itself, in a fixed order: two calls give the same
+    bits."""
     if _on_cpu(x):
         return layernorm_bwd_plain(x, dy, weight, residual, eps)
     rows, C = x.shape
@@ -199,18 +263,25 @@ def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
         _require(residual, "residual", torch.bfloat16, dev, (rows, C))
     if C % 32 or C > 512:
         raise ValueError(f"layernorm_bwd takes C % 32 == 0 and C <= 512, got {C}")
-    rows_per_cta = 64
-    ctas = -(-rows // rows_per_cta)
+    if any(_ptr(t) % 16 for t in (x, dy, residual)):
+        raise ValueError("layernorm_bwd needs 16-byte aligned x, dy and residual")
+    plan = _layernorm_bwd_plan(dev, rows, C)
+    arrival = _ln_bwd_arrival.get(dev)
+    if arrival is None or arrival.numel() < 1 + plan.groups:
+        # zero, and left zero by every launch (each counter's last CTA resets it)
+        arrival = _ln_bwd_arrival[dev] = torch.zeros(max(1 + plan.groups, 256),
+                                                     dtype=torch.int32, device=dev)
     dx = torch.empty_like(x)
-    dw = torch.empty((ctas, C), dtype=torch.float32, device=dev)
-    db = torch.empty((ctas, C), dtype=torch.float32, device=dev)
+    # dγ | dβ, then where there are several CTAs one partial row of both a
+    # CTA and one a group of CTAs.
+    out = torch.empty(2 * C * (1 + (plan.grid + plan.groups if plan.grid > 1 else 0)),
+                      dtype=torch.float32, device=dev)
     err = library().cswin_layernorm_bwd(
-        x.data_ptr(), dy.data_ptr(), weight.data_ptr(), _ptr(residual),
-        dx.data_ptr(), dw.data_ptr(), db.data_ptr(), rows, C, rows_per_cta, eps,
-        _stream(dev))
+        x.data_ptr(), dy.data_ptr(), weight.data_ptr(), _ptr(residual), dx.data_ptr(),
+        out.data_ptr(), arrival.data_ptr(), rows, C, plan.grid, eps, _stream(dev))
     check(err, "layernorm_bwd")
     layernorm_bwd.launches += 1
-    return dx, dw.sum(0), db.sum(0)
+    return dx, out[:C], out[C:2 * C]
 
 
 layernorm_bwd.launches = 0
@@ -759,13 +830,13 @@ stripe_attention_bwd.launches = 0
 def carafe_reassemble_plain(gy: torch.Tensor, encoder_weight: torch.Tensor,
                             encoder_bias: torch.Tensor, bias: torch.Tensor, *,
                             c_mid: int, up: int, labels: bool) -> torch.Tensor:
-    B, H, W, G = gy.shape
-    nc = G - c_mid
+    B, H, W, _ = gy.shape
+    nc = bias.shape[0]
     mid = gy[..., :c_mid].float().permute(0, 3, 1, 2)
     enc = F.conv2d(mid, encoder_weight.to(gy.dtype).float(), padding=1)
     enc = enc.permute(0, 2, 3, 1) + encoder_bias.float()
     kern = torch.softmax(enc.reshape(B, H, W, 9, up * up), dim=3).to(gy.dtype)
-    y = F.pad(gy[..., c_mid:].float(), (0, 0, 1, 1, 1, 1))
+    y = F.pad(gy[..., c_mid:c_mid + nc].float(), (0, 0, 1, 1, 1, 1))
     patches = torch.stack([y[:, di:di + H, dj:dj + W] for di in range(3)
                            for dj in range(3)], dim=-1)    # (B, H, W, nc, 9)
     out = torch.einsum("bhwnt,bhwts->bhwns", patches, kern.float())
@@ -782,33 +853,40 @@ def carafe_reassemble(gy: torch.Tensor, encoder_weight: torch.Tensor,
                       c_mid: int, up: int, labels: bool) -> torch.Tensor:
     """CARAFE after its (down | classes) GEMM.
 
-    gy: (B, H, W, c_mid + nc), the 1x1 down conv with bias in the first
-    ``c_mid`` channels and ``x·W_y`` without bias in the rest. Encoder
-    weight (9·up², c_mid, 3, 3) OIHW with output channel ``tap·up² + s``,
-    encoder bias (9·up²,), ``bias`` (nc,) float32 added after reassembly.
-    Returns (B, up·H, up·W, nc) logits in ``gy.dtype``, or int32 labels
-    (B, up·H, up·W) with ``labels=True`` (first maximum wins).
+    gy: (B, H, W, G), the 1x1 down conv with bias in the first ``c_mid``
+    channels and ``x·W_y`` without bias in the next ``nc =
+    bias.shape[0]``; channels past ``c_mid + nc`` (the GEMM's padding,
+    ``carafe_tail.gy_channels``) reach no output. The kernel takes G and
+    c_mid multiples of 8. Encoder weight (9·up²,
+    c_mid, 3, 3) OIHW with output channel ``tap·up² + s``, encoder bias
+    (9·up²,), ``bias`` (nc,) float32 added after reassembly. Returns (B,
+    up·H, up·W, nc) logits in ``gy.dtype``, or int32 labels (B, up·H, up·W)
+    with ``labels=True`` (first maximum wins).
     """
     if _on_cpu(gy):
         return carafe_reassemble_plain(gy, encoder_weight, encoder_bias, bias,
                                        c_mid=c_mid, up=up, labels=labels)
     B, H, W, G = gy.shape
-    nc = G - c_mid
+    nc = bias.shape[0]
     dev = gy.device
     _require(gy, "gy", torch.bfloat16, dev)
     _require(bias, "bias", torch.float32, dev, (nc,))
-    if up not in (2, 4) or nc < 1:
-        raise ValueError(f"carafe kernel takes up 2 or 4 and nc >= 1, got {up}, {nc}")
+    if up not in (2, 4) or nc < 1 or c_mid < 1 or G < c_mid + nc or G % 8 or c_mid % 8:
+        raise ValueError(f"carafe kernel takes up 2 or 4, 1 <= nc, c_mid + nc <= G and "
+                         f"c_mid, G multiples of 8 (pad gy as carafe_fused does), got up "
+                         f"{up}, c_mid {c_mid}, nc {nc}, G {G}")
     if tuple(encoder_weight.shape) != (9 * up * up, c_mid, 3, 3):
         raise ValueError(f"encoder weight shape {tuple(encoder_weight.shape)}")
-    wenc = encoder_weight.permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()
+    wenc = encoder_weight.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
     benc = encoder_bias.float().contiguous()
+    if gy.data_ptr() % 16 or wenc.data_ptr() % 16:
+        raise ValueError("carafe kernel needs a 16-byte aligned gy and encoder weight")
     if labels:
         out = torch.empty((B, H * up, W * up), dtype=torch.int32, device=dev)
     else:
         out = torch.empty((B, H * up, W * up, nc), dtype=gy.dtype, device=dev)
     err = library().cswin_carafe(gy.data_ptr(), wenc.data_ptr(), benc.data_ptr(),
-                                 bias.data_ptr(), out.data_ptr(), B, H, W, c_mid,
+                                 bias.data_ptr(), out.data_ptr(), B, H, W, G, c_mid,
                                  nc, up, int(labels), _stream(dev))
     check(err, "carafe")
     carafe_reassemble.launches += 1

@@ -19,7 +19,11 @@ in every process. Recorded at the tiny-224 stage geometries:
     ``stripe_attention_bwd``);
   * ``cswin_attention`` (the ``pallas`` route's entry) per branch, B = 32;
   * ``block_pair`` (two blocks in one cooperative launch) at stages 2 and 3,
-    B = 32.
+    B = 32;
+  * the three CARAFE sites through their public entries (the padded GEMM
+    and ``carafe_reassemble``): ``carafe_up`` at (32, 28, 28, 128), and
+    ``carafe_tail`` logits and ``carafe_tail_argmax`` labels at (32, 56,
+    56, 64).
 
 ``--compare`` prints each tensor's max abs difference and exits non-zero
 unless every one is 0.
@@ -41,10 +45,10 @@ import sys
 
 import numpy as np
 
-# Digests of the probe's tensors from the build of the tensor-core weight
-# gradient and attention backward (gemm.cu's wgrad_kernel,
-# stripe_attention_bwd.cu) beside the tensor-core attention and GEMM tiles,
-# on an NVIDIA H100 80GB HBM3.
+# Digests of the probe's tensors from the build of the one-launch LayerNorm
+# backward (layernorm.cu) and the tensor-core CARAFE kernel (carafe.cu)
+# beside the tensor-core weight gradient, attention backward, attention and
+# GEMM tiles, on an NVIDIA H100 80GB HBM3.
 REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "probe_reference.json")
 
 # stage, H, C, heads, split, last (tiny-224)
@@ -55,6 +59,7 @@ STAGES = ((1, 56, 64, 2, 1, False), (2, 28, 128, 4, 2, False),
 def probe(dev) -> dict:
     import torch
 
+    from cswin_unet_tpu_torch.ops.cuda import carafe_tail as CT
     from cswin_unet_tpu_torch.ops.cuda import kernels as K
     from cswin_unet_tpu_torch.ops.cuda.cswin_block import BlockParams, fused_cswin_block
 
@@ -98,6 +103,20 @@ def probe(dev) -> dict:
         out[f"train_s{s}_out"] = y.detach()
         for i, gr in enumerate(torch.autograd.grad(y, leaves, g)):
             out[f"train_s{s}_grad{i}"] = gr
+
+    def carafe_params(C, C_out, up, nc=None):
+        cm = C // 4
+        p = [t(cm, C, 1, 1, sc=0.2), t(cm, sc=0.2), t(9 * up * up, cm, 3, 3, sc=0.2),
+             t(9 * up * up, sc=0.2), t(C_out, C, 1, 1, sc=0.2), t(C_out, sc=0.2)]
+        return p + ([t(nc, C_out, 1, 1, sc=0.2)] if nc else [])
+
+    up = carafe_params(128, 64, 2)
+    tail = carafe_params(64, 64, 4, nc=9)
+    x28, x56 = t(32, 28, 28, 128, sc=1.0).bfloat16(), t(32, 56, 56, 64, sc=1.0).bfloat16()
+    with torch.inference_mode():
+        out["carafe_up"] = CT.carafe_up(x28, *up)
+        out["carafe_tail"] = CT.carafe_tail(x56, *tail)
+        out["carafe_tail_argmax"] = CT.carafe_tail_argmax(x56, *tail)
     torch.cuda.synchronize()
     return {k: v.detach().cpu() for k, v in out.items()}
 

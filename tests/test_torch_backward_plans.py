@@ -6,10 +6,11 @@
   head dim 24), float32, rtol = atol = 1e-4 (the frameworks sum in
   different orders, on O(1) values).
 * The launch planners in Python: ``wgrad_plan`` (how the weight gradient
-  cuts M into one wave of CTAs, and the partial bytes it writes) and
-  ``stripe_attention_bwd_smem`` (the attention backward's shared memory,
-  mirrored from the kernel source and checked against it on the card by
-  ``tests/test_torch_cuda.py``).
+  cuts M into one wave of CTAs, and the partial bytes it writes),
+  ``layernorm_bwd_plan`` (the LayerNorm backward's one wave, whose CTAs
+  stride over the rows) and ``stripe_attention_bwd_smem`` (the attention
+  backward's shared memory, mirrored from the kernel source and checked
+  against it on the card by ``tests/test_torch_cuda.py``).
 """
 
 import os
@@ -163,3 +164,34 @@ def test_attention_bwd_smem_takes_base384_windows(d):
     # one key block holds no statistics; past the limit the wrapper refuses
     assert K.stripe_attention_bwd_smem(64, d) == 4 * 64 * stride * 2 + 2 * 64 * 72 * 2 + fixed
     assert K.stripe_attention_bwd_smem(304, 32) > K.SMEM_LIMIT
+
+
+def _ln_bwd_shapes():
+    """(rows, C) of the block backward's LayerNorms at the training batch:
+    every dual-branch stage of tiny-224 and base-384."""
+    for yaml in ("cswin_tiny_224_lite.yaml", "cswin_base_384.yaml"):
+        for H, C, _, _, last in _geometries(yaml):
+            if not last:
+                yield TRAIN_BATCH * H * H, C
+
+
+@pytest.mark.parametrize("rows,C,ctas_per_sm", [
+    *((r, c, 2) for r, c in sorted(set(_ln_bwd_shapes()))),
+    (1, 64, 2), (63, 64, 2), (65, 128, 2), (200, 512, 1), (1000, 96, 3), (333, 32, 4),
+    (75264, 480, 1)])
+def test_layernorm_bwd_plan_covers_every_row_once(rows, C, ctas_per_sm):
+    p = K.layernorm_bwd_plan(rows, C, ctas_per_sm)
+    # 16-byte vectors: a row's C / 8 of them over the fewest lanes, a power
+    # of two from 4 to 32, that take them in one go or two (C = 64: 8 lanes,
+    # a warp takes 4 rows at once)
+    assert p.lanes in (4, 8, 16, 32) and p.rows_per_step == 256 // p.lanes
+    assert p.lanes >= min(C // 8, 32) and (p.lanes == 4 or p.lanes < 2 * min(C // 8, 32))
+    if C == 64:
+        assert (p.lanes, p.rows_per_step) == (8, 32)
+    # one wave, never more CTAs than steps of rows
+    assert 1 <= p.grid <= min(132 * ctas_per_sm, -(-rows // p.rows_per_step))
+    assert p.groups == -(-p.grid // 16)
+    taken = [K.layernorm_bwd_rows(p, rows, cta) for cta in range(p.grid)]
+    assert all(taken), "a CTA without rows"
+    flat = sorted(r for t in taken for r in t)
+    assert flat == list(range(rows))

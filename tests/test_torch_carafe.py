@@ -17,6 +17,7 @@ from cswin_unet_tpu.ops.carafe import carafe as jax_carafe
 from cswin_unet_tpu.ops.carafe import carafe_with_classifier as jax_cwc
 from cswin_unet_tpu.ops.pallas.carafe_tail import carafe_fused_pallas
 from cswin_unet_tpu_torch.ops.carafe import extract_patches_3x3
+from cswin_unet_tpu_torch.ops.cuda import carafe_tail as CT
 from cswin_unet_tpu_torch.ops.cuda.carafe_tail import (carafe_tail,
                                                        carafe_tail_argmax,
                                                        carafe_tail_argmax_plain,
@@ -136,3 +137,25 @@ def test_tail_logits_and_labels(dtype):
     assert _margin_mismatches(labels.numpy(), pallas) == 0
     assert _margin_mismatches(plain_labels.numpy(), comp) == 0
     assert _margin_mismatches(pallas_labels, comp) == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("site", ["up", "up-odd", "tail", "tail-argmax"])
+def test_gy_channel_padding_leaves_outputs_bit_equal(site, dtype, monkeypatch):
+    """The (down | classes) GEMM's output channels padded to a multiple of 8
+    (``gy_channels``: the tail's 4 + 5 -> 16, up's 8 + 16 -> 24 stays, 10
+    + 12 -> 24) give the same bits as the unpadded plain path."""
+    fn, C, C_out, up, nc, H, W = {
+        "up": (carafe_up, 32, 16, 2, None, 8, 8),
+        "up-odd": (carafe_up, 40, 12, 2, None, 7, 5),
+        "tail": (carafe_tail, 16, 16, 4, 5, 8, 8),
+        "tail-argmax": (carafe_tail_argmax, 16, 16, 4, 5, 6, 9)}[site]
+    rng = np.random.default_rng(5)
+    tp = _torch(_params(rng, C=C, C_out=C_out, up=up, nc=nc))
+    x = torch.from_numpy(rng.standard_normal((2, H, W, C)).astype(np.float32))
+    x = x.to(getattr(torch, dtype))
+    assert CT.gy_channels(C // 4, nc or C_out) % 8 == 0
+    padded = fn(x, *tp, up_factor=up)
+    monkeypatch.setattr(CT, "gy_channels", lambda c_mid, n: c_mid + n)
+    tight = fn(x, *tp, up_factor=up)
+    assert padded.dtype == tight.dtype and torch.equal(padded, tight)

@@ -319,40 +319,99 @@ def _carafe_params(rng, dev, C, C_out, up, nc=None):
     return p + ([t(nc, C_out, 1, 1)] if nc else [])
 
 
-@pytest.mark.parametrize("H,W", [(28, 28), (13, 10)])
-def test_carafe_up(dev, H, W):
+def _margin_mismatches(labels, ref_logits):
+    top2 = torch.topk(ref_logits, 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    mism = labels.long() != ref_logits.argmax(-1)
+    return int((mism & (margin > 0.02 * ref_logits.abs().max())).sum())
+
+
+# The two CARAFE sites of tiny-224 (up@28: C 128 -> 64, x2; the tail: C 64,
+# x4, 9 classes) at the serving batch and at one slice, and an H / W that
+# is not a multiple of the kernel's 8x8 tile.
+@pytest.mark.parametrize("B,H,W", [(32, 28, 28), (1, 28, 28), (2, 13, 10)])
+def test_carafe_up(dev, B, H, W):
     rng = np.random.default_rng(3)
     p = _carafe_params(rng, dev, 128, 64, 2)
-    x = _rnd(rng, dev, 2, H, W, 128).bfloat16()
+    x = _rnd(rng, dev, B, H, W, 128).bfloat16()
     got = carafe_up(x, *p)
-    assert got.shape == (2, 2 * H, 2 * W, 64)
+    assert got.shape == (B, 2 * H, 2 * W, 64)
     assert _rel_l2(got.float(), carafe_up_plain(x, *p).float()) <= 0.02
 
 
-def test_carafe_tail_logits_and_labels(dev):
+@pytest.mark.parametrize("B,H,W", [(32, 56, 56), (1, 56, 56), (2, 20, 20), (2, 11, 13)])
+def test_carafe_tail_logits_and_labels(dev, B, H, W):
     rng = np.random.default_rng(4)
     p = _carafe_params(rng, dev, 64, 64, 4, nc=9)
-    x = _rnd(rng, dev, 2, 20, 20, 64).bfloat16()
+    x = _rnd(rng, dev, B, H, W, 64).bfloat16()
     want = carafe_tail_plain(x, *p).float()
-    assert _rel_l2(carafe_tail(x, *p).float(), want) <= 0.02
+    got = carafe_tail(x, *p)
+    assert got.shape == (B, 4 * H, 4 * W, 9)
+    assert _rel_l2(got.float(), want) <= 0.02
     labels = carafe_tail_argmax(x, *p)
-    assert labels.dtype == torch.int32 and labels.shape == (2, 80, 80)
-    top2 = torch.topk(want, 2, dim=-1).values
-    margin = top2[..., 0] - top2[..., 1]
-    mism = labels.long() != want.argmax(-1)
-    assert int((mism & (margin > 0.02 * want.abs().max())).sum()) == 0
+    assert labels.dtype == torch.int32 and labels.shape == (B, 4 * H, 4 * W)
+    assert _margin_mismatches(labels, want) == 0
 
 
-@pytest.mark.parametrize("M,C", [(1000, 64), (333, 512), (75, 256)])
+def test_carafe_reassemble_ignores_padding_channels(dev):
+    """The GEMM's padding channels of gy reach no output: NaN there changes
+    nothing. A gy whose channels are not a multiple of 8 is refused."""
+    rng = np.random.default_rng(11)
+    cm, nc = 16, 9
+    gy = _rnd(rng, dev, 2, 12, 20, 32).bfloat16()
+    gy[..., cm + nc:] = 0
+    ew, eb, bo = _rnd(rng, dev, 144, cm, 3, 3, sc=0.2), _rnd(rng, dev, 144), _rnd(rng, dev, nc)
+    for labels in (False, True):
+        kw = dict(c_mid=cm, up=4, labels=labels)
+        want = K.carafe_reassemble(gy, ew, eb, bo, **kw)
+        nan = gy.clone()
+        nan[..., cm + nc:] = float("nan")
+        assert torch.equal(K.carafe_reassemble(nan, ew, eb, bo, **kw), want)
+        with pytest.raises(ValueError):
+            K.carafe_reassemble(gy[..., :cm + nc].contiguous(), ew, eb, bo, **kw)
+
+
+def _device_kernels(fn) -> list[str]:
+    """Names of the device kernels one call of ``fn`` runs (after a warm-up
+    call), from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+# The train path's shapes (stage 1 and 2 at bs 24), every width base-384
+# needs, C = 512, and row counts that leave CTAs short: 1, 63, 65 and fewer
+# rows than one wave of CTAs.
+@pytest.mark.parametrize("M,C", [(75264, 64), (18816, 128), (1000, 96), (1000, 192),
+                                 (1000, 384), (333, 512), (1, 64), (63, 64), (65, 128),
+                                 (1, 512), (63, 96), (65, 384), (200, 512), (75, 256)])
 def test_layernorm_bwd(dev, M, C):
     rng = np.random.default_rng(5)
     x, dy, res = (_rnd(rng, dev, M, C).bfloat16() for _ in range(3))
     w = _rnd(rng, dev, C, sc=0.3, off=1.0)
-    before = K.layernorm_bwd.launches
-    got = K.layernorm_bwd(x, dy, w, residual=res)
-    assert K.layernorm_bwd.launches == before + 1
-    for g, want in zip(got, K.layernorm_bwd_plain(x, dy, w, residual=res)):
-        assert _rel_l2(g.float(), want.float()) <= 0.02
+    plan = K._layernorm_bwd_plan(x.device, M, C)
+    assert plan.grid <= -(-M // plan.rows_per_step)
+    for r in (res, None):
+        before = K.layernorm_bwd.launches
+        got = K.layernorm_bwd(x, dy, w, residual=r)
+        assert K.layernorm_bwd.launches == before + 1
+        again = K.layernorm_bwd(x, dy, w, residual=r)
+        for g, want, g2 in zip(got, K.layernorm_bwd_plain(x, dy, w, residual=r), again):
+            assert _rel_l2(g.float(), want.float()) <= 0.02
+            assert torch.equal(g, g2)  # deterministic: the same bits twice
+
+
+def test_layernorm_bwd_is_one_launch(dev):
+    rng = np.random.default_rng(12)
+    x, dy, res = (_rnd(rng, dev, 18816, 128).bfloat16() for _ in range(3))
+    w = _rnd(rng, dev, 128, sc=0.3, off=1.0)
+    names = _device_kernels(lambda: K.layernorm_bwd(x, dy, w, residual=res))
+    assert len(names) == 1 and "layernorm_bwd_kernel" in names[0], names
 
 
 @pytest.mark.parametrize("M,N,K_,hw", [(200, 96, 64, 50), (130, 24, 64, 65),
