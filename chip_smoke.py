@@ -8,7 +8,8 @@ Phases, each of which raises on failure (the process then exits non-zero):
   1. torch / CUDA versions and the card's name and power limit.
   2. Build the hand-written CUDA kernels from ``csrc/`` with nvcc; ``ptxas``
      must report no spills for ``block_pair`` (registers and spills are
-     printed for ``block_one``, ``layernorm_bwd`` and CARAFE too), and the
+     printed for ``block_one``, both LayerNorm kernels, CARAFE and
+     ``edt_pass`` too), and the
      SASS of the attention and GEMM kernels, of the block backward's
      weight-gradient and attention kernels and of the CARAFE kernel
      (``cuobjdump -sass``) must hold tensor-core instructions (``HMMA`` /
@@ -34,7 +35,8 @@ Phases, each of which raises on failure (the process then exits non-zero):
      route's ``cswin_attention`` at every branch geometry (B = 32, q, k, v
      as channel slices of one qkv tensor) against the Pallas rounding's
      plain version, and ``edt_pass`` along each axis of a (48, 512, 512)
-     volume, in ``edt_sq``'s order, bit for bit (max abs error 0).
+     volume, in ``edt_sq``'s order, bit for bit (max abs error 0; the O(L)
+     pass's bound is its bytes, ``EDT_OPS``).
      ``block_pair`` (two blocks in one cooperative launch) at each pairable
      stage (2 and 3), B = 32, against ``block_pair_plain`` and against two
      single block chains, which it must equal bit for bit; ``ptxas`` must
@@ -214,6 +216,13 @@ KERNEL_SYMBOLS = re.compile(
 # float32 outside them.
 HBM_BPS, TC_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 EVAL_SHAPES = ((48, 512, 512), (37, 512, 512))  # Synapse-like CT volumes
+# Operations an element of the O(L) edt_pass: each j is pushed onto its
+# line's hull once and popped at most once (two hull tests), the walk makes
+# at most two tests an output, each test ~10 operations, then the output.
+# At most 50 an element, so the bound of a pass is its bytes (each element
+# read and written once) whatever the data: 50 operations over 67 TFLOP/s
+# is under 8 bytes over 3.35 TB/s.
+EDT_OPS = 50
 
 
 class SmokeFailure(RuntimeError):
@@ -873,7 +882,8 @@ def compare_edt(dev, tally: KernelTally) -> None:
     """``edt_pass`` along each axis of a (48, 512, 512) volume, in
     ``edt_sq``'s order (W, H, D; each pass reads the previous one's
     output), against its plain version bit for bit; weighted by the calls of
-    one ``volume_metrics_device`` call on 9 classes (two EDTs per class)."""
+    one ``volume_metrics_device`` call on 9 classes (two EDTs per class).
+    Its bound is the bytes (``EDT_OPS``)."""
     import torch
 
     from cswin_unet_tpu_torch.ops.cuda import kernels as K
@@ -885,10 +895,9 @@ def compare_edt(dev, tally: KernelTally) -> None:
     f.masked_fill_(seeds, 0.0)
     calls = 2 * 8
     for ax in (2, 1, 0):
-        L, n = f.shape[ax], f.numel()
         tally.case("edt_pass", f"axis {ax} of {tuple(f.shape)}",
                    lambda: K.edt_pass(f, ax), lambda: K.edt_pass_plain(f, ax), calls,
-                   check="exact", moved=2 * nbytes(f), f32_ops=3 * n * L, reps=3)
+                   check="exact", moved=2 * nbytes(f), f32_ops=EDT_OPS * f.numel(), reps=3)
         f = K.edt_pass(f, ax)
 
 
@@ -1983,7 +1992,8 @@ def main() -> int:
               flush=True)
         require(bool(spills) and all(st == ld == 0 for _, _, st, ld in spills),
                 f"block_pair: ptxas reports spills {spills}")
-        for entry in ("block_one_kernel", "layernorm_bwd_kernel", "carafe_kernel"):
+        for entry in ("block_one_kernel", "layernorm_kernel", "layernorm_bwd_kernel",
+                      "carafe_kernel", "edt_pass_kernel"):
             res = ptxas_resources(build.build_log, entry)
             print(f"[build] {entry} (entry, registers, spill stores, spill loads): {res}",
                   flush=True)

@@ -45,6 +45,7 @@ _SIGNATURES = {
     "cswin_stripe_attention_bwd_smem": (_I, _I),
     "cswin_carafe": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "cswin_edt_pass": (_P, _P, _LL, _I, _LL, _P),
+    "cswin_edt_pass_lines": (_I, _I),
     "cswin_block_pair": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P),
     "cswin_block_one": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _I, _P,
                         _P),

@@ -122,7 +122,9 @@ int launch(const bf16* x, const BlockW& p, const Plan& plan, bf16* scratch, bf16
 // (attention_tile.cuh: FULL, NO_LEPE, SCALE, SCALE_NO_LEPE, VALUE); flags:
 // LN | GELU | TRANSPOSE | V_ONLY (the vertical branch alone); stop: the last
 // phase run (block_phases::Stop); level: -1 for the block's output, 0-7 for
-// the build-up epilogue (dual-branch, H == W). A last stage is split >= H. Head dim C / heads must be 32 (tiny-224).
+// the build-up epilogue (dual-branch, H == W). A last stage is split >= H.
+// Head dim C / heads must be 32 (tiny-224), C % 8 == 0 and C <= 1024
+// (ln_row::supported).
 // info (host, 3 ints) receives the grid, the CTAs per SM and the dynamic
 // shared memory in bytes.
 CSWIN_API int cswin_block_one(const void* x, const void* const* params, void* scratch,
@@ -130,8 +132,8 @@ CSWIN_API int cswin_block_one(const void* x, const void* const* params, void* sc
                               float scale, float eps, int mode, int flags, int stop,
                               int level, int* info, void* stream) {
   const bool last = split >= H;
-  if (C % 8 || C % heads || C / heads != 32 || (!last && (heads % 2 || H % split ||
-                                                         W % split)))
+  if (!ln_row::supported(C) || C % heads || C / heads != 32 ||
+      (!last && (heads % 2 || H % split || W % split)))
     return (int)cudaErrorInvalidValue;
   if (level > 7 || (level >= 0 && (last || H != W)) ||
       (stop != STOP_NONE && stop != STOP_QKV && stop != STOP_ATTENTION &&

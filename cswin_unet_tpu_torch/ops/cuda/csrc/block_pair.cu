@@ -70,14 +70,16 @@ int launch(const bf16* x, const void* const* params, bf16* scratch, bf16* out,
 // x, out: (B, H, W, C) bf16, contiguous; params: a host array of 32 device
 // pointers, each block's 16 in the order of BlockW (the wrapper's cast
 // weights); scratch: 7·B·H·W·C bf16. Requires a dual-branch geometry
-// (split < H, H % split == W % split == 0), C % 8 == 0, heads even and
+// (split < H, H % split == W % split == 0), C % 8 == 0 and C <= 1024 (the
+// LN phases' rows, ln_row::supported), heads even and
 // head_dim = C / heads of 16, 24 or 32. info (host, 3 ints) receives the
 // grid, the CTAs per SM and the dynamic shared memory in bytes.
 CSWIN_API int cswin_block_pair(const void* x, const void* const* params, void* scratch,
                                void* out, int B, int H, int W, int C, int heads,
                                int split, float scale, float eps, int* info,
                                void* stream) {
-  if (split >= H || H % split || W % split || C % 8 || heads % 2 || C % heads)
+  if (split >= H || H % split || W % split || !ln_row::supported(C) || heads % 2 ||
+      C % heads)
     return (int)cudaErrorInvalidValue;
   const Geom g{B, H, W, C, heads, split, scale, eps};
   const bf16* xb = (const bf16*)x;

@@ -92,11 +92,14 @@ inline Plan full_dual_plan(const BlockW& p, const Geom& g) {
   return plan;
 }
 
+// LN over the phase's rows on layernorm_row.cuh's body, THREADS / G rows a
+// CTA step, the grid striding over the steps: the same bits as the one-launch
+// layernorm_kernel. γ and β are read where used, not held: the GEMM and
+// attention phases set the kernel's registers. The entry points refuse a C
+// it does not take.
 __device__ __forceinline__ void ln_phase(const bf16* x, const float* w, const float* b,
                                          bf16* y, int rows, int C, float eps) {
-  constexpr int ROWS = THREADS / 32;
-  for (int r = blockIdx.x * ROWS + (threadIdx.x >> 5); r < rows; r += gridDim.x * ROWS)
-    ln_row::row(x, w, b, y, r, C, eps, threadIdx.x & 31);
+  ln_row::rows_any<false>(x, C, w, b, y, C, rows, C, eps, THREADS, blockIdx.x, gridDim.x);
 }
 
 template <int EPI>

@@ -15,10 +15,14 @@
 // Bound on the H100: memory bandwidth — the forward reads and writes each
 //   element once (2 + 2 bytes) and does ~8 flops on it; the backward reads
 //   x, dy and res and writes dx (8 bytes) for ~15 flops.
-// Design: the forward runs one warp per row, two-pass mean / variance as
-//   the reference computes them, re-reading the row from L1 rather than
-//   holding it in registers, so one kernel serves every C; its row body
-//   lives in layernorm_row.cuh, shared with the persistent kernels.
+// Design: the forward is one launch of one wave of CTAs (the entry sizes it
+//   with the occupancy API, once an instance and device) that stride over
+//   the rows; its row body lives in layernorm_row.cuh, shared with the
+//   persistent kernels: a group of G lanes takes a row in 16-byte vectors
+//   held in registers (x read once), two-pass statistics from registers
+//   with shuffles inside the group, γ / β held across rows, the next row's
+//   loads in flight, 16-byte stores; seven (G, V) instances serve every
+//   C % 8 == 0 up to 1024.
 //   The backward is one launch of one wave of CTAs (the wrapper sizes it
 //   with the occupancy API) that stride over the rows. The channels a lane
 //   holds are a template parameter (Shape<C>), so registers fit the row: a
@@ -39,16 +43,43 @@
 // library does: the profiler then names them "(anonymous namespace)::...".
 namespace {
 
-__global__ void __launch_bounds__(256)
+constexpr int WARPS = 8, THREADS = WARPS * 32;
+
+template <int G, int V>
+__global__ void __launch_bounds__(THREADS)
 layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
-                 const float* __restrict__ b, bf16* __restrict__ y, int rows,
-                 int C, float eps) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (row >= rows) return;  // whole warp leaves together
-  ln_row::row(x, w, b, y, row, C, eps, threadIdx.x & 31);
+                 const float* __restrict__ b, bf16* __restrict__ y, int rows, int C,
+                 float eps) {
+  ln_row::rows<G, V>(x, C, w, b, y, C, rows, C, eps, THREADS, blockIdx.x, gridDim.x);
 }
 
-constexpr int WARPS = 8, THREADS = WARPS * 32;
+// One wave of layernorm_kernel<G, V> over the rows: the CTAs an SM holds
+// (the occupancy API, asked once an instance and device) times the SMs,
+// fewer where the rows run out first.
+template <int G, int V>
+cudaError_t launch_fwd(const bf16* x, const float* w, const float* b, bf16* y, int rows,
+                       int C, float eps, cudaStream_t stream) {
+  static int fit_dev = -1, fit_ctas = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev != fit_dev) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+            cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, layernorm_kernel<G, V>,
+                                                             THREADS, 0)) != cudaSuccess)
+      return err;
+    fit_ctas = per_sm * sms;
+    fit_dev = dev;
+  }
+  const int step = THREADS / G, steps = (rows + step - 1) / step;
+  const int grid = steps < fit_ctas ? steps : fit_ctas;
+  if (grid < 1) return cudaErrorInvalidValue;
+  layernorm_kernel<G, V><<<grid, THREADS, 0, stream>>>(x, w, b, y, rows, C, eps);
+  return cudaGetLastError();
+}
+
 constexpr int GROUP = 16;  // CTAs whose partial rows the last of them adds
 
 // How the backward cuts a row of C channels (C % 32 == 0, C <= 512):
@@ -65,12 +96,7 @@ struct Shape {
   static constexpr int ROWS = THREADS / G;
 };
 
-template <int G>
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using ln_row::group_sum;
 
 // Whether this CTA is the last of `n` to arrive at `counter`, after its
 // stores (fenced) and before its loads of the others' (fenced again).
@@ -286,14 +312,19 @@ layernorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
 
 }  // namespace
 
+// x, y: (rows, C) bf16, 16-byte aligned; w, b: (C,) float32. C % 8 == 0,
+// C <= 1024 (ln_row::supported; checked by the wrapper), rows >= 1.
 CSWIN_API int cswin_layernorm(const void* x, const void* w, const void* b,
                               void* y, int rows, int C, float eps,
                               void* stream) {
-  const int threads = 256;  // 8 rows per block
-  const int blocks = (rows + 7) / 8;
-  layernorm_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const float*)w, (const float*)b, (bf16*)y, rows, C, eps);
-  return (int)cudaGetLastError();
+  if (!ln_row::supported(C) || rows < 1) return (int)cudaErrorInvalidValue;
+  const bf16* xb = (const bf16*)x;
+  const float *wf = (const float*)w, *bf = (const float*)b;
+  bf16* yb = (bf16*)y;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define CSWIN_LN_FWD(G, V) (int)launch_fwd<G, V>(xb, wf, bf, yb, rows, C, eps, s)
+  return LN_ROW_INSTANCE(C, CSWIN_LN_FWD);
+#undef CSWIN_LN_FWD
 }
 
 #define CSWIN_LN_BWD_CHANNELS(X) \

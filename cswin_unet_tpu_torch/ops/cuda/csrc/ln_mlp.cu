@@ -26,8 +26,8 @@
 //   operations against 0.031 ms of bytes. The chain of three launches (LN,
 //   fc1 + GELU, fc2 + residual) moves the hidden to memory and back, 6.5x
 //   the bytes.
-// Design: a CTA of four warps takes 64 rows. Each warp normalises 16 of them
-//   into shared memory (layernorm_row.cuh), then the CTA walks the hidden in
+// Design: a CTA of four warps takes 64 rows and normalises them into shared
+//   memory (layernorm_row.cuh's rows, 16 a step), then the CTA walks the hidden in
 //   four chunks of 64: fc1 chunk (bf16 WMMA 16x16x16, four warps of 32x32 as
 //   the GEMM tile's) -> float32 tile in shared memory -> bias, rounding,
 //   activation -> bf16 chunk in shared memory -> fc2 partial product into
@@ -118,13 +118,14 @@ ln_mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ nw,
   const int wm = warp >> 1, wn = warp & 1;  // 2x2 warps of 32x32
   const int m0 = blockIdx.x * BM;
 
+  if constexpr (LN)
+    ln_row::rows_any(x + (size_t)m0 * C, C, nw, nb, &sm.Xn[0][0], C + PAD, min(BM, M - m0), C,
+                     eps, THREADS, 0, 1);
   for (int r = warp; r < BM; r += THREADS / 32) {
     const int gm = m0 + r;
     if (gm >= M) {
       for (int c = lane; c < C; c += 32) sm.Xn[r][c] = f2bf(0.f);
-    } else if constexpr (LN) {
-      ln_row::row_at(x + (size_t)gm * C, nw, nb, &sm.Xn[r][0], C, eps, lane);
-    } else {
+    } else if (!LN) {
       for (int c = lane; c < C; c += 32) sm.Xn[r][c] = x[(size_t)gm * C + c];
     }
   }

@@ -32,7 +32,8 @@ Kernels (``csrc/``):
                            bodies, with parts switched off or built up level
                            by level (``block_one``, for the block lab)
   edt.cu                   the exact 1-D squared-EDT min-plus pass along any
-                           axis (``edt_pass``)
+                           axis, O(L) a line on its lower envelope
+                           (``edt_pass``)
   lepe_windows.cu          LePE alone, the depthwise 3x3 on windowed V
                            (``lepe_windows``, for the block lab)
   ln_mlp.cu                the MLP half of a block, LN -> fc1 -> activation ->
@@ -43,8 +44,10 @@ Kernels (``csrc/``):
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -83,6 +86,15 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+
+
+def _require_aligned(**tensors: torch.Tensor | None) -> None:
+    """The LayerNorm rows read x and write y in 16-byte vectors and γ / β
+    as float4s: their data must start 16-byte aligned."""
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned (the LayerNorm rows' "
+                             "16-byte vectors)")
 
 
 def _stream(device: torch.device) -> int:
@@ -140,16 +152,47 @@ def layernorm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             + bias.float()).to(x.dtype)
 
 
+_LN_THREADS = 256  # layernorm.cu THREADS
+
+
+class LnFwdPlan(NamedTuple):
+    """How the forward LayerNorm cuts a row of C channels
+    (``layernorm_row.cuh``): ``lanes`` lanes a row, ``vectors`` 16-byte
+    vectors of 8 bf16 a lane (lane j of a group holds vectors j, j + lanes,
+    ...), ``rows_per_step`` rows a CTA of 256 threads takes per step."""
+    lanes: int
+    vectors: int
+    rows_per_step: int
+
+
+LN_MAX_C = 1024  # layernorm_row.cuh MAX_C
+
+
+def layernorm_fwd_plan(C: int) -> LnFwdPlan:
+    """The forward's instance for C, mirrored from ``LN_ROW_INSTANCE``: the
+    power of two >= C / 8 lanes, from 4 to 32, and ceil(C / 8 / lanes)
+    vectors a lane. Raises for a C the kernel does not take."""
+    if C <= 0 or C % 8 or C > LN_MAX_C:
+        raise ValueError(f"layernorm takes C % 8 == 0 and 8 <= C <= {LN_MAX_C} "
+                         f"(16-byte rows of 8 bf16, at most 4 a lane), got C={C}")
+    n = C // 8
+    lanes = 4 if n <= 4 else 8 if n <= 8 else 16 if n <= 16 else 32
+    return LnFwdPlan(lanes, -(-n // lanes), _LN_THREADS // lanes)
+
+
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis with float32 statistics; out in
-    ``x.dtype``. ``weight``/``bias``: (C,) float32."""
+    ``x.dtype``. ``weight``/``bias``: (C,) float32. On the GPU C must be a
+    multiple of 8 up to 1024 (``layernorm_fwd_plan``)."""
     if _on_cpu(x):
         return layernorm_plain(x, weight, bias, eps)
     C = x.shape[-1]
+    layernorm_fwd_plan(C)
     _require(x, "x", torch.bfloat16, x.device)
     _require(weight, "weight", torch.float32, x.device, (C,))
     _require(bias, "bias", torch.float32, x.device, (C,))
+    _require_aligned(x=x, weight=weight, bias=bias)
     out = torch.empty_like(x)
     err = library().cswin_layernorm(x.data_ptr(), weight.data_ptr(),
                                     bias.data_ptr(), out.data_ptr(),
@@ -194,7 +237,6 @@ class LnBwdPlan(NamedTuple):
     groups: int
 
 
-_LN_THREADS = 256  # layernorm.cu THREADS
 _LN_GROUP = 16     # layernorm.cu GROUP
 
 
@@ -918,6 +960,8 @@ def _block_weights(p, C: int, cb: int, dev: torch.device) -> list:
             keep.append(None if i == 3 else torch.zeros(cb, dtype=bf, device=dev))
             continue
         _require(t, name, torch.float32, dev, shape)
+        if i in (0, 1, 10, 11):
+            _require_aligned(**{name: t})
         if i in (4, 6):
             keep.append(t.reshape(cb, 9).t().to(bf).contiguous())
         elif i in (5, 7) or t.dim() == 2:
@@ -977,6 +1021,7 @@ def block_pair(x: torch.Tensor, p1, p2, *, heads: int, split: int, scale: float,
     B, H, W, C = x.shape
     dev = x.device
     _require(x, "x", torch.bfloat16, dev)
+    _require_aligned(x=x)
     if split >= H or H % split or W % split or C % 8 or heads % 2:
         raise ValueError(f"block_pair takes two dual-branch blocks: H={H} W={W} "
                          f"C={C} heads={heads} split={split}")
@@ -1189,6 +1234,7 @@ def block_one(x: torch.Tensor, p, *, heads: int, split: int, scale: float,
     B, H, W, C = x.shape
     dev = x.device
     _require(x, "x", torch.bfloat16, dev)
+    _require_aligned(x=x)
     if last_stage != (split >= H):
         raise ValueError(f"last_stage={last_stage} but split={split}, H={H}: the kernel "
                          "takes a last stage as split >= H")
@@ -1223,7 +1269,207 @@ block_one.grid = None  # the last launch's grid, CTAs per SM and shared memory
 # edt.cu
 # ---------------------------------------------------------------------------
 
-_EDT_MAX_L = 227 * 1024 // (33 * 4)  # the kernel stages L x 33 floats
+_EDT_MAX_L = 2048  # edt.cu FAST_MAX_L: the fast predicates' bound on L
+_EDT_SMEM_MAX, _EDT_WARPS, _EDT_TW = 232448, 8, 9  # edt.cu SMEM_MAX, WARPS, TW
+
+
+class EdtPlan(NamedTuple):
+    """How ``edt_pass`` cuts the lines (``edt.cu``): each line in ``parts``
+    parts of ``segment`` points, a warp a part of 32 lines; a CTA of eight
+    warps stages ``lines`` lines in ``smem_bytes`` of shared memory."""
+    parts: int
+    segment: int
+    lines: int
+    smem_bytes: int
+
+
+def _edt_smem(L: int, parts: int, lines: int, last: bool) -> int:
+    seg = -(-L // parts)
+    return ((_EDT_WARPS * 32 * _EDT_TW * 4 if last else 0) + L * (lines + 1) * 4
+            + parts * seg * lines * 2 + parts * lines * (2 * 4 + 3 * 2 + 1))
+
+
+def edt_pass_plan(L: int, last: bool) -> EdtPlan:
+    """Mirrored from ``edt.cu``: parts of at most 32 points where 8 allow,
+    32 lines a group of ``parts`` warps (256 / parts a CTA), fewer where a
+    long line's tile would pass 227 KB; ``last``: along the contiguous axis
+    (the warps' transpose buffers). ``lines`` 0 where one line does not
+    fit."""
+    parts = 1 if L <= 32 else 2 if L <= 64 else 4 if L <= 128 else 8
+    seg = -(-L // parts)
+    if 1 <= L <= 65535:
+        lines = _EDT_WARPS // parts * 32
+        while lines >= 1:
+            if _edt_smem(L, parts, lines, last) <= _EDT_SMEM_MAX:
+                return EdtPlan(parts, seg, lines, _edt_smem(L, parts, lines, last))
+            lines -= 32 if lines > 32 else 1
+    return EdtPlan(parts, seg, 0, 0)
+
+
+class _Pt(NamedTuple):
+    j: int
+    f: float      # the float32 value, exactly
+    n: int | None  # the value as an integer where the fast predicates take it
+
+
+def _pt(j: int, f: float, L: int) -> _Pt:
+    small = L <= _EDT_MAX_L and abs(f) <= 2.0 ** 40 and f == math.trunc(f)
+    return _Pt(j, f, int(f) if small else None)
+
+
+def _two_sum(a: float, b: float) -> tuple[float, float]:
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _sign_sum4(a: float, b: float, c: float, d: float) -> int:
+    """The sign of a + b + c + d, exactly, as ``edt.cu`` reads it: the
+    Grow-Expansion of the four by TwoSums, then its largest nonzero
+    component."""
+    q, e0 = _two_sum(b, a)
+    r, e0 = _two_sum(c, e0)
+    r, e1 = _two_sum(r, q)
+    t, e0 = _two_sum(d, e0)
+    t, e1 = _two_sum(t, e1)
+    t, e2 = _two_sum(t, r)
+    top = next((e for e in (t, e2, e1, e0) if e != 0.0), 0.0)
+    return (top > 0.0) - (top < 0.0)
+
+
+def edt_keep(a: _Pt, b: _Pt, q: _Pt) -> bool:
+    """``edt.cu`` ``keep``: b (a < b < q) stays on the lower hull of
+    (j, f[j] + j²), i.e. d1·f[q] + d2·f[a] − (d1 + d2)·f[b] + d1·d2·(d1 + d2)
+    > 0 with d1 = b − a, d2 = q − b; in integers where every value is a
+    small integer (the kernel's int64), else by the exact expansion of the
+    float64 terms."""
+    d1, d2 = b.j - a.j, q.j - b.j
+    c = d1 * d2 * (d1 + d2)
+    if a.n is not None and b.n is not None and q.n is not None:
+        return d1 * q.n + d2 * a.n - (d1 + d2) * b.n + c > 0
+    return _sign_sum4(float(d1) * q.f, float(d2) * a.f, -float(d1 + d2) * b.f, float(c)) > 0
+
+
+def edt_advance(v: _Pt, w: _Pt, i: int) -> bool:
+    """``edt.cu`` ``advance``: the hull point w > v is at least as good as v
+    at i, f[w] − f[v] + (w − v)·(v + w − 2i) <= 0."""
+    j = (w.j - v.j) * (v.j + w.j - 2 * i)
+    if v.n is not None and w.n is not None:
+        return w.n - v.n + j <= 0
+    return _sign_sum4(w.f, -v.f, float(j), 0.0) <= 0
+
+
+def _edt_parts(vals: list[float], L: int) -> tuple[list[list[_Pt]], int]:
+    """Each part's hull, as ``edt.cu`` builds it (points above the line's
+    pruning bound left out), and the line's flags (1: a NaN, 2: a -inf)."""
+    plan = edt_pass_plan(L, True)
+    finite = [v for v in vals if not math.isnan(v)]
+    m = min(finite, default=math.inf)
+    t = m + float(L - 1) * float(L - 1)
+    bound = t + abs(t) * 2.0 ** -52
+    flags, hulls = 0, []
+    for part in range(plan.parts):
+        stack: list[_Pt] = []
+        for q in range(part * plan.segment, min(L, (part + 1) * plan.segment)):
+            if not math.isfinite(vals[q]):
+                flags |= 1 if math.isnan(vals[q]) else 2 if vals[q] < 0 else 0
+                continue
+            if vals[q] > bound:
+                continue
+            p = _pt(q, vals[q], L)
+            while len(stack) >= 2 and not edt_keep(stack[-2], stack[-1], p):
+                stack.pop()
+            stack.append(p)
+        hulls.append(stack)
+    return hulls, flags
+
+
+def _edt_merge(hulls: list[list[_Pt]]) -> tuple[list[int], list[int]]:
+    """``edt.cu``'s merge of the parts' hulls, step for step: each part's
+    points join one stack by the pop test until two of them stand on it,
+    after which its convex rest stands too. Returns each part's surviving
+    entries as ranges [lo, hi); the stack's top two are (ts, tp) and
+    (ss, sp)."""
+    P = len(hulls)
+    lo, hi = [0] * P, [0] * P
+    size = ts = tp = ss = sp = 0
+    top = sec = None
+    for w, pts in enumerate(hulls):
+        n, l, h = len(pts), 0, 0
+        for t in range(n):
+            q = pts[t]
+            while size >= 2 and not edt_keep(sec, top, q):  # pop the top
+                if ts == w:
+                    h = tp
+                else:
+                    hi[ts] = tp
+                size -= 1
+                top, ts, tp = sec, ss, sp
+                if size >= 2:  # the element under the new top
+                    if (sp > l) if ss == w else (sp > lo[ss]):
+                        sp -= 1
+                    else:
+                        ss -= 1
+                        while hi[ss] == lo[ss]:
+                            ss -= 1
+                        sp = hi[ss] - 1
+                    sec = hulls[ss][sp]
+            if h == l:  # push q
+                l = t
+            h = t + 1
+            size += 1
+            sec, ss, sp = top, ts, tp
+            top, ts, tp = q, w, t
+            if h - l >= 2:  # two of this part stand: so does its convex rest
+                size += n - h
+                if n > h:
+                    top, sec, tp, ss, sp = pts[n - 1], pts[n - 2], n - 1, w, n - 2
+                h = n
+                break
+        lo[w], hi[w] = l, h
+    assert size == sum(b - a for a, b in zip(lo, hi))
+    return lo, hi
+
+
+def _edt_line(f: np.ndarray) -> np.ndarray:
+    """One line through ``edt.cu``: a line of one value (no NaN) as it is;
+    else the parts' hulls, their merge, and each part's outputs from the
+    hull point a binary search finds for its first i."""
+    L = f.shape[0]
+    vals = [float(x) for x in f]
+    if not any(math.isnan(v) for v in vals) and min(vals) == max(vals):
+        return np.float32(0.0) + f.astype(np.float32)
+    hulls, flags = _edt_parts(vals, L)
+    lo, hi = _edt_merge(hulls)
+    hull = [hulls[w][e] for w in range(len(hulls)) for e in range(lo[w], hi[w])]
+    if flags or not hull:
+        return np.full(L, np.nan if flags & 1 else -np.inf if flags & 2 else np.inf,
+                       np.float32)
+    out, seg = np.empty(L, np.float32), edt_pass_plan(L, True).segment
+    for i0 in range(0, L, seg):
+        a, b = 0, len(hull) - 1  # the first h whose next point is worse at i0
+        while a < b:
+            m = (a + b) // 2
+            a, b = (m + 1, b) if edt_advance(hull[m], hull[m + 1], i0) else (a, m)
+        h = a
+        for i in range(i0, min(L, i0 + seg)):
+            while h + 1 < len(hull) and edt_advance(hull[h], hull[h + 1], i):
+                h += 1
+            v = hull[h]
+            out[i] = np.float32((i - v.j) * (i - v.j)) + np.float32(v.f)
+    return out
+
+
+def edt_envelope_reference(f: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """The O(L) lower-envelope pass of ``edt.cu`` mirrored in NumPy, line by
+    line: the same parts, pruning, merge and walk, the same predicates in the same
+    arithmetic, the same tie rule and the same float32 output expression. It
+    runs on no path; the tests hold it to ``edt_pass_plain`` bit for bit,
+    which checks on the CPU the exactness argument the kernel relies on."""
+    x = f.detach().cpu().movedim(axis, -1).contiguous()
+    lines = x.numpy().reshape(-1, x.shape[-1]).astype(np.float32, copy=False)
+    out = np.stack([_edt_line(line) for line in lines]) if lines.size else lines.copy()
+    return torch.from_numpy(out.reshape(x.shape)).movedim(-1, axis).contiguous()
 
 
 def edt_pass_plain(f: torch.Tensor, axis: int = -1) -> torch.Tensor:
@@ -1248,15 +1494,18 @@ def edt_pass(f: torch.Tensor, axis: int = -1) -> torch.Tensor:
     """Exact 1-D squared-EDT min-plus pass along ``axis`` of a contiguous
     float32 tensor (+inf written as 1e12 at non-seeds): ``g[i] = min_j
     (i - j)² + f[j]`` per line. The kernel reads the volume in place as
-    (outer, L, inner), so no axis is moved; the result equals
-    ``edt_pass_plain`` bit for bit."""
+    (outer, L, inner), so no axis is moved, and walks each line's lower
+    envelope in O(L) with exact predicates; the result equals
+    ``edt_pass_plain`` bit for bit (``edt_envelope_reference`` mirrors it).
+    Lines of 1 to 2048."""
     if _on_cpu(f):
         return edt_pass_plain(f, axis)
     _require(f, "f", torch.float32, f.device)
     axis %= f.dim()
     L = f.shape[axis]
     if L > _EDT_MAX_L:
-        raise ValueError(f"edt_pass: line length {L} exceeds {_EDT_MAX_L}")
+        raise ValueError(f"edt_pass: line length {L} exceeds {_EDT_MAX_L} (the float64 "
+                         "predicates' bound)")
     g = torch.empty_like(f)
     if f.numel() == 0:
         return g
@@ -1554,6 +1803,7 @@ def ln_mlp(x: torch.Tensor, norm_w: torch.Tensor | None, norm_b: torch.Tensor | 
     if ln:
         _require(norm_w, "norm_w", torch.float32, dev, (C,))
         _require(norm_b, "norm_b", torch.float32, dev, (C,))
+        _require_aligned(x=x, norm_w=norm_w, norm_b=norm_b)
     if fc1_b is not None:
         _require(fc1_b, "fc1_b", torch.float32, dev, (hidden,))
     if not fold:

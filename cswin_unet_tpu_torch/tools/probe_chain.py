@@ -45,10 +45,11 @@ import sys
 
 import numpy as np
 
-# Digests of the probe's tensors from the build of the one-launch LayerNorm
-# backward (layernorm.cu) and the tensor-core CARAFE kernel (carafe.cu)
-# beside the tensor-core weight gradient, attention backward, attention and
-# GEMM tiles, on an NVIDIA H100 80GB HBM3.
+# Digests of the probe's tensors from the build of the LayerNorm forward
+# row on lane groups of 16-byte vectors (layernorm_row.cuh), beside the
+# one-launch LayerNorm backward, the tensor-core CARAFE kernel, weight
+# gradient, attention backward, attention and GEMM tiles, on an NVIDIA H100
+# 80GB HBM3.
 REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "probe_reference.json")
 
 # stage, H, C, heads, split, last (tiny-224)

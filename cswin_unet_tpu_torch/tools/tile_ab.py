@@ -15,7 +15,9 @@ of one 32-slice serving forward, each case held to its plain version, times
 summed per forward, unpaired) and ``compare_backward_kernels`` (per bs-24
 train step) and, where the harness has it, ``compare_base384_backward``
 (weight 0; a build that refuses those windows is recorded as refusing
-them), then the root's block lab's attention cases (``attn``: rows and
+them), ``compare_edt`` (``edt_pass`` along the three axes of a
+(48, 512, 512) volume, per 9-class ``volume_metrics_device`` call), then the
+root's block lab's attention cases (``attn``: rows and
 columns of (128, 56, 56, 32); ``attn3``: (512, 98, 128), 4 heads). Every
 case is timed behind the lab's spin kernel (``chip_smoke.time_ms`` with
 ``primed``), so that a call shorter than its wrapper's host work reads
@@ -41,7 +43,7 @@ import sys
 
 KERNELS = ("gemm", "gemm_dgrad", "stripe_attention", "cswin_attention", "block_pair",
            "layernorm", "carafe_reassemble", "layernorm_bwd", "gemm_wgrad",
-           "stripe_attention_bwd")
+           "stripe_attention_bwd", "edt_pass")
 
 
 def measure(root: str, harness: str) -> dict:
@@ -77,6 +79,7 @@ def measure(root: str, harness: str) -> dict:
                 chip_smoke.compare_base384_backward(dev, chip_smoke.TRAIN_BATCH, tally)
             except ValueError as e:  # a build whose kernel refuses 288-token windows
                 refused = str(e)
+        chip_smoke.compare_edt(dev, tally)
     print(printed.getvalue(), end="")
     rows: list[dict] = []
     for sub in ("attn", "attn3"):

@@ -61,6 +61,40 @@ def test_layernorm(dev, M, C):
     assert _rel_l2(got.float(), K.layernorm_plain(x, w, b).float()) <= 0.02
 
 
+def _bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest difference of two bf16 tensors in bf16 ulps: the spacing
+    of bf16 at the larger magnitude of the pair, and at least at 2^-7 (an
+    O(1) output such as LN's, whose + β cancels near zero)."""
+    g, w = got.float(), want.float()
+    top = torch.maximum(torch.maximum(g.abs(), w.abs()), torch.tensor(2.0**-7, device=g.device))
+    return float(((g - w).abs() / torch.exp2(torch.floor(torch.log2(top)) - 7)).max())
+
+
+@pytest.mark.parametrize("C", [64, 96, 128, 192, 256, 384, 512, 768])
+@pytest.mark.parametrize("rows", [1, 3001])
+def test_layernorm_widths(dev, C, rows):
+    """Every stage width of tiny-224 and base-384; 3001 rows is no multiple
+    of any instance's rows a CTA step (8 to 64)."""
+    p = K.layernorm_fwd_plan(C)
+    assert rows == 1 or rows % p.rows_per_step
+    rng = np.random.default_rng(C + rows)
+    x = _rnd(rng, dev, rows, C, sc=2.0, off=0.5).bfloat16()
+    w, b = _rnd(rng, dev, C, sc=0.3, off=1.0), _rnd(rng, dev, C, sc=0.1)
+    got, want = K.layernorm(x, w, b), K.layernorm_plain(x, w, b)
+    ulps = _bf16_ulps(got, want)
+    print(f"layernorm C={C} rows={rows} (lanes {p.lanes}, vectors {p.vectors}): "
+          f"rel_l2={_rel_l2(got.float(), want.float()):.3e} max {ulps:g} bf16 ulps")
+    assert _rel_l2(got.float(), want.float()) <= 0.02
+    assert K.layernorm(x, w, b).equal(got)  # a fixed sum order
+
+
+@pytest.mark.parametrize("C", [60, 1032])
+def test_layernorm_refuses_other_widths(dev, C):
+    x = torch.zeros(4, C, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="C % 8 == 0"):
+        K.layernorm(x, torch.ones(C, device=dev), torch.zeros(C, device=dev))
+
+
 @pytest.mark.parametrize("epilogue", ["bias", "residual", "gelu"])
 @pytest.mark.parametrize("M,N,K_", [(200, 96, 64), (130, 25, 64), (64, 512, 2048)])
 def test_gemm(dev, M, N, K_, epilogue):
@@ -532,6 +566,63 @@ def test_edt_pass_bit_for_bit(dev, shape):
         got = K.edt_pass(ft, ax)
         assert K.edt_pass.launches == before + 1
         assert torch.equal(got, K.edt_pass_plain(ft, ax))
+
+
+def _edt_lines(case: str, L: int, rng) -> np.ndarray:
+    """(n, L) lines where the envelope's exactness is at stake."""
+    n, inf = 40, np.float32(1e12)
+    f = np.full((n, L), inf, np.float32)
+    if case == "ties":  # equal seeds an even distance apart: exact ties midway
+        for r in range(n):
+            f[r, r % 5::2 * (r % 7 + 1)] = 0.0
+            f[r, (r * 13) % L] = np.float32(4 * (r % 3))
+    elif case == "large":  # integers near 1e12 (float32: multiples of 65536)
+        f = (inf - np.float32(65536) * rng.integers(0, 300, (n, L))).astype(np.float32)
+        f[::3, rng.integers(0, L)] = 0.0
+    elif case == "mixed":  # 1e12 beside small and non-integer finite values
+        part = rng.random((n, L)) < 0.05
+        f[part] = rng.uniform(0, 5, part.sum()).astype(np.float32)
+        f[1::4, -1] = np.float32(1e-3)
+    elif case == "one_value":  # lines of one value come back as they are
+        f = np.repeat(np.array([0.0, -0.0, 3.5, 1e12, np.inf, -np.inf, 7.0, 2.0],
+                               np.float32), n // 8)[:, None].repeat(L, 1)
+        f[n - 1, 0] = np.nan
+    elif case == "non_finite":  # +inf skipped; a NaN or -inf takes the line
+        f[rng.random((n, L)) < 0.02] = 0.0
+        f[0::5, rng.integers(0, L)] = np.inf
+        f[1::5] = np.inf
+        f[2::5, 0] = np.nan
+        f[3::5, L - 1] = -np.inf
+    return f
+
+
+@pytest.mark.parametrize("case", ["ties", "all_inf", "large", "mixed", "one_value",
+                                  "non_finite"])
+@pytest.mark.parametrize("L", [1, 2, 48, 512, 1760, 2048])
+def test_edt_pass_edge_lines(dev, case, L):
+    """Bit for bit along the contiguous axis, along columns and along a
+    middle axis, on lines of 1 to 2048 (the longest the wrapper takes)."""
+    f = torch.from_numpy(_edt_lines(case, L, np.random.default_rng(L))).to(dev)
+    for t, ax in ((f, 1), (f.t().contiguous(), 0), (f.view(2, 20, L).transpose(1, 2)
+                                                    .contiguous(), 1)):
+        before = K.edt_pass.launches
+        got = K.edt_pass(t, ax)
+        assert K.edt_pass.launches == before + 1
+        torch.testing.assert_close(got, K.edt_pass_plain(t, ax), rtol=0, atol=0,
+                                   equal_nan=True)
+
+
+def test_edt_pass_refuses_longer_lines(dev):
+    with pytest.raises(ValueError, match="exceeds 2048"):
+        K.edt_pass(torch.zeros(2, 2049, device=dev), 1)
+
+
+@pytest.mark.parametrize("L", [1, 2, 48, 64, 65, 170, 512, 1000, 1760, 2048, 4096, 65536])
+def test_edt_pass_plan_matches_the_kernel(dev, L):
+    from cswin_unet_tpu_torch.ops.cuda.build import library
+
+    for last in (True, False):
+        assert library().cswin_edt_pass_lines(L, int(last)) == K.edt_pass_plan(L, last).lines
 
 
 @pytest.mark.parametrize("H,C,heads,split,last", [
