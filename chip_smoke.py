@@ -19,7 +19,9 @@ Phases, each of which raises on failure (the process then exits non-zero):
      kernel at every shape one 32-slice serving forward gives it, then at
      B = 8 the CSWin block at the four stage geometries, ``carafe_up`` @28
      and the tail (logits and labels) @56 (the CARAFE kernel on ``gy`` with
-     the GEMM's padded channels, as the main path gives it). Tolerance:
+     the GEMM's padded channels, as the main path gives it), and the tail at
+     the continual heads' 12 and 14 classes (logits and labels, B = 12 and
+     32; checked and timed, outside the serving unit's sums). Tolerance:
      relative L2 error <= 0.02 (the reference gate's bf16 default); labels
      by the margin rule (a mismatch counts only where the plain top-2 logit
      gap exceeds 0.02·max|logit|). Times are CUDA-event medians of back-to-back runs.
@@ -60,7 +62,8 @@ Phases, each of which raises on failure (the process then exits non-zero):
      (B = 24, the same drop-path multipliers), the two CARAFE Functions and
      ``CSWinAttentionFn`` at the four branch geometries, each output and
      gradient against torch autograd through the plain composition,
-     relative L2 <= 0.02. The CARAFE Functions' and ``CSWinAttentionFn``'s
+     relative L2 <= 0.02 (the tail's ``CarafeFn`` also at 12 classes, B =
+     12). The CARAFE Functions' and ``CSWinAttentionFn``'s
      backward is autograd of a plain composition, so their gradient lines
      check the wiring (argument order, up factor, window); the arithmetic of
      those backwards is held against ``jax.grad`` in
@@ -103,7 +106,25 @@ Phases, each of which raises on failure (the process then exits non-zero):
      for each metrics route, and the fused and plain routes' per-class
      scores side by side (printed, not gated: the weights are barely
      trained).
-  8. The block lab (``cswin_unet_tpu_torch/tools/block_lab.py``), the parts
+  8. Continual learning at tiny-224 width and depth: ``python -m
+     cswin_unet_tpu_torch.universal_train``'s ``main`` for stage 1 (9 -> 12
+     classes from the serve phase's seeded checkpoint, 48 KiTS-like 512x512
+     slices from ``make_synthetic_dataset``, bs 12, 2 epochs, 2 surgical
+     batches and 4 TPGM iterations an epoch) and stage 2 (12 -> 14 from
+     stage 1's final checkpoint, 24 LiTS-like slices, 1 epoch), then
+     ``universal_test``'s ``main`` of the stage-2 checkpoint on a (48, 512,
+     512) KiTS-like volume with and without device metrics (Dice and HD95
+     agreeing within rtol 1e-5 and atol 1e-4): the path's launches against
+     both routings (each student pass with gradients as training, each
+     forward without as serving, stage 3 paired), the JAX package's log
+     lines and checkpoint names. Then on one fixed batch the kernel route
+     against the plain route: the continual loss and every gradient (TOL,
+     or twice the plain route's own bf16-vs-float32 error where larger),
+     one TPGM step's constraint gradients and the RGN weights (relative L2
+     <= 0.02), and the launches (CARAFE by class count: 9 and 12 in a
+     step) and seconds of one continual step, one TPGM step and one
+     surgical grad pass.
+  9. The block lab (``cswin_unet_tpu_torch/tools/block_lab.py``), the parts
      of the block as stand-alone kernels: ``lepe_windows``,
      ``window_attention``, ``ln_mlp`` and ``block_one`` against their plain
      versions on the lab's own cases at full shapes, B = 128 (LePE at the
@@ -133,7 +154,7 @@ Phases, each of which raises on failure (the process then exits non-zero):
      (``ablate``: eight variants at stages 1-4 with their deltas against
      ``full``; ``cum``: eight levels at stage 1 with their deltas), with the
      launches of every kernel exactly as its cases imply.
-  9. One JSON line with the per-kernel results, then the contract line
+ 10. One JSON line with the per-kernel results, then the contract line
      ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package (``cswin_unet_tpu``); the config
@@ -161,6 +182,8 @@ CFG = os.path.join(ROOT, "cswin_unet_tpu_torch", "configs", "cswin_tiny_224_lite
 B = 8            # batch of the module comparisons
 SERVE_BATCH = 32  # slices per forward chunk when serving (--batch_slices)
 TRAIN_BATCH = 24  # the reference recipe's batch
+CONTINUAL_BATCH = 12  # universal_train's default batch
+CONTINUAL_CLASSES = (12, 14)  # the continual heads: Synapse + KiTS23, + LiTS17
 TOL = 0.02
 BWD = "cswin_unet_tpu/ops/pallas/cswin_block.py:1854"  # _fused_block_bwd_xt
 SOURCES = {
@@ -494,29 +517,36 @@ def compare_kernels(cfg, dev, B: int) -> KernelTally:
 
     gy_channels = getattr(CT, "gy_channels", lambda cm, nc: cm + nc)
     C2 = cfg.MODEL.CSWIN.EMBED_DIM * 2
-    for label, H, C, cm, nc, up, labels, calls in (
-            ("up@28", 28, C2, C2 // 4, C2 // 2, 2, False, 1),
-            ("tail-logits@56", 56, C2 // 2, C2 // 8, 9, 4, False, 0),
-            ("tail-labels@56", 56, C2 // 2, C2 // 8, 9, 4, True, 1)):
+    # The continual heads (12 and 14 classes: nc % 8 != 0 takes the
+    # element stores) at the continual batch and the serving batch: checked
+    # and timed, not in the serving unit's sums.
+    heads = [(f"tail-{kind}@56 nc{nc} B{bb}", 56, C2 // 2, C2 // 8, nc, 4, kind == "labels",
+              0, bb) for nc in CONTINUAL_CLASSES for bb in (CONTINUAL_BATCH, B)
+             for kind in ("logits", "labels")]
+    for label, H, C, cm, nc, up, labels, calls, Bc in (
+            ("up@28", 28, C2, C2 // 4, C2 // 2, 2, False, 1, B),
+            ("tail-logits@56", 56, C2 // 2, C2 // 8, 9, 4, False, 0, B),
+            ("tail-labels@56", 56, C2 // 2, C2 // 8, 9, 4, True, 1, B), *heads):
         N = gy_channels(cm, nc)
-        a = rnd(B * H * H, C).to(bf)
-        wt = torch.cat([rnd(cm + nc, C, sc=C ** -0.5),
-                        torch.zeros(N - cm - nc, C, device=dev)]).to(bf)
-        bias_cat = torch.cat([rnd(cm, sc=0.1), torch.zeros(N - cm, device=dev)])
-        bias_bf = bias_cat.to(bf)
-        M = a.shape[0]
-        tally.case("gemm", f"carafe-{label}", lambda: K.gemm(a, wt, bias_cat),
-                   lambda: K.gemm_plain(a, wt, bias_cat), calls,
-                   moved=nbytes(a, wt, bias_cat) + M * N * 2, tc_flops=2 * M * N * C,
-                   f32_ops=2 * M * N, library=lambda: F.linear(a, wt, bias_bf))
-        gy = torch.cat([rnd(B, H, H, cm + nc),
-                        torch.zeros(B, H, H, N - cm - nc, device=dev)], -1).to(bf)
+        if nc not in CONTINUAL_CLASSES:  # the heads' GEMM has the 9-class tail's N, 32
+            a = rnd(B * H * H, C).to(bf)
+            wt = torch.cat([rnd(cm + nc, C, sc=C ** -0.5),
+                            torch.zeros(N - cm - nc, C, device=dev)]).to(bf)
+            bias_cat = torch.cat([rnd(cm, sc=0.1), torch.zeros(N - cm, device=dev)])
+            bias_bf = bias_cat.to(bf)
+            M = a.shape[0]
+            tally.case("gemm", f"carafe-{label}", lambda: K.gemm(a, wt, bias_cat),
+                       lambda: K.gemm_plain(a, wt, bias_cat), calls,
+                       moved=nbytes(a, wt, bias_cat) + M * N * 2, tc_flops=2 * M * N * C,
+                       f32_ops=2 * M * N, library=lambda: F.linear(a, wt, bias_bf))
+        gy = torch.cat([rnd(Bc, H, H, cm + nc),
+                        torch.zeros(Bc, H, H, N - cm - nc, device=dev)], -1).to(bf)
         ew, eb, bo = rnd(9 * up * up, cm, 3, 3, sc=0.2), rnd(9 * up * up), rnd(nc)
         kw = dict(c_mid=cm, up=up, labels=labels)
         plain = (lambda: K.carafe_reassemble_plain(gy, ew, eb, bo, c_mid=cm, up=up,
                                                    labels=False).float()) \
             if labels else (lambda: K.carafe_reassemble_plain(gy, ew, eb, bo, **kw))
-        px, taps = B * H * H, 9 * up * up
+        px, taps = Bc * H * H, 9 * up * up
         # Bytes: the cm + nc channels of gy the function needs (not the
         # padding), the weights, and the high-res output.
         tally.case("carafe_reassemble", label,
@@ -975,6 +1005,12 @@ def compare_module_grads(cfg, dev, B: int) -> None:
     grads_vs_plain(f"carafe_tail CarafeFn ({B},56,56,{ed})", CT.carafe_tail,
                    CT.carafe_tail_plain, (x56, *tail), rnd(B, 224, 224, 9).to(bf),
                    carafe_names)
+    nc = CONTINUAL_CLASSES[0]  # the continual student's head
+    xc = rnd(CONTINUAL_BATCH, 56, 56, ed).to(bf)
+    tail = carafe_params(rng, ed, ed, 4, nc, dev)
+    grads_vs_plain(f"carafe_tail CarafeFn nc {nc} ({CONTINUAL_BATCH},56,56,{ed})",
+                   CT.carafe_tail, CT.carafe_tail_plain, (xc, *tail),
+                   rnd(CONTINUAL_BATCH, 224, 224, nc).to(bf), carafe_names)
 
     # The pallas route's branch: kernel forward, composition-vjp backward,
     # against autograd of the Pallas rounding's plain version.
@@ -1454,6 +1490,42 @@ def resume_run(cfg, dev, args, steps: int) -> None:
             f"resumed run's checkpoint / train state {state['iteration']}, {state['epoch']}")
 
 
+def grad_parity(phase: str, what: str, kernel, plain, plain_f32, *,
+                widen_weights: bool = False) -> None:
+    """The loss and every parameter gradient of the kernel route against the
+    plain route, each a (loss, {name: gradient}) pair (``plain_f32``: the
+    plain route in float32). Every gradient is held to TOL; only a bias
+    gradient (a cancellation-dominated sum) whose plain bf16 route is
+    itself that far from float32 gets a wider bound: twice the plain route's
+    own bf16 error (bench.py:382-388), printed beside that measurement.
+    ``widen_weights``: any gradient may take that bound, for a loss whose
+    gradients the bf16 forward itself moves beyond TOL (the continual loss:
+    its focal term at gamma 4 and the KD term)."""
+    import torch
+
+    (loss_k, g_k), (loss_p, g_p), (loss_f, g_f) = kernel, plain, plain_f32
+    torch.cuda.synchronize()
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    errs = {k: rel_l2(g_k[k], g_p[k]) for k in g_p}
+    floor = {k: rel_l2(g_p[k], g_f[k]) for k in g_p}  # plain bf16 vs plain f32
+    bound = {k: max(TOL, 2 * floor[k]) if widen_weights or k.endswith(".bias") else TOL
+             for k in g_p}
+    widened = {k: f"bound {bound[k]:.3e} (bf16-vs-f32 {floor[k]:.3e})"
+               for k in bound if bound[k] > TOL}
+    worst = max(errs, key=errs.get)
+    over = {k: (f"{errs[k]:.3e}", f"bf16-vs-f32 {floor[k]:.3e}")
+            for k in errs if errs[k] > TOL}
+    bad = [k for k in errs if errs[k] > bound[k] or not np.isfinite(errs[k])]
+    print(f"[{phase}] grad parity, {what}: loss kernel "
+          f"{float(loss_k):.6f} plain {float(loss_p):.6f} f32 {float(loss_f):.6f} "
+          f"(rel {loss_err:.2e}); {len(errs)} gradients, worst {worst} rel_l2="
+          f"{errs[worst]:.3e} (plain bf16 vs f32 there {floor[worst]:.3e}); "
+          f"above {TOL}: {over or 'none'}; widened "
+          f"{'bounds' if widen_weights else 'bias bounds'}: {widened or 'none'}", flush=True)
+    require(loss_err <= TOL and not bad, f"{phase} gradient parity: loss {loss_err:.3e}, "
+            f"beyond bound {[(k, errs[k], bound[k]) for k in bad]}")
+
+
 def train_step_checks(cfg, dev, data: str) -> None:
     """On one fixed batch of 24 slices: loss and gradients of the kernel
     route against the plain route, one step's launch counts, 10 steps with
@@ -1481,32 +1553,8 @@ def train_step_checks(cfg, dev, data: str) -> None:
         names, params = zip(*model.named_parameters())
         return loss.detach(), dict(zip(names, torch.autograd.grad(loss, params)))
 
-    loss_k, g_k = grads("fused", torch.bfloat16)
-    loss_p, g_p = grads("plain", torch.bfloat16)
-    loss_f, g_f = grads("plain", torch.float32)
-    torch.cuda.synchronize()
-    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    errs = {k: rel_l2(g_k[k], g_p[k]) for k in g_p}
-    floor = {k: rel_l2(g_p[k], g_f[k]) for k in g_p}  # plain bf16 vs plain f32
-    # Every gradient is held to TOL. Only a bias gradient (a cancellation-
-    # dominated sum) whose plain bf16 route is itself that far from float32
-    # gets a wider bound: twice the plain route's own bf16 error
-    # (bench.py:382-388), printed beside that measurement.
-    bound = {k: max(TOL, 2 * floor[k]) if k.endswith(".bias") else TOL for k in g_p}
-    widened = {k: f"bound {bound[k]:.3e} (bf16-vs-f32 {floor[k]:.3e})"
-               for k in bound if bound[k] > TOL}
-    worst = max(errs, key=errs.get)
-    over = {k: (f"{errs[k]:.3e}", f"bf16-vs-f32 {floor[k]:.3e}")
-            for k in errs if errs[k] > TOL}
-    bad = [k for k in errs if errs[k] > bound[k] or not np.isfinite(errs[k])]
-    print(f"[train] grad parity, fixed batch of {TRAIN_BATCH}: loss kernel "
-          f"{float(loss_k):.6f} plain {float(loss_p):.6f} f32 {float(loss_f):.6f} "
-          f"(rel {loss_err:.2e}); {len(errs)} gradients, worst {worst} rel_l2="
-          f"{errs[worst]:.3e} (plain bf16 vs f32 there {floor[worst]:.3e}); "
-          f"above {TOL}: {over or 'none'}; widened bias bounds: "
-          f"{widened or 'none'}", flush=True)
-    require(loss_err <= TOL and not bad, f"gradient parity: loss {loss_err:.3e}, "
-            f"beyond bound {[(k, errs[k], bound[k]) for k in bad]}")
+    grad_parity("train", f"fixed batch of {TRAIN_BATCH}", grads("fused", torch.bfloat16),
+                grads("plain", torch.bfloat16), grads("plain", torch.float32))
 
     def trainer(impl):
         model = build_model(cfg, num_classes=nc, device=dev, impl=impl, seed=3,
@@ -1679,7 +1727,283 @@ def eval_run(cfg, dev, ck: str) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the block lab
+# phase 8: the continual-learning pipeline
+# ---------------------------------------------------------------------------
+
+def expected_continual_launches(cfg, student_passes: int, forwards: int,
+                                edt: int = 0) -> dict[str, int]:
+    """Launches of the continual path per its two routings: each student pass
+    with gradients (a train step in train mode, a surgical grad pass or a
+    TPGM step on the projected weights in eval mode) as the training
+    routing; each forward without gradients (the teacher in every step,
+    ``universal_test``'s chunks) as the serving routing, stage 3 paired;
+    ``edt`` ``edt_pass`` launches (device metrics)."""
+    train = expected_train_launches(cfg, student_passes)
+    serve = expected_launches(cfg, forwards)
+    out = {k: train[k] + serve[k] for k in SOURCES}
+    out["edt_pass"] += edt
+    return out
+
+
+class CarafeByClasses:
+    """Counts the model's CARAFE kernel calls by their class count (the
+    ``bias`` channels: C_out at the 28 -> 56 upsampler, the head's classes
+    at the tail) while it is entered; each call is one launch."""
+
+    def __enter__(self):
+        from cswin_unet_tpu_torch.ops.cuda import carafe_tail as CT
+
+        self.CT, self.real, self.counts = CT, CT.carafe_reassemble, {}
+
+        def counted(gy, encoder_weight, encoder_bias, bias, **kw):
+            nc = int(bias.shape[0])
+            self.counts[nc] = self.counts.get(nc, 0) + 1
+            return self.real(gy, encoder_weight, encoder_bias, bias, **kw)
+
+        CT.carafe_reassemble = counted
+        return self.counts
+
+    def __exit__(self, *exc):
+        self.CT.carafe_reassemble = self.real
+
+
+def continual_run(cfg, dev, workdir: str) -> tuple[dict[str, int], dict]:
+    """``universal_train`` stage 1 (9 -> 12 classes, from the serve phase's
+    seeded 9-class checkpoint, on 48 KiTS-like 512x512 slices, 2 epochs),
+    stage 2 (12 -> 14, from stage 1's final checkpoint, on 24 LiTS-like
+    slices, 1 epoch), then ``universal_test`` of the stage-2 checkpoint on a
+    (48, 512, 512) KiTS-like volume with and without device metrics. Checks
+    the launch counts against both routings, the log lines and checkpoint
+    names, and the device metrics against the host's. Returns the launch
+    counts and the KiTS-like data set."""
+    import torch
+
+    from cswin_unet_tpu_torch import universal_test, universal_train
+    from cswin_unet_tpu_torch.data import make_synthetic_dataset
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.utils.checkpoint import detect_num_classes
+
+    t0 = time.perf_counter()
+    kits = make_synthetic_dataset(os.path.join(workdir, "kits23"), num_train_slices=48,
+                                  num_volumes=0, size=512, num_classes=4, seed=21)
+    lits = make_synthetic_dataset(os.path.join(workdir, "lits17"), num_train_slices=24,
+                                  num_volumes=0, size=512, num_classes=3, seed=22)
+    image, label, _ = organ_volume(np.random.default_rng(23), EVAL_SHAPES[0], 4)
+    db = [dict(image=image, label=label, case_name="case0000")]
+    print(f"[continual] wrote 48 KiTS-like and 24 LiTS-like 512x512 slices and a "
+          f"{image.shape} KiTS-like volume in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    stages = ((1, kits, 9, 2, os.path.join(workdir, "tiny224_seed0.npz")),
+              (2, lits, 12, 1, os.path.join(workdir, "continual_s1",
+                                            "continual_surgical_tpgm_stage1_final.npz")))
+    common = ["--cfg", CFG, "--batch_size", str(CONTINUAL_BATCH), "--gradient_batches", "2",
+              "--tpgm_iters", "4", "--tpgm_start_epoch", "0", "--tpgm_frequency", "1",
+              "--tpgm_data_fraction", "0.5", "--device", str(dev)]
+    root = logging.getLogger()
+    saved_handlers, saved_level = root.handlers[:], root.level
+    passes = forwards = 0
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for stage, data, old, epochs, pretrained in stages:
+            out = os.path.join(workdir, f"continual_s{stage}")
+            ts = time.perf_counter()
+            msg = universal_train.main(
+                ["--stage", str(stage), "--num_classes_old", str(old), "--pretrained_path",
+                 pretrained, "--root_path", data["train_dir"], "--list_dir",
+                 data["list_dir"], "--output_dir", out, "--max_epochs", str(epochs),
+                 *common])
+            torch.cuda.synchronize()
+            n = len(data["train_names"])
+            steps = -(-n // CONTINUAL_BATCH)
+            passes += epochs * (steps + min(2, steps) + 4)  # train, surgical, TPGM
+            forwards += epochs * steps  # the teacher
+            with open(os.path.join(out, "log.txt")) as f:
+                log = f.read()
+            with open(os.path.join(out, "tpgm_ratios.log")) as f:
+                ratios = f.read()
+            names = [f"continual_surgical_tpgm_stage{stage}_epoch_{epochs - 1}.npz",
+                     f"continual_surgical_tpgm_stage{stage}_final.npz"]
+            final = os.path.join(out, names[1])
+            total = old + (3 if stage == 1 else 2)
+            print(f"[continual] stage {stage} ({old} -> {total} classes, {n} slices, "
+                  f"{epochs} epochs of {steps} steps at bs {CONTINUAL_BATCH}) in "
+                  f"{time.perf_counter() - ts:.1f}s: {msg}; checkpoints "
+                  f"{sorted(f for f in os.listdir(out) if f.endswith('.npz'))}", flush=True)
+            require(msg.endswith("Finished!") and detect_num_classes(final) == total,
+                    f"stage {stage}: {msg}, {final}")
+            for line in (f"save model to {os.path.join(out, names[0])}",
+                         f"save final model to {final}", "Applying final TPGM projection",
+                         "RGN: Max weight before normalization: ",
+                         "CONTINUAL LEARNING STAGE", "Total layers: "):
+                require(line in log, f"stage {stage}: no log line {line!r}")
+            require(log.count("TPGM optimization complete. Average constraint change: ")
+                    == epochs and "ratio output.weight: " in ratios,
+                    f"stage {stage}: TPGM log lines")
+        outs = []
+        for device_metrics in (True, False):
+            out = os.path.join(workdir, f"continual_test_{'device' if device_metrics else 'host'}")
+            ts = time.perf_counter()
+            universal_test.main(
+                ["--cfg", CFG, "--volume_path", workdir, "--test_dataset", "kits23",
+                 "--model_path", os.path.join(workdir, "continual_s2"), "--output_dir", out,
+                 "--device", str(dev)] + (["--device_metrics"] if device_metrics else []),
+                db_test=db)
+            torch.cuda.synchronize()
+            with open(os.path.join(out, "test_kits23.txt")) as f:
+                lines = [x.split("] ", 1)[-1].rstrip("\n") for x in f]
+            outs.append((class_means(lines), time.perf_counter() - ts, lines))
+    finally:
+        root.handlers[:] = saved_handlers
+        root.setLevel(saved_level)
+    counts = K.launch_counts()
+    forwards += 2 * -(-EVAL_SHAPES[0][0] // SERVE_BATCH)
+    want = expected_continual_launches(cfg, passes, forwards, edt=3 * 2 * 3)
+    print(f"[continual] path in {time.perf_counter() - t0:.1f}s: {passes} student passes "
+          f"with gradients, {forwards} forwards without; launches {counts} expected "
+          f"{want}", flush=True)
+    require(counts == want, f"continual launches {counts} != routing {want}")
+    (dev_means, dev_s, lines), (host_means, host_s, _) = outs
+    for line in lines:
+        if re.match(r"(idx \d+ case|Mean class|Testing performance)", line):
+            print(f"[continual] {line}", flush=True)
+    ok = len(dev_means) == 3 and metrics_agree(dev_means, host_means)
+    print(f"[continual] universal_test kits23 channels [0, 9, 10, 11] of the 14-class "
+          f"head: device metrics {dev_s:.2f}s, host metrics {host_s:.2f}s; per class "
+          f"dice/hd95 device | host: " + "; ".join(
+              f"{c + 1}: {d[0]:.6f}/{d[1]:.6f} | {h[0]:.6f}/{h[1]:.6f}"
+              for c, (d, h) in enumerate(zip(dev_means, host_means)))
+          + f" {'ok' if ok else 'FAIL'}", flush=True)
+    require(ok, f"universal_test: device {dev_means.tolist()} vs host {host_means.tolist()}")
+    require(any(x.startswith("Testing performance in best val model:") for x in lines),
+            "universal_test: no result line")
+    return counts, kits
+
+
+def continual_checks(cfg, dev, data: dict, teacher_ck: str, smi: str) -> None:
+    """On one fixed batch of 12 KiTS-like slices, the kernel route against
+    the plain route on the same weights (the teacher, and its expansion to 12
+    classes) and the same drop-path draws: the continual loss and every
+    gradient (``grad_parity``), one TPGM step's constraint gradients on
+    drifted weights (every ratio 0.5, inside its clamp), and the RGN weight
+    vector, relative L2 <= TOL. Then one continual step's, one TPGM step's
+    and one surgical grad pass's launches (CARAFE by class count) and
+    seconds."""
+    import torch
+
+    from cswin_unet_tpu_torch.data import EvalResize, SynapseDataset
+    from cswin_unet_tpu_torch.losses import focal_loss
+    from cswin_unet_tpu_torch.models import build_model
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.train import continual, surgical, tpgm
+    from cswin_unet_tpu_torch.utils.checkpoint import (expand_classifier, load_checkpoint,
+                                                       load_into)
+
+    old, total, bs = 9, CONTINUAL_CLASSES[0], CONTINUAL_BATCH
+    ds = SynapseDataset(data["train_dir"], data["list_dir"], "train",
+                        transform=EvalResize([224, 224]))
+    samples = [ds[i] for i in range(0, 4 * bs, 4)]
+    img = torch.from_numpy(np.stack([s["image"] for s in samples])).to(dev)
+    lab = torch.from_numpy(np.stack([s["label"] for s in samples])).to(dev)
+    mapped = continual.map_new_dataset_labels(lab, 1, old)
+    cw = np.linspace(0.3, 1.2, total).astype(np.float32)
+    cw_dev = torch.from_numpy(cw).to(dev)
+    loss_fn = continual.make_continual_loss(total, old, kd_weight=0.5, kd_temperature=3.0,
+                                            class_weights=cw)
+    flat = load_checkpoint(teacher_ck)[0]
+
+    def seg_ce(logits, labels):
+        return focal_loss(logits, labels, alpha=1.0, gamma=4.0, class_weights=cw_dev)
+
+    def models(impl, dtype):
+        teacher = build_model(cfg, num_classes=old, device=dev, impl=impl, dtype=dtype,
+                              seed=0)
+        load_into(teacher.cswin_unet, flat)
+        student = build_model(cfg, num_classes=total, device=dev, impl=impl, dtype=dtype,
+                              seed=0, train=True)
+        student.cswin_unet.load_state_dict(
+            expand_classifier(teacher.cswin_unet.state_dict(), total, seed=1234))
+        return teacher, student
+
+    def route(impl, dtype):
+        teacher, student = models(impl, dtype)
+        params = surgical.backbone_params(student)
+        gen = torch.Generator(device=dev).manual_seed(13)
+        with torch.no_grad():
+            old_logits = teacher(img)
+        loss, _ = loss_fn(student(img, generator=gen), old_logits, mapped)
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        tr = tpgm.TPGMTrainer(student, params, active_classes=total)
+        rng = np.random.default_rng(14)
+        drifted = {k: v.detach() + torch.from_numpy(
+            rng.standard_normal(tuple(v.shape)).astype(np.float32) * 0.02).to(dev)
+            for k, v in params.items()}
+        tr.constraints = {k: (drifted[k] - tr.anchor[k]).norm() / 2 for k in tr.constraints}
+        _, ratios, cg = tr.constraint_grads(drifted, img, mapped)
+        rgn = surgical.get_lr_weights(student, [{"image": img, "label": mapped}], seg_ce)
+        return ((loss.detach(), grads), torch.stack([cg[k] for k in sorted(cg)]),
+                torch.tensor([rgn[k] for k in sorted(rgn)], dtype=torch.float64),
+                tpgm.ratio_stats(ratios), student.training)
+
+    kernel, plain, f32 = (route("fused", torch.bfloat16), route("plain", torch.bfloat16),
+                          route("plain", torch.float32))
+    require(kernel[4] and plain[4], "a TPGM or surgical pass left the student in eval mode")
+    grad_parity("continual", f"fixed batch of {bs}, {old} -> {total} classes, "
+                f"KD from the {old}-class teacher", kernel[0], plain[0], f32[0],
+                widen_weights=True)
+    for what, i in (("TPGM constraint gradients", 1), ("RGN weights", 2)):
+        err, floor = rel_l2(kernel[i], plain[i]), rel_l2(plain[i], f32[i])
+        extra = f" (ratios min/max/mean {kernel[3]})" if i == 1 else ""
+        print(f"[continual] {what}: {kernel[i].numel()} values, kernel vs plain rel_l2="
+              f"{err:.3e} (plain bf16 vs f32 {floor:.3e}){extra} "
+              f"{'ok' if err <= TOL else 'FAIL'}", flush=True)
+        require(err <= TOL and bool(torch.isfinite(kernel[i]).all()),
+                f"continual {what}: rel_l2 {err:.3e}")
+
+    teacher, student = models("fused", torch.bfloat16)
+    params = surgical.backbone_params(student)
+    opt = surgical.SurgicalOptimizer(params, 1e-3, 2)
+    step = continual.make_continual_train_step(student, teacher, opt, loss_fn, 1, old)
+    weights = {k: 1.0 for k in params}
+    gen = torch.Generator(device=dev).manual_seed(15)
+    tr = tpgm.TPGMTrainer(student, params, active_classes=total)
+    grad_fn = surgical.make_grad_fn(student, seg_ce)
+    ed = cfg.MODEL.CSWIN.EMBED_DIM
+    runs = (("one continual step (teacher forward, student fwd + bwd, AdamW)",
+             lambda: step(img, lab, weights, 0, gen), 1, 1, {ed: 2, old: 1, total: 1}),
+            ("one TPGM step", lambda: tr.step(params, img, mapped), 1, 0, {ed: 1, total: 1}),
+            ("one surgical grad pass", lambda: grad_fn(img, mapped), 1, 0,
+             {ed: 1, total: 1}))
+    secs = []
+    for what, fn, n_passes, n_fwd, by_nc in runs:
+        with CarafeByClasses() as carafe:
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+        want = expected_continual_launches(cfg, n_passes, n_fwd)
+        print(f"[continual] {what}: launches {counts} expected {want}; CARAFE launches "
+              f"by class count {carafe} expected {by_nc}", flush=True)
+        require(counts == want and carafe == by_nc, f"{what}: launches {counts}, "
+                f"CARAFE {carafe}")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        secs.append(f"{what} {statistics.median(times):.4f}s [{min(times):.4f}-"
+                    f"{max(times):.4f}]")
+    print(f"[continual] seconds at bs {bs} (median of 3 [min-max], host clock around "
+          f"synchronized calls): {'; '.join(secs)}; on {smi}", flush=True)
+    require(student.training, "the student left train mode")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the block lab
 # ---------------------------------------------------------------------------
 
 def compare_lab(dev, tally: KernelTally) -> None:
@@ -2025,12 +2349,15 @@ def main() -> int:
         train_counts, data, ck = train_run(cfg, dev, workdir)
         train_step_checks(cfg, dev, data)
         eval_counts = eval_run(cfg, dev, ck)
+        continual_counts, kits = continual_run(cfg, dev, workdir)
+        continual_checks(cfg, dev, kits, os.path.join(workdir, "tiny224_seed0.npz"), smi)
     compare_lab(dev, tally)
     lab_identities(dev)
     lab_counts = lab_run()
 
     paths = dict(serve=serve_counts, serve_pallas=pallas_counts, serve_pair=pair_counts,
-                 train=train_counts, eval=eval_counts, lab=lab_counts)
+                 train=train_counts, eval=eval_counts, continual=continual_counts,
+                 lab=lab_counts)
     kernels = []
     for k, (src, rep) in SOURCES.items():
         row = dict(tally.rows[k])

@@ -6,7 +6,8 @@ The port's copy of ``cswin_unet_tpu.data.datasets``: the train split is one
 one ``<case>.npy.h5`` volume per case (``image``/``label`` or
 ``images``/``segmentations``), names from ``<list_dir>/test_vol.txt``.
 ``h5py`` is imported only when a test volume is read, so training needs
-numpy alone.
+numpy alone. ``Subset`` is an index view of a dataset that passes the
+loader's per-sample rng through.
 """
 
 from __future__ import annotations
@@ -50,3 +51,18 @@ class SynapseDataset:
         if self.transform is not None:
             sample = self.transform(sample, rng if rng is not None else np.random.default_rng())
         return sample
+
+
+class Subset:
+    """Index-subset view of a dataset (``torch.utils.data.Subset`` with the
+    loader's per-sample ``rng`` passed through)."""
+
+    def __init__(self, dataset, indices):
+        self.dataset = dataset
+        self.indices = list(indices)
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    def __getitem__(self, idx: int, rng: np.random.Generator | None = None) -> dict:
+        return self.dataset.__getitem__(self.indices[idx], rng)

@@ -4,10 +4,13 @@ Counterpart of ``cswin_unet_tpu.data.loader``:
 
   * a thread pool decodes and augments samples ahead of consumption;
   * batches have a fixed shape — the final partial batch is padded by
-    wrapping around the shuffled epoch;
+    wrapping around the shuffled epoch, as often as it takes;
   * each sample's rng is ``np.random.default_rng((seed, epoch, index))``, so
     batches do not depend on thread scheduling and equal the JAX loader's
-    for the same seed;
+    for the same seed wherever the dataset holds at least half a batch.
+    Below that the JAX loader appends the epoch's first samples once and
+    yields one short batch of 2n samples (n < batch_size / 2); this loader
+    keeps wrapping to a full batch, the fixed shape both loaders promise;
   * ``device_prefetch`` copies each batch from pinned host memory to the
     device with ``non_blocking`` copies on a side stream one batch ahead,
     so the copy of batch i + 1 overlaps the step on batch i.

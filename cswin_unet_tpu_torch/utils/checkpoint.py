@@ -12,6 +12,8 @@ here without JAX.
 
 from __future__ import annotations
 
+import glob
+import math
 import os
 import re
 
@@ -306,3 +308,54 @@ def load_into(model: torch.nn.Module, flat: dict[str, np.ndarray],
         loaded += 1
     model.load_state_dict(state)
     return loaded
+
+
+# ---------------------------------------------------------------------------
+# classifier expansion and checkpoint discovery (continual learning), the
+# counterparts of cswin_unet_tpu/utils/checkpoint.py:322-369
+# ---------------------------------------------------------------------------
+
+def expand_classifier(state_dict: dict[str, torch.Tensor], num_classes_total: int,
+                      seed: int = 0) -> dict[str, torch.Tensor]:
+    """A backbone ``state_dict`` whose final 1x1 ``output`` conv (no bias)
+    grows from C_old to ``num_classes_total`` classes: the old rows kept,
+    the new ones kaiming-normal (std sqrt(2 / C_in)). The new rows are the
+    JAX function's bit for bit: drawn in its HWIO order from
+    ``np.random.default_rng(seed)``, then moved to OIHW."""
+    old = state_dict["output.weight"]                # (C_old, C_in, 1, 1)
+    c_old, c_in = old.shape[0], old.shape[1]
+    if num_classes_total <= c_old:
+        raise ValueError(f"cannot expand {c_old} -> {num_classes_total}")
+    rng = np.random.default_rng(seed)
+    new_rows = rng.normal(0.0, math.sqrt(2.0 / c_in),
+                          (1, 1, c_in, num_classes_total - c_old)).astype(np.float32)
+    new_rows = torch.from_numpy(np.ascontiguousarray(new_rows.transpose(3, 2, 0, 1)))
+    out = dict(state_dict)
+    out["output.weight"] = torch.cat([old, new_rows.to(old)])
+    return out
+
+
+def detect_num_classes(path: str) -> int:
+    """Classes of a checkpoint's head: the last axis of ``output/kernel`` in
+    a JAX ``.npz``, or the first of the 4-D ``output`` weight of a ``.pth``
+    (the reference's head-shape autodetection)."""
+    if path.endswith(".npz") or os.path.exists(path + ".npz"):
+        return int(load_checkpoint(path)[0][f"output{SEP}kernel"].shape[-1])
+    for k, v in strip_prefixes(load_torch_state_dict(path)).items():
+        if "output" in k and k.endswith("weight") and v.ndim == 4:
+            return int(v.shape[0])
+    raise RuntimeError("Could not detect number of classes from checkpoint")
+
+
+def find_checkpoint(model_path: str) -> str:
+    """``model_path`` itself if it is a file; in a directory the newest file
+    of the first pattern that matches, finals before epochs."""
+    if os.path.isfile(model_path):
+        return model_path
+    if os.path.isdir(model_path):
+        for pattern in ("*_final.npz", "*_final.pth", "task*_final.pth", "*_epoch_*.npz",
+                        "*_epoch_*.pth", "epoch_*.npz"):
+            files = glob.glob(os.path.join(model_path, pattern))
+            if files:
+                return max(files, key=os.path.getctime)
+    raise FileNotFoundError(f"Could not find checkpoint at {model_path}")

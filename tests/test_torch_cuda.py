@@ -387,6 +387,23 @@ def test_carafe_tail_logits_and_labels(dev, B, H, W):
     assert _margin_mismatches(labels, want) == 0
 
 
+# The continual heads (Synapse + KiTS23: 12 classes, + LiTS17: 14): the
+# classes leave nc % 8 != 0 (the element stores) and gy stays padded to 32.
+@pytest.mark.parametrize("nc", [12, 14])
+@pytest.mark.parametrize("B,H,W", [(12, 56, 56), (2, 11, 13)])
+def test_carafe_tail_continual_heads(dev, nc, B, H, W):
+    rng = np.random.default_rng(nc)
+    p = _carafe_params(rng, dev, 64, 64, 4, nc=nc)
+    x = _rnd(rng, dev, B, H, W, 64).bfloat16()
+    want = carafe_tail_plain(x, *p).float()
+    got = carafe_tail(x, *p)
+    assert got.shape == (B, 4 * H, 4 * W, nc)
+    assert _rel_l2(got.float(), want) <= 0.02
+    labels = carafe_tail_argmax(x, *p)
+    assert labels.shape == (B, 4 * H, 4 * W)
+    assert _margin_mismatches(labels, want) == 0
+
+
 def test_carafe_reassemble_ignores_padding_channels(dev):
     """The GEMM's padding channels of gy reach no output: NaN there changes
     nothing. A gy whose channels are not a multiple of 8 is refused."""

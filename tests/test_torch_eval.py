@@ -4,9 +4,12 @@ and the eval CLI on an ``.npy.h5`` dataset with a checkpoint written by the
 port's trainer.
 
 The model is test_torch_serve.py's SMALL geometry in float32, weights from
-a JAX init carried over with ``params_from_jax``. Tolerances: labels equal
-(float32 forwards of the same weights; checked first, so a metric mismatch
-cannot hide behind a label flip); host metrics equal; device metrics within
+a JAX init carried over with ``params_from_jax``. Tolerances: the port's
+labels against JAX's logits by the margin rule (``bench.py:478-489``: a
+label may differ only where JAX's top-2 logit gap is at most 0.02·max|logit|;
+random weights leave near-ties, 5.5e-5 against a max |logit| of 0.45 at size
+48, that two frameworks' float32 forwards may flip); the metrics of both
+packages on one label volume: host metrics equal, device metrics within
 rtol 1e-5 and atol 1e-4 of the host's (the JAX package's tolerance,
 ``tests/test_edt.py:71,88``).
 """
@@ -73,7 +76,7 @@ def _volume(seed, depth, size, nc):
 
 
 @pytest.mark.parametrize("size", [48, 32])
-def test_single_volume_both_routes_match_jax(models, size):
+def test_single_volume_both_routes_match_jax(models, size, monkeypatch):
     (jm, params), port = models
     image, label = _volume(0, 5, size, 4)
     jinf = jax_eval.VolumeInferencer(jm, params, patch_size=(32, 32), batch_slices=8,
@@ -82,12 +85,24 @@ def test_single_volume_both_routes_match_jax(models, size):
                                       batch_slices=8)
     slices = np.stack([ndimage.zoom(s, (32 / size, 32 / size), order=3)
                        for s in image]).astype(np.float32)
-    np.testing.assert_array_equal(pinf.predict_slices(slices),
-                                  jinf.predict_slices(slices))
+    labels = pinf.predict_slices(slices)
+    jlogits = np.asarray(jm.apply(params, jnp.asarray(slices[..., None]),
+                                  deterministic=True), np.float32)
+    top2 = np.sort(jlogits, axis=-1)[..., -2:]
+    near_tie = top2[..., 1] - top2[..., 0] <= 0.02 * float(np.abs(jlogits).max())
+    jlabels = jinf.predict_slices(slices)
+    np.testing.assert_array_equal(jlabels, jlogits.argmax(-1))
+    assert not np.any((labels != jlabels) & ~near_tie)
     dev = pinf.predict_slices_device(slices)
     assert isinstance(dev, torch.Tensor) and dev.dtype == torch.int32
-    np.testing.assert_array_equal(dev.numpy(), pinf.predict_slices(slices))
+    np.testing.assert_array_equal(dev.numpy(), labels)
 
+    # Both packages' zoom and metrics on one label volume (JAX's), so that a
+    # near-tie flip above cannot move a metric.
+    monkeypatch.setattr(pinf, "predict_slices", lambda s: jlabels.copy())
+    monkeypatch.setattr(pinf, "predict_slices_device", lambda s: torch.from_numpy(jlabels))
+    monkeypatch.setattr(jinf, "predict_slices", lambda s: jlabels.copy())
+    monkeypatch.setattr(jinf, "predict_slices_device", lambda s: jnp.asarray(jlabels))
     kw = dict(classes=4, patch_size=(32, 32))
     host = port_eval.test_single_volume(image, label, pinf, **kw)
     assert host == jax_eval.test_single_volume(image, label, jinf, **kw)

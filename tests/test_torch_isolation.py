@@ -64,7 +64,11 @@ def test_port_and_chip_smoke_import_no_jax_package():
             "cswin_unet_tpu_torch.ops.edt", "cswin_unet_tpu_torch.ops.cuda.kernels",
             "cswin_unet_tpu_torch.tools.block_lab", "cswin_unet_tpu_torch.tools.probe_chain",
             "cswin_unet_tpu_torch.tools.tile_ab",
-            "cswin_unet_tpu_torch.utils.checkpoint", "chip_smoke"} <= names, sorted(names)
+            "cswin_unet_tpu_torch.utils.checkpoint", "cswin_unet_tpu_torch.finetune",
+            "cswin_unet_tpu_torch.universal_train", "cswin_unet_tpu_torch.universal_test",
+            "cswin_unet_tpu_torch.train.surgical", "cswin_unet_tpu_torch.train.tpgm",
+            "cswin_unet_tpu_torch.train.finetune", "cswin_unet_tpu_torch.train.continual",
+            "cswin_unet_tpu_torch.data.synthetic", "chip_smoke"} <= names, sorted(names)
 
 
 @pytest.mark.parametrize("module", ["jax", "flax.linen", "cswin_unet_tpu.config",
