@@ -28,10 +28,10 @@ Phases, each of which raises on failure (the process then exits non-zero):
      The backward kernels likewise at the 224 stage-1/2/3 geometries, B = 24
      (the train batch): ``layernorm_bwd``, ``gemm_dgrad`` (with its GELU
      backward and drop-path operand scale), ``gemm_wgrad``,
-     ``stripe_attention_bwd`` (also at base-384's 288-token windows, weight
-     0: checked and timed, not on the tiny-224 path; its shared memory
-     held to the wrapper's count; its yardstick aten's flash-attention
-     backward on the same windows, attention only, no LePE), and the
+     ``stripe_attention_bwd`` (its shared memory held to the wrapper's
+     count at tiny-224's and base-384's windows; its yardstick aten's
+     flash-attention backward on the same windows, attention only, no
+     LePE), and the
      forward GEMM's training epilogues (drop-path residual, GELU keeping
      its pre-activation). The ``pallas``
      route's ``cswin_attention`` at every branch geometry (B = 32, q, k, v
@@ -124,7 +124,32 @@ Phases, each of which raises on failure (the process then exits non-zero):
      <= 0.02), and the launches (CARAFE by class count: 9 and 12 in a
      step) and seconds of one continual step, one TPGM step and one
      surgical grad pass.
-  9. The block lab (``cswin_unet_tpu_torch/tools/block_lab.py``), the parts
+  9. base-384 (``configs/cswin_base_384.yaml``: embed 96, depths 2/4/32/2,
+     heads 4/8/16/32, split 1/2/12/12, head dim 24, drop-path 0.5) at full
+     width and depth, 9 classes, its lines tagged ``[base384:...]``: every
+     kernel at every shape a 32-slice forward gives it (stage resolutions
+     96/48/24/12, windows of 96, 96, 288 and 144 tokens; ``upsample2`` 48 ->
+     96 and the x4 tail at 96 as the fused CARAFE sites) and the backward
+     kernels at B = 24, each against its plain version as in phase 3, in a
+     tally of their own; ``CSWinBlockFn`` at stages 1 and 2 (the blocks that
+     train through it) and ``CarafeFn`` at both sites, B = 24, every output
+     and gradient within TOL; ``ops.augment`` on the card bit for
+     bit against the CPU at fixed draws, and the branch shares of a CUDA
+     generator's draws; ``gaussian_blur_2d`` of a (48, 512, 512) volume at σ
+     1.5 within 1e-5 of scipy. Then the paths through their entry points: a
+     seeded checkpoint in the JAX ``.npz`` format served by ``VolumeServer``
+     ((40, 512, 512) to NIfTI, launches as routed, the first chunk against
+     the plain route by the margin rule, the 32-slice forward of both routes
+     in interleaved rounds with device busy and its bf16 bound); ``python -m
+     cswin_unet_tpu_torch.train``'s ``main`` at bs 24 with
+     ``--device_augment`` for one epoch over 48 synthetic 512x512 slices (2
+     steps: launches, finite losses, peak memory), one step's launches and
+     seconds, and gradient parity against the plain route on
+     ``PARITY384_BATCH`` slices; ``epoch_0.npz`` evaluated at patch 384 on a
+     (48, 512, 512) organ-like volume (seconds by part, device metrics equal
+     to the host's, ``inference()``'s means equal to them, launches of both
+     passes).
+ 10. The block lab (``cswin_unet_tpu_torch/tools/block_lab.py``), the parts
      of the block as stand-alone kernels: ``lepe_windows``,
      ``window_attention``, ``ln_mlp`` and ``block_one`` against their plain
      versions on the lab's own cases at full shapes, B = 128 (LePE at the
@@ -154,8 +179,11 @@ Phases, each of which raises on failure (the process then exits non-zero):
      (``ablate``: eight variants at stages 1-4 with their deltas against
      ``full``; ``cum``: eight levels at stage 1 with their deltas), with the
      launches of every kernel exactly as its cases imply.
- 10. One JSON line with the per-kernel results, then the contract line
-     ``{"ok": true, "device": {...}}``.
+ 11. The whole run's seconds, the card's name and power limit, one JSON line
+     with the per-kernel results (launches by path, base-384's among them;
+     each kernel that base-384's paths run also with its ms, plain_ms,
+     bound_ms and library_ms at base-384's shapes under ``base384``), then
+     the contract line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package (``cswin_unet_tpu``); the config
 is the port's own YAML. Exits non-zero without a result when no CUDA device
@@ -164,11 +192,13 @@ is available or when the package is not next to this file.
 
 from __future__ import annotations
 
+import gc
 import gzip
 import json
 import logging
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -179,11 +209,13 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CFG = os.path.join(ROOT, "cswin_unet_tpu_torch", "configs", "cswin_tiny_224_lite.yaml")
+CFG384 = os.path.join(ROOT, "cswin_unet_tpu_torch", "configs", "cswin_base_384.yaml")
 B = 8            # batch of the module comparisons
 SERVE_BATCH = 32  # slices per forward chunk when serving (--batch_slices)
 TRAIN_BATCH = 24  # the reference recipe's batch
 CONTINUAL_BATCH = 12  # universal_train's default batch
 CONTINUAL_CLASSES = (12, 14)  # the continual heads: Synapse + KiTS23, + LiTS17
+PARITY384_BATCH = 8  # base-384's gradient parity: three models' gradients side by side
 TOL = 0.02
 BWD = "cswin_unet_tpu/ops/pallas/cswin_block.py:1854"  # _fused_block_bwd_xt
 SOURCES = {
@@ -350,6 +382,16 @@ def stage_geometries(cfg):
                    last=s == 3 or reso == cs.SPLIT_SIZE[s])
 
 
+def carafe_sites(cfg) -> list[tuple[int, int, int, int]]:
+    """The fused CARAFE sites of a forward, as (low-res H, C in, C out, up):
+    the decoder's x2 upsamplers whose input resolution is >= 28 (``upsample2``
+    at 28 -> 56 for tiny-224, 48 -> 96 for base-384), then the x4 tail."""
+    ed, img = cfg.MODEL.CSWIN.EMBED_DIM, cfg.DATA.IMG_SIZE
+    ups = [(img // (4 * 2**s), ed * 2**s, ed * 2**(s - 1), 2) for s in (3, 2, 1)
+           if img // (4 * 2**s) >= 28]
+    return ups + [(img // 4, ed, ed, 4)]
+
+
 def block_params(rng, C, last, dev):
     import torch
 
@@ -394,7 +436,8 @@ class KernelTally:
     there is one, with ``library_vs_ms`` the kernel's ms over the same
     cases."""
 
-    def __init__(self):
+    def __init__(self, tag: str = "kernel"):
+        self.tag = tag  # the lines' prefix
         self.rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                              bytes_ms=0.0, ops_ms=0.0, library_ms=None,
                              library_vs_ms=0.0) for k in SOURCES}
@@ -427,7 +470,7 @@ class KernelTally:
             row["library_ms"] = (row["library_ms"] or 0.0) + calls * lms
             row["library_vs_ms"] += calls * ms
             lib = f" library_ms={lms:.4f}"
-        print(f"[kernel] {name} {label} x{calls}: {err_txt} ms={ms:.4f} "
+        print(f"[{self.tag}] {name} {label} x{calls}: {err_txt} ms={ms:.4f} "
               f"plain_ms={pms:.4f} bound_ms={max(bytes_ms, ops_ms):.4f} "
               f"({'bytes' if bytes_ms >= ops_ms else 'operations'}){lib} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -443,8 +486,11 @@ def attention_work(pixels: int, cb: int, L: int, heads: int, lw, lb) -> dict:
                 f32_ops=5 * pixels * heads * L + 18 * pixels * cb)
 
 
-def compare_kernels(cfg, dev, B: int) -> KernelTally:
-    """Every kernel at every shape one forward of B slices gives it."""
+def compare_kernels(cfg, dev, B: int, *, extra: bool = True,
+                    tag: str = "kernel") -> KernelTally:
+    """Every kernel at every shape one forward of B slices gives it.
+    ``extra``: also ``block_pair`` at the stages with two or more blocks and
+    the CARAFE tail at the continual heads (tiny-224's further checks)."""
     import torch
     import torch.nn.functional as F
 
@@ -455,7 +501,7 @@ def compare_kernels(cfg, dev, B: int) -> KernelTally:
     bf = torch.bfloat16
     rnd = lambda *s, sc=1.0: torch.from_numpy(
         (rng.standard_normal(s) * sc).astype(np.float32)).to(dev)
-    tally = KernelTally()
+    tally = KernelTally(tag)
     for g in stage_geometries(cfg):
         H, C, blocks = g["H"], g["C"], 2 * g["depth"]
         M = B * H * H
@@ -508,27 +554,31 @@ def compare_kernels(cfg, dev, B: int) -> KernelTally:
                        lambda: K.cswin_attention(q, k, v, lw, lb, **akw),
                        lambda: cswin_attention_pallas_plain(q, k, v, lw, lb, **akw),
                        blocks, **attention_work(B * H * H, cb, hs * ws, nh, lw, lb))
-        if not g["last"] and g["depth"] > 1:
+        if extra and not g["last"] and g["depth"] > 1:
             compare_block_pair(tally, g, B, rng, dev)
-    # CARAFE sites: upsample2 (28 -> 56, plain upsampler) and the x4 tail, in
-    # the layout the main path gives them: the GEMM's output channels padded
-    # as carafe_fused pads them (a build without the padding: cm + nc).
+    # CARAFE sites (carafe_sites: the x2 upsamplers at resolution >= 28, and
+    # the x4 tail), in the layout the main path gives them: the GEMM's
+    # output channels padded as carafe_fused pads them (a build without the
+    # padding: cm + nc).
     from cswin_unet_tpu_torch.ops.cuda import carafe_tail as CT
 
     gy_channels = getattr(CT, "gy_channels", lambda cm, nc: cm + nc)
-    C2 = cfg.MODEL.CSWIN.EMBED_DIM * 2
+    *ups, (Ht, Ct, _, _) = carafe_sites(cfg)
+    # (label, H, C, cm, nc, up, labels, calls, batch, with its GEMM)
+    rows = [(f"up@{H}", H, C, C // 4, C_out, 2, False, 1, B, True) for H, C, C_out, _ in ups]
+    rows += [(f"tail-{kind}@{Ht}", Ht, Ct, Ct // 4, 9, 4, kind == "labels",
+              int(kind == "labels"), B, True) for kind in ("logits", "labels")]
     # The continual heads (12 and 14 classes: nc % 8 != 0 takes the
     # element stores) at the continual batch and the serving batch: checked
-    # and timed, not in the serving unit's sums.
-    heads = [(f"tail-{kind}@56 nc{nc} B{bb}", 56, C2 // 2, C2 // 8, nc, 4, kind == "labels",
-              0, bb) for nc in CONTINUAL_CLASSES for bb in (CONTINUAL_BATCH, B)
-             for kind in ("logits", "labels")]
-    for label, H, C, cm, nc, up, labels, calls, Bc in (
-            ("up@28", 28, C2, C2 // 4, C2 // 2, 2, False, 1, B),
-            ("tail-logits@56", 56, C2 // 2, C2 // 8, 9, 4, False, 0, B),
-            ("tail-labels@56", 56, C2 // 2, C2 // 8, 9, 4, True, 1, B), *heads):
+    # and timed, not in the serving unit's sums; their GEMM has the 9-class
+    # tail's N, 32.
+    if extra:
+        rows += [(f"tail-{kind}@{Ht} nc{nc} B{bb}", Ht, Ct, Ct // 4, nc, 4, kind == "labels",
+                  0, bb, False) for nc in CONTINUAL_CLASSES for bb in (CONTINUAL_BATCH, B)
+                 for kind in ("logits", "labels")]
+    for label, H, C, cm, nc, up, labels, calls, Bc, with_gemm in rows:
         N = gy_channels(cm, nc)
-        if nc not in CONTINUAL_CLASSES:  # the heads' GEMM has the 9-class tail's N, 32
+        if with_gemm:
             a = rnd(B * H * H, C).to(bf)
             wt = torch.cat([rnd(cm + nc, C, sc=C ** -0.5),
                             torch.zeros(N - cm - nc, C, device=dev)]).to(bf)
@@ -804,22 +854,15 @@ def compare_backward_kernels(cfg, dev, B: int, tally: KernelTally) -> None:
         attention_bwd_cases(tally, dev, rnd, B, H, C, heads, split, routed, tag)
 
 
-def compare_base384_backward(dev, B: int, tally: KernelTally) -> None:
-    """``stripe_attention_bwd`` at base-384's stage 3 (24 x 24, C 384, 16
-    heads of 24): 288-token windows, beyond one key block of the kernel;
-    weight 0 (not on the tiny-224 path). Its shared memory is held to the
-    wrapper's count at every window this run gives the kernel."""
-    import torch
-
+def check_attention_bwd_smem() -> None:
+    """``stripe_attention_bwd``'s shared memory, held to the wrapper's count
+    at every window this run gives the kernel: tiny-224's 56 and 98 tokens
+    at head dim 32, base-384's 96 and 288 (beyond one key block) at 24."""
     from cswin_unet_tpu_torch.ops.cuda import build
     from cswin_unet_tpu_torch.ops.cuda import kernels as K
 
-    rng = np.random.default_rng(4)
-    rnd = lambda *s, sc=1.0: torch.from_numpy(
-        (rng.standard_normal(s) * sc).astype(np.float32)).to(dev)
-    attention_bwd_cases(tally, dev, rnd, B, 24, 384, 16, 12, 0, "@24x24x384 (base-384)")
     lib = build.library()
-    for L, d in ((56, 32), (98, 32), (288, 24)):
+    for L, d in ((56, 32), (98, 32), (96, 24), (288, 24)):
         got, want = lib.cswin_stripe_attention_bwd_smem(L, d), K.stripe_attention_bwd_smem(L, d)
         print(f"[kernel] stripe_attention_bwd shared memory at L={L} d={d}: kernel {got} "
               f"B, wrapper {want} B {'ok' if got == want else 'FAIL'}", flush=True)
@@ -931,7 +974,7 @@ def compare_edt(dev, tally: KernelTally) -> None:
         f = K.edt_pass(f, ax)
 
 
-def grads_vs_plain(label, fn, plain, inputs, cotangent, names) -> None:
+def grads_vs_plain(label, fn, plain, inputs, cotangent, names, tag: str = "module") -> None:
     """Output and gradients of ``fn(*inputs)`` against autograd through
     ``plain(*inputs)``, each within relative L2 ``TOL``; both timed
     forward + backward."""
@@ -952,10 +995,10 @@ def grads_vs_plain(label, fn, plain, inputs, cotangent, names) -> None:
     ms, pms = time_ms(lambda: run(fn), reps=3, rounds=3), \
         time_ms(lambda: run(plain), reps=3, rounds=3)
     ok = errs[worst] <= TOL
-    print(f"[module] {label} fwd+bwd: {len(errs)} outputs, worst {worst} "
+    print(f"[{tag}] {label} fwd+bwd: {len(errs)} outputs, worst {worst} "
           f"rel_l2={errs[worst]:.3e} ms={ms:.4f} plain_ms={pms:.4f} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
-    print("[module]   rel_l2 " + " ".join(f"{k}={v:.2e}" for k, v in errs.items()),
+    print(f"[{tag}]   rel_l2 " + " ".join(f"{k}={v:.2e}" for k, v in errs.items()),
           flush=True)
     require(ok, f"{label}: {worst} rel_l2 {errs[worst]:.3e}")
 
@@ -965,11 +1008,16 @@ BLOCK_GRAD_NAMES = ("dx", "norm1_w", "norm1_b", "qkv_w", "qkv_b", "lepe0_w",
                     "norm2_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b")
 
 
-def compare_module_grads(cfg, dev, B: int) -> None:
-    """``CSWinBlockFn`` at stages 1-3 and the two CARAFE sites' ``CarafeFn``:
-    forward and backward against autograd through the plain composition."""
+def compare_module_grads(cfg, dev, B: int, *, extra: bool = True,
+                         tag: str = "module") -> None:
+    """``CSWinBlockFn`` at the dual-branch stages and ``CarafeFn`` at the
+    fused CARAFE sites: forward and backward against autograd through the
+    plain composition. ``extra``: every dual-branch stage (else those that
+    train through the Function, resolution >= FUSE_TRAIN_MIN_RESO), the tail
+    at the continual head and ``CSWinAttentionFn`` at every branch."""
     import torch
 
+    from cswin_unet_tpu_torch.models.cswin_unet import FUSE_TRAIN_MIN_RESO
     from cswin_unet_tpu_torch.ops.cuda import carafe_tail as CT
     from cswin_unet_tpu_torch.ops.cuda.cswin_block import (BlockParams, composed_block,
                                                            fused_cswin_block)
@@ -979,7 +1027,7 @@ def compare_module_grads(cfg, dev, B: int) -> None:
     rnd = lambda *s, sc=1.0: torch.from_numpy(
         (rng.standard_normal(s) * sc).astype(np.float32)).to(dev)
     for g in stage_geometries(cfg):
-        if g["last"]:
+        if g["last"] or not (extra or g["H"] >= FUSE_TRAIN_MIN_RESO):
             continue
         H, C = g["H"], g["C"]
         p = block_params(rng, C, False, dev)
@@ -991,26 +1039,27 @@ def compare_module_grads(cfg, dev, B: int) -> None:
         grads_vs_plain(f"CSWinBlockFn stage{g['stage']} ({B},{H},{H},{C})",
                        lambda xx, *pp: fused_cswin_block(xx, BlockParams(*pp), **kw),
                        lambda xx, *pp: composed_block(xx, BlockParams(*pp), **kw),
-                       (x, *p), gout, BLOCK_GRAD_NAMES)
-    ed = cfg.MODEL.CSWIN.EMBED_DIM
+                       (x, *p), gout, BLOCK_GRAD_NAMES, tag)
     carafe_names = ("dx", "down_w", "down_b", "encoder_w", "encoder_b", "out_w",
                     "out_b", "cls_w")
-    x28 = rnd(B, 28, 28, 2 * ed).to(bf)
-    up = carafe_params(rng, 2 * ed, ed, 2, None, dev)
-    grads_vs_plain(f"carafe_up CarafeFn ({B},28,28,{2 * ed})", CT.carafe_up,
-                   CT.carafe_up_plain,
-                   (x28, *up), rnd(B, 56, 56, ed).to(bf), carafe_names[:-1])
-    x56 = rnd(B, 56, 56, ed).to(bf)
-    tail = carafe_params(rng, ed, ed, 4, 9, dev)
-    grads_vs_plain(f"carafe_tail CarafeFn ({B},56,56,{ed})", CT.carafe_tail,
-                   CT.carafe_tail_plain, (x56, *tail), rnd(B, 224, 224, 9).to(bf),
-                   carafe_names)
+    for H, C, C_out, up in carafe_sites(cfg):
+        tail = up == 4
+        x = rnd(B, H, H, C).to(bf)
+        p = carafe_params(rng, C, C_out, up, 9 if tail else None, dev)
+        name, fn, plain = (("carafe_tail", CT.carafe_tail, CT.carafe_tail_plain) if tail
+                           else ("carafe_up", CT.carafe_up, CT.carafe_up_plain))
+        grads_vs_plain(f"{name} CarafeFn ({B},{H},{H},{C})", fn, plain, (x, *p),
+                       rnd(B, up * H, up * H, 9 if tail else C_out).to(bf),
+                       carafe_names if tail else carafe_names[:-1], tag)
+    if not extra:
+        return
+    *_, (Ht, ed, _, _) = carafe_sites(cfg)
     nc = CONTINUAL_CLASSES[0]  # the continual student's head
-    xc = rnd(CONTINUAL_BATCH, 56, 56, ed).to(bf)
+    xc = rnd(CONTINUAL_BATCH, Ht, Ht, ed).to(bf)
     tail = carafe_params(rng, ed, ed, 4, nc, dev)
-    grads_vs_plain(f"carafe_tail CarafeFn nc {nc} ({CONTINUAL_BATCH},56,56,{ed})",
+    grads_vs_plain(f"carafe_tail CarafeFn nc {nc} ({CONTINUAL_BATCH},{Ht},{Ht},{ed})",
                    CT.carafe_tail, CT.carafe_tail_plain, (xc, *tail),
-                   rnd(CONTINUAL_BATCH, 224, 224, nc).to(bf), carafe_names)
+                   rnd(CONTINUAL_BATCH, 4 * Ht, 4 * Ht, nc).to(bf), carafe_names)
 
     # The pallas route's branch: kernel forward, composition-vjp backward,
     # against autograd of the Pallas rounding's plain version.
@@ -1132,11 +1181,9 @@ def expected_launches(cfg, forwards: int) -> dict[str, int]:
         blocks += n
         dual += 0 if g["last"] else n
     attention = blocks + dual
-    img = cfg.DATA.IMG_SIZE
-    carafe_sites = 1 + sum(1 for s in (1, 2, 3) if img // (4 * 2**s) >= 28)
-    per = dict(layernorm=2 * blocks, gemm=4 * blocks + carafe_sites,
-               stripe_attention=attention, carafe_reassemble=carafe_sites,
-               block_pair=pairs)
+    sites = len(carafe_sites(cfg))
+    per = dict(layernorm=2 * blocks, gemm=4 * blocks + sites, stripe_attention=attention,
+               carafe_reassemble=sites, block_pair=pairs)
     return {k: per.get(k, 0) * forwards for k in SOURCES}
 
 
@@ -1335,10 +1382,9 @@ def expected_train_launches(cfg, steps: int) -> dict[str, int]:
 
     routed = sum(2 * g["depth"] for g in stage_geometries(cfg)
                  if not g["last"] and g["H"] >= FUSE_TRAIN_MIN_RESO)
-    img = cfg.DATA.IMG_SIZE
-    carafe_sites = 1 + sum(1 for s in (1, 2, 3) if img // (4 * 2**s) >= 28)
-    per = dict(layernorm=2 * routed, gemm=4 * routed + carafe_sites,
-               stripe_attention=2 * routed, carafe_reassemble=carafe_sites,
+    sites = len(carafe_sites(cfg))
+    per = dict(layernorm=2 * routed, gemm=4 * routed + sites,
+               stripe_attention=2 * routed, carafe_reassemble=sites,
                layernorm_bwd=2 * routed, gemm_dgrad=4 * routed,
                gemm_wgrad=4 * routed, stripe_attention_bwd=2 * routed)
     return {k: per.get(k, 0) * steps for k in SOURCES}
@@ -2003,7 +2049,441 @@ def continual_checks(cfg, dev, data: dict, teacher_ck: str, smi: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the block lab
+# phase 9: base-384 served, trained and evaluated
+# ---------------------------------------------------------------------------
+
+def base384_run(dev, workdir: str, smi: str) -> tuple[KernelTally, dict[str, dict[str, int]]]:
+    """base-384 (``configs/cswin_base_384.yaml``) at full width and depth,
+    9 classes: its kernels, modules, the device augmentation and the blur on
+    the card, then the serve, train and eval paths through their entry
+    points. Returns the kernels' tally at base-384's shapes and the launch
+    counts of the three paths."""
+    cfg = smoke_config(cfg=CFG384)
+    cs = cfg.MODEL.CSWIN
+    print(f"[base384] {os.path.relpath(CFG384, ROOT)}: img {cfg.DATA.IMG_SIZE}, embed "
+          f"{cs.EMBED_DIM}, depths {list(cs.DEPTH)}, heads {list(cs.NUM_HEADS)}, split "
+          f"{list(cs.SPLIT_SIZE)}, drop-path {cfg.MODEL.DROP_PATH_RATE}; CARAFE sites "
+          f"{carafe_sites(cfg)}", flush=True)
+    tally = compare_kernels(cfg, dev, SERVE_BATCH, extra=False, tag="base384:kernel")
+    compare_backward_kernels(cfg, dev, TRAIN_BATCH, tally)
+    compare_module_grads(cfg, dev, TRAIN_BATCH, extra=False, tag="base384:module")
+    augment_on_card(dev)
+    blur_on_card(dev)
+    root = os.path.join(workdir, "base384")
+    os.makedirs(root)
+    counts = dict(serve384=serve384(cfg, dev, root, smi))
+    counts["train384"], data, ck = train384(cfg, dev, root)
+    train384_checks(cfg, dev, data, smi)
+    counts["eval384"] = eval384(cfg, dev, ck)
+    return tally, counts
+
+
+def augment_on_card(dev) -> None:
+    """``ops.augment`` on the card at base-384's slices against the same
+    ops on the CPU, bit for bit: ``augment_batch`` at one set of draws (bs
+    24), every (k, axis) of ``rot_flip`` and every angle of
+    ``rotate_nearest``; then the branch shares of 4000 draws from a CUDA
+    generator within 4 standard deviations, as the CPU test holds them."""
+    import torch
+
+    from cswin_unet_tpu_torch.ops import augment as A
+
+    rng = np.random.default_rng(26)
+    n = 384
+    img = torch.from_numpy(rng.standard_normal((TRAIN_BATCH, n, n, 1)).astype(np.float32))
+    lab = torch.from_numpy(rng.integers(0, 9, (TRAIN_BATCH, n, n)).astype(np.int32))
+    d = A.draw(TRAIN_BATCH, torch.Generator().manual_seed(3), torch.device("cpu"))
+    on = lambda t: t.to(dev)
+    cases = [("augment_batch at fixed draws", A.apply_draws(img, lab, d),
+              A.apply_draws(on(img), on(lab), {k: on(v) for k, v in d.items()}))]
+    k, axis = torch.arange(8) // 2, torch.arange(8) % 2
+    cases.append(("rot_flip, every (k, axis)", A.rot_flip(img[:8, ..., 0], lab[:8], k, axis),
+                  A.rot_flip(on(img[:8, ..., 0]), on(lab[:8]), on(k), on(axis))))
+    angles = torch.arange(-20, 20)
+    one_i, one_l = img[:1, ..., 0].expand(40, n, n), lab[:1].expand(40, n, n)
+    cases.append(("rotate_nearest, every angle in [-20, 20)",
+                  A.rotate_nearest(one_i, one_l, angles),
+                  A.rotate_nearest(on(one_i), on(one_l), on(angles))))
+    torch.cuda.synchronize()
+    for what, (ci, cl), (gi, gl) in cases:
+        same = torch.equal(ci, gi.cpu()) and torch.equal(cl, gl.cpu())
+        print(f"[base384:augment] {what} on the card vs the CPU: bit for bit "
+              f"{'yes ok' if same else 'no FAIL'}", flush=True)
+        require(same, f"augment: {what} differs between the card and the CPU")
+    draws = 4000
+    flip, rotate = A.branches(A.draw(draws, torch.Generator(device=dev).manual_seed(0), dev))
+    shares = []
+    for name, mask, p in (("rot/flip", flip, 0.5), ("rotate", rotate, 0.25),
+                          ("identity", ~flip & ~rotate, 0.25)):
+        got, sd = float(mask.float().mean()), np.sqrt(p * (1 - p) / draws)
+        shares.append((name, got, p, abs(got - p) <= 4 * sd))
+    ok = all(s[-1] for s in shares)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    img_d, lab_d = on(img), on(lab)
+    ms = time_ms(lambda: A.augment_batch(img_d, lab_d, gen), reps=10, rounds=3)
+    print(f"[base384:augment] branch shares of {draws} draws from a CUDA generator: "
+          + ", ".join(f"{n_} {g:.4f} (expected {p})" for n_, g, p, _ in shares)
+          + f", each within 4 sd {'ok' if ok else 'FAIL'}; augment_batch of "
+          f"({TRAIN_BATCH}, {n}, {n}, 1) ms={ms:.4f}", flush=True)
+    require(ok, f"augment branch shares {shares}")
+
+
+def blur_on_card(dev) -> None:
+    """``gaussian_blur_2d`` of a (48, 512, 512) CT-like volume on the card
+    at σ 1.5 (the test volumes' blur) against scipy's ``gaussian_filter``
+    of each slice, within 1e-5."""
+    import torch
+    from scipy.ndimage import gaussian_filter
+
+    from cswin_unet_tpu_torch.ops.blur import gaussian_blur_2d
+
+    vol, _, _ = organ_volume(np.random.default_rng(28), EVAL_SHAPES[0], 9)
+    vol_d = torch.from_numpy(vol).to(dev)
+    got = gaussian_blur_2d(vol_d, 1.5).cpu().numpy()
+    t0 = time.perf_counter()
+    want = gaussian_filter(vol, (0, 1.5, 1.5))
+    host_s = time.perf_counter() - t0
+    err = float(np.abs(got - want).max())
+    ms = time_ms(lambda: gaussian_blur_2d(vol_d, 1.5), reps=3, rounds=3)
+    print(f"[base384:blur] gaussian_blur_2d {vol.shape} sigma 1.5 on the card vs scipy: "
+          f"max_abs={err:.3e} (limit 1e-5) ms={ms:.4f} scipy_s={host_s:.3f} "
+          f"{'ok' if err <= 1e-5 else 'FAIL'}", flush=True)
+    require(err <= 1e-5, f"blur: max abs {err:.3e}")
+
+
+def serve384(cfg, dev, workdir: str, smi: str) -> dict[str, int]:
+    """A seeded base-384 checkpoint in the JAX package's ``.npz`` format,
+    served through ``VolumeServer``: one (40, 512, 512) volume at 32-slice
+    chunks to NIfTI, its launches as routed; the first chunk's forward
+    against the plain route by the margin rule (and its labels, zoomed back,
+    equal to the served ones); then the 32-slice forward on both routes in
+    interleaved rounds, with device busy and its bf16 bound."""
+    import torch
+    from scipy.ndimage import zoom as nd_zoom
+
+    from cswin_unet_tpu_torch.models import build_model
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.serve import VolumeServer
+    from cswin_unet_tpu_torch.utils.checkpoint import (load_checkpoint, load_into,
+                                                       save_checkpoint)
+    from cswin_unet_tpu_torch.utils.flops import count_flops, count_params
+
+    nc, batch, img = 9, SERVE_BATCH, cfg.DATA.IMG_SIZE
+    t0 = time.perf_counter()
+    seeded = build_model(cfg, num_classes=nc, device="cpu", seed=0)
+    ck = save_checkpoint(os.path.join(workdir, "base384_seed0.npz"),
+                         seeded.cswin_unet.state_dict())
+    print(f"[base384:serve] checkpoint {os.path.basename(ck)} {count_params(seeded)} "
+          f"parameters, {os.path.getsize(ck) / 2**20:.1f} MiB, in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    del seeded
+
+    def from_checkpoint(impl):
+        model = build_model(cfg, num_classes=nc, device=dev, impl=impl, seed=1)
+        n = load_into(model.cswin_unet, load_checkpoint(ck)[0])
+        require(n == len(model.cswin_unet.state_dict()), f"loaded {n} tensors")
+        return model
+
+    server = VolumeServer(from_checkpoint("fused"), device=dev, img_size=img,
+                          batch_slices=batch)
+    print(f"[base384:serve] warmup_s={server.warmup():.3f}", flush=True)
+    shape = (40, 512, 512)
+    vol = np.random.default_rng(29).standard_normal(shape).astype(np.float32)
+    path = os.path.join(workdir, "ct40_512.npy")
+    np.save(path, vol)
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    st = server.process_file(path, os.path.join(workdir, "served"))
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    forwards = -(-shape[0] // batch)
+    want = expected_launches(cfg, forwards)
+    print(json.dumps(st), flush=True)
+    print(f"[base384:serve] launches {counts} expected {want} ({forwards} forwards)",
+          flush=True)
+    require(counts == want, f"base384 serve launches {counts} != routing {want}")
+    served = read_nifti(st["output"], shape)
+    require(bool(np.all((served >= 0) & (served < nc) & (served == np.round(served)))),
+            f"labels outside [0, {nc})")
+
+    # The first chunk as the server zoomed it, on both routes.
+    x = torch.from_numpy(np.stack([nd_zoom(s, (img / 512, img / 512), order=3)
+                                   for s in vol[:batch]]).astype(np.float32)[..., None]).to(dev)
+    models = dict(fused=server.inferencer.model, plain=from_checkpoint("plain"))
+    with torch.inference_mode():
+        ref = models["plain"](x)
+        labels = models["fused"](x, emit="labels")
+    require(bool(torch.isfinite(ref).all()), "non-finite plain logits")
+    raw, above = margin_mismatches(labels, ref)
+    back = np.stack([nd_zoom(s, (512 / img, 512 / img), order=0)
+                     for s in labels.cpu().numpy()])
+    same = bool(np.array_equal(back, served[:batch]))
+    print(f"[base384:serve] chunk ct40[0:{batch}] vs plain path: mismatches={raw}/"
+          f"{labels.numel()} above_margin={above}; zoomed back equal to the served labels: "
+          f"{'yes' if same else 'no'}", flush=True)
+    require(above == 0 and same, f"base384 chunk: {above} above the margin, served {same}")
+
+    def forward(model):
+        with torch.inference_mode():
+            return model(x, emit="labels")
+
+    times = {k: [] for k in models}
+    for r in range(4):
+        for k in list(models)[::1 if r % 2 == 0 else -1]:
+            times[k].append(time_ms(lambda: forward(models[k]), reps=2, rounds=1))
+    busy = {k: device_busy_ms(lambda: forward(models[k]), 2) for k in models}
+    flops = count_flops(models["plain"], img) * batch
+    bound = flops / TC_FLOPS * 1e3
+    print(f"[base384:e2e] forward {batch} slices to labels, ms median [min-max] of 4 "
+          f"interleaved rounds: " + "; ".join(
+              f"{k} {statistics.median(v):.3f} [{min(v):.3f}-{max(v):.3f}] "
+              f"({batch / statistics.median(v) * 1e3:.1f} slices/s) busy "
+              f"{'not measured' if busy[k] is None else f'{busy[k]:.3f}'}"
+              for k, v in times.items())
+          + f"; bf16 bound {bound:.3f} ms ({flops / 1e12:.2f} TFLOP by torch's count); "
+          f"on {smi}", flush=True)
+    return counts
+
+
+def train384(cfg, dev, workdir: str) -> tuple[dict[str, int], str, str]:
+    """``python -m cswin_unet_tpu_torch.train`` (its ``main``) at base-384,
+    bs 24, drop-path 0.5 and ``--device_augment`` for one epoch over 48
+    synthetic 512x512 slices (2 steps): launches as routed, finite losses in
+    the log, ``epoch_0.npz``; peak device memory and seconds printed.
+    Returns the launches, the data directory and the checkpoint."""
+    import torch
+
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.train import __main__ as train_cli
+
+    slices = 48
+    data = os.path.join(workdir, "synapse")
+    t0 = time.perf_counter()
+    list_dir = write_train_slices(data, slices, 512, 9, seed=25)
+    lists = os.path.join(workdir, "lists", "lists_Synapse_blurred")  # the CLI's list dir
+    os.makedirs(lists)
+    shutil.copy(os.path.join(list_dir, "train.txt"), lists)
+    print(f"[base384:train] wrote {slices} slices 512x512 in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    out = os.path.join(workdir, "run")
+    gc.collect()  # the step takes ~70 GiB of the card's 80: free the earlier phases' cache
+    torch.cuda.empty_cache()
+    argv = ["--cfg", CFG384, "--root_path", data, "--dataset", "Synapse", "--output_dir", out,
+            "--max_epochs", "1", "--batch_size", str(TRAIN_BATCH), "--img_size",
+            str(cfg.DATA.IMG_SIZE), "--device_augment", "--device", str(dev)]
+    cwd = os.getcwd()
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    os.chdir(workdir)
+    try:
+        msg = train_cli.main(argv)
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    secs, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    counts = K.launch_counts()
+    steps = slices // TRAIN_BATCH
+    want = expected_train_launches(cfg, steps)
+    print(f"[base384:train] python -m cswin_unet_tpu_torch.train {' '.join(argv[2:])}: "
+          f"{msg} {steps} steps in {secs:.1f}s (model build and loader included), peak "
+          f"device memory {peak / 2**30:.2f} GiB; launches {counts} expected {want}",
+          flush=True)
+    require(msg == "Training Finished!", f"train CLI: {msg}")
+    require(counts == want, f"base384 train launches {counts} != routing {want}")
+    with open(os.path.join(out, "log.txt")) as f:
+        log = f.read()
+    its = re.findall(r"iteration (\d+) : loss : (\S+), loss_ce: (\S+)", log)
+    require([int(i) for i, _, _ in its] == list(range(1, steps + 1))
+            and all(np.isfinite(float(a)) and np.isfinite(float(b)) for _, a, b in its),
+            f"base384 train log lines {its}")
+    ck = os.path.join(out, "epoch_0.npz")
+    require(os.path.exists(ck) and f"save model to {ck}" in log, f"missing {ck}")
+    print(f"[base384:train] log: losses {[float(a) for _, a, _ in its]}; "
+          f"{os.path.basename(ck)} {os.path.getsize(ck) / 2**20:.1f} MiB", flush=True)
+    return counts, data, ck
+
+
+def train384_checks(cfg, dev, data: str, smi: str) -> None:
+    """At base-384 on 24 of the synthetic slices: one bs-24 step of the
+    trainer's step (``--device_augment``) and its launches, then its
+    seconds and peak memory over 3 steps; the same with ``--use-checkpoint``
+    (its first loss equal bit for bit); gradient parity of the kernel
+    route against the plain route on the first ``PARITY384_BATCH`` of them,
+    augmented once (the float32 plain route at bs 24 would not fit beside
+    the others)."""
+    import torch
+
+    from cswin_unet_tpu_torch.data import EvalResize, SynapseDataset
+    from cswin_unet_tpu_torch.losses import segmentation_loss
+    from cswin_unet_tpu_torch.models import build_model
+    from cswin_unet_tpu_torch.ops.augment import augment_batch
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.train import make_optimizer, make_train_step
+
+    nc, size = 9, cfg.DATA.IMG_SIZE
+    ds = SynapseDataset(os.path.join(data, "train_npz"), os.path.join(data, "lists"),
+                        "train", transform=EvalResize([size, size]))
+    samples = [ds[i] for i in range(TRAIN_BATCH)]
+    img = torch.from_numpy(np.stack([s["image"] for s in samples])).to(dev)
+    lab = torch.from_numpy(np.stack([s["label"] for s in samples])).to(dev)
+
+    model = build_model(cfg, num_classes=nc, device=dev, seed=3, train=True)
+    opt, sched = make_optimizer(model.parameters(), 0.01, 1000)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    step = make_train_step(model, opt, sched, nc, device_augment=True)
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    loss = float(step(img, lab, gen)["loss"])
+    torch.cuda.synchronize()
+    counts, want = K.launch_counts(), expected_train_launches(cfg, 1)
+    print(f"[base384:train] one step's launches {counts} expected {want}; loss {loss:.5f}",
+          flush=True)
+    require(counts == want and np.isfinite(loss), f"one base384 step: launches {counts}, "
+            f"loss {loss}")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(img, lab, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[base384:e2e] train step bs {TRAIN_BATCH} (device augment, fwd + bwd + SGD), "
+          f"host clock around synchronized steps: median {statistics.median(times):.4f}s "
+          f"[{min(times):.4f}-{max(times):.4f}] ({TRAIN_BATCH / statistics.median(times):.1f} "
+          f"samples/s); peak device memory {peak / 2**30:.2f} GiB; on {smi}", flush=True)
+    del model, opt, sched, step
+    torch.cuda.empty_cache()
+
+    # --use-checkpoint (TRAIN.USE_CHECKPOINT): each block recomputed in the
+    # backward, the same draws, so its first step's loss is the same bits.
+    ck_cfg = smoke_config(["TRAIN.USE_CHECKPOINT", "True"], cfg=CFG384)
+    model = build_model(ck_cfg, num_classes=nc, device=dev, seed=3, train=True)
+    opt, sched = make_optimizer(model.parameters(), 0.01, 1000)
+    step = make_train_step(model, opt, sched, nc, device_augment=True)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    torch.cuda.reset_peak_memory_stats()
+    ck_loss = float(step(img, lab, gen)["loss"])
+    ck_times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(img, lab, gen)
+        torch.cuda.synchronize()
+        ck_times.append(time.perf_counter() - t0)
+    ck_peak = torch.cuda.max_memory_allocated()
+    print(f"[base384:e2e] train step bs {TRAIN_BATCH} with --use-checkpoint: "
+          f"{' '.join(f'{t:.4f}' for t in ck_times)}s, peak device memory "
+          f"{ck_peak / 2**30:.2f} GiB; first loss {ck_loss:.6f} equal to the step's without "
+          f"it bit for bit: {'yes' if ck_loss == loss else 'no'}", flush=True)
+    require(ck_loss == loss, f"--use-checkpoint moved the loss: {ck_loss} != {loss}")
+    del model, opt, sched, step
+    torch.cuda.empty_cache()
+
+    b = PARITY384_BATCH
+    x, y = augment_batch(img[:b], lab[:b], torch.Generator(device=dev).manual_seed(13))
+
+    def grads(impl, dtype):
+        model = build_model(cfg, num_classes=nc, device=dev, impl=impl, dtype=dtype,
+                            seed=3, train=True)
+        g = torch.Generator(device=dev).manual_seed(11)
+        loss, _ = segmentation_loss(model(x, generator=g), y, nc)
+        names, params = zip(*model.named_parameters())
+        out = loss.detach(), dict(zip(names, torch.autograd.grad(loss, params)))
+        del model, loss
+        torch.cuda.empty_cache()
+        return out
+
+    grad_parity("base384:train", f"fixed batch of {b}, augmented, drop-path "
+                f"{cfg.MODEL.DROP_PATH_RATE}", grads("fused", torch.bfloat16),
+                grads("plain", torch.bfloat16), grads("plain", torch.float32))
+
+
+def eval384(cfg, dev, ck: str) -> dict[str, int]:
+    """The trained checkpoint through test.py's evaluation at patch 384 on a
+    (48, 512, 512) organ-like volume: its seconds per volume by part (host
+    zoom, segmentation, device metrics, host metrics) and the device
+    metrics against the host's; then ``eval.inference.inference`` with
+    device metrics, its per-class means against the host's. Launches of both
+    passes as routed (two forwards and 48 ``edt_pass`` launches each)."""
+    import argparse
+
+    import torch
+    from scipy.ndimage import zoom as nd_zoom
+
+    from cswin_unet_tpu_torch.eval.inference import VolumeInferencer, inference
+    from cswin_unet_tpu_torch.metrics import volume_metrics
+    from cswin_unet_tpu_torch.models import build_model
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.ops.edt import volume_metrics_device, zoom_nearest
+    from cswin_unet_tpu_torch.utils.checkpoint import load_checkpoint, load_into
+
+    nc, img = 9, cfg.DATA.IMG_SIZE
+    image, label, _ = organ_volume(np.random.default_rng(27), EVAL_SHAPES[0], nc)
+    model = build_model(cfg, num_classes=nc, device=dev, seed=1)
+    require(load_into(model.cswin_unet, load_checkpoint(ck)[0])
+            == len(model.cswin_unet.state_dict()), f"{ck} into the model")
+    inferencer = VolumeInferencer(model, device=dev, patch_size=(img, img))
+    inferencer.predict_slices(np.zeros((1, img, img), np.float32))  # warm up
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    d, h, w = image.shape
+    t0 = time.perf_counter()
+    slices = np.stack([nd_zoom(s, (img / h, img / w), order=3) for s in image]).astype(
+        np.float32)
+    t1 = time.perf_counter()
+    preds = zoom_nearest(inferencer.predict_slices_device(slices), (h, w))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    on_dev = volume_metrics_device(preds, torch.from_numpy(label.astype(np.int32)).to(dev),
+                                   nc).cpu().numpy()
+    t3 = time.perf_counter()
+    host_pred = preds.cpu().numpy()
+    t4 = time.perf_counter()
+    on_host = np.array(volume_metrics(host_pred, label, nc))
+    t5 = time.perf_counter()
+    ok = metrics_agree(on_dev, on_host)
+    print(f"[base384:eval] case0000 {image.shape} at patch {img}: zoom_s={t1 - t0:.3f} "
+          f"segment_s={t2 - t1:.3f} device_metrics_s={t3 - t2:.3f} host_metrics_s="
+          f"{t5 - t4:.3f} (labels to host {t4 - t3:.3f}); device vs host max |diff| "
+          f"{np.abs(on_dev - on_host).max():.3e} {'ok' if ok else 'FAIL'}", flush=True)
+    require(ok, f"base384 eval: device {on_dev.tolist()} vs host {on_host.tolist()}")
+
+    log = EvalLog()
+    root = logging.getLogger()
+    saved_handlers, saved_level = root.handlers[:], root.level
+    root.handlers[:] = [log]
+    root.setLevel(logging.INFO)
+    try:
+        t0 = time.perf_counter()
+        inference(argparse.Namespace(num_classes=nc, img_size=img, z_spacing=1,
+                                     device_metrics=True), inferencer,
+                  [dict(image=image, label=label, case_name="case0000")])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        root.handlers[:] = saved_handlers
+        root.setLevel(saved_level)
+    counts = K.launch_counts()
+    forwards = 2 * -(-d // SERVE_BATCH)
+    want = expected_launches(cfg, forwards)
+    want["edt_pass"] = 2 * (nc - 1) * 2 * 3
+    means = class_means(log.lines)
+    print(f"[base384:eval] inference() of one volume with device metrics in {secs:.3f}s; "
+          f"its per-class means vs the host metrics above: "
+          f"{'ok' if metrics_agree(means, on_host) else 'FAIL'}; launches of both passes "
+          f"{counts} expected {want}", flush=True)
+    require(len(means) == nc - 1 and metrics_agree(means, on_host),
+            f"base384 inference(): {means.tolist()} vs host {on_host.tolist()}")
+    require(counts == want, f"base384 eval launches {counts} != routing {want}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the block lab
 # ---------------------------------------------------------------------------
 
 def compare_lab(dev, tally: KernelTally) -> None:
@@ -2265,12 +2745,15 @@ def tensor_core_ops(so: str, tool: str) -> dict[str, int]:
     return counts
 
 
-def smoke_config(opts=None):
-    """The tiny-224 config from the port's own YAML, with ``--opts``."""
+def smoke_config(opts=None, cfg: str = CFG):
+    """A config from the port's own YAML (tiny-224 unless ``cfg`` names
+    another), with ``--opts``."""
     from cswin_unet_tpu_torch.config import get_config
 
     class _Args:
-        cfg = CFG
+        pass
+
+    _Args.cfg = cfg
 
     _Args.opts = opts
     return get_config(_Args)
@@ -2279,6 +2762,7 @@ def smoke_config(opts=None):
 def main() -> int:
     import torch
 
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -2338,7 +2822,7 @@ def main() -> int:
     tally = compare_kernels(cfg, dev, SERVE_BATCH)
     probe_vs_parent(dev)
     compare_backward_kernels(cfg, dev, TRAIN_BATCH, tally)
-    compare_base384_backward(dev, TRAIN_BATCH, tally)
+    check_attention_bwd_smem()
     compare_edt(dev, tally)
     pair_ab(cfg, dev)
     compare_modules(cfg, dev)
@@ -2351,21 +2835,29 @@ def main() -> int:
         eval_counts = eval_run(cfg, dev, ck)
         continual_counts, kits = continual_run(cfg, dev, workdir)
         continual_checks(cfg, dev, kits, os.path.join(workdir, "tiny224_seed0.npz"), smi)
+        tally384, counts384 = base384_run(dev, workdir, smi)
     compare_lab(dev, tally)
     lab_identities(dev)
     lab_counts = lab_run()
 
     paths = dict(serve=serve_counts, serve_pallas=pallas_counts, serve_pair=pair_counts,
                  train=train_counts, eval=eval_counts, continual=continual_counts,
-                 lab=lab_counts)
+                 **counts384, lab=lab_counts)
+    for k in ("layernorm", "gemm", "stripe_attention", "carafe_reassemble"):
+        require(all(c[k] > 0 for c in counts384.values()),
+                f"{k} launched no time on a base-384 path: {counts384}")
     kernels = []
     for k, (src, rep) in SOURCES.items():
-        row = dict(tally.rows[k])
+        row, row384 = dict(tally.rows[k]), dict(tally384.rows[k])
         bound_by = "bytes" if row.pop("bytes_ms") >= row.pop("ops_ms") else "operations"
+        by384 = "bytes" if row384.pop("bytes_ms") >= row384.pop("ops_ms") else "operations"
+        if row384["bound_ms"] > 0:  # the kernels base-384's paths run, at its shapes
+            row["base384"] = dict(row384, bound_by=by384, per=PER[k] + ", base-384")
         kernels.append(dict(name=k, route="cuda", source=src, replaces=rep,
                             launches=sum(c[k] for c in paths.values()),
                             launches_by_path={p: c[k] for p, c in paths.items()},
                             per=PER[k], bound_by=bound_by, **row))
+    print(f"[done] every phase passed in {time.perf_counter() - t_main:.1f}s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

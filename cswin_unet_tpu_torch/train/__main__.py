@@ -76,8 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval", action="store_true", help="Perform evaluation only")
     p.add_argument("--throughput", action="store_true", help="Test throughput only")
     p.add_argument("--device_augment", action="store_true",
-                   help="augment on the device inside the train step (not ported "
-                        "yet)")
+                   help="augment (rot90 / flip, rotation) on the device inside the "
+                        "train step; the host loader only resizes")
     p.add_argument("--num_workers", type=int, default=8,
                    help="host loader threads")
     p.add_argument("--device", type=str, default="cuda", help="torch device to train on")
@@ -90,8 +90,6 @@ def main(argv=None) -> str:
     from .trainer import trainer_synapse
 
     args = build_parser().parse_args(argv)
-    if args.device_augment:
-        raise NotImplementedError("--device_augment is not ported yet")
     if args.resume:
         args.resume = train_state_path(args.resume)  # a missing state raises before any work
     if args.dataset == "Synapse":

@@ -12,7 +12,10 @@ On one explicit device: batches come from a threaded host loader and are
 copied one batch ahead (``data.device_prefetch``); drop-path masks come
 from one ``torch.Generator`` on that device, seeded from ``--seed``; metrics
 reach the host every 20 steps (``MetricBuffer``), so the loop does not wait
-for the device per step.
+for the device per step. With ``args.device_augment`` the host only resizes
+(``EvalResize``) and the step augments the batch on the device
+(``ops.augment.augment_batch``) before the forward, its draws from the same
+generator, as the JAX trainer does in its jitted step.
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ import time
 import numpy as np
 import torch
 
-from ..data import DataLoader, RandomGenerator, SynapseDataset, device_prefetch
+from ..data import DataLoader, EvalResize, RandomGenerator, SynapseDataset, device_prefetch
 from ..losses import segmentation_loss
+from ..ops.augment import augment_batch
 from ..utils.checkpoint import (TRAIN_STATE, restore_train_state, save_checkpoint,
                                 save_train_state)
 from ..utils.logging_utils import MetricBuffer, SummaryWriter, setup_logging
@@ -53,12 +57,14 @@ def make_optimizer(params, base_lr: float, max_iterations: int, *,
 
 
 def make_train_step(model, optimizer, scheduler, num_classes: int, *,
-                    loss_fn=None):
+                    loss_fn=None, device_augment: bool = False):
     """``step(image, label, generator) -> aux``: forward, loss, backward,
     SGD update and LR step. ``loss_fn(logits, labels)`` defaults to
     0.4·CE + 0.6·Dice and returns (scalar, aux dict). ``aux`` holds the
     detached losses and the argmax map of sample 1 (``pred_vis``), all on
-    the device."""
+    the device. ``device_augment``: the batch is augmented first
+    (``augment_batch``), its draws from ``generator`` before the
+    drop-path's."""
     if loss_fn is None:
         def loss_fn(logits, labels):
             return segmentation_loss(logits, labels, num_classes)
@@ -66,6 +72,8 @@ def make_train_step(model, optimizer, scheduler, num_classes: int, *,
     def step(image: torch.Tensor, label: torch.Tensor,
              generator: torch.Generator | None) -> dict:
         optimizer.zero_grad(set_to_none=True)
+        if device_augment:
+            image, label = augment_batch(image, label, generator)
         logits = model(image, generator=generator)
         total, aux = loss_fn(logits, label)
         total.backward()
@@ -88,10 +96,12 @@ def trainer_synapse(args, model, snapshot_path: str) -> str:
     base_lr = args.base_lr
     num_classes = args.num_classes
     batch_size = args.batch_size * getattr(args, "n_gpu", 1)
+    device_augment = bool(getattr(args, "device_augment", False))
+    size = [args.img_size, args.img_size]
     db_train = SynapseDataset(base_dir=args.root_path, list_dir=args.list_dir,
                               split="train",
-                              transform=RandomGenerator(
-                                  output_size=[args.img_size, args.img_size]))
+                              transform=EvalResize(size) if device_augment
+                              else RandomGenerator(size))
     print(f"The length of train set is: {len(db_train)}")
     trainloader = DataLoader(db_train, batch_size, shuffle=True, seed=args.seed,
                              num_workers=getattr(args, "num_workers", 8))
@@ -104,7 +114,8 @@ def trainer_synapse(args, model, snapshot_path: str) -> str:
     model.train()
     optimizer, scheduler = make_optimizer(model.parameters(), base_lr,
                                           max_iterations)
-    train_step = make_train_step(model, optimizer, scheduler, num_classes)
+    train_step = make_train_step(model, optimizer, scheduler, num_classes,
+                                 device_augment=device_augment)
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
     writer = SummaryWriter(os.path.join(snapshot_path, "log"))

@@ -251,7 +251,9 @@ def _block_params(rng, dev, C, last=False):
     (7, 512, 16, 7, True), (16, 32, 2, 2, False),
     # base-384 stage 3 and 4: head dim 24, 24x12 windows (L = 288, shared
     # memory above 48 KB) and the 12x12 full window
-    (24, 384, 16, 12, False), (12, 768, 32, 12, True)])
+    (24, 384, 16, 12, False), (12, 768, 32, 12, True),
+    # base-384 stages 1 and 2: head dim 24, 96x1 and 48x2 windows (L = 96)
+    (96, 96, 4, 1, False), (48, 192, 8, 2, False)])
 def test_block_chain(dev, H, C, heads, split, last):
     rng = np.random.default_rng(2)
     p = _block_params(rng, dev, C, last)
@@ -404,6 +406,72 @@ def test_carafe_tail_continual_heads(dev, nc, B, H, W):
     assert _margin_mismatches(labels, want) == 0
 
 
+# base-384's two fused sites: upsample2 (48 -> 96, C 192 -> 96: c_mid 48,
+# nc 96, gy 144 channels) and the x4 tail at C 96 (c_mid 24, padded to 32 in
+# the encoder's products; gy 24 + 9 -> 40 channels), logits and labels. The
+# labels are held to the plain composition in float32: the bf16 one rounds
+# the encoder's output to bf16 before the softmax, which the kernel keeps in
+# float32, and at this width that moves one of the 4.7M tail pixels (B = 32)
+# by 0.45 in a logit, 2.1% of the largest |logit|, where the kernel stays
+# within 0.02 of the float64 composition.
+@pytest.mark.parametrize("B", [32, 2])
+def test_carafe_base384_sites(dev, B):
+    rng = np.random.default_rng(30 + B)
+    p = _carafe_params(rng, dev, 192, 96, 2)
+    x = _rnd(rng, dev, B, 48, 48, 192).bfloat16()
+    got = carafe_up(x, *p)
+    assert got.shape == (B, 96, 96, 96)
+    assert _rel_l2(got.float(), carafe_up_plain(x, *p).float()) <= 0.02
+    p = _carafe_params(rng, dev, 96, 96, 4, nc=9)
+    x = _rnd(rng, dev, B, 96, 96, 96).bfloat16()
+    want = carafe_tail_plain(x, *p).float()
+    got = carafe_tail(x, *p)
+    assert got.shape == (B, 384, 384, 9)
+    assert _rel_l2(got.float(), want) <= 0.02
+    labels = carafe_tail_argmax(x, *p)
+    assert labels.dtype == torch.int32 and labels.shape == (B, 384, 384)
+    assert _margin_mismatches(labels, carafe_tail_plain(x.float(), *p)) == 0
+
+
+def test_carafe_base384_fn_grads(dev):
+    """``CarafeFn`` at both base-384 sites: the kernel forward and the
+    composition's vjp against autograd of the composition."""
+    rng = np.random.default_rng(33)
+    for fn, plain, C, C_out, up, nc, H in (
+            (carafe_up, carafe_up_plain, 192, 96, 2, None, 48),
+            (carafe_tail, carafe_tail_plain, 96, 96, 4, 9, 96)):
+        p = _carafe_params(rng, dev, C, C_out, up, nc)
+        x = _rnd(rng, dev, 2, H, H, C).bfloat16()
+        g = _rnd(rng, dev, 2, up * H, up * H, nc or C_out).bfloat16()
+        res = []
+        for f in (fn, plain):
+            leaves = [x.clone().requires_grad_()] + [q.clone().requires_grad_() for q in p]
+            out = f(*leaves)
+            res.append([out] + list(torch.autograd.grad(out, leaves, g)))
+        for i, (a, b) in enumerate(zip(*res)):
+            assert _rel_l2(a.float(), b.float()) <= 0.02, i
+
+
+@pytest.mark.parametrize("n", [384, 224])
+def test_augment_on_the_card_matches_the_cpu(dev, n):
+    """``ops.augment`` on CUDA tensors equals the same ops on the CPU bit for
+    bit at one set of draws (every branch present), and a CUDA generator's
+    draws stay on the card."""
+    from cswin_unet_tpu_torch.ops import augment as A
+
+    rng = np.random.default_rng(34)
+    img = torch.from_numpy(rng.standard_normal((24, n, n, 1)).astype(np.float32))
+    lab = torch.from_numpy(rng.integers(0, 9, (24, n, n)).astype(np.int64))
+    d = A.draw(24, torch.Generator().manual_seed(4), torch.device("cpu"))
+    flip, rotate = A.branches(d)
+    assert flip.any() and rotate.any() and (~flip & ~rotate).any()
+    want = A.apply_draws(img, lab, d)
+    got = A.apply_draws(img.to(dev), lab.to(dev), {k: v.to(dev) for k, v in d.items()})
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    out = A.augment_batch(img.to(dev), lab.to(dev), torch.Generator(device=dev).manual_seed(0))
+    assert out[0].device.type == "cuda" and out[0].shape == img.shape
+
+
 def test_carafe_reassemble_ignores_padding_channels(dev):
     """The GEMM's padding channels of gy reach no output: NaN there changes
     nothing. A gy whose channels are not a multiple of 8 is refused."""
@@ -505,7 +573,8 @@ def test_gemm_training_epilogues(dev):
 
 @pytest.mark.parametrize("H,C,heads,split,last", [
     (56, 64, 2, 1, False), (28, 128, 4, 2, False), (14, 256, 8, 7, False),
-    (7, 512, 16, 7, True), (16, 48, 2, 4, False)])
+    (7, 512, 16, 7, True), (16, 48, 2, 4, False),
+    (96, 96, 4, 1, False), (48, 192, 8, 2, False)])  # base-384 stages 1-2: L = 96, d = 24
 def test_stripe_attention_bwd(dev, H, C, heads, split, last):
     rng = np.random.default_rng(8)
     qkv = _rnd(rng, dev, 2, H, H, 3 * C).bfloat16()
@@ -526,7 +595,9 @@ def test_stripe_attention_bwd(dev, H, C, heads, split, last):
 
 
 @pytest.mark.parametrize("H,C,heads,split", [(56, 64, 2, 1), (28, 128, 4, 2),
-                                             (14, 256, 8, 7)])
+                                             (14, 256, 8, 7),
+                                             # base-384's two stages that train through it
+                                             (96, 96, 4, 1), (48, 192, 8, 2)])
 def test_block_fn_grads(dev, H, C, heads, split):
     rng = np.random.default_rng(9)
     t = lambda *s, sc=0.1, off=0.0: _rnd(rng, dev, *s, sc=sc, off=off)
@@ -863,6 +934,8 @@ ATTENTION_BWD_CASES = [
     (2, 24, 24, 384, 8, 24, 12, 0),     # base-384 stage 3, L = 288, d = 24
     (2, 24, 24, 384, 8, 12, 24, 192),
     (1, 24, 24, 512, 8, 12, 24, 256),   # L = 288 at d = 32
+    (2, 96, 96, 96, 2, 96, 1, 0),       # base-384 stage 1, L = 96, d = 24
+    (2, 48, 48, 192, 4, 2, 48, 96),     # base-384 stage 2 horizontal
 ]
 
 

@@ -8,7 +8,9 @@ state is refused before any work.
 """
 
 import argparse
+import os
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,15 +27,17 @@ from cswin_unet_tpu_torch.utils.checkpoint import (TRAIN_STATE, load_checkpoint,
 
 torch.set_num_threads(2)
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = "cswin_unet_tpu_torch/configs/cswin_tiny_224_lite.yaml"
+_TINY_OPTS = ["MODEL.CSWIN.EMBED_DIM", "16", "MODEL.CSWIN.DEPTH", "[1,1,1,1]",
+              "MODEL.CSWIN.NUM_HEADS", "[2,2,4,8]", "MODEL.CSWIN.SPLIT_SIZE", "[1,2,2,1]",
+              "DATA.IMG_SIZE", "32", "MODEL.DROP_PATH_RATE", "0.2"]
 
 
 def _tiny_config():
     class _Cfg:
         cfg = TINY
-        opts = ["MODEL.CSWIN.EMBED_DIM", "16", "MODEL.CSWIN.DEPTH", "[1,1,1,1]",
-                "MODEL.CSWIN.NUM_HEADS", "[2,2,4,8]", "MODEL.CSWIN.SPLIT_SIZE", "[1,2,2,1]",
-                "DATA.IMG_SIZE", "32", "MODEL.DROP_PATH_RATE", "0.2"]
+        opts = _TINY_OPTS
 
     return get_config(_Cfg)
 
@@ -79,9 +83,11 @@ def synapse(tmp_path_factory):
                                   size=40, depth=2, num_classes=9, seed=4)
 
 
-def _train(synapse, out, monkeypatch=None, cut_at=None, resume=None):
+def _train(synapse, out, monkeypatch=None, cut_at=None, resume=None, device_augment=False):
     """``trainer_synapse`` for 7 epochs of 2 steps (bs 4 over 8 slices): it
-    saves after epochs 5 and 6. ``cut_at``: the run dies on that step."""
+    saves after epochs 5 and 6. ``cut_at``: the run dies on that step.
+    ``device_augment``: the step augments on the device (its draws from the
+    trainer's generator), the host only resizes."""
     if cut_at is not None:
         make = trainer.make_train_step
 
@@ -101,7 +107,7 @@ def _train(synapse, out, monkeypatch=None, cut_at=None, resume=None):
     args = argparse.Namespace(
         root_path=synapse["train_dir"], list_dir=synapse["list_dir"], num_classes=9,
         batch_size=4, n_gpu=1, max_epochs=7, base_lr=0.01, img_size=32, seed=1234,
-        num_workers=2, device="cpu", resume=resume)
+        num_workers=2, device="cpu", resume=resume, device_augment=device_augment)
     return trainer.trainer_synapse(args, model, str(out))
 
 
@@ -116,13 +122,29 @@ def test_trainer_resume_continues_a_cut_run(synapse, tmp_path, monkeypatch):
     ends: the same 14 logged losses (12 before the cut, 2 after) and the
     same final weights, bit for bit; its train state then says iteration 14,
     epoch 7."""
-    _train(synapse, tmp_path / "straight")
+    _cut_and_resume(synapse, tmp_path, monkeypatch, device_augment=False)
+
+
+def test_trainer_resume_with_device_augment(synapse, tmp_path, monkeypatch):
+    """The same with ``device_augment``: the augmentation's draws come from
+    the generator the train state saves, so the resumed run still ends bit
+    for bit where the uncut run ends; and the augmentation moved the run
+    (its losses differ from a run without it)."""
+    _cut_and_resume(synapse, tmp_path, monkeypatch, device_augment=True)
+    _train(synapse, tmp_path / "plain")
+    assert _losses((tmp_path / "plain" / "log.txt").read_text()) != \
+        _losses((tmp_path / "straight" / "log.txt").read_text())
+
+
+def _cut_and_resume(synapse, tmp_path, monkeypatch, device_augment):
+    kw = dict(device_augment=device_augment)
+    _train(synapse, tmp_path / "straight", **kw)
     with pytest.raises(RuntimeError, match="run cut"):
-        _train(synapse, tmp_path / "cut", monkeypatch, cut_at=13)
+        _train(synapse, tmp_path / "cut", monkeypatch, cut_at=13, **kw)
     monkeypatch.undo()
     state = torch.load(tmp_path / "cut" / TRAIN_STATE, weights_only=True)
     assert (state["iteration"], state["epoch"]) == (12, 6)
-    assert _train(synapse, tmp_path / "cut", resume=str(tmp_path / "cut")) == \
+    assert _train(synapse, tmp_path / "cut", resume=str(tmp_path / "cut"), **kw) == \
         "Training Finished!"
     straight = _losses((tmp_path / "straight" / "log.txt").read_text())
     resumed_log = (tmp_path / "cut" / "log.txt").read_text()
@@ -154,7 +176,23 @@ def test_resume_from_a_missing_state_raises(tmp_path):
     assert train_state_path(str(tmp_path)) == str(tmp_path / TRAIN_STATE)
 
 
-def test_device_augment_still_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="device_augment"):
-        train_cli.main(["--cfg", TINY, "--root_path", str(tmp_path), "--output_dir",
-                        str(tmp_path / "out"), "--device", "cpu", "--device_augment"])
+def test_device_augment_still_refused(synapse, tmp_path, monkeypatch):
+    """``--device_augment`` was refused until the device augmentation was
+    ported; now the CLI trains with it: one CPU epoch (2 steps at bs 4) at
+    the tiny geometry, finite losses, a checkpoint and a train state."""
+    monkeypatch.chdir(tmp_path)  # the CLI reads ./lists/lists_Synapse_blurred
+    lists = tmp_path / "lists" / "lists_Synapse_blurred"
+    lists.mkdir(parents=True)
+    (lists / "train.txt").write_text(
+        (Path(synapse["list_dir"]) / "train.txt").read_text())
+    msg = train_cli.main(["--cfg", os.path.join(REPO, TINY), "--root_path",
+                          str(Path(synapse["train_dir"]).parent), "--output_dir", "out",
+                          "--device", "cpu", "--device_augment", "--max_epochs", "1",
+                          "--batch_size", "4", "--img_size", "32", "--num_workers", "2",
+                          "--opts", *_TINY_OPTS])
+    assert msg == "Training Finished!"
+    losses = _losses((tmp_path / "out" / "log.txt").read_text())
+    assert sorted(losses) == [1, 2]
+    assert all(np.isfinite(float(v.split(",")[0])) for v in losses.values())
+    assert (tmp_path / "out" / "epoch_0.npz").exists()
+    assert (tmp_path / "out" / TRAIN_STATE).exists()
