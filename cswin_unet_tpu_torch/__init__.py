@@ -13,11 +13,17 @@ Layer map (entry point down to the kernels):
                  CLI: python -m cswin_unet_tpu_torch.train)
   data        -> cswin_unet_tpu_torch.data (Synapse readers, augmentations,
                  threaded loader, device prefetch)
+  parallel    -> cswin_unet_tpu_torch.parallel (torch.distributed: one
+                 process per GPU under torchrun, DDP, the sharded loader's
+                 rank and world, global-batch Dice sums and draws)
   losses      -> cswin_unet_tpu_torch.losses (CE, Dice, Focal, KD)
   eval        -> cswin_unet_tpu_torch.eval (VolumeInferencer, test_single_volume,
                  inference; CLI: python -m cswin_unet_tpu_torch.eval)
-  metrics     -> cswin_unet_tpu_torch.metrics (host Dice / HD95, scipy) and
-                 cswin_unet_tpu_torch.ops.edt (the same on the device)
+  metrics     -> cswin_unet_tpu_torch.metrics (host Dice / HD95: the C++ EDT
+                 of utils.native, else scipy) and cswin_unet_tpu_torch.ops.edt
+                 (the same on the device)
+  profiling   -> cswin_unet_tpu_torch.utils.profiling (StepTimer,
+                 device_trace, block_and_time)
   model       -> cswin_unet_tpu_torch.models (CSwinUnet wrapper, CSWinUNet)
   checkpoint  -> cswin_unet_tpu_torch.utils.checkpoint (the JAX .npz format,
                  JAX <-> torch parameter names and layouts)

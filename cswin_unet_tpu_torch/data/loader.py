@@ -11,6 +11,11 @@ Counterpart of ``cswin_unet_tpu.data.loader``:
     Below that the JAX loader appends the epoch's first samples once and
     yields one short batch of 2n samples (n < batch_size / 2); this loader
     keeps wrapping to a full batch, the fixed shape both loaders promise;
+  * ``num_shards`` / ``shard_index`` shard every epoch over the ranks of a
+    data-parallel run as the JAX loader does over hosts: each shuffles the
+    same permutation, wrap-pads it to a multiple of ``num_shards`` and takes
+    a strided slice, so the shards are disjoint, cover the epoch and yield
+    the same number of batches (``batch_size`` is per shard);
   * ``device_prefetch`` copies each batch from pinned host memory to the
     device with ``non_blocking`` copies on a side stream one batch ahead,
     so the copy of batch i + 1 overlaps the step on batch i.
@@ -30,21 +35,33 @@ class DataLoader:
     """Each ``__iter__`` is the next epoch, counted from 0."""
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = True,
-                 seed: int = 1234, num_workers: int = 8):
+                 seed: int = 1234, num_workers: int = 8, num_shards: int = 1,
+                 shard_index: int = 0):
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard_index {shard_index} not in [0, {num_shards})")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.num_workers = max(1, num_workers)
+        self.num_shards = num_shards
+        self.shard_index = shard_index
         self.epoch = 0
 
+    def _shard_len(self) -> int:
+        return -(-len(self.dataset) // self.num_shards)
+
     def __len__(self) -> int:
-        return -(-len(self.dataset) // self.batch_size)
+        return -(-self._shard_len() // self.batch_size)
 
     def _epoch_indices(self) -> np.ndarray:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng((self.seed, self.epoch)).shuffle(idx)
+        if self.num_shards > 1:
+            # equal shards first (wrap-pad the permutation), then stride
+            idx = np.resize(idx, self._shard_len() * self.num_shards)
+            idx = idx[self.shard_index::self.num_shards]
         return np.resize(idx, len(self) * self.batch_size)  # wrap-around pad
 
     def __iter__(self) -> Iterator[dict]:

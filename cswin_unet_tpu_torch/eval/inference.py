@@ -17,47 +17,93 @@ resolution: on the host (nearest zoom back with scipy, ``metrics``), or with
 never leave it, only the (C-1, 2) metric array comes back). ``inference``
 is the per-case loop with the reference's log lines.
 
-Data parallelism over several devices is not ported yet: one explicit
-device.
+Data parallelism over the devices of one process (the JAX inferencer's
+``data_parallel``): with ``devices`` (or ``data_parallel`` on, by default
+when more than one CUDA device is visible and no process group spans
+processes) the inferencer holds one replica of the model per device, splits
+every chunk into contiguous equal parts, one a device, launches each part on
+its replica under ``torch.cuda.device`` (the kernels launch on the current
+device) and gathers the parts in order. Slices are independent, so there
+are no collectives. The part count divides ``batch_slices``, and the tail
+buckets halve only while the part count divides them.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 
 import numpy as np
 import torch
 from scipy.ndimage import zoom as nd_zoom
 
 from ..metrics import volume_metrics
+from ..parallel import devices_for_batch, local_devices, world_size
 from ..utils.nifti import write_nifti
 
 
 class VolumeInferencer:
-    """Chunked slice segmentation with tail buckets."""
+    """Chunked slice segmentation with tail buckets, on one device or split
+    over several (``devices``, ``data_parallel``)."""
 
     def __init__(self, model: torch.nn.Module, *, device: torch.device | str,
                  patch_size=(224, 224), batch_slices: int = 32,
-                 class_indices=None):
+                 class_indices=None, data_parallel: bool | None = None,
+                 devices=None):
         self.model = model
         self.device = torch.device(device)
         self.patch = tuple(patch_size)
         self.batch = batch_slices
+        if devices is None:
+            if data_parallel is None:
+                # one process's own devices only: under a process group that
+                # spans processes each rank has its device (JAX's
+                # process_count() == 1 rule)
+                data_parallel = (self.device.type == "cuda" and world_size() == 1
+                                 and torch.cuda.device_count() > 1)
+            devices = local_devices() if data_parallel else [self.device]
+        self.devices = [_indexed(d) for d in devices_for_batch(batch_slices, devices)]
+        n = len(self.devices)
+        # The model serves the first part on its own device; every other
+        # part runs on a copy of it on that part's device.
+        home = next(model.parameters()).device
+        first = self.devices.index(home) if home in self.devices else None
+        self.replicas = [model if i == first else copy.deepcopy(model).to(d)
+                         for i, d in enumerate(self.devices)]
         self._buckets = [batch_slices]
-        while self._buckets[0] % 2 == 0 and self._buckets[0] // 2 >= 8:
+        while (self._buckets[0] % 2 == 0 and self._buckets[0] // 2 >= 8
+               and self._buckets[0] // 2 % n == 0):
             self._buckets.insert(0, self._buckets[0] // 2)
         self._idx = (None if class_indices is None else
                      torch.as_tensor(class_indices, dtype=torch.long,
                                      device=self.device))
 
     @torch.inference_mode()
-    def _forward(self, images: torch.Tensor) -> torch.Tensor:
+    def _forward(self, images: torch.Tensor, model: torch.nn.Module) -> torch.Tensor:
         if self._idx is None:
-            return self.model(images, emit="labels")
-        logits = self.model(images)[..., self._idx]
+            return model(images, emit="labels")
+        logits = model(images)[..., self._idx.to(images.device)]
         return torch.softmax(logits, dim=-1).argmax(-1).to(torch.int32)
+
+    def _chunk(self, x: np.ndarray, start: int):
+        """The chunk at ``start``, padded to its bucket, segmented: (real,
+        [labels of each part, on its device])."""
+        real = min(self.batch, x.shape[0] - start)
+        size = next(b for b in self._buckets if b >= real)
+        chunk = x[start:start + real]
+        if real < size:  # pad to the bucket's shape
+            pad = np.repeat(chunk[-1:], size - real, axis=0)
+            chunk = np.concatenate([chunk, pad], axis=0)
+        per = size // len(self.devices)
+        preds = []
+        for i, (d, replica) in enumerate(zip(self.devices, self.replicas)):
+            part = torch.from_numpy(chunk[i * per:(i + 1) * per]).to(d, non_blocking=True)
+            with torch.cuda.device(d) if d.type == "cuda" else nullcontext():
+                preds.append(self._forward(part, replica))
+        return real, preds
 
     def predict_slices(self, slices: np.ndarray) -> np.ndarray:
         """(N, H, W) float32 at patch size -> (N, H, W) int32 labels.
@@ -71,19 +117,16 @@ class VolumeInferencer:
         pending = []
 
         def drain(item):
-            start, real, pred = item
-            out[start:start + real] = pred[:real].cpu().numpy()
+            start, real, preds = item
+            for pred in preds:  # the parts in order; the bucket's padding dropped
+                k = min(pred.shape[0], real)
+                out[start:start + k] = pred[:k].cpu().numpy()
+                start, real = start + k, real - k
 
         start = 0
         while start < n:
-            real = min(self.batch, n - start)
-            size = next(b for b in self._buckets if b >= real)
-            chunk = x[start:start + real]
-            if real < size:  # pad to the bucket's shape
-                pad = np.repeat(chunk[-1:], size - real, axis=0)
-                chunk = np.concatenate([chunk, pad], axis=0)
-            dev = torch.from_numpy(chunk).to(self.device, non_blocking=True)
-            pending.append((start, real, self._forward(dev)))
+            real, preds = self._chunk(x, start)
+            pending.append((start, real, preds))
             if len(pending) > 6:
                 drain(pending.pop(0))
             start += real
@@ -93,22 +136,24 @@ class VolumeInferencer:
 
     def predict_slices_device(self, slices: np.ndarray) -> torch.Tensor:
         """(N, H, W) float32 at patch size -> (N, H, W) int32 labels kept on
-        the device (the device-metrics path copies no volume back)."""
+        the device (``device``; the device-metrics path copies no volume
+        back)."""
         n = slices.shape[0]
         x = np.ascontiguousarray(slices, dtype=np.float32)[..., None]
         parts = []
         start = 0
         while start < n:
-            real = min(self.batch, n - start)
-            size = next(b for b in self._buckets if b >= real)
-            chunk = x[start:start + real]
-            if real < size:
-                pad = np.repeat(chunk[-1:], size - real, axis=0)
-                chunk = np.concatenate([chunk, pad], axis=0)
-            dev = torch.from_numpy(chunk).to(self.device, non_blocking=True)
-            parts.append(self._forward(dev)[:real])
+            real, preds = self._chunk(x, start)
+            parts.append(torch.cat([p.to(self.device) for p in preds])[:real])
             start += real
         return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def _indexed(device: torch.device) -> torch.device:
+    """``cuda`` as ``cuda:<current device>``: a device a replica can name."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _zoom_slices(pool: ThreadPoolExecutor, vol: np.ndarray, factors,

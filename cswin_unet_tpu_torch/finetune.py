@@ -1,10 +1,12 @@
-"""Legacy surgical fine-tuning CLI on one device:
+"""Legacy surgical fine-tuning CLI:
 
     python -m cswin_unet_tpu_torch.finetune --cfg C --output_dir OUT \
         [--pretrained_ckpt CK] [--device cuda] ...
 
 The argparse surface of the root ``finetune.py`` (reference finetune.py),
-plus ``--device`` (default ``cuda``; ``cuda`` without a card raises): a
+plus ``--device`` (default ``cuda``; ``cuda`` without a card raises; one
+process per GPU under ``python -m torch.distributed.run --nproc_per_node N``,
+``train.finetune``): a
 seeded model (``--seed``), the pretrained weights where ``--pretrained_ckpt``
 names a file (the JAX package's ``.npz`` or a reference ``.pth``, loaded as
 the base trainer loads them), then ``train.finetune.surgical_trainer``: the
@@ -59,18 +61,27 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> str:
     from .config import get_config
-    from .models import build_model
-    from .train.finetune import surgical_trainer
-    from .utils.checkpoint import load_from_pretrained
+    from .parallel import destroy_distributed, init_distributed
 
     args = build_parser().parse_args(argv)
     config = get_config(args)
     config.defrost()
     config.MODEL.PRETRAIN_CKPT = args.pretrained_ckpt
     config.freeze()
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but no CUDA device is available")
+    # Under torchrun: the process group, and cuda:LOCAL_RANK as the device
+    # (a CUDA device without a card raises).
+    _, _, device = init_distributed(args.device)
+    args.device = str(device)
+    try:
+        return _run(args, config, device)
+    finally:
+        destroy_distributed()
+
+
+def _run(args, config, device: torch.device) -> str:
+    from .models import build_model
+    from .train.finetune import surgical_trainer
+    from .utils.checkpoint import load_from_pretrained
 
     random.seed(args.seed)
     np.random.seed(args.seed)

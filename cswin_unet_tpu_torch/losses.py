@@ -12,6 +12,13 @@ Counterpart of ``cswin_unet_tpu.losses``, formula for formula:
     leading axis;
   * ``segmentation_loss`` = 0.4·CE + 0.6·Dice from one shared softmax.
 
+Under a data-parallel process group the Dice sums (Σpq, Σp², Σq per class)
+are summed over the ranks (``parallel.all_reduce_sum``) before the ratio,
+so every rank computes the global batch's Dice, as one process on the whole
+batch does; the per-rank means (CE, focal, KD's batchmean) need nothing:
+each rank holds an equal share and DDP averages them. Without a process
+group the code path is unchanged.
+
 Logits (B, H, W, C) of any float dtype; labels (B, H, W) integer. Every loss
 reduces to a float32 scalar.
 """
@@ -20,6 +27,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from .parallel import all_reduce_sum, world_size
 
 
 def _log_softmax(logits: torch.Tensor):
@@ -41,6 +50,8 @@ def _dice_from_probs(probs, onehot, num_classes, class_weights):
     intersect = (probs * onehot).sum(axes)
     z = (probs * probs).sum(axes)
     y = onehot.sum(axes)  # target² == target for one-hot
+    if world_size() > 1:  # the global batch's sums, on every rank
+        intersect, z, y = all_reduce_sum(torch.stack([intersect, z, y])).unbind(0)
     per_class = 1.0 - (2.0 * intersect + smooth) / (z + y + smooth)
     if class_weights is not None:
         per_class = per_class * class_weights.float()

@@ -10,8 +10,9 @@ per-case metrics, ``utils.py:48-58``, without the medpy dependency):
     mask & ~binary_erosion(mask), distances sampled at the other boundary).
 
 Edge rules of ``calculate_metric_percase`` (utils.py:48-58): pred>0 & gt==0
--> (1, 0); pred empty -> (0, 0). The EDT is scipy's; the device twin is
-``ops.edt.volume_metrics_device``.
+-> (1, 0); pred empty -> (0, 0). HD95 takes the native C++ core
+(``utils.native``, the JAX package's route) when it builds, else scipy's
+EDT; both are exact. The device twin is ``ops.edt.volume_metrics_device``.
 """
 
 from __future__ import annotations
@@ -41,8 +42,15 @@ def _surface_distances(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return dt[a_border]
 
 
-def hd95(pred: np.ndarray, gt: np.ndarray) -> float:
-    """95th-percentile symmetric Hausdorff distance (medpy convention)."""
+def hd95(pred: np.ndarray, gt: np.ndarray, *, use_native: bool = True) -> float:
+    """95th-percentile symmetric Hausdorff distance (medpy convention): the
+    native core when ``use_native`` and it builds, else scipy's EDT."""
+    if use_native:
+        from .utils.native import hd95_native
+
+        val = hd95_native(pred, gt)
+        if val is not None:
+            return val
     d1 = _surface_distances(pred, gt)
     d2 = _surface_distances(gt, pred)
     return float(np.percentile(np.hstack((d1, d2)), 95))

@@ -62,6 +62,7 @@ from ..ops.cuda.carafe_tail import carafe_tail, carafe_tail_argmax, carafe_up
 from ..ops.cuda import cswin_block
 from ..ops.cuda.cswin_block import BlockParams, composed_block, fused_cswin_block
 from ..ops.cuda.kernels import needs_grad
+from ..parallel import rank_rows, world_size
 
 IMPLS = ("fused", "pallas", "plain")
 # Smallest stage resolution whose dual-branch blocks train through the
@@ -152,7 +153,10 @@ class CSWinBlock(nn.Module):
         if generator is None:
             raise ValueError("training with drop-path needs forward(generator=...)")
         keep = 1.0 - self.drop_path
-        u = torch.rand((2, batch), generator=generator, device=generator.device)
+        # Drawn for the global batch and sliced to this rank's rows (one
+        # process: the whole draw), so every rank's generator stays equal.
+        u = rank_rows(torch.rand((2, world_size() * batch), generator=generator,
+                                 device=generator.device), batch, dim=1)
         dp = (u < keep).float().div_(keep).to(device)
         return dp[0], dp[1]
 

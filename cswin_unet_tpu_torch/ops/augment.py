@@ -28,6 +28,8 @@ import math
 
 import torch
 
+from ..parallel import rank_rows, world_size
+
 
 def _grid(H: int, W: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """Output row and column indices, each (1, H, W) int64."""
@@ -117,11 +119,15 @@ def rotate_nearest(img: torch.Tensor, lab: torch.Tensor, angle):
 
 def draw(B: int, generator: torch.Generator | None, device: torch.device) -> dict:
     """The per-sample draws of ``augment_batch``, in its order: u1, u2
-    uniform in [0, 1), k in 0..3, axis in 0..1, angle in [-20, 20)."""
+    uniform in [0, 1), k in 0..3, axis in 0..1, angle in [-20, 20). Under a
+    data-parallel process group each is drawn for the global batch and
+    sliced to this rank's B rows (``parallel.rank_rows``)."""
     kw = dict(generator=generator, device=device)
-    return dict(u1=torch.rand(B, **kw), u2=torch.rand(B, **kw),
-                k=torch.randint(0, 4, (B,), **kw), axis=torch.randint(0, 2, (B,), **kw),
-                angle=torch.randint(-20, 20, (B,), **kw))
+    G = world_size() * B
+    d = dict(u1=torch.rand(G, **kw), u2=torch.rand(G, **kw),
+             k=torch.randint(0, 4, (G,), **kw), axis=torch.randint(0, 2, (G,), **kw),
+             angle=torch.randint(-20, 20, (G,), **kw))
+    return {k: rank_rows(v, B) for k, v in d.items()}
 
 
 def branches(d: dict) -> tuple[torch.Tensor, torch.Tensor]:

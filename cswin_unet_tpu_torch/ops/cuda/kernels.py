@@ -98,10 +98,16 @@ def _require_aligned(**tensors: torch.Tensor | None) -> None:
 
 
 def _stream(device: torch.device) -> int:
-    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``.
-    The public ``torch.cuda.current_stream(device).cuda_stream`` builds a
-    Stream object per call: 3.5 µs against 0.1 µs here on an H100 host, paid
-    on every launch of a host-bound forward."""
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``,
+    which must be the current device: the C entry points launch there, and
+    a tensor on another device would meet a bare CUDA error. The public
+    ``torch.cuda.current_stream(device).cuda_stream`` builds a Stream object
+    per call: 3.5 µs against 0.1 µs here on an H100 host, paid on every
+    launch of a host-bound forward."""
+    current = torch._C._cuda_getDevice()
+    if device.index != current:
+        raise ValueError(f"a kernel was given tensors on {device} while cuda:{current} is "
+                         f"the current device; call it under torch.cuda.device({device})")
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 

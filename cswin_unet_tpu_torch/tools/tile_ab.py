@@ -28,6 +28,14 @@ beside the card's name and power limit, and every ``[kernel]`` line
 printed. ``--table`` prints the files side by side, one
 column each, in the order given (parent, change, change, parent for an A/B
 in turns).
+
+``--forward`` times instead the root's whole serving forward end to end:
+one 32-slice tiny-224 chunk to labels (``model(x, emit="labels")`` on the
+fused route, random weights from a seed), CUDA events around 5 back-to-back
+forwards in each of 10 rounds, unprimed, so that a forward whose
+host work outlasts its device work reads the host, and the device busy ms
+of a forward (the harness's ``device_busy_ms``). ``--table`` prints such
+files as one row each.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import importlib.util
 import io
 import json
 import os
+import statistics
 import subprocess
 import sys
 
@@ -46,9 +55,8 @@ KERNELS = ("gemm", "gemm_dgrad", "stripe_attention", "cswin_attention", "block_p
            "stripe_attention_bwd", "edt_pass")
 
 
-def measure(root: str, harness: str) -> dict:
-    import torch
-
+def _load(root: str, harness: str):
+    """The harness's ``chip_smoke`` module over the root's package."""
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   os.path.join(harness, "chip_smoke.py"))
@@ -60,6 +68,19 @@ def measure(root: str, harness: str) -> dict:
     for mod, where in ((chip_smoke, harness), (cswin_unet_tpu_torch, root)):
         if not os.path.abspath(mod.__file__).startswith(where + os.sep):
             raise SystemExit(f"tile_ab: imported {mod.__file__}, not from {where}")
+    return chip_smoke
+
+
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def measure(root: str, harness: str) -> dict:
+    import torch
+
+    chip_smoke = _load(root, harness)
     from cswin_unet_tpu_torch.tools import block_lab
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -85,9 +106,7 @@ def measure(root: str, harness: str) -> dict:
     for sub in ("attn", "attn3"):
         if block_lab.main([sub, "--batch", "128"], rows):
             raise SystemExit(f"tile_ab: block_lab {sub} failed")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = _smi()
     keys = ("ms", "bound_ms", "plain_ms", "library_ms", "library_vs_ms")
     return dict(root=root, harness=harness, device=torch.cuda.get_device_name(0),
                 nvidia_smi=smi, base384_refused=refused,
@@ -98,6 +117,31 @@ def measure(root: str, harness: str) -> dict:
                      for r in rows])
 
 
+def measure_forward(root: str, harness: str) -> dict:
+    import numpy as np
+    import torch
+
+    chip_smoke = _load(root, harness)
+    from cswin_unet_tpu_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    batch = chip_smoke.SERVE_BATCH
+    model = build_model(chip_smoke.smoke_config(), num_classes=9, device=dev, seed=1)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (batch, 224, 224, 1)).astype(np.float32)).to(dev)
+
+    def forward():
+        with torch.inference_mode():
+            return model(x, emit="labels")
+
+    ms = [chip_smoke.time_ms(forward, reps=5, rounds=1) for _ in range(10)]
+    busy = chip_smoke.device_busy_ms(forward, 5)
+    return dict(root=root, harness=harness, device=torch.cuda.get_device_name(0),
+                nvidia_smi=_smi(), forward=dict(batch=batch, ms=ms, busy_ms=busy))
+
+
 def table(paths: list[str]) -> None:
     runs = []
     for p in paths:
@@ -105,6 +149,15 @@ def table(paths: list[str]) -> None:
             runs.append(json.load(f))
     print("cards: " + "; ".join(f"{os.path.basename(p)} {r['nvidia_smi']}"
                                 for p, r in zip(paths, runs)))
+    if "forward" in runs[0]:
+        print("forward of one chunk to labels: ms median [min-max] of the rounds, "
+              "device busy ms, root")
+        for p, r in zip(paths, runs):
+            ms, busy = r["forward"]["ms"], r["forward"]["busy_ms"]
+            print(f"{os.path.basename(p)}: {statistics.median(ms):.3f} [{min(ms):.3f}-"
+                  f"{max(ms):.3f}] busy {'unread' if busy is None else f'{busy:.3f}'} "
+                  f"{r['root']}")
+        return
     head = " | ".join(os.path.basename(p) for p in paths)
     print(f"kernel (per unit of work): ms {head} | bound_ms | library_ms / the kernel's ms "
           f"on the same cases, per file")
@@ -134,6 +187,8 @@ def main() -> int:
                     "(default: the root)")
     ap.add_argument("--out", help="where to write the results (JSON)")
     ap.add_argument("--table", nargs="+", metavar="JSON", help="print result files side by side")
+    ap.add_argument("--forward", action="store_true",
+                    help="time the root's 32-slice serving forward end to end instead")
     args = ap.parse_args()
     if args.table:
         table(args.table)
@@ -143,7 +198,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("tile_ab: no CUDA device available", file=sys.stderr)
         return 2
-    result = measure(os.path.abspath(args.root), os.path.abspath(args.harness or args.root))
+    root, harness = os.path.abspath(args.root), os.path.abspath(args.harness or args.root)
+    result = (measure_forward(root, harness) if args.forward
+              else measure(root, harness))
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
     print(f"[tile_ab] {args.root}: wrote {args.out}")

@@ -1,4 +1,4 @@
-"""Base training CLI on one device:
+"""Base training CLI:
 
     python -m cswin_unet_tpu_torch.train --cfg C --root_path DATA \
         --output_dir OUT [--device cuda] ...
@@ -14,6 +14,15 @@ forward in the backward (``TRAIN.USE_CHECKPOINT``). ``--resume PATH``
 continues a run exactly from the ``train_state.pt`` the trainer writes beside
 each checkpoint (PATH: the file, or the run's output directory): weights,
 SGD momentum, LR step, drop-path generator and loader epoch.
+
+Data parallel, one process per GPU (NCCL; gloo with ``--device cpu``):
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m cswin_unet_tpu_torch.train --cfg C ... [--device cuda]
+
+``--batch_size`` stays the global batch per ``--n_gpu`` as in one process;
+each rank takes ``batch_size · n_gpu / N`` rows of it on ``cuda:LOCAL_RANK``
+(``train.trainer``). Rank 0 writes the log, checkpoints and train state.
 """
 
 from __future__ import annotations
@@ -85,9 +94,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> str:
-    from ..models import build_model
-    from ..utils.checkpoint import load_from_pretrained, train_state_path
-    from .trainer import trainer_synapse
+    from ..parallel import destroy_distributed, init_distributed
+    from ..utils.checkpoint import train_state_path
 
     args = build_parser().parse_args(argv)
     if args.resume:
@@ -95,9 +103,20 @@ def main(argv=None) -> str:
     if args.dataset == "Synapse":
         args.root_path = os.path.join(args.root_path, "train_npz")
     config = get_config(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but no CUDA device is available")
+    # Under torchrun: the process group, and cuda:LOCAL_RANK as the device
+    # (a CUDA device without a card raises).
+    rank, _, device = init_distributed(args.device)
+    args.device = str(device)
+    try:
+        return _train(args, config, device, rank)
+    finally:
+        destroy_distributed()
+
+
+def _train(args, config, device: torch.device, rank: int) -> str:
+    from ..models import build_model
+    from ..utils.checkpoint import load_from_pretrained
+    from .trainer import trainer_synapse
 
     random.seed(args.seed)
     np.random.seed(args.seed)
@@ -113,9 +132,11 @@ def main(argv=None) -> str:
                         seed=args.seed, train=True)
     ckpt_path = config.MODEL.PRETRAIN_CKPT
     if ckpt_path and os.path.exists(ckpt_path):
-        print(f"pretrained_path:{ckpt_path}")
-        load_from_pretrained(model.cswin_unet, ckpt_path)
-    else:
+        if rank == 0:
+            print(f"pretrained_path:{ckpt_path}")
+        load_from_pretrained(model.cswin_unet, ckpt_path,
+                             log=print if rank == 0 else lambda *a: None)
+    elif rank == 0:
         print("none pretrain")
     return trainer_synapse(args, model, args.output_dir)
 

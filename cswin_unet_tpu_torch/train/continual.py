@@ -17,6 +17,15 @@ student in train mode with drop-path from a ``torch.Generator`` seeded from
 ``--seed``. The surgical and TPGM passes run the student in eval mode with
 gradients on and restore its mode. Checkpoints are the JAX package's
 ``.npz`` under its names.
+
+Data parallel under ``torchrun`` (``parallel``): the student's gradients
+come from ``torch.autograd.grad``, which DDP's hooks never see, so the step
+averages them over the ranks itself (``all_reduce_mean_``), as do the
+surgical and TPGM passes; the Dice sums and the drop-path draws are the
+global batch's. The subsets are drawn from the same seed on every rank, the
+class weights scan the unsharded data on every rank (equal to one
+process's), the train and TPGM loaders are sharded, the teacher runs
+locally without gradients, and rank 0 alone writes logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import torch
 
 from ..data import DataLoader, RandomGenerator, Subset, SynapseDataset, device_prefetch
 from ..losses import _dice_from_probs, _log_softmax, focal_loss, kd_loss, one_hot
+from ..parallel import all_reduce_mean_, multihost_barrier, process_shard_info
 from ..utils.checkpoint import save_checkpoint
 from ..utils.logging_utils import MetricBuffer, SummaryWriter, setup_logging
 from .surgical import (SurgicalOptimizer, backbone_params, get_lr_weights,
@@ -193,7 +203,8 @@ def make_continual_train_step(model, old_model, optimizer: SurgicalOptimizer, lo
     """``step(image, label, weights, epoch, generator) -> aux``: the
     teacher's logits without gradients, the student's in train mode (its
     drop-path from ``generator``), the continual loss on the mapped labels,
-    and one ``optimizer`` step. ``aux`` holds the detached losses on the
+    and one ``optimizer`` step on the gradients averaged over the ranks
+    (one process: as they are). ``aux`` holds the detached losses on the
     device."""
     params = backbone_params(model)
 
@@ -204,7 +215,7 @@ def make_continual_train_step(model, old_model, optimizer: SurgicalOptimizer, lo
             old_logits = old_model(image)
         logits = model(image, generator=generator)
         total, aux = loss_fn(logits, old_logits, mapped)
-        grads = torch.autograd.grad(total, list(params.values()))
+        grads = all_reduce_mean_(torch.autograd.grad(total, list(params.values())))
         optimizer.step(dict(zip(params, grads)), weights, epoch)
         return {k: v.detach() for k, v in aux.items()}
 
@@ -218,12 +229,18 @@ def trainer_continual_surgical_tpgm(args, model, old_model, snapshot_path: str,
     teacher; both on ``args.device``."""
     old_classes, new_classes, total_classes, dataset_name = stage_info
     device = torch.device(args.device)
+    rank, world = process_shard_info()
+    main = rank == 0
 
-    setup_logging(snapshot_path)
+    if main:
+        setup_logging(snapshot_path)
     logging.info(str(args))
 
     base_lr = args.base_lr
     batch_size = args.batch_size * getattr(args, "n_gpu", 1)
+    if batch_size % world:
+        raise ValueError(f"batch_size {batch_size} not divisible by {world} processes")
+    shard = dict(num_shards=world, shard_index=rank)
 
     db_train_full = SynapseDataset(
         base_dir=args.root_path, list_dir=args.list_dir, split="train",
@@ -267,10 +284,10 @@ def trainer_continual_surgical_tpgm(args, model, old_model, snapshot_path: str,
                    num_workers=NUM_WORKERS),
         total_classes, args.stage, stage_info)
 
-    trainloader = DataLoader(db_positive, batch_size, shuffle=True, seed=args.seed,
-                             num_workers=NUM_WORKERS)
-    tpgm_loader = (DataLoader(db_tpgm, batch_size, shuffle=True, seed=args.seed,
-                              num_workers=NUM_WORKERS)
+    trainloader = DataLoader(db_positive, batch_size // world, shuffle=True,
+                             seed=args.seed, num_workers=NUM_WORKERS, **shard)
+    tpgm_loader = (DataLoader(db_tpgm, batch_size // world, shuffle=True, seed=args.seed,
+                              num_workers=NUM_WORKERS, **shard)
                    if db_tpgm is not None else None)
 
     old_model.eval()
@@ -298,7 +315,8 @@ def trainer_continual_surgical_tpgm(args, model, old_model, snapshot_path: str,
     for h in list(ratio_logger.handlers):
         ratio_logger.removeHandler(h)
         h.close()
-    handler = logging.FileHandler(os.path.join(snapshot_path, "tpgm_ratios.log"), mode="w")
+    handler = (logging.FileHandler(os.path.join(snapshot_path, "tpgm_ratios.log"), mode="w")
+               if main else logging.NullHandler())
     handler.setFormatter(logging.Formatter("%(asctime)s - %(message)s"))
     ratio_logger.addHandler(handler)
     ratio_logger.info(f"TPGM Trainer Initialized. Enabled: {not args.disable_tpgm}, "
@@ -310,7 +328,7 @@ def trainer_continual_surgical_tpgm(args, model, old_model, snapshot_path: str,
     grad_fn = make_grad_fn(model, seg_ce_for_grads)
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
-    writer = SummaryWriter(os.path.join(snapshot_path, "log"))
+    writer = SummaryWriter(os.path.join(snapshot_path, "log")) if main else None
     max_epoch = args.max_epochs
     max_iterations = max_epoch * len(trainloader)
     logging.info(f"Combined Continual Learning Stage {args.stage} + Surgical + TPGM "
@@ -364,6 +382,8 @@ def trainer_continual_surgical_tpgm(args, model, old_model, snapshot_path: str,
         lr_epoch = optimizer.schedule(epoch_num)
 
         def emit_step(it, v, lr_epoch=lr_epoch):
+            if not main:
+                return
             writer.add_scalar("info/lr", lr_epoch, it)
             writer.add_scalar("info/total_loss", v["loss"], it)
             writer.add_scalar("info/loss_ce", v["loss_ce"], it)
@@ -379,7 +399,7 @@ def trainer_continual_surgical_tpgm(args, model, old_model, snapshot_path: str,
             metrics.append(iter_num, aux, emit_step)
         metrics.flush()
 
-        if (epoch_num + 1) % 5 == 0 or epoch_num == max_epoch - 1:
+        if main and ((epoch_num + 1) % 5 == 0 or epoch_num == max_epoch - 1):
             path = os.path.join(
                 snapshot_path,
                 f"continual_surgical_tpgm_stage{args.stage}_epoch_{epoch_num}.npz")
@@ -394,9 +414,12 @@ def trainer_continual_surgical_tpgm(args, model, old_model, snapshot_path: str,
 
     final_path = os.path.join(snapshot_path,
                               f"continual_surgical_tpgm_stage{args.stage}_final.npz")
-    save_checkpoint(final_path, model.cswin_unet.state_dict())
-    logging.info(f"save final model to {final_path}")
-    writer.close()
+    multihost_barrier("pre-checkpoint")
+    if main:
+        save_checkpoint(final_path, model.cswin_unet.state_dict())
+        logging.info(f"save final model to {final_path}")
+        writer.close()
+    multihost_barrier("post-checkpoint")
     ratio_logger.removeHandler(handler)
     handler.close()
     return (f"Combined Continual Learning Stage {args.stage} + Surgical Fine-tuning "

@@ -8,6 +8,13 @@ batch as RGN / max over the architectural groups (stem / encoderN / mergeN
 grid (lr, wd) ∈ {1e-3, 1e-4, 1e-5} × {1e-4}, each cell from the same
 starting weights. The reference rebuilds its Adam every batch, losing the
 moments; ``rebuild_moments_every_batch=True`` (the default) does the same.
+
+Data parallel under ``torchrun`` (``parallel``): every rank draws the same
+subset and restores the same starting weights per cell, loads its shard of
+each epoch at ``batch_size / world`` rows, and averages the step's and the
+RGN pass's gradients over the ranks (``all_reduce_mean_``; they come from
+``torch.autograd.grad``, which DDP's hooks never see); the logged loss is
+the global batch's, and rank 0 alone writes the log and checkpoints.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import torch
 
 from ..data import DataLoader, RandomGenerator, Subset, SynapseDataset, device_prefetch
 from ..losses import cross_entropy_loss, dice_loss
+from ..parallel import all_reduce_mean_, process_shard_info
 from ..utils.checkpoint import save_checkpoint
 from ..utils.logging_utils import setup_logging
 from .surgical import (WeightedAdam, backbone_params, get_group_lr_weights,
@@ -43,10 +51,10 @@ def make_finetune_step(model, num_classes: int, weight_decay: float):
         l_ce = cross_entropy_loss(logits, label)
         l_dice = dice_loss(logits, label, num_classes)
         total = 0.2 * l_ce + 0.8 * l_dice
-        grads = torch.autograd.grad(total, list(params.values()))
-        optimizer.step(list(grads), base_lr, [weights.get(k, 0.0) for k in params])
-        return {"loss": total.detach(), "loss_ce": l_ce.detach(),
-                "loss_dice": l_dice.detach()}
+        grads = all_reduce_mean_(torch.autograd.grad(total, list(params.values())))
+        optimizer.step(grads, base_lr, [weights.get(k, 0.0) for k in params])
+        return dict(zip(("loss", "loss_ce", "loss_dice"), all_reduce_mean_(
+            [total.detach(), l_ce.detach(), l_dice.detach()])))
 
     return optimizer, step
 
@@ -55,7 +63,9 @@ def surgical_trainer(args, model, snapshot_path: str, *,
                      rebuild_moments_every_batch: bool = True) -> str:
     """The grid fine-tuning loop (reference finetune.py:146-254); ``model``
     is a ``CSwinUnet`` in train mode on ``args.device``."""
-    setup_logging(snapshot_path)
+    rank, world = process_shard_info()
+    if rank == 0:
+        setup_logging(snapshot_path)
     logging.info(str(args))
     device = torch.device(args.device)
 
@@ -71,8 +81,10 @@ def surgical_trainer(args, model, snapshot_path: str, *,
     print(f"Using subset of {len(db_train)} samples (1/5 of original {dataset_size})")
 
     batch_size = args.batch_size
-    trainloader = DataLoader(db_train, batch_size, shuffle=True, seed=args.seed,
-                             num_workers=8)
+    if batch_size % world:
+        raise ValueError(f"batch_size {batch_size} not divisible by {world} processes")
+    trainloader = DataLoader(db_train, batch_size // world, shuffle=True, seed=args.seed,
+                             num_workers=8, num_shards=world, shard_index=rank)
 
     params = backbone_params(model)
     init_params = {k: v.detach().clone() for k, v in params.items()}
@@ -111,7 +123,7 @@ def surgical_trainer(args, model, snapshot_path: str, *,
                 iter_num += 1
                 logging.info(f"Loss: {float(aux['loss'])}")
 
-            if epoch % args.save_interval == 0:
+            if rank == 0 and epoch % args.save_interval == 0:
                 path = os.path.join(snapshot_path, f"model_lr{lr}_wd{wd}_epoch{epoch}.npz")
                 save_checkpoint(path, model.cswin_unet.state_dict())
                 logging.info(f"saved {path}")

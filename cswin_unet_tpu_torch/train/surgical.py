@@ -30,6 +30,7 @@ from typing import Callable
 
 import torch
 
+from ..parallel import all_reduce_mean_
 from ..utils.checkpoint import SEP, _jax_key
 
 def backbone_params(model) -> dict[str, torch.nn.Parameter]:
@@ -72,7 +73,9 @@ def surgical_layer_names(params: dict[str, torch.Tensor]) -> list[str]:
 def make_grad_fn(model, loss_fn: Callable):
     """``grad_fn(image, label) -> {name: gradient}`` of ``loss_fn(logits,
     label)`` over the backbone's parameters, the model in eval mode (no
-    drop-path) with gradients on; the model's mode is restored after."""
+    drop-path) with gradients on; the model's mode is restored after. Under
+    a process group the gradients are averaged over the ranks (the global
+    batch's, DDP's convention) before any norm is taken of them."""
     params = backbone_params(model)
 
     def grad_fn(image: torch.Tensor, label: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -84,8 +87,9 @@ def make_grad_fn(model, loss_fn: Callable):
                 grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         finally:
             model.train(was_training)
-        return {k: torch.zeros_like(p) if g is None else g
-                for (k, p), g in zip(params.items(), grads)}
+        grads = all_reduce_mean_(torch.zeros_like(p) if g is None else g
+                                 for p, g in zip(params.values(), grads))
+        return dict(zip(params, grads))
 
     return grad_fn
 

@@ -33,6 +33,7 @@ import torch
 from torch.func import functional_call
 
 from ..losses import cross_entropy_loss, dice_loss
+from ..parallel import all_reduce_mean_
 from .surgical import WeightedAdam, jax_layout, jax_name, torch_layout
 
 BACKBONE = "cswin_unet."  # the CSwinUnet attribute that holds the backbone
@@ -154,7 +155,9 @@ class TPGMTrainer:
                          label: torch.Tensor):
         """The loss on the projected weights and its gradient with respect to
         each constraint, the model in eval mode (its mode restored after).
-        Returns (loss, ratios, gradients), on the device."""
+        Under a process group the loss and the gradients are averaged over
+        the ranks (``image`` and ``label`` are this rank's shard). Returns
+        (loss, ratios, gradients), on the device."""
         leaves = {k: c.detach().requires_grad_() for k, c in self.constraints.items()}
         was_training = self.model.training
         self.model.eval()
@@ -170,8 +173,9 @@ class TPGMTrainer:
                 grads = torch.autograd.grad(loss, list(leaves.values()))
         finally:
             self.model.train(was_training)
-        return (loss.detach(), {k: r.detach() for k, r in ratios.items()},
-                dict(zip(leaves, grads)))
+        loss = loss.detach()
+        all_reduce_mean_([loss, *grads])
+        return loss, {k: r.detach() for k, r in ratios.items()}, dict(zip(leaves, grads))
 
     def step(self, params: dict[str, torch.Tensor], image: torch.Tensor,
              label: torch.Tensor):

@@ -16,6 +16,17 @@ for the device per step. With ``args.device_augment`` the host only resizes
 (``EvalResize``) and the step augments the batch on the device
 (``ops.augment.augment_batch``) before the forward, its draws from the same
 generator, as the JAX trainer does in its jitted step.
+
+Data parallel (``torchrun``, one process per GPU; ``parallel``): the model
+runs inside ``DistributedDataParallel``, each rank loads its shard of every
+epoch (``DataLoader(num_shards=world, shard_index=rank)``) at
+``batch_size · n_gpu / world`` rows, draws drop-path and augmentation for
+the global batch and keeps its rows, and the Dice sums are the global
+batch's (``losses``): a step equals one process's step on the ranks'
+concatenated batches. The logged losses are the global batch's, averaged
+over the ranks where ``MetricBuffer`` flushes. Rank 0 alone writes the log
+file, TensorBoard, the checkpoints and ``train_state.pt`` (the unwrapped
+model's keys), between barriers; ``args.resume`` loads on every rank.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ import torch
 from ..data import DataLoader, EvalResize, RandomGenerator, SynapseDataset, device_prefetch
 from ..losses import segmentation_loss
 from ..ops.augment import augment_batch
+from ..parallel import multihost_barrier, process_shard_info, wrap_ddp
 from ..utils.checkpoint import (TRAIN_STATE, restore_train_state, save_checkpoint,
                                 save_train_state)
 from ..utils.logging_utils import MetricBuffer, SummaryWriter, setup_logging
@@ -88,23 +100,30 @@ def make_train_step(model, optimizer, scheduler, num_classes: int, *,
 
 def trainer_synapse(args, model, snapshot_path: str) -> str:
     """End-to-end base training of ``model`` (a ``CSwinUnet`` in train mode,
-    on ``args.device``)."""
-    setup_logging(snapshot_path)
+    on ``args.device``; data parallel under a process group)."""
+    rank, world = process_shard_info()
+    main = rank == 0
+    if main:
+        setup_logging(snapshot_path)
     logging.info(str(args))
     device = torch.device(args.device)
 
     base_lr = args.base_lr
     num_classes = args.num_classes
     batch_size = args.batch_size * getattr(args, "n_gpu", 1)
+    if batch_size % world:
+        raise ValueError(f"batch_size {batch_size} not divisible by {world} processes")
     device_augment = bool(getattr(args, "device_augment", False))
     size = [args.img_size, args.img_size]
     db_train = SynapseDataset(base_dir=args.root_path, list_dir=args.list_dir,
                               split="train",
                               transform=EvalResize(size) if device_augment
                               else RandomGenerator(size))
-    print(f"The length of train set is: {len(db_train)}")
-    trainloader = DataLoader(db_train, batch_size, shuffle=True, seed=args.seed,
-                             num_workers=getattr(args, "num_workers", 8))
+    if main:
+        print(f"The length of train set is: {len(db_train)}")
+    trainloader = DataLoader(db_train, batch_size // world, shuffle=True, seed=args.seed,
+                             num_workers=getattr(args, "num_workers", 8),
+                             num_shards=world, shard_index=rank)
 
     max_epoch = args.max_epochs
     max_iterations = max_epoch * len(trainloader)
@@ -114,11 +133,9 @@ def trainer_synapse(args, model, snapshot_path: str) -> str:
     model.train()
     optimizer, scheduler = make_optimizer(model.parameters(), base_lr,
                                           max_iterations)
-    train_step = make_train_step(model, optimizer, scheduler, num_classes,
-                                 device_augment=device_augment)
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
-    writer = SummaryWriter(os.path.join(snapshot_path, "log"))
+    writer = SummaryWriter(os.path.join(snapshot_path, "log")) if main else None
     iter_num = start_epoch = 0
     resume = getattr(args, "resume", None)
     if resume:
@@ -128,10 +145,14 @@ def trainer_synapse(args, model, snapshot_path: str) -> str:
                                                     generator)
         trainloader.epoch = start_epoch
         logging.info(f"resumed from {resume} at iteration {iter_num} (epoch {start_epoch})")
+    train_step = make_train_step(wrap_ddp(model, device), optimizer, scheduler,
+                                 num_classes, device_augment=device_augment)
     t_start = time.time()
     metrics = MetricBuffer(flush_every=20)
 
     def emit_step(it, v):
+        if not main:
+            return
         writer.add_scalar("info/lr", v["lr"], it)
         writer.add_scalar("info/total_loss", v["loss"], it)
         writer.add_scalar("info/loss_ce", v["loss_ce"], it)
@@ -166,15 +187,19 @@ def trainer_synapse(args, model, snapshot_path: str) -> str:
         is_last = epoch_num >= max_epoch - 1
         if (epoch_num > int(max_epoch / 2)
                 and (epoch_num + 1) % save_interval == 0) or is_last:
-            save_mode_path = os.path.join(snapshot_path, f"epoch_{epoch_num}.npz")
-            save_checkpoint(save_mode_path, model.cswin_unet.state_dict())
-            logging.info(f"save model to {save_mode_path}")
-            save_train_state(os.path.join(snapshot_path, TRAIN_STATE), model, optimizer,
-                             scheduler, generator, iter_num, epoch_num + 1)
+            multihost_barrier("pre-checkpoint")  # every rank done with the epoch
+            if main:  # the parameters are the same on every rank; one writes
+                save_mode_path = os.path.join(snapshot_path, f"epoch_{epoch_num}.npz")
+                save_checkpoint(save_mode_path, model.cswin_unet.state_dict())
+                logging.info(f"save model to {save_mode_path}")
+                save_train_state(os.path.join(snapshot_path, TRAIN_STATE), model,
+                                 optimizer, scheduler, generator, iter_num, epoch_num + 1)
+            multihost_barrier("post-checkpoint")
         if is_last:
             break
 
     logging.info(f"Training finished in {time.time() - t_start:.1f}s "
                  f"({iter_num} iterations)")
-    writer.close()
+    if main:
+        writer.close()
     return "Training Finished!"

@@ -1,4 +1,4 @@
-"""Continual-learning CLI (KD + surgical fine-tuning + TPGM) on one device:
+"""Continual-learning CLI (KD + surgical fine-tuning + TPGM):
 
     python -m cswin_unet_tpu_torch.universal_train --cfg C --stage 1|2 \
         --pretrained_path CK --root_path DATA --list_dir LISTS --output_dir OUT \
@@ -6,8 +6,10 @@
 
 The argparse surface of the root ``universal_train.py`` (reference
 universal_train.py:26-118), plus ``--device`` (default ``cuda``; ``cuda``
-without a card raises). It builds the old model and loads ``--pretrained_path``
-(the JAX package's ``.npz``) onto it, keys that match only, expands the
+without a card raises; one process per GPU under ``python -m
+torch.distributed.run --nproc_per_node N``, ``train.continual``). It
+builds the old model and loads ``--pretrained_path`` (the JAX package's
+``.npz``) onto it, keys that match only, expands the
 head from the old classes to old + new − 1 (a shared background), and runs
 ``train.continual.trainer_continual_surgical_tpgm``: checkpoints
 ``continual_surgical_tpgm_stage{S}_epoch_{E}.npz`` and ``..._final.npz``.
@@ -84,15 +86,24 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> str:
     from .config import get_config
-    from .models import build_model
-    from .train.continual import get_stage_info, trainer_continual_surgical_tpgm
-    from .utils.checkpoint import expand_classifier, load_checkpoint, load_into
+    from .parallel import destroy_distributed, init_distributed
 
     args = build_parser().parse_args(argv)
     config = get_config(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but no CUDA device is available")
+    # Under torchrun: the process group, and cuda:LOCAL_RANK as the device
+    # (a CUDA device without a card raises).
+    _, _, device = init_distributed(args.device)
+    args.device = str(device)
+    try:
+        return _run(args, config, device)
+    finally:
+        destroy_distributed()
+
+
+def _run(args, config, device: torch.device) -> str:
+    from .models import build_model
+    from .train.continual import get_stage_info, trainer_continual_surgical_tpgm
+    from .utils.checkpoint import expand_classifier, load_checkpoint, load_into
 
     random.seed(args.seed)
     np.random.seed(args.seed)

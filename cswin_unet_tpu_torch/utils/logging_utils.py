@@ -12,6 +12,8 @@ import sys
 import numpy as np
 import torch
 
+from ..parallel import all_reduce_mean_
+
 
 def setup_logging(snapshot_path: str, filename: str = "log.txt") -> None:
     os.makedirs(snapshot_path, exist_ok=True)
@@ -55,6 +57,10 @@ class MetricBuffer:
             self.flush()
 
     def flush(self) -> None:
+        # Under a process group the 0-d values are averaged over the ranks,
+        # in place: one collective a flush, not a host sync a step.
+        all_reduce_mean_([v for _, values, _ in self._buf for v in values.values()
+                          if isinstance(v, torch.Tensor) and v.ndim == 0])
         for step, values, emit in self._buf:
             emit(step, _to_host(values))
         self._buf.clear()

@@ -14,6 +14,8 @@ default); labels by the margin rule (a mismatch counts only where the plain
 top-2 logit gap exceeds 0.02·max|logit|).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -968,3 +970,120 @@ def test_stripe_attention_bwd_smem_matches_the_kernel(dev, L, d):
     from cswin_unet_tpu_torch.ops.cuda.build import library
 
     assert library().cswin_stripe_attention_bwd_smem(L, d) == K.stripe_attention_bwd_smem(L, d)
+
+
+# ---- data parallelism on the card ----------------------------------------
+
+GPU_DP = dict(img_size=128, embed_dim=64, depth=(1, 1, 1, 1), split_size=(1, 2, 2, 2),
+              num_heads=(2, 4, 8, 16), num_classes=4)  # head dim 16 / 32: compiled
+
+
+def _dp_model(train: bool):
+    from cswin_unet_tpu_torch.models import CSwinUnet, CSWinUNet
+
+    torch.manual_seed(0)
+    model = CSwinUnet(CSWinUNet(drop_path_rate=0.2 if train else 0.0, **GPU_DP)).cuda()
+    return model.train(train)
+
+
+def _dp_batch():
+    rng = np.random.default_rng(31)
+    return (torch.from_numpy(rng.standard_normal((8, 128, 128, 1)).astype(np.float32)),
+            torch.from_numpy(rng.integers(0, 4, (8, 128, 128)).astype(np.int64)))
+
+
+def _dp_steps(rank):
+    """Two steps (drop-path and ``device_augment`` live) of ``rank``'s rows
+    of the batch, in DDP under a process group; (losses, parameters)."""
+    from cswin_unet_tpu_torch.parallel import all_reduce_mean_, wrap_ddp
+    from cswin_unet_tpu_torch.train import make_optimizer, make_train_step
+
+    img, lab = _dp_batch()
+    if rank is not None:
+        img, lab = img[rank * 4:(rank + 1) * 4], lab[rank * 4:(rank + 1) * 4]
+    model = _dp_model(True)
+    opt, sched = make_optimizer(model.parameters(), 0.05, 100)
+    dev = torch.device("cuda", 0)
+    step = make_train_step(wrap_ddp(model, dev), opt, sched, 4, device_augment=True)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    losses = [float(all_reduce_mean_([step(img.to(dev), lab.to(dev), gen)["loss"]])[0])
+              for _ in range(2)]
+    return losses, {k: v.detach().float().cpu() for k, v in model.named_parameters()}
+
+
+def _dp_rank(rank, port, out):
+    from datetime import timedelta
+
+    from cswin_unet_tpu_torch.parallel import destroy_distributed, init_distributed
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE="2", LOCAL_RANK="0")
+    init_distributed("cuda", backend="gloo", timeout=timedelta(seconds=60))
+    try:
+        torch.save(_dp_steps(rank), os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        destroy_distributed()
+
+
+def test_two_gloo_ranks_on_the_card_equal_one_process(dev, tmp_path):
+    """Two gloo ranks on the one card, 4 rows each, against one process on
+    the 8 rows: losses and every parameter within relative L2 0.02 (bf16
+    kernels; only the order of the sums differs)."""
+    import multiprocessing as mp
+    import socket
+    import time
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_dp_rank, args=(r, port, str(tmp_path))) for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 240
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    left = [p for p in procs if p.is_alive()]
+    for p in left:
+        p.kill()
+        p.join(10)
+    assert not left and [p.exitcode for p in procs] == [0, 0]
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    want_losses, want = _dp_steps(None)
+    before = {k: v.detach().float().cpu() for k, v in _dp_model(True).named_parameters()}
+    for losses, params in ranks:
+        np.testing.assert_allclose(losses, want_losses, rtol=0.02)
+        for k in want:
+            assert _rel_l2(params[k] - before[k], want[k] - before[k]) <= 0.02, k
+
+
+def test_split_inferencer_on_one_card(dev):
+    """``VolumeInferencer(devices=[cuda:0, cuda:0])``: two replicas, each
+    part under its device; the labels of 11 slices equal one device's and
+    every kernel launches twice as often."""
+    from cswin_unet_tpu_torch.eval.inference import VolumeInferencer
+
+    model = _dp_model(False)
+    x = np.random.default_rng(32).standard_normal((11, 128, 128)).astype(np.float32)
+    got = []
+    for devices in (None, [dev, dev]):
+        inf = VolumeInferencer(model, device=dev, patch_size=(128, 128), batch_slices=8,
+                               devices=devices)
+        K.reset_launch_counts()
+        got.append((inf.predict_slices(x), K.launch_counts()))
+    (one, c1), (two, c2) = got
+    np.testing.assert_array_equal(two, one)
+    assert any(c1.values()) and all(c2[k] == 2 * c1[k] for k in c1)
+
+
+def test_kernel_refuses_a_tensor_off_the_current_device(dev, monkeypatch):
+    """The kernels launch on the current device: a tensor on another one is
+    refused with both devices named, before any launch."""
+    x = torch.zeros(4, 64, device=dev, dtype=torch.bfloat16)
+    w, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    before = K.layernorm.launches
+    # torch's own binding stands in for a second card, which a one-card host lacks
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: x.device.index + 1)
+    with pytest.raises(ValueError, match=rf"cuda:{x.device.index}.*cuda:{x.device.index + 1}"):
+        K.layernorm(x, w, b)
+    assert K.layernorm.launches == before
