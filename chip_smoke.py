@@ -3132,12 +3132,34 @@ def compare_lab(dev, tally: KernelTally) -> None:
                   f"library_nchw_ms={nchw:.4f}", flush=True)
     require(n_cases == dict(lepe_windows=10, window_attention=15, ln_mlp=5, block_one=4),
             f"lab kernel cases: {n_cases}")
-    chain, = (c for c in L.mlp_cases(inp, LAB_BATCH, (1,)) if c.launches.get("gemm"))
-    chain_ms = time_ms(chain.run, reps=LAB_REPS, primed=True)
-    tally.rows["ln_mlp"]["chain_ms"] = chain_ms
-    print(f"[kernel] ln_mlp: the block chain's three launches on the same rows "
-          f"(layernorm, gemm + GELU, gemm + residual) chain_ms={chain_ms:.4f}; no single "
-          "PyTorch call computes the function (library_ms none)", flush=True)
+    mlp_chain_total = 0.0
+    for c in cases:  # each ln_mlp mode beside the port's unfused launches of it
+        if "ln_mlp" not in c.launches:
+            continue
+        a = c.args
+        chain = lambda a=a: L.mlp_chain(a["x"], a["weights"], a["act"], a["ln"], a["fold"])
+        err = rel_l2(chain().float(), c.plain().float())
+        ms = time_ms(chain, reps=LAB_REPS, primed=True)
+        mlp_chain_total += ms
+        print(f"[kernel] ln_mlp {c.name}: the chain of unfused launches on the same rows "
+              f"(block_lab.mlp_chain) chain_ms={ms:.4f} (rel_l2 {err:.3e} vs plain); no "
+              "single PyTorch call computes the function (library_ms none)", flush=True)
+        require(err <= TOL, f"ln_mlp {c.name}: the chain's rel_l2 {err:.3e}")
+    tally.rows["ln_mlp"]["chain_ms"] = mlp_chain_total
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for c in plain_geometry[::2]:
+        v = c.args["v"]
+        plan = K.lepe_windows_kernel_plan(v.shape[0], c.args["sp_h"], c.args["sp_w"], v.shape[-1],
+                                          c.args["sp_h"], c.args["sp_w"])
+        print(f"[kernel] lepe_windows {c.name} plan {plan}", flush=True)
+        require(plan == K.lepe_windows_plan(v.shape[0], c.args["sp_h"], c.args["sp_w"],
+                                            v.shape[-1], c.args["sp_h"], c.args["sp_w"],
+                                            ctas_per_sm=plan.ctas_per_sm, sms=sms),
+                f"lepe_windows {c.name}: the kernel's plan is not lepe_windows_plan's")
+    plan = K.ln_mlp_kernel_plan(x.numel() // x.shape[-1])
+    print(f"[kernel] ln_mlp {tuple(x.shape)} plan {plan}", flush=True)
+    require(plan == K.ln_mlp_plan(x.numel() // x.shape[-1], ctas_per_sm=plan.ctas_per_sm,
+                                  sms=sms), "ln_mlp: the kernel's plan is not ln_mlp_plan's")
 
     counts = K.launch_counts()
     per_case = 2 + 5 * LAB_REPS
@@ -3370,19 +3392,22 @@ def main() -> int:
         require(bool(spills) and all(st == ld == 0 for _, _, st, ld in spills),
                 f"block_pair: ptxas reports spills {spills}")
         for entry in ("block_one_kernel", "layernorm_kernel", "layernorm_bwd_kernel",
-                      "carafe_kernel", "edt_pass_kernel"):
+                      "carafe_kernel", "edt_pass_kernel", "lepe_windows_kernel",
+                      "ln_mlp_kernel"):
             res = ptxas_resources(build.build_log, entry)
             print(f"[build] {entry} (entry, registers, spill stores, spill loads): {res}",
                   flush=True)
             require(bool(res), f"{entry}: no ptxas resource line")
+            if entry in ("lepe_windows_kernel", "ln_mlp_kernel"):  # the lab's persistent kernels
+                require(all(st == ld == 0 for _, _, st, ld in res), f"{entry}: spills {res}")
     # The tiles' products run on the tensor cores: the SASS of the attention
-    # and GEMM kernels, of the backward's weight gradient and attention and
-    # of the CARAFE kernel's encoder conv holds HMMA (mma.sync) or HGMMA
-    # (wgmma). A mangled name carries the length of the kernel's name before
-    # it, then I (template) or E.
+    # and GEMM kernels, of the backward's weight gradient and attention, of
+    # the CARAFE kernel's encoder conv and of the lab's ln_mlp holds HMMA
+    # (mma.sync) or HGMMA (wgmma). A mangled name carries the length of the
+    # kernel's name before it, then I (template) or E.
     tc = tensor_core_ops(str(build.library_path()), build.cuobjdump())
     for family in ("stripe_attention_kernel", "gemm_kernel", "wgrad_kernel",
-                   "stripe_attention_bwd_kernel", "carafe_kernel"):
+                   "stripe_attention_bwd_kernel", "carafe_kernel", "ln_mlp_kernel"):
         per = [c for name, c in tc.items() if re.search(rf"\d{family}[IE]", name)]
         print(f"[build] {family}: {sum(per)} tensor-core instructions (HMMA / HGMMA in "
               f"cuobjdump -sass) over {len(per)} instances, per instance {per}", flush=True)

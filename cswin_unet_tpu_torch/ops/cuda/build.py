@@ -53,7 +53,9 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _I, _P),
     "cswin_window_attention": (_P, _P, _P, _LL, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                                _I, _P),
+    "cswin_lepe_windows_plan": (_I, _I, _I, _I, _I, _I, _I, _I, _P),
     "cswin_ln_mlp": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P),
+    "cswin_ln_mlp_plan": (_I, _I, _I, _I, _P),
 }
 
 # Entry points that return something other than a cudaError_t (a count).

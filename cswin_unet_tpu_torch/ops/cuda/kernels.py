@@ -1564,6 +1564,121 @@ def _lepe_taps(taps: torch.Tensor, bias: torch.Tensor | None, c: int, swap: bool
     return taps.reshape(9, c).to(tap_dtype).contiguous(), bias.to(tap_dtype).contiguous()
 
 
+# lepe_windows.cu's constants: THREADS, CH, SEG, STAGES, MAX_NB, TILE_BYTES
+_LEPE_THREADS, _LEPE_CH, _LEPE_SEG, _LEPE_STAGES = 128, 4, 7, 2
+_LEPE_MAX_NB, _LEPE_TILE_BYTES = 16, 14 * 1024
+SMEM_MAX = 232448  # persistent.cuh SMEM_MAX: the H100's 227 KB a block
+
+
+class LepePlan(NamedTuple):
+    """How ``lepe_windows`` cuts its work (``lepe_windows.cu``): a tile is
+    ``group`` consecutive windows times a channel block of ``nb`` output
+    chunks of 8 channels, ``slots`` chunks staged a pixel (with ``fold`` the
+    chunks of both halves, ``2·nb``); ``blocks`` channel blocks, ``tiles``
+    tiles, the channel block fastest. A ring of ``stages`` tiles takes
+    ``smem_bytes``; ``grid`` persistent CTAs (one wave of ``ctas_per_sm``
+    an SM) walk tiles cta, cta + grid, ...; a thread takes ``CH`` channels
+    of a chunk and walks ``seg`` outputs along a window row."""
+    nb: int
+    slots: int
+    blocks: int
+    group: int
+    tiles: int
+    smem_bytes: int
+    ctas_per_sm: int
+    grid: int
+    seg: int = _LEPE_SEG
+    stages: int = _LEPE_STAGES
+
+
+def lepe_windows_plan(B: int, H: int, W: int, c: int, sp_h: int, sp_w: int,
+                      fold: bool = False, ctas_per_sm: int = 4, sms: int = _SMS) -> LepePlan:
+    """Mirrored from ``lepe_windows.cu::make_plan``: ``nb`` the largest power
+    of two up to 16 that divides the output chunks, keeps a pixel's threads
+    within a warp (the fold's shuffles) and one window's staged chunks
+    within the 14 KB a tile aims at (down to one chunk), as many whole
+    windows a tile as fit that; ``ctas_per_sm`` is the occupancy
+    API's answer on the card (the wrapper does not need it: the kernel sizes
+    its own wave). Raises for a geometry the kernel does not take, and for a
+    window whose chunk (pair) does not fit two stages in 227 KB."""
+    if (B < 1 or sp_h < 1 or sp_w < 1 or H % sp_h or W % sp_w or c < 8 or c % 8
+            or (fold and c % 16) or B * H * W > 2**31 - 1):
+        raise ValueError(f"lepe_windows: bad geometry B={B} H={H} W={W} window=({sp_h},"
+                         f"{sp_w}) c={c} fold={fold}")
+    windows, px = B * (H // sp_h) * (W // sp_w), sp_h * sp_w
+    out_chunks = (c // 2 if fold else c) // 8
+    per_window = lambda n: px * (2 * n if fold else n) * 16
+    parts = 8 // _LEPE_CH  # threads a staged chunk
+    max_nb = min(_LEPE_MAX_NB, 32 // (parts * (2 if fold else 1)))
+    nb = 1
+    while nb * 2 <= max_nb and out_chunks % (nb * 2) == 0:
+        nb *= 2
+    while nb > 1 and per_window(nb) > _LEPE_TILE_BYTES:
+        nb //= 2
+    if _LEPE_STAGES * per_window(nb) > SMEM_MAX:
+        raise ValueError(f"lepe_windows: a window of {px} pixels takes {per_window(nb)} bytes "
+                         f"a chunk{' pair' if fold else ''}; two ring stages do not fit 227 KB")
+    group = max(1, min(windows, _LEPE_TILE_BYTES // per_window(nb)))
+    blocks = out_chunks // nb
+    tiles = -(-windows // group) * blocks
+    if tiles > 2**31 - 1:
+        raise ValueError(f"lepe_windows: {tiles} tiles")
+    return LepePlan(nb, 2 * nb if fold else nb, blocks, group, tiles,
+                    _LEPE_STAGES * group * per_window(nb), ctas_per_sm,
+                    min(tiles, ctas_per_sm * sms))
+
+
+def lepe_windows_outputs(plan: LepePlan, windows: int, sp_h: int, sp_w: int, cta: int):
+    """The outputs CTA ``cta`` stores, in the kernel's loop order, as (window,
+    row, column, first output channel of ``CH``): tiles cta, cta + grid, ...;
+    in a tile the items (window, row, segment, slot, part), the part of a
+    chunk fastest, each walking ``seg`` columns of its row; with fold the
+    lower slot of a pair stores."""
+    nseg, parts = -(-sp_w // plan.seg), 8 // _LEPE_CH
+    for t in range(cta, plan.tiles, plan.grid):
+        wg, kb = divmod(t, plan.blocks)
+        for it in range(plan.group * sp_h * nseg * plan.slots * parts):
+            r, lane = divmod(it, plan.slots * parts)
+            slot, part = divmod(lane, parts)
+            gy, seg = divmod(r, nseg)
+            g, y = divmod(gy, sp_h)
+            win = wg * plan.group + g
+            if win < windows and slot < plan.nb:
+                for x in range(seg * plan.seg, min(sp_w, (seg + 1) * plan.seg)):
+                    yield win, y, x, (kb * plan.nb + slot) * 8 + part * _LEPE_CH
+
+
+def lepe_windows_staged(plan: LepePlan, windows: int, px: int, half: int, t: int):
+    """The (window, pixel, input chunk) copies tile ``t`` stages, in the
+    kernel's order ([window][pixel][slot]); ``half``: with fold the first
+    chunk of the second half, the partner of slot ``s`` being ``s + nb``."""
+    wg, kb = divmod(t, plan.blocks)
+    for g in range(min(plan.group, windows - wg * plan.group)):
+        for p in range(px):
+            for s in range(plan.slots):
+                yield (wg * plan.group + g, p,
+                       half + kb * plan.nb + s - plan.nb if s >= plan.nb else kb * plan.nb + s)
+
+
+def div_magic(d: int) -> tuple[int, int]:
+    """(m, l) of ``lepe_windows.cu``'s ``Div``: for 0 <= n < 2**31,
+    ``n // d == ((n * m >> 32) + n) >> l``, l = ceil(log2 d)."""
+    l = (d - 1).bit_length()
+    return (((1 << l) - d) << 32) // d + 1, l
+
+
+def lepe_windows_kernel_plan(B: int, H: int, W: int, c: int, sp_h: int, sp_w: int,
+                             fold: bool = False,
+                             tap_dtype: torch.dtype = torch.float32) -> LepePlan:
+    """The plan the kernel takes for this geometry on the current device, as
+    ``cswin_lepe_windows_plan`` reports it (the card's occupancy and SMs)."""
+    info = (ctypes.c_int * 8)()
+    check(library().cswin_lepe_windows_plan(B, H, W, c, sp_h, sp_w, int(fold),
+                                            int(tap_dtype == torch.bfloat16), info),
+          "lepe_windows_plan")
+    return LepePlan(*info)
+
+
 def lepe_windows_plain(v: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor | None,
                        *, sp_h: int, sp_w: int, swap: bool = False,
                        taps2: torch.Tensor | None = None,
@@ -1643,12 +1758,8 @@ def lepe_windows(v: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor | None,
             raise ValueError(f"{name}: channels and pixel stride must be multiples of "
                              "8 and the data 16-byte aligned")
     c = sum(t.shape[-1] for t in views)
-    if H % sp_h or W % sp_w or (fold and c % 16):
-        raise ValueError(f"bad geometry H={H} W={W} window=({sp_h},{sp_w}) c={c} "
-                         f"fold={fold}")
+    lepe_windows_plan(B, H, W, c, sp_h, sp_w, fold)  # refuses what the kernel does not take
     windows = B * (H // sp_h) * (W // sp_w)
-    if B * H * W > 2**31 - 1:
-        raise ValueError("too many pixels for one launch")
     for name, t in (("taps", taps), ("bias", bias), ("taps2", taps2), ("bias2", bias2)):
         if t is not None and t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
@@ -1750,6 +1861,94 @@ def _activate(h: torch.Tensor, act: str) -> torch.Tensor:
     return h * (h + 0.5).clamp(0.0, 1.0)
 
 
+# ln_mlp.cu's constants: C, HID, BM, WARPS, STAGES
+_MLP_C, _MLP_HIDDEN, _MLP_ROWS, _MLP_WARPS, _MLP_STAGES = 64, 256, 192, 12, 2
+
+
+class LnMlpPlan(NamedTuple):
+    """How ``ln_mlp`` cuts its rows (``ln_mlp.cu``): tiles of
+    ``rows_per_tile`` rows, 64 a warpgroup and 16 a warp of ``warps``,
+    through a ring of ``stages`` tiles beside both weight matrices in
+    ``smem_bytes``; ``grid`` persistent CTAs (one wave of ``ctas_per_sm`` an
+    SM) walk tiles cta, cta + grid, ..."""
+    rows_per_tile: int
+    stages: int
+    smem_bytes: int
+    tiles: int
+    ctas_per_sm: int
+    grid: int
+    warps: int = _MLP_WARPS
+
+
+def ln_mlp_smem() -> int:
+    """``sizeof(Smem)`` of ``ln_mlp.cu``: fc1_w and fc2_w, the biases, the
+    ring and the normalised tile (rows padded by 8), in 128-byte units."""
+    ldx = _MLP_C + 8
+    size = (2 * (2 * _MLP_HIDDEN * _MLP_C + (_MLP_STAGES + 1) * _MLP_ROWS * ldx)
+             + 4 * (_MLP_HIDDEN + _MLP_C))
+    return -(-size // 128) * 128
+
+
+def ln_mlp_plan(rows: int, C: int = _MLP_C, hidden: int = _MLP_HIDDEN, ctas_per_sm: int = 1,
+                sms: int = _SMS) -> LnMlpPlan:
+    """Mirrored from ``ln_mlp.cu::plan``; ``ctas_per_sm`` is the occupancy
+    API's answer on the card (one: the shared memory). Raises for a width
+    or a row count the kernel does not take."""
+    if C != _MLP_C or hidden != _MLP_HIDDEN:
+        raise ValueError(f"ln_mlp is compiled for C={_MLP_C} with hidden {_MLP_HIDDEN}, got "
+                         f"C={C}, hidden={hidden}")
+    if not 1 <= rows <= 2**31 - 1:
+        raise ValueError(f"ln_mlp: {rows} rows")
+    tiles = -(-rows // _MLP_ROWS)
+    return LnMlpPlan(_MLP_ROWS, _MLP_STAGES, ln_mlp_smem(), tiles, ctas_per_sm,
+                     min(tiles, ctas_per_sm * sms))
+
+
+def ln_mlp_rows(plan: LnMlpPlan, rows: int, cta: int) -> list[int]:
+    """The rows CTA ``cta`` takes, in its loop order: tiles cta, cta + grid,
+    ..., each ``rows_per_tile`` rows, the last cut at ``rows``."""
+    return [r for t in range(cta, plan.tiles, plan.grid)
+            for r in range(t * plan.rows_per_tile, min(rows, (t + 1) * plan.rows_per_tile))]
+
+
+def mma_fragment(kind: str, lane: int) -> list[tuple[int, int]]:
+    """The (row, column) that each value of ``lane`` holds in PTX's
+    mma.m16n8k16 fragments (``common.cuh``), in register order, two bf16
+    halves a register: ``"a"`` the 16x16 A (four registers), ``"b"`` the
+    16x8 B as (k, n) (two registers), ``"c"`` the 16x8 float32 C (four
+    values)."""
+    g, q = divmod(lane, 4)
+    if kind == "a":
+        return [(g + 8 * (r % 2), 2 * q + h + 8 * (r // 2)) for r in range(4) for h in range(2)]
+    if kind == "b":
+        return [(2 * q + h + 8 * r, g) for r in range(2) for h in range(2)]
+    return [(g + 8 * (e // 2), 2 * q + e % 2) for e in range(4)]
+
+
+def repack_c_to_a(c: np.ndarray) -> np.ndarray:
+    """``ln_mlp.cu``'s repack of fc1's accumulators as fc2's A operand, per
+    lane: c (lanes, 2k, 4), the values of 2k adjacent n8 C tiles, to
+    (lanes, k, 8), the k16 A fragments in register order (pairs of values
+    before their bf16 packing): tiles 2i and 2i + 1 give a0 a1 and a2 a3 of
+    fragment i."""
+    lanes, tiles, _ = c.shape
+    a = np.empty((lanes, tiles // 2, 4, 2), c.dtype)
+    for j in range(tiles):
+        a[:, j // 2, (j % 2) * 2] = c[:, j, 0:2]
+        a[:, j // 2, (j % 2) * 2 + 1] = c[:, j, 2:4]
+    return a.reshape(lanes, tiles // 2, 8)
+
+
+def ln_mlp_kernel_plan(rows: int, act: str = "gelu", ln: bool = True,
+                       fold: bool = False) -> LnMlpPlan:
+    """The plan the kernel takes for ``rows`` rows in this mode on the
+    current device, as ``cswin_ln_mlp_plan`` reports it."""
+    info = (ctypes.c_int * 6)()
+    check(library().cswin_ln_mlp_plan(rows, _ACTIVATIONS[act], int(ln), int(fold), info),
+          "ln_mlp_plan")
+    return LnMlpPlan(*info)
+
+
 def ln_mlp_plain(x: torch.Tensor, norm_w: torch.Tensor | None,
                  norm_b: torch.Tensor | None, fc1_w: torch.Tensor,
                  fc1_b: torch.Tensor | None, fc2_w: torch.Tensor | None = None,
@@ -1801,26 +2000,22 @@ def ln_mlp(x: torch.Tensor, norm_w: torch.Tensor | None, norm_b: torch.Tensor | 
     C = x.shape[-1]
     hidden = fc1_w.shape[0]
     dev = x.device
-    if C != 64 or hidden != 256:
-        raise ValueError(f"ln_mlp is compiled for C=64 with hidden 256, got C={C}, "
-                         f"hidden={hidden}")
+    rows = x.numel() // C
+    ln_mlp_plan(rows, C, hidden)  # refuses what the kernel does not take
     _require(x, "x", torch.bfloat16, dev)
     _require(fc1_w, "fc1_w", torch.bfloat16, dev, (hidden, C))
     if ln:
         _require(norm_w, "norm_w", torch.float32, dev, (C,))
         _require(norm_b, "norm_b", torch.float32, dev, (C,))
-        _require_aligned(x=x, norm_w=norm_w, norm_b=norm_b)
+        _require_aligned(norm_w=norm_w, norm_b=norm_b)
     if fc1_b is not None:
         _require(fc1_b, "fc1_b", torch.float32, dev, (hidden,))
     if not fold:
         _require(fc2_w, "fc2_w", torch.bfloat16, dev, (C, hidden))
         if fc2_b is not None:
             _require(fc2_b, "fc2_b", torch.float32, dev, (C,))
-    rows = x.numel() // C
-    if rows < 1 or (rows + 63) // 64 > 2**31 - 1:
-        raise ValueError(f"ln_mlp: {rows} rows")
-    if fc1_w.data_ptr() % 16 or (not fold and fc2_w.data_ptr() % 16):
-        raise ValueError("ln_mlp needs 16-byte aligned weights")
+    if any(t.data_ptr() % 16 for t in (x, fc1_w) + (() if fold else (fc2_w,))):
+        raise ValueError("ln_mlp needs 16-byte aligned x and weights (16-byte copies)")
     out = torch.empty_like(x)
     err = library().cswin_ln_mlp(
         x.data_ptr(), _ptr(norm_w if ln else None), _ptr(norm_b if ln else None),

@@ -329,17 +329,36 @@ def mlp_case(name: str, x: torch.Tensor, p: dict, act: str = "gelu", ln: bool = 
     kw = dict(act=act, ln=ln, fold=fold)
     return Case(name, tuple(x.shape), lambda: K.ln_mlp(x, *args, **kw),
                 lambda: K.ln_mlp_plain(x, *args, **kw), {"ln_mlp": 1},
+                args=dict(x=x, weights=args, **kw),
                 **mlp_work(x, [t for t in args if t is not None], act, ln, fold))
 
 
 def chain_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
     """The MLP half as the block chain runs it: three launches, the hidden
     through memory."""
-    rows = x.reshape(-1, x.shape[-1])
-    y = K.layernorm(rows, p["nw"], p["nb"])
-    h = K.gemm(y, p["fc1_w"], p["fc1_b"], epilogue="gelu")
-    return K.gemm(h, p["fc2_w"], p["fc2_b"], residual=rows,
-                  epilogue="residual").view(x.shape)
+    return mlp_chain(x, (p["nw"], p["nb"], p["fc1_w"], p["fc1_b"], p["fc2_w"], p["fc2_b"]))
+
+
+def mlp_chain(x: torch.Tensor, weights, act: str = "gelu", ln: bool = True,
+              fold: bool = False) -> torch.Tensor:
+    """``ln_mlp``'s function in one of its modes through the port's unfused
+    launches, the hidden through memory: ``layernorm`` (with ``ln``), fc1 by
+    ``gemm`` (its GELU epilogue, or its bias epilogue and the clamp as torch
+    ops), then fc2 by ``gemm`` with the residual, or with ``fold`` the sum of
+    the hidden's C-wide groups in float32 (torch). ``weights``: ``ln_mlp``'s
+    (norm_w, norm_b, fc1_w, fc1_b[, fc2_w, fc2_b])."""
+    nw, nb, fc1_w, fc1_b, *fc2 = weights
+    C = x.shape[-1]
+    rows = x.reshape(-1, C)
+    y = K.layernorm(rows, nw, nb) if ln else rows
+    if act == "gelu":
+        h = K.gemm(y, fc1_w, fc1_b, epilogue="gelu")
+    else:
+        h = K.gemm(y, fc1_w, fc1_b)
+        h = h * (h + 0.5).clamp(0.0, 1.0)
+    if fold:
+        return h.view(-1, h.shape[-1] // C, C).float().sum(1).to(x.dtype).view(x.shape)
+    return K.gemm(h, fc2[0], fc2[1], residual=rows, epilogue="residual").view(x.shape)
 
 
 def copy_case(name: str, x: torch.Tensor, heads: int) -> Case:

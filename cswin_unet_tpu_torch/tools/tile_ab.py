@@ -29,6 +29,21 @@ printed. ``--table`` prints the files side by side, one
 column each, in the order given (parent, change, change, parent for an A/B
 in turns).
 
+The lab's rows (``attn``, ``attn3``, ``lepe``, ``mlp``) carry a SHA-256 of
+each case's output (``sha256``, the first 16 hex digits), so that ``--table``
+over parent, change, change, parent shows beside the times in turns whether
+a redesigned kernel gives the parent's bits.
+
+``--lab`` times only the block lab, every subcommand that runs
+``lepe_windows`` or ``ln_mlp`` beside the attention ones (``lepe``,
+``bisect``, ``attn``, ``attn3``, ``mlp``, ``lane``, ``parts``), each row with
+its digest, and ``ln_mlp`` in its five modes (``MLP_MODES``, stage 1, B =
+128) beside the chain of the port's unfused launches for the same mode
+(where the root's lab has ``mlp_chain``). ``--save PATH`` writes the five
+modes' outputs (``torch.save``, ~260 MB: keep it out of ``chiprun_out/``);
+``--ulps A B`` prints, per mode, the largest difference of two such files in
+bf16 ulps (adjacent bf16 values are one apart) and how many values differ.
+
 ``--forward`` times instead the root's whole serving forward end to end:
 one 32-slice tiny-224 chunk to labels (``model(x, emit="labels")`` on the
 fused route, random weights from a seed), CUDA events around 5 back-to-back
@@ -42,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import importlib.util
 import io
 import json
@@ -49,6 +65,10 @@ import os
 import statistics
 import subprocess
 import sys
+
+LAB_SUBS = ("lepe", "bisect", "attn", "attn3", "mlp", "lane", "parts")
+MLP_MODES = (("gelu", True, False), ("clamp", True, False), ("gelu", False, False),
+             ("gelu", False, True), ("clamp", False, True))  # (act, ln, fold), chip_smoke's
 
 KERNELS = ("gemm", "gemm_dgrad", "stripe_attention", "cswin_attention", "block_pair",
            "layernorm", "carafe_reassemble", "layernorm_bwd", "gemm_wgrad",
@@ -77,6 +97,73 @@ def _smi() -> str:
                           check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def digest(t) -> str:
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes."""
+    import torch
+
+    raw = t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes()
+    return hashlib.sha256(raw).hexdigest()[:16]
+
+
+def lab_rows(block_lab, subs, dev) -> list[dict]:
+    """The lab's subcommands at B = 128 (their lines printed), each row with
+    the digest of its case's output: the same cases, built again from the
+    same seed, run once more."""
+    import torch
+
+    rows: list[dict] = []
+    for sub in subs:
+        if block_lab.main([sub, "--batch", "128"], rows):
+            raise SystemExit(f"tile_ab: block_lab {sub} failed")
+    digests = []
+    with torch.inference_mode():
+        for sub in subs:
+            cases = block_lab.SUBCOMMANDS[sub](block_lab.Inputs(dev), 128,
+                                                block_lab.DEFAULT_STAGES[sub])
+            digests += [digest(c.run()) for c in cases]
+            del cases
+    if len(digests) != len(rows):
+        raise SystemExit(f"tile_ab: {len(rows)} lab rows, {len(digests)} digests")
+    return [{f: r[f] for f in ("sub", "case", "shape", "ms", "ms_min", "ms_max")} | {"sha256": d}
+            for r, d in zip(rows, digests)]
+
+
+def mlp_mode_rows(block_lab, dev, save: str | None) -> list[dict]:
+    """``ln_mlp`` in each of ``MLP_MODES`` on one stage-1 batch, timed as the
+    lab times (``run_cases``), with the digest of its output; beside each,
+    where the root's lab has it, the same mode through the chain of unfused
+    launches (``mlp_chain``)."""
+    import torch
+
+    inp = block_lab.Inputs(dev, seed=21)
+    g = block_lab.STAGES[1]
+    x = inp.bf16(128, g["H"], g["W"], g["C"])
+    p = block_lab.stage1_params(inp, g["C"])
+    cases, outputs = [], {}
+    chain = getattr(block_lab, "mlp_chain", None)
+    with torch.inference_mode():
+        for act, ln, fold in MLP_MODES:
+            name = f"act={act} ln={int(ln)} fold={int(fold)}"
+            case = block_lab.mlp_case(name, x, p, act, ln, fold)
+            outputs[name] = case.run()
+            cases.append(case)
+            if chain is not None:  # a lab with mlp_chain keeps the case's inputs in args
+                a = case.args
+                cases.append(block_lab.Case(
+                    f"{name} chain", case.shape,
+                    lambda a=a: chain(a["x"], a["weights"], a["act"], a["ln"], a["fold"]),
+                    case.plain, {}, moved=case.moved, tc_flops=case.tc_flops,
+                    f32_ops=case.f32_ops))
+        rows = block_lab.run_cases("mlp-modes", cases, dev)
+    if save:
+        torch.save({k: v.cpu() for k, v in outputs.items()}, save)
+    with torch.inference_mode():
+        return [{f: row[f] for f in ("sub", "case", "shape", "ms", "ms_min", "ms_max")}
+                | {"sha256": digest(outputs[case.name] if case.name in outputs
+                                    else case.run())}
+                for case, row in zip(cases, rows)]
+
+
 def measure(root: str, harness: str) -> dict:
     import torch
 
@@ -102,10 +189,7 @@ def measure(root: str, harness: str) -> dict:
                 refused = str(e)
         chip_smoke.compare_edt(dev, tally)
     print(printed.getvalue(), end="")
-    rows: list[dict] = []
-    for sub in ("attn", "attn3"):
-        if block_lab.main([sub, "--batch", "128"], rows):
-            raise SystemExit(f"tile_ab: block_lab {sub} failed")
+    lab = lab_rows(block_lab, ("attn", "attn3", "lepe", "mlp"), dev)
     smi = _smi()
     keys = ("ms", "bound_ms", "plain_ms", "library_ms", "library_vs_ms")
     return dict(root=root, harness=harness, device=torch.cuda.get_device_name(0),
@@ -113,8 +197,21 @@ def measure(root: str, harness: str) -> dict:
                 kernel_lines=[ln for ln in printed.getvalue().splitlines()
                               if ln.startswith("[kernel]")],
                 kernels={k: {f: tally.rows[k][f] for f in keys} for k in KERNELS},
-                lab=[{f: r[f] for f in ("sub", "case", "shape", "ms", "ms_min", "ms_max")}
-                     for r in rows])
+                lab=lab)
+
+
+def measure_lab(root: str, harness: str, save: str | None) -> dict:
+    import torch
+
+    _load(root, harness)
+    from cswin_unet_tpu_torch.tools import block_lab
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    lab = lab_rows(block_lab, LAB_SUBS, dev) + mlp_mode_rows(block_lab, dev, save)
+    return dict(root=root, harness=harness, device=torch.cuda.get_device_name(0),
+                nvidia_smi=_smi(), lab=lab)
 
 
 def measure_forward(root: str, harness: str) -> dict:
@@ -159,6 +256,9 @@ def table(paths: list[str]) -> None:
                   f"{r['root']}")
         return
     head = " | ".join(os.path.basename(p) for p in paths)
+    if "kernels" not in runs[0]:  # --lab
+        lab_table(paths, runs, head)
+        return
     print(f"kernel (per unit of work): ms {head} | bound_ms | library_ms / the kernel's ms "
           f"on the same cases, per file")
     for k in KERNELS:
@@ -173,11 +273,46 @@ def table(paths: list[str]) -> None:
             lines = [f"refused: {r['base384_refused']}"]
         for ln in lines:
             print(f"{os.path.basename(p)} {ln}")
-    print(f"lab case: ms median [min-max] {head}")
-    for i, row in enumerate(runs[0]["lab"]):
-        cells = " | ".join(f"{r['lab'][i]['ms']:.4f} [{r['lab'][i]['ms_min']:.4f}-"
-                           f"{r['lab'][i]['ms_max']:.4f}]" for r in runs)
-        print(f"{row['sub']} {row['case']} {tuple(row['shape'])}: {cells}")
+    lab_table(paths, runs, head)
+
+
+def lab_table(paths: list[str], runs: list[dict], head: str) -> None:
+    """The lab's rows side by side, and whether the files' outputs agree:
+    each distinct digest of a row gets a letter, in file order (``A A A A``:
+    the same bits in all four runs)."""
+    print(f"lab case: ms median [min-max] {head} | output bits by file ('-': a root "
+          f"without the case)")
+    by_run = [{(row["sub"], row["case"]): row for row in r["lab"]} for r in runs]
+    keys = list(dict.fromkeys(k for rows in by_run for k in rows))
+    for key in keys:
+        found = [rows.get(key) for rows in by_run]
+        cells = " | ".join("-" if r is None else
+                           f"{r['ms']:.4f} [{r['ms_min']:.4f}-{r['ms_max']:.4f}]"
+                           for r in found)
+        letters: dict[str, str] = {}
+        bits = " ".join("-" if r is None or r.get("sha256") is None else
+                        letters.setdefault(r["sha256"], "ABCD"[len(letters)]) for r in found)
+        shape = next(r["shape"] for r in found if r is not None)
+        print(f"{key[0]} {key[1]} {tuple(shape)}: {cells} | {bits}")
+
+
+def ulps(a_path: str, b_path: str) -> None:
+    """Per output of two ``--save`` files: the largest difference in bf16
+    ulps (the bit patterns as ordered integers, so that adjacent bf16 values
+    differ by one and +0 equals -0) and how many values differ."""
+    import torch
+
+    a, b = torch.load(a_path), torch.load(b_path)
+    print(f"bf16 ulps: {os.path.basename(a_path)} vs {os.path.basename(b_path)}")
+    for k in a:
+        def ordered(t):
+            bits = t.contiguous().view(torch.int16).to(torch.int32)
+            mag = bits & 0x7FFF
+            return torch.where(bits < 0, -mag, mag)
+
+        d = (ordered(a[k]) - ordered(b[k])).abs()
+        print(f"{k}: max {int(d.max())} ulps, {int((d > 0).sum())} of {d.numel()} values "
+              f"differ")
 
 
 def main() -> int:
@@ -189,9 +324,16 @@ def main() -> int:
     ap.add_argument("--table", nargs="+", metavar="JSON", help="print result files side by side")
     ap.add_argument("--forward", action="store_true",
                     help="time the root's 32-slice serving forward end to end instead")
+    ap.add_argument("--lab", action="store_true",
+                    help="time only the block lab's cases, with their output digests")
+    ap.add_argument("--save", help="with --lab: where to write ln_mlp's five outputs")
+    ap.add_argument("--ulps", nargs=2, metavar="PT", help="compare two --save files")
     args = ap.parse_args()
     if args.table:
         table(args.table)
+        return 0
+    if args.ulps:
+        ulps(*args.ulps)
         return 0
     import torch
 
@@ -200,6 +342,7 @@ def main() -> int:
         return 2
     root, harness = os.path.abspath(args.root), os.path.abspath(args.harness or args.root)
     result = (measure_forward(root, harness) if args.forward
+              else measure_lab(root, harness, args.save) if args.lab
               else measure(root, harness))
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)

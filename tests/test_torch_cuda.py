@@ -812,6 +812,82 @@ def test_lepe_windows(dev, sp_h, sp_w, c):
         K.lepe_windows(v.float(), taps, bias, **geo)
 
 
+# The lab's branch geometries (tiny-224 stages 1-4, base-384 stages 1-4 as
+# block_lab's rows 31-34) and two of no stage: (B, H, W, c, sp_h, sp_w).
+LEPE_GEOMETRIES = [(128, 1, 56, 32, 1, 56), (64, 2, 28, 64, 2, 28), (32, 7, 14, 128, 7, 14),
+                   (16, 7, 7, 512, 7, 7), (8, 1, 96, 48, 1, 96), (8, 2, 48, 96, 2, 48),
+                   (4, 12, 24, 192, 12, 24), (4, 12, 12, 768, 12, 12), (3, 10, 15, 24, 5, 3),
+                   (5, 9, 20, 8, 3, 20)]
+
+
+@pytest.mark.parametrize("geo", LEPE_GEOMETRIES)
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("tap_dtype", [torch.float32, torch.bfloat16])
+def test_lepe_windows_plan_is_the_kernels(dev, geo, fold, tap_dtype):
+    """``lepe_windows_plan`` with the card's occupancy and SM count is the
+    plan the kernel reports for the same geometry."""
+    B, H, W, c, sp_h, sp_w = geo
+    if fold and c % 16:
+        pytest.skip("fold needs an even number of 8-channel chunks")
+    got = K.lepe_windows_kernel_plan(*geo, fold=fold, tap_dtype=tap_dtype)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = K.lepe_windows_plan(*geo, fold=fold, ctas_per_sm=got.ctas_per_sm, sms=sms)
+    assert got == want and got.ctas_per_sm >= 1 and got.smem_bytes <= K.SMEM_MAX
+
+
+@pytest.mark.parametrize("n,sp_h,sp_w,c", [(13, 7, 14, 128), (9, 2, 28, 64), (33, 1, 56, 32),
+                                           (3, 7, 7, 512), (7, 5, 3, 24), (11, 12, 24, 192)])
+def test_lepe_windows_odd_counts(dev, n, sp_h, sp_w, c):
+    """Every mode at window counts that leave the last tile's window group
+    part empty, and at windows whose rows are no multiple of the walk's 7
+    columns: transposed taps, packed V, two tap sets switching inside a
+    tile, bf16 taps, two sources with and without the fold."""
+    rng = np.random.default_rng(23)
+    L = sp_h * sp_w
+    qkv = _rnd(rng, dev, n, L, 3 * c).bfloat16()
+    v = qkv[..., 2 * c:]
+    taps, bias = _rnd(rng, dev, 3, 3, c, sc=0.3), _rnd(rng, dev, c, sc=0.1)
+    taps2, bias2 = _rnd(rng, dev, 3, 3, c, sc=0.3), _rnd(rng, dev, c, sc=0.1)
+    wide = torch.cat([taps, taps2], -1)
+    geo = dict(sp_h=sp_h, sp_w=sp_w)
+    for src, t, b, kw in [(v.contiguous(), taps, bias, {}), (v, taps, bias, dict(swap=True)),
+                          (v, taps, bias, dict(taps2=taps2, bias2=bias2, n0=n // 2)),
+                          (v, taps, bias, dict(tap_dtype=torch.bfloat16)),
+                          (v, wide, None, dict(v2=qkv[..., :c])),
+                          (v, wide, None, dict(v2=qkv[..., :c], fold=True))]:
+        got = K.lepe_windows(src, t, b, **geo, **kw)
+        want = K.lepe_windows_plain(src, t, b, **geo, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape, kw
+        assert _rel_l2(got.float(), want.float()) <= 0.02, kw
+
+
+@pytest.mark.parametrize("act,ln,fold", [("gelu", True, False), ("clamp", True, False),
+                                         ("gelu", False, False), ("gelu", False, True),
+                                         ("clamp", False, True), ("clamp", True, True)])
+@pytest.mark.parametrize("rows", [1, 191, 193, 192 * 133 + 5])
+def test_ln_mlp_plan_and_odd_rows(dev, act, ln, fold, rows):
+    """The plan the kernel reports is ``ln_mlp_plan`` with the card's
+    occupancy; each mode at row counts that cut the last 192-row tile and,
+    at 133 tiles and more, give a CTA of the one wave a second tile."""
+    got_plan = K.ln_mlp_kernel_plan(rows, act, ln, fold)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert got_plan == K.ln_mlp_plan(rows, ctas_per_sm=got_plan.ctas_per_sm, sms=sms)
+    rng = np.random.default_rng(24)
+    C = 64
+    x = _rnd(rng, dev, rows, C).bfloat16()
+    nw, nb = _rnd(rng, dev, C, sc=0.3, off=1.0), _rnd(rng, dev, C, sc=0.1)
+    w1 = _rnd(rng, dev, 4 * C, C, sc=C ** -0.5).bfloat16()
+    w2 = _rnd(rng, dev, C, 4 * C, sc=(4 * C) ** -0.5).bfloat16()
+    b1, b2 = _rnd(rng, dev, 4 * C, sc=0.1), _rnd(rng, dev, C, sc=0.1)
+    args = (nw, nb, w1, b1) + (() if fold else (w2, b2))
+    kw = dict(act=act, ln=ln, fold=fold)
+    got = K.ln_mlp(x, *args, **kw)
+    want = K.ln_mlp_plain(x, *args, **kw)
+    torch.cuda.synchronize()
+    assert _rel_l2(got.float(), want.float()) <= 0.02
+
+
 @pytest.mark.parametrize("mode", ["attention", "no_softmax", "copy", "softmax", "stage"])
 @pytest.mark.parametrize("shape,heads,window", [
     ((3, 56, 56, 32), 1, (1, 56)), ((3, 56, 56, 32), 1, (56, 1)),
