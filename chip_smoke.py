@@ -25,8 +25,10 @@ Phases, each of which raises on failure (the process then exits non-zero):
      relative L2 error <= 0.02 (the reference gate's bf16 default); labels
      by the margin rule (a mismatch counts only where the plain top-2 logit
      gap exceeds 0.02·max|logit|). Times are CUDA-event medians of back-to-back runs.
-     The backward kernels likewise at the 224 stage-1/2/3 geometries, B = 24
-     (the train batch): ``layernorm_bwd``, ``gemm_dgrad`` (with its GELU
+     The backward kernels likewise at the four stage geometries, B = 24
+     (the train batch), each weighted by its calls in a step (every block
+     trains through ``CSWinBlockFn``): ``layernorm_bwd``,
+     ``gemm_dgrad`` (with its GELU
      backward and drop-path operand scale), ``gemm_wgrad``,
      ``stripe_attention_bwd`` (its shared memory held to the wrapper's
      count at tiny-224's and base-384's windows; its yardstick aten's
@@ -58,8 +60,9 @@ Phases, each of which raises on failure (the process then exits non-zero):
      stage pays where the pair
      wins at B = 32 by more than the spread in both orders, which is
      printed beside ``cswin_block.PAIR_GEOMETRIES``.
-  4. Modules: ``CSWinBlockFn`` forward and backward at stages 1, 2 and 3
-     (B = 24, the same drop-path multipliers), the two CARAFE Functions and
+  4. Modules: ``CSWinBlockFn`` forward and backward at stages 1-4 (the
+     last stage's one full-window branch; B = 24, the same drop-path
+     multipliers), the two CARAFE Functions and
      ``CSWinAttentionFn`` at the four branch geometries, each output and
      gradient against torch autograd through the plain composition,
      relative L2 <= 0.02 (the tail's ``CarafeFn`` also at 12 classes, B =
@@ -97,6 +100,12 @@ Phases, each of which raises on failure (the process then exits non-zero):
      on both routes. ``--resume``: a fresh model continues the 2-epoch run
      from its ``train_state.pt`` for a third epoch (starts at iteration 4,
      logs 5-6, one epoch's launches, its own checkpoint and train state).
+     Every block of every training path (here, the continual,
+     data-parallel and base-384 ones) trains through ``CSWinBlockFn``, and
+     its launches are counted so. Then the ``[route]`` A/B of
+     ``tools/train_route.py`` at bs 24 for one round: each route's step ms
+     [min-max], device busy and peak memory, and one block's fwd+bwd a
+     geometry (times only: one round gives no spread, so no verdict).
   7. Evaluate (48, 512, 512) and (37, 512, 512) organ-like CT volumes from
      ``epoch_1.npz`` through ``eval.inference.inference`` (``test.py``'s
      loop, an in-memory dataset): with device metrics (``edt_pass``
@@ -160,8 +169,8 @@ Phases, each of which raises on failure (the process then exits non-zero):
      96/48/24/12, windows of 96, 96, 288 and 144 tokens; ``upsample2`` 48 ->
      96 and the x4 tail at 96 as the fused CARAFE sites) and the backward
      kernels at B = 24, each against its plain version as in phase 3, in a
-     tally of their own; ``CSWinBlockFn`` at stages 1 and 2 (the blocks that
-     train through it) and ``CarafeFn`` at both sites, B = 24, every output
+     tally of their own; ``CSWinBlockFn`` at the stages that train through
+     it and ``CarafeFn`` at both sites, B = 24, every output
      and gradient within TOL; ``ops.augment`` on the card bit for
      bit against the CPU at fixed draws, and the branch shares of a CUDA
      generator's draws; ``gaussian_blur_2d`` of a (48, 512, 512) volume at σ
@@ -174,7 +183,8 @@ Phases, each of which raises on failure (the process then exits non-zero):
      ``--device_augment`` for one epoch over 48 synthetic 512x512 slices (2
      steps: launches, finite losses, peak memory), one step's launches and
      seconds, and gradient parity against the plain route on
-     ``PARITY384_BATCH`` slices; ``epoch_0.npz`` evaluated at patch 384 on a
+     ``PARITY384_BATCH`` slices; the ``[route]`` A/B at base-384 (as in
+     phase 6); ``epoch_0.npz`` evaluated at patch 384 on a
      (48, 512, 512) organ-like volume (seconds by part, device metrics equal
      to the host's, ``inference()``'s means equal to them, launches of both
      passes).
@@ -289,13 +299,6 @@ PER.update(dict.fromkeys(("lepe_windows", "window_attention", "ln_mlp"),
                          f"the [kernel] cases of the lab phase, once each, B = {LAB_BATCH}"))
 PER["block_one"] = (f"the whole block at stages 1-4 (every part on), once each, "
                     f"B = {LAB_BATCH}; chain_ms the block chain on the same four")
-# The kernels' __global__ functions (each wrapper launches one of them per
-# call; all in anonymous namespaces), as the profiler names them, demangled
-# or not: what device_busy_ms counts.
-KERNEL_SYMBOLS = re.compile(
-    r"(?:\(anonymous namespace\)::|_GLOBAL__N_\w*?\d)(?:layernorm|layernorm_bwd|gemm|"
-    r"wgrad|stripe_attention|stripe_attention_bwd|carafe|edt_pass|block_pair|lepe_windows|"
-    r"ln_mlp|block_one)_kernel")
 # H100 SXM peaks from NVIDIA's datasheet: memory, bf16 tensor cores,
 # float32 outside them.
 HBM_BPS, TC_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -682,54 +685,6 @@ def compare_block_pair(tally: KernelTally, g: dict, B: int, rng, dev) -> None:
     require(ok, f"block_pair vs two chains {label}: {txt}")
 
 
-def device_events(prof) -> list:
-    """The profiler's device records: kernels, copies and sets, without the
-    ranges user annotations draw on the device track (DDP's forward is one,
-    spanning the idle gaps between its kernels)."""
-    import torch
-
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
-
-
-def device_busy_ms(fn, reps: int) -> float | None:
-    """Device-busy ms per call: the union of the device intervals that
-    ``torch.profiler`` records over ``reps`` back-to-back calls, over
-    ``reps``. The profiler can lose records, so its count of the port's
-    kernels (``KERNEL_SYMBOLS``) is held to the launch counters' count over
-    the same calls: where they differ it prints ``busy unread (records r of
-    n)`` and returns None, never a figure built from lost records; None too
-    if it records no device activity."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from cswin_unet_tpu_torch.ops.cuda import kernels as K
-
-    fn()
-    torch.cuda.synchronize()
-    before = sum(K.launch_counts().values())
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    launched = sum(K.launch_counts().values()) - before
-    events = device_events(prof)
-    records = sum(1 for e in events if KERNEL_SYMBOLS.search(e.name))
-    if records != launched:
-        print(f"busy unread (records {records} of {launched})", flush=True)
-        return None
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    if not spans:
-        return None
-    busy, (lo, hi) = 0.0, spans[0]
-    for s, e in spans[1:]:
-        if s > hi:
-            busy, lo, hi = busy + hi - lo, s, e
-        else:
-            hi = max(hi, e)
-    return (busy + hi - lo) / reps / 1e3  # the profiler counts µs
-
-
 def pair_ab(cfg, dev, batches=(SERVE_BATCH, 128), rounds: int = 8, reps: int = 10) -> None:
     """The routing measurement: at each pairable stage geometry and batch,
     two single block chains against one ``block_pair`` on the same inputs,
@@ -742,6 +697,7 @@ def pair_ab(cfg, dev, batches=(SERVE_BATCH, 128), rounds: int = 8, reps: int = 1
 
     from cswin_unet_tpu_torch.ops.cuda import cswin_block as CB
     from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.utils.profiling import device_busy_ms
 
     rng = np.random.default_rng(5)
     wins = set()
@@ -806,26 +762,21 @@ def probe_vs_parent(dev) -> None:
 
 
 def compare_backward_kernels(cfg, dev, B: int, tally: KernelTally) -> None:
-    """The backward kernels and the forward GEMM's training epilogues at the
-    224 stage-1/2/3 geometries, batch B; each case weighted by its calls in
-    one train step (the dual-branch blocks at resolution >= 28 run them;
-    stage 3 is timed for a later routing decision and weighted 0)."""
+    """The backward kernels and the forward GEMM's training epilogues at
+    every stage geometry of ``cfg``, batch B; each case weighted by its calls
+    in one train step (``trained_blocks``)."""
     import torch
 
-    from cswin_unet_tpu_torch.models.cswin_unet import FUSE_TRAIN_MIN_RESO
     from cswin_unet_tpu_torch.ops.cuda import kernels as K
 
     rng = np.random.default_rng(3)
     bf = torch.bfloat16
     rnd = lambda *s, sc=1.0: torch.from_numpy(
         (rng.standard_normal(s) * sc).astype(np.float32)).to(dev)
-    for g in stage_geometries(cfg):
-        if g["last"]:
-            continue
+    for g, blocks in trained_blocks(cfg):
         H, C, heads, split = g["H"], g["C"], g["heads"], g["split"]
         M, hw = B * H * H, H * H
-        routed = 2 * g["depth"] if H >= FUSE_TRAIN_MIN_RESO else 0
-        tag = f"@{H}x{H}x{C}"
+        tag = f"@{H}x{H}x{C}{' last' if g['last'] else ''}"
         dp = torch.from_numpy((rng.random(B) < 0.8).astype(np.float32) / 0.8).to(dev)
         x, dy, res = (rnd(M, C).to(bf) for _ in range(3))
         w, b = rnd(C, sc=0.3) + 1, rnd(C, sc=0.1)
@@ -836,7 +787,7 @@ def compare_backward_kernels(cfg, dev, B: int, tally: KernelTally) -> None:
         _, mean, rstd = torch.ops.aten.native_layer_norm(x, [C], w_bf, b_bf, 1e-5)
         tally.case("layernorm_bwd", tag,
                    lambda: K.layernorm_bwd(x, dy, w, residual=res),
-                   lambda: K.layernorm_bwd_plain(x, dy, w, residual=res), 2 * routed,
+                   lambda: K.layernorm_bwd_plain(x, dy, w, residual=res), 2 * blocks,
                    moved=4 * nbytes(x) + 3 * nbytes(w), f32_ops=14 * M * C,
                    library=lambda: torch.ops.aten.native_layer_norm_backward(
                        dy, x, [C], mean, rstd, w_bf, b_bf, [True, True, True]))
@@ -870,7 +821,7 @@ def compare_backward_kernels(cfg, dev, B: int, tally: KernelTally) -> None:
             kw = dict(kw, rows_per_sample=hw)
             tally.case("gemm_dgrad", f"{what}{tag}",
                        lambda: K.gemm_dgrad(d, wt, **kw),
-                       lambda: K.gemm_dgrad_plain(d, wt, **kw), routed,
+                       lambda: K.gemm_dgrad_plain(d, wt, **kw), blocks,
                        moved=nbytes(d, wt, kw.get("gelu_h"), kw.get("dp")) + M * k * 2,
                        tc_flops=2 * M * n * k,
                        f32_ops=M * k * (16 if "gelu_h" in kw else 1),
@@ -885,23 +836,24 @@ def compare_backward_kernels(cfg, dev, B: int, tally: KernelTally) -> None:
             kw = dict(kw, rows_per_sample=hw)
             tally.case("gemm_wgrad", f"{what}{tag}",
                        lambda: K.gemm_wgrad(a, d, **kw),
-                       lambda: K.gemm_wgrad_plain(a, d, **kw), routed,
+                       lambda: K.gemm_wgrad_plain(a, d, **kw), blocks,
                        moved=nbytes(a, d, kw.get("dp")) + (n * k + n) * 4,
                        tc_flops=2 * M * n * k, f32_ops=M * n,
                        library=(lambda: torch.matmul(d.t(), a)) if plain_product
                        else None)
-        attention_bwd_cases(tally, dev, rnd, B, H, C, heads, split, routed, tag)
+        attention_bwd_cases(tally, dev, rnd, B, H, C, heads, split, g["last"], blocks, tag)
 
 
 def check_attention_bwd_smem() -> None:
     """``stripe_attention_bwd``'s shared memory, held to the wrapper's count
-    at every window this run gives the kernel: tiny-224's 56 and 98 tokens
-    at head dim 32, base-384's 96 and 288 (beyond one key block) at 24."""
+    at every window this run gives the kernel: tiny-224's 56, 98 and 49
+    tokens at head dim 32, base-384's 96, 288 and 144 (beyond one key block)
+    at 24."""
     from cswin_unet_tpu_torch.ops.cuda import build
     from cswin_unet_tpu_torch.ops.cuda import kernels as K
 
     lib = build.library()
-    for L, d in ((56, 32), (98, 32), (96, 24), (288, 24)):
+    for L, d in ((56, 32), (98, 32), (49, 32), (96, 24), (288, 24), (144, 24)):
         got, want = lib.cswin_stripe_attention_bwd_smem(L, d), K.stripe_attention_bwd_smem(L, d)
         print(f"[kernel] stripe_attention_bwd shared memory at L={L} d={d}: kernel {got} "
               f"B, wrapper {want} B {'ok' if got == want else 'FAIL'}", flush=True)
@@ -922,9 +874,10 @@ def flash_attention_bwd(q, k, v, do, scale: float):
 
 
 def attention_bwd_cases(tally: KernelTally, dev, rnd, B: int, H: int, C: int, heads: int,
-                        split: int, calls: int, tag: str) -> None:
-    """``stripe_attention_bwd`` on both branches of a dual-branch stage,
-    against its plain version, ``calls`` times a step, aten's
+                        split: int, last: bool, calls: int, tag: str) -> None:
+    """``stripe_attention_bwd`` on both branches of a dual-branch stage (the
+    one full-window branch of a last-stage block), against its plain
+    version, ``calls`` times a step, aten's
     flash-attention backward on the same windows as its yardstick
     (attention only, no LePE). Timed: the wrapper's call alone, into a
     buffer allocated once."""
@@ -935,9 +888,9 @@ def attention_bwd_cases(tally: KernelTally, dev, rnd, B: int, H: int, C: int, he
     bf = torch.bfloat16
     qkv, dout = rnd(B, H, H, 3 * C).to(bf), rnd(B, H, H, C).to(bf)
     scale = (C // heads) ** -0.5
-    cb, nh = C // 2, heads // 2
+    cb, nh = (C, heads) if last else (C // 2, heads // 2)
     M = B * H * H
-    for off, hs, ws in ((0, H, split), (C // 2, split, H)):
+    for off, hs, ws in ([(0, H, H)] if last else [(0, H, split), (C // 2, split, H)]):
         lw = rnd(cb, 1, 3, 3, sc=0.3)
         kw = dict(ch_off=off, heads=nh, h_sp=hs, w_sp=ws, scale=scale)
         chans = torch.cat([torch.arange(off, off + cb) + i * C for i in range(3)]).to(dev)
@@ -1049,14 +1002,13 @@ BLOCK_GRAD_NAMES = ("dx", "norm1_w", "norm1_b", "qkv_w", "qkv_b", "lepe0_w",
 
 def compare_module_grads(cfg, dev, B: int, *, extra: bool = True,
                          tag: str = "module") -> None:
-    """``CSWinBlockFn`` at the dual-branch stages and ``CarafeFn`` at the
+    """``CSWinBlockFn`` at the stage geometries and ``CarafeFn`` at the
     fused CARAFE sites: forward and backward against autograd through the
-    plain composition. ``extra``: every dual-branch stage (else those that
-    train through the Function, resolution >= FUSE_TRAIN_MIN_RESO), the tail
-    at the continual head and ``CSWinAttentionFn`` at every branch."""
+    plain composition at every stage. ``extra``: also the tail at the
+    continual head and ``CSWinAttentionFn`` at every branch. A last-stage block's one LePE is
+    one input, passed in both slots."""
     import torch
 
-    from cswin_unet_tpu_torch.models.cswin_unet import FUSE_TRAIN_MIN_RESO
     from cswin_unet_tpu_torch.ops.cuda import carafe_tail as CT
     from cswin_unet_tpu_torch.ops.cuda.cswin_block import (BlockParams, composed_block,
                                                            fused_cswin_block)
@@ -1066,19 +1018,23 @@ def compare_module_grads(cfg, dev, B: int, *, extra: bool = True,
     rnd = lambda *s, sc=1.0: torch.from_numpy(
         (rng.standard_normal(s) * sc).astype(np.float32)).to(dev)
     for g in stage_geometries(cfg):
-        if g["last"] or not (extra or g["H"] >= FUSE_TRAIN_MIN_RESO):
-            continue
-        H, C = g["H"], g["C"]
-        p = block_params(rng, C, False, dev)
+        H, C, last = g["H"], g["C"], g["last"]
+        p = block_params(rng, C, last, dev)
         x, gout = rnd(B, H, H, C).to(bf), rnd(B, H, H, C).to(bf)
         dps = tuple(torch.from_numpy((rng.random(B) < 0.8).astype(np.float32) / 0.8)
                     .to(dev) for _ in range(2))
-        kw = dict(heads=g["heads"], split=g["split"], last_stage=False,
+        kw = dict(heads=g["heads"], split=g["split"], last_stage=last,
                   scale=(C // g["heads"]) ** -0.5, dps=dps)
-        grads_vs_plain(f"CSWinBlockFn stage{g['stage']} ({B},{H},{H},{C})",
-                       lambda xx, *pp: fused_cswin_block(xx, BlockParams(*pp), **kw),
-                       lambda xx, *pp: composed_block(xx, BlockParams(*pp), **kw),
-                       (x, *p), gout, BLOCK_GRAD_NAMES, tag)
+        if last:  # (x, the 14 distinct parameters): the LePE into both slots
+            inputs, names = (x, *p[:6], *p[8:]), BLOCK_GRAD_NAMES[:7] + BLOCK_GRAD_NAMES[9:]
+            params = lambda pp: BlockParams(*pp[:6], *pp[4:6], *pp[6:])
+        else:
+            inputs, names, params = (x, *p), BLOCK_GRAD_NAMES, lambda pp: BlockParams(*pp)
+        grads_vs_plain(f"CSWinBlockFn stage{g['stage']} ({B},{H},{H},{C})"
+                       f"{' last' if last else ''}",
+                       lambda xx, *pp: fused_cswin_block(xx, params(pp), **kw),
+                       lambda xx, *pp: composed_block(xx, params(pp), **kw),
+                       inputs, gout, names, tag)
     carafe_names = ("dx", "down_w", "down_b", "encoder_w", "encoder_b", "out_w",
                     "out_b", "cls_w")
     for H, C, C_out, up in carafe_sites(cfg):
@@ -1245,6 +1201,7 @@ def serve_volumes(cfg, dev, workdir: str) -> tuple[dict[str, int], ...]:
     from cswin_unet_tpu_torch.serve import ServeStats, VolumeServer
     from cswin_unet_tpu_torch.utils.checkpoint import (load_checkpoint, load_into,
                                                        save_checkpoint)
+    from cswin_unet_tpu_torch.utils.profiling import device_busy_ms
 
     nc, batch = 9, 32
     ck = save_checkpoint(os.path.join(workdir, "tiny224_seed0.npz"),
@@ -1410,22 +1367,30 @@ def serve_volumes(cfg, dev, workdir: str) -> tuple[dict[str, int], ...]:
 # phase 6: train
 # ---------------------------------------------------------------------------
 
-def expected_train_launches(cfg, steps: int) -> dict[str, int]:
-    """Kernel launches of ``steps`` train steps per the training routing:
-    only the dual-branch blocks at resolution >= FUSE_TRAIN_MIN_RESO run
-    the kernel chain (2 LN, 4 GEMM, 2 attention forward; 2 LN backward, 4
-    dX products, 4 weight gradients, 2 attention backward); the fused
-    CARAFE sites (upsamplers at resolution >= 28, and the tail) run one GEMM
-    and one CARAFE launch forward and the composition's vjp backward."""
-    from cswin_unet_tpu_torch.models.cswin_unet import FUSE_TRAIN_MIN_RESO
+def trained_blocks(cfg) -> list[tuple[dict, int]]:
+    """Each stage geometry with its blocks (encoder and decoder), every one
+    of which trains through ``CSWinBlockFn``."""
+    return [(g, 2 * g["depth"]) for g in stage_geometries(cfg)]
 
-    routed = sum(2 * g["depth"] for g in stage_geometries(cfg)
-                 if not g["last"] and g["H"] >= FUSE_TRAIN_MIN_RESO)
+
+def expected_train_launches(cfg, steps: int) -> dict[str, int]:
+    """Kernel launches of ``steps`` train steps: every block trains through
+    ``CSWinBlockFn`` (``trained_blocks``) and runs
+    the kernel chain, 2 LN and 4 GEMMs forward, 2 LN backward, 4 dX products
+    and 4 weight gradients, and a forward and a backward attention launch a
+    branch (2 in a dual-branch block, 1 at the last stage); the fused CARAFE
+    sites (upsamplers at resolution >= 28, and
+    the tail) one GEMM and one CARAFE launch forward and the composition's
+    vjp backward."""
+    routed = branches = 0
+    for g, n in trained_blocks(cfg):
+        routed += n
+        branches += n * (1 if g["last"] else 2)
     sites = len(carafe_sites(cfg))
     per = dict(layernorm=2 * routed, gemm=4 * routed + sites,
-               stripe_attention=2 * routed, carafe_reassemble=sites,
+               stripe_attention=branches, carafe_reassemble=sites,
                layernorm_bwd=2 * routed, gemm_dgrad=4 * routed,
-               gemm_wgrad=4 * routed, stripe_attention_bwd=2 * routed)
+               gemm_wgrad=4 * routed, stripe_attention_bwd=branches)
     return {k: per.get(k, 0) * steps for k in SOURCES}
 
 
@@ -1672,6 +1637,34 @@ def train_step_checks(cfg, dev, data: str) -> None:
           f"({TRAIN_BATCH / k_ms * 1e3:.1f} samples/s) plain_ms={p_ms:.3f} "
           f"({TRAIN_BATCH / p_ms * 1e3:.1f} samples/s); in turns kernel {k1:.3f}, "
           f"plain {p1:.3f}, plain {p2:.3f}, kernel {k2:.3f}", flush=True)
+
+
+def route_phase(cfg_path: str, dev, tag: str) -> dict:
+    """``tools/train_route.py`` at bs 24 for one round (a pass in each
+    order): each route's step ms, busy and peak memory and the block rows,
+    printed by the tool (one round gives no spread: every verdict is
+    ``undecided``, and the model's comment cites the tool's own longer
+    run). Checks that every route's times are finite and that the tool gave
+    every block its own ``impl`` back."""
+    import torch
+
+    from cswin_unet_tpu_torch.models import cswin_unet
+    from cswin_unet_tpu_torch.tools import train_route
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = train_route.main(["--cfg", cfg_path, "--batch", str(TRAIN_BATCH), "--rounds", "1",
+                            "--device", str(dev)])
+    require(all(np.isfinite(t) for r in res["routes"].values() for ts in r["ms"].values()
+                for t in ts), f"{tag}: non-finite step times")
+    require(all(v["route"] == "undecided" for v in res["verdicts"].values()),
+            f"{tag}: a verdict from one round")
+    print(f"[{tag}] {len(res['routes'])} routes x 1 round in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2320,6 +2313,8 @@ def top_device_kernels(fn, n: int = 4) -> list[tuple[str, float]]:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from cswin_unet_tpu_torch.utils.profiling import device_events
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -2335,6 +2330,7 @@ def ddp_step_cost(rank: int, dev, cfg_opts, data: str) -> dict:
     DDP, plain); each one's seconds, device busy and top device kernels."""
     from cswin_unet_tpu_torch.models import build_model
     from cswin_unet_tpu_torch.parallel import wrap_ddp
+    from cswin_unet_tpu_torch.utils.profiling import device_busy_ms
 
     cfg = smoke_config(cfg_opts)
     steps = {}
@@ -2403,7 +2399,7 @@ def ddp_run(cfg, dev, workdir: str, kits: dict, teacher_ck: str, smi: str,
     from cswin_unet_tpu_torch.models import build_model
     from cswin_unet_tpu_torch.ops.cuda import kernels as K
     from cswin_unet_tpu_torch.utils import native
-    from cswin_unet_tpu_torch.utils.profiling import device_trace
+    from cswin_unet_tpu_torch.utils.profiling import KERNEL_SYMBOLS, device_trace
 
     t_phase = time.perf_counter()
     data = os.path.join(workdir, "ddp_data")
@@ -2643,6 +2639,7 @@ def base384_run(dev, workdir: str, smi: str) -> tuple[KernelTally, dict[str, dic
     counts = dict(serve384=serve384(cfg, dev, root, smi))
     counts["train384"], data, ck = train384(cfg, dev, root)
     train384_checks(cfg, dev, data, smi)
+    route_phase(CFG384, dev, "base384:route")
     counts["eval384"] = eval384(cfg, dev, ck)
     return tally, counts
 
@@ -2736,6 +2733,7 @@ def serve384(cfg, dev, workdir: str, smi: str) -> dict[str, int]:
     from cswin_unet_tpu_torch.utils.checkpoint import (load_checkpoint, load_into,
                                                        save_checkpoint)
     from cswin_unet_tpu_torch.utils.flops import count_flops, count_params
+    from cswin_unet_tpu_torch.utils.profiling import device_busy_ms
 
     nc, batch, img = 9, SERVE_BATCH, cfg.DATA.IMG_SIZE
     t0 = time.perf_counter()
@@ -3426,6 +3424,7 @@ def main() -> int:
         serve_counts, pallas_counts, pair_counts = serve_volumes(cfg, dev, workdir)
         train_counts, data, ck = train_run(cfg, dev, workdir)
         train_step_checks(cfg, dev, data)
+        route_phase(CFG, dev, "route")
         eval_counts = eval_run(cfg, dev, ck)
         continual_counts, kits = continual_run(cfg, dev, workdir)
         continual_checks(cfg, dev, kits, os.path.join(workdir, "tiny224_seed0.npz"), smi)

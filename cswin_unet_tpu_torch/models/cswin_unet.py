@@ -29,13 +29,15 @@ composition, as in JAX, where the fused CARAFE exists only for ``fused``.
 reference the kernels are held against. The stem, merge convs, standalone
 LayerNorms and concat-linears are plain PyTorch ops on both routes.
 
-Training (autograd needs gradients), as the JAX package routes it
-(``cswin_unet_tpu/models/cswin_unet.py:141,242-260``): dual-branch blocks at
-resolution >= ``FUSE_TRAIN_MIN_RESO`` (stages 1 and 2 at 224²) run the
-kernel chain through ``CSWinBlockFn``, whose backward is kernels; the other
-blocks run ``composed_block`` under autograd; the fused CARAFE sites train
-through their kernel-forward / composition-vjp Functions. Drop-path
-(stochastic depth) follows the reference schedule ``linspace(0, rate,
+Training (autograd needs gradients): every block on the ``fused`` route,
+last-stage blocks included (one full-window branch), runs the kernel chain
+through ``CSWinBlockFn``, whose backward is kernels. The JAX package trains
+its blocks below resolution 28 and at the last stage as the composition
+(``_FUSE_TRAIN_MIN_RESO``, ``cswin_unet_tpu/models/cswin_unet.py:141,
+242-260``); the port does not, from its own A/B of the train step on an
+H100 (``tools/train_route.py``, cited at ``CSWinBlock._block``). The fused
+CARAFE sites train through their kernel-forward / composition-vjp
+Functions. Drop-path (stochastic depth) follows the reference schedule ``linspace(0, rate,
 sum(depth))``, shared by encoder and decoder: in train mode each block
 draws per-sample keep masks / (1 − p) for its attention and MLP branches
 from the ``generator`` passed to ``forward``. With ``use_checkpoint`` (the
@@ -65,10 +67,6 @@ from ..ops.cuda.kernels import needs_grad
 from ..parallel import rank_rows, world_size
 
 IMPLS = ("fused", "pallas", "plain")
-# Smallest stage resolution whose dual-branch blocks train through the
-# kernel backward — the JAX package's _FUSE_TRAIN_MIN_RESO, measured on a
-# TPU; an H100 measurement of the 14x14 blocks is queued (ROADMAP).
-FUSE_TRAIN_MIN_RESO = 28
 
 
 def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, stride: int,
@@ -169,13 +167,29 @@ class CSWinBlock(nn.Module):
         return self._block(x, dps)
 
     def _block(self, x: torch.Tensor, dps) -> torch.Tensor:
+        # Training runs every geometry through CSWinBlockFn. On an NVIDIA H100
+        # 80GB HBM3 at 700.00 W, tools/train_route.py --rounds 4 (the bs-24
+        # recipe step, all blocks through it against one geometry's blocks
+        # composed; ms median [min-max] in forward / reverse order; peak GiB)
+        # found no geometry faster composed:
+        #   tiny-224, all through it 99.2 [87.9-113.3] / 108.4 [91.7-122.5],
+        #   2.78 GiB. Composed: 56x56x64 114.0 / 114.8, 3.37; 28x28x128 124.8
+        #   / 134.5, 3.37; 14x14x256 211.4 / 227.8, 4.37 (slower beyond the
+        #   spread); 7x7x512 (last) 106.0 / 105.0, 2.87.
+        #   base-384, all through it 305.3 [293.3-350.2] / 296.6 [289.9-
+        #   298.2], 21.89 GiB. Composed: 96x96x96 348.4 / 354.5, 28.57;
+        #   48x48x192 362.2 / 378.4, 28.57 and 24x24x384 823.9 / 832.2, 69.39
+        #   (both slower beyond the spread); 12x12x768 (last) 312.7 / 313.9,
+        #   22.98.
+        # The others lie inside the spread and take more memory composed.
+        # The JAX package's _FUSE_TRAIN_MIN_RESO (14x14 and the last stage
+        # composed) came from another device's timing.
         p = self.block_params()
         kw = dict(heads=self.num_heads, split=self.split_size, last_stage=self.last,
                   scale=self.scale, dps=dps)
         if self.impl == "pallas":
             return composed_block(x, p, attn_impl="pallas", **kw)
-        if self.impl == "plain" or ((self.last or self.reso < FUSE_TRAIN_MIN_RESO)
-                                    and needs_grad(x, *p)):
+        if self.impl == "plain":
             return composed_block(x, p, **kw)
         return fused_cswin_block(x, p, **kw)
 

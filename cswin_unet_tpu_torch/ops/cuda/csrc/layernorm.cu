@@ -82,18 +82,22 @@ cudaError_t launch_fwd(const bf16* x, const float* w, const float* b, bf16* y, i
 
 constexpr int GROUP = 16;  // CTAs whose partial rows the last of them adds
 
-// How the backward cuts a row of C channels (C % 32 == 0, C <= 512):
-// N 16-byte vectors of 8 bf16; G lanes a row (the power of two >= N, at
-// most 32), V vectors a lane (lane j of a group holds vectors j, j + G, ...;
-// past N it holds none); ROWS rows a CTA takes per step, one a group.
-// Mirrored by kernels.py::layernorm_bwd_plan.
+// How the backward cuts a row of C channels (C % 32 == 0, C <= 512, or
+// C = 768, base-384's last stage): N 16-byte vectors of 8 bf16; G lanes a
+// row (the power of two >= N, at most 32), V vectors a lane (lane j of a
+// group holds vectors j, j + G, ...; past N it holds none); ROWS rows a CTA
+// takes per step, one a group. PAIRS: the CTA's dγ and dβ rows go through
+// shared memory together (else one after the other, so that 768 channels
+// of eight warps fit in the 48 KB of static shared memory). Mirrored by
+// kernels.py::layernorm_bwd_plan.
 template <int C>
 struct Shape {
-  static_assert(C % 32 == 0 && C <= 512, "C % 32 == 0, C <= 512");
+  static_assert(C % 32 == 0 && (C <= 512 || C == 768), "C % 32 == 0, C <= 512 or C = 768");
   static constexpr int N = C / 8;
   static constexpr int G = N <= 4 ? 4 : N <= 8 ? 8 : N <= 16 ? 16 : 32;
   static constexpr int V = (N + G - 1) / G;
   static constexpr int ROWS = THREADS / G;
+  static constexpr int PAIRS = C <= 512 ? 2 : 1;
 };
 
 using ln_row::group_sum;
@@ -109,46 +113,61 @@ __device__ __forceinline__ bool arrive(int* counter, int n, bool& last) {
   return last;
 }
 
+// Adds rows [b0, b1) of 2C floats at `rows` in row order into acc, float4
+// column `col`, eight loads in flight.
+template <int C>
+__device__ __forceinline__ void add_rows(const float* rows, int b0, int b1, int col,
+                                         float4& acc) {
+  for (int q0 = b0; q0 < b1; q0 += 8) {
+    float4 v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (q0 + q < b1)
+        v[q] = __ldcg(reinterpret_cast<const float4*>(rows + (size_t)(q0 + q) * 2 * C) + col);
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (q0 + q < b1) {
+        acc.x += v[q].x;
+        acc.y += v[q].y;
+        acc.z += v[q].z;
+        acc.w += v[q].w;
+      }
+  }
+}
+
 // dst = the sum of n rows of 2C floats at `rows`, in row order: float4
-// columns, the rows cut into SLICES runs summed in order (eight loads in
-// flight), then the runs in order.
+// columns, the rows cut into SLICES runs summed in order, then the runs in
+// order. Wider than a float4 column a thread (C = 768): a thread sums each
+// of its columns over all n rows in order.
 template <int C>
 __device__ __forceinline__ void sum_rows(const float* rows, int n, float* dst, float4* fin) {
-  constexpr int COLS = 2 * C / 4, SLICES = THREADS / COLS;
-  static_assert(COLS <= THREADS, "one float4 column a thread");
-  const int tid = threadIdx.x, col = tid % COLS, slice = tid / COLS;
-  const int run = (n + SLICES - 1) / SLICES;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (slice < SLICES) {
-    const int b0 = slice * run, b1 = min(n, b0 + run);
-    for (int q0 = b0; q0 < b1; q0 += 8) {
-      float4 v[8];
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        if (q0 + q < b1)
-          v[q] = __ldcg(reinterpret_cast<const float4*>(rows + (size_t)(q0 + q) * 2 * C) + col);
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        if (q0 + q < b1) {
-          acc.x += v[q].x;
-          acc.y += v[q].y;
-          acc.z += v[q].z;
-          acc.w += v[q].w;
-        }
+  constexpr int COLS = 2 * C / 4;
+  const int tid = threadIdx.x;
+  if constexpr (COLS > THREADS) {
+    for (int col = tid; col < COLS; col += THREADS) {
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      add_rows<C>(rows, 0, n, col, acc);
+      reinterpret_cast<float4*>(dst)[col] = acc;
     }
-  }
-  fin[tid] = acc;
-  __syncthreads();
-  if (tid < COLS) {
-    float4 sum = fin[tid];
-    for (int k = 1; k < SLICES; ++k) {
-      const float4 f = fin[k * COLS + tid];
-      sum.x += f.x;
-      sum.y += f.y;
-      sum.z += f.z;
-      sum.w += f.w;
+  } else {
+    constexpr int SLICES = THREADS / COLS;
+    const int col = tid % COLS, slice = tid / COLS;
+    const int run = (n + SLICES - 1) / SLICES;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (slice < SLICES) add_rows<C>(rows, slice * run, min(n, slice * run + run), col, acc);
+    fin[tid] = acc;
+    __syncthreads();
+    if (tid < COLS) {
+      float4 sum = fin[tid];
+      for (int k = 1; k < SLICES; ++k) {
+        const float4 f = fin[k * COLS + tid];
+        sum.x += f.x;
+        sum.y += f.y;
+        sum.z += f.z;
+        sum.w += f.w;
+      }
+      reinterpret_cast<float4*>(dst)[tid] = sum;
     }
-    reinterpret_cast<float4*>(dst)[tid] = sum;
   }
 }
 
@@ -160,7 +179,7 @@ layernorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
                      int* __restrict__ arrival, int rows, float eps) {
   using S = Shape<C>;
   constexpr int G = S::G, V = S::V, N = S::N;
-  __shared__ float red[2][WARPS][C];
+  __shared__ float red[S::PAIRS][WARPS][C];
   __shared__ float4 fin[THREADS];
   __shared__ bool last;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -272,27 +291,33 @@ layernorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
         gw[v][e] += __shfl_xor_sync(0xffffffffu, gw[v][e], o);
         gb[v][e] += __shfl_xor_sync(0xffffffffu, gb[v][e], o);
       }
-  if (lane < G) {
-#pragma unroll
-    for (int v = 0; v < V; ++v)
-      if (has[v])
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          red[0][warp][(v * G + j) * 8 + e] = gw[v][e];
-          red[1][warp][(v * G + j) * 8 + e] = gb[v][e];
-        }
-  }
-  __syncthreads();
   // out: dγ (C), dβ (C), then gridDim.x partial rows of 2C, then a row a
   // group of GROUP CTAs.
   float* part = out + 2 * C;
   float* group_part = part + (size_t)gridDim.x * 2 * C;
   const bool alone = gridDim.x == 1;
-  for (int c = tid; c < 2 * C; c += THREADS) {
-    float sum = 0.f;
+  float* mine = alone ? out : part + (size_t)blockIdx.x * 2 * C;
+  // dγ and dβ together (PAIRS = 2), or one pass each (PAIRS = 1); each
+  // channel's sum runs over the warps in order either way.
+  for (int p0 = 0; p0 < 2; p0 += S::PAIRS) {
+    if (lane < G) {
 #pragma unroll
-    for (int k = 0; k < WARPS; ++k) sum += red[c / C][k][c % C];
-    (alone ? out : part + (size_t)blockIdx.x * 2 * C)[c] = sum;
+      for (int v = 0; v < V; ++v)
+        if (has[v])
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+#pragma unroll
+            for (int q = 0; q < S::PAIRS; ++q)
+              red[q][warp][(v * G + j) * 8 + e] = p0 + q == 0 ? gw[v][e] : gb[v][e];
+    }
+    __syncthreads();
+    for (int c = tid; c < S::PAIRS * C; c += THREADS) {
+      float sum = 0.f;
+#pragma unroll
+      for (int k = 0; k < WARPS; ++k) sum += red[c / C][k][c % C];
+      mine[p0 * C + c] = sum;
+    }
+    if (p0 + S::PAIRS < 2) __syncthreads();  // red is written again
   }
   if (alone) return;
 
@@ -329,13 +354,13 @@ CSWIN_API int cswin_layernorm(const void* x, const void* w, const void* b,
 
 #define CSWIN_LN_BWD_CHANNELS(X) \
   X(32) X(64) X(96) X(128) X(160) X(192) X(224) X(256) X(288) X(320) X(352) X(384) \
-  X(416) X(448) X(480) X(512)
+  X(416) X(448) X(480) X(512) X(768)
 
 // x, dy, res, dx: (rows, C) bf16, 16-byte aligned (res may be null); w: (C,)
 // float32; out: float32, dγ (C), dβ (C), then `grid` partial rows of 2C
 // and ceil(grid / 16) group rows of 2C (unused when grid == 1); arrival:
 // 1 + ceil(grid / 16) ints, zero, left zero. `grid` CTAs of 256 threads;
-// C % 32 == 0, C <= 512 (checked by the wrapper).
+// C % 32 == 0, C <= 512 or C = 768 (checked by the wrapper).
 CSWIN_API int cswin_layernorm_bwd(const void* x, const void* dy, const void* w,
                                   const void* res, void* dx, void* out, void* arrival,
                                   int rows, int C, int grid, float eps, void* stream) {

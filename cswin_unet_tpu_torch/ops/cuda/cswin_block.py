@@ -120,11 +120,16 @@ class CSWinBlockFn(torch.autograd.Function):
     to the activation dtype before each product, accumulation and LN
     statistics in float32.
 
-    Saved for the backward (bf16 at bs 24, stage 1: M = 75,264 rows, C = 64):
-    the block input, LN1 out, qkv (3C), attention out, x1, LN2 out, fc1
-    pre-activation h (4C) and GELU out (4C) — 16·M·C values, 154 MB a
-    stage-1 block and 77 MB a stage-2 block. All but h are the forward
-    chain's own outputs, kept instead of recomputed.
+    Saved for the backward: the block input, LN1 out, qkv (3C), attention
+    out, x1, LN2 out, fc1 pre-activation h (4C) and GELU out (4C) — 16·M·C
+    bf16 values for M rows. At bs 24: tiny-224's stages 1-4 154, 77, 38.5
+    and 19.3 MB a block; base-384's 679, 340, 170 and 85 MB. All but h are
+    the forward chain's own outputs, kept instead of recomputed; no L x L
+    score is kept (the attention backward recomputes its probabilities).
+
+    A last-stage block (``last_stage``) runs one branch over the whole
+    window with every head: its LePE is passed in both slots and its
+    gradient returned in the first (autograd sums the two).
     """
 
     @staticmethod

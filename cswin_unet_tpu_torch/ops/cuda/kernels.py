@@ -309,8 +309,8 @@ def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
     _require(weight, "weight", torch.float32, dev, (C,))
     if residual is not None:
         _require(residual, "residual", torch.bfloat16, dev, (rows, C))
-    if C % 32 or C > 512:
-        raise ValueError(f"layernorm_bwd takes C % 32 == 0 and C <= 512, got {C}")
+    if C % 32 or (C > 512 and C != 768):
+        raise ValueError(f"layernorm_bwd takes C % 32 == 0 and C <= 512, or C = 768, got {C}")
     if any(_ptr(t) % 16 for t in (x, dy, residual)):
         raise ValueError("layernorm_bwd needs 16-byte aligned x, dy and residual")
     plan = _layernorm_bwd_plan(dev, rows, C)

@@ -13,9 +13,9 @@ so that its kernels are built and run; ``--harness`` the checkout whose
 builds can be timed on the same cases. It runs ``chip_smoke.compare_kernels`` (every forward kernel at the shapes
 of one 32-slice serving forward, each case held to its plain version, times
 summed per forward, unpaired) and ``compare_backward_kernels`` (per bs-24
-train step) and, where the harness has it, ``compare_base384_backward``
-(weight 0; a build that refuses those windows is recorded as refusing
-them), ``compare_edt`` (``edt_pass`` along the three axes of a
+train step, at tiny-224's and then at base-384's stage geometries: a build
+that refuses one of base-384's shapes is recorded as refusing it, its
+earlier cases kept), ``compare_edt`` (``edt_pass`` along the three axes of a
 (48, 512, 512) volume, per 9-class ``volume_metrics_device`` call), then the
 root's block lab's attention cases (``attn``: rows and
 columns of (128, 56, 56, 32); ``attn3``: (512, 98, 128), 4 heads). Every
@@ -23,11 +23,11 @@ case is timed behind the lab's spin kernel (``chip_smoke.time_ms`` with
 ``primed``), so that a call shorter than its wrapper's host work reads
 device time, not the host's enqueue rate. ``--out`` writes per kernel its
 ms, bound_ms, plain_ms, library_ms and the kernel's ms over the library's
-cases (``library_vs_ms``), and the lab's rows (median ms and min-max),
-beside the card's name and power limit, and every ``[kernel]`` line
-printed. ``--table`` prints the files side by side, one
-column each, in the order given (parent, change, change, parent for an A/B
-in turns).
+cases (``library_vs_ms``) at tiny-224, and the lab's rows (median ms and
+min-max), beside the card's name and power limit, and every ``[kernel]``
+and ``[base384:kernel]`` line printed. ``--table`` prints the files side by
+side, one column each, in the order given (parent, change, change, parent
+for an A/B in turns): the per-kernel sums, then each case's ms a call.
 
 The lab's rows (``attn``, ``attn3``, ``lepe``, ``mlp``) carry a SHA-256 of
 each case's output (``sha256``, the first 16 hex digits), so that ``--table``
@@ -49,8 +49,16 @@ one 32-slice tiny-224 chunk to labels (``model(x, emit="labels")`` on the
 fused route, random weights from a seed), CUDA events around 5 back-to-back
 forwards in each of 10 rounds, unprimed, so that a forward whose
 host work outlasts its device work reads the host, and the device busy ms
-of a forward (the harness's ``device_busy_ms``). ``--table`` prints such
-files as one row each.
+of a forward (the root's ``utils.profiling.device_busy_ms``, or the
+harness's ``device_busy_ms`` for a root from before it moved there: then give
+``--harness`` a checkout of the root's age). ``--table`` prints such files as
+one row each.
+
+A root runs under a harness that calls only what the root has. This
+checkout's harness reads nothing of the training route from the root, so
+the default mode runs a root from before the route was measured (the
+parent's build, held in turns against this one); ``--forward`` under it
+needs a root whose ``utils.profiling`` has ``device_busy_ms``.
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ import importlib.util
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -182,11 +191,12 @@ def measure(root: str, harness: str) -> dict:
     with contextlib.redirect_stdout(printed):
         tally = chip_smoke.compare_kernels(cfg, dev, chip_smoke.SERVE_BATCH)
         chip_smoke.compare_backward_kernels(cfg, dev, chip_smoke.TRAIN_BATCH, tally)
-        if hasattr(chip_smoke, "compare_base384_backward"):
-            try:
-                chip_smoke.compare_base384_backward(dev, chip_smoke.TRAIN_BATCH, tally)
-            except ValueError as e:  # a build whose kernel refuses 288-token windows
-                refused = str(e)
+        try:
+            chip_smoke.compare_backward_kernels(
+                chip_smoke.smoke_config(cfg=chip_smoke.CFG384), dev, chip_smoke.TRAIN_BATCH,
+                chip_smoke.KernelTally("base384:kernel"))
+        except ValueError as e:  # a build that refuses one of base-384's shapes
+            refused = str(e)
         chip_smoke.compare_edt(dev, tally)
     print(printed.getvalue(), end="")
     lab = lab_rows(block_lab, ("attn", "attn3", "lepe", "mlp"), dev)
@@ -195,7 +205,7 @@ def measure(root: str, harness: str) -> dict:
     return dict(root=root, harness=harness, device=torch.cuda.get_device_name(0),
                 nvidia_smi=smi, base384_refused=refused,
                 kernel_lines=[ln for ln in printed.getvalue().splitlines()
-                              if ln.startswith("[kernel]")],
+                              if ln.startswith(("[kernel]", "[base384:kernel]"))],
                 kernels={k: {f: tally.rows[k][f] for f in keys} for k in KERNELS},
                 lab=lab)
 
@@ -220,6 +230,15 @@ def measure_forward(root: str, harness: str) -> dict:
 
     chip_smoke = _load(root, harness)
     from cswin_unet_tpu_torch.models import build_model
+    from cswin_unet_tpu_torch.utils import profiling
+
+    # A root from before the busy reading moved into utils.profiling reads it
+    # through a harness of its own age, whose chip_smoke defines it.
+    device_busy_ms = getattr(profiling, "device_busy_ms", None) or getattr(
+        chip_smoke, "device_busy_ms", None)
+    if device_busy_ms is None:
+        raise SystemExit("tile_ab: neither the root's utils.profiling nor the harness "
+                         "has device_busy_ms; give --harness a checkout of the root's age")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -234,7 +253,7 @@ def measure_forward(root: str, harness: str) -> dict:
             return model(x, emit="labels")
 
     ms = [chip_smoke.time_ms(forward, reps=5, rounds=1) for _ in range(10)]
-    busy = chip_smoke.device_busy_ms(forward, 5)
+    busy = device_busy_ms(forward, 5)
     return dict(root=root, harness=harness, device=torch.cuda.get_device_name(0),
                 nvidia_smi=_smi(), forward=dict(batch=batch, ms=ms, busy_ms=busy))
 
@@ -267,12 +286,18 @@ def table(paths: list[str]) -> None:
                          f"{r['kernels'][k]['library_ms']:.4f} / "
                          f"{r['kernels'][k]['library_vs_ms']:.4f}" for r in runs)
         print(f"{k}: {cells} | {runs[0]['kernels'][k]['bound_ms']:.4f} | {lib}")
-    for p, r in zip(paths, runs):  # the weight-0 cases: per call, not summed
-        lines = [ln for ln in r.get("kernel_lines", []) if "base-384" in ln]
+    cases: dict[str, list] = {}  # each case's ms a call, by file ('-': not run)
+    for i, r in enumerate(runs):
+        for ln in r.get("kernel_lines", []):
+            ms = re.search(r" ms=([\d.]+)", ln)
+            if ms:
+                cases.setdefault(ln.split(": ")[0], ["-"] * len(runs))[i] = ms.group(1)
+    print(f"case (its calls a unit): ms a call {head}")
+    for case, cells in cases.items():
+        print(f"{case}: {' | '.join(cells)}")
+    for p, r in zip(paths, runs):
         if r.get("base384_refused"):
-            lines = [f"refused: {r['base384_refused']}"]
-        for ln in lines:
-            print(f"{os.path.basename(p)} {ln}")
+            print(f"{os.path.basename(p)} base-384 refused: {r['base384_refused']}")
     lab_table(paths, runs, head)
 
 

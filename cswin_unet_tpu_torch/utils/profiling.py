@@ -1,5 +1,5 @@
-"""Profiling: a steady-state step timer, device traces and a synchronised
-best-of-N timer.
+"""Profiling: a steady-state step timer, device traces, a synchronised
+best-of-N timer and the device-busy reading of the port's kernels.
 
 Counterpart of ``cswin_unet_tpu.utils.profiling``: ``StepTimer`` has the
 same semantics (host clock between ticks, the first ``skip_first``
@@ -7,13 +7,16 @@ intervals dropped, a rolling window); ``device_trace`` wraps
 ``torch.profiler`` where the JAX package wraps ``jax.profiler`` and writes a
 Chrome trace (``chrome://tracing``, Perfetto); ``block_and_time`` waits for
 the result's device (``torch.cuda.synchronize``) where JAX blocks on the
-array.
+array. ``device_busy_ms`` (the port's own) reads the union of a call's
+device intervals from ``torch.profiler``, held to the kernels' launch
+counters.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import re
 import time
 
 import torch
@@ -87,3 +90,57 @@ def block_and_time(fn, *args, iters: int = 3, **kwargs) -> tuple[float, object]:
         _sync(out)
         best = min(best, time.perf_counter() - t0)
     return best, out
+
+
+# The port's __global__ functions (each kernel wrapper launches one of them
+# per call; all in anonymous namespaces), as the profiler names them,
+# demangled or not: what device_busy_ms holds to the launch counters.
+KERNEL_SYMBOLS = re.compile(
+    r"(?:\(anonymous namespace\)::|_GLOBAL__N_\w*?\d)(?:layernorm|layernorm_bwd|gemm|"
+    r"wgrad|stripe_attention|stripe_attention_bwd|carafe|edt_pass|block_pair|lepe_windows|"
+    r"ln_mlp|block_one)_kernel")
+
+
+def device_events(prof) -> list:
+    """The profiler's device records: kernels, copies and sets, without the
+    ranges user annotations draw on the device track (DDP's forward is one,
+    spanning the idle gaps between its kernels)."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_busy_ms(fn, reps: int) -> float | None:
+    """Device-busy ms per call: the union of the device intervals that
+    ``torch.profiler`` records over ``reps`` back-to-back calls, over
+    ``reps``. The profiler can lose records, so its count of the port's
+    kernels (``KERNEL_SYMBOLS``) is held to the launch counters' count over
+    the same calls: where they differ it prints ``busy unread (records r of
+    n)`` and returns None, never a figure built from lost records; None too
+    if it records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..ops.cuda import kernels as K
+
+    fn()
+    torch.cuda.synchronize()
+    before = sum(K.launch_counts().values())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    launched = sum(K.launch_counts().values()) - before
+    events = device_events(prof)
+    records = sum(1 for e in events if KERNEL_SYMBOLS.search(e.name))
+    if records != launched:
+        print(f"busy unread (records {records} of {launched})", flush=True)
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    if not spans:
+        return None
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy, lo, hi = busy + hi - lo, s, e
+        else:
+            hi = max(hi, e)
+    return (busy + hi - lo) / reps / 1e3  # the profiler counts µs

@@ -85,8 +85,8 @@ def _geometries(yaml: str):
 
 def _wgrad_shapes(min_reso: int = 0):
     """(M, N, K) of the four weight gradients of each dual-branch stage of
-    tiny-224 at the training batch (stages 1-3; the trainer routes those at
-    resolution >= 28 through the kernels)."""
+    tiny-224 at resolution >= ``min_reso`` at the training batch (stages
+    1-3)."""
     for H, C, _, _, last in _geometries("cswin_tiny_224_lite.yaml"):
         if not last and H >= min_reso:
             M = TRAIN_BATCH * H * H
@@ -168,11 +168,11 @@ def test_attention_bwd_smem_takes_base384_windows(d):
 
 def _ln_bwd_shapes():
     """(rows, C) of the block backward's LayerNorms at the training batch:
-    every dual-branch stage of tiny-224 and base-384."""
+    every stage of tiny-224 and base-384 (the last stages' blocks train
+    through ``CSWinBlockFn`` too)."""
     for yaml in ("cswin_tiny_224_lite.yaml", "cswin_base_384.yaml"):
-        for H, C, _, _, last in _geometries(yaml):
-            if not last:
-                yield TRAIN_BATCH * H * H, C
+        for H, C, _, _, _ in _geometries(yaml):
+            yield TRAIN_BATCH * H * H, C
 
 
 @pytest.mark.parametrize("rows,C,ctas_per_sm", [

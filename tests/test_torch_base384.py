@@ -110,13 +110,14 @@ def test_base384_config():
 def test_base384_expected_launches():
     """A serving forward: 80 blocks as chains (no base-384 geometry is
     paired), 2 LN and 4 GEMMs a block, an attention launch a branch, the two
-    fused CARAFE sites a GEMM and a CARAFE launch each. A train step: the 12
-    blocks at resolution >= 28 (stages 1-2) through ``CSWinBlockFn``, the 68
-    others composed."""
+    fused CARAFE sites a GEMM and a CARAFE launch each. A train step: every
+    block through ``CSWinBlockFn`` (the last stage's 4 blocks one attention
+    launch each way), the kernels' backward as many times as their
+    forward."""
     cfg = _base384()
     zero = dict.fromkeys(chip_smoke.SOURCES, 0)
     assert chip_smoke.expected_launches(cfg, 1) == dict(
         zero, layernorm=160, gemm=322, stripe_attention=156, carafe_reassemble=2)
     assert chip_smoke.expected_train_launches(cfg, 1) == dict(
-        zero, layernorm=24, gemm=50, stripe_attention=24, carafe_reassemble=2,
-        layernorm_bwd=24, gemm_dgrad=48, gemm_wgrad=48, stripe_attention_bwd=24)
+        zero, layernorm=160, gemm=322, stripe_attention=156, carafe_reassemble=2,
+        layernorm_bwd=160, gemm_dgrad=320, gemm_wgrad=320, stripe_attention_bwd=156)

@@ -505,12 +505,15 @@ def _device_kernels(fn) -> list[str]:
     return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-# The train path's shapes (stage 1 and 2 at bs 24), every width base-384
-# needs, C = 512, and row counts that leave CTAs short: 1, 63, 65 and fewer
-# rows than one wave of CTAs.
-@pytest.mark.parametrize("M,C", [(75264, 64), (18816, 128), (1000, 96), (1000, 192),
+# The train path's shapes (tiny-224's four stages at bs 24, base-384's
+# last stage at 768 channels: one pass each for dγ and dβ, a thread summing
+# two float4 columns), every width base-384 needs, C = 512, and row counts
+# that leave CTAs short: 1, 63, 65 and fewer rows than one wave of CTAs.
+@pytest.mark.parametrize("M,C", [(75264, 64), (18816, 128), (4704, 256), (1176, 512),
+                                 (3456, 768), (1000, 96), (1000, 192),
                                  (1000, 384), (333, 512), (1, 64), (63, 64), (65, 128),
-                                 (1, 512), (63, 96), (65, 384), (200, 512), (75, 256)])
+                                 (1, 512), (63, 96), (65, 384), (200, 512), (75, 256),
+                                 (1, 768), (65, 768), (100000, 768)])
 def test_layernorm_bwd(dev, M, C):
     rng = np.random.default_rng(5)
     x, dy, res = (_rnd(rng, dev, M, C).bfloat16() for _ in range(3))
@@ -576,7 +579,9 @@ def test_gemm_training_epilogues(dev):
 @pytest.mark.parametrize("H,C,heads,split,last", [
     (56, 64, 2, 1, False), (28, 128, 4, 2, False), (14, 256, 8, 7, False),
     (7, 512, 16, 7, True), (16, 48, 2, 4, False),
-    (96, 96, 4, 1, False), (48, 192, 8, 2, False)])  # base-384 stages 1-2: L = 96, d = 24
+    # base-384's stages 1-4: L = 96, 96, 288 and 144 at d = 24
+    (96, 96, 4, 1, False), (48, 192, 8, 2, False), (24, 384, 16, 12, False),
+    (12, 768, 32, 12, True)])
 def test_stripe_attention_bwd(dev, H, C, heads, split, last):
     rng = np.random.default_rng(8)
     qkv = _rnd(rng, dev, 2, H, H, 3 * C).bfloat16()
@@ -596,28 +601,58 @@ def test_stripe_attention_bwd(dev, H, C, heads, split, last):
             assert _rel_l2(g.float(), want.float()) <= 0.02
 
 
-@pytest.mark.parametrize("H,C,heads,split", [(56, 64, 2, 1), (28, 128, 4, 2),
-                                             (14, 256, 8, 7),
-                                             # base-384's two stages that train through it
-                                             (96, 96, 4, 1), (48, 192, 8, 2)])
-def test_block_fn_grads(dev, H, C, heads, split):
-    rng = np.random.default_rng(9)
+def _block_fn_case(dev, H, C, heads, split, last, seed):
+    """Parameters (a last-stage block's one LePE in both slots), input,
+    cotangent and drop-path multipliers of one block at B = 4."""
+    rng = np.random.default_rng(seed)
     t = lambda *s, sc=0.1, off=0.0: _rnd(rng, dev, *s, sc=sc, off=off)
-    p = [t(C, sc=0.3, off=1.0), t(C), t(3 * C, C), t(3 * C), t(C // 2, 1, 3, 3, sc=0.3),
-         t(C // 2), t(C // 2, 1, 3, 3, sc=0.3), t(C // 2), t(C, C), t(C),
-         t(C, sc=0.3, off=1.0), t(C), t(4 * C, C), t(4 * C), t(C, 4 * C), t(C)]
+    cb = C if last else C // 2
+    p = [t(C, sc=0.3, off=1.0), t(C), t(3 * C, C), t(3 * C), t(cb, 1, 3, 3, sc=0.3), t(cb)]
+    p += p[4:6] if last else [t(cb, 1, 3, 3, sc=0.3), t(cb)]
+    p += [t(C, C), t(C), t(C, sc=0.3, off=1.0), t(C), t(4 * C, C), t(4 * C), t(C, 4 * C),
+          t(C)]
     x, g = _rnd(rng, dev, 4, H, H, C).bfloat16(), _rnd(rng, dev, 4, H, H, C).bfloat16()
     dps = (torch.tensor([0.0, 1.25, 1.25, 1.25], device=dev),
            torch.tensor([1.25, 1.25, 0.0, 1.25], device=dev))
-    kw = dict(heads=heads, split=split, last_stage=False, scale=(C // heads) ** -0.5,
-              dps=dps)
-    res = []
-    for fn in (fused_cswin_block, composed_block):
-        leaves = [x.clone().requires_grad_()] + [q.clone().requires_grad_() for q in p]
-        out = fn(leaves[0], BlockParams(*leaves[1:]), **kw)
-        res.append([out] + list(torch.autograd.grad(out, leaves, g)))
+    kw = dict(heads=heads, split=split, last_stage=last, scale=(C // heads) ** -0.5, dps=dps)
+    return p, x, g, kw
+
+
+def _block_fn_grads(fn, p, x, g, kw, last):
+    """Output and gradients of ``fn`` (input and the distinct parameters)."""
+    leaves = [x.clone().requires_grad_()] + [q.clone().requires_grad_() for q in p]
+    ps = leaves[1:]
+    if last:  # the one LePE leaf in both slots
+        ps[6], ps[7] = ps[4], ps[5]
+        leaves = leaves[:7] + leaves[9:]
+    out = fn(leaves[0], BlockParams(*ps), **kw)
+    return [out] + list(torch.autograd.grad(out, leaves, g))
+
+
+# The trained geometries: tiny-224's four stages, base-384's four (L = 96,
+# 96, 288 and 144 at d = 24); the last stages run one full-window branch.
+BLOCK_FN_GEOMETRIES = [(56, 64, 2, 1, False), (28, 128, 4, 2, False), (14, 256, 8, 7, False),
+                       (7, 512, 16, 7, True), (96, 96, 4, 1, False), (48, 192, 8, 2, False),
+                       (24, 384, 16, 12, False), (12, 768, 32, 12, True)]
+
+
+@pytest.mark.parametrize("H,C,heads,split,last", BLOCK_FN_GEOMETRIES)
+def test_block_fn_grads(dev, H, C, heads, split, last):
+    p, x, g, kw = _block_fn_case(dev, H, C, heads, split, last, 9)
+    res = [_block_fn_grads(fn, p, x, g, kw, last)
+           for fn in (fused_cswin_block, composed_block)]
     for i, (a, b) in enumerate(zip(*res)):
         assert _rel_l2(a.float(), b.float()) <= 0.02, i
+
+
+@pytest.mark.parametrize("H,C,heads,split,last", BLOCK_FN_GEOMETRIES[2:4] + BLOCK_FN_GEOMETRIES[6:])
+def test_block_fn_is_deterministic(dev, H, C, heads, split, last):
+    """The geometries whose training route an H100 A/B chose: two calls of
+    ``CSWinBlockFn`` forward and backward give the same bits."""
+    p, x, g, kw = _block_fn_case(dev, H, C, heads, split, last, 19)
+    first, second = (_block_fn_grads(fused_cswin_block, p, x, g, kw, last) for _ in range(2))
+    for i, (a, b) in enumerate(zip(first, second)):
+        assert torch.equal(a, b), i
 
 
 def test_carafe_fn_grads(dev):

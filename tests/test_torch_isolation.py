@@ -63,7 +63,7 @@ def test_port_and_chip_smoke_import_no_jax_package():
             "cswin_unet_tpu_torch.eval.__main__", "cswin_unet_tpu_torch.train.__main__",
             "cswin_unet_tpu_torch.ops.edt", "cswin_unet_tpu_torch.ops.cuda.kernels",
             "cswin_unet_tpu_torch.tools.block_lab", "cswin_unet_tpu_torch.tools.probe_chain",
-            "cswin_unet_tpu_torch.tools.tile_ab",
+            "cswin_unet_tpu_torch.tools.tile_ab", "cswin_unet_tpu_torch.tools.train_route",
             "cswin_unet_tpu_torch.utils.checkpoint", "cswin_unet_tpu_torch.finetune",
             "cswin_unet_tpu_torch.universal_train", "cswin_unet_tpu_torch.universal_test",
             "cswin_unet_tpu_torch.train.surgical", "cswin_unet_tpu_torch.train.tpgm",

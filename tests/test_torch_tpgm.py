@@ -183,12 +183,16 @@ def _batches():
 @pytest.mark.parametrize("route", ["composed", "CSWinBlockFn"])
 def test_tpgm_trainer_matches_jax(setup, jax_optimized, monkeypatch, route):
     """4 constraint steps (Adam after a clip at 1.0) on the model's loss,
-    then ``apply``. ``CSWinBlockFn``: every dual-branch block trains through
-    the kernel backward's Function (on the CPU its plain versions), so the
-    constraints' gradients pass through its weight gradients."""
+    then ``apply``. Every block trains through the composition (its
+    ``impl`` set to ``"plain"``), or through the kernel backward's Function
+    (``CSWinBlockFn``, on the CPU its plain versions, last-stage blocks
+    included), so the constraints' gradients pass through its weight
+    gradients."""
     (_, params), model, drifted = setup
-    if route == "CSWinBlockFn":
-        monkeypatch.setattr(port_unet, "FUSE_TRAIN_MIN_RESO", 0)
+    if route == "composed":
+        for b in model.modules():
+            if isinstance(b, port_unet.CSWinBlock):
+                monkeypatch.setattr(b, "impl", "plain")
     calls = []
     real_apply = CSWinBlockFn.apply
     monkeypatch.setattr(CSWinBlockFn, "apply",
@@ -201,7 +205,7 @@ def test_tpgm_trainer_matches_jax(setup, jax_optimized, monkeypatch, route):
     lines = []
     tr.optimize(theta, iter(batches), log=lines.append)
     assert lines[-1].startswith("TPGM optimization complete. Average constraint change: ")
-    assert len(calls) == (4 * 4 if route == "CSWinBlockFn" else 0)  # dual-branch blocks
+    assert len(calls) == (4 * 8 if route == "CSWinBlockFn" else 0)  # 8 blocks a step
     assert not model.training
 
     jc, jproj = jax_optimized

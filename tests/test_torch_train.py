@@ -136,10 +136,10 @@ def test_model_grads_match_jax_grad():
 
 
 def test_kernel_route_matches_plain_route_at_128(monkeypatch):
-    """At img 128 stage 1 runs at 32x32 >= 28: its two blocks train through
-    ``CSWinBlockFn`` and the tail through ``CarafeFn``. Same weights,
-    same drop-path draws (rate 0.2) as the plain route: same loss and
-    gradients."""
+    """At img 128 all 8 blocks (stage 1 at 32x32, the last stage at 4x4
+    among them) train through ``CSWinBlockFn`` and the tail through
+    ``CarafeFn``. Same weights, same drop-path draws (rate 0.2) as the
+    plain route: same loss and gradients."""
     calls = {"block": 0, "tail": 0}
     for key, cls in (("block", CSWinBlockFn), ("tail", CarafeFn)):
         apply = cls.apply
@@ -166,7 +166,7 @@ def test_kernel_route_matches_plain_route_at_128(monkeypatch):
         loss, _ = segmentation_loss(model(x, generator=gen), y, 5)
         loss.backward()
         results.append((loss.item(), {k: p.grad for k, p in backbone.named_parameters()}))
-    assert calls == {"block": 2, "tail": 1}
+    assert calls == {"block": 8, "tail": 1}
     (lk, gk), (lp, gp) = results
     assert lk == pytest.approx(lp, rel=1e-5)
     for k in gp:
@@ -233,8 +233,7 @@ def test_use_checkpoint_gives_the_same_loss_and_gradients(monkeypatch, impl):
     in the backward, as the JAX model's ``nn.remat``: on the CPU, with
     drop-path 0.2 live (its draws made outside the recomputed region), the
     loss and every gradient equal those without it bit for bit. At img 128
-    stage 1 (32x32) trains through ``CSWinBlockFn`` on the fused route, the
-    other blocks through the composition."""
+    every block trains through ``CSWinBlockFn`` on the fused route."""
     from cswin_unet_tpu_torch.models import build_model
     from cswin_unet_tpu_torch.models.cswin_unet import CSWinBlock
 
