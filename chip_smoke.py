@@ -35,7 +35,10 @@ Phases, each of which raises on failure (the process then exits non-zero):
      flash-attention backward on the same windows, attention only, no
      LePE), and the
      forward GEMM's training epilogues (drop-path residual, GELU keeping
-     its pre-activation). The ``pallas``
+     its pre-activation); and, outside the step's sums, the GEMMs' dropout
+     instances at rate 0.1 (the fc1 GELU and fc2 residual epilogues, the
+     fc2 dX product with both masks, its weight gradient), at base-384's
+     shapes too (phase 10). The ``pallas``
      route's ``cswin_attention`` at every branch geometry (B = 32, q, k, v
      as channel slices of one qkv tensor) against the Pallas rounding's
      plain version, and ``edt_pass`` along each axis of a (48, 512, 512)
@@ -106,6 +109,14 @@ Phases, each of which raises on failure (the process then exits non-zero):
      ``tools/train_route.py`` at bs 24 for one round: each route's step ms
      [min-max], device busy and peak memory, and one block's fwd+bwd a
      geometry (times only: one round gives no spread, so no verdict).
+     ``[dropout]``: ``--opts MODEL.DROP_RATE 0.1``, the train CLI's ``main``
+     for one epoch of 2 steps at bs 24 (launches as routed: the masks ride
+     the GEMMs, so no launch more than at rate 0), the kernel route's loss
+     and gradients against the plain route with the same generator (TOL, a
+     bias twice the plain route's own bf16-vs-float32 error where larger),
+     each GEMM's in-kernel mask at stage 1's shapes equal to
+     ``ops.dropout.keep_mask``'s bits, and the train step's ms and device
+     busy at rate 0.1 beside rate 0 (CUDA events in turns).
   7. Evaluate (48, 512, 512) and (37, 512, 512) organ-like CT volumes from
      ``epoch_1.npz`` through ``eval.inference.inference`` (``test.py``'s
      loop, an in-memory dataset): with device metrics (``edt_pass``
@@ -132,12 +143,20 @@ Phases, each of which raises on failure (the process then exits non-zero):
      one TPGM step's constraint gradients and the RGN weights (relative L2
      <= 0.02), and the launches (CARAFE by class count: 9 and 12 in a
      step) and seconds of one continual step, one TPGM step and one
-     surgical grad pass.
+     surgical grad pass. ``[finetune]``: the legacy grid's CLI (``python -m
+     cswin_unet_tpu_torch.finetune``'s ``main``) for one (lr, wd) cell and
+     one epoch on 120 synthetic 224x224 slices from the serve phase's
+     checkpoint (its launches, log and checkpoint), then on one fixed batch
+     the RGN group weights and the RGN-weighted gradients of its loss, kernel
+     route against plain route. ``[blur]``: ``python -m
+     cswin_unet_tpu_torch.tools.apply_blur train``'s ``main`` with the blur
+     on the card, each image within 1e-5 of scipy.
   9. Data parallel at tiny-224 width and depth, lines tagged ``[ddp]``:
      two gloo ranks share the one card (spawned processes, a free port,
      every rank on local device 0; NCCL refuses two ranks on one GPU)
      through ``trainer_synapse`` for one epoch of 3 global batches of 24
-     (12 a rank, drop-path 0.2 and ``--device_augment`` live): each rank's
+     (12 a rank, drop-path 0.2, dropout 0.1 and ``--device_augment`` live:
+     every step of the phase runs at ``MODEL.DROP_RATE`` 0.1): each rank's
      launches against the routing, both ranks' weights equal, and each
      parameter's update θ3 − θ0 and the logged losses against one process
      run on the ranks' concatenated batches with the same seed (relative L2
@@ -256,6 +275,8 @@ CONTINUAL_BATCH = 12  # universal_train's default batch
 CONTINUAL_CLASSES = (12, 14)  # the continual heads: Synapse + KiTS23, + LiTS17
 PARITY384_BATCH = 8  # base-384's gradient parity: three models' gradients side by side
 TOL = 0.02
+DROP_RATE = 0.1  # MODEL.DROP_RATE of the [dropout] phase and of [ddp]
+DROP_OPTS = ["MODEL.DROP_RATE", str(DROP_RATE)]
 BWD = "cswin_unet_tpu/ops/pallas/cswin_block.py:1854"  # _fused_block_bwd_xt
 SOURCES = {
     "layernorm": ("cswin_unet_tpu_torch/ops/cuda/csrc/layernorm.cu",
@@ -841,7 +862,64 @@ def compare_backward_kernels(cfg, dev, B: int, tally: KernelTally) -> None:
                        tc_flops=2 * M * n * k, f32_ops=M * n,
                        library=(lambda: torch.matmul(d.t(), a)) if plain_product
                        else None)
+        dropout_cases(tally, dev, rnd, x, res, h, dp, hw, C, tag)
         attention_bwd_cases(tally, dev, rnd, B, H, C, heads, split, g["last"], blocks, tag)
+
+
+def dropout_sites(dev, seed: int, rate: float = DROP_RATE, row0: int = 0):
+    """One block's (fc1, fc2) dropout sites, keys from a seeded generator on
+    the card."""
+    import torch
+
+    from cswin_unet_tpu_torch.ops import dropout as D
+
+    keys = D.draw_keys(torch.Generator(device=dev).manual_seed(seed), 2)
+    return D.Drop(keys[0:1], rate, row0), D.Drop(keys[1:2], rate, row0)
+
+
+def dropout_cases(tally: KernelTally, dev, rnd, x, res, h, dp, hw: int, C: int,
+                  tag: str) -> None:
+    """The GEMMs' dropout instances at one stage geometry (rate DROP_RATE,
+    drop-path live): the fc1 GELU and fc2 residual epilogues, the fc2 dX
+    product (both masks) and its weight gradient (dY's mask), each against
+    its plain version; outside the step's sums (calls 0: the main path
+    trains at rate 0). Each is timed behind the spin kernel beside the same
+    call at rate 0 (the instance without dropout), printed as a ratio."""
+    import torch
+
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+
+    bf = torch.bfloat16
+    M = x.shape[0]
+    d1, d2 = dropout_sites(dev, 17)
+    w1, b1 = rnd(4 * C, C, sc=C ** -0.5).to(bf), rnd(4 * C, sc=0.1)
+    w2, b2 = rnd(C, 4 * C, sc=(4 * C) ** -0.5).to(bf), rnd(C, sc=0.1)
+    d = rnd(M, C).to(bf)
+    wt = rnd(C, 4 * C, sc=C ** -0.5)
+    drops = ("drop", "drop_dy", "drop_dx")
+    cases = (
+        ("gemm", "train-fc1-gelu+dropout", K.gemm, K.gemm_plain, (x, w1, b1),
+         dict(epilogue="gelu", drop=d1), dict(moved=nbytes(x, w1, b1) + M * 4 * C * 2,
+                                              tc_flops=2 * M * 4 * C * C)),
+        ("gemm", "train-fc2+droppath+dropout", K.gemm, K.gemm_plain, (h, w2, b2),
+         dict(epilogue="residual", residual=res, dp=dp, rows_per_sample=hw, drop=d2),
+         dict(moved=nbytes(h, w2, b2, res, dp) + M * C * 2, tc_flops=2 * M * C * 4 * C)),
+        ("gemm_dgrad", "fc2-gelu_bwd+droppath+dropout", K.gemm_dgrad, K.gemm_dgrad_plain,
+         (d, wt), dict(dp=dp, rows_per_sample=hw, gelu_h=h, drop_dy=d2, drop_dx=d1),
+         dict(moved=nbytes(d, wt, h, dp) + M * 4 * C * 2, tc_flops=2 * M * C * 4 * C,
+              f32_ops=M * 4 * C * 16)),
+        ("gemm_wgrad", "fc2+droppath+dropout", K.gemm_wgrad, K.gemm_wgrad_plain, (h, d),
+         dict(dp=dp, rows_per_sample=hw, drop=d2),
+         dict(moved=nbytes(h, d, dp) + (C * 4 * C + C) * 4, tc_flops=2 * M * C * 4 * C,
+              f32_ops=M * C)))
+    for name, what, fn, plain, args, kw, work in cases:
+        tally.case(name, f"{what}{tag}", lambda: fn(*args, **kw), lambda: plain(*args, **kw),
+                   0, primed=True, **work)
+        ms, ms0 = (time_ms(f, primed=True) for f in (
+            lambda: fn(*args, **kw),
+            lambda: fn(*args, **{k: v for k, v in kw.items() if k not in drops})))
+        print(f"[{tally.tag}] {name} {what}{tag}: the dropout instance ms={ms:.4f}, the same "
+              f"call at rate 0 ms={ms0:.4f} ({ms / ms0:.2f}x)", flush=True)
 
 
 def check_attention_bwd_smem() -> None:
@@ -1576,35 +1654,53 @@ def grad_parity(phase: str, what: str, kernel, plain, plain_f32, *,
             f"beyond bound {[(k, errs[k], bound[k]) for k in bad]}")
 
 
+def fixed_batch(data: str, dev):
+    """The first ``TRAIN_BATCH`` slices of ``data`` at 224 (image, label) on
+    ``dev``."""
+    import torch
+
+    from cswin_unet_tpu_torch.data import EvalResize, SynapseDataset
+
+    ds = SynapseDataset(os.path.join(data, "train_npz"), os.path.join(data, "lists"),
+                        "train", transform=EvalResize([224, 224]))
+    samples = [ds[i] for i in range(TRAIN_BATCH)]
+    return tuple(torch.from_numpy(np.stack([s[k] for s in samples])).to(dev)
+                 for k in ("image", "label"))
+
+
+def route_grads(cfg, dev, img, lab, impl: str, dtype, nc: int = 9):
+    """(loss, {name: gradient}) of one train-mode forward and backward of
+    ``segmentation_loss`` on ``impl`` in ``dtype``: weights from seed 3,
+    drop-path and dropout draws from a generator seeded 11."""
+    import torch
+
+    from cswin_unet_tpu_torch.losses import segmentation_loss
+    from cswin_unet_tpu_torch.models import build_model
+
+    model = build_model(cfg, num_classes=nc, device=dev, impl=impl, dtype=dtype, seed=3,
+                        train=True)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    loss, _ = segmentation_loss(model(img, generator=gen), lab, nc)
+    names, params = zip(*model.named_parameters())
+    return loss.detach(), dict(zip(names, torch.autograd.grad(loss, params)))
+
+
 def train_step_checks(cfg, dev, data: str) -> None:
     """On one fixed batch of 24 slices: loss and gradients of the kernel
     route against the plain route, one step's launch counts, 10 steps with
     falling loss, and the train-step time of both routes."""
     import torch
 
-    from cswin_unet_tpu_torch.data import EvalResize, SynapseDataset
-    from cswin_unet_tpu_torch.losses import segmentation_loss
     from cswin_unet_tpu_torch.models import build_model
     from cswin_unet_tpu_torch.ops.cuda import kernels as K
     from cswin_unet_tpu_torch.train import make_optimizer, make_train_step
 
     nc = 9
-    ds = SynapseDataset(os.path.join(data, "train_npz"), os.path.join(data, "lists"),
-                        "train", transform=EvalResize([224, 224]))
-    samples = [ds[i] for i in range(TRAIN_BATCH)]
-    img = torch.from_numpy(np.stack([s["image"] for s in samples])).to(dev)
-    lab = torch.from_numpy(np.stack([s["label"] for s in samples])).to(dev)
-
-    def grads(impl, dtype):
-        model = build_model(cfg, num_classes=nc, device=dev, impl=impl, dtype=dtype,
-                            seed=3, train=True)
-        gen = torch.Generator(device=dev).manual_seed(11)
-        loss, _ = segmentation_loss(model(img, generator=gen), lab, nc)
-        names, params = zip(*model.named_parameters())
-        return loss.detach(), dict(zip(names, torch.autograd.grad(loss, params)))
-
-    grad_parity("train", f"fixed batch of {TRAIN_BATCH}", grads("fused", torch.bfloat16),
-                grads("plain", torch.bfloat16), grads("plain", torch.float32))
+    img, lab = fixed_batch(data, dev)
+    grad_parity("train", f"fixed batch of {TRAIN_BATCH}",
+                *(route_grads(cfg, dev, img, lab, impl, dtype) for impl, dtype in (
+                    ("fused", torch.bfloat16), ("plain", torch.bfloat16),
+                    ("plain", torch.float32))))
 
     def trainer(impl):
         model = build_model(cfg, num_classes=nc, device=dev, impl=impl, seed=3,
@@ -1637,6 +1733,281 @@ def train_step_checks(cfg, dev, data: str) -> None:
           f"({TRAIN_BATCH / k_ms * 1e3:.1f} samples/s) plain_ms={p_ms:.3f} "
           f"({TRAIN_BATCH / p_ms * 1e3:.1f} samples/s); in turns kernel {k1:.3f}, "
           f"plain {p1:.3f}, plain {p2:.3f}, kernel {k2:.3f}", flush=True)
+
+
+def dropout_masks(dev, M: int, C: int, rows_wgrad: int = 2048) -> dict[str, bool]:
+    """Each GEMM's dropout mask at a block's shapes (M rows, width C, hidden
+    4C; rate DROP_RATE, a rank's row offset), read from an output that it
+    alone decides, against ``ops.dropout.keep_mask``'s bits: the fc1 GELU
+    and fc2 residual epilogues (zero products, bias 1), the fc2 dX product's
+    mask on its output (products of ones) and on dY (an identity weight),
+    and the weight gradient's on dY (an identity X, ``rows_wgrad`` rows).
+    {kernel site: equal bit for bit}."""
+    import torch
+
+    from cswin_unet_tpu_torch.ops import dropout as D
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+
+    bf, N = torch.bfloat16, 4 * C
+    d1, d2 = dropout_sites(dev, 23, row0=M)
+    mask = lambda d, rows, cols: D.keep_mask(d.key, d.row0, rows, cols, d.rate)
+    z, one = dict(dtype=bf, device=dev), torch.ones((), dtype=bf, device=dev)
+    a0 = torch.zeros(M, 64, **z)
+    out = {}
+    out["gemm fc1 GELU epilogue"] = K.gemm(
+        a0, torch.zeros(N, 64, **z), torch.ones(N, device=dev), epilogue="gelu",
+        drop=d1) != 0
+    out["gemm fc2 residual epilogue"] = K.gemm(
+        a0, torch.zeros(C, 64, **z), torch.ones(C, device=dev),
+        residual=torch.zeros(M, C, **z), epilogue="residual", drop=d2) != 0
+    ones = one.expand(M, C).contiguous()
+    out["gemm_dgrad output (fc1 site)"] = K.gemm_dgrad(
+        ones, torch.ones(C, N, device=dev), gelu_h=torch.full((M, N), 10.0, **z),
+        drop_dx=d1) != 0
+    out["gemm_dgrad dY (fc2 site)"] = K.gemm_dgrad(
+        ones, torch.eye(C, device=dev), gelu_h=torch.full((M, C), 10.0, **z),
+        drop_dy=d2) != 0
+    r = rows_wgrad
+    e = dropout_sites(dev, 23, row0=M + r)[1]
+    dw, _ = K.gemm_wgrad(torch.eye(r, **z), one.expand(r, C).contiguous(), drop=e)
+    out["gemm_wgrad dY (fc2 site)"] = dw.t() != 0
+    want = {"gemm fc1 GELU epilogue": mask(d1, M, N), "gemm fc2 residual epilogue":
+            mask(d2, M, C), "gemm_dgrad output (fc1 site)": mask(d1, M, N),
+            "gemm_dgrad dY (fc2 site)": mask(d2, M, C),
+            "gemm_wgrad dY (fc2 site)": mask(e, r, C)}
+    return {k: bool(torch.equal(out[k], want[k])) for k in want}
+
+
+def dropout_run(cfg, dev, workdir: str, data: str, smi: str) -> dict[str, int]:
+    """``--opts MODEL.DROP_RATE 0.1`` at tiny-224 width and depth: the train
+    CLI (its ``main``, in this process) for one epoch of 2 steps at bs 24,
+    its launches as routed (every block through ``CSWinBlockFn``, the masks
+    in its GEMMs: no launch more than at rate 0); the kernel route's loss
+    and gradients against the plain route with the same generator
+    (``grad_parity``); the kernels' masks against the plain function's bits
+    at stage 1's shapes; the train step's ms and device busy at rate 0.1
+    beside rate 0. Returns the CLI's launches."""
+    import torch
+
+    from cswin_unet_tpu_torch.models import build_model
+    from cswin_unet_tpu_torch.models.cswin_unet import dropout_keys
+    from cswin_unet_tpu_torch.ops import dropout as D
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.train import make_optimizer, make_train_step
+    from cswin_unet_tpu_torch.train.__main__ import main as train_main
+    from cswin_unet_tpu_torch.utils.profiling import device_busy_ms
+
+    t_phase = time.perf_counter()
+    dcfg = smoke_config(DROP_OPTS)
+    cli = os.path.join(workdir, "dropout_cli")
+    os.makedirs(os.path.join(cli, "lists", "lists_Synapse_blurred"))
+    shutil.copy(os.path.join(data, "lists", "train.txt"),
+                os.path.join(cli, "lists", "lists_Synapse_blurred", "train.txt"))
+    argv = ["--cfg", CFG, "--root_path", data, "--dataset", "Synapse", "--output_dir", "run",
+            "--max_epochs", "1", "--batch_size", str(TRAIN_BATCH), "--img_size", "224",
+            "--num_workers", "8", "--device", dev.type, "--opts", *DROP_OPTS]
+    here = os.getcwd()
+    os.chdir(cli)  # the CLI reads ./lists/lists_Synapse_blurred, as the root train.py
+    try:
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        require(train_main(argv) == "Training Finished!", "train CLI at dropout 0.1")
+        torch.cuda.synchronize()
+        cli_s, counts = time.perf_counter() - t0, K.launch_counts()
+    finally:
+        os.chdir(here)
+    with open(os.path.join(cli, "run", "log.txt")) as f:
+        log = f.read()
+    its = re.findall(r"iteration (\d+) : loss : (\S+), loss_ce: (\S+)", log)
+    steps = len(os.listdir(os.path.join(data, "train_npz"))) // TRAIN_BATCH
+    want = expected_train_launches(dcfg, steps)
+    print(f"[dropout] python -m cswin_unet_tpu_torch.train --opts MODEL.DROP_RATE "
+          f"{DROP_RATE}: {steps} steps in {cli_s:.1f}s, logged iterations "
+          f"{[int(i) for i, _, _ in its]} losses {[float(a) for _, a, _ in its]}; launches "
+          f"{counts} expected {want}", flush=True)
+    require([int(i) for i, _, _ in its] == list(range(1, steps + 1))
+            and all(np.isfinite(float(a)) for _, a, _ in its), f"dropout CLI log {its}")
+    require(counts == want, f"dropout CLI launches {counts} != routing {want}")
+
+    img, lab = fixed_batch(data, dev)
+    grad_parity("dropout", f"rate {DROP_RATE}, fixed batch of {TRAIN_BATCH}",
+                *(route_grads(dcfg, dev, img, lab, impl, dtype) for impl, dtype in (
+                    ("fused", torch.bfloat16), ("plain", torch.bfloat16),
+                    ("plain", torch.float32))))
+    g = next(stage_geometries(cfg))
+    M = TRAIN_BATCH * g["H"] * g["H"]
+    bits = dropout_masks(dev, M, g["C"])
+    print(f"[dropout] the kernels' masks at stage 1 (M {M}, C {g['C']}, hidden "
+          f"{4 * g['C']}, rows offset by M) vs ops.dropout.keep_mask, bit for bit: "
+          f"{'; '.join(k + (' yes' if v else ' NO') for k, v in bits.items())}", flush=True)
+    require(all(bits.values()), f"kernel dropout masks differ from the plain bits: {bits}")
+
+    def trainer(c):
+        model = build_model(c, num_classes=9, device=dev, seed=3, train=True)
+        opt, sched = make_optimizer(model.parameters(), 0.01, 1000)
+        gen = torch.Generator(device=dev).manual_seed(12)
+        step = make_train_step(model, opt, sched, 9)
+        return lambda: step(img, lab, gen)
+
+    s0, s1 = trainer(cfg), trainer(dcfg)
+    a1, b1, b2, a2 = (time_ms(fn, reps=4, rounds=3) for fn in (s0, s1, s1, s0))
+    busy = [device_busy_ms(fn, 3) for fn in (s0, s1)]
+    fmt = lambda v: "unread" if v is None else f"{v:.3f}"
+    print(f"[dropout] train step bs {TRAIN_BATCH} (fwd + bwd + SGD), kernel route, CUDA "
+          f"events in turns (rate 0, {DROP_RATE}, {DROP_RATE}, 0): rate 0 "
+          f"ms={min(a1, a2):.3f} [{a1:.3f}, {a2:.3f}] busy {fmt(busy[0])} ms; rate "
+          f"{DROP_RATE} ms={min(b1, b2):.3f} [{b1:.3f}, {b2:.3f}] busy {fmt(busy[1])} ms; on "
+          f"{smi}", flush=True)
+
+    # The step's added work outside the GEMMs: the stem's mask (torch ops on
+    # the stem's output) and the keys (one draw a block, one for the stem).
+    xs = torch.randn(TRAIN_BATCH, g["H"], g["H"], g["C"], device=dev).to(torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    site = dropout_keys(1, DROP_RATE, xs, gen)[0]
+    blocks = sum(n for _, n in trained_blocks(cfg))
+
+    def host_ms(fn, n=10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    stem_dev = time_ms(lambda: D.dropout(xs, site), primed=True)
+    stem_host = host_ms(lambda: D.dropout(xs, site))
+    keys_host = host_ms(lambda: [dropout_keys(2, DROP_RATE, xs, gen) for _ in range(blocks)])
+    print(f"[dropout] a step's work outside the GEMMs: the stem's mask on {tuple(xs.shape)} "
+          f"(torch ops) device ms={stem_dev:.3f} (behind the spin kernel), {stem_host:.3f} ms "
+          f"a synchronised call; the {blocks} blocks' key draws {keys_host:.3f} ms a step "
+          f"(synchronised); phase seconds {time.perf_counter() - t_phase:.1f}", flush=True)
+    return counts
+
+
+def finetune_run(cfg, dev, workdir: str, smi: str) -> dict[str, int]:
+    """The legacy grid, ``python -m cswin_unet_tpu_torch.finetune --device
+    cuda`` (its ``main``, in this process), for one (lr, wd) cell and one
+    epoch on 120 synthetic 224x224 slices (its 1/5 subset: one batch of 24)
+    from the serve phase's seeded checkpoint: its launches (the step and
+    the RGN grad pass, each a train step's), its log and checkpoint; then
+    on one fixed batch the RGN group weights and the RGN-weighted gradients
+    of its loss on the kernel route against the plain route (``grad_parity``).
+    Returns the CLI's launches."""
+    import torch
+
+    from cswin_unet_tpu_torch import finetune
+    from cswin_unet_tpu_torch.losses import cross_entropy_loss, dice_loss
+    from cswin_unet_tpu_torch.models import build_model
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.train import finetune as ft
+    from cswin_unet_tpu_torch.train import surgical
+    from cswin_unet_tpu_torch.utils.checkpoint import load_checkpoint, load_into
+
+    t_phase = time.perf_counter()
+    nc, slices = 9, 5 * TRAIN_BATCH
+    root = os.path.join(workdir, "finetune")
+    list_dir = write_train_slices(root, slices, 224, nc, seed=31)
+    ck = os.path.join(workdir, "tiny224_seed0.npz")
+    out = os.path.join(root, "run")
+    grid = ft.LR_WD_GRID
+    ft.LR_WD_GRID = grid[:1]
+    try:
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = finetune.main(["--cfg", CFG, "--root_path", os.path.join(root, "train_npz"),
+                             "--list_dir", list_dir, "--output_dir", out, "--max_epochs", "1",
+                             "--batch_size", str(TRAIN_BATCH), "--img_size", "224",
+                             "--pretrained_ckpt", ck, "--save_interval", "1",
+                             "--device", dev.type])
+        torch.cuda.synchronize()
+        cli_s, counts = time.perf_counter() - t0, K.launch_counts()
+    finally:
+        ft.LR_WD_GRID = grid
+    lr, wd = grid[0]
+    with open(os.path.join(out, "log.txt")) as f:
+        log = f.read()
+    losses = [float(v) for v in re.findall(r"Loss: (\S+)", log)]
+    saved = os.path.join(out, f"model_lr{lr}_wd{wd}_epoch0.npz")
+    steps = slices // 5 // TRAIN_BATCH
+    want = expected_train_launches(cfg, 2 * steps)
+    print(f"[finetune] python -m cswin_unet_tpu_torch.finetune --device {dev.type}, cell "
+          f"(lr {lr}, wd {wd}), 1 epoch: {res!r} in {cli_s:.1f}s, {len(losses)} steps, "
+          f"losses {losses}, {os.path.basename(saved)} "
+          f"{'written' if os.path.exists(saved) else 'MISSING'}; launches {counts} expected "
+          f"{want} (a step and an RGN grad pass each)", flush=True)
+    require(res == "Surgical Training Finished!" and len(losses) == steps
+            and all(np.isfinite(losses)) and os.path.exists(saved), "finetune CLI")
+    require(counts == want, f"finetune launches {counts} != routing {want}")
+
+    img, lab = fixed_batch(root, dev)
+    flat = load_checkpoint(ck)[0]
+
+    def seg(logits, labels):
+        return 0.2 * cross_entropy_loss(logits, labels) + 0.8 * dice_loss(logits, labels, nc)
+
+    def route(impl, dtype):
+        model = build_model(cfg, num_classes=nc, device=dev, impl=impl, dtype=dtype,
+                            seed=1234, train=True)
+        load_into(model.cswin_unet, flat)
+        params = surgical.backbone_params(model)
+        gw = surgical.get_group_lr_weights(model, {"image": img, "label": lab}, seg)
+        top = max(gw.values())
+        pw = surgical.group_weights_to_param_weights(params, {k: v / top for k, v in
+                                                              gw.items()})
+        gen = torch.Generator(device=dev).manual_seed(1234)
+        loss = seg(model(img, generator=gen), lab)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return ((loss.detach(), {k: g * pw[k] for k, g in zip(params, grads)}),
+                torch.tensor([gw[k] for k in sorted(gw)], dtype=torch.float64))
+
+    kernel, plain, f32 = (route("fused", torch.bfloat16), route("plain", torch.bfloat16),
+                          route("plain", torch.float32))
+    err, floor = rel_l2(kernel[1], plain[1]), rel_l2(plain[1], f32[1])
+    print(f"[finetune] RGN group weights: {kernel[1].numel()} groups, kernel vs plain "
+          f"rel_l2={err:.3e} (plain bf16 vs f32 {floor:.3e}) "
+          f"{'ok' if err <= TOL else 'FAIL'}", flush=True)
+    require(err <= TOL, f"finetune RGN weights: rel_l2 {err:.3e}")
+    grad_parity("finetune", f"RGN-weighted gradients of 0.2·CE + 0.8·Dice, fixed batch of "
+                f"{TRAIN_BATCH}", kernel[0], plain[0], f32[0])
+    print(f"[finetune] phase seconds {time.perf_counter() - t_phase:.1f} ({smi})", flush=True)
+    return counts
+
+
+def blur_cli_run(dev, workdir: str) -> None:
+    """``python -m cswin_unet_tpu_torch.tools.apply_blur train`` (its
+    ``main``, in this process) with the blur on the card, on 8 synthetic
+    512x512 slices: each image within 1e-5 of scipy's ``gaussian_filter``
+    (σ 1.0), labels and names equal, ``train.txt`` regenerated."""
+    from scipy.ndimage import gaussian_filter
+
+    from cswin_unet_tpu_torch.tools import apply_blur
+
+    root = os.path.join(workdir, "blur_cli")
+    write_train_slices(root, 8, 512, 9, seed=41)
+    src, out = os.path.join(root, "train_npz"), os.path.join(root, "blurred")
+    t0 = time.perf_counter()
+    names = apply_blur.main(["train", "--input_dir", src, "--output_dir", out,
+                             "--list_output_dir", os.path.join(root, "blurred_lists"),
+                             "--sample_dir", os.path.join(root, "samples"),
+                             "--num_samples", "0", "--device", dev.type])
+    secs = time.perf_counter() - t0
+    worst, labels_equal = 0.0, True
+    for name in names:
+        a, b = np.load(os.path.join(src, name + ".npz")), np.load(os.path.join(out,
+                                                                            name + ".npz"))
+        worst = max(worst, float(np.abs(b["image"] - gaussian_filter(a["image"], 1.0)).max()))
+        labels_equal &= bool(np.array_equal(a["label"], b["label"]))
+    with open(os.path.join(root, "blurred_lists", "train.txt")) as f:
+        listed = f.read().split()
+    ok = worst <= 1e-5 and labels_equal and listed == names == sorted(
+        n[:-4] for n in os.listdir(src))
+    print(f"[blur] python -m cswin_unet_tpu_torch.tools.apply_blur train --device "
+          f"{dev.type}: {len(names)} slices 512x512 in {secs:.2f}s, max |image - scipy "
+          f"gaussian_filter(σ 1.0)| {worst:.3e}, labels equal: {labels_equal}, train.txt "
+          f"{len(listed)} names {'ok' if ok else 'FAIL'}", flush=True)
+    require(ok, f"blur CLI: max diff {worst:.3e}, labels {labels_equal}, list {listed}")
 
 
 def route_phase(cfg_path: str, dev, tag: str) -> dict:
@@ -2431,8 +2802,8 @@ def ddp_run(cfg, dev, workdir: str, kits: dict, teacher_ck: str, smi: str,
         if len(logged) == len(ref_losses) else float("inf")
     over = {k: f"{e:.3e}" for k, e in errs.items() if e > TOL}
     print(f"[ddp] 2 ranks (gloo, one card) vs one process on the concatenated batches, "
-          f"{DDP_STEPS} steps at bs {TRAIN_BATCH}, drop-path {cfg.MODEL.DROP_PATH_RATE} and "
-          f"--device_augment live: {len(errs)} updates θ3 − θ0, worst {worst} "
+          f"{DDP_STEPS} steps at bs {TRAIN_BATCH}, drop-path {cfg.MODEL.DROP_PATH_RATE}, dropout "
+          f"{cfg.MODEL.DROP_RATE} and --device_augment live: {len(errs)} updates θ3 − θ0, worst {worst} "
           f"rel_l2={errs[worst]:.3e}, above {TOL}: {over or 'none'}; logged losses "
           f"{logged} vs {[round(v, 6) for v in ref_losses]} (worst rel {loss_err:.2e}) "
           f"{'ok' if not over and loss_err <= TOL else 'FAIL'}", flush=True)
@@ -3391,12 +3762,14 @@ def main() -> int:
                 f"block_pair: ptxas reports spills {spills}")
         for entry in ("block_one_kernel", "layernorm_kernel", "layernorm_bwd_kernel",
                       "carafe_kernel", "edt_pass_kernel", "lepe_windows_kernel",
-                      "ln_mlp_kernel"):
+                      "ln_mlp_kernel", "gemm_kernel", "wgrad_kernel"):
             res = ptxas_resources(build.build_log, entry)
             print(f"[build] {entry} (entry, registers, spill stores, spill loads): {res}",
                   flush=True)
             require(bool(res), f"{entry}: no ptxas resource line")
-            if entry in ("lepe_windows_kernel", "ln_mlp_kernel"):  # the lab's persistent kernels
+            if entry in ("lepe_windows_kernel", "ln_mlp_kernel", "gemm_kernel",
+                         "wgrad_kernel"):  # the lab's persistent kernels; the GEMMs'
+                # dropout instances, which hold the Philox state beside the tile
                 require(all(st == ld == 0 for _, _, st, ld in res), f"{entry}: spills {res}")
     # The tiles' products run on the tensor cores: the SASS of the attention
     # and GEMM kernels, of the backward's weight gradient and attention, of
@@ -3424,20 +3797,25 @@ def main() -> int:
         serve_counts, pallas_counts, pair_counts = serve_volumes(cfg, dev, workdir)
         train_counts, data, ck = train_run(cfg, dev, workdir)
         train_step_checks(cfg, dev, data)
+        dropout_counts = dropout_run(cfg, dev, workdir, data, smi)
         route_phase(CFG, dev, "route")
         eval_counts = eval_run(cfg, dev, ck)
         continual_counts, kits = continual_run(cfg, dev, workdir)
         continual_checks(cfg, dev, kits, os.path.join(workdir, "tiny224_seed0.npz"), smi)
-        ddp_counts = ddp_run(cfg, dev, workdir, kits,
-                             os.path.join(workdir, "tiny224_seed0.npz"), smi)
+        finetune_counts = finetune_run(cfg, dev, workdir, smi)
+        blur_cli_run(dev, workdir)
+        ddp_counts = ddp_run(smoke_config(DROP_OPTS), dev, workdir, kits,
+                             os.path.join(workdir, "tiny224_seed0.npz"), smi,
+                             cfg_opts=DROP_OPTS)
         tally384, counts384 = base384_run(dev, workdir, smi)
     compare_lab(dev, tally)
     lab_identities(dev)
     lab_counts = lab_run()
 
     paths = dict(serve=serve_counts, serve_pallas=pallas_counts, serve_pair=pair_counts,
-                 train=train_counts, eval=eval_counts, continual=continual_counts,
-                 ddp=ddp_counts, **counts384, lab=lab_counts)
+                 train=train_counts, dropout=dropout_counts, eval=eval_counts,
+                 continual=continual_counts, finetune=finetune_counts, ddp=ddp_counts,
+                 **counts384, lab=lab_counts)
     for k in ("layernorm", "gemm", "stripe_attention", "carafe_reassemble"):
         require(all(c[k] > 0 for c in counts384.values()),
                 f"{k} launched no time on a base-384 path: {counts384}")

@@ -43,10 +43,19 @@ draws per-sample keep masks / (1 − p) for its attention and MLP branches
 from the ``generator`` passed to ``forward``. With ``use_checkpoint`` (the
 config's ``TRAIN.USE_CHECKPOINT``, the JAX package's ``nn.remat`` of each
 block) a block keeps no activations for the backward and runs its forward
-again there (``torch.utils.checkpoint``); its drop-path multipliers are
-drawn before, outside the recomputed region, so both runs use the same
-draws. Dropout rates are 0 in every config and are not modelled
-(``models.build_model`` refuses another rate).
+again there (``torch.utils.checkpoint``); its drop-path multipliers and
+dropout keys are drawn before, outside the recomputed region, so both runs
+use the same draws. Dropout (``drop_rate``, the config's
+``MODEL.DROP_RATE``, 0 in every shipped YAML) follows the JAX model's
+sites: after the stem's LayerNorm and after each block's GELU and fc2 (in
+the encoder and the decoder), flax's ``Dropout`` semantics
+(``ops.dropout``). In train mode each site draws one 64-bit key from the
+``generator`` a step; the mask is a counter-based function of that key and
+the element's global index, so a rank of a data-parallel run draws the bits
+one process would for its rows, and ``CSWinBlockFn`` regenerates the masks
+in its backward GEMMs instead of keeping them. The stem's dropout is a torch
+op; the blocks' are the fc1 and fc2 GEMM epilogues on the ``fused`` route
+and the composition's ops on the others.
 """
 
 from __future__ import annotations
@@ -64,7 +73,8 @@ from ..ops.cuda.carafe_tail import carafe_tail, carafe_tail_argmax, carafe_up
 from ..ops.cuda import cswin_block
 from ..ops.cuda.cswin_block import BlockParams, composed_block, fused_cswin_block
 from ..ops.cuda.kernels import needs_grad
-from ..parallel import rank_rows, world_size
+from ..ops.dropout import Drop, draw_keys, dropout
+from ..parallel import process_shard_info, rank_rows, world_size
 
 IMPLS = ("fused", "pallas", "plain")
 
@@ -81,6 +91,18 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
     """LayerNorm with float32 statistics, out in ``x.dtype``."""
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
                         ln.eps).to(x.dtype)
+
+
+def dropout_keys(n: int, rate: float, x: torch.Tensor,
+                 generator: torch.Generator | None) -> tuple[Drop, ...]:
+    """``n`` dropout sites over the rows of ``x`` (..., C) for one step:
+    keys from ``generator``, each site's first row this rank's offset in
+    the global batch."""
+    if generator is None:
+        raise ValueError("training with dropout needs forward(generator=...)")
+    keys = draw_keys(generator, n).to(x.device)
+    row0 = process_shard_info()[0] * (x.numel() // x.shape[-1])
+    return tuple(Drop(keys[i:i + 1], rate, row0) for i in range(n))
 
 
 def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
@@ -121,6 +143,7 @@ class CSWinBlock(nn.Module):
         self.last = last_stage or reso == split_size
         self.impl = impl
         self.drop_path = 0.0
+        self.drop = 0.0  # MODEL.DROP_RATE: the MLP's dropout
         self.use_checkpoint = False
         self.scale = qk_scale if qk_scale is not None else (dim // num_heads) ** -0.5
         self.norm1 = nn.LayerNorm(dim)
@@ -158,15 +181,23 @@ class CSWinBlock(nn.Module):
         dp = (u < keep).float().div_(keep).to(device)
         return dp[0], dp[1]
 
+    def dropout_sites(self, x: torch.Tensor, generator: torch.Generator | None):
+        """The MLP's (fc1, fc2) dropout sites of this step, or None outside
+        training or at rate 0."""
+        if not self.training or self.drop <= 0.0:
+            return None
+        return dropout_keys(2, self.drop, x, generator)
+
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         dps = (self.drop_path_multipliers(x.shape[0], generator, x.device)
                if self.training else None)
+        drops = self.dropout_sites(x, generator)
         if self.use_checkpoint and torch.is_grad_enabled():
-            return checkpoint(self._block, x, dps, use_reentrant=False)
-        return self._block(x, dps)
+            return checkpoint(self._block, x, dps, drops, use_reentrant=False)
+        return self._block(x, dps, drops)
 
-    def _block(self, x: torch.Tensor, dps) -> torch.Tensor:
+    def _block(self, x: torch.Tensor, dps, drops=None) -> torch.Tensor:
         # Training runs every geometry through CSWinBlockFn. On an NVIDIA H100
         # 80GB HBM3 at 700.00 W, tools/train_route.py --rounds 4 (the bs-24
         # recipe step, all blocks through it against one geometry's blocks
@@ -186,7 +217,7 @@ class CSWinBlock(nn.Module):
         # composed) came from another device's timing.
         p = self.block_params()
         kw = dict(heads=self.num_heads, split=self.split_size, last_stage=self.last,
-                  scale=self.scale, dps=dps)
+                  scale=self.scale, dps=dps, drops=drops)
         if self.impl == "pallas":
             return composed_block(x, p, attn_impl="pallas", **kw)
         if self.impl == "plain":
@@ -238,10 +269,13 @@ class CSWinUNet(nn.Module):
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: float | None = None, drop_path_rate: float = 0.0,
                  dtype: torch.dtype = torch.bfloat16, impl: str = "fused",
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False, drop_rate: float = 0.0):
         super().__init__()
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        if not 0.0 <= drop_rate <= 1.0:
+            raise ValueError(f"drop_rate must lie in [0, 1], got {drop_rate}")
+        self.drop_rate = drop_rate
         self.in_chans = in_chans
         self.dtype = dtype
         self.impl = impl
@@ -281,6 +315,7 @@ class CSWinUNet(nn.Module):
             for prefix in ("stage", "stage_up"):
                 for i, blk in enumerate(getattr(self, f"{prefix}{s + 1}")):
                     blk.drop_path = float(dpr[offs[s] + i])
+                    blk.drop = drop_rate
                     blk.use_checkpoint = use_checkpoint
 
     def _run_stage(self, blocks: nn.ModuleList, x: torch.Tensor,
@@ -308,7 +343,8 @@ class CSWinUNet(nn.Module):
 
     def forward(self, x: torch.Tensor, emit: str = "logits",
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        """``generator`` draws the drop-path masks in train mode."""
+        """``generator`` draws the drop-path masks and dropout keys in train
+        mode."""
         if x.shape[-1] != self.in_chans:
             raise ValueError(f"expected NHWC input with {self.in_chans} channels, "
                              f"got {tuple(x.shape)}")
@@ -318,6 +354,8 @@ class CSWinUNet(nn.Module):
         x = x.to(self.dtype)
         conv, _, norm = self.stage1_conv_embed
         x = layer_norm(conv_nhwc(x, conv, 4, 2), norm)
+        if self.training and self.drop_rate > 0.0:
+            x = dropout(x, dropout_keys(1, self.drop_rate, x, generator)[0])
 
         skips = []
         for s in range(4):

@@ -44,19 +44,17 @@ def build_model(config, img_size: int | None = None, num_classes: int = 9, *,
     """Build the model from a frozen config, with weights drawn from
     ``torch.Generator().manual_seed(seed)`` on the CPU, moved to ``device``
     and set to eval mode, or with ``train=True`` to train mode with the
-    config's ``MODEL.DROP_PATH_RATE``. Parameters are float32; activations
+    config's ``MODEL.DROP_PATH_RATE`` and ``MODEL.DROP_RATE`` (dropout after
+    the stem's LayerNorm and in each block's MLP, as the JAX model applies
+    it; ``models.cswin_unet``). Parameters are float32; activations
     run in ``dtype`` (default ``config.TPU.COMPUTE_DTYPE``). ``impl`` picks
     the route; by default the config does, as the JAX ``build_model`` does
     (``cswin_unet_tpu/models/wrapper.py:45-49``): ``USE_PALLAS_ATTENTION``
     False gives ``plain``, ``ATTN_IMPL`` fused / pallas / xla gives fused /
     pallas / plain. ``TRAIN.USE_CHECKPOINT`` recomputes each block's forward
-    in the backward. ``MODEL.DROP_RATE`` must be 0: the port has no dropout
-    (every config has 0)."""
-    if config.MODEL.DROP_RATE:
-        raise NotImplementedError(
-            f"MODEL.DROP_RATE={config.MODEL.DROP_RATE}: dropout is not ported (the JAX "
-            "model applies it after the patch embedding and in each block's MLP, "
-            "cswin_unet_tpu/models/cswin_unet.py:415,490)")
+    in the backward."""
+    if not 0.0 <= config.MODEL.DROP_RATE <= 1.0:
+        raise ValueError(f"MODEL.DROP_RATE={config.MODEL.DROP_RATE} is outside [0, 1]")
     cs = config.MODEL.CSWIN
     if dtype is None:
         dtype = _DTYPES[config.TPU.COMPUTE_DTYPE]
@@ -76,6 +74,7 @@ def build_model(config, img_size: int | None = None, num_classes: int = 9, *,
             qkv_bias=cs.QKV_BIAS,
             qk_scale=cs.QK_SCALE,
             drop_path_rate=config.MODEL.DROP_PATH_RATE if train else 0.0,
+            drop_rate=config.MODEL.DROP_RATE if train else 0.0,
             dtype=dtype,
             impl=impl,
             use_checkpoint=bool(config.TRAIN.USE_CHECKPOINT),

@@ -26,15 +26,17 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_U = ctypes.c_uint
 # C signatures of csrc/*.cu; a function returns a cudaError_t as int unless
 # _RESTYPES says otherwise.
 _SIGNATURES = {
     "cswin_layernorm": (_P, _P, _P, _P, _I, _I, _F, _P),
     "cswin_layernorm_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     "cswin_layernorm_bwd_ctas_per_sm": (_I,),
-    "cswin_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "cswin_gemm": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _LL, _F,
+                   _U, _P),
     "cswin_gemm_wgrad": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _P),
+                         _I, _I, _P, _LL, _F, _U, _P),
     "cswin_gemm_wgrad_max_clusters": (_I, _I, _I),
     "cswin_stripe_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _F, _P),

@@ -16,10 +16,21 @@
 //      (training keeps it for the backward)
 //   3  GELU backward            (fc2 dX): out = acc · (Φ(h) + h·φ(h)), h
 //      read from `aux`, the saved fc1 pre-activation
+// Dropout (philox.cuh; training at MODEL.DROP_RATE > 0), a separate
+// instance of epilogues 1-3: a kept value v becomes round(round(v) / kd),
+// a dropped one 0, where
+//   1  the branch, before the drop-path multiplier: out = res +
+//      bf16(D(bf16(acc + bias)) · dp)
+//   2  the GELU output (the pre-activation written to aux is not masked)
+//   3  dY' as it lands in shared memory, after its drop-path scale (the fc2
+//      site's mask), and the product before GELU' (the fc1 site's mask):
+//      out = D(acc) · (Φ(h) + h·φ(h))
 //
 // cswin_gemm_wgrad: weight gradient dW = dY'ᵀ · X over M rows and bias
 // gradient db = Σ dY', both float32; dY' is dY with the same optional
-// per-sample row scale, rounded to bf16 before the products. The partial
+// per-sample row scale, rounded to bf16 before the products, and with
+// dropout masked as epilogue 3 masks it (in the ring, before the
+// fragments are read). The partial
 // sums over chunks of M are added inside the kernel, in a fixed order.
 //
 // Replaces: the matrix products inside the fused TPU block and CARAFE
@@ -74,18 +85,19 @@ using gemm_tile::THREADS;
 
 // One output tile per CTA: blockIdx.x walks the tiles, N inner (tn tiles
 // an M tile).
-template <int EPI, bool A_SCALED, bool EXTRA>
+template <int EPI, bool A_SCALED, bool EXTRA, bool DROP>
 __global__ void __launch_bounds__(THREADS)
 gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
             const float* __restrict__ bias, const bf16* __restrict__ res,
             bf16* __restrict__ aux, const float* __restrict__ a_scale,
             const float* __restrict__ out_scale, bf16* __restrict__ out, int M,
-            int N, int K, int rows_per_sample, int tn) {
+            int N, int K, int rows_per_sample, int tn, DropArgs drop) {
   __shared__ gemm_tile::Smem sm;
   const int t = blockIdx.x;
-  gemm_tile::tile<EPI, A_SCALED, EXTRA>(A, B, bias, res, aux, a_scale, out_scale, out,
-                                        M, N, K, rows_per_sample, t / tn * gemm_tile::BM,
-                                        t % tn * gemm_tile::BN, sm);
+  gemm_tile::tile<EPI, A_SCALED, EXTRA, DROP>(A, B, bias, res, aux, a_scale, out_scale, out,
+                                              M, N, K, rows_per_sample,
+                                              t / tn * gemm_tile::BM, t % tn * gemm_tile::BN,
+                                              sm, drop);
 }
 
 // --- the weight gradient --------------------------------------------------
@@ -134,13 +146,13 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 // cluster to finish a tile's row slice (an arrival counter) adds the
 // clusters' partials in cluster order. Every sum runs in an order fixed by
 // the grid, so two calls give the same bits.
-template <int BN, int BK>
+template <int BN, int BK, bool DROP>
 __global__ void __launch_bounds__(BN * BK / 32, 1)
 wgrad_kernel(const bf16* __restrict__ X, const bf16* __restrict__ dY,
              const float* __restrict__ dy_scale, float* __restrict__ dw,
              float* __restrict__ db, float* __restrict__ part_w,
              float* __restrict__ part_b, int* __restrict__ arrivals, int M, int N, int K,
-             int rows_per_sample, int chunk, int tk) {
+             int rows_per_sample, int chunk, int tk, DropArgs drop) {
   using namespace wgrad;
   constexpr int NT = BN * BK / 32;    // threads: one warp per 32x32 of the tile
   constexpr int WK = BK / 32;         // warps along k
@@ -203,6 +215,8 @@ wgrad_kernel(const bf16* __restrict__ X, const bf16* __restrict__ dY,
     if (s < steps) load(s, s);
     cp_async_commit();
   }
+  // DROP: dY's dropout key (drop.key_a), read once.
+  const unsigned long long key = DROP ? *drop.key_a : 0ull;
   for (int step = 0; step < steps; ++step) {
     cp_async_wait<STAGES - 2>();  // step `step` has landed (this thread's copies)
     __syncthreads();              // everyone's, and slot (step - 1) % STAGES is free
@@ -210,6 +224,30 @@ wgrad_kernel(const bf16* __restrict__ X, const bf16* __restrict__ dY,
     if (nx < steps) load(nx, nx % STAGES);
     cp_async_commit();
     const int slot = step % STAGES;
+    if constexpr (DROP) {
+      // dY' in place: each value times its row's scale, rounded, then
+      // round(v / kd) where kept, else 0 (one Philox block a four columns;
+      // N % 8 == 0). The fragments below are then not scaled again.
+      const int m0 = m_begin + step * MS;
+      constexpr int QUADS = BN / 4;
+      for (int i = tid; i < MS * QUADS; i += NT) {
+        const int r = i / QUADS, c = i % QUADS * 4, gm = m0 + r, gn = n0 + c;
+        if (gm >= m_end || gn >= N) continue;
+        const uint32_t bits =
+            keep4(key, ((unsigned long long)(drop.row0 + gm) * N + gn) >> 2, drop.thr);
+        uint2* p = reinterpret_cast<uint2*>(&sm.D[slot][r][c]);
+        const float2 lo = unpack_bf16(p->x), hi = unpack_bf16(p->y);
+        float v[4] = {lo.x, lo.y, hi.x, hi.y};
+        const float s = scaled ? sm.sc[slot][r] : 1.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (scaled) v[e] = round_bf16(v[e] * s);
+          v[e] = (bits >> e & 1u) ? v[e] / drop.kd : 0.f;
+        }
+        *p = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+      }
+      __syncthreads();
+    }
 #pragma unroll
     for (int kk = 0; kk < MS; kk += 16) {
       // A = dY'ᵀ (rows n, columns m) from the m-major tile: ldmatrix.trans.
@@ -218,7 +256,7 @@ wgrad_kernel(const bf16* __restrict__ X, const bf16* __restrict__ dY,
       for (int i = 0; i < 2; ++i)
         ldsm_x4<true>(a[i], &sm.D[slot][kk + (lane & 7) + (lane >> 4) * 8]
                                  [wn * 32 + i * 16 + ((lane >> 3) & 1) * 8]);
-      if (scaled) {
+      if (scaled && !DROP) {
         // a[.][0..1] hold rows m = kk + 2q, 2q + 1; a[.][2..3] rows 2q + 8, 2q + 9.
         const float2 s01 = *reinterpret_cast<const float2*>(&sm.sc[slot][kk + 2 * q4]);
         const float2 s89 = *reinterpret_cast<const float2*>(&sm.sc[slot][kk + 8 + 2 * q4]);
@@ -353,13 +391,13 @@ wgrad_kernel(const bf16* __restrict__ X, const bf16* __restrict__ dY,
 
 // The cluster launch of one tile shape; `probe` asks only how many clusters
 // of that size fit on the card at once.
-template <int BN, int BK>
+template <int BN, int BK, bool DROP>
 cudaError_t launch_wgrad(const bf16* X, const bf16* dY, const float* dy_scale, float* dw,
                          float* db, float* part_w, float* part_b, int* arrivals, int M, int N,
                          int K, int rows_per_sample, int chunk, int splits, int cluster,
-                         cudaStream_t stream, int* probe) {
+                         const DropArgs& drop, cudaStream_t stream, int* probe) {
   using Ring = wgrad::Smem<BN, BK>;
-  const auto kernel = wgrad_kernel<BN, BK>;
+  const auto kernel = wgrad_kernel<BN, BK, DROP>;
   cudaError_t err = allow_smem(kernel, sizeof(Ring));
   if (err != cudaSuccess) return err;
   const int tk = (K + BK - 1) / BK, tiles = (N + BN - 1) / BN * tk;
@@ -377,22 +415,24 @@ cudaError_t launch_wgrad(const bf16* X, const bf16* dY, const float* dy_scale, f
   cfg.numAttrs = 1;
   if (probe != nullptr) return cudaOccupancyMaxActiveClusters(probe, kernel, &cfg);
   err = cudaLaunchKernelEx(&cfg, kernel, X, dY, dy_scale, dw, db, part_w, part_b, arrivals, M,
-                           N, K, rows_per_sample, chunk, tk);
+                           N, K, rows_per_sample, chunk, tk, drop);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <int EPI, bool A_SCALED, bool EXTRA>
+template <int EPI, bool A_SCALED, bool EXTRA, bool DROP = false>
 int launch_gemm(const void* A, const void* B, const void* bias, const void* res,
                 void* aux, const void* a_scale, const void* out_scale, void* out,
-                int M, int N, int K, int rows_per_sample, void* stream) {
+                int M, int N, int K, int rows_per_sample, void* stream,
+                const DropArgs& drop = DropArgs()) {
   const int tn = (N + gemm_tile::BN - 1) / gemm_tile::BN;
   const long long tiles = (long long)((M + gemm_tile::BM - 1) / gemm_tile::BM) * tn;
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  gemm_kernel<EPI, A_SCALED, EXTRA><<<(unsigned)tiles, THREADS, 0, (cudaStream_t)stream>>>(
+  gemm_kernel<EPI, A_SCALED, EXTRA, DROP><<<(unsigned)tiles, THREADS, 0,
+                                             (cudaStream_t)stream>>>(
       (const bf16*)A, (const bf16*)B, (const float*)bias, (const bf16*)res,
       (bf16*)aux, (const float*)a_scale, (const float*)out_scale, (bf16*)out, M,
-      N, K, rows_per_sample, tn);
+      N, K, rows_per_sample, tn, drop);
   return (int)cudaGetLastError();
 }
 
@@ -401,13 +441,46 @@ int launch_gemm(const void* A, const void* B, const void* bias, const void* res,
 // A, B, res, aux, out: bf16; bias, a_scale, out_scale: float32 or null.
 // res is read by epilogue 1, aux written by epilogue 2 (if not null) and read
 // by epilogue 3; a_scale (epilogues 0 and 3) and out_scale (epilogue 1) are
-// per-sample (row / rows_per_sample). Other combinations return
-// cudaErrorInvalidValue. Requires K % 8 == 0 and 16-byte aligned A and B
-// (checked by the wrapper); at most 2^31 - 1 output tiles of 64 x 64.
+// per-sample (row / rows_per_sample). key_out (epilogues 1-3) and key_a
+// (epilogue 3) point at a site's 64-bit dropout key on the device or are
+// null: with either, row0, kd and thr are the dropout's (philox.cuh) and
+// N % 8 == 0. Other combinations return cudaErrorInvalidValue. Requires
+// K % 8 == 0 and 16-byte aligned A and B (checked by the wrapper); at most
+// 2^31 - 1 output tiles of 64 x 64.
 CSWIN_API int cswin_gemm(const void* A, const void* B, const void* bias,
                          const void* res, void* aux, const void* a_scale,
                          const void* out_scale, void* out, int M, int N, int K,
-                         int rows_per_sample, int epilogue, void* stream) {
+                         int rows_per_sample, int epilogue, const void* key_a,
+                         const void* key_out, long long row0, float kd, unsigned thr,
+                         void* stream) {
+  if (key_a != nullptr || key_out != nullptr) {
+    if (N % 8 || epilogue < 1 || epilogue > 3 || (key_a != nullptr && epilogue != 3))
+      return (int)cudaErrorInvalidValue;
+    DropArgs drop;
+    drop.key_a = (const unsigned long long*)key_a;
+    drop.key_out = (const unsigned long long*)key_out;
+    drop.row0 = row0;
+    drop.kd = kd;
+    drop.thr = thr;
+#define CSWIN_GEMM_DROP(EPI, AS, EX)                                                    \
+  launch_gemm<EPI, AS, EX, true>(A, B, bias, res, aux, a_scale, out_scale, out, M, N, K, \
+                                 rows_per_sample, stream, drop)
+    const bool as = a_scale != nullptr;
+    switch (epilogue) {
+      case 1:
+        if (as) break;
+        return out_scale != nullptr ? CSWIN_GEMM_DROP(1, false, true)
+                                    : CSWIN_GEMM_DROP(1, false, false);
+      case 2:
+        if (as) break;
+        return aux != nullptr ? CSWIN_GEMM_DROP(2, false, true)
+                              : CSWIN_GEMM_DROP(2, false, false);
+      case 3:
+        return as ? CSWIN_GEMM_DROP(3, true, false) : CSWIN_GEMM_DROP(3, false, false);
+    }
+#undef CSWIN_GEMM_DROP
+    return (int)cudaErrorInvalidValue;
+  }
 #define CSWIN_GEMM(EPI, AS, EX)                                                   \
   launch_gemm<EPI, AS, EX>(A, B, bias, res, aux, a_scale, out_scale, out, M, N, K, \
                            rows_per_sample, stream)
@@ -427,6 +500,8 @@ CSWIN_API int cswin_gemm(const void* A, const void* B, const void* bias,
 }
 
 // X: (M, K) bf16; dY: (M, N) bf16; dy_scale: per-sample float32 or null;
+// key: dY's 64-bit dropout key on the device or null (row0, kd, thr as in
+// cswin_gemm);
 // dw: (N, K) float32; db: (N,) float32 or null. Tiles of bn x bk over
 // (N, K), each 64 or 128; grid (splits, tiles) in clusters of `cluster` CTAs
 // (1, 2, 4 or 8, dividing splits and bn); split s reduces rows [s·chunk,
@@ -438,14 +513,23 @@ CSWIN_API int cswin_gemm(const void* A, const void* B, const void* bias,
 CSWIN_API int cswin_gemm_wgrad(const void* X, const void* dY, const void* dy_scale, void* dw,
                                void* db, void* part_w, void* part_b, void* arrivals, int M,
                                int N, int K, int rows_per_sample, int chunk, int splits,
-                               int cluster, int bn, int bk, void* stream) {
+                               int cluster, int bn, int bk, const void* key, long long row0,
+                               float kd, unsigned thr, void* stream) {
   if (cluster < 1 || cluster > wgrad::MAX_CLUSTER || (cluster & (cluster - 1)) ||
       splits % cluster || chunk % wgrad::MS)
     return (int)cudaErrorInvalidValue;
-#define CSWIN_WGRAD(BN, BK)                                                                 \
-  launch_wgrad<BN, BK>((const bf16*)X, (const bf16*)dY, (const float*)dy_scale, (float*)dw, \
-                       (float*)db, (float*)part_w, (float*)part_b, (int*)arrivals, M, N, K,  \
-                       rows_per_sample, chunk, splits, cluster, (cudaStream_t)stream, probe)
+  DropArgs drop;
+  drop.key_a = (const unsigned long long*)key;
+  drop.row0 = row0;
+  drop.kd = kd;
+  drop.thr = thr;
+#define CSWIN_WGRAD_AS(BN, BK, DROP)                                                       \
+  launch_wgrad<BN, BK, DROP>((const bf16*)X, (const bf16*)dY, (const float*)dy_scale,      \
+                             (float*)dw, (float*)db, (float*)part_w, (float*)part_b,       \
+                             (int*)arrivals, M, N, K, rows_per_sample, chunk, splits,      \
+                             cluster, drop, (cudaStream_t)stream, probe)
+#define CSWIN_WGRAD(BN, BK) \
+  (key != nullptr ? CSWIN_WGRAD_AS(BN, BK, true) : CSWIN_WGRAD_AS(BN, BK, false))
   int* probe = nullptr;
   if (bn == 64 && bk == 64) return (int)CSWIN_WGRAD(64, 64);
   if (bn == 128 && bk == 64) return (int)CSWIN_WGRAD(128, 64);
@@ -461,14 +545,16 @@ CSWIN_API int cswin_gemm_wgrad_max_clusters(int bn, int bk, int cluster) {
   int n = -1;
   int* probe = &n;
   const int M = 64, N = bn, K = bk, rows_per_sample = 1, chunk = 64, splits = cluster;
-  const void *X = nullptr, *dY = nullptr, *dy_scale = nullptr;
+  const void *X = nullptr, *dY = nullptr, *dy_scale = nullptr, *key = nullptr;
   void *dw = nullptr, *db = nullptr, *part_w = nullptr, *part_b = nullptr, *arrivals = nullptr;
   void* stream = nullptr;
+  DropArgs drop;
   cudaError_t err = cudaErrorInvalidValue;
   if (bn == 64 && bk == 64) err = CSWIN_WGRAD(64, 64);
   if (bn == 128 && bk == 64) err = CSWIN_WGRAD(128, 64);
   if (bn == 64 && bk == 128) err = CSWIN_WGRAD(64, 128);
   if (bn == 128 && bk == 128) err = CSWIN_WGRAD(128, 128);
 #undef CSWIN_WGRAD
+#undef CSWIN_WGRAD_AS
   return err == cudaSuccess ? n : -1;
 }

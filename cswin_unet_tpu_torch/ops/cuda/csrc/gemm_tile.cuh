@@ -23,10 +23,15 @@
 // element, the rounding the weight gradient applies to dY (gemm.cu). The
 // epilogue's arithmetic runs on the accumulator registers; its bf16 results
 // are staged in the ring, now idle, and leave in 16-byte row chunks (one
-// value at a time where N % 8 != 0).
+// value at a time where N % 8 != 0). DROP adds dropout (philox.cuh): the
+// A operand's mask is applied to each k-block in shared memory once it has
+// landed (one Philox block a four values, and a second barrier), the
+// output's mask to the accumulators in the epilogue; without it the tile
+// compiles to what it was before dropout existed.
 #pragma once
 
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace gemm_tile {
 
@@ -81,18 +86,50 @@ __device__ __forceinline__ float2 load2(const bf16* p, bool vec, bool two) {
   return make_float2(bf2f(p[0]), two ? bf2f(p[1]) : 0.f);
 }
 
+// Dropout of A's k-block `kb` in ring slot `slot`, in place: each value
+// (first scaled by its row's a_scale and rounded, with A_SCALED) becomes
+// round(v / kd) where its bit is kept, else 0. K % 4 == 0, so a group of
+// four columns is one Philox block.
+template <bool A_SCALED>
+__device__ __forceinline__ void drop_kblock(unsigned long long key, const DropArgs& drop,
+                                            const float* __restrict__ a_scale, int M, int K,
+                                            int rows_per_sample, int m0, int k0, Smem& sm,
+                                            int slot, int tid) {
+  constexpr int QUADS = BK / 4;
+#pragma unroll
+  for (int it = 0; it < BM * QUADS / THREADS; ++it) {
+    const int i = tid + it * THREADS, r = i / QUADS, c = i % QUADS * 4;
+    const int gm = m0 + r, gk = k0 + c;
+    if (gm >= M || gk >= K) continue;
+    const uint32_t bits =
+        keep4(key, ((unsigned long long)(drop.row0 + gm) * K + gk) >> 2, drop.thr);
+    uint2* p = reinterpret_cast<uint2*>(&sm.A[slot][r][c]);
+    const float2 lo = unpack_bf16(p->x), hi = unpack_bf16(p->y);
+    float v[4] = {lo.x, lo.y, hi.x, hi.y};
+    const float s = A_SCALED ? a_scale[gm / rows_per_sample] : 1.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (A_SCALED) v[e] = round_bf16(v[e] * s);
+      v[e] = (bits >> e & 1u) ? v[e] / drop.kd : 0.f;
+    }
+    *p = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+  }
+}
+
 // EPI is the epilogue (0-3, gemm.cu); A_SCALED scales the rows of A on load
 // by a_scale; EXTRA makes epilogue 1 scale the branch by out_scale and
-// epilogue 2 write the pre-activation to aux. The output tile is rows
-// [m0, m0 + BM) and columns [n0, n0 + BN), masked at M and N. A caller that
-// runs another tile in the same shared memory syncs the CTA first.
-template <int EPI, bool A_SCALED, bool EXTRA>
+// epilogue 2 write the pre-activation to aux; DROP applies `drop`'s masks.
+// The output tile is rows [m0, m0 + BM) and columns [n0, n0 + BN), masked
+// at M and N. A caller that runs another tile in the same shared memory
+// syncs the CTA first.
+template <int EPI, bool A_SCALED, bool EXTRA, bool DROP = false>
 __device__ __forceinline__ void tile(
     const bf16* __restrict__ A, const bf16* __restrict__ B,
     const float* __restrict__ bias, const bf16* __restrict__ res,
     bf16* __restrict__ aux, const float* __restrict__ a_scale,
     const float* __restrict__ out_scale, bf16* __restrict__ out, int M, int N,
-    int K, int rows_per_sample, int m0, int n0, Smem& sm) {
+    int K, int rows_per_sample, int m0, int n0, Smem& sm,
+    const DropArgs& drop = DropArgs()) {
   // threadIdx.x through a volatile read: a caller that loops over tiles
   // (block_pair.cu) then recomputes the per-thread offsets in each tile
   // instead of hoisting dozens of them out of its loop, which cost that
@@ -128,6 +165,10 @@ __device__ __forceinline__ void tile(
       }
   }
 
+  // DROP: A's mask key, read once (a null key leaves that side alone).
+  const bool drop_a = DROP && drop.key_a != nullptr, drop_out = DROP && drop.key_out != nullptr;
+  const unsigned long long key_a = drop_a ? *drop.key_a : 0ull;
+
   for (int kb = 0; kb < kblocks; ++kb) {
     cp_async_wait<STAGES - 2>();  // k-block kb has landed (this thread's copies)
     __syncthreads();              // everyone's, and slot (kb - 1) % STAGES is free
@@ -135,6 +176,13 @@ __device__ __forceinline__ void tile(
     if (nk < kblocks) load_kblock(A, B, M, N, K, m0, n0, nk * BK, sm, nk % STAGES, tid);
     cp_async_commit();
     const int slot = kb % STAGES;
+    if constexpr (DROP) {
+      if (drop_a) {  // scaled and masked in place, so the fragments are not scaled again
+        drop_kblock<A_SCALED>(key_a, drop, a_scale, M, K, rows_per_sample, m0, kb * BK, sm,
+                              slot, tid);
+        __syncthreads();
+      }
+    }
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       uint32_t a[2][4], b[4][2];
@@ -142,8 +190,10 @@ __device__ __forceinline__ void tile(
       for (int i = 0; i < 2; ++i) {
         ldsm_x4(a[i], &sm.A[slot][wm * 32 + i * 16 + (lane & 15)][kk + (lane >> 4) * 8]);
         if constexpr (A_SCALED) {
+          if (!drop_a) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) a[i][e] = scale_bf16x2(a[i][e], sc[i][e & 1]);
+            for (int e = 0; e < 4; ++e) a[i][e] = scale_bf16x2(a[i][e], sc[i][e & 1]);
+          }
         }
       }
 #pragma unroll
@@ -169,6 +219,8 @@ __device__ __forceinline__ void tile(
   // memory (for EPI 2 with EXTRA the pre-activation to a second one), which
   // then leaves in 16-byte row chunks: whole 32-byte sectors, where a warp's
   // stores straight from the fragments would write eight rows' halves.
+  // The output's mask key, read here rather than held through the main loop.
+  const unsigned long long key_out = drop_out ? *drop.key_out : 0ull;
   bf16 (*Cs)[LDC] = reinterpret_cast<bf16 (*)[LDC]>(&sm.A[0][0][0]);
   bf16 (*Ps)[LDC] = reinterpret_cast<bf16 (*)[LDC]>(&sm.B[0][0][0]);
   const auto bits = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
@@ -189,8 +241,23 @@ __device__ __forceinline__ void tile(
         const size_t o = (size_t)gm * N + gn;
         float v0 = acc[i][j][2 * h] + (bias != nullptr ? bias[gn] : 0.f);
         float v1 = acc[i][j][2 * h + 1] + (bias != nullptr && two ? bias[gn + 1] : 0.f);
+        // DROP: the output's keep bits of (gm, gn) and (gm, gn + 1); N is even.
+        uint32_t keep = 3u;
+        if constexpr (DROP) {
+          if (drop_out)
+            keep = keep2(key_out, (unsigned long long)(drop.row0 + gm) * N + gn, drop.thr);
+        }
+        const auto dropped = [&](float v, int e) {  // round(round(v) / kd), or 0
+          return (keep >> e & 1u) ? round_bf16(round_bf16(v) / drop.kd) : 0.f;
+        };
         if constexpr (EPI == 1) {
           float b0 = round_bf16(v0), b1 = round_bf16(v1);
+          if constexpr (DROP) {
+            if (drop_out) {
+              b0 = dropped(b0, 0);
+              b1 = dropped(b1, 1);
+            }
+          }
           if constexpr (EXTRA) {
             b0 = round_bf16(b0 * dp);
             b1 = round_bf16(b1 * dp);
@@ -202,7 +269,19 @@ __device__ __forceinline__ void tile(
           if constexpr (EXTRA) *reinterpret_cast<uint32_t*>(&Ps[r][c]) = pack_bf16(v0, v1);
           v0 = gelu_erf(v0);
           v1 = gelu_erf(v1);
+          if constexpr (DROP) {
+            if (drop_out) {
+              v0 = dropped(v0, 0);
+              v1 = dropped(v1, 1);
+            }
+          }
         } else if constexpr (EPI == 3) {
+          if constexpr (DROP) {
+            if (drop_out) {
+              v0 = dropped(v0, 0);
+              v1 = dropped(v1, 1);
+            }
+          }
           const float2 h2 = load2(aux + o, vec, two);
           v0 *= gelu_erf_grad(h2.x);
           v1 *= gelu_erf_grad(h2.y);

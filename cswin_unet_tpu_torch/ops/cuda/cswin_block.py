@@ -9,10 +9,14 @@ block of threads has 227 KB of shared memory, so here the block is a chain:
   written at the branch's channel offset -> proj (gemm, bias + residual) ->
   LN2 -> fc1 (gemm, bias + erf GELU) -> fc2 (gemm, bias + residual)
 
-with per-sample drop-path multipliers in the two residual epilogues. The
+with per-sample drop-path multipliers in the two residual epilogues and,
+in training at ``MODEL.DROP_RATE`` > 0, the MLP's two dropout masks (the
+fc1 site after the GELU, the fc2 site before drop-path) in the fc1 and fc2
+epilogues. The
 backward (``CSWinBlockFn``, counterpart of ``_fused_block_bwd_xt``) runs
 
-  fc2 dX with the GELU backward (gemm_dgrad) and wgrad -> fc1 wgrad and dX
+  fc2 dX with the GELU backward (gemm_dgrad, both dropout masks) and wgrad
+  (the fc2 site's mask on dY) -> fc1 wgrad and dX
   -> LN2 backward + residual -> proj wgrad and dX -> attention + LePE
   backward per branch into one dqkv -> qkv wgrad and dX -> LN1 backward +
   residual
@@ -43,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from ..attention import cswin_attention
+from ..dropout import Drop, dropout
 from .kernels import (block_pair, gemm, gemm_dgrad, gemm_wgrad, layernorm,
                       layernorm_bwd, needs_grad, stripe_attention,
                       stripe_attention_bwd)
@@ -71,11 +76,13 @@ class BlockParams(NamedTuple):
     fc2_b: torch.Tensor
 
 
-def _chain(x: torch.Tensor, p: BlockParams, dps, *, heads: int, split: int,
+def _chain(x: torch.Tensor, p: BlockParams, dps, drops, *, heads: int, split: int,
            last_stage: bool, scale: float, keep: bool):
     """The forward kernel chain. Returns (out, saved): ``saved`` holds what
     the backward reads (None unless ``keep``); with ``keep`` the fc1 GEMM
-    also writes its rounded pre-activation h for the GELU backward."""
+    also writes its rounded pre-activation h for the GELU backward.
+    ``drops``: None or the (fc1, fc2) dropout sites, masked in those GEMMs'
+    epilogues."""
     B, H, W, C = x.shape
     dt = x.dtype
     hw = H * W
@@ -95,9 +102,10 @@ def _chain(x: torch.Tensor, p: BlockParams, dps, *, heads: int, split: int,
     y = layernorm(x1, p.norm2_w, p.norm2_b)
     h = (torch.empty((B * H * W, p.fc1_w.shape[0]), dtype=dt, device=x.device)
          if keep else None)
-    g = gemm(y, p.fc1_w.to(dt), p.fc1_b, epilogue="gelu", pre=h)
+    d1, d2 = drops or (None, None)
+    g = gemm(y, p.fc1_w.to(dt), p.fc1_b, epilogue="gelu", pre=h, drop=d1)
     out = gemm(g, p.fc2_w.to(dt), p.fc2_b, residual=x1, epilogue="residual",
-               dp=dp1, rows_per_sample=hw)
+               dp=dp1, rows_per_sample=hw, drop=d2)
     saved = (rows, xn, qkv, att, x1, y, h, g, dp0, dp1) if keep else None
     return out.view(B, H, W, C), saved
 
@@ -121,11 +129,14 @@ class CSWinBlockFn(torch.autograd.Function):
     statistics in float32.
 
     Saved for the backward: the block input, LN1 out, qkv (3C), attention
-    out, x1, LN2 out, fc1 pre-activation h (4C) and GELU out (4C) — 16·M·C
-    bf16 values for M rows. At bs 24: tiny-224's stages 1-4 154, 77, 38.5
-    and 19.3 MB a block; base-384's 679, 340, 170 and 85 MB. All but h are
-    the forward chain's own outputs, kept instead of recomputed; no L x L
-    score is kept (the attention backward recomputes its probabilities).
+    out, x1, LN2 out, fc1 pre-activation h (4C) and GELU out (4C, after the
+    fc1 site's dropout) — 16·M·C bf16 values for M rows. At bs 24:
+    tiny-224's stages 1-4 154, 77, 38.5 and 19.3 MB a block; base-384's
+    679, 340, 170 and 85 MB. All but h are the forward chain's own outputs,
+    kept instead of recomputed; no L x L score is kept (the attention
+    backward recomputes its probabilities). Dropout adds nothing of size
+    M x C: the backward GEMMs regenerate both masks from the sites' keys
+    (two int64 a block).
 
     A last-stage block (``last_stage``) runs one branch over the whole
     window with every head: its LePE is passed in both slots and its
@@ -133,13 +144,14 @@ class CSWinBlockFn(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, dp0, dp1, heads, split, last_stage, scale, *params):
+    def forward(ctx, x, dp0, dp1, drops, heads, split, last_stage, scale, *params):
         p = BlockParams(*params)
         kw = dict(heads=heads, split=split, last_stage=last_stage, scale=scale)
         dps = None if dp0 is None else (dp0, dp1)
-        out, saved = _chain(x, p, dps, keep=True, **kw)
+        out, saved = _chain(x, p, dps, drops, keep=True, **kw)
         ctx.save_for_backward(*saved, *params)
         ctx.kw = kw
+        ctx.drops = drops
         return out
 
     @staticmethod
@@ -153,9 +165,11 @@ class CSWinBlockFn(torch.autograd.Function):
         dt = rows.dtype
         do = gout.reshape(B * H * W, C).to(dt).contiguous()
 
-        # MLP and the second residual (drop-path dp1)
-        dh = gemm_dgrad(do, p.fc2_w, dp=dp1, rows_per_sample=hw, gelu_h=h)
-        dfc2_w, dfc2_b = gemm_wgrad(g, do, dp=dp1, rows_per_sample=hw)
+        # MLP and the second residual (drop-path dp1, dropout d2 and d1)
+        d1, d2 = ctx.drops or (None, None)
+        dh = gemm_dgrad(do, p.fc2_w, dp=dp1, rows_per_sample=hw, gelu_h=h, drop_dy=d2,
+                        drop_dx=d1)
+        dfc2_w, dfc2_b = gemm_wgrad(g, do, dp=dp1, rows_per_sample=hw, drop=d2)
         dfc1_w, dfc1_b = gemm_wgrad(y, dh)
         dy = gemm_dgrad(dh, p.fc1_w)
         dx1, dn2_w, dn2_b = layernorm_bwd(x1, dy, p.norm2_w, residual=do)
@@ -181,28 +195,30 @@ class CSWinBlockFn(torch.autograd.Function):
             dn1_w, dn1_b, dqkv_w, None if p.qkv_b is None else dqkv_b,
             dl0_w, dl0_b, dl1_w, dl1_b, dproj_w, dproj_b, dn2_w, dn2_b,
             dfc1_w, dfc1_b, dfc2_w, dfc2_b)
-        return (dx.view(B, H, W, C), None, None, None, None, None, None,
+        return (dx.view(B, H, W, C), None, None, None, None, None, None, None,
                 *grads)
 
 
 def fused_cswin_block(x: torch.Tensor, p: BlockParams, *, heads: int,
                       split: int, last_stage: bool, scale: float,
-                      dps: tuple[torch.Tensor, torch.Tensor] | None = None
-                      ) -> torch.Tensor:
+                      dps: tuple[torch.Tensor, torch.Tensor] | None = None,
+                      drops: tuple[Drop, Drop] | None = None) -> torch.Tensor:
     """Block forward (B, H, W, C) -> (B, H, W, C) through the kernel chain.
 
     ``dps``: None, or per-sample drop-path multipliers (dp0, dp1), each (B,)
     float32 (keep mask / (1 − p)), applied in the activation dtype to the
-    attention and MLP branches before their residual adds. On a CUDA tensor
+    attention and MLP branches before their residual adds. ``drops``: None,
+    or the MLP's dropout sites (after the GELU, after fc2), over the rows
+    (b, h, w) of this call. On a CUDA tensor
     every step is a CUDA kernel (bf16 activations); on a CPU tensor each
     step runs that kernel's plain version. Where autograd needs gradients,
     the call goes through ``CSWinBlockFn``, whose backward is kernels too.
     """
     if needs_grad(x, *p):
         dp0, dp1 = (None, None) if dps is None else dps
-        return CSWinBlockFn.apply(x, dp0, dp1, heads, split, last_stage, scale,
+        return CSWinBlockFn.apply(x, dp0, dp1, drops, heads, split, last_stage, scale,
                                   *p)
-    return _chain(x, p, dps, heads=heads, split=split, last_stage=last_stage,
+    return _chain(x, p, dps, drops, heads=heads, split=split, last_stage=last_stage,
                   scale=scale, keep=False)[0]
 
 
@@ -241,12 +257,14 @@ def fused_block_pair(x: torch.Tensor, p1: BlockParams, p2: BlockParams, *,
 def composed_block(x: torch.Tensor, p: BlockParams, *, heads: int, split: int,
                    last_stage: bool, scale: float,
                    dps: tuple[torch.Tensor, torch.Tensor] | None = None,
-                   attn_impl: str = "xla") -> torch.Tensor:
+                   attn_impl: str = "xla",
+                   drops: tuple[Drop, Drop] | None = None) -> torch.Tensor:
     """Plain PyTorch composition of the same block (the kernel chain's
     reference, differentiable by autograd): float32 LN statistics, products
     accumulated in float32 and rounded to ``x.dtype`` after the bias, exact
-    erf GELU on the rounded fc1 output, drop-path multipliers and residual
-    adds in ``x.dtype``. ``attn_impl`` picks each branch's attention
+    erf GELU on the rounded fc1 output, dropout (``drops``: flax's
+    ``round(v / keep)`` on the rounded GELU and fc2 outputs), drop-path
+    multipliers and residual adds in ``x.dtype``. ``attn_impl`` picks each branch's attention
     (``ops.attention.cswin_attention``): the composition (``"xla"``) or the
     ``cswin_attention`` kernel (``"pallas"``)."""
     B, H, W, C = x.shape
@@ -286,8 +304,9 @@ def composed_block(x: torch.Tensor, p: BlockParams, *, heads: int, split: int,
     x1 = x + att
     y = ln(x1, p.norm2_w, p.norm2_b)
     y = linear(y, p.fc1_w, p.fc1_b).to(dt)
-    y = F.gelu(y.float()).to(dt)
-    y = linear(y, p.fc2_w, p.fc2_b).to(dt).reshape(B, H, W, C)
+    d1, d2 = drops or (None, None)
+    y = dropout(F.gelu(y.float()).to(dt), d1)
+    y = dropout(linear(y, p.fc2_w, p.fc2_b).to(dt), d2).reshape(B, H, W, C)
     if dps is not None:
         y = y * dps[1].to(dt)[:, None, None, None]
     return x1 + y

@@ -15,7 +15,8 @@ Kernels (``csrc/``):
   gemm.cu                  bf16 GEMM with bias / residual / drop-path / GELU
                            epilogues (``gemm``), the backward's dX products
                            with a GELU-backward epilogue (``gemm_dgrad``) and
-                           the split-M weight gradient (``gemm_wgrad``)
+                           the split-M weight gradient (``gemm_wgrad``); all
+                           three with dropout masks (``ops.dropout``)
   stripe_attention.cu      CSWin stripe-window attention + LePE, one branch:
                            from the qkv GEMM output with the composition's
                            rounding (``stripe_attention``), or from separate
@@ -51,8 +52,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import dropout as _dropout
 from ..attention import (cswin_attention_pallas_plain, cswin_attention_xla,
                          depthwise_conv3x3)
+from ..dropout import Drop
 from ..windows import window_merge, window_partition
 from .build import check, library
 
@@ -131,6 +134,20 @@ def _check_scale(scale: torch.Tensor, rows: int, rows_per_sample: int,
     if rows_per_sample <= 0 or rows % rows_per_sample:
         raise ValueError(f"rows_per_sample={rows_per_sample} does not divide {rows}")
     _require(scale, "scale", torch.float32, device, (rows // rows_per_sample,))
+
+
+def _drop_args(drop: Drop | None, cols: int, dtype: torch.dtype,
+               device: torch.device) -> tuple[int, int, float, int]:
+    """(key pointer, row0, divisor, threshold) of a dropout site for the C
+    entry points; (0, 0, 1.0, 0) without one."""
+    if drop is None:
+        return 0, 0, 1.0, 0
+    _require(drop.key, "dropout key", torch.int64, device, (1,))
+    if cols % 8:
+        raise ValueError(f"dropout in the GEMMs needs a width that is a multiple of 8, "
+                         f"got {cols}")
+    return (drop.key.data_ptr(), drop.row0, _dropout.keep_divisor(drop.rate, dtype),
+            _dropout.keep_threshold(drop.rate))
 
 
 def _check_head_dim(cb: int, heads: int) -> None:
@@ -343,17 +360,21 @@ def gemm_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = Non
                *, residual: torch.Tensor | None = None,
                epilogue: str = "bias", dp: torch.Tensor | None = None,
                rows_per_sample: int = 0,
-               pre: torch.Tensor | None = None) -> torch.Tensor:
+               pre: torch.Tensor | None = None,
+               drop: Drop | None = None) -> torch.Tensor:
     acc = a.float() @ w.to(a.dtype).float().t()
     if bias is not None:
         acc = acc + bias.float()
     if epilogue == "residual":
-        branch = _row_scale(acc.to(a.dtype), dp, rows_per_sample)
+        branch = _dropout.dropout(acc.to(a.dtype), drop)
+        branch = _row_scale(branch, dp, rows_per_sample)
         acc = residual.float() + branch.float()
     elif epilogue == "gelu":
         if pre is not None:
             pre.copy_(acc.to(pre.dtype))
         acc = F.gelu(acc)
+        if drop is not None:
+            acc = _dropout.dropout(acc.to(a.dtype), drop)
     return acc.to(a.dtype)
 
 
@@ -361,7 +382,8 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
          residual: torch.Tensor | None = None,
          epilogue: str = "bias", dp: torch.Tensor | None = None,
          rows_per_sample: int = 0,
-         pre: torch.Tensor | None = None) -> torch.Tensor:
+         pre: torch.Tensor | None = None,
+         drop: Drop | None = None) -> torch.Tensor:
     """``epilogue(a · wᵀ + bias)`` with float32 accumulation, out in
     ``a.dtype``.
 
@@ -371,7 +393,11 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
     multiplier ``dp`` (M / rows_per_sample,) float32, out = residual +
     round(round(a·wᵀ + bias)·dp)); ``"gelu"`` applies the exact erf GELU to
     the float32 accumulator and, given a (M, N) buffer ``pre``, writes the
-    rounded pre-activation into it (kept for the backward).
+    rounded pre-activation into it (kept for the backward). ``drop``: a
+    dropout site (``ops.dropout.Drop``) over the (M, N) output, for
+    ``"residual"`` on the branch before ``dp`` and for ``"gelu"`` on the
+    GELU's output: a kept value becomes round(round(v) / keep), a dropped
+    one 0.
     """
     if epilogue not in _EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
@@ -381,9 +407,11 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
         raise ValueError("dp scales the residual branch: epilogue='residual'")
     if pre is not None and epilogue != "gelu":
         raise ValueError("pre is written by epilogue='gelu' only")
+    if drop is not None and epilogue == "bias":
+        raise ValueError("dropout masks the residual branch or the GELU output")
     if _on_cpu(a):
         return gemm_plain(a, w, bias, residual=residual, epilogue=epilogue,
-                          dp=dp, rows_per_sample=rows_per_sample, pre=pre)
+                          dp=dp, rows_per_sample=rows_per_sample, pre=pre, drop=drop)
     M, K = a.shape
     N = w.shape[0]
     dev = a.device
@@ -398,11 +426,12 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
     if dp is not None:
         _check_scale(dp, M, rows_per_sample, dev)
     _check_gemm_operands(a, w)
+    key, row0, kd, thr = _drop_args(drop, N, a.dtype, dev)
     out = torch.empty((M, N), dtype=a.dtype, device=dev)
     err = library().cswin_gemm(
         a.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(residual), _ptr(pre), 0,
         _ptr(dp), out.data_ptr(), M, N, K, max(rows_per_sample, 1),
-        _EPILOGUES[epilogue], _stream(dev))
+        _EPILOGUES[epilogue], 0, key, row0, kd, thr, _stream(dev))
     check(err, "gemm")
     gemm.launches += 1
     return out
@@ -424,8 +453,12 @@ gemm.launches = 0
 
 def gemm_dgrad_plain(dy: torch.Tensor, w: torch.Tensor, *,
                      dp: torch.Tensor | None = None, rows_per_sample: int = 0,
-                     gelu_h: torch.Tensor | None = None) -> torch.Tensor:
-    acc = _row_scale(dy, dp, rows_per_sample).float() @ w.to(dy.dtype).float()
+                     gelu_h: torch.Tensor | None = None, drop_dy: Drop | None = None,
+                     drop_dx: Drop | None = None) -> torch.Tensor:
+    a = _dropout.dropout(_row_scale(dy, dp, rows_per_sample), drop_dy)
+    acc = a.float() @ w.to(dy.dtype).float()
+    if drop_dx is not None:
+        acc = _dropout.dropout(acc.to(dy.dtype), drop_dx).float()
     if gelu_h is not None:
         acc = acc * _gelu_grad(gelu_h)
     return acc.to(dy.dtype)
@@ -433,7 +466,8 @@ def gemm_dgrad_plain(dy: torch.Tensor, w: torch.Tensor, *,
 
 def gemm_dgrad(dy: torch.Tensor, w: torch.Tensor, *,
                dp: torch.Tensor | None = None, rows_per_sample: int = 0,
-               gelu_h: torch.Tensor | None = None) -> torch.Tensor:
+               gelu_h: torch.Tensor | None = None, drop_dy: Drop | None = None,
+               drop_dx: Drop | None = None) -> torch.Tensor:
     """Input gradient of a Linear layer, ``dX = dY' · w``, float32
     accumulation, out in ``dy.dtype``.
 
@@ -441,10 +475,15 @@ def gemm_dgrad(dy: torch.Tensor, w: torch.Tensor, *,
     pre-transposed); dY' is dy with row m scaled by the drop-path multiplier
     ``dp[m // rows_per_sample]`` and rounded, when ``dp`` is given. With
     ``gelu_h`` (M, K), the saved pre-activation of the GELU that feeds this
-    layer, the output is ``(dY'·w) · GELU'(h)`` (the fc2 -> fc1 step)."""
+    layer, the output is ``(dY'·w) · GELU'(h)`` (the fc2 -> fc1 step).
+    Dropout, with ``gelu_h`` only: ``drop_dy`` masks dY' (the fc2 site,
+    kept values round(v / keep)), ``drop_dx`` the product before GELU'
+    (the fc1 site, round(round(v) / keep))."""
+    if (drop_dy is not None or drop_dx is not None) and gelu_h is None:
+        raise ValueError("dropout in gemm_dgrad is the GELU-backward step's: pass gelu_h")
     if _on_cpu(dy):
         return gemm_dgrad_plain(dy, w, dp=dp, rows_per_sample=rows_per_sample,
-                                gelu_h=gelu_h)
+                                gelu_h=gelu_h, drop_dy=drop_dy, drop_dx=drop_dx)
     M, N = dy.shape
     K = w.shape[1]
     dev = dy.device
@@ -458,11 +497,18 @@ def gemm_dgrad(dy: torch.Tensor, w: torch.Tensor, *,
         _check_scale(dp, M, rows_per_sample, dev)
     wt = w.to(dy.dtype).t().contiguous()                     # (K, N)
     _check_gemm_operands(dy, wt)
+    key_a, row0, kd, thr = _drop_args(drop_dy, N, dy.dtype, dev)
+    key_out, row0_out, kd, thr = (_drop_args(drop_dx, K, dy.dtype, dev)
+                                  if drop_dx is not None else (0, row0, kd, thr))
+    if drop_dy is not None and drop_dx is not None and (
+            (drop_dy.rate, drop_dy.row0) != (drop_dx.rate, drop_dx.row0)):
+        raise ValueError("drop_dy and drop_dx are one block's sites: one rate, one row0")
     out = torch.empty((M, K), dtype=dy.dtype, device=dev)
     err = library().cswin_gemm(
         dy.data_ptr(), wt.data_ptr(), 0, 0, _ptr(gelu_h), _ptr(dp), 0,
         out.data_ptr(), M, K, N, max(rows_per_sample, 1),
-        _GELU_BWD if gelu_h is not None else _EPILOGUES["bias"], _stream(dev))
+        _GELU_BWD if gelu_h is not None else _EPILOGUES["bias"], key_a, key_out,
+        row0_out, kd, thr, _stream(dev))
     check(err, "gemm_dgrad")
     gemm_dgrad.launches += 1
     return out
@@ -472,8 +518,9 @@ gemm_dgrad.launches = 0
 
 
 def gemm_wgrad_plain(x: torch.Tensor, dy: torch.Tensor, *,
-                     dp: torch.Tensor | None = None, rows_per_sample: int = 0):
-    dyf = _row_scale(dy, dp, rows_per_sample).float()
+                     dp: torch.Tensor | None = None, rows_per_sample: int = 0,
+                     drop: Drop | None = None):
+    dyf = _dropout.dropout(_row_scale(dy, dp, rows_per_sample), drop).float()
     return dyf.t() @ x.float(), dyf.sum(0)
 
 
@@ -565,15 +612,17 @@ def _arrivals(dev: torch.device, n: int) -> torch.Tensor:
 
 
 def gemm_wgrad(x: torch.Tensor, dy: torch.Tensor, *,
-               dp: torch.Tensor | None = None, rows_per_sample: int = 0):
+               dp: torch.Tensor | None = None, rows_per_sample: int = 0,
+               drop: Drop | None = None):
     """Weight and bias gradients of a Linear layer ``y = x·Wᵀ + b``:
     ``(dW = dY'ᵀ·x (N, K), db = Σ_rows dY' (N,))``, both float32.
 
-    x: (M, K), dy: (M, N) in one dtype; dY' as in ``gemm_dgrad``. On the GPU
-    one launch (``wgrad_plan``) splits M over one wave of CTAs and sums the
-    splits itself, in a fixed order: two calls give the same bits."""
+    x: (M, K), dy: (M, N) in one dtype; dY' as in ``gemm_dgrad``, with
+    ``drop`` as its ``drop_dy``. On the GPU one launch (``wgrad_plan``)
+    splits M over one wave of CTAs and sums the splits itself, in a fixed
+    order: two calls give the same bits."""
     if _on_cpu(x):
-        return gemm_wgrad_plain(x, dy, dp=dp, rows_per_sample=rows_per_sample)
+        return gemm_wgrad_plain(x, dy, dp=dp, rows_per_sample=rows_per_sample, drop=drop)
     M, K = x.shape
     N = dy.shape[1]
     dev = x.device
@@ -584,6 +633,7 @@ def gemm_wgrad(x: torch.Tensor, dy: torch.Tensor, *,
     if K % 8 or N % 8 or x.data_ptr() % 16 or dy.data_ptr() % 16:
         raise ValueError("gemm_wgrad needs K % 8 == N % 8 == 0 and 16-byte "
                          "aligned operands")
+    key, row0, kd, thr = _drop_args(drop, N, dy.dtype, dev)
     plan = _wgrad_plans.get((dev, M, N, K))
     if plan is None:
         with torch.cuda.device(dev):
@@ -599,7 +649,7 @@ def gemm_wgrad(x: torch.Tensor, dy: torch.Tensor, *,
         part.data_ptr(), part_b.data_ptr(),
         _arrivals(dev, plan.tiles * _WGRAD_CLUSTER).data_ptr(), M, N, K,
         max(rows_per_sample, 1), plan.chunk, plan.splits, plan.cluster, plan.bn, plan.bk,
-        _stream(dev))
+        key, row0, kd, thr, _stream(dev))
     check(err, "gemm_wgrad")
     gemm_wgrad.launches += 1
     return dw, db

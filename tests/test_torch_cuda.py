@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from cswin_unet_tpu_torch.ops import dropout as D
 from cswin_unet_tpu_torch.ops.cuda import kernels as K
 from cswin_unet_tpu_torch.ops.cuda.carafe_tail import (carafe_tail,
                                                        carafe_tail_argmax,
@@ -576,6 +577,74 @@ def test_gemm_training_epilogues(dev):
     assert _rel_l2(pre_k.float(), pre_p.float()) <= 0.02
 
 
+def _drops(dev, seed, rate=0.1, row0=0):
+    """The (fc1, fc2) dropout sites of one block: keys from a seeded
+    generator on the card."""
+    keys = D.draw_keys(torch.Generator(device=dev).manual_seed(seed), 2)
+    return D.Drop(keys[0:1], rate, row0), D.Drop(keys[1:2], rate, row0)
+
+
+@pytest.mark.parametrize("row0", [0, 123457])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_dropout_masks_in_the_kernels_are_the_plain_bits(dev, rate, row0):
+    """Each kernel's mask, read from an output it decides alone, equals
+    ``ops.dropout.keep_mask`` bit for bit: the fc1 (GELU) and fc2 (residual)
+    epilogues with a bias of 1 on zero products, the dX product's mask on
+    its output (products of ones) and on dY (an identity weight), and the
+    weight gradient's on dY (an identity X)."""
+    M, N, bf = 512, 192, torch.bfloat16
+    d1, d2 = _drops(dev, 3, rate, row0)
+    mask = lambda d, rows, cols: D.keep_mask(d.key, d.row0, rows, cols, d.rate)
+    zeros, ones = torch.zeros(M, 64, dtype=bf, device=dev), torch.ones(M, N, dtype=bf, device=dev)
+    w0, bias1 = torch.zeros(N, 64, dtype=bf, device=dev), torch.ones(N, device=dev)
+    res0 = torch.zeros(M, N, dtype=bf, device=dev)
+    got = K.gemm(zeros, w0, bias1, epilogue="gelu", drop=d1) != 0
+    assert torch.equal(got, mask(d1, M, N))
+    got = K.gemm(zeros, w0, bias1, residual=res0, epilogue="residual", drop=d2) != 0
+    assert torch.equal(got, mask(d2, M, N))
+    h10 = torch.full((M, N), 10.0, dtype=bf, device=dev)
+    got = K.gemm_dgrad(ones, torch.ones(N, N, device=dev), gelu_h=h10, drop_dx=d1) != 0
+    assert torch.equal(got, mask(d1, M, N))
+    got = K.gemm_dgrad(ones, torch.eye(N, device=dev), gelu_h=h10, drop_dy=d2) != 0
+    assert torch.equal(got, mask(d2, M, N))
+    dw, db = K.gemm_wgrad(torch.eye(M, dtype=bf, device=dev), ones, drop=d2)
+    assert torch.equal(dw.t() != 0, mask(d2, M, N))
+    kept = (torch.ones((), dtype=bf) / D.keep_divisor(rate, bf)).float().item()
+    torch.testing.assert_close(db, mask(d2, M, N).float().sum(0) * kept)
+
+
+@pytest.mark.parametrize("M,N,K_,hw", [(200, 96, 64, 50), (75264, 64, 256, 3136),
+                                       (4704, 256, 1024, 196)])
+def test_gemm_dropout_vs_plain(dev, M, N, K_, hw):
+    """The three GEMMs with dropout (and drop-path) against their plain
+    versions at rate 0.1: the masks' zeros in the same places, values within
+    relative L2 0.02."""
+    rng = np.random.default_rng(11)
+    bf = torch.bfloat16
+    d1, d2 = _drops(dev, 5, 0.1, row0=M)
+    dp = torch.from_numpy((rng.random(M // hw) < 0.7).astype(np.float32) / 0.7).to(dev)
+    a, res = _rnd(rng, dev, M, K_).to(bf), _rnd(rng, dev, M, N).to(bf)
+    w, bias = _rnd(rng, dev, N, K_, sc=K_ ** -0.5).to(bf), _rnd(rng, dev, N, sc=0.1)
+    for kw in (dict(epilogue="gelu", drop=d1),
+               dict(epilogue="residual", residual=res, drop=d2),
+               dict(epilogue="residual", residual=res, drop=d2, dp=dp, rows_per_sample=hw)):
+        got, want = K.gemm(a, w, bias, **kw), K.gemm_plain(a, w, bias, **kw)
+        assert _rel_l2(got.float(), want.float()) <= 0.02, kw
+        if kw["epilogue"] == "gelu":
+            assert torch.equal(got == 0, want == 0)
+    dy, h = _rnd(rng, dev, M, K_).to(bf), _rnd(rng, dev, M, N).to(bf)
+    w2 = _rnd(rng, dev, K_, N, sc=K_ ** -0.5)
+    for kw in (dict(gelu_h=h, drop_dy=d2, drop_dx=d1),
+               dict(gelu_h=h, drop_dy=d2, drop_dx=d1, dp=dp, rows_per_sample=hw)):
+        got, want = K.gemm_dgrad(dy, w2, **kw), K.gemm_dgrad_plain(dy, w2, **kw)
+        assert _rel_l2(got.float(), want.float()) <= 0.02, kw
+    g = _rnd(rng, dev, M, N).to(bf)
+    for kw in (dict(drop=d2), dict(drop=d2, dp=dp, rows_per_sample=hw)):
+        got, want = K.gemm_wgrad(g, dy, **kw), K.gemm_wgrad_plain(g, dy, **kw)
+        for x, y in zip(got, want):
+            assert _rel_l2(x, y) <= 0.02, kw
+
+
 @pytest.mark.parametrize("H,C,heads,split,last", [
     (56, 64, 2, 1, False), (28, 128, 4, 2, False), (14, 256, 8, 7, False),
     (7, 512, 16, 7, True), (16, 48, 2, 4, False),
@@ -643,6 +712,21 @@ def test_block_fn_grads(dev, H, C, heads, split, last):
            for fn in (fused_cswin_block, composed_block)]
     for i, (a, b) in enumerate(zip(*res)):
         assert _rel_l2(a.float(), b.float()) <= 0.02, i
+
+
+@pytest.mark.parametrize("H,C,heads,split,last", BLOCK_FN_GEOMETRIES)
+def test_block_fn_grads_with_dropout(dev, H, C, heads, split, last):
+    """``CSWinBlockFn`` at dropout 0.1 (and drop-path), its masks in the
+    fc1 / fc2 epilogues and the backward GEMMs, against the composition with
+    the same keys: output and every gradient within relative L2 0.02, and
+    two calls bit for bit."""
+    p, x, g, kw = _block_fn_case(dev, H, C, heads, split, last, 29)
+    kw = dict(kw, drops=_drops(dev, 7))
+    res = [_block_fn_grads(fn, p, x, g, kw, last)
+           for fn in (fused_cswin_block, composed_block, fused_cswin_block)]
+    for i, (a, b, c) in enumerate(zip(*res)):
+        assert _rel_l2(a.float(), b.float()) <= 0.02, i
+        assert torch.equal(a, c), i
 
 
 @pytest.mark.parametrize("H,C,heads,split,last", BLOCK_FN_GEOMETRIES[2:4] + BLOCK_FN_GEOMETRIES[6:])

@@ -262,10 +262,25 @@ def test_use_checkpoint_gives_the_same_loss_and_gradients(monkeypatch, impl):
 
 
 def test_build_model_refuses_a_drop_rate():
-    """The port has no dropout: a non-zero ``MODEL.DROP_RATE`` raises rather
-    than train a different model than the JAX package would."""
+    """``MODEL.DROP_RATE`` outside [0, 1] is refused; 0.1 builds and trains:
+    a train step on the fused route (every block through ``CSWinBlockFn``)
+    gives a finite loss and finite gradients, a different loss than rate 0
+    from the same generator, and the same loss again from that generator."""
     from cswin_unet_tpu_torch.models import build_model
 
-    build_model(_tiny_config("MODEL.DROP_RATE", "0.0"), device="cpu")
-    with pytest.raises(NotImplementedError, match="DROP_RATE"):
-        build_model(_tiny_config("MODEL.DROP_RATE", "0.1"), device="cpu")
+    with pytest.raises(ValueError, match="DROP_RATE"):
+        build_model(_tiny_config("MODEL.DROP_RATE", "1.5"), device="cpu")
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((2, 128, 128, 1)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 5, (2, 128, 128)).astype(np.int64))
+    losses = []
+    for rate in ("0.1", "0.1", "0.0"):
+        model = build_model(_tiny_config("MODEL.DROP_RATE", rate), num_classes=5,
+                            device="cpu", seed=3, train=True)
+        assert model.cswin_unet.drop_rate == float(rate)
+        loss, _ = segmentation_loss(model(x, generator=torch.Generator().manual_seed(6)),
+                                    y, 5)
+        loss.backward()
+        assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+        losses.append(loss.item())
+    assert np.isfinite(losses).all() and losses[0] == losses[1] != losses[2]
