@@ -93,6 +93,23 @@ Phases, each of which raises on failure (the process then exits non-zero):
      ``stripe_attention`` 10 / ``carafe_reassemble`` 2; then the forward
      with pairing off, as committed and forced on, in 6 interleaved rounds
      (medians [min-max]) with device busy from ``torch.profiler``.
+     ``[f32]``: serving at ``TPU.COMPUTE_DTYPE float32``. Each float32
+     instance (``layernorm``, ``gemm``, ``stripe_attention``,
+     ``cswin_attention``, ``carafe_reassemble``, ``block_pair``) at every
+     shape a float32 32-slice tiny-224 forward gives it, against its plain
+     float32 version within ``F32_TOL`` (1e-5), the tail's labels by the
+     margin rule, ``block_pair`` also bit for bit against two float32
+     chains; bounds at 67 TFLOP/s of float32 FFMA, cuBLAS float32 and
+     ``F.layer_norm`` as yardsticks. Then ``python -m
+     cswin_unet_tpu_torch.serve``'s ``main`` at ``--opts TPU.COMPUTE_DTYPE
+     float32`` on a (64, 224, 224) volume, on the fused route and with
+     ``TPU.ATTN_IMPL pallas``: every launch a float32 instance's as routed,
+     the NIfTI labels by the margin rule and each route's logits within
+     ``F32_MODEL_TOL`` (1e-4) of the plain float32 route; the float32
+     forward timed beside the bf16 one; ``eval.inference.inference`` of one
+     (48, 512, 512) organ-like volume at float32 (launches as routed,
+     device metrics equal to the host's); and one base-384 float32
+     32-slice forward against its plain float32 route.
   6. Train: 48 synthetic 512x512 ``.npz`` slices with blob labels, the
      port's ``trainer_synapse`` for 2 epochs at bs 24 (4 steps, drop-path
      0.2 live), launch counts against the training routing, the log lines,
@@ -306,6 +323,16 @@ SOURCES = {
     "block_one": ("cswin_unet_tpu_torch/ops/cuda/csrc/block_one.cu",
                   "scripts/ablate_block.py:181; scripts/exp_cum.py:137"),
 }
+# The float32 instances of the serving path (TPU.COMPUTE_DTYPE float32), by
+# the wrapper that launches them: the same sources and TPU kernels.
+F32_OF = {f"{k}_f32": k for k in ("layernorm", "gemm", "stripe_attention",
+                                  "cswin_attention", "carafe_reassemble", "block_pair")}
+SOURCES.update({k: SOURCES[w] for k, w in F32_OF.items()})
+SOURCES["block_pair_f32"] = ("cswin_unet_tpu_torch/ops/cuda/csrc/block_pair_f32.cu",
+                             SOURCES["block_pair"][1])
+F32_OPTS = ["TPU.COMPUTE_DTYPE", "float32"]
+F32_TOL = 1e-5        # a float32 instance against its plain float32 version
+F32_MODEL_TOL = 1e-4  # the float32 model's logits against the plain float32 route
 LAB_BATCH = 128   # the TPU experiments' batch
 LAB_REPS = 10  # as block_lab.REPS, so that both readings of a case use one method
 # What each kernel's ms, plain_ms, bound_ms and library_ms add up over.
@@ -320,6 +347,12 @@ PER.update(dict.fromkeys(("lepe_windows", "window_attention", "ln_mlp"),
                          f"the [kernel] cases of the lab phase, once each, B = {LAB_BATCH}"))
 PER["block_one"] = (f"the whole block at stages 1-4 (every part on), once each, "
                     f"B = {LAB_BATCH}; chain_ms the block chain on the same four")
+PER.update(dict.fromkeys(("layernorm_f32", "gemm_f32", "stripe_attention_f32",
+                          "carafe_reassemble_f32", "block_pair_f32"),
+                         "32-slice serving forward at TPU.COMPUTE_DTYPE float32, fused "
+                         "route (pairing as committed)"))
+PER["cswin_attention_f32"] = ("32-slice serving forward at TPU.COMPUTE_DTYPE float32, "
+                              "pallas route")
 # H100 SXM peaks from NVIDIA's datasheet: memory, bf16 tensor cores,
 # float32 outside them.
 HBM_BPS, TC_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -359,15 +392,15 @@ def margin_mismatches(labels, ref_logits) -> tuple[int, int]:
     return int(mism.sum()), int((mism & (margin > thr)).sum())
 
 
-def judge(label: str, got, want, check: str) -> tuple[str, bool, float]:
+def judge(label: str, got, want, check: str, tol: float = TOL) -> tuple[str, bool, float]:
     """Hold an output against its plain version: (text, ok, max abs error).
     ``check="labels"``: int32 labels against plain logits, by the margin
     rule; ``"exact"``: equal bit for bit; ``"rel"``: finite values within
-    relative L2 ``TOL``, each element of a tuple on its own."""
+    relative L2 ``tol``, each element of a tuple on its own."""
     import torch
 
     if isinstance(got, tuple):
-        parts = [judge(f"{label}[{i}]", g, w, check)
+        parts = [judge(f"{label}[{i}]", g, w, check, tol)
                  for i, (g, w) in enumerate(zip(got, want))]
         return (" | ".join(t for t, _, _ in parts), all(ok for _, ok, _ in parts),
                 max(m for _, _, m in parts))
@@ -382,7 +415,7 @@ def judge(label: str, got, want, check: str) -> tuple[str, bool, float]:
     require(bool(torch.isfinite(got).all()), f"{label}: non-finite")
     err = rel_l2(got, want)
     mx = float((got - want).abs().max())
-    return f"rel_l2={err:.3e} max_abs={mx:.3e}", err <= TOL, mx
+    return f"rel_l2={err:.3e} max_abs={mx:.3e}", err <= tol, mx
 
 
 def time_ms(fn, reps: int = 10, rounds: int = 5, primed: bool = False) -> float:
@@ -497,18 +530,19 @@ class KernelTally:
 
     def case(self, name, label, kernel_fn, plain_fn, calls, check="rel", *,
              moved=0, tc_flops=0.0, f32_ops=0.0, library=None, reps=10, primed=False,
-             timed=None):
+             timed=None, tol=TOL, rounds=5):
         """``timed``: the (kernel, plain) calls to time where the checked
         calls also do the harness's own work (allocating and gathering the
-        outputs to compare)."""
+        outputs to compare). ``tol``: the relative L2 limit (``TOL`` for
+        bf16, ``F32_TOL`` for a float32 instance)."""
         import torch
 
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
-        err_txt, ok, mx = judge(f"{name} {label}", got, want, check)
+        err_txt, ok, mx = judge(f"{name} {label}", got, want, check, tol)
         row = self.rows[name]
         row["max_abs_err"] = max(row["max_abs_err"], mx)
-        ms, pms = (time_ms(fn, reps=reps, primed=primed)
+        ms, pms = (time_ms(fn, reps=reps, rounds=rounds, primed=primed)
                    for fn in (timed or (kernel_fn, plain_fn)))
         bytes_ms = moved / HBM_BPS * 1e3
         ops_ms = max(tc_flops / TC_FLOPS, f32_ops / F32_FLOPS) * 1e3
@@ -519,7 +553,7 @@ class KernelTally:
         row["ops_ms"] += calls * ops_ms
         lib = ""
         if library is not None:
-            lms = time_ms(library, reps=reps, primed=primed)
+            lms = time_ms(library, reps=reps, rounds=rounds, primed=primed)
             row["library_ms"] = (row["library_ms"] or 0.0) + calls * lms
             row["library_vs_ms"] += calls * ms
             lib = f" library_ms={lms:.4f}"
@@ -1439,6 +1473,356 @@ def serve_volumes(cfg, dev, workdir: str) -> tuple[dict[str, int], ...]:
               f"{'not measured' if busy[k] is None else f'{busy[k]:.3f}'}"
               for k, v in times.items()), flush=True)
     return counts, pallas_counts, pair_counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: serving at TPU.COMPUTE_DTYPE float32
+# ---------------------------------------------------------------------------
+
+def expected_f32(want: dict[str, int]) -> dict[str, int]:
+    """The launches of a float32 run routed as ``want``: each wrapper's
+    launches all of its float32 instance."""
+    return {k: want[F32_OF[k]] if k in F32_OF else want[k] for k in SOURCES}
+
+
+def compare_f32_kernels(cfg, dev, B: int) -> KernelTally:
+    """Each float32 instance at every shape one float32 forward of B slices
+    gives it, against its plain float32 version (``F32_TOL``), weighted by
+    its calls in that forward (pairing as committed), each timed behind
+    the lab's spin kernel (device time); the CARAFE tail's labels by the
+    margin rule; ``block_pair`` also equal to two float32 chains bit for
+    bit. Bounds: bytes at 3.35 TB/s or the products at 67
+    TFLOP/s of float32 FFMA. Yardsticks (timed here only): cuBLAS float32
+    (``F.linear``, TF32 off) for the bias GEMMs, ``F.layer_norm`` for LN."""
+    import torch
+    import torch.nn.functional as F
+
+    from cswin_unet_tpu_torch.ops.attention import cswin_attention_pallas_plain
+    from cswin_unet_tpu_torch.ops.cuda import carafe_tail as CT
+    from cswin_unet_tpu_torch.ops.cuda import cswin_block
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.ops.cuda.cswin_block import fused_cswin_block
+
+    rng = np.random.default_rng(17)
+    rnd = lambda *s, sc=1.0: torch.from_numpy(
+        (rng.standard_normal(s) * sc).astype(np.float32)).to(dev)
+    tally = KernelTally("f32:kernel")
+    kw_t = dict(tol=F32_TOL, reps=5, rounds=3, primed=True)  # device time
+    for g in stage_geometries(cfg):
+        H, C, depth = g["H"], g["C"], g["depth"]
+        paired = not g["last"] and cswin_block.pair_fuse_ok(H, H, C)
+        chained = 2 * (depth % 2 if paired else depth)  # blocks through the chain
+        M = B * H * H
+        tag = f"@{H}x{H}x{C}"
+        x, r = rnd(M, C), rnd(M, C)
+        w, b = rnd(C, sc=0.3) + 1, rnd(C, sc=0.1)
+        tally.case("layernorm_f32", tag, lambda: K.layernorm(x, w, b),
+                   lambda: K.layernorm_plain(x, w, b), 2 * chained,
+                   moved=2 * nbytes(x) + nbytes(w, b), f32_ops=8 * M * C,
+                   library=lambda: F.layer_norm(x, (C,), w, b), **kw_t)
+        h = rnd(M, 4 * C)
+        for what, a, n, epi, res in (("qkv", x, 3 * C, "bias", None),
+                                     ("proj", x, C, "residual", r),
+                                     ("fc1", x, 4 * C, "gelu", None),
+                                     ("fc2", h, C, "residual", r)):
+            wt = rnd(n, a.shape[1], sc=a.shape[1] ** -0.5)
+            bias = rnd(n, sc=0.1)
+            tally.case("gemm_f32", f"{what}{tag}",
+                       lambda: K.gemm(a, wt, bias, residual=res, epilogue=epi),
+                       lambda: K.gemm_plain(a, wt, bias, residual=res, epilogue=epi),
+                       chained, moved=nbytes(a, wt, bias, res) + M * n * 4,
+                       f32_ops=2 * M * n * a.shape[1] + M * n * (10 if epi == "gelu" else 2),
+                       library=(lambda: F.linear(a, wt, bias)) if epi == "bias" else None,
+                       **kw_t)
+        qkv = rnd(B, H, H, 3 * C)
+        scale = (C // g["heads"]) ** -0.5
+        branches = ([(0, C, g["heads"], H, H)] if g["last"] else
+                    [(0, C // 2, g["heads"] // 2, H, g["split"]),
+                     (C // 2, C // 2, g["heads"] // 2, g["split"], H)])
+        for off, cb, nh, hs, ws in branches:
+            lw, lb = rnd(cb, 1, 3, 3, sc=0.3), rnd(cb, sc=0.1)
+            out = torch.zeros(B, H, H, C, device=dev)
+            kw = dict(ch_off=off, heads=nh, h_sp=hs, w_sp=ws, scale=scale)
+            sl = slice(off, off + cb)
+            L, px = hs * ws, B * H * H
+            work = dict(moved=4 * px * cb * 4 + nbytes(lw, lb),
+                        f32_ops=4 * px * L * cb + 5 * px * nh * L + 18 * px * cb)
+            tally.case("stripe_attention_f32", f"{tag} window {hs}x{ws}",
+                       lambda: K.stripe_attention(qkv, lw, lb, out, **kw)[..., sl],
+                       lambda: K.stripe_attention_plain(qkv, lw, lb, out.clone(),
+                                                        **kw)[..., sl],
+                       chained, **work, **kw_t)
+            q, k, v = (qkv.view(B, H, H, 3, C)[..., i, off:off + cb] for i in range(3))
+            akw = dict(h_sp=hs, w_sp=ws, num_heads=nh, scale=scale)
+            tally.case("cswin_attention_f32", f"{tag} window {hs}x{ws}",
+                       lambda: K.cswin_attention(q, k, v, lw, lb, **akw),
+                       lambda: cswin_attention_pallas_plain(q, k, v, lw, lb, **akw),
+                       2 * depth, **work, **kw_t)
+        if paired:
+            p1, p2 = block_params(rng, C, False, dev), block_params(rng, C, False, dev)
+            xb = rnd(B, H, H, C)
+            pkw = dict(heads=g["heads"], split=g["split"], scale=scale)
+            # per block: the four products, both branches' Q·Kᵀ and P·V, LN,
+            # GELU and the epilogues
+            ops = 2 * (2 * M * 12 * C * C + 4 * M * H * g["split"] * C + M * C * (16 + 40 + 18))
+            label = f"{tag} B={B}"
+            tally.case("block_pair_f32", label, lambda: K.block_pair(xb, p1, p2, **pkw),
+                       lambda: K.block_pair_plain(xb, p1, p2, **pkw), 2 * (depth // 2),
+                       moved=2 * nbytes(xb) + nbytes(*p1, *p2), f32_ops=ops, **kw_t)
+            got = K.block_pair(xb, p1, p2, **pkw)
+            chain = fused_cswin_block(fused_cswin_block(xb, p1, last_stage=False, **pkw), p2,
+                                      last_stage=False, **pkw)
+            torch.cuda.synchronize()
+            txt, ok, _ = judge(f"block_pair_f32 vs chain {label}", got, chain, "exact")
+            print(f"[f32:kernel] block_pair_f32 vs two float32 chains {label}: {txt}; grid "
+                  f"{K.block_pair.grid} {'ok' if ok else 'FAIL'}", flush=True)
+            require(ok, f"block_pair_f32 vs two chains {label}: {txt}")
+    *ups, (Ht, Ct, _, _) = carafe_sites(cfg)
+    rows = [(f"up@{H}", H, C, C // 4, C_out, 2, False, 1) for H, C, C_out, _ in ups]
+    rows += [(f"tail-{kind}@{Ht}", Ht, Ct, Ct // 4, 9, 4, kind == "labels",
+              int(kind == "labels")) for kind in ("logits", "labels")]
+    for label, H, C, cm, nc, up, labels, calls in rows:
+        N = CT.gy_channels(cm, nc)
+        a = rnd(B * H * H, C)
+        wt = torch.cat([rnd(cm + nc, C, sc=C ** -0.5), torch.zeros(N - cm - nc, C, device=dev)])
+        bias_cat = torch.cat([rnd(cm, sc=0.1), torch.zeros(N - cm, device=dev)])
+        M = a.shape[0]
+        tally.case("gemm_f32", f"carafe-{label}", lambda: K.gemm(a, wt, bias_cat),
+                   lambda: K.gemm_plain(a, wt, bias_cat), calls,
+                   moved=nbytes(a, wt, bias_cat) + M * N * 4, f32_ops=2 * M * N * C + 2 * M * N,
+                   library=lambda: F.linear(a, wt, bias_cat), **kw_t)
+        gy = torch.cat([rnd(B, H, H, cm + nc), torch.zeros(B, H, H, N - cm - nc, device=dev)],
+                       -1)
+        ew, eb, bo = rnd(9 * up * up, cm, 3, 3, sc=0.2), rnd(9 * up * up), rnd(nc)
+        ckw = dict(c_mid=cm, up=up, labels=labels)
+        plain = (lambda: K.carafe_reassemble_plain(gy, ew, eb, bo, c_mid=cm, up=up,
+                                                   labels=False)) \
+            if labels else (lambda: K.carafe_reassemble_plain(gy, ew, eb, bo, **ckw))
+        px, taps = B * H * H, 9 * up * up
+        tally.case("carafe_reassemble_f32", label,
+                   lambda: K.carafe_reassemble(gy, ew, eb, bo, **ckw), plain, calls,
+                   check="labels" if labels else "rel",
+                   moved=px * (cm + nc) * 4 + nbytes(ew, eb, bo)
+                   + px * up * up * (4 if labels else 4 * nc),
+                   f32_ops=2 * px * taps * cm * 9 + px * taps * (4 + 2 * nc), **kw_t)
+    return tally
+
+
+def f32_serve(cfg, dev, workdir: str, smi: str) -> dict[str, dict[str, int]]:
+    """The serve CLI at ``--opts TPU.COMPUTE_DTYPE float32`` on one (64,
+    224, 224) volume from the serve phase's seeded tiny-224 checkpoint, on
+    the fused route and with ``TPU.ATTN_IMPL pallas``: each run's launches
+    (every one a float32 instance's, as routed) and its NIfTI labels
+    against the plain float32 route by the margin rule; on the first chunk
+    both routes' logits within ``F32_MODEL_TOL`` of the plain float32
+    route's; then the 32-slice float32 forward timed beside the bf16 and
+    the plain float32 ones. Returns the launch counts of the two CLI runs."""
+    import torch
+
+    from cswin_unet_tpu_torch import serve
+    from cswin_unet_tpu_torch.models import build_model
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.utils.checkpoint import load_checkpoint, load_into
+    from cswin_unet_tpu_torch.utils.profiling import device_busy_ms
+
+    t0 = time.perf_counter()
+    nc, batch = 9, SERVE_BATCH
+    ck = os.path.join(workdir, "tiny224_seed0.npz")
+    shape = (64, 224, 224)
+    vol = np.random.default_rng(31).standard_normal(shape).astype(np.float32)
+    path = os.path.join(workdir, "ct64_f32.npy")
+    np.save(path, vol)
+    f32cfg = type(cfg)(cfg.to_dict())  # the CLI's config: the YAML with --opts
+    f32cfg.merge_from_list(F32_OPTS)
+    f32cfg.freeze()
+
+    def from_checkpoint(impl=None, c=f32cfg):
+        model = build_model(c, num_classes=nc, device=dev, impl=impl, seed=1)
+        require(load_into(model.cswin_unet, load_checkpoint(ck)[0])
+                == len(model.cswin_unet.state_dict()), "checkpoint not loaded whole")
+        return model
+
+    models = dict(fused=from_checkpoint(), plain=from_checkpoint("plain"),
+                  pallas=from_checkpoint("pallas"), bf16=from_checkpoint(c=cfg))
+    require(all(models[k].cswin_unet.dtype == torch.float32 for k in ("fused", "plain",
+                                                                      "pallas")),
+            "TPU.COMPUTE_DTYPE float32 not taken")
+    x = torch.from_numpy(vol[:batch, ..., None]).to(dev)
+    with torch.inference_mode():
+        ref = models["plain"](x)
+    require(bool(torch.isfinite(ref).all()), "non-finite plain float32 logits")
+    forwards = -(-shape[0] // batch) + 1  # the volume's chunks and the CLI's warmup
+    counts = {}
+    for route, opts, routed in (
+            ("fused", [], expected_launches(cfg, forwards)),
+            ("pallas", ["TPU.ATTN_IMPL", "pallas"], expected_pallas_launches(cfg, forwards))):
+        out_dir = os.path.join(workdir, f"served_f32_{route}")
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        serve.main(["--cfg", CFG, "--checkpoint", ck, "--output_dir", out_dir,
+                    "--batch_slices", str(batch), path, "--opts", *F32_OPTS, *opts])
+        torch.cuda.synchronize()
+        counts[route] = K.launch_counts()
+        want = expected_f32(routed)
+        served = read_nifti(os.path.join(out_dir, "ct64_f32_pred.nii.gz"), shape)
+        lab = torch.from_numpy(served[:batch].astype(np.int32)).to(dev)
+        raw, above = margin_mismatches(lab, ref)
+        with torch.inference_mode():
+            err = rel_l2(models[route](x), ref)
+        ok = above == 0 and err <= F32_MODEL_TOL and counts[route] == want
+        print(f"[f32:serve] the serve CLI at --opts {' '.join(F32_OPTS + opts)}: launches "
+              f"{counts[route]} expected {want}; chunk ct64[0:{batch}] vs the plain float32 "
+              f"route: mismatches={raw}/{lab.numel()} above_margin={above}, the {route} "
+              f"route's logits rel_l2={err:.3e} (limit {F32_MODEL_TOL:g}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        require(ok, f"float32 serve, {route} route: launches {counts[route]} != {want} or "
+                f"{above} above the margin or logits rel_l2 {err:.3e}")
+
+    def forward(model):
+        with torch.inference_mode():
+            return model(x, emit="labels")
+
+    times = {k: [] for k in models}
+    for r in range(4):
+        for k in list(models)[::1 if r % 2 == 0 else -1]:
+            times[k].append(time_ms(lambda: forward(models[k]), reps=2, rounds=1))
+    busy = {k: device_busy_ms(lambda: forward(models[k]), 2) for k in ("fused", "bf16")}
+    print(f"[f32:e2e] forward {batch} slices to labels, tiny-224, ms median [min-max] of 4 "
+          f"interleaved rounds: " + "; ".join(
+              f"{k} {statistics.median(v):.3f} [{min(v):.3f}-{max(v):.3f}] "
+              f"({batch / statistics.median(v) * 1e3:.1f} slices/s)"
+              + (f" busy {'not measured' if busy[k] is None else f'{busy[k]:.3f}'}"
+                 if k in busy else "")
+              for k, v in times.items())
+          + f" (fused, plain and pallas at float32; bf16 the committed route); on {smi}; "
+          f"phase {time.perf_counter() - t0:.1f}s", flush=True)
+    return dict(serve_f32=counts["fused"], serve_f32_pallas=counts["pallas"])
+
+
+def f32_eval(cfg, dev, ck: str) -> dict[str, int]:
+    """test.py's evaluation at ``TPU.COMPUTE_DTYPE float32``: one (48, 512,
+    512) organ-like volume through ``eval.inference.inference`` from ``ck``
+    on the fused route with device metrics (launches: every one a float32
+    instance's as routed, and the EDT passes) and with host metrics, which
+    must agree; the plain float32 route's per-class scores printed beside.
+    Returns the launch counts of the device-metrics pass."""
+    import argparse
+
+    import torch
+
+    from cswin_unet_tpu_torch.eval.inference import VolumeInferencer, inference
+    from cswin_unet_tpu_torch.models import build_model
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.utils.checkpoint import load_checkpoint, load_into
+
+    t_start = time.perf_counter()
+    f32cfg = type(cfg)(cfg.to_dict())
+    f32cfg.merge_from_list(F32_OPTS)
+    f32cfg.freeze()
+    nc, img, shape = 9, cfg.DATA.IMG_SIZE, EVAL_SHAPES[0]
+    image, label, _ = organ_volume(np.random.default_rng(37), shape, nc)
+    db = [dict(image=image, label=label, case_name="case0000")]
+
+    def inferencer(impl=None):
+        model = build_model(f32cfg, num_classes=nc, device=dev, impl=impl, seed=1)
+        require(load_into(model.cswin_unet, load_checkpoint(ck)[0])
+                == len(model.cswin_unet.state_dict()), f"{ck} into the {impl} route")
+        return VolumeInferencer(model, device=dev, patch_size=(img, img))
+
+    fused = inferencer()
+    require(fused.model.cswin_unet.dtype == torch.float32, "TPU.COMPUTE_DTYPE not taken")
+    fused.predict_slices(np.zeros((1, img, img), np.float32))  # warm up
+    log = EvalLog()
+    root = logging.getLogger()
+    saved_handlers, saved_level = root.handlers[:], root.level
+    root.handlers[:] = [log]
+    root.setLevel(logging.INFO)
+    try:
+        args = argparse.Namespace(num_classes=nc, img_size=img, z_spacing=1,
+                                  device_metrics=True)
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inference(args, fused, db)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        counts = K.launch_counts()
+        dev_means, n = class_means(log.lines), len(log.lines)
+        args.device_metrics = False
+        inference(args, fused, db)
+        host_means, n = class_means(log.lines[n:]), len(log.lines)
+        args.device_metrics = True
+        inference(args, inferencer("plain"), db)
+        plain_means = class_means(log.lines[n:])
+    finally:
+        root.handlers[:] = saved_handlers
+        root.setLevel(saved_level)
+    want = expected_f32(expected_launches(cfg, -(-shape[0] // SERVE_BATCH)))
+    want["edt_pass"] = (nc - 1) * 2 * 3
+    ok = counts == want and len(dev_means) == nc - 1 and metrics_agree(dev_means, host_means)
+    print(f"[f32:eval] inference() of a {shape} volume at float32, device metrics "
+          f"{dev_s:.3f}s; launches {counts} expected {want}; device vs host metrics "
+          f"max |diff| {np.abs(dev_means - host_means).max():.3e}; per class dice / hd95, "
+          f"fused | plain float32 route (not gated): " + "; ".join(
+              f"{c + 1}: {f[0]:.4f}/{f[1]:.2f} | {p[0]:.4f}/{p[1]:.2f}"
+              for c, (f, p) in enumerate(zip(dev_means, plain_means)))
+          + f"; phase {time.perf_counter() - t_start:.1f}s {'ok' if ok else 'FAIL'}",
+          flush=True)
+    require(ok, f"float32 eval: launches {counts} != {want} or device {dev_means.tolist()} "
+            f"vs host {host_means.tolist()}")
+    return counts
+
+
+def f32_base384(dev, smi: str) -> dict[str, int]:
+    """One base-384 32-slice forward at float32 from seeded weights, on
+    the fused route against the plain float32 route: logits within
+    ``F32_MODEL_TOL``, labels by the margin rule, every launch a float32
+    instance's as routed; both forwards timed."""
+    import torch
+
+    from cswin_unet_tpu_torch.models import build_model
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+
+    t0 = time.perf_counter()
+    cfg = smoke_config(F32_OPTS, cfg=CFG384)
+    img, batch = cfg.DATA.IMG_SIZE, SERVE_BATCH
+    fused = build_model(cfg, num_classes=9, device=dev, seed=0)
+    plain = build_model(cfg, num_classes=9, device=dev, seed=0, impl="plain")
+    x = torch.from_numpy(np.random.default_rng(33).standard_normal(
+        (batch, img, img, 1)).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        ref = plain(x)
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        logits = fused(x)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        labels = fused(x, emit="labels")
+    want = expected_f32(expected_launches(cfg, 1))
+    err = rel_l2(logits, ref)
+    raw, above = margin_mismatches(labels, ref)
+    ok = err <= F32_MODEL_TOL and above == 0 and counts == want
+    print(f"[f32:base384] forward {batch} slices at float32: logits rel_l2={err:.3e} (limit "
+          f"{F32_MODEL_TOL:g}), labels mismatches={raw}/{labels.numel()} above_margin={above}; "
+          f"launches {counts} expected {want} {'ok' if ok else 'FAIL'}", flush=True)
+    require(ok, f"base-384 float32 forward: rel_l2 {err:.3e}, {above} above the margin, "
+            f"launches {counts}")
+
+    def forward(model):
+        with torch.inference_mode():
+            return model(x, emit="labels")
+
+    times = {"fused": [], "plain": []}
+    for r in range(2):
+        for k in list(times)[::1 if r % 2 == 0 else -1]:
+            times[k].append(time_ms(lambda: forward(fused if k == "fused" else plain),
+                                    reps=1, rounds=1))
+    print(f"[f32:base384:e2e] forward {batch} slices to labels at float32, ms median "
+          f"[min-max] of 2 interleaved rounds: " + "; ".join(
+              f"{k} {statistics.median(v):.3f} [{min(v):.3f}-{max(v):.3f}]"
+              for k, v in times.items()) + f"; on {smi}; phase "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -3795,6 +4179,12 @@ def main() -> int:
     compare_volume_metrics(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         serve_counts, pallas_counts, pair_counts = serve_volumes(cfg, dev, workdir)
+        t_f32 = time.perf_counter()
+        tally_f32 = compare_f32_kernels(cfg, dev, SERVE_BATCH)
+        f32_counts = f32_serve(cfg, dev, workdir, smi)
+        f32_counts["eval_f32"] = f32_eval(cfg, dev, os.path.join(workdir, "tiny224_seed0.npz"))
+        f32_counts["base384_f32"] = f32_base384(dev, smi)
+        print(f"[f32] phase {time.perf_counter() - t_f32:.1f}s", flush=True)
         train_counts, data, ck = train_run(cfg, dev, workdir)
         train_step_checks(cfg, dev, data)
         dropout_counts = dropout_run(cfg, dev, workdir, data, smi)
@@ -3813,15 +4203,21 @@ def main() -> int:
     lab_counts = lab_run()
 
     paths = dict(serve=serve_counts, serve_pallas=pallas_counts, serve_pair=pair_counts,
-                 train=train_counts, dropout=dropout_counts, eval=eval_counts,
+                 **f32_counts, train=train_counts, dropout=dropout_counts, eval=eval_counts,
                  continual=continual_counts, finetune=finetune_counts, ddp=ddp_counts,
                  **counts384, lab=lab_counts)
     for k in ("layernorm", "gemm", "stripe_attention", "carafe_reassemble"):
         require(all(c[k] > 0 for c in counts384.values()),
                 f"{k} launched no time on a base-384 path: {counts384}")
+    for k in F32_OF:  # every float32 instance ran on a float32 path, and only there
+        require(sum(c[k] for c in f32_counts.values()) > 0,
+                f"{k} launched no time at float32: {f32_counts}")
+        require(all(c[k] == 0 for p, c in paths.items() if p not in f32_counts),
+                f"{k} launched on a bf16 path")
     kernels = []
     for k, (src, rep) in SOURCES.items():
-        row, row384 = dict(tally.rows[k]), dict(tally384.rows[k])
+        row = dict((tally_f32 if k in F32_OF else tally).rows[k])
+        row384 = dict(tally384.rows[k])
         bound_by = "bytes" if row.pop("bytes_ms") >= row.pop("ops_ms") else "operations"
         by384 = "bytes" if row384.pop("bytes_ms") >= row384.pop("ops_ms") else "operations"
         if row384["bound_ms"] > 0:  # the kernels base-384's paths run, at its shapes

@@ -29,6 +29,12 @@ composition, as in JAX, where the fused CARAFE exists only for ``fused``.
 reference the kernels are held against. The stem, merge convs, standalone
 LayerNorms and concat-linears are plain PyTorch ops on both routes.
 
+Activations run in ``dtype`` (the config's ``TPU.COMPUTE_DTYPE``): bf16, or
+float32, where every kernel launches its float32 instance and the stock
+convolutions (stem, merges, the plain CARAFE sites) run with cuDNN's TF32
+off (``ops.precision``), as the JAX package's float32 convolutions are full
+float32.
+
 Training (autograd needs gradients): every block on the ``fused`` route,
 last-stage blocks included (one full-window branch), runs the kernel chain
 through ``CSWinBlockFn``, whose backward is kernels. The JAX package trains
@@ -74,6 +80,7 @@ from ..ops.cuda import cswin_block
 from ..ops.cuda.cswin_block import BlockParams, composed_block, fused_cswin_block
 from ..ops.cuda.kernels import needs_grad
 from ..ops.dropout import Drop, draw_keys, dropout
+from ..ops.precision import conv_precision
 from ..parallel import process_shard_info, rank_rows, world_size
 
 IMPLS = ("fused", "pallas", "plain")
@@ -81,8 +88,11 @@ IMPLS = ("fused", "pallas", "plain")
 
 def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, stride: int,
               pad: int) -> torch.Tensor:
-    """Conv2d on NHWC in ``x.dtype`` (weights cast), bias added after."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), None, stride, pad)
+    """Conv2d on NHWC in ``x.dtype`` (weights cast), bias added after; at
+    float32 in full float32 (``ops.precision.conv_precision``: cuDNN's TF32
+    off for the call)."""
+    with conv_precision(x.dtype):
+        y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), None, stride, pad)
     y = y.permute(0, 2, 3, 1)
     return y if conv.bias is None else y + conv.bias.to(x.dtype)
 

@@ -47,7 +47,8 @@ def build_model(config, img_size: int | None = None, num_classes: int = 9, *,
     config's ``MODEL.DROP_PATH_RATE`` and ``MODEL.DROP_RATE`` (dropout after
     the stem's LayerNorm and in each block's MLP, as the JAX model applies
     it; ``models.cswin_unet``). Parameters are float32; activations
-    run in ``dtype`` (default ``config.TPU.COMPUTE_DTYPE``). ``impl`` picks
+    run in ``dtype`` (default ``config.TPU.COMPUTE_DTYPE``, ``bfloat16`` or
+    ``float32``; another name raises ``ValueError``). ``impl`` picks
     the route; by default the config does, as the JAX ``build_model`` does
     (``cswin_unet_tpu/models/wrapper.py:45-49``): ``USE_PALLAS_ATTENTION``
     False gives ``plain``, ``ATTN_IMPL`` fused / pallas / xla gives fused /
@@ -57,7 +58,11 @@ def build_model(config, img_size: int | None = None, num_classes: int = 9, *,
         raise ValueError(f"MODEL.DROP_RATE={config.MODEL.DROP_RATE} is outside [0, 1]")
     cs = config.MODEL.CSWIN
     if dtype is None:
-        dtype = _DTYPES[config.TPU.COMPUTE_DTYPE]
+        name = config.TPU.COMPUTE_DTYPE
+        if name not in _DTYPES:
+            raise ValueError(f"TPU.COMPUTE_DTYPE={name!r}: the port takes "
+                             f"{' or '.join(map(repr, _DTYPES))}")
+        dtype = _DTYPES[name]
     if impl is None:
         impl = (_ROUTES[config.TPU.get("ATTN_IMPL", "fused")]
                 if config.TPU.USE_PALLAS_ATTENTION else "plain")

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .precision import conv_precision
 from .windows import window_merge, window_partition
 
 
@@ -36,12 +37,14 @@ def depthwise_conv3x3(x: torch.Tensor, weight: torch.Tensor,
     """Depthwise 3x3 conv, stride 1, zero pad 1, on NHWC ``x``.
 
     ``weight`` is the torch depthwise layout (C, 1, 3, 3). The sum runs in
-    float32 and is rounded once to ``x.dtype``; the bias is added in
-    ``x.dtype``, as the JAX composition does.
+    float32 (full float32 for float32 ``x``: cuDNN's TF32 off) and is
+    rounded once to ``x.dtype``; the bias is added in ``x.dtype``, as the
+    JAX composition does.
     """
     C = x.shape[-1]
-    y = F.conv2d(x.float().permute(0, 3, 1, 2),
-                 weight.to(x.dtype).float(), padding=1, groups=C)
+    with conv_precision(x.dtype):
+        y = F.conv2d(x.float().permute(0, 3, 1, 2),
+                     weight.to(x.dtype).float(), padding=1, groups=C)
     y = y.permute(0, 2, 3, 1).to(x.dtype)
     if bias is not None:
         y = y + bias.to(x.dtype)
@@ -100,9 +103,10 @@ def cswin_attention_pallas_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     qw = _heads(window_partition(q, h_sp, w_sp), num_heads)
     kw = _heads(window_partition(k, h_sp, w_sp), num_heads)
     v_img = window_partition(v, h_sp, w_sp).reshape(-1, h_sp, w_sp, C)
-    lepe = F.conv2d(v_img.float().permute(0, 3, 1, 2), lepe_weight.float(),
-                    None if lepe_bias is None else lepe_bias.float(),
-                    padding=1, groups=C)
+    with conv_precision(q.dtype):
+        lepe = F.conv2d(v_img.float().permute(0, 3, 1, 2), lepe_weight.float(),
+                        None if lepe_bias is None else lepe_bias.float(),
+                        padding=1, groups=C)
     lepe = _heads(lepe.permute(0, 2, 3, 1).reshape(-1, L, C), num_heads)
     vw = _heads(v_img.reshape(-1, L, C), num_heads)
 

@@ -383,4 +383,169 @@ __device__ __forceinline__ void copy_tile(const bf16* __restrict__ qp,
   }
 }
 
+// --- the float32 tile (TPU.COMPUTE_DTYPE float32) --------------------------
+//
+// The same function of one (window, head) from float32 q, k, v: S =
+// (q·scale)·kᵀ, the softmax, P·V and LePE all in float32, nothing rounded
+// between them (at float32 the composition's and the Pallas kernel's
+// roundings coincide: out = P·V + (conv(V, w) + b)). The products are FFMA
+// on the CUDA cores: no tensor-core format keeps float32's products, and
+// the function is bound by its bytes (4·L·d flops a token against 16·d
+// bytes of q, k, v and the output; ~20 operations a byte is the card's
+// FFMA ridge).
+// Design: q (scaled as it lands), k and v of the (window, head) staged in
+// shared memory, q at a row stride of D floats (its reads are broadcasts),
+// k and v at D + 4 (a quarter-warp's 16-byte reads of eight consecutive
+// rows fall in distinct banks); the LePE taps and bias beside them. Each
+// warp takes QR = 4 query rows at a time: a lane takes keys lane, lane +
+// 32, ... and forms their four scores from 16-byte reads of q and k, into
+// the warp's rows of P in shared memory (a row stride of L rounded up to 4);
+// the softmax's max and sum are warp reductions, and P is normalised in
+// place (e / sum, as the reference divides); then a lane takes outputs
+// (row, channel) lane, lane + 32, ... of the four rows, P·V from 16-byte
+// reads of P's row and V's column, and adds LePE from the staged V. Shared
+// memory grows with L·d (smem_bytes_f32), ~109 KB at L = 288, d = 24
+// (base-384's stage 3): two CTAs an SM there, four at tiny-224's L <= 98.
+constexpr int QR = 4;  // query rows a warp takes at once
+
+__host__ __device__ constexpr int p_stride_f32(int L) { return (L + 3) / 4 * 4; }
+
+template <int D>
+__host__ __device__ constexpr size_t smem_bytes_f32(int L) {
+  return sizeof(float) * ((size_t)L * D + 2 * (size_t)L * (D + 4) +
+                          (size_t)WARPS * QR * p_stride_f32(L) + 10 * D);
+}
+
+// q, k, v point at channel 0 of the branch; pixel p of each starts at
+// p * in_ps, of the output at p * out_ps (the pointers and in_ps·4 16-byte
+// aligned: the wrappers check). LePE taps (9, cb) tap-major and bias (cb,)
+// float32. win walks the windows as tile()'s.
+template <int D>
+__device__ __forceinline__ void tile_f32(const float* __restrict__ qp,
+                                         const float* __restrict__ kp,
+                                         const float* __restrict__ vp, size_t in_ps,
+                                         const float* __restrict__ lepe_w,
+                                         const float* __restrict__ lepe_b,
+                                         float* __restrict__ out, size_t out_ps, int H, int W,
+                                         int cb, int h_sp, int w_sp, float scale, int win,
+                                         int head, float* smem) {
+  static_assert(D % 8 == 0 && D <= 32, "head dims 16, 24, 32");
+  constexpr int KS = D + 4;          // row stride of k and v
+  constexpr int CH = D / 4;          // 16-byte chunks of a pixel's head slice
+  constexpr int U = (QR * D + 31) / 32;  // outputs a lane takes in a row group
+  const int L = h_sp * w_sp, PS = p_stride_f32(L);
+  float* Qs = smem;
+  float* Ks = Qs + L * D;
+  float* Vs = Ks + L * KS;
+  float* Ps = Vs + L * KS;                 // WARPS x QR rows of PS
+  float* Tw = Ps + WARPS * QR * PS;        // 9 taps, then the bias; D each
+
+  const int n_wh = H / h_sp, n_ww = W / w_sp;
+  const int b = win / (n_wh * n_ww);
+  const int row0 = (win / n_ww) % n_wh * h_sp, col0 = win % n_ww * w_sp;
+  const int hc = head * D;
+  const auto pixel = [&](int t) {
+    return ((size_t)b * H + row0 + t / w_sp) * W + col0 + t % w_sp;
+  };
+
+  for (int i = threadIdx.x; i < L * CH; i += blockDim.x) {
+    const int t = i / CH, c = i % CH * 4;
+    const size_t p = pixel(t) * in_ps + hc + c;
+    cp_async16(Ks + t * KS + c, kp + p);
+    cp_async16(Vs + t * KS + c, vp + p);
+    float4 q4 = __ldg(reinterpret_cast<const float4*>(qp + p));
+    q4.x *= scale;
+    q4.y *= scale;
+    q4.z *= scale;
+    q4.w *= scale;
+    *reinterpret_cast<float4*>(Qs + t * D + c) = q4;
+  }
+  cp_async_commit();
+  for (int i = threadIdx.x; i < 10 * D; i += blockDim.x) {
+    const int tap = i / D, dd = i % D;
+    Tw[i] = tap < 9 ? lepe_w[tap * cb + hc + dd] : lepe_b[hc + dd];
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* P = Ps + warp * QR * PS;
+  for (int r0 = warp * QR; r0 < L; r0 += WARPS * QR) {
+    // Scores of the group's rows (a row past L repeats row L - 1, unstored).
+    const float* qr[QR];
+#pragma unroll
+    for (int r = 0; r < QR; ++r) qr[r] = Qs + min(r0 + r, L - 1) * D;
+    float mx[QR], sum[QR];
+#pragma unroll
+    for (int r = 0; r < QR; ++r) mx[r] = -INFINITY;
+    for (int j = lane; j < L; j += 32) {
+      float sc[QR] = {};
+#pragma unroll
+      for (int d = 0; d < D; d += 4) {
+        const float4 k4 = *reinterpret_cast<const float4*>(Ks + j * KS + d);
+#pragma unroll
+        for (int r = 0; r < QR; ++r) {
+          const float4 q4 = *reinterpret_cast<const float4*>(qr[r] + d);
+          sc[r] = fmaf(q4.x, k4.x, sc[r]);
+          sc[r] = fmaf(q4.y, k4.y, sc[r]);
+          sc[r] = fmaf(q4.z, k4.z, sc[r]);
+          sc[r] = fmaf(q4.w, k4.w, sc[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < QR; ++r) {
+        P[r * PS + j] = sc[r];
+        mx[r] = fmaxf(mx[r], sc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < QR; ++r) {
+      mx[r] = warp_max(mx[r]);
+      sum[r] = 0.f;
+    }
+    for (int j = lane; j < L; j += 32)
+#pragma unroll
+      for (int r = 0; r < QR; ++r) {
+        const float e = expf(P[r * PS + j] - mx[r]);
+        P[r * PS + j] = e;
+        sum[r] += e;
+      }
+#pragma unroll
+    for (int r = 0; r < QR; ++r) sum[r] = warp_sum(sum[r]);
+    // Normalised in place, and zeros past L up to PS (the 16-byte reads).
+    for (int j = lane; j < PS; j += 32)
+#pragma unroll
+      for (int r = 0; r < QR; ++r) P[r * PS + j] = j < L ? P[r * PS + j] / sum[r] : 0.f;
+    __syncwarp();
+
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int o = lane + 32 * u, r = o / D, dd = o % D, i = r0 + r;
+      if (o >= QR * D || i >= L) continue;
+      const float* pr = P + r * PS;
+      float acc = 0.f;
+      for (int j = 0; j < L; j += 4) {
+        const float4 p4 = *reinterpret_cast<const float4*>(pr + j);
+        acc = fmaf(p4.x, Vs[j * KS + dd], acc);
+        if (j + 1 < L) acc = fmaf(p4.y, Vs[(j + 1) * KS + dd], acc);
+        if (j + 2 < L) acc = fmaf(p4.z, Vs[(j + 2) * KS + dd], acc);
+        if (j + 3 < L) acc = fmaf(p4.w, Vs[(j + 3) * KS + dd], acc);
+      }
+      const int ti = i / w_sp, tj = i % w_sp;
+      float c = 0.f;
+      for (int di = -1; di <= 1; ++di) {
+        const int rr = ti + di;
+        if (rr < 0 || rr >= h_sp) continue;
+        for (int dj = -1; dj <= 1; ++dj) {
+          const int cc = tj + dj;
+          if (cc < 0 || cc >= w_sp) continue;
+          c = fmaf(Tw[((di + 1) * 3 + dj + 1) * D + dd], Vs[(rr * w_sp + cc) * KS + dd], c);
+        }
+      }
+      out[pixel(i) * out_ps + hc + dd] = acc + (c + Tw[9 * D + dd]);
+    }
+    __syncwarp();  // the group's P is rewritten by the next
+  }
+}
+
 }  // namespace attn_tile

@@ -1,5 +1,6 @@
 // Two consecutive dual-branch CSWin blocks of one stage in one launch
-// (inference: no drop-path).
+// (inference: no drop-path), in bf16 (cswin_block_pair) or, for
+// TPU.COMPUTE_DTYPE float32, on the float32 tiles (cswin_block_pair_f32).
 //
 // Per block, the seven steps of the block chain in the phases of
 // block_phases.cuh (LN1, qkv, both stripe branches + LePE, proj + residual,
@@ -34,38 +35,7 @@
 //   between the blocks need not reach HBM. A launch the card cannot make
 //   co-resident fails and is returned.
 
-#include "block_phases.cuh"
-
-namespace {
-
-using namespace block_phases;
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-block_pair_kernel(const bf16* x, BlockW p1, BlockW p2, Plan plan1, Plan plan2, Scratch s,
-                  bf16* out, Geom g) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  cg::grid_group grid = cg::this_grid();
-  block<D, attn_tile::FULL>(grid, x, p1, s, s.mid, g, plan1, smem);
-  grid.sync();
-  block<D, attn_tile::FULL>(grid, s.mid, p2, s, out, g, plan2, smem);
-}
-
-template <int D>
-int launch(const bf16* x, const void* const* params, bf16* scratch, bf16* out,
-           const Geom& g, int* info, cudaStream_t stream) {
-  const size_t mc = (size_t)g.B * g.H * g.W * g.C;
-  Scratch s{scratch, scratch + mc, scratch + mc, scratch + 5 * mc, scratch, scratch + 6 * mc};
-  BlockW p1 = unpack(params), p2 = unpack(params + 16);
-  Plan plan1 = full_dual_plan(p1, g), plan2 = full_dual_plan(p2, g);
-  Geom geom = g;
-  void* args[] = {(void*)&x, &p1, &p2, &plan1, &plan2, &s, (void*)&out, &geom};
-  const int L = (g.H > g.W ? g.H : g.W) * g.split;
-  return launch_cooperative(block_pair_kernel<D>, block_phases::smem_bytes<D>(L), args, info,
-                            stream);
-}
-
-}  // namespace
+#include "block_pair.cuh"
 
 // x, out: (B, H, W, C) bf16, contiguous; params: a host array of 32 device
 // pointers, each block's 16 in the order of BlockW (the wrapper's cast
@@ -78,18 +48,6 @@ CSWIN_API int cswin_block_pair(const void* x, const void* const* params, void* s
                                void* out, int B, int H, int W, int C, int heads,
                                int split, float scale, float eps, int* info,
                                void* stream) {
-  if (split >= H || H % split || W % split || !ln_row::supported(C) || heads % 2 ||
-      C % heads)
-    return (int)cudaErrorInvalidValue;
-  const Geom g{B, H, W, C, heads, split, scale, eps};
-  const bf16* xb = (const bf16*)x;
-  bf16* sb = (bf16*)scratch;
-  bf16* ob = (bf16*)out;
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (C / heads) {
-    case 16: return launch<16>(xb, params, sb, ob, g, info, s);
-    case 24: return launch<24>(xb, params, sb, ob, g, info, s);
-    case 32: return launch<32>(xb, params, sb, ob, g, info, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<bf16>(x, params, scratch, out, B, H, W, C, heads, split, scale, eps, info,
+                        stream);
 }

@@ -12,9 +12,15 @@
 // tile shapes and K order, so a block run here with every part on equals the
 // chain bit for bit. A Plan switches parts off or stops early (the block
 // lab's ablation and build-up, block_one.cu); the pair runs every part.
+// The activations' type T is bf16, or float for TPU.COMPUTE_DTYPE float32
+// (block_pair.cu's float32 instance): the float phases run the float32
+// tiles (layernorm_row.cuh at T = float, gemm_tile::tile_f32,
+// attn_tile::tile_f32), which the chain's float32 kernels run too.
 #pragma once
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "attention_tile.cuh"
 #include "gemm_tile.cuh"
@@ -36,27 +42,32 @@ constexpr int MIN_CTAS = 4;
 constexpr int ATTN_KT = 8;
 
 // One block's parameters as the kernels read them: matrices, LePE taps
-// (9, cb) tap-major and LePE biases in bf16; LN and GEMM biases float32.
-struct BlockW {
+// (9, cb) tap-major and LePE biases in the activations' type T; LN and GEMM
+// biases float32.
+template <typename T>
+struct BlockWT {
   const float *n1w, *n1b;
-  const bf16* qkv_w;
+  const T* qkv_w;
   const float* qkv_b;  // may be null
-  const bf16 *l0w, *l0b, *l1w, *l1b;
-  const bf16* proj_w;
+  const T *l0w, *l0b, *l1w, *l1b;
+  const T* proj_w;
   const float* proj_b;
   const float *n2w, *n2b;
-  const bf16* fc1_w;
+  const T* fc1_w;
   const float* fc1_b;
-  const bf16* fc2_w;
+  const T* fc2_w;
   const float* fc2_b;
 };
+using BlockW = BlockWT<bf16>;
 
 // a: (M, C) LN1 out, then the attention out; q: (M, 3C) qkv; h: (M, 4C) the
 // fc1 out (the pair: h == q); x1: (M, C); y: (M, C) the LN2 out (the pair:
 // y == a); mid: (M, C), the pair's first block's output.
-struct Scratch {
-  bf16 *a, *q, *h, *x1, *y, *mid;
+template <typename T>
+struct ScratchT {
+  T *a, *q, *h, *x1, *y, *mid;
 };
+using Scratch = ScratchT<bf16>;
 
 struct Geom {
   int B, H, W, C, heads, split;
@@ -65,10 +76,12 @@ struct Geom {
 
 // One stripe branch: its channels [off, off + cb) of each third of qkv, nh
 // heads, windows h_sp x w_sp, its LePE.
-struct Branch {
+template <typename T>
+struct BranchT {
   int off, cb, nh, h_sp, w_sp;
-  const bf16 *lw, *lb;
+  const T *lw, *lb;
 };
+using Branch = BranchT<bf16>;
 
 // Phases a block runs: LN on or off (the GEMMs then read x and x1 as they
 // are), GELU on or off (fc1 takes the bias-only epilogue), one or two
@@ -76,19 +89,22 @@ struct Branch {
 // STOP_ALL.
 enum Stop { STOP_NONE = 0, STOP_QKV = 2, STOP_ATTENTION = 3, STOP_PROJ = 4, STOP_ALL = 7 };
 
-struct Plan {
+template <typename T>
+struct PlanT {
   int ln, gelu, branches, stop;
-  Branch b0, b1;
+  BranchT<T> b0, b1;
 };
+using Plan = PlanT<bf16>;
 
 // The dual-branch plan with every part on: the vertical branch (H x split
 // windows, channels [0, C/2)), then the horizontal one (split x W, [C/2, C)),
 // heads/2 heads each.
-inline Plan full_dual_plan(const BlockW& p, const Geom& g) {
+template <typename T>
+inline PlanT<T> full_dual_plan(const BlockWT<T>& p, const Geom& g) {
   const int half = g.C / 2, nh = g.heads / 2;
-  Plan plan{1, 1, 2, STOP_ALL, {}, {}};
-  plan.b0 = Branch{0, half, nh, g.H, g.split, p.l0w, p.l0b};
-  plan.b1 = Branch{half, half, nh, g.split, g.W, p.l1w, p.l1b};
+  PlanT<T> plan{1, 1, 2, STOP_ALL, {}, {}};
+  plan.b0 = BranchT<T>{0, half, nh, g.H, g.split, p.l0w, p.l0b};
+  plan.b1 = BranchT<T>{half, half, nh, g.split, g.W, p.l1w, p.l1b};
   return plan;
 }
 
@@ -97,8 +113,9 @@ inline Plan full_dual_plan(const BlockW& p, const Geom& g) {
 // layernorm_kernel. γ and β are read where used, not held: the GEMM and
 // attention phases set the kernel's registers. The entry points refuse a C
 // it does not take.
-__device__ __forceinline__ void ln_phase(const bf16* x, const float* w, const float* b,
-                                         bf16* y, int rows, int C, float eps) {
+template <typename T>
+__device__ __forceinline__ void ln_phase(const T* x, const float* w, const float* b, T* y,
+                                         int rows, int C, float eps) {
   ln_row::rows_any<false>(x, C, w, b, y, C, rows, C, eps, THREADS, blockIdx.x, gridDim.x);
 }
 
@@ -117,12 +134,27 @@ __device__ __forceinline__ void gemm_phase(const bf16* A, const bf16* Bw,
   }
 }
 
+// The float32 GEMM tiles (gemm_tile::tile_f32).
+template <int EPI>
+__device__ __forceinline__ void gemm_phase(const float* A, const float* Bw,
+                                           const float* bias, const float* res,
+                                           float* out, int M, int N, int K,
+                                           gemm_tile::SmemF32& sm) {
+  const int tn = (N + gemm_tile::BN - 1) / gemm_tile::BN;
+  const int tiles = (M + gemm_tile::BM - 1) / gemm_tile::BM * tn;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    gemm_tile::tile_f32<EPI>(A, Bw, bias, res, nullptr, out, M, N, K, 1,
+                             t / tn * gemm_tile::BM, t % tn * gemm_tile::BN, sm);
+    __syncthreads();  // the next tile restages the shared memory
+  }
+}
+
 // The plan's branches, one (window, head) per tile: b0's tiles, then b1's.
-template <int D, int MODE>
-__device__ __forceinline__ void attention_phase(const bf16* qkv, const Plan& plan,
-                                                bf16* att, const Geom& g, float* smem) {
+template <int D, int MODE, typename T>
+__device__ __forceinline__ void attention_phase(const T* qkv, const PlanT<T>& plan, T* att,
+                                                const Geom& g, float* smem) {
   const int C = g.C;
-  const Branch &b0 = plan.b0, &b1 = plan.b1;
+  const BranchT<T> &b0 = plan.b0, &b1 = plan.b1;
   const int t0 = g.B * (g.H / b0.h_sp) * (g.W / b0.w_sp) * b0.nh;
   const int tiles =
       t0 + (plan.branches > 1 ? g.B * (g.H / b1.h_sp) * (g.W / b1.w_sp) * b1.nh : 0);
@@ -131,11 +163,17 @@ __device__ __forceinline__ void attention_phase(const bf16* qkv, const Plan& pla
     const bool first = t < t0;
     const int u = first ? t : t - t0;
     const int off = first ? b0.off : b1.off, nh = first ? b0.nh : b1.nh;
-    const bf16* q = qkv + off;
-    attn_tile::tile<D, bf16, false, MODE, ATTN_KT>(
-        q, q + C, q + 2 * C, ps, first ? b0.lw : b1.lw, first ? b0.lb : b1.lb, att + off, C,
-        g.H, g.W, first ? b0.cb : b1.cb, first ? b0.h_sp : b1.h_sp,
-        first ? b0.w_sp : b1.w_sp, g.scale, u / nh, u % nh, smem);
+    const T* q = qkv + off;
+    if constexpr (std::is_same_v<T, float>)
+      attn_tile::tile_f32<D>(q, q + C, q + 2 * C, ps, first ? b0.lw : b1.lw,
+                             first ? b0.lb : b1.lb, att + off, C, g.H, g.W,
+                             first ? b0.cb : b1.cb, first ? b0.h_sp : b1.h_sp,
+                             first ? b0.w_sp : b1.w_sp, g.scale, u / nh, u % nh, smem);
+    else
+      attn_tile::tile<D, bf16, false, MODE, ATTN_KT>(
+          q, q + C, q + 2 * C, ps, first ? b0.lw : b1.lw, first ? b0.lb : b1.lb, att + off, C,
+          g.H, g.W, first ? b0.cb : b1.cb, first ? b0.h_sp : b1.h_sp,
+          first ? b0.w_sp : b1.w_sp, g.scale, u / nh, u % nh, smem);
     __syncthreads();
   }
 }
@@ -143,14 +181,18 @@ __device__ __forceinline__ void attention_phase(const bf16* qkv, const Plan& pla
 // One block, x -> xout, in the plan's phases; the grid syncs between them.
 // A plan that stops early leaves its last phase's output in the scratch and
 // returns without a final sync.
-template <int D, int MODE>
-__device__ __forceinline__ void block(cg::grid_group& grid, const bf16* x, const BlockW& p,
-                                      const Scratch& s, bf16* xout, const Geom& g,
-                                      const Plan& plan, unsigned char* smem) {
-  auto& gs = *reinterpret_cast<gemm_tile::Smem*>(smem);
+template <int D, int MODE, typename T>
+__device__ __forceinline__ void block(cg::grid_group& grid, const T* x, const BlockWT<T>& p,
+                                      const ScratchT<T>& s, T* xout, const Geom& g,
+                                      const PlanT<T>& plan, unsigned char* smem) {
+  static_assert(std::is_same_v<T, float> ? MODE == attn_tile::FULL : true,
+                "the float32 phases run the full block");
+  using GemmSmem =
+      std::conditional_t<std::is_same_v<T, float>, gemm_tile::SmemF32, gemm_tile::Smem>;
+  auto& gs = *reinterpret_cast<GemmSmem*>(smem);
   const int M = g.B * g.H * g.W, C = g.C;
   if (plan.stop < STOP_QKV) return;
-  const bf16* xn = x;
+  const T* xn = x;
   if (plan.ln) {
     ln_phase(x, p.n1w, p.n1b, s.a, M, C, g.eps);
     grid.sync();
@@ -165,7 +207,7 @@ __device__ __forceinline__ void block(cg::grid_group& grid, const bf16* x, const
   gemm_phase<1>(s.a, p.proj_w, p.proj_b, x, s.x1, M, C, C, gs);
   if (plan.stop < STOP_ALL) return;
   grid.sync();
-  const bf16* yn = s.x1;
+  const T* yn = s.x1;
   if (plan.ln) {
     ln_phase(s.x1, p.n2w, p.n2b, s.y, M, C, g.eps);
     grid.sync();
@@ -180,23 +222,24 @@ __device__ __forceinline__ void block(cg::grid_group& grid, const bf16* x, const
 }
 
 // A host array of 16 device pointers in the order of BlockW.
-inline BlockW unpack(const void* const* v) {
-  BlockW p;
+template <typename T = bf16>
+inline BlockWT<T> unpack(const void* const* v) {
+  BlockWT<T> p;
   p.n1w = (const float*)v[0];
   p.n1b = (const float*)v[1];
-  p.qkv_w = (const bf16*)v[2];
+  p.qkv_w = (const T*)v[2];
   p.qkv_b = (const float*)v[3];
-  p.l0w = (const bf16*)v[4];
-  p.l0b = (const bf16*)v[5];
-  p.l1w = (const bf16*)v[6];
-  p.l1b = (const bf16*)v[7];
-  p.proj_w = (const bf16*)v[8];
+  p.l0w = (const T*)v[4];
+  p.l0b = (const T*)v[5];
+  p.l1w = (const T*)v[6];
+  p.l1b = (const T*)v[7];
+  p.proj_w = (const T*)v[8];
   p.proj_b = (const float*)v[9];
   p.n2w = (const float*)v[10];
   p.n2b = (const float*)v[11];
-  p.fc1_w = (const bf16*)v[12];
+  p.fc1_w = (const T*)v[12];
   p.fc1_b = (const float*)v[13];
-  p.fc2_w = (const bf16*)v[14];
+  p.fc2_w = (const T*)v[14];
   p.fc2_b = (const float*)v[15];
   return p;
 }
@@ -229,11 +272,16 @@ int launch_cooperative(Kernel kernel, size_t smem, void** args, int* info,
 }
 
 // Dynamic shared memory of the phases: the larger of the GEMM tile's and the
-// widest window's attention staging.
-template <int D>
+// widest window's attention staging, at the activations' type T.
+template <int D, typename T = bf16>
 size_t smem_bytes(int L) {
-  const size_t a = attn_tile::smem_bytes<D>(L);
-  return a < sizeof(gemm_tile::Smem) ? sizeof(gemm_tile::Smem) : a;
+  if constexpr (std::is_same_v<T, float>) {
+    const size_t a = attn_tile::smem_bytes_f32<D>(L);
+    return a < sizeof(gemm_tile::SmemF32) ? sizeof(gemm_tile::SmemF32) : a;
+  } else {
+    const size_t a = attn_tile::smem_bytes<D>(L);
+    return a < sizeof(gemm_tile::Smem) ? sizeof(gemm_tile::Smem) : a;
+  }
 }
 
 }  // namespace block_phases

@@ -1,4 +1,6 @@
 // CARAFE kernel prediction + reassembly, after the (down | classes) GEMM.
+// The bf16 kernel below; its float32 instance (cswin_carafe_f32) serves
+// TPU.COMPUTE_DTYPE float32.
 //
 // Input `gy` is the GEMM output (B, H, W, G) bf16, G >= cm + nc, G and cm
 // multiples of 8 (carafe_fused pads G; every config's cm = C/4 is): channels
@@ -384,7 +386,180 @@ cudaError_t launch(const bf16* gy, const bf16* wenc, const float* benc, const fl
   return cudaGetLastError();
 }
 
+// --- the float32 instances (TPU.COMPUTE_DTYPE float32) ---------------------
+//
+// The same function from a float32 gy, nothing rounded: the encoder conv,
+// the softmax (expf, one division a tap) and the reassembly in float32, the
+// logits written as float32 (or the labels, first maximum wins). The products
+// are FFMA on the CUDA cores (the bf16 kernel's tensor-core conv would round
+// the operands), one thread an (up-position, low-res pixel) of the tile.
+// Persistent CTAs of F32_THREADS threads loop over 8x8 tiles: the encoder
+// weight, laid out by the wrapper as (tap, ci, encoder channel) so that the
+// lanes of one pixel read consecutive words, is staged once a CTA; each
+// tile's halo of gy (mid and y, G channels at a row stride of G + 4, so that
+// a warp's eight pixels of a tile row fall in distinct banks) arrives by
+// 16-byte cp.async with zeros outside the image.
+constexpr int F32_THREADS = 256;
+
+struct LayoutF32 {
+  int Gs, w_off, halo_off, benc_off, bias_off, total;
+};
+
+template <int UP>
+__host__ __device__ LayoutF32 make_layout_f32(int cm, int nc, int G) {
+  constexpr int ENC = 9 * UP * UP;
+  LayoutF32 L;
+  L.Gs = G + 4;
+  L.w_off = 0;
+  L.halo_off = L.w_off + 9 * cm * ENC * 4;
+  L.benc_off = L.halo_off + HALO_PX * L.Gs * 4;
+  L.bias_off = L.benc_off + round_up(ENC * 4, 16);
+  L.total = L.bias_off + round_up(nc * 4, 16);
+  return L;
+}
+
+template <int UP, bool LABELS>
+__global__ void __launch_bounds__(F32_THREADS)
+carafe_f32_kernel(const float* __restrict__ gy, const float* __restrict__ wenc,
+                  const float* __restrict__ benc, const float* __restrict__ bias,
+                  void* __restrict__ out, int B, int H, int W, int G, int cm, int nc) {
+  constexpr int UP2 = UP * UP, ENC = 9 * UP2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const LayoutF32 L = make_layout_f32<UP>(cm, nc, G);
+  float* Ws = reinterpret_cast<float*>(smem + L.w_off);
+  float* hs = reinterpret_cast<float*>(smem + L.halo_off);
+  float* benc_s = reinterpret_cast<float*>(smem + L.benc_off);
+  float* bias_s = reinterpret_cast<float*>(smem + L.bias_off);
+  const int tid = threadIdx.x;
+  const int TX = (W + TW - 1) / TW, TY = (H + TH - 1) / TH, tiles = B * TX * TY;
+  const int HU = H * UP, WU = W * UP;
+
+  for (int i = tid; i < 9 * cm * ENC / 4; i += F32_THREADS) cp_async16(Ws + 4 * i, wenc + 4 * i);
+  for (int i = tid; i < ENC; i += F32_THREADS) benc_s[i] = benc[i];
+  for (int i = tid; i < nc; i += F32_THREADS) bias_s[i] = bias[i];
+  cp_async_commit();
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    __syncthreads();  // every thread is done with the last tile's halo
+    const int b = tile / (TX * TY), y0 = tile / TX % TY * TH, x0 = tile % TX * TW;
+    const int chunks = G / 4;
+    for (int i = tid; i < HALO_PX * chunks; i += F32_THREADS) {
+      const int p = i / chunks, c = i % chunks * 4;
+      const int y = y0 - 1 + p / HWD, x = x0 - 1 + p % HWD;
+      const bool ok = y >= 0 && y < H && x >= 0 && x < W;
+      cp_async16(hs + p * L.Gs + c, ok ? gy + (((size_t)b * H + y) * W + x) * G + c : gy,
+                 ok ? 16 : 0);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();  // the halo (and, first, the weight) landed
+    __syncthreads();
+    for (int item = tid; item < TH * TW * UP2; item += F32_THREADS) {
+      const int px = item / UP2, s = item % UP2, ly = px / TW, lx = px % TW;
+      const int y = y0 + ly, x = x0 + lx;
+      if (y >= H || x >= W) continue;
+      float e[9];
+#pragma unroll
+      for (int t = 0; t < 9; ++t) e[t] = benc_s[t * UP2 + s];
+      for (int tap = 0; tap < 9; ++tap) {
+        const float* m = hs + ((ly + tap / 3) * HWD + lx + tap % 3) * L.Gs;
+        const float* wt = Ws + tap * cm * ENC + s;
+        for (int ci = 0; ci < cm; ++ci) {
+          const float mv = m[ci];
+#pragma unroll
+          for (int t = 0; t < 9; ++t) e[t] = fmaf(mv, wt[ci * ENC + t * UP2], e[t]);
+        }
+      }
+      float mx = e[0];
+#pragma unroll
+      for (int t = 1; t < 9; ++t) mx = fmaxf(mx, e[t]);
+      float sum = 0.f;
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        e[t] = expf(e[t] - mx);
+        sum += e[t];
+      }
+#pragma unroll
+      for (int t = 0; t < 9; ++t) e[t] = e[t] / sum;
+      const size_t opx = ((size_t)b * HU + y * UP + s / UP) * WU + x * UP + s % UP;
+      float best = -INFINITY;
+      int arg = 0;
+      for (int n = 0; n < nc; ++n) {
+        float o = 0.f;
+#pragma unroll
+        for (int t = 0; t < 9; ++t)
+          o = fmaf(e[t], hs[((ly + t / 3) * HWD + lx + t % 3) * L.Gs + cm + n], o);
+        o += bias_s[n];
+        if constexpr (LABELS) {
+          if (o > best) {
+            best = o;
+            arg = n;
+          }
+        } else {
+          reinterpret_cast<float*>(out)[opx * nc + n] = o;
+        }
+      }
+      if constexpr (LABELS) reinterpret_cast<int*>(out)[opx] = arg;
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <int UP, bool LABELS>
+cudaError_t launch_f32(const float* gy, const float* wenc, const float* benc,
+                       const float* bias, void* out, int B, int H, int W, int G, int cm,
+                       int nc, cudaStream_t stream) {
+  const LayoutF32 L = make_layout_f32<UP>(cm, nc, G);
+  const auto kernel = carafe_f32_kernel<UP, LABELS>;
+  cudaError_t err = allow_smem(kernel, L.total);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, dev = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, F32_THREADS, L.total);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidValue;  // the weight and the halo exceed shared memory
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (long long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+  if (tiles == 0) return cudaSuccess;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int grid = (int)(tiles < (long long)sms * per_sm ? tiles : (long long)sms * per_sm);
+  kernel<<<grid, F32_THREADS, L.total, stream>>>(gy, wenc, benc, bias, out, B, H, W, G, cm, nc);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// The float32 instances: gy (B, H, W, G) float32, 16-byte aligned, G >= cm +
+// nc, G % 4 == 0; wenc: (3, 3, cm, 9·up²) float32 (kh, kw, ci, then the
+// encoder's output channel o = tap·up² + s), 16-byte aligned; benc, bias
+// as below; out: (B, up·H, up·W, nc) float32 logits, or int32 labels.
+CSWIN_API int cswin_carafe_f32(const void* gy, const void* wenc, const void* benc,
+                               const void* bias, void* out, int B, int H, int W, int G,
+                               int cm, int nc, int up, int labels, void* stream) {
+  if (cm < 1 || nc < 1 || G < cm + nc || G % 4) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* g = (const float*)gy;
+  const float* w = (const float*)wenc;
+  const float* be = (const float*)benc;
+  const float* bo = (const float*)bias;
+#define CSWIN_CARAFE(UP, LB) (int)launch_f32<UP, LB>(g, w, be, bo, out, B, H, W, G, cm, nc, s)
+  switch (up) {
+    case 2: return labels ? CSWIN_CARAFE(2, true) : CSWIN_CARAFE(2, false);
+    case 4: return labels ? CSWIN_CARAFE(4, true) : CSWIN_CARAFE(4, false);
+  }
+#undef CSWIN_CARAFE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The float32 kernel's dynamic shared memory, or -1 for an up it does not
+// take: what kernels.py::carafe_f32_smem mirrors.
+CSWIN_API int cswin_carafe_f32_smem(int cm, int nc, int G, int up) {
+  switch (up) {
+    case 2: return make_layout_f32<2>(cm, nc, G).total;
+    case 4: return make_layout_f32<4>(cm, nc, G).total;
+  }
+  return -1;
+}
 
 // gy: (B, H, W, G) bf16, 16-byte aligned, G >= cm + nc, G % 8 == cm % 8 ==
 // 0; wenc: (9·up², 3, 3, cm) bf16 (output channel o = tap·up² + s, then kh,

@@ -1,5 +1,7 @@
 // Tiled bf16 GEMMs of the CSWin block, forward and backward, float32
-// accumulation.
+// accumulation; and the forward's float32 instances (cswin_gemm_f32, the
+// serving epilogues 0-2 on gemm_tile::tile_f32's FFMA products) for
+// TPU.COMPUTE_DTYPE float32.
 //
 // cswin_gemm: out = epilogue(A' · Bᵀ + bias), bf16 out. A is (M, K)
 // row-major activations; B is (N, K) row-major, the torch Linear weight
@@ -98,6 +100,20 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
                                               M, N, K, rows_per_sample,
                                               t / tn * gemm_tile::BM, t % tn * gemm_tile::BN,
                                               sm, drop);
+}
+
+// The float32 instances (TPU.COMPUTE_DTYPE float32), one output tile per
+// CTA as gemm_kernel, on gemm_tile::tile_f32.
+template <int EPI, bool EXTRA>
+__global__ void __launch_bounds__(THREADS)
+gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                const float* __restrict__ bias, const float* __restrict__ res,
+                const float* __restrict__ out_scale, float* __restrict__ out, int M, int N,
+                int K, int rows_per_sample, int tn) {
+  __shared__ gemm_tile::SmemF32 sm;
+  const int t = blockIdx.x;
+  gemm_tile::tile_f32<EPI, EXTRA>(A, B, bias, res, out_scale, out, M, N, K, rows_per_sample,
+                                  t / tn * gemm_tile::BM, t % tn * gemm_tile::BN, sm);
 }
 
 // --- the weight gradient --------------------------------------------------
@@ -436,6 +452,19 @@ int launch_gemm(const void* A, const void* B, const void* bias, const void* res,
   return (int)cudaGetLastError();
 }
 
+template <int EPI, bool EXTRA>
+int launch_gemm_f32(const void* A, const void* B, const void* bias, const void* res,
+                    const void* out_scale, void* out, int M, int N, int K,
+                    int rows_per_sample, void* stream) {
+  const int tn = (N + gemm_tile::BN - 1) / gemm_tile::BN;
+  const long long tiles = (long long)((M + gemm_tile::BM - 1) / gemm_tile::BM) * tn;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  gemm_f32_kernel<EPI, EXTRA><<<(unsigned)tiles, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)A, (const float*)B, (const float*)bias, (const float*)res,
+      (const float*)out_scale, (float*)out, M, N, K, rows_per_sample, tn);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // A, B, res, aux, out: bf16; bias, a_scale, out_scale: float32 or null.
@@ -496,6 +525,29 @@ CSWIN_API int cswin_gemm(const void* A, const void* B, const void* bias,
     case 3: return as ? CSWIN_GEMM(3, true, false) : CSWIN_GEMM(3, false, false);
   }
 #undef CSWIN_GEMM
+  return (int)cudaErrorInvalidValue;
+}
+
+// The float32 instances: A (M, K), B (N, K), res and out (M, N), all
+// float32; bias (N,) or null; epilogue 0 (bias), 1 (residual: out = res +
+// (acc + bias), times out_scale[m / rows_per_sample] when out_scale is not
+// null) or 2 (exact erf GELU). Requires K % 4 == 0 and 16-byte aligned A
+// and B (checked by the wrapper); at most 2^31 - 1 output tiles of 64 x 64.
+CSWIN_API int cswin_gemm_f32(const void* A, const void* B, const void* bias,
+                             const void* res, const void* out_scale, void* out, int M,
+                             int N, int K, int rows_per_sample, int epilogue, void* stream) {
+  switch (epilogue) {
+    case 0: return launch_gemm_f32<0, false>(A, B, bias, res, out_scale, out, M, N, K,
+                                             rows_per_sample, stream);
+    case 1:
+      return out_scale != nullptr
+                 ? launch_gemm_f32<1, true>(A, B, bias, res, out_scale, out, M, N, K,
+                                            rows_per_sample, stream)
+                 : launch_gemm_f32<1, false>(A, B, bias, res, out_scale, out, M, N, K,
+                                             rows_per_sample, stream);
+    case 2: return launch_gemm_f32<2, false>(A, B, bias, res, out_scale, out, M, N, K,
+                                             rows_per_sample, stream);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -311,4 +311,127 @@ __device__ __forceinline__ void tile(
   }
 }
 
+// --- the float32 tile (TPU.COMPUTE_DTYPE float32) --------------------------
+//
+// The same 64x64 output tile, operands, epilogues 0-2 (bias; residual, with
+// the drop-path scale under EXTRA; exact erf GELU) and masking as tile(),
+// in float32 throughout: the products are FFMA on the CUDA cores, each
+// output a float32 sum over k in order, and the epilogue rounds nothing.
+// No tensor-core format keeps float32's products (TF32 drops 13 bits of
+// each operand), and at the block's shapes the tile is bound by bytes
+// (K <= 2048; 67 TFLOP/s of FFMA against 3.35 TB/s is a ridge of ~20
+// operations a byte), so FFMA costs little here.
+// Design: a ring of STAGES_F k-blocks of A and B, BK_F = 16 deep, fed by
+// 16-byte cp.async copies (4 floats; K % 4 == 0), rows padded to LDF = 20
+// floats. Thread (tx, ty) = (tid % 16, tid / 16) owns rows ty + 8i (i < 8)
+// and columns tx + 16j (j < 4): a quarter-warp's 16-byte loads of A read
+// one row (a broadcast) and of B eight rows whose 16-byte words fall in
+// distinct banks, and the outputs leave as 64-byte row runs a half-warp.
+constexpr int BK_F = 16, STAGES_F = 3, LDF = BK_F + 4;
+
+struct __align__(128) SmemF32 {
+  float A[STAGES_F][BM][LDF];
+  float B[STAGES_F][BN][LDF];
+};
+
+__device__ __forceinline__ void load_kblock_f32(const float* __restrict__ A,
+                                                const float* __restrict__ B, int M, int N,
+                                                int K, int m0, int n0, int k0, SmemF32& sm,
+                                                int slot, int tid) {
+  constexpr int CHUNKS = BK_F / 4;
+  static_assert(BM * CHUNKS % THREADS == 0 && BN * CHUNKS % THREADS == 0, "whole passes");
+#pragma unroll
+  for (int it = 0; it < BM * CHUNKS / THREADS; ++it) {
+    const int i = tid + it * THREADS, r = i / CHUNKS, c = i % CHUNKS * 4;
+    const bool ok = m0 + r < M && k0 + c < K;
+    cp_async16(&sm.A[slot][r][c], ok ? A + (size_t)(m0 + r) * K + k0 + c : A, ok ? 16 : 0);
+  }
+#pragma unroll
+  for (int it = 0; it < BN * CHUNKS / THREADS; ++it) {
+    const int i = tid + it * THREADS, r = i / CHUNKS, c = i % CHUNKS * 4;
+    const bool ok = n0 + r < N && k0 + c < K;
+    cp_async16(&sm.B[slot][r][c], ok ? B + (size_t)(n0 + r) * K + k0 + c : B, ok ? 16 : 0);
+  }
+}
+
+// EPI 0-2 as tile()'s; EXTRA: epilogue 1 scales the branch by
+// out_scale[m / rows_per_sample]. A caller that runs another tile in the
+// same shared memory syncs the CTA first.
+template <int EPI, bool EXTRA = false>
+__device__ __forceinline__ void tile_f32(const float* __restrict__ A,
+                                         const float* __restrict__ B,
+                                         const float* __restrict__ bias,
+                                         const float* __restrict__ res,
+                                         const float* __restrict__ out_scale,
+                                         float* __restrict__ out, int M, int N, int K,
+                                         int rows_per_sample, int m0, int n0, SmemF32& sm) {
+  static_assert(EPI >= 0 && EPI <= 2, "the serving epilogues");
+  int tid;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tid));
+  const int tx = tid & 15, ty = tid >> 4;
+
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  const int kblocks = (K + BK_F - 1) / BK_F;
+#pragma unroll
+  for (int s = 0; s < STAGES_F - 1; ++s) {
+    if (s < kblocks) load_kblock_f32(A, B, M, N, K, m0, n0, s * BK_F, sm, s, tid);
+    cp_async_commit();
+  }
+  for (int kb = 0; kb < kblocks; ++kb) {
+    cp_async_wait<STAGES_F - 2>();
+    __syncthreads();
+    const int nk = kb + STAGES_F - 1;
+    if (nk < kblocks) load_kblock_f32(A, B, M, N, K, m0, n0, nk * BK_F, sm, nk % STAGES_F, tid);
+    cp_async_commit();
+    const int slot = kb % STAGES_F;
+#pragma unroll
+    for (int kk = 0; kk < BK_F; kk += 4) {
+      float4 a[8], b[4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[i] = *reinterpret_cast<const float4*>(&sm.A[slot][ty + 8 * i][kk]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        b[j] = *reinterpret_cast<const float4*>(&sm.B[slot][tx + 16 * j][kk]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float t = acc[i][j];
+          t = fmaf(a[i].x, b[j].x, t);
+          t = fmaf(a[i].y, b[j].y, t);
+          t = fmaf(a[i].z, b[j].z, t);
+          t = fmaf(a[i].w, b[j].w, t);
+          acc[i][j] = t;
+        }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gm = m0 + ty + 8 * i;
+    if (gm >= M) continue;
+    float dp = 1.f;
+    if constexpr (EPI == 1 && EXTRA) dp = out_scale[gm / rows_per_sample];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gn = n0 + tx + 16 * j;
+      if (gn >= N) continue;
+      const size_t o = (size_t)gm * N + gn;
+      float v = acc[i][j] + (bias != nullptr ? bias[gn] : 0.f);
+      if constexpr (EPI == 1) {
+        if constexpr (EXTRA) v *= dp;
+        v = res[o] + v;
+      } else if constexpr (EPI == 2) {
+        v = gelu_erf(v);
+      }
+      out[o] = v;
+    }
+  }
+}
+
 }  // namespace gemm_tile

@@ -1,7 +1,9 @@
 // LayerNorm over the channel axis of a (rows, C) bf16 tensor, forward and
-// backward: LN1 and LN2 of the CSWin block chain.
+// backward: LN1 and LN2 of the CSWin block chain; and the forward's float32
+// instances, for TPU.COMPUTE_DTYPE float32 (cswin_layernorm_f32).
 //
-// Forward: float32 statistics, bf16 out.
+// Forward: float32 statistics, out in the input's type (bf16 rounded,
+// float32 as computed).
 // Backward, per row, with float32 statistics recomputed from x:
 //   dx = res + rstd·(dŷ − mean(dŷ) − x̂·mean(dŷ·x̂)),   dŷ = dy·γ
 // and dγ = Σ dy·x̂, dβ = Σ dy over all rows, float32, summed in the kernel.
@@ -13,7 +15,8 @@
 //   _block_kernel (via _layernorm), reference composition composed_block;
 //   and their backward in ::_block_bwd_kernel_xt (via _ln_bwd, :586-601).
 // Bound on the H100: memory bandwidth — the forward reads and writes each
-//   element once (2 + 2 bytes) and does ~8 flops on it; the backward reads
+//   element once (2 + 2 bytes, 4 + 4 at float32) and does ~8 flops on it;
+//   the backward reads
 //   x, dy and res and writes dx (8 bytes) for ~15 flops.
 // Design: the forward is one launch of one wave of CTAs (the entry sizes it
 //   with the occupancy API, once an instance and device) that stride over
@@ -21,8 +24,9 @@
 //   persistent kernels: a group of G lanes takes a row in 16-byte vectors
 //   held in registers (x read once), two-pass statistics from registers
 //   with shuffles inside the group, γ / β held across rows, the next row's
-//   loads in flight, 16-byte stores; seven (G, V) instances serve every
-//   C % 8 == 0 up to 1024.
+//   loads in flight, 16-byte stores; seven bf16 (G, V) instances serve
+//   every C % 8 == 0 up to 1024, and nine float32 ones (16-byte vectors of
+//   4 values) every C % 4 == 0 up to 1024.
 //   The backward is one launch of one wave of CTAs (the wrapper sizes it
 //   with the occupancy API) that stride over the rows. The channels a lane
 //   holds are a template parameter (Shape<C>), so registers fit the row: a
@@ -45,19 +49,19 @@ namespace {
 
 constexpr int WARPS = 8, THREADS = WARPS * 32;
 
-template <int G, int V>
+template <typename T, int G, int V>
 __global__ void __launch_bounds__(THREADS)
-layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
-                 const float* __restrict__ b, bf16* __restrict__ y, int rows, int C,
+layernorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                 const float* __restrict__ b, T* __restrict__ y, int rows, int C,
                  float eps) {
   ln_row::rows<G, V>(x, C, w, b, y, C, rows, C, eps, THREADS, blockIdx.x, gridDim.x);
 }
 
-// One wave of layernorm_kernel<G, V> over the rows: the CTAs an SM holds
+// One wave of layernorm_kernel<T, G, V> over the rows: the CTAs an SM holds
 // (the occupancy API, asked once an instance and device) times the SMs,
 // fewer where the rows run out first.
-template <int G, int V>
-cudaError_t launch_fwd(const bf16* x, const float* w, const float* b, bf16* y, int rows,
+template <typename T, int G, int V>
+cudaError_t launch_fwd(const T* x, const float* w, const float* b, T* y, int rows,
                        int C, float eps, cudaStream_t stream) {
   static int fit_dev = -1, fit_ctas = 0;
   int dev = 0;
@@ -67,8 +71,8 @@ cudaError_t launch_fwd(const bf16* x, const float* w, const float* b, bf16* y, i
     int sms = 0, per_sm = 0;
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
             cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, layernorm_kernel<G, V>,
-                                                             THREADS, 0)) != cudaSuccess)
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, layernorm_kernel<T, G, V>, THREADS, 0)) != cudaSuccess)
       return err;
     fit_ctas = per_sm * sms;
     fit_dev = dev;
@@ -76,7 +80,7 @@ cudaError_t launch_fwd(const bf16* x, const float* w, const float* b, bf16* y, i
   const int step = THREADS / G, steps = (rows + step - 1) / step;
   const int grid = steps < fit_ctas ? steps : fit_ctas;
   if (grid < 1) return cudaErrorInvalidValue;
-  layernorm_kernel<G, V><<<grid, THREADS, 0, stream>>>(x, w, b, y, rows, C, eps);
+  layernorm_kernel<T, G, V><<<grid, THREADS, 0, stream>>>(x, w, b, y, rows, C, eps);
   return cudaGetLastError();
 }
 
@@ -347,8 +351,23 @@ CSWIN_API int cswin_layernorm(const void* x, const void* w, const void* b,
   const float *wf = (const float*)w, *bf = (const float*)b;
   bf16* yb = (bf16*)y;
   const cudaStream_t s = (cudaStream_t)stream;
-#define CSWIN_LN_FWD(G, V) (int)launch_fwd<G, V>(xb, wf, bf, yb, rows, C, eps, s)
+#define CSWIN_LN_FWD(G, V) (int)launch_fwd<bf16, G, V>(xb, wf, bf, yb, rows, C, eps, s)
   return LN_ROW_INSTANCE(C, CSWIN_LN_FWD);
+#undef CSWIN_LN_FWD
+}
+
+// The float32 instances (TPU.COMPUTE_DTYPE float32): x, y (rows, C) float32,
+// 16-byte aligned; w, b as above. C % 4 == 0, C <= 1024
+// (ln_row::supported<float>; checked by the wrapper), rows >= 1.
+CSWIN_API int cswin_layernorm_f32(const void* x, const void* w, const void* b, void* y,
+                                  int rows, int C, float eps, void* stream) {
+  if (!ln_row::supported<float>(C) || rows < 1) return (int)cudaErrorInvalidValue;
+  const float* xf = (const float*)x;
+  const float *wf = (const float*)w, *bf = (const float*)b;
+  float* yf = (float*)y;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define CSWIN_LN_FWD(G, V) (int)launch_fwd<float, G, V>(xf, wf, bf, yf, rows, C, eps, s)
+  return LN_ROW_INSTANCE_F32(C, CSWIN_LN_FWD);
 #undef CSWIN_LN_FWD
 }
 

@@ -1,4 +1,7 @@
 // CSWin stripe-window attention core with LePE, for one branch of a block.
+// The bf16 entries below; their float32 instances (cswin_stripe_attention_f32,
+// cswin_cswin_attention_f32, on attn_tile::tile_f32) serve TPU.COMPUTE_DTYPE
+// float32.
 //
 // Three C entries over one device function, which differ only in where q, k
 // and v come from, in the epilogue's rounding and in the parts they run:
@@ -95,6 +98,44 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, size_t in_ps,
   return cudaGetLastError();
 }
 
+// The float32 instances: one (window, head) per CTA on attn_tile::tile_f32.
+template <int D>
+__global__ void __launch_bounds__(WARPS * 32)
+stripe_attention_f32_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
+                            const float* __restrict__ vp, size_t in_ps,
+                            const float* __restrict__ lepe_w, const float* __restrict__ lepe_b,
+                            float* __restrict__ out, size_t out_ps, int H, int W, int cb,
+                            int h_sp, int w_sp, float scale) {
+  extern __shared__ __align__(128) float smem[];
+  attn_tile::tile_f32<D>(qp, kp, vp, in_ps, lepe_w, lepe_b, out, out_ps, H, W, cb, h_sp, w_sp,
+                         scale, blockIdx.x, blockIdx.y, smem);
+}
+
+template <int D>
+cudaError_t launch_f32(const float* q, const float* k, const float* v, size_t in_ps,
+                       const float* lw, const float* lb, float* out, size_t out_ps, int B,
+                       int H, int W, int cb, int heads, int h_sp, int w_sp, float scale,
+                       cudaStream_t stream) {
+  const size_t smem = attn_tile::smem_bytes_f32<D>(h_sp * w_sp);
+  cudaError_t err = allow_smem(stripe_attention_f32_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * (H / h_sp) * (W / w_sp), heads);
+  stripe_attention_f32_kernel<D><<<grid, WARPS * 32, smem, stream>>>(
+      q, k, v, in_ps, lw, lb, out, out_ps, H, W, cb, h_sp, w_sp, scale);
+  return cudaGetLastError();
+}
+
+int dispatch_f32(const float* q, const float* k, const float* v, size_t in_ps, const float* lw,
+                 const float* lb, float* out, size_t out_ps, int B, int H, int W, int cb,
+                 int heads, int h_sp, int w_sp, float scale, cudaStream_t s) {
+  switch (cb / heads) {
+    case 16: return (int)launch_f32<16>(q, k, v, in_ps, lw, lb, out, out_ps, B, H, W, cb, heads, h_sp, w_sp, scale, s);
+    case 24: return (int)launch_f32<24>(q, k, v, in_ps, lw, lb, out, out_ps, B, H, W, cb, heads, h_sp, w_sp, scale, s);
+    case 32: return (int)launch_f32<32>(q, k, v, in_ps, lw, lb, out, out_ps, B, H, W, cb, heads, h_sp, w_sp, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <typename TW, bool PALLAS, int MODE = attn_tile::FULL>
 int dispatch(const bf16* q, const bf16* k, const bf16* v, size_t in_ps, const TW* lw,
              const TW* lb, bf16* out, size_t out_ps, int B, int H, int W, int cb,
@@ -140,6 +181,43 @@ CSWIN_API int cswin_cswin_attention(const void* q, const void* k, const void* v,
                                (size_t)pix_stride, (const float*)lepe_w,
                                (const float*)lepe_b, (bf16*)out, cb, B, H, W, cb, heads,
                                h_sp, w_sp, scale, (cudaStream_t)stream);
+}
+
+// The float32 instances (TPU.COMPUTE_DTYPE float32) of the two entries
+// above: every tensor float32, LePE taps (9, cb) and bias (cb,) float32;
+// out = P·V + (conv(V, w) + b), nothing rounded (at float32 the two
+// entries' roundings coincide). Head dims as above; the pointers 16-byte
+// aligned, C % 4 == 0 and ch_off % 4 == 0, pix_stride % 4 == 0 (checked by
+// the wrapper).
+CSWIN_API int cswin_stripe_attention_f32(const void* qkv, const void* lepe_w,
+                                         const void* lepe_b, void* out, int B, int H, int W,
+                                         int C, int ch_off, int cb, int heads, int h_sp,
+                                         int w_sp, float scale, void* stream) {
+  const float* q = (const float*)qkv + ch_off;
+  return dispatch_f32(q, q + C, q + 2 * C, 3 * (size_t)C, (const float*)lepe_w,
+                      (const float*)lepe_b, (float*)out + ch_off, C, B, H, W, cb, heads,
+                      h_sp, w_sp, scale, (cudaStream_t)stream);
+}
+
+CSWIN_API int cswin_cswin_attention_f32(const void* q, const void* k, const void* v,
+                                        long long pix_stride, const void* lepe_w,
+                                        const void* lepe_b, void* out, int B, int H, int W,
+                                        int cb, int heads, int h_sp, int w_sp, float scale,
+                                        void* stream) {
+  return dispatch_f32((const float*)q, (const float*)k, (const float*)v, (size_t)pix_stride,
+                      (const float*)lepe_w, (const float*)lepe_b, (float*)out, cb, B, H, W,
+                      cb, heads, h_sp, w_sp, scale, (cudaStream_t)stream);
+}
+
+// The float32 tile's dynamic shared memory at a window of L tokens and head
+// dim d (16, 24 or 32), or -1: what kernels.py::attention_f32_smem mirrors.
+CSWIN_API long long cswin_stripe_attention_f32_smem(int L, int d) {
+  switch (d) {
+    case 16: return (long long)attn_tile::smem_bytes_f32<16>(L);
+    case 24: return (long long)attn_tile::smem_bytes_f32<24>(L);
+    case 32: return (long long)attn_tile::smem_bytes_f32<32>(L);
+    default: return -1;
+  }
 }
 
 // q, k, v, out as for cswin_cswin_attention; no LePE. mode 1: attention,

@@ -8,12 +8,21 @@ the launch returned a CUDA error; there is no fallback. Each wrapper counts
 its launches in a plain integer attribute, ``<wrapper>.launches``, so a run
 can show that it went through the kernel.
 
+The serving path's kernels (``layernorm``, ``gemm``, ``stripe_attention``,
+``cswin_attention``, ``carafe_reassemble``, ``block_pair``) have a bf16
+instance and a float32 one (``TPU.COMPUTE_DTYPE float32``: float32 products
+and nothing rounded to bf16), chosen by the dtype of the activations; any
+other dtype raises ``TypeError``. A float32 launch also counts in
+``<wrapper>.launches_f32`` (``launch_counts`` reports it as
+``<name>_f32``). The training kernels take bf16 only.
+
 Kernels (``csrc/``):
   layernorm.cu             LN over channels, float32 statistics
-                           (``layernorm``), and its backward
-                           (``layernorm_bwd``)
+                           (``layernorm``, bf16 or float32), and its
+                           backward (``layernorm_bwd``)
   gemm.cu                  bf16 GEMM with bias / residual / drop-path / GELU
-                           epilogues (``gemm``), the backward's dX products
+                           epilogues (``gemm``; the float32 instance on
+                           FFMA, serving epilogues), the backward's dX products
                            with a GELU-backward epilogue (``gemm_dgrad``) and
                            the split-M weight gradient (``gemm_wgrad``); all
                            three with dropout masks (``ops.dropout``)
@@ -56,6 +65,7 @@ from .. import dropout as _dropout
 from ..attention import (cswin_attention_pallas_plain, cswin_attention_xla,
                          depthwise_conv3x3)
 from ..dropout import Drop
+from ..precision import conv_precision
 from ..windows import window_merge, window_partition
 from .build import check, library
 
@@ -89,6 +99,30 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+
+
+_ACT_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _act_dtype(t: torch.Tensor, name: str) -> torch.dtype:
+    """The instance a serving-path wrapper launches: bf16 or float32, by
+    the dtype of its activations; ``TypeError`` for any other."""
+    if t.dtype not in _ACT_DTYPES:
+        raise TypeError(f"{name} is {t.dtype}; the kernels have bfloat16 and float32 "
+                        "instances")
+    return t.dtype
+
+
+def _counted(fn, dtype: torch.dtype) -> None:
+    """One launch of ``fn``'s instance for ``dtype``."""
+    fn.launches += 1
+    if dtype == torch.float32:
+        fn.launches_f32 += 1
+
+
+def _vec(dtype: torch.dtype) -> int:
+    """Elements of ``dtype`` in a 16-byte copy: 8 bf16, 4 float32."""
+    return 16 // torch.empty((), dtype=dtype).element_size()
 
 
 def _require_aligned(**tensors: torch.Tensor | None) -> None:
@@ -181,51 +215,61 @@ _LN_THREADS = 256  # layernorm.cu THREADS
 class LnFwdPlan(NamedTuple):
     """How the forward LayerNorm cuts a row of C channels
     (``layernorm_row.cuh``): ``lanes`` lanes a row, ``vectors`` 16-byte
-    vectors of 8 bf16 a lane (lane j of a group holds vectors j, j + lanes,
-    ...), ``rows_per_step`` rows a CTA of 256 threads takes per step."""
+    vectors of ``elements`` values (8 bf16 or 4 float32) a lane (lane j of
+    a group holds vectors j, j + lanes, ...), ``rows_per_step`` rows a CTA
+    of 256 threads takes per step."""
     lanes: int
     vectors: int
     rows_per_step: int
+    elements: int = 8
 
 
 LN_MAX_C = 1024  # layernorm_row.cuh MAX_C
 
 
-def layernorm_fwd_plan(C: int) -> LnFwdPlan:
-    """The forward's instance for C, mirrored from ``LN_ROW_INSTANCE``: the
-    power of two >= C / 8 lanes, from 4 to 32, and ceil(C / 8 / lanes)
-    vectors a lane. Raises for a C the kernel does not take."""
-    if C <= 0 or C % 8 or C > LN_MAX_C:
-        raise ValueError(f"layernorm takes C % 8 == 0 and 8 <= C <= {LN_MAX_C} "
-                         f"(16-byte rows of 8 bf16, at most 4 a lane), got C={C}")
-    n = C // 8
+def layernorm_fwd_plan(C: int, dtype: torch.dtype = torch.bfloat16) -> LnFwdPlan:
+    """The forward's instance for C at ``dtype``, mirrored from
+    ``LN_ROW_INSTANCE`` (bf16) and ``LN_ROW_INSTANCE_F32`` (float32): the
+    power of two >= C / E lanes, from 4 to 32, and ceil(C / E / lanes)
+    vectors a lane, E = 8 or 4 values a vector; the float32 instances round
+    5 and 7 vectors up to 6 and 8. Raises for a C the kernel does not
+    take."""
+    E = _vec(dtype)
+    if C <= 0 or C % E or C > LN_MAX_C:
+        raise ValueError(f"layernorm takes C % {E} == 0 and {E} <= C <= {LN_MAX_C} "
+                         f"(16-byte rows of {E} {dtype}), got C={C}")
+    n = C // E
     lanes = 4 if n <= 4 else 8 if n <= 8 else 16 if n <= 16 else 32
-    return LnFwdPlan(lanes, -(-n // lanes), _LN_THREADS // lanes)
+    vectors = -(-n // lanes)
+    vectors += vectors in (5, 7)
+    return LnFwdPlan(lanes, vectors, _LN_THREADS // lanes, E)
 
 
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis with float32 statistics; out in
-    ``x.dtype``. ``weight``/``bias``: (C,) float32. On the GPU C must be a
-    multiple of 8 up to 1024 (``layernorm_fwd_plan``)."""
+    ``x.dtype`` (bf16 or float32). ``weight``/``bias``: (C,) float32. On the
+    GPU C must be a multiple of 8 (bf16) or 4 (float32) up to 1024
+    (``layernorm_fwd_plan``)."""
     if _on_cpu(x):
         return layernorm_plain(x, weight, bias, eps)
     C = x.shape[-1]
-    layernorm_fwd_plan(C)
-    _require(x, "x", torch.bfloat16, x.device)
+    dt = _act_dtype(x, "x")
+    layernorm_fwd_plan(C, dt)
+    _require(x, "x", dt, x.device)
     _require(weight, "weight", torch.float32, x.device, (C,))
     _require(bias, "bias", torch.float32, x.device, (C,))
     _require_aligned(x=x, weight=weight, bias=bias)
     out = torch.empty_like(x)
-    err = library().cswin_layernorm(x.data_ptr(), weight.data_ptr(),
-                                    bias.data_ptr(), out.data_ptr(),
-                                    x.numel() // C, C, eps, _stream(x.device))
+    fn = library().cswin_layernorm if dt == torch.bfloat16 else library().cswin_layernorm_f32
+    err = fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
+             x.numel() // C, C, eps, _stream(x.device))
     check(err, "layernorm")
-    layernorm.launches += 1
+    _counted(layernorm, dt)
     return out
 
 
-layernorm.launches = 0
+layernorm.launches = layernorm.launches_f32 = 0
 
 
 def layernorm_bwd_plain(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
@@ -397,7 +441,9 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
     dropout site (``ops.dropout.Drop``) over the (M, N) output, for
     ``"residual"`` on the branch before ``dp`` and for ``"gelu"`` on the
     GELU's output: a kept value becomes round(round(v) / keep), a dropped
-    one 0.
+    one 0. ``a`` in float32 launches the float32 instance (FFMA products,
+    nothing rounded), which has the serving epilogues: no ``pre``, no
+    ``drop``.
     """
     if epilogue not in _EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
@@ -415,40 +461,79 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
     M, K = a.shape
     N = w.shape[0]
     dev = a.device
-    _require(a, "a", torch.bfloat16, dev)
-    _require(w, "w", torch.bfloat16, dev, (N, K))
+    dt = _act_dtype(a, "a")
+    _require(a, "a", dt, dev)
+    if dt == torch.float32 and (pre is not None or drop is not None):
+        raise TypeError("gemm's float32 instance has the serving epilogues; pre and drop "
+                        "(training) take bfloat16")
+    _require(w, "w", dt, dev, (N, K))
     if bias is not None:
         _require(bias, "bias", torch.float32, dev, (N,))
     if residual is not None:
-        _require(residual, "residual", torch.bfloat16, dev, (M, N))
+        _require(residual, "residual", dt, dev, (M, N))
     if pre is not None:
         _require(pre, "pre", torch.bfloat16, dev, (M, N))
     if dp is not None:
         _check_scale(dp, M, rows_per_sample, dev)
     _check_gemm_operands(a, w)
-    key, row0, kd, thr = _drop_args(drop, N, a.dtype, dev)
-    out = torch.empty((M, N), dtype=a.dtype, device=dev)
-    err = library().cswin_gemm(
-        a.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(residual), _ptr(pre), 0,
-        _ptr(dp), out.data_ptr(), M, N, K, max(rows_per_sample, 1),
-        _EPILOGUES[epilogue], 0, key, row0, kd, thr, _stream(dev))
+    out = torch.empty((M, N), dtype=dt, device=dev)
+    if dt == torch.float32:
+        err = library().cswin_gemm_f32(
+            a.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(residual), _ptr(dp),
+            out.data_ptr(), M, N, K, max(rows_per_sample, 1), _EPILOGUES[epilogue],
+            _stream(dev))
+    else:
+        key, row0, kd, thr = _drop_args(drop, N, a.dtype, dev)
+        err = library().cswin_gemm(
+            a.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(residual), _ptr(pre), 0,
+            _ptr(dp), out.data_ptr(), M, N, K, max(rows_per_sample, 1),
+            _EPILOGUES[epilogue], 0, key, row0, kd, thr, _stream(dev))
     check(err, "gemm")
-    gemm.launches += 1
+    _counted(gemm, dt)
     return out
 
 
 def _check_gemm_operands(a: torch.Tensor, w: torch.Tensor) -> None:
-    """The GEMM tile's operand rule: K % 8 == 0 and 16-byte aligned operands
-    (it copies 16-byte chunks), and at most 2^31 - 1 output tiles of 64 x 64
-    (its one-dimensional grid)."""
+    """The GEMM tiles' operand rule: K a multiple of the elements in a
+    16-byte chunk (8 bf16, 4 float32) and 16-byte aligned operands (they
+    copy 16-byte chunks), and at most 2^31 - 1 output tiles of 64 x 64
+    (the one-dimensional grid)."""
     M, K = a.shape
-    if K % 8 or a.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("gemm needs K % 8 == 0 and 16-byte aligned operands")
+    E = _vec(a.dtype)
+    if K % E or a.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(f"gemm needs K % {E} == 0 and 16-byte aligned operands")
     if -(-M // 64) * -(-w.shape[0] // 64) > 2**31 - 1:
         raise ValueError(f"gemm: M={M}, N={w.shape[0]} exceed the grid limit")
 
 
-gemm.launches = 0
+class GemmF32Plan(NamedTuple):
+    """The float32 GEMM tile (``gemm_tile.cuh::tile_f32``): ``bm`` x ``bn``
+    outputs a CTA of ``threads`` threads, each thread 8 x 4 of them; a ring
+    of ``stages`` k-blocks ``bk`` deep of both operands at a row stride of
+    ``lds`` floats (``smem_bytes`` of static shared memory); ``ctas`` one
+    per output tile."""
+    bm: int
+    bn: int
+    bk: int
+    stages: int
+    lds: int
+    threads: int
+    smem_bytes: int
+    ctas: int
+
+
+# gemm_tile.cuh: BM, BN, THREADS; BK_F, STAGES_F, LDF
+_GEMM_BM, _GEMM_BN, _GEMM_THREADS = 64, 64, 128
+_GEMM_F32_BK, _GEMM_F32_STAGES, _GEMM_F32_LDS = 16, 3, 20
+
+
+def gemm_f32_plan(M: int, N: int) -> GemmF32Plan:
+    smem = 2 * _GEMM_F32_STAGES * 64 * _GEMM_F32_LDS * 4
+    return GemmF32Plan(_GEMM_BM, _GEMM_BN, _GEMM_F32_BK, _GEMM_F32_STAGES, _GEMM_F32_LDS,
+                       _GEMM_THREADS, smem, -(-M // _GEMM_BM) * -(-N // _GEMM_BN))
+
+
+gemm.launches = gemm.launches_f32 = 0
 
 
 def gemm_dgrad_plain(dy: torch.Tensor, w: torch.Tensor, *,
@@ -690,7 +775,8 @@ def stripe_attention(qkv: torch.Tensor, lepe_weight: torch.Tensor,
     split into ``heads`` heads and ``h_sp x w_sp`` windows. LePE weight
     (cb, 1, 3, 3) and bias (cb,) in the torch depthwise layout. Writes the
     branch's result into channels ``[ch_off, ch_off + cb)`` of ``out``
-    (B, H, W, C) and returns ``out``.
+    (B, H, W, C) and returns ``out``. A float32 ``qkv`` launches the float32
+    instance (scores, softmax, P·V and LePE in float32, nothing rounded).
     """
     if _on_cpu(qkv):
         return stripe_attention_plain(qkv, lepe_weight, lepe_bias, out,
@@ -700,29 +786,71 @@ def stripe_attention(qkv: torch.Tensor, lepe_weight: torch.Tensor,
     C = C3 // 3
     cb = lepe_weight.shape[0]
     dev = qkv.device
-    _require(qkv, "qkv", torch.bfloat16, dev)
-    _require(out, "out", torch.bfloat16, dev, (B, H, W, C))
+    dt = _act_dtype(qkv, "qkv")
+    _require(qkv, "qkv", dt, dev)
+    _require(out, "out", dt, dev, (B, H, W, C))
     if H % h_sp or W % w_sp or ch_off + cb > C:
         raise ValueError(f"bad branch geometry H={H} W={W} window=({h_sp},"
                          f"{w_sp}) cb={cb} heads={heads} ch_off={ch_off}")
     _check_head_dim(cb, heads)
     if B * (H // h_sp) * (W // w_sp) > 2**31 - 1:
         raise ValueError("too many windows for one launch")
-    if C % 8 or (qkv.data_ptr() + 2 * ch_off) % 16:
-        raise ValueError("stripe_attention copies 16-byte chunks: C % 8 == 0 and a "
+    E = _vec(dt)
+    if C % E or (qkv.data_ptr() + qkv.element_size() * ch_off) % 16:
+        raise ValueError(f"stripe_attention copies 16-byte chunks: C % {E} == 0 and a "
                          "16-byte aligned branch")
-    w9 = lepe_weight.reshape(cb, 9).t().to(torch.bfloat16).contiguous()
-    b = (torch.zeros(cb, dtype=torch.bfloat16, device=dev) if lepe_bias is None
-         else lepe_bias.to(torch.bfloat16).contiguous())
-    err = library().cswin_stripe_attention(
-        qkv.data_ptr(), w9.data_ptr(), b.data_ptr(), out.data_ptr(),
-        B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, _stream(dev))
+    if dt == torch.float32:
+        _check_attention_f32_smem(h_sp * w_sp, cb // heads)
+        fn = library().cswin_stripe_attention_f32
+    else:
+        fn = library().cswin_stripe_attention
+    w9 = lepe_weight.reshape(cb, 9).t().to(dt).contiguous()
+    b = (torch.zeros(cb, dtype=dt, device=dev) if lepe_bias is None
+         else lepe_bias.to(dt).contiguous())
+    err = fn(qkv.data_ptr(), w9.data_ptr(), b.data_ptr(), out.data_ptr(),
+             B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, _stream(dev))
     check(err, "stripe_attention")
-    stripe_attention.launches += 1
+    _counted(stripe_attention, dt)
     return out
 
 
-stripe_attention.launches = 0
+stripe_attention.launches = stripe_attention.launches_f32 = 0
+
+_SM_SMEM = 233472  # shared memory of an H100 SM (228 KB), 1 KB of it reserved a CTA
+_ATT_WARPS = 4  # attention_tile.cuh WARPS
+_ATT_F32_QR = 4  # attention_tile.cuh QR: query rows a warp takes at once
+
+
+class AttentionF32Plan(NamedTuple):
+    """The float32 attention tile (``attention_tile.cuh::tile_f32``) at a
+    window of L tokens and head dim d: q staged at a row stride of d floats,
+    k and v at ``kv_stride``; each of ``warps`` warps takes ``rows`` query
+    rows at a time into its rows of P (``p_stride`` floats, L rounded up to
+    4); ``smem_bytes`` of dynamic shared memory; one CTA a (window, head),
+    ``ctas_per_sm`` of them an SM by shared memory (at most 16 by threads)."""
+    kv_stride: int
+    p_stride: int
+    rows: int
+    warps: int
+    smem_bytes: int
+    ctas_per_sm: int
+
+
+def attention_f32_plan(L: int, d: int) -> AttentionF32Plan:
+    """Mirrors ``attn_tile::smem_bytes_f32`` (the C entry
+    ``cswin_stripe_attention_f32_smem`` returns the same count)."""
+    ps = -(-L // 4) * 4
+    smem = 4 * (L * d + 2 * L * (d + 4) + _ATT_WARPS * _ATT_F32_QR * ps + 10 * d)
+    per_sm = min(_SM_SMEM // (smem + 1024), 2048 // (32 * _ATT_WARPS))
+    return AttentionF32Plan(d + 4, ps, _ATT_F32_QR, _ATT_WARPS, smem, per_sm)
+
+
+def _check_attention_f32_smem(L: int, d: int) -> None:
+    plan = attention_f32_plan(L, d)
+    if plan.smem_bytes > SMEM_LIMIT:
+        raise ValueError(f"the float32 attention tile needs {plan.smem_bytes} bytes of shared "
+                         f"memory at a window of {L} tokens, head dim {d}: more than the "
+                         f"{SMEM_LIMIT} a block may use")
 
 
 def _pixel_stride(t: torch.Tensor, name: str) -> int:
@@ -740,26 +868,27 @@ def _pixel_stride(t: torch.Tensor, name: str) -> int:
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, h_sp: int,
-               w_sp: int, heads: int) -> int:
-    """Check separate q, k, v (B, H, W, cb) bf16 views for the attention
-    kernels and return the pixel stride they share."""
+               w_sp: int, heads: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Check separate q, k, v (B, H, W, cb) views of ``dtype`` for the
+    attention kernels and return the pixel stride they share."""
     B, H, W, cb = q.shape
     dev = q.device
     strides = set()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} is {t.dtype}, the kernel takes torch.bfloat16")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype}, the kernel takes {dtype}")
         if tuple(t.shape) != (B, H, W, cb):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{(B, H, W, cb)}")
         strides.add(_pixel_stride(t, name))
     if len(strides) != 1:
         raise ValueError(f"q, k and v must share one pixel stride, got {strides}")
-    if any(t.data_ptr() % 16 for t in (q, k, v)) or next(iter(strides)) % 8:
+    E = _vec(dtype)
+    if any(t.data_ptr() % 16 for t in (q, k, v)) or next(iter(strides)) % E:
         raise ValueError("the attention tile copies 16-byte chunks: q, k and v 16-byte "
-                         "aligned, their pixel stride a multiple of 8")
+                         f"aligned, their pixel stride a multiple of {E}")
     if H % h_sp or W % w_sp:
         raise ValueError(f"bad branch geometry H={H} W={W} window=({h_sp},{w_sp})")
     _check_head_dim(cb, heads)
@@ -775,10 +904,12 @@ def cswin_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """One stripe branch from separate q, k, v with the Pallas kernel's
     rounding (plain version: ``ops.attention.cswin_attention_pallas_plain``).
 
-    q, k, v: (B, H, W, cb) bf16, channels contiguous, pixels one common
-    stride apart, so they may be the q | k | v channel slices of one qkv
-    tensor (no copy). LePE weight (cb, 1, 3, 3) and bias (cb,) or None, read
-    as float32. Returns a new contiguous (B, H, W, cb) bf16 tensor.
+    q, k, v: (B, H, W, cb) bf16 or float32, channels contiguous, pixels one
+    common stride apart, so they may be the q | k | v channel slices of one
+    qkv tensor (no copy). LePE weight (cb, 1, 3, 3) and bias (cb,) or None,
+    read as float32. Returns a new contiguous (B, H, W, cb) tensor of q's
+    dtype; float32 launches the float32 instance (the same tile as
+    ``stripe_attention``'s: at float32 the two roundings coincide).
     """
     if _on_cpu(q):
         return cswin_attention_pallas_plain(q, k, v, lepe_weight, lepe_bias,
@@ -786,21 +917,26 @@ def cswin_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                             num_heads=num_heads, scale=scale)
     B, H, W, cb = q.shape
     dev = q.device
-    stride = _check_qkv(q, k, v, h_sp, w_sp, num_heads)
+    dt = _act_dtype(q, "q")
+    stride = _check_qkv(q, k, v, h_sp, w_sp, num_heads, dt)
+    if dt == torch.float32:
+        _check_attention_f32_smem(h_sp * w_sp, cb // num_heads)
+        fn = library().cswin_cswin_attention_f32
+    else:
+        fn = library().cswin_cswin_attention
     w9 = lepe_weight.reshape(cb, 9).t().float().contiguous()
     b = (torch.zeros(cb, dtype=torch.float32, device=dev) if lepe_bias is None
          else lepe_bias.float().contiguous())
-    out = torch.empty((B, H, W, cb), dtype=torch.bfloat16, device=dev)
-    err = library().cswin_cswin_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), stride, w9.data_ptr(),
-        b.data_ptr(), out.data_ptr(), B, H, W, cb, num_heads, h_sp, w_sp, scale,
-        _stream(dev))
+    out = torch.empty((B, H, W, cb), dtype=dt, device=dev)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), stride, w9.data_ptr(),
+             b.data_ptr(), out.data_ptr(), B, H, W, cb, num_heads, h_sp, w_sp, scale,
+             _stream(dev))
     check(err, "cswin_attention")
-    cswin_attention.launches += 1
+    _counted(cswin_attention, dt)
     return out
 
 
-cswin_attention.launches = 0
+cswin_attention.launches = cswin_attention.launches_f32 = 0
 
 
 def _branch_windows(t: torch.Tensor, h_sp: int, w_sp: int,
@@ -931,7 +1067,8 @@ def carafe_reassemble_plain(gy: torch.Tensor, encoder_weight: torch.Tensor,
     B, H, W, _ = gy.shape
     nc = bias.shape[0]
     mid = gy[..., :c_mid].float().permute(0, 3, 1, 2)
-    enc = F.conv2d(mid, encoder_weight.to(gy.dtype).float(), padding=1)
+    with conv_precision(gy.dtype):
+        enc = F.conv2d(mid, encoder_weight.to(gy.dtype).float(), padding=1)
     enc = enc.permute(0, 2, 3, 1) + encoder_bias.float()
     kern = torch.softmax(enc.reshape(B, H, W, 9, up * up), dim=3).to(gy.dtype)
     y = F.pad(gy[..., c_mid:c_mid + nc].float(), (0, 0, 1, 1, 1, 1))
@@ -959,7 +1096,9 @@ def carafe_reassemble(gy: torch.Tensor, encoder_weight: torch.Tensor,
     c_mid, 3, 3) OIHW with output channel ``tap·up² + s``, encoder bias
     (9·up²,), ``bias`` (nc,) float32 added after reassembly. Returns (B,
     up·H, up·W, nc) logits in ``gy.dtype``, or int32 labels (B, up·H, up·W)
-    with ``labels=True`` (first maximum wins).
+    with ``labels=True`` (first maximum wins). A float32 ``gy`` launches
+    the float32 instance (FFMA encoder conv, float32 softmax weights,
+    float32 logits), which takes G a multiple of 4 and any c_mid.
     """
     if _on_cpu(gy):
         return carafe_reassemble_plain(gy, encoder_weight, encoder_bias, bias,
@@ -967,8 +1106,12 @@ def carafe_reassemble(gy: torch.Tensor, encoder_weight: torch.Tensor,
     B, H, W, G = gy.shape
     nc = bias.shape[0]
     dev = gy.device
-    _require(gy, "gy", torch.bfloat16, dev)
+    dt = _act_dtype(gy, "gy")
+    _require(gy, "gy", dt, dev)
     _require(bias, "bias", torch.float32, dev, (nc,))
+    if dt == torch.float32:
+        return _carafe_f32(gy, encoder_weight, encoder_bias, bias, c_mid=c_mid, up=up,
+                           labels=labels)
     if up not in (2, 4) or nc < 1 or c_mid < 1 or G < c_mid + nc or G % 8 or c_mid % 8:
         raise ValueError(f"carafe kernel takes up 2 or 4, 1 <= nc, c_mid + nc <= G and "
                          f"c_mid, G multiples of 8 (pad gy as carafe_fused does), got up "
@@ -991,20 +1134,79 @@ def carafe_reassemble(gy: torch.Tensor, encoder_weight: torch.Tensor,
     return out
 
 
-carafe_reassemble.launches = 0
+carafe_reassemble.launches = carafe_reassemble.launches_f32 = 0
+
+
+class CarafeF32Plan(NamedTuple):
+    """The float32 CARAFE kernel (``carafe.cu::carafe_f32_kernel``):
+    persistent CTAs of ``threads`` threads over 8x8 tiles of low-res pixels,
+    one thread an (up-position, pixel); shared memory ``smem_bytes`` (the
+    encoder weight once, the halo of gy at a row stride of ``halo_stride``
+    floats, the encoder bias and the bias), ``ctas_per_sm`` CTAs an SM by
+    shared memory and threads."""
+    threads: int
+    halo_stride: int
+    smem_bytes: int
+    ctas_per_sm: int
+
+
+_CARAFE_F32_THREADS = 256  # carafe.cu F32_THREADS
+_CARAFE_HALO_PX = 100      # carafe.cu HALO_PX: the 8x8 tile and a one-pixel halo
+
+
+def carafe_f32_plan(c_mid: int, nc: int, G: int, up: int) -> CarafeF32Plan:
+    """Mirrors ``carafe.cu::make_layout_f32`` (the C entry
+    ``cswin_carafe_f32_smem`` returns the same count)."""
+    enc = 9 * up * up
+    r16 = lambda b: -(-b // 16) * 16
+    smem = 9 * c_mid * enc * 4 + _CARAFE_HALO_PX * (G + 4) * 4 + r16(enc * 4) + r16(nc * 4)
+    per_sm = min(_SM_SMEM // (smem + 1024), 2048 // _CARAFE_F32_THREADS)
+    return CarafeF32Plan(_CARAFE_F32_THREADS, G + 4, smem, per_sm)
+
+
+def _carafe_f32(gy, encoder_weight, encoder_bias, bias, *, c_mid: int, up: int,
+                labels: bool) -> torch.Tensor:
+    B, H, W, G = gy.shape
+    nc = bias.shape[0]
+    dev = gy.device
+    if up not in (2, 4) or nc < 1 or c_mid < 1 or G < c_mid + nc or G % 4:
+        raise ValueError(f"the float32 carafe kernel takes up 2 or 4, 1 <= nc, c_mid + nc "
+                         f"<= G and G a multiple of 4, got up {up}, c_mid {c_mid}, nc {nc}, "
+                         f"G {G}")
+    if tuple(encoder_weight.shape) != (9 * up * up, c_mid, 3, 3):
+        raise ValueError(f"encoder weight shape {tuple(encoder_weight.shape)}")
+    plan = carafe_f32_plan(c_mid, nc, G, up)
+    if plan.smem_bytes > SMEM_LIMIT:
+        raise ValueError(f"the float32 carafe kernel needs {plan.smem_bytes} bytes of shared "
+                         f"memory at c_mid {c_mid}, G {G}, up {up}: more than {SMEM_LIMIT}")
+    # (kh, kw, ci, encoder channel): the lanes of a pixel read consecutive words
+    wenc = encoder_weight.permute(2, 3, 1, 0).float().contiguous()
+    benc = encoder_bias.float().contiguous()
+    if gy.data_ptr() % 16 or wenc.data_ptr() % 16:
+        raise ValueError("carafe kernel needs a 16-byte aligned gy and encoder weight")
+    if labels:
+        out = torch.empty((B, H * up, W * up), dtype=torch.int32, device=dev)
+    else:
+        out = torch.empty((B, H * up, W * up, nc), dtype=torch.float32, device=dev)
+    err = library().cswin_carafe_f32(gy.data_ptr(), wenc.data_ptr(), benc.data_ptr(),
+                                     bias.data_ptr(), out.data_ptr(), B, H, W, G, c_mid,
+                                     nc, up, int(labels), _stream(dev))
+    check(err, "carafe")
+    _counted(carafe_reassemble, torch.float32)
+    return out
 
 
 # ---------------------------------------------------------------------------
 # block_pair.cu
 # ---------------------------------------------------------------------------
 
-def _block_weights(p, C: int, cb: int, dev: torch.device) -> list:
+def _block_weights(p, C: int, cb: int, dev: torch.device,
+                   dtype: torch.dtype = torch.bfloat16) -> list:
     """One block's 16 parameters as the whole-block kernels read them:
-    matrices and LePE biases in bf16, LePE taps (9, cb) tap-major bf16, LN
-    and GEMM biases float32 as given; a missing qkv bias stays None, a
-    missing LePE bias becomes zeros. The list keeps the cast tensors alive
-    until the launch is queued."""
-    bf = torch.bfloat16
+    matrices and LePE biases in ``dtype`` (the activations'), LePE taps
+    (9, cb) tap-major in ``dtype``, LN and GEMM biases float32 as given; a
+    missing qkv bias stays None, a missing LePE bias becomes zeros. The list
+    keeps the cast tensors alive until the launch is queued."""
     shapes = ((C,), (C,), (3 * C, C), (3 * C,), (cb, 1, 3, 3), (cb,), (cb, 1, 3, 3), (cb,),
               (C, C), (C,), (C,), (C,), (4 * C, C), (4 * C,), (C, 4 * C), (C,))
     names = ("norm1_w", "norm1_b", "qkv_w", "qkv_b", "lepe0_w", "lepe0_b", "lepe1_w",
@@ -1013,15 +1215,15 @@ def _block_weights(p, C: int, cb: int, dev: torch.device) -> list:
     keep = []
     for i, (t, shape, name) in enumerate(zip(p, shapes, names)):
         if t is None and i in (3, 5, 7):  # qkv without bias; LePE bias as zeros
-            keep.append(None if i == 3 else torch.zeros(cb, dtype=bf, device=dev))
+            keep.append(None if i == 3 else torch.zeros(cb, dtype=dtype, device=dev))
             continue
         _require(t, name, torch.float32, dev, shape)
         if i in (0, 1, 10, 11):
             _require_aligned(**{name: t})
         if i in (4, 6):
-            keep.append(t.reshape(cb, 9).t().to(bf).contiguous())
+            keep.append(t.reshape(cb, 9).t().to(dtype).contiguous())
         elif i in (5, 7) or t.dim() == 2:
-            keep.append(t.to(bf).contiguous())
+            keep.append(t.to(dtype).contiguous())
         else:
             keep.append(t)
     return keep
@@ -1068,36 +1270,52 @@ def block_pair(x: torch.Tensor, p1, p2, *, heads: int, split: int, scale: float,
     3)). Returns what two block chains return: on the CPU the same plain
     steps in the same order, so the two agree bit for bit; on the GPU the
     same device code per tile. Matrices and LePE are cast to bf16 per call,
-    as the chain casts them. A last-stage geometry (one full-window branch,
-    ``split >= H``) is refused.
+    as the chain casts them; a float32 ``x`` launches the float32 instance,
+    on the chain's float32 tiles (equal to two float32 chains bit for bit).
+    A last-stage geometry (one full-window branch, ``split >= H``) is
+    refused.
     """
     if _on_cpu(x):
         return block_pair_plain(x, p1, p2, heads=heads, split=split, scale=scale,
                                 eps=eps)
     B, H, W, C = x.shape
     dev = x.device
-    _require(x, "x", torch.bfloat16, dev)
+    dt = _act_dtype(x, "x")
+    _require(x, "x", dt, dev)
     _require_aligned(x=x)
     if split >= H or H % split or W % split or C % 8 or heads % 2:
         raise ValueError(f"block_pair takes two dual-branch blocks: H={H} W={W} "
                          f"C={C} heads={heads} split={split}")
     half = C // 2
     _check_head_dim(half, heads // 2)
-    keep = _block_weights(p1, C, half, dev) + _block_weights(p2, C, half, dev)
+    if dt == torch.float32:
+        _check_attention_f32_smem(max(H, W) * split, half // (heads // 2))
+    keep = _block_weights(p1, C, half, dev, dt) + _block_weights(p2, C, half, dev, dt)
+    if any(_ptr(t) % 16 for t in keep):
+        raise ValueError("block_pair copies 16-byte chunks of its weights: 16-byte aligned "
+                         "parameters")
     ptrs = (ctypes.c_void_p * 32)(*(_ptr(t) for t in keep))
     info = (ctypes.c_int * 3)()
-    scratch = torch.empty(7 * x.numel(), dtype=torch.bfloat16, device=dev)
+    scratch = torch.empty(7 * x.numel(), dtype=dt, device=dev)
     out = torch.empty_like(x)
-    err = library().cswin_block_pair(
-        x.data_ptr(), ctypes.addressof(ptrs), scratch.data_ptr(), out.data_ptr(), B, H,
-        W, C, heads, split, scale, eps, ctypes.addressof(info), _stream(dev))
+    fn = library().cswin_block_pair if dt == torch.bfloat16 else library().cswin_block_pair_f32
+    err = fn(x.data_ptr(), ctypes.addressof(ptrs), scratch.data_ptr(), out.data_ptr(), B, H,
+             W, C, heads, split, scale, eps, ctypes.addressof(info), _stream(dev))
     check(err, "block_pair")
-    block_pair.launches += 1
+    _counted(block_pair, dt)
     block_pair.grid = dict(ctas=info[0], ctas_per_sm=info[1], smem_bytes=info[2])
     return out
 
 
-block_pair.launches = 0
+def block_pair_f32_smem(H: int, W: int, C: int, heads: int, split: int) -> int:
+    """Dynamic shared memory of the float32 pair (``block_phases::
+    smem_bytes<D, float>``): the larger of the float32 GEMM tile's ring and
+    the widest window's float32 attention staging."""
+    return max(gemm_f32_plan(1, 1).smem_bytes,
+               attention_f32_plan(max(H, W) * split, C // heads).smem_bytes)
+
+
+block_pair.launches = block_pair.launches_f32 = 0
 block_pair.grid = None  # the last launch's grid, CTAs per SM and shared memory
 
 
@@ -2082,12 +2300,25 @@ ln_mlp.launches = 0
 KERNELS = (layernorm, gemm, stripe_attention, carafe_reassemble, layernorm_bwd,
            gemm_dgrad, gemm_wgrad, stripe_attention_bwd, cswin_attention, edt_pass,
            block_pair, lepe_windows, window_attention, ln_mlp, block_one)
+# The wrappers with a float32 instance (``launches_f32``).
+F32_KERNELS = (layernorm, gemm, stripe_attention, cswin_attention, carafe_reassemble,
+               block_pair)
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    for k in F32_KERNELS:
+        k.launches_f32 = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return {k.__name__: k.launches for k in KERNELS}
+    """Each wrapper's launches (both instances), and as ``<name>_f32`` the
+    float32 instances' among them."""
+    return {**{k.__name__: k.launches for k in KERNELS},
+            **{f"{k.__name__}_f32": k.launches_f32 for k in F32_KERNELS}}
+
+
+def total_launches() -> int:
+    """Launches of every kernel, each once."""
+    return sum(k.launches for k in KERNELS)

@@ -98,7 +98,7 @@ def block_and_time(fn, *args, iters: int = 3, **kwargs) -> tuple[float, object]:
 KERNEL_SYMBOLS = re.compile(
     r"(?:\(anonymous namespace\)::|_GLOBAL__N_\w*?\d)(?:layernorm|layernorm_bwd|gemm|"
     r"wgrad|stripe_attention|stripe_attention_bwd|carafe|edt_pass|block_pair|lepe_windows|"
-    r"ln_mlp|block_one)_kernel")
+    r"ln_mlp|block_one)(?:_f32)?_kernel")
 
 
 def device_events(prof) -> list:
@@ -123,12 +123,12 @@ def device_busy_ms(fn, reps: int) -> float | None:
 
     fn()
     torch.cuda.synchronize()
-    before = sum(K.launch_counts().values())
+    before = K.total_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    launched = sum(K.launch_counts().values()) - before
+    launched = K.total_launches() - before
     events = device_events(prof)
     records = sum(1 for e in events if KERNEL_SYMBOLS.search(e.name))
     if records != launched:

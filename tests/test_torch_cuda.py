@@ -11,7 +11,11 @@ not need.)
 
 Tolerance: relative L2 error <= 0.02 in bf16 (the reference gate's
 default); labels by the margin rule (a mismatch counts only where the plain
-top-2 logit gap exceeds 0.02·max|logit|).
+top-2 logit gap exceeds 0.02·max|logit|). The float32 instances
+(``-k f32``) are held to their plain float32 versions at relative L2
+<= 1e-5 (the same arithmetic in another sum order), the whole float32
+model to its plain route at 1e-4, and the float32 pair to two float32
+chains bit for bit; both TF32 flags are off (the ``dev`` fixture).
 """
 
 import os
@@ -289,8 +293,8 @@ def test_block_pair_refuses_float32_and_last_stage(dev):
     rng = np.random.default_rng(16)
     p = _block_params(rng, dev, 128)
     kw = dict(heads=4, split=2, scale=32 ** -0.5)
-    with pytest.raises(TypeError):
-        K.block_pair(_rnd(rng, dev, 2, 28, 28, 128), p, p, **kw)
+    with pytest.raises(TypeError):  # float16 has no instance (float32 has, since the
+        K.block_pair(_rnd(rng, dev, 2, 28, 28, 128).half(), p, p, **kw)  # float32 slice)
     last = _block_params(rng, dev, 512, last=True)
     with pytest.raises(ValueError):
         K.block_pair(_rnd(rng, dev, 2, 7, 7, 512).bfloat16(), last, last, heads=16,
@@ -756,9 +760,236 @@ def test_carafe_fn_grads(dev):
 
 
 def test_kernel_wrappers_refuse_float32_on_gpu(dev):
-    x = torch.zeros(4, 64, device=dev)
+    """A dtype with no instance raises: float16 (bf16 and float32 have
+    one each)."""
+    x = torch.zeros(4, 64, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
         K.layernorm(x, torch.ones(64, device=dev), torch.zeros(64, device=dev))
+
+
+# --- the float32 instances (TPU.COMPUTE_DTYPE float32) ----------------------
+
+F32_TOL = 1e-5
+# (H, C, heads, split, last) of every serving stage geometry: tiny-224's
+# four, base-384's four (head dim 24; windows of 96, 96, 288 and 144
+# tokens) and a narrow one (head dim 16).
+F32_STAGES = [(56, 64, 2, 1, False), (28, 128, 4, 2, False), (14, 256, 8, 7, False),
+              (7, 512, 16, 7, True), (96, 96, 4, 1, False), (48, 192, 8, 2, False),
+              (24, 384, 16, 12, False), (12, 768, 32, 12, True), (16, 32, 2, 2, False)]
+
+
+def _f32_batch(H):
+    """B = 8 at tiny-224's stages (the serving slices), fewer at base-384's
+    wider ones."""
+    return 8 if H <= 56 and H != 24 and H != 12 else 2
+
+
+@pytest.mark.parametrize("C", [32, 64, 96, 128, 192, 256, 384, 512, 768, 1024])
+@pytest.mark.parametrize("rows", [1, 3001])
+def test_f32_layernorm(dev, C, rows):
+    rng = np.random.default_rng(40)
+    x = _rnd(rng, dev, rows, C, sc=2.0, off=0.5)
+    w, b = _rnd(rng, dev, C, sc=0.3, off=1.0), _rnd(rng, dev, C, sc=0.1)
+    before = (K.layernorm.launches, K.layernorm.launches_f32)
+    got = K.layernorm(x, w, b)
+    assert (K.layernorm.launches, K.layernorm.launches_f32) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.float32
+    assert _rel_l2(got, K.layernorm_plain(x, w, b)) <= F32_TOL
+
+
+@pytest.mark.parametrize("H,C,heads,split,last", F32_STAGES)
+def test_f32_gemm_stage_shapes(dev, H, C, heads, split, last):
+    """The block's four GEMMs at each stage's shapes (qkv bias, proj and
+    fc2 residual with and without a drop-path scale, fc1 GELU)."""
+    rng = np.random.default_rng(41)
+    B = _f32_batch(H)
+    M = B * H * H
+    x, h, r = _rnd(rng, dev, M, C), _rnd(rng, dev, M, 4 * C), _rnd(rng, dev, M, C)
+    dp = torch.from_numpy((rng.random(B) < 0.7).astype(np.float32) / 0.7).to(dev)
+    for a, n, epi, res, scale in ((x, 3 * C, "bias", None, None), (x, C, "residual", r, None),
+                                  (x, 4 * C, "gelu", None, None), (h, C, "residual", r, dp)):
+        w = _rnd(rng, dev, n, a.shape[1], sc=a.shape[1] ** -0.5)
+        bias = _rnd(rng, dev, n, sc=0.1)
+        kw = dict(residual=res, epilogue=epi, dp=scale, rows_per_sample=H * H if scale is not None else 0)
+        before = K.gemm.launches_f32
+        got = K.gemm(a, w, bias, **kw)
+        assert K.gemm.launches_f32 == before + 1 and got.dtype == torch.float32
+        assert _rel_l2(got, K.gemm_plain(a, w, bias, **kw)) <= F32_TOL, (n, epi)
+
+
+@pytest.mark.parametrize("M,N,K_", [(1, 8, 4), (130, 25, 36), (200, 96, 64), (64, 512, 2048)])
+def test_f32_gemm_ragged_edges(dev, M, N, K_):
+    """M, N and K that are no multiple of the 64 x 64 x 16 tile."""
+    rng = np.random.default_rng(42)
+    a, w = _rnd(rng, dev, M, K_), _rnd(rng, dev, N, K_, sc=K_ ** -0.5)
+    bias, r = _rnd(rng, dev, N, sc=0.1), _rnd(rng, dev, M, N)
+    for epi, res in (("bias", None), ("residual", r), ("gelu", None)):
+        got = K.gemm(a, w, bias, residual=res, epilogue=epi)
+        assert _rel_l2(got, K.gemm_plain(a, w, bias, residual=res, epilogue=epi)) <= F32_TOL
+
+
+def test_f32_gemm_refuses_training_epilogues(dev):
+    a = torch.zeros(64, 64, device=dev)
+    w = torch.zeros(64, 64, device=dev)
+    with pytest.raises(TypeError):
+        K.gemm(a, w, None, epilogue="gelu", pre=torch.empty_like(a))
+    with pytest.raises(ValueError):  # K % 4
+        K.gemm(torch.zeros(8, 6, device=dev), torch.zeros(8, 6, device=dev))
+
+
+def _f32_branches(H, C, heads, split, last):
+    if last:
+        return [(0, C, heads, H, H)]
+    return [(0, C // 2, heads // 2, H, split), (C // 2, C // 2, heads // 2, split, H)]
+
+
+@pytest.mark.parametrize("H,C,heads,split,last", F32_STAGES)
+def test_f32_stripe_attention(dev, H, C, heads, split, last):
+    """Every branch of every serving geometry, from the qkv GEMM's output,
+    written at the branch's channel offset."""
+    rng = np.random.default_rng(43)
+    B = _f32_batch(H)
+    qkv = _rnd(rng, dev, B, H, H, 3 * C)
+    scale = (C // heads) ** -0.5
+    for off, cb, nh, hs, ws in _f32_branches(H, C, heads, split, last):
+        lw, lb = _rnd(rng, dev, cb, 1, 3, 3, sc=0.3), _rnd(rng, dev, cb, sc=0.1)
+        kw = dict(ch_off=off, heads=nh, h_sp=hs, w_sp=ws, scale=scale)
+        out = torch.zeros(B, H, H, C, device=dev)
+        before = K.stripe_attention.launches_f32
+        got = K.stripe_attention(qkv, lw, lb, out, **kw)[..., off:off + cb]
+        assert K.stripe_attention.launches_f32 == before + 1
+        want = K.stripe_attention_plain(qkv, lw, lb, torch.zeros_like(out), **kw)
+        assert _rel_l2(got, want[..., off:off + cb]) <= F32_TOL, (hs, ws)
+        assert not out[..., :off].any() and not out[..., off + cb:].any()
+
+
+@pytest.mark.parametrize("H,C,heads,split,last", F32_STAGES)
+def test_f32_cswin_attention(dev, H, C, heads, split, last):
+    """The pallas route's entry on q, k, v slices of one qkv tensor."""
+    from cswin_unet_tpu_torch.ops.attention import cswin_attention_pallas_plain
+
+    rng = np.random.default_rng(44)
+    B = _f32_batch(H)
+    qkv = _rnd(rng, dev, B, H, H, 3, C)
+    for off, cb, nh, hs, ws in _f32_branches(H, C, heads, split, last):
+        q, k, v = (qkv[..., i, off:off + cb] for i in range(3))
+        lw, lb = _rnd(rng, dev, cb, 1, 3, 3, sc=0.3), _rnd(rng, dev, cb, sc=0.1)
+        kw = dict(h_sp=hs, w_sp=ws, num_heads=nh, scale=(C // heads) ** -0.5)
+        before = K.cswin_attention.launches_f32
+        got = K.cswin_attention(q, k, v, lw, lb, **kw)
+        assert K.cswin_attention.launches_f32 == before + 1 and got.dtype == torch.float32
+        assert _rel_l2(got, cswin_attention_pallas_plain(q, k, v, lw, lb, **kw)) <= F32_TOL
+
+
+@pytest.mark.parametrize("L,d", [(49, 32), (56, 32), (98, 32), (96, 24), (144, 24),
+                                 (288, 24), (288, 32), (30, 16)])
+def test_f32_attention_plan_is_the_kernels(dev, L, d):
+    from cswin_unet_tpu_torch.ops.cuda.build import library
+
+    assert library().cswin_stripe_attention_f32_smem(L, d) == K.attention_f32_plan(L, d).smem_bytes
+
+
+# (label, C in, C out, up, nc): tiny-224's two fused CARAFE sites, base-384's,
+# and the tail at the continual heads' 12 and 14 classes.
+F32_CARAFE_SITES = [("up@28", 128, 64, 2, None, 28), ("tail@56", 64, 64, 4, 9, 56),
+                    ("tail@56 nc12", 64, 64, 4, 12, 56), ("tail@56 nc14", 64, 64, 4, 14, 56),
+                    ("up@48", 192, 96, 2, None, 48), ("tail@96", 96, 96, 4, 9, 96)]
+
+
+@pytest.mark.parametrize("label,C,C_out,up,nc,H", F32_CARAFE_SITES)
+def test_f32_carafe_sites(dev, label, C, C_out, up, nc, H):
+    """The whole fused CARAFE site (GEMM + CARAFE, both float32) against
+    its plain composition: logits, and for the tail the labels by the margin
+    rule; and an image that is no multiple of the 8x8 tile."""
+    rng = np.random.default_rng(45)
+    p = _carafe_params(rng, dev, C, C_out, up, nc)
+    for B, h, w in ((8 if H < 96 else 2, H, H), (2, 11, 13)):
+        x = _rnd(rng, dev, B, h, w, C)
+        before = K.carafe_reassemble.launches_f32
+        if nc is None:
+            got, want = carafe_up(x, *p), carafe_up_plain(x, *p)
+        else:
+            got, want = carafe_tail(x, *p), carafe_tail_plain(x, *p)
+        assert K.carafe_reassemble.launches_f32 == before + 1
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert _rel_l2(got, want) <= F32_TOL, label
+        if nc is not None:
+            labels = carafe_tail_argmax(x, *p)
+            assert labels.dtype == torch.int32 and labels.shape == want.shape[:-1]
+            assert _margin_mismatches(labels, want) == 0
+
+
+@pytest.mark.parametrize("cm,nc,G,up", [(16, 9, 32, 4), (32, 64, 96, 2), (24, 9, 40, 4),
+                                        (48, 96, 144, 2), (16, 14, 32, 4)])
+def test_f32_carafe_plan_is_the_kernels(dev, cm, nc, G, up):
+    from cswin_unet_tpu_torch.ops.cuda.build import library
+
+    assert library().cswin_carafe_f32_smem(cm, nc, G, up) == K.carafe_f32_plan(cm, nc, G,
+                                                                              up).smem_bytes
+
+
+@pytest.mark.parametrize("H,C,heads,split", [(28, 128, 4, 2), (14, 256, 8, 7),
+                                             (24, 384, 16, 12)])
+def test_f32_block_pair(dev, H, C, heads, split):
+    """The float32 pair at the pairable stages (tiny-224's 2 and 3, B =
+    32; base-384's stage 3, B = 2): bit for bit against two float32 block
+    chains, within 1e-5 of its plain version."""
+    rng = np.random.default_rng(46)
+    p1, p2 = _block_params(rng, dev, C), _block_params(rng, dev, C)
+    x = _rnd(rng, dev, 32 if C <= 256 else 2, H, H, C)
+    kw = dict(heads=heads, split=split, scale=(C // heads) ** -0.5)
+    before = K.block_pair.launches_f32
+    got = K.block_pair(x, p1, p2, **kw)
+    assert K.block_pair.launches_f32 == before + 1 and got.dtype == torch.float32
+    assert K.block_pair.grid["smem_bytes"] == K.block_pair_f32_smem(H, H, C, heads, split)
+    chain = fused_cswin_block(fused_cswin_block(x, p1, last_stage=False, **kw), p2,
+                              last_stage=False, **kw)
+    assert torch.equal(got, chain)
+    assert _rel_l2(got, K.block_pair_plain(x, p1, p2, **kw)) <= F32_TOL
+
+
+@pytest.mark.parametrize("H,C,heads,split,last", F32_STAGES)
+def test_f32_block_chain(dev, H, C, heads, split, last):
+    rng = np.random.default_rng(47)
+    p = _block_params(rng, dev, C, last)
+    x = _rnd(rng, dev, 2, H, H, C)
+    kw = dict(heads=heads, split=split, last_stage=last, scale=(C // heads) ** -0.5)
+    got = fused_cswin_block(x, p, **kw)
+    assert got.dtype == torch.float32
+    assert _rel_l2(got, composed_block(x, p, **kw)) <= F32_TOL
+
+
+@pytest.mark.parametrize("impl", ["fused", "pallas"])
+def test_f32_model_routes(dev, impl):
+    """The tiny-224 model (full width, depth cut to 2 at every stage, so
+    that stages 2 and 3 pair) at float32 on the kernel route against the
+    plain route: logits within 1e-4, labels by the margin rule, and only
+    float32 instances launched."""
+    from cswin_unet_tpu_torch.models import CSwinUnet, CSWinUNet
+
+    rng = np.random.default_rng(48)
+    torch.manual_seed(0)
+    geo = dict(img_size=224, num_classes=9, embed_dim=64, depth=(2, 2, 2, 2),
+               split_size=(1, 2, 7, 7), num_heads=(2, 4, 8, 16), dtype=torch.float32)
+    plain = CSwinUnet(CSWinUNet(**geo, impl="plain")).eval()
+    model = CSwinUnet(CSWinUNet(**geo, impl=impl)).eval()
+    model.load_state_dict(plain.state_dict())
+    plain, model = plain.to(dev), model.to(dev)
+    x = _rnd(rng, dev, 4, 224, 224, 1)
+    with torch.inference_mode():
+        want = plain(x)
+        K.reset_launch_counts()
+        got = model(x)
+        counts = K.launch_counts()
+        labels = model(x, emit="labels")
+    assert _rel_l2(got, want) <= 1e-4
+    assert _margin_mismatches(labels, want) == 0
+    names = [k.__name__ for k in K.F32_KERNELS]
+    assert all(counts[n] == counts[f"{n}_f32"] for n in names), counts
+    launched = {n for n in names if counts[n]}
+    assert launched == ({"cswin_attention"} if impl == "pallas" else
+                        {"layernorm", "gemm", "stripe_attention", "carafe_reassemble",
+                         "block_pair"}), counts
 
 
 @pytest.mark.parametrize("shape", [(6, 24, 24), (5, 17, 33), (3, 40, 512), (48, 64, 70)])

@@ -70,6 +70,7 @@ def test_port_and_chip_smoke_import_no_jax_package():
             "cswin_unet_tpu_torch.train.finetune", "cswin_unet_tpu_torch.train.continual",
             "cswin_unet_tpu_torch.data.synthetic", "cswin_unet_tpu_torch.ops.augment",
             "cswin_unet_tpu_torch.ops.blur", "cswin_unet_tpu_torch.ops.dropout",
+            "cswin_unet_tpu_torch.ops.precision",
             "cswin_unet_tpu_torch.tools.apply_blur", "chip_smoke"} <= names, sorted(names)
 
 
