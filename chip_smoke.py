@@ -167,7 +167,29 @@ Phases, each of which raises on failure (the process then exits non-zero):
      the RGN group weights and the RGN-weighted gradients of its loss, kernel
      route against plain route. ``[blur]``: ``python -m
      cswin_unet_tpu_torch.tools.apply_blur train``'s ``main`` with the blur
-     on the card, each image within 1e-5 of scipy.
+     on the card, each image within 1e-5 of scipy. ``[f32:train]``:
+     training at ``TPU.COMPUTE_DTYPE float32``. Each float32 backward
+     instance (``layernorm_bwd``, ``gemm_dgrad``, ``gemm_wgrad``,
+     ``stripe_attention_bwd``) at tiny-224's four training geometries, B =
+     24, against its plain float32 version within ``F32_TOL`` (a float32
+     sum over M that misses it passes at most twice the plain version's
+     error against float64), weighted by its calls in a step, behind the
+     spin kernel, with cuBLAS float32 (TF32 off) and aten's LN backward as
+     yardsticks, and the forward GEMM's float32 training epilogues (fc1
+     keeping its pre-activation, proj and fc2 with drop-path) at the same
+     geometries, against ``gemm_plain``; one float32 conv's weight gradient against float64 with
+     cuDNN's TF32 flag at its default (the stock ``F.conv2d`` and the
+     port's ``ops.precision.conv2d``); ``python -m
+     cswin_unet_tpu_torch.train``'s ``main`` at ``--opts TPU.COMPUTE_DTYPE
+     float32`` for one epoch of 2 steps at bs 24 (every launch a float32
+     instance's as routed, no plain version called); the kernel route's
+     loss and gradients against the plain float32 route on one fixed batch
+     (loss within ``F32_TOL``, each gradient within ``F32_MODEL_TOL``);
+     ``finetune.main`` for one step and ``universal_train.main`` for one
+     stage-1 epoch at float32 (every launch a float32 instance's); one
+     base-384 float32 step at B = 2 and its stage-3 attention backward
+     (288-token windows) against its plain version; the bs-24 step at float32 beside bf16 and the plain
+     float32 route, CUDA events in turns, device busy.
   9. Data parallel at tiny-224 width and depth, lines tagged ``[ddp]``:
      two gloo ranks share the one card (spawned processes, a free port,
      every rank on local device 0; NCCL refuses two ranks on one GPU)
@@ -323,10 +345,13 @@ SOURCES = {
     "block_one": ("cswin_unet_tpu_torch/ops/cuda/csrc/block_one.cu",
                   "scripts/ablate_block.py:181; scripts/exp_cum.py:137"),
 }
-# The float32 instances of the serving path (TPU.COMPUTE_DTYPE float32), by
-# the wrapper that launches them: the same sources and TPU kernels.
+# The float32 instances (TPU.COMPUTE_DTYPE float32) of the serving and
+# training paths, by the wrapper that launches them: the same sources and
+# TPU kernels.
 F32_OF = {f"{k}_f32": k for k in ("layernorm", "gemm", "stripe_attention",
-                                  "cswin_attention", "carafe_reassemble", "block_pair")}
+                                  "cswin_attention", "carafe_reassemble", "block_pair",
+                                  "layernorm_bwd", "gemm_dgrad", "gemm_wgrad",
+                                  "stripe_attention_bwd")}
 SOURCES.update({k: SOURCES[w] for k, w in F32_OF.items()})
 SOURCES["block_pair_f32"] = ("cswin_unet_tpu_torch/ops/cuda/csrc/block_pair_f32.cu",
                              SOURCES["block_pair"][1])
@@ -353,6 +378,9 @@ PER.update(dict.fromkeys(("layernorm_f32", "gemm_f32", "stripe_attention_f32",
                          "route (pairing as committed)"))
 PER["cswin_attention_f32"] = ("32-slice serving forward at TPU.COMPUTE_DTYPE float32, "
                               "pallas route")
+PER.update(dict.fromkeys(("layernorm_bwd_f32", "gemm_dgrad_f32", "gemm_wgrad_f32",
+                          "stripe_attention_bwd_f32"),
+                         "bs-24 train step at TPU.COMPUTE_DTYPE float32"))
 # H100 SXM peaks from NVIDIA's datasheet: memory, bf16 tensor cores,
 # float32 outside them.
 HBM_BPS, TC_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -416,6 +444,24 @@ def judge(label: str, got, want, check: str, tol: float = TOL) -> tuple[str, boo
     err = rel_l2(got, want)
     mx = float((got - want).abs().max())
     return f"rel_l2={err:.3e} max_abs={mx:.3e}", err <= tol, mx
+
+
+def judge_reduction(label: str, got, want, oracle, tol: float) -> tuple[str, bool, float]:
+    """``judge`` of a tuple element by element at ``tol``, where an element
+    with a float64 ``oracle`` (a float32 sum over M, whose order the kernel
+    and the plain version choose differently) that misses ``tol`` passes if
+    its error against the oracle is at most twice the plain version's."""
+    texts, oks, mxs = [], [], []
+    for i, (g, w, o) in enumerate(zip(got, want, oracle)):
+        t, ok, mx = judge(f"{label}[{i}]", g, w, "rel", tol)
+        if not ok and o is not None:
+            e_k, e_p = rel_l2(g, o), rel_l2(w, o)
+            ok = e_k <= 2 * e_p
+            t += f" (vs float64 {e_k:.3e}, plain vs float64 {e_p:.3e})"
+        texts.append(t)
+        oks.append(ok)
+        mxs.append(mx)
+    return " | ".join(texts), all(oks), max(mxs)
 
 
 def time_ms(fn, reps: int = 10, rounds: int = 5, primed: bool = False) -> float:
@@ -530,16 +576,22 @@ class KernelTally:
 
     def case(self, name, label, kernel_fn, plain_fn, calls, check="rel", *,
              moved=0, tc_flops=0.0, f32_ops=0.0, library=None, reps=10, primed=False,
-             timed=None, tol=TOL, rounds=5):
+             timed=None, tol=TOL, rounds=5, oracle=None):
         """``timed``: the (kernel, plain) calls to time where the checked
         calls also do the harness's own work (allocating and gathering the
         outputs to compare). ``tol``: the relative L2 limit (``TOL`` for
-        bf16, ``F32_TOL`` for a float32 instance)."""
+        bf16, ``F32_TOL`` for a float32 instance). ``oracle``: a call giving,
+        for each output of a tuple, its float64 value where it is a float32
+        sum over M (else None): such an output that misses ``tol`` passes
+        if its error against float64 is at most twice the plain version's."""
         import torch
 
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
-        err_txt, ok, mx = judge(f"{name} {label}", got, want, check, tol)
+        if oracle is None:
+            err_txt, ok, mx = judge(f"{name} {label}", got, want, check, tol)
+        else:
+            err_txt, ok, mx = judge_reduction(f"{name} {label}", got, want, oracle(), tol)
         row = self.rows[name]
         row["max_abs_err"] = max(row["max_abs_err"], mx)
         ms, pms = (time_ms(fn, reps=reps, rounds=rounds, primed=primed)
@@ -800,7 +852,7 @@ def pair_ab(cfg, dev, batches=(SERVE_BATCH, 128), rounds: int = 8, reps: int = 1
 def probe_vs_parent(dev) -> None:
     """``tools/probe_chain.py``'s tensors (the block chain, its training
     forward and backward, the ``pallas`` route's kernel, the pair, the three
-    CARAFE sites) from this build, held bit for bit to the digests of the
+    CARAFE sites, the LayerNorm backward at every width) from this build, held bit for bit to the digests of the
     parent commit's build (``probe_chain.REFERENCE``): a change to the
     shared device bodies moved no result. A change meant to move these bits
     (a redesign of ``stripe_attention`` or ``gemm``, say) prints
@@ -811,8 +863,8 @@ def probe_vs_parent(dev) -> None:
     from cswin_unet_tpu_torch.tools import probe_chain
 
     ok, report = probe_chain.check(probe_chain.digests(probe_chain.probe(dev)))
-    print(f"[probe] chain, pallas route, pair and CARAFE vs the parent's build: {report} "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+    print(f"[probe] chain, pallas route, pair, CARAFE and LN backward vs the parent's build: "
+          f"{report} {'ok' if ok else 'FAIL'}", flush=True)
     require(ok, f"probe_chain: {report}")
 
 
@@ -2357,6 +2409,423 @@ def finetune_run(cfg, dev, workdir: str, smi: str) -> dict[str, int]:
                 f"{TRAIN_BATCH}", kernel[0], plain[0], f32[0])
     print(f"[finetune] phase seconds {time.perf_counter() - t_phase:.1f} ({smi})", flush=True)
     return counts
+
+
+def f32_backward_kernels(cfg, dev, B: int, tally: KernelTally) -> None:
+    """Each float32 backward instance, and the forward GEMM's float32
+    training epilogues, at every training geometry of ``cfg`` (batch B),
+    against its plain float32 version within ``F32_TOL`` (a
+    float32 sum over M, dW, db, dγ, dβ and the LePE partials, by
+    ``judge_reduction``'s float64 rule), weighted by its calls in one train
+    step, each timed behind the lab's spin kernel (device time). Bounds:
+    bytes at 3.35 TB/s or the operations at 67 TFLOP/s of float32 FFMA.
+    Yardsticks (timed here only): cuBLAS float32 with TF32 off
+    (``torch.matmul``) for the plain dX and dW products, aten's LayerNorm
+    backward; none for the attention backward (flash has no LePE and no
+    float32)."""
+    import torch
+
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+
+    rng = np.random.default_rng(23)
+    rnd = lambda *s, sc=1.0: torch.from_numpy(
+        (rng.standard_normal(s) * sc).astype(np.float32)).to(dev)
+    kw_t = dict(tol=F32_TOL, reps=3, rounds=3, primed=True)
+    for g, blocks in trained_blocks(cfg):
+        H, C, heads, split = g["H"], g["C"], g["heads"], g["split"]
+        M, hw = B * H * H, H * H
+        tag = f"@{H}x{H}x{C}{' last' if g['last'] else ''}"
+        dp = torch.from_numpy((rng.random(B) < 0.8).astype(np.float32) / 0.8).to(dev)
+        x, dy, res = rnd(M, C), rnd(M, C), rnd(M, C)
+        w, b = rnd(C, sc=0.3) + 1, rnd(C, sc=0.1)
+
+        def ln_oracle(x=x, dy=dy):
+            x64, dy64 = x.double(), dy.double()
+            mu = x64.mean(-1, keepdim=True)
+            xh = (x64 - mu) * torch.rsqrt(((x64 - mu) ** 2).mean(-1, keepdim=True) + 1e-5)
+            return None, (dy64 * xh).sum(0), dy64.sum(0)
+
+        _, mean, rstd = torch.ops.aten.native_layer_norm(x, [C], w, b, 1e-5)
+        tally.case("layernorm_bwd_f32", tag,
+                   lambda: K.layernorm_bwd(x, dy, w, residual=res),
+                   lambda: K.layernorm_bwd_plain(x, dy, w, residual=res), 2 * blocks,
+                   moved=4 * nbytes(x) + 3 * nbytes(w), f32_ops=14 * M * C,
+                   library=lambda: torch.ops.aten.native_layer_norm_backward(
+                       dy, x, [C], mean, rstd, w, b, [True, True, True]),
+                   oracle=ln_oracle, **kw_t)
+        h = rnd(M, 4 * C)
+        # The forward GEMM's float32 training epilogues: fc1 keeping its
+        # pre-activation (both outputs held), proj and fc2 with the
+        # drop-path scale; timed with the serving cases, so no calls here.
+        pre_k, pre_p = (torch.empty(M, 4 * C, device=dev) for _ in range(2))
+        for what, a, n, epi, kw in (
+                ("proj+droppath", x, C, "residual", dict(residual=res, dp=dp)),
+                ("fc1-gelu-keep-h", x, 4 * C, "gelu", {}),
+                ("fc2+droppath", h, C, "residual", dict(residual=res, dp=dp))):
+            wt, bias = rnd(n, a.shape[1], sc=a.shape[1] ** -0.5), rnd(n, sc=0.1)
+            kw = dict(kw, epilogue=epi, rows_per_sample=hw)
+            if epi == "gelu":
+                kern = lambda: (K.gemm(a, wt, bias, pre=pre_k, **kw), pre_k)
+                plain = lambda: (K.gemm_plain(a, wt, bias, pre=pre_p, **kw), pre_p)
+            else:
+                kern = lambda: K.gemm(a, wt, bias, **kw)
+                plain = lambda: K.gemm_plain(a, wt, bias, **kw)
+            tally.case("gemm_f32", f"train-{what}{tag}", kern, plain, 0,
+                       moved=nbytes(a, wt, bias, kw.get("residual"), kw.get("dp"))
+                       + M * n * (8 if epi == "gelu" else 4),
+                       f32_ops=2 * M * n * a.shape[1], **kw_t)
+        for what, n, k, kw in (("fc2-gelu_bwd+droppath", C, 4 * C, dict(dp=dp, gelu_h=h)),
+                               ("fc1", 4 * C, C, {}),
+                               ("proj+droppath", C, C, dict(dp=dp)),
+                               ("qkv", 3 * C, C, {})):
+            d, wt = rnd(M, n), rnd(n, k, sc=n ** -0.5)
+            plain_product = not kw
+            kw = dict(kw, rows_per_sample=hw)
+            tally.case("gemm_dgrad_f32", f"{what}{tag}",
+                       lambda: K.gemm_dgrad(d, wt, **kw),
+                       lambda: K.gemm_dgrad_plain(d, wt, **kw), blocks,
+                       moved=nbytes(d, wt, kw.get("gelu_h"), kw.get("dp")) + M * k * 4,
+                       f32_ops=2 * M * n * k + M * k * (16 if "gelu_h" in kw else 1),
+                       library=(lambda: torch.matmul(d, wt)) if plain_product else None,
+                       **kw_t)
+        for what, k, n, kw in (("fc2+droppath", 4 * C, C, dict(dp=dp)),
+                               ("fc1", C, 4 * C, {}),
+                               ("proj+droppath", C, C, dict(dp=dp)),
+                               ("qkv", C, 3 * C, {})):
+            a, d = rnd(M, k), rnd(M, n)
+            plain_product = not kw
+            kw = dict(kw, rows_per_sample=hw)
+
+            def wgrad_oracle(a=a, d=d, kw=kw):
+                d64 = d.double()
+                if "dp" in kw:
+                    d64 = d64 * kw["dp"].double().repeat_interleave(hw)[:, None]
+                return d64.t() @ a.double(), d64.sum(0)
+
+            tally.case("gemm_wgrad_f32", f"{what}{tag}",
+                       lambda: K.gemm_wgrad(a, d, **kw),
+                       lambda: K.gemm_wgrad_plain(a, d, **kw), blocks,
+                       moved=nbytes(a, d, kw.get("dp")) + (n * k + n) * 4,
+                       f32_ops=2 * M * n * k + M * n,
+                       library=(lambda: torch.matmul(d.t(), a)) if plain_product else None,
+                       oracle=wgrad_oracle, **kw_t)
+        f32_attention_bwd_cases(tally, dev, rnd, B, H, C, heads, split, g["last"], blocks, tag,
+                                kw_t)
+
+
+def f32_attention_bwd_cases(tally: KernelTally, dev, rnd, B: int, H: int, C: int, heads: int,
+                            split: int, last: bool, calls: int, tag: str, kw_t: dict) -> None:
+    """The float32 ``stripe_attention_bwd`` on both branches of a stage (the
+    last stage's one full window) against its plain float32 version: dq, dk,
+    dv within ``F32_TOL``, the LePE partials by the float64 rule; ``calls``
+    times a step. Timed: the wrapper's call alone, into a buffer allocated
+    once."""
+    import torch
+
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.ops.windows import window_partition
+
+    qkv, dout = rnd(B, H, H, 3 * C), rnd(B, H, H, C)
+    scale = (C // heads) ** -0.5
+    cb, nh = (C, heads) if last else (C // 2, heads // 2)
+    M = B * H * H
+    buf = torch.zeros(B, H, H, 3 * C, device=dev)
+    for off, hs, ws in ([(0, H, H)] if last else [(0, H, split), (C // 2, split, H)]):
+        lw = rnd(cb, 1, 3, 3, sc=0.3)
+        kw = dict(ch_off=off, heads=nh, h_sp=hs, w_sp=ws, scale=scale)
+        chans = torch.cat([torch.arange(off, off + cb) + i * C for i in range(3)]).to(dev)
+
+        def run(fn):
+            dqkv = torch.zeros(B, H, H, 3 * C, device=dev)
+            dw, db = fn(qkv, dout, lw, dqkv, **kw)
+            return dqkv[..., chans], dw, db
+
+        def oracle(off=off, hs=hs, ws=ws):
+            v = qkv[..., 2 * C + off:2 * C + off + cb].double()
+            do = dout[..., off:off + cb].double()
+            v_img = window_partition(v, hs, ws).reshape(-1, hs, ws, cb)
+            do_img = window_partition(do, hs, ws).reshape(-1, hs, ws, cb)
+            v_pad = torch.nn.functional.pad(v_img, (0, 0, 1, 1, 1, 1))
+            dw = torch.stack([(do_img * v_pad[:, a:a + hs, b:b + ws]).sum((0, 1, 2))
+                              for a in range(3) for b in range(3)], dim=-1)
+            return None, dw.reshape(cb, 1, 3, 3), do_img.sum((0, 1, 2))
+
+        L = hs * ws
+        tally.case("stripe_attention_bwd_f32", f"{tag} window {hs}x{ws}",
+                   lambda: run(K.stripe_attention_bwd),
+                   lambda: run(K.stripe_attention_bwd_plain), calls,
+                   timed=(lambda: K.stripe_attention_bwd(qkv, dout, lw, buf, **kw),
+                          lambda: K.stripe_attention_bwd_plain(qkv, dout, lw, buf, **kw)),
+                   moved=M * cb * 4 * 7 + nbytes(lw) + 10 * cb * 4,
+                   f32_ops=10 * M * L * cb + M * nh * 8 * L + 36 * M * cb,
+                   oracle=oracle, **kw_t)
+
+
+def f32_conv_check(dev) -> None:
+    """The TF32 trap, on the card: one float32 convolution's weight gradient
+    (a merge's 3x3 stride-2 conv at tiny-224's stage 1, B = 8) against
+    float64, with cuDNN's TF32 flag at PyTorch's default (True): the stock
+    ``F.conv2d``'s backward runs in TF32, the port's
+    ``ops.precision.conv2d`` in full float32."""
+    import torch
+
+    from cswin_unet_tpu_torch.ops.precision import conv2d
+
+    rng = np.random.default_rng(29)
+    t = lambda *s, sc=1.0: torch.from_numpy(
+        (rng.standard_normal(s) * sc).astype(np.float32)).to(dev)
+    x, w, gy = t(8, 64, 56, 56), t(128, 64, 3, 3, sc=0.05), t(8, 128, 28, 28)
+    w64 = w.double().requires_grad_()
+    want = torch.autograd.grad(torch.nn.functional.conv2d(x.double(), w64, None, 2, 1), w64,
+                               gy.double())[0]
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        errs = {}
+        for name, fn in (("F.conv2d", torch.nn.functional.conv2d), ("port conv2d", conv2d)):
+            wl = w.clone().requires_grad_()
+            gw = torch.autograd.grad(fn(x, wl, None, 2, 1), wl, gy)[0]
+            errs[name] = rel_l2(gw, want)
+        flag = torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    ok = errs["port conv2d"] <= F32_TOL and flag
+    print(f"[f32:train] a float32 conv's weight gradient vs float64, cuDNN TF32 flag at its "
+          f"default (True): " + "; ".join(f"{k} rel_l2={v:.3e}" for k, v in errs.items())
+          + f" (limit {F32_TOL:g} for the port's; the flag still True after: {flag}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    require(ok, f"float32 conv weight gradient: {errs}")
+
+
+PLAIN_VERSIONS = ("layernorm_plain", "gemm_plain", "stripe_attention_plain",
+              "carafe_reassemble_plain", "layernorm_bwd_plain", "gemm_dgrad_plain",
+              "gemm_wgrad_plain", "stripe_attention_bwd_plain")
+
+
+def plain_calls(K, fn):
+    """Run ``fn`` with each kernel wrapper's plain version counted: the
+    calls a run makes to them (a wrapper takes its plain version only for a
+    CPU tensor). Returns (fn's result, {name: calls})."""
+    calls = dict.fromkeys(PLAIN_VERSIONS, 0)
+    saved = {n: getattr(K, n) for n in PLAIN_VERSIONS}
+
+    def counted(name):
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return saved[name](*a, **k)
+        return wrapper
+
+    for n in PLAIN_VERSIONS:
+        setattr(K, n, counted(n))
+    try:
+        return fn(), calls
+    finally:
+        for n, f in saved.items():
+            setattr(K, n, f)
+
+
+def f32_train(cfg, dev, workdir: str, data: str, kits: dict, smi: str,
+              tally: KernelTally) -> dict[str, dict[str, int]]:
+    """Training at ``TPU.COMPUTE_DTYPE float32`` on the card: the float32
+    backward instances against their plain versions (``[f32:kernel]``), the
+    TF32 trap on one conv, the train CLI at ``--opts TPU.COMPUTE_DTYPE
+    float32`` (tiny-224, full width and depth, bs 24, one epoch of 2 steps:
+    launches all float32 instances as routed, no plain version called, the
+    log), the kernel route's loss and gradients against the plain float32
+    route on one fixed batch (``F32_MODEL_TOL`` a parameter, the loss within
+    ``F32_TOL``), ``finetune.main`` for one step at float32,
+    ``universal_train.main`` for one stage-1 epoch at float32 (every launch a
+    float32 instance's), one base-384 float32 step at B = 2 (launches as
+    routed) with its stage-3 attention backward held to its plain version,
+    and the bs-24 step's ms and device busy at float32 beside bf16's.
+    Returns the four runs' launches."""
+    import torch
+
+    from cswin_unet_tpu_torch import finetune, universal_train
+    from cswin_unet_tpu_torch.models import build_model
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.train import finetune as ft
+    from cswin_unet_tpu_torch.train import make_optimizer, make_train_step
+    from cswin_unet_tpu_torch.train.__main__ import main as train_main
+    from cswin_unet_tpu_torch.utils.profiling import device_busy_ms
+
+    t_phase = time.perf_counter()
+    f32cfg = smoke_config(F32_OPTS)
+    f32_backward_kernels(cfg, dev, TRAIN_BATCH, tally)
+    f32_conv_check(dev)
+
+    cli = os.path.join(workdir, "f32_cli")
+    os.makedirs(os.path.join(cli, "lists", "lists_Synapse_blurred"))
+    shutil.copy(os.path.join(data, "lists", "train.txt"),
+                os.path.join(cli, "lists", "lists_Synapse_blurred", "train.txt"))
+    argv = ["--cfg", CFG, "--root_path", data, "--dataset", "Synapse", "--output_dir", "run",
+            "--max_epochs", "1", "--batch_size", str(TRAIN_BATCH), "--img_size", "224",
+            "--num_workers", "8", "--device", dev.type, "--opts", *F32_OPTS]
+    here = os.getcwd()
+    os.chdir(cli)  # the CLI reads ./lists/lists_Synapse_blurred, as the root train.py
+    try:
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        msg, plains = plain_calls(K, lambda: train_main(argv))
+        torch.cuda.synchronize()
+        cli_s, counts = time.perf_counter() - t0, K.launch_counts()
+    finally:
+        os.chdir(here)
+    with open(os.path.join(cli, "run", "log.txt")) as f:
+        its = re.findall(r"iteration (\d+) : loss : (\S+), loss_ce: (\S+)", f.read())
+    steps = len(os.listdir(os.path.join(data, "train_npz"))) // TRAIN_BATCH
+    want = expected_f32(expected_train_launches(cfg, steps))
+    print(f"[f32:train] python -m cswin_unet_tpu_torch.train --opts {' '.join(F32_OPTS)}: "
+          f"{msg} {steps} steps in {cli_s:.1f}s (model build included), logged iterations "
+          f"{[int(i) for i, _, _ in its]} losses {[float(a) for _, a, _ in its]}; launches "
+          f"{counts} expected {want}; plain versions called {plains}", flush=True)
+    require(msg == "Training Finished!" and [int(i) for i, _, _ in its]
+            == list(range(1, steps + 1)) and all(np.isfinite(float(a)) for _, a, _ in its),
+            f"float32 train CLI: {msg}, log {its}")
+    require(counts == want, f"float32 train CLI launches {counts} != routing {want}")
+    require(not any(plains.values()), f"a plain version ran on the card: {plains}")
+
+    img, lab = fixed_batch(data, dev)
+    (loss_k, g_k), (loss_p, g_p) = (route_grads(f32cfg, dev, img, lab, impl, torch.float32)
+                                    for impl in ("fused", "plain"))
+    torch.cuda.synchronize()
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    errs = {k: rel_l2(g_k[k], g_p[k]) for k in g_p}
+    worst = max(errs, key=errs.get)
+    over = {k: f"{v:.3e}" for k, v in errs.items() if not v <= F32_MODEL_TOL}
+    print(f"[f32:train] grad parity at float32, fixed batch of {TRAIN_BATCH}, drop-path "
+          f"{f32cfg.MODEL.DROP_PATH_RATE}: loss kernel {float(loss_k):.7f} plain "
+          f"{float(loss_p):.7f} (rel {loss_err:.2e}, limit {F32_TOL:g}); {len(errs)} gradients, "
+          f"worst {worst} rel_l2={errs[worst]:.3e}, median "
+          f"{statistics.median(errs.values()):.3e}; above {F32_MODEL_TOL:g}: {over or 'none'}",
+          flush=True)
+    require(loss_err <= F32_TOL and not over, f"float32 grad parity: loss {loss_err:.3e}, "
+            f"{over}")
+
+    # finetune.main at float32, one (lr, wd) cell, one step and one RGN pass
+    root = os.path.join(workdir, "finetune")
+    ck = os.path.join(workdir, "tiny224_seed0.npz")
+    grid = ft.LR_WD_GRID
+    ft.LR_WD_GRID = grid[:1]
+    try:
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = finetune.main(["--cfg", CFG, "--root_path", os.path.join(root, "train_npz"),
+                             "--list_dir", os.path.join(root, "lists"), "--output_dir",
+                             os.path.join(root, "run_f32"), "--max_epochs", "1",
+                             "--batch_size", str(TRAIN_BATCH), "--img_size", "224",
+                             "--pretrained_ckpt", ck, "--save_interval", "1",
+                             "--device", dev.type, "--opts", *F32_OPTS])
+        torch.cuda.synchronize()
+        ft_s, ft_counts = time.perf_counter() - t0, K.launch_counts()
+    finally:
+        ft.LR_WD_GRID = grid
+    with open(os.path.join(root, "run_f32", "log.txt")) as f:
+        ft_losses = [float(v) for v in re.findall(r"Loss: (\S+)", f.read())]
+    ft_want = expected_f32(expected_train_launches(cfg, 2))
+    print(f"[f32:train] python -m cswin_unet_tpu_torch.finetune --opts {' '.join(F32_OPTS)}, "
+          f"one cell, 1 epoch: {res!r} in {ft_s:.1f}s, losses {ft_losses}; launches "
+          f"{ft_counts} expected {ft_want} (a step and an RGN grad pass)", flush=True)
+    require(res == "Surgical Training Finished!" and len(ft_losses) == 1
+            and np.isfinite(ft_losses).all(), "float32 finetune CLI")
+    require(ft_counts == ft_want, f"float32 finetune launches {ft_counts} != {ft_want}")
+
+    # universal_train at float32: one stage-1 epoch on the continual phase's
+    # KiTS-like slices (student passes through CSWinBlockFn, TPGM's
+    # autograd.grad, the teacher's forwards)
+    out = os.path.join(workdir, "continual_f32")
+    root_log = logging.getLogger()
+    saved_handlers, saved_level = root_log.handlers[:], root_log.level
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        msg = universal_train.main(
+            ["--cfg", CFG, "--stage", "1", "--num_classes_old", "9", "--pretrained_path", ck,
+             "--root_path", kits["train_dir"], "--list_dir", kits["list_dir"], "--output_dir",
+             out, "--max_epochs", "1", "--batch_size", str(CONTINUAL_BATCH),
+             "--gradient_batches", "2", "--tpgm_iters", "4", "--tpgm_start_epoch", "0",
+             "--tpgm_frequency", "1", "--tpgm_data_fraction", "0.5", "--device", str(dev),
+             "--opts", *F32_OPTS])
+        torch.cuda.synchronize()
+    finally:
+        root_log.handlers[:] = saved_handlers
+        root_log.setLevel(saved_level)
+    cl_s, cl_counts = time.perf_counter() - t0, K.launch_counts()
+    bwd = ("layernorm_bwd", "gemm_dgrad", "gemm_wgrad", "stripe_attention_bwd")
+    all_f32 = all(cl_counts[F32_OF[k]] == cl_counts[k] for k in F32_OF)
+    print(f"[f32:train] python -m cswin_unet_tpu_torch.universal_train --stage 1 --opts "
+          f"{' '.join(F32_OPTS)}, 1 epoch at bs {CONTINUAL_BATCH}: {msg} in {cl_s:.1f}s; "
+          f"launches {cl_counts}; every launch a float32 instance's: "
+          f"{'yes' if all_f32 else 'NO'}", flush=True)
+    require(msg.endswith("Finished!") and all_f32 and all(cl_counts[k] > 0 for k in bwd),
+            f"float32 universal_train: {msg}, launches {cl_counts}")
+
+    # one base-384 float32 step at B = 2, and its stage-3 attention backward
+    cfg384 = smoke_config(F32_OPTS, cfg=CFG384)
+    size, b384 = cfg384.DATA.IMG_SIZE, 2
+    model = build_model(cfg384, num_classes=9, device=dev, seed=3, train=True)
+    opt, sched = make_optimizer(model.parameters(), 0.01, 1000)
+    step = make_train_step(model, opt, sched, 9)
+    x = torch.from_numpy(np.random.default_rng(41).standard_normal(
+        (b384, size, size, 1)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(np.random.default_rng(42).integers(0, 9, (b384, size, size))).to(
+        dev, lab.dtype)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss384 = float(step(x, y, gen)["loss"])
+    torch.cuda.synchronize()
+    s384, counts384 = time.perf_counter() - t0, K.launch_counts()
+    t0 = time.perf_counter()
+    step(x, y, gen)
+    torch.cuda.synchronize()
+    s384b = time.perf_counter() - t0
+    want384 = expected_f32(expected_train_launches(cfg384, 1))
+    print(f"[f32:train] base-384 float32 step at B = {b384}: loss {loss384:.6f}, "
+          f"{s384:.3f}s the first (allocations included), {s384b:.3f}s the second; launches "
+          f"{counts384} expected {want384}", flush=True)
+    require(np.isfinite(loss384) and counts384 == want384,
+            f"base-384 float32 step: loss {loss384}, launches {counts384}")
+    del model, opt, sched, step
+    torch.cuda.empty_cache()
+    g3 = list(stage_geometries(cfg384))[2]
+    rng = np.random.default_rng(43)
+    rnd = lambda *s, sc=1.0: torch.from_numpy(
+        (rng.standard_normal(s) * sc).astype(np.float32)).to(dev)
+    f32_attention_bwd_cases(tally, dev, rnd, 4, g3["H"], g3["C"], g3["heads"], g3["split"],
+                            g3["last"], 0, f"@{g3['H']}x{g3['H']}x{g3['C']} base-384",
+                            dict(tol=F32_TOL, reps=3, rounds=3, primed=True))
+
+    # the bs-24 step at float32 beside bf16 (kernel routes) and the plain float32 route
+    def trainer(c, impl=None):
+        m = build_model(c, num_classes=9, device=dev, seed=3, train=True, impl=impl)
+        o, sch = make_optimizer(m.parameters(), 0.01, 1000)
+        g = torch.Generator(device=dev).manual_seed(12)
+        st = make_train_step(m, o, sch, 9)
+        return lambda: st(img, lab, g)
+
+    s32, sbf, sp32 = trainer(f32cfg), trainer(cfg), trainer(f32cfg, "plain")
+    a1, b1, c1, c2, b2, a2 = (time_ms(fn, reps=3, rounds=3)
+                              for fn in (s32, sbf, sp32, sp32, sbf, s32))
+    busy = []
+    for fn in (s32, sbf):  # the profiler may lose records: up to three tries
+        reading = None
+        for _ in range(3):
+            if (reading := device_busy_ms(fn, 3)) is not None:
+                break
+        busy.append(reading)
+    fmt = lambda v: "unread" if v is None else f"{v:.3f}"
+    print(f"[f32:e2e] train step bs {TRAIN_BATCH} (fwd + bwd + SGD), CUDA events in turns "
+          f"(f32, bf16, plain f32, plain f32, bf16, f32): float32 kernel route "
+          f"ms={min(a1, a2):.3f} [{a1:.3f}, {a2:.3f}] busy {fmt(busy[0])} ms; bf16 kernel "
+          f"route ms={min(b1, b2):.3f} [{b1:.3f}, {b2:.3f}] busy {fmt(busy[1])} ms; float32 "
+          f"plain route ms={min(c1, c2):.3f} [{c1:.3f}, {c2:.3f}]; on {smi}; phase seconds "
+          f"{time.perf_counter() - t_phase:.1f}", flush=True)
+    return dict(train_f32=counts, finetune_f32=ft_counts, continual_f32=cl_counts,
+                base384_train_f32=counts384)
 
 
 def blur_cli_run(dev, workdir: str) -> None:
@@ -4146,14 +4615,18 @@ def main() -> int:
                 f"block_pair: ptxas reports spills {spills}")
         for entry in ("block_one_kernel", "layernorm_kernel", "layernorm_bwd_kernel",
                       "carafe_kernel", "edt_pass_kernel", "lepe_windows_kernel",
-                      "ln_mlp_kernel", "gemm_kernel", "wgrad_kernel"):
+                      "ln_mlp_kernel", "gemm_kernel", "wgrad_kernel", "gemm_f32_kernel",
+                      "wgrad_f32_kernel", "stripe_attention_bwd_f32_kernel"):
             res = ptxas_resources(build.build_log, entry)
             print(f"[build] {entry} (entry, registers, spill stores, spill loads): {res}",
                   flush=True)
             require(bool(res), f"{entry}: no ptxas resource line")
-            if entry in ("lepe_windows_kernel", "ln_mlp_kernel", "gemm_kernel",
-                         "wgrad_kernel"):  # the lab's persistent kernels; the GEMMs'
-                # dropout instances, which hold the Philox state beside the tile
+            if entry not in ("block_one_kernel", "layernorm_kernel", "carafe_kernel",
+                             "edt_pass_kernel"):
+                # the lab's persistent kernels; the GEMMs' dropout instances,
+                # which hold the Philox state beside the tile; the backward's
+                # float32 instances (LN's 768 channels: twice the bytes a lane;
+                # the attention backward's k, v, dK and dV of a key a lane)
                 require(all(st == ld == 0 for _, _, st, ld in res), f"{entry}: spills {res}")
     # The tiles' products run on the tensor cores: the SASS of the attention
     # and GEMM kernels, of the backward's weight gradient and attention, of
@@ -4194,6 +4667,7 @@ def main() -> int:
         continual_checks(cfg, dev, kits, os.path.join(workdir, "tiny224_seed0.npz"), smi)
         finetune_counts = finetune_run(cfg, dev, workdir, smi)
         blur_cli_run(dev, workdir)
+        f32_counts.update(f32_train(cfg, dev, workdir, data, kits, smi, tally_f32))
         ddp_counts = ddp_run(smoke_config(DROP_OPTS), dev, workdir, kits,
                              os.path.join(workdir, "tiny224_seed0.npz"), smi,
                              cfg_opts=DROP_OPTS)

@@ -80,7 +80,7 @@ from ..ops.cuda import cswin_block
 from ..ops.cuda.cswin_block import BlockParams, composed_block, fused_cswin_block
 from ..ops.cuda.kernels import needs_grad
 from ..ops.dropout import Drop, draw_keys, dropout
-from ..ops.precision import conv_precision
+from ..ops.precision import conv2d
 from ..parallel import process_shard_info, rank_rows, world_size
 
 IMPLS = ("fused", "pallas", "plain")
@@ -89,10 +89,9 @@ IMPLS = ("fused", "pallas", "plain")
 def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d, stride: int,
               pad: int) -> torch.Tensor:
     """Conv2d on NHWC in ``x.dtype`` (weights cast), bias added after; at
-    float32 in full float32 (``ops.precision.conv_precision``: cuDNN's TF32
-    off for the call)."""
-    with conv_precision(x.dtype):
-        y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), None, stride, pad)
+    float32 in full float32, forward and backward (``ops.precision.conv2d``:
+    cuDNN's TF32 off for each call)."""
+    y = conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), None, stride, pad)
     y = y.permute(0, 2, 3, 1)
     return y if conv.bias is None else y + conv.bias.to(x.dtype)
 

@@ -26,9 +26,8 @@ route, as ``cswin_unet_tpu.ops.attention.cswin_attention`` does.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from .precision import conv_precision
+from .precision import conv2d
 from .windows import window_merge, window_partition
 
 
@@ -37,14 +36,13 @@ def depthwise_conv3x3(x: torch.Tensor, weight: torch.Tensor,
     """Depthwise 3x3 conv, stride 1, zero pad 1, on NHWC ``x``.
 
     ``weight`` is the torch depthwise layout (C, 1, 3, 3). The sum runs in
-    float32 (full float32 for float32 ``x``: cuDNN's TF32 off) and is
-    rounded once to ``x.dtype``; the bias is added in ``x.dtype``, as the
-    JAX composition does.
+    float32 (full float32 for float32 ``x``, forward and backward: cuDNN's
+    TF32 off, ``ops.precision.conv2d``) and is rounded once to ``x.dtype``;
+    the bias is added in ``x.dtype``, as the JAX composition does.
     """
     C = x.shape[-1]
-    with conv_precision(x.dtype):
-        y = F.conv2d(x.float().permute(0, 3, 1, 2),
-                     weight.to(x.dtype).float(), padding=1, groups=C)
+    y = conv2d(x.float().permute(0, 3, 1, 2), weight.to(x.dtype).float(), padding=1,
+               groups=C, dtype=x.dtype)
     y = y.permute(0, 2, 3, 1).to(x.dtype)
     if bias is not None:
         y = y + bias.to(x.dtype)
@@ -103,10 +101,9 @@ def cswin_attention_pallas_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     qw = _heads(window_partition(q, h_sp, w_sp), num_heads)
     kw = _heads(window_partition(k, h_sp, w_sp), num_heads)
     v_img = window_partition(v, h_sp, w_sp).reshape(-1, h_sp, w_sp, C)
-    with conv_precision(q.dtype):
-        lepe = F.conv2d(v_img.float().permute(0, 3, 1, 2), lepe_weight.float(),
-                        None if lepe_bias is None else lepe_bias.float(),
-                        padding=1, groups=C)
+    lepe = conv2d(v_img.float().permute(0, 3, 1, 2), lepe_weight.float(),
+                  None if lepe_bias is None else lepe_bias.float(), padding=1, groups=C,
+                  dtype=q.dtype)
     lepe = _heads(lepe.permute(0, 2, 3, 1).reshape(-1, L, C), num_heads)
     vw = _heads(v_img.reshape(-1, L, C), num_heads)
 

@@ -15,15 +15,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .precision import conv_precision
+from .precision import conv2d
 
 
 def _conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
           pad: int) -> torch.Tensor:
     """NHWC conv in ``x.dtype`` (weights cast to it), bias added after; at
-    float32 in full float32 (cuDNN's TF32 off for the call)."""
-    with conv_precision(x.dtype):
-        y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), padding=pad)
+    float32 in full float32, forward and backward (cuDNN's TF32 off for
+    each call, ``ops.precision.conv2d``)."""
+    y = conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype), padding=pad)
     y = y.permute(0, 2, 3, 1)
     return y if bias is None else y + bias.to(x.dtype)
 

@@ -60,7 +60,8 @@ _SIGNATURES = {
     "cswin_ln_mlp_plan": (_I, _I, _I, _I, _P),
     # the float32 instances of the serving path (TPU.COMPUTE_DTYPE float32)
     "cswin_layernorm_f32": (_P, _P, _P, _P, _I, _I, _F, _P),
-    "cswin_gemm_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "cswin_gemm_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _LL,
+                       _F, _U, _P),
     "cswin_stripe_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _F, _P),
     "cswin_cswin_attention_f32": (_P, _P, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -69,11 +70,21 @@ _SIGNATURES = {
     "cswin_carafe_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "cswin_carafe_f32_smem": (_I, _I, _I, _I),
     "cswin_block_pair_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P),
+    # and of the training path's backward (training at float32)
+    "cswin_layernorm_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "cswin_layernorm_bwd_f32_ctas_per_sm": (_I,),
+    "cswin_gemm_wgrad_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _P, _LL, _F, _U, _P),
+    "cswin_gemm_wgrad_f32_max_clusters": (_I, _I, _I),
+    "cswin_stripe_attention_bwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                       _I, _I, _F, _P),
+    "cswin_stripe_attention_bwd_f32_smem": (_I, _I),
 }
 
 # Entry points that return something other than a cudaError_t (a count).
 _RESTYPES = {"cswin_stripe_attention_bwd_smem": ctypes.c_longlong,
-             "cswin_stripe_attention_f32_smem": ctypes.c_longlong}
+             "cswin_stripe_attention_f32_smem": ctypes.c_longlong,
+             "cswin_stripe_attention_bwd_f32_smem": ctypes.c_longlong}
 
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None   # wall time of the last build, if any

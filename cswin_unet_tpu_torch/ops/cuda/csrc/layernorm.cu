@@ -1,6 +1,7 @@
 // LayerNorm over the channel axis of a (rows, C) bf16 tensor, forward and
-// backward: LN1 and LN2 of the CSWin block chain; and the forward's float32
-// instances, for TPU.COMPUTE_DTYPE float32 (cswin_layernorm_f32).
+// backward: LN1 and LN2 of the CSWin block chain; and their float32
+// instances, for TPU.COMPUTE_DTYPE float32 (cswin_layernorm_f32,
+// cswin_layernorm_bwd_f32).
 //
 // Forward: float32 statistics, out in the input's type (bf16 rounded,
 // float32 as computed).
@@ -17,7 +18,7 @@
 // Bound on the H100: memory bandwidth — the forward reads and writes each
 //   element once (2 + 2 bytes, 4 + 4 at float32) and does ~8 flops on it;
 //   the backward reads
-//   x, dy and res and writes dx (8 bytes) for ~15 flops.
+//   x, dy and res and writes dx (8 bytes, 16 at float32) for ~15 flops.
 // Design: the forward is one launch of one wave of CTAs (the entry sizes it
 //   with the occupancy API, once an instance and device) that stride over
 //   the rows; its row body lives in layernorm_row.cuh, shared with the
@@ -29,7 +30,7 @@
 //   4 values) every C % 4 == 0 up to 1024.
 //   The backward is one launch of one wave of CTAs (the wrapper sizes it
 //   with the occupancy API) that stride over the rows. The channels a lane
-//   holds are a template parameter (Shape<C>), so registers fit the row: a
+//   holds are a template parameter (Shape<T, C>), so registers fit the row: a
 //   group of G lanes takes a row in 16-byte vectors (C = 64: 8 lanes, a warp
 //   4 rows at once) and reduces it with shuffles inside the group, with the
 //   group's next row's loads issued before this row's reductions. dγ / dβ
@@ -39,7 +40,11 @@
 //   (a counter read after a fence, reset by that CTA) adds the group's
 //   partial rows in CTA order, and the last group the groups' rows in group
 //   order, so that no one CTA reads all the partials from L2. Two calls
-//   give the same bits.
+//   give the same bits. The float32 instances run the same kernel on
+//   16-byte vectors of 4 floats and write dx unrounded; at C = 768 their
+//   lanes hold twice the bytes of a row, so they issue the next row's loads
+//   only after this row's (PREFETCH): the registers then fit without
+//   spilling.
 
 #include "layernorm_row.cuh"
 
@@ -87,22 +92,39 @@ cudaError_t launch_fwd(const T* x, const float* w, const float* b, T* y, int row
 constexpr int GROUP = 16;  // CTAs whose partial rows the last of them adds
 
 // How the backward cuts a row of C channels (C % 32 == 0, C <= 512, or
-// C = 768, base-384's last stage): N 16-byte vectors of 8 bf16; G lanes a
-// row (the power of two >= N, at most 32), V vectors a lane (lane j of a
-// group holds vectors j, j + G, ...; past N it holds none); ROWS rows a CTA
-// takes per step, one a group. PAIRS: the CTA's dγ and dβ rows go through
-// shared memory together (else one after the other, so that 768 channels
-// of eight warps fit in the 48 KB of static shared memory). Mirrored by
-// kernels.py::layernorm_bwd_plan.
-template <int C>
+// C = 768, base-384's last stage) of T (bf16 or float): N 16-byte vectors
+// of E values (8 bf16, 4 float); G lanes a row (the power of two >= N, at
+// most 32), V vectors a lane (lane j of a group holds vectors j, j + G,
+// ...; past N it holds none); ROWS rows a CTA takes per step, one a group.
+// PAIRS: the CTA's dγ and dβ rows go through shared memory together (else
+// one after the other, so that 768 channels of eight warps fit in the 48 KB
+// of static shared memory). PREFETCH: the next row's loads are in flight
+// during this row's arithmetic (not for float32 rows wider than 512).
+// Mirrored by kernels.py::layernorm_bwd_plan.
+template <typename T, int C>
 struct Shape {
   static_assert(C % 32 == 0 && (C <= 512 || C == 768), "C % 32 == 0, C <= 512 or C = 768");
-  static constexpr int N = C / 8;
+  static constexpr int E = 16 / sizeof(T);
+  static constexpr int N = C / E;
   static constexpr int G = N <= 4 ? 4 : N <= 8 ? 8 : N <= 16 ? 16 : 32;
   static constexpr int V = (N + G - 1) / G;
   static constexpr int ROWS = THREADS / G;
   static constexpr int PAIRS = C <= 512 ? 2 : 1;
+  static constexpr bool PREFETCH = sizeof(T) == 2 || C <= 512;
 };
+
+// A 16-byte vector of E values of T as floats; 4 floats as a vector.
+__device__ __forceinline__ void unpack_vec(const uint4& u, float (&f)[8]) { unpack8(u, f); }
+__device__ __forceinline__ void unpack_vec(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ uint4 pack_vec(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
+}
 
 using ln_row::group_sum;
 
@@ -175,14 +197,14 @@ __device__ __forceinline__ void sum_rows(const float* rows, int n, float* dst, f
   }
 }
 
-template <int C>
+template <typename T, int C>
 __global__ void __launch_bounds__(THREADS)
-layernorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-                     const float* __restrict__ w, const bf16* __restrict__ res,
-                     bf16* __restrict__ dx, float* __restrict__ out,
+layernorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                     const float* __restrict__ w, const T* __restrict__ res,
+                     T* __restrict__ dx, float* __restrict__ out,
                      int* __restrict__ arrival, int rows, float eps) {
-  using S = Shape<C>;
-  constexpr int G = S::G, V = S::V, N = S::N;
+  using S = Shape<T, C>;
+  constexpr int G = S::G, V = S::V, N = S::N, E = S::E;
   __shared__ float red[S::PAIRS][WARPS][C];
   __shared__ float4 fin[THREADS];
   __shared__ bool last;
@@ -190,13 +212,13 @@ layernorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
   const int j = lane % G, group = tid / G;
 
   bool has[V];
-  float gam[V][8], gw[V][8], gb[V][8];
+  float gam[V][E], gw[V][E], gb[V][E];
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     has[v] = v * G + j < N;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      gam[v][e] = has[v] ? w[(v * G + j) * 8 + e] : 0.f;
+    for (int e = 0; e < E; ++e) {
+      gam[v][e] = has[v] ? w[(v * G + j) * E + e] : 0.f;
       gw[v][e] = gb[v][e] = 0.f;
     }
   }
@@ -210,7 +232,7 @@ layernorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const bool ok = row < rows && has[v];
-      const size_t o = (size_t)row * C + (v * G + j) * 8;
+      const size_t o = (size_t)row * C + (v * G + j) * E;
       t.x[v] = ok ? *reinterpret_cast<const uint4*>(x + o) : zero;
       t.dy[v] = ok ? *reinterpret_cast<const uint4*>(dy + o) : zero;
       t.res[v] = ok && res != nullptr ? *reinterpret_cast<const uint4*>(res + o) : zero;
@@ -223,32 +245,34 @@ layernorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
   for (int step = blockIdx.x; step < steps; step += gridDim.x) {
     const int row = step * S::ROWS + group, next = step + (int)gridDim.x;
     Row nxt;
-    if (next < steps) load(next * S::ROWS + group, nxt);  // in flight below
-    float xh[V][8], s = 0.f;
+    if constexpr (S::PREFETCH) {
+      if (next < steps) load(next * S::ROWS + group, nxt);  // in flight below
+    }
+    float xh[V][E], s = 0.f;
 #pragma unroll
     for (int v = 0; v < V; ++v) {
-      unpack8(cur.x[v], xh[v]);
+      unpack_vec(cur.x[v], xh[v]);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) s += xh[v][e];
+      for (int e = 0; e < E; ++e) s += xh[v][e];
     }
     const float mu = group_sum<G>(s) / C;
     float var = 0.f;
 #pragma unroll
     for (int v = 0; v < V; ++v)
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
+      for (int e = 0; e < E; ++e) {
         const float d = has[v] ? xh[v][e] - mu : 0.f;
         var += d * d;
       }
     const float rstd = rsqrtf(group_sum<G>(var) / C + eps);
     const bool ok = row < rows;
-    float m1 = 0.f, m2 = 0.f, dh[V][8];
+    float m1 = 0.f, m2 = 0.f, dh[V][E];
 #pragma unroll
     for (int v = 0; v < V; ++v) {
-      float g[8];
-      unpack8(cur.dy[v], g);
+      float g[E];
+      unpack_vec(cur.dy[v], g);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
+      for (int e = 0; e < E; ++e) {
         xh[v][e] = (xh[v][e] - mu) * rstd;
         if (ok) {
           gw[v][e] += g[e] * xh[v][e];
@@ -264,24 +288,40 @@ layernorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       if (!ok || !has[v]) continue;
-      float rv[8];
-      unpack8(cur.res[v], rv);
-      uint32_t o[4];
+      float rv[E];
+      unpack_vec(cur.res[v], rv);
+      uint4* out_v = reinterpret_cast<uint4*>(dx + (size_t)row * C + (v * G + j) * E);
+      if constexpr (E == 8) {
+        // Each pair rounded as it is made: the order in which nvcc contracts
+        // this body, and so the bf16 bits of dx, depend on it.
+        uint32_t o[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float a[2];
+        for (int i = 0; i < 4; ++i) {
+          float a[2];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int e = 2 * i + h;
-          a[h] = rstd * (dh[v][e] - m1 - xh[v][e] * m2);
-          if (res != nullptr) a[h] += rv[e];
+          for (int h = 0; h < 2; ++h) {
+            const int e = 2 * i + h;
+            a[h] = rstd * (dh[v][e] - m1 - xh[v][e] * m2);
+            if (res != nullptr) a[h] += rv[e];
+          }
+          o[i] = pack_bf16(a[0], a[1]);
         }
-        o[i] = pack_bf16(a[0], a[1]);
+        *out_v = make_uint4(o[0], o[1], o[2], o[3]);
+      } else {
+        float a[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          a[e] = rstd * (dh[v][e] - m1 - xh[v][e] * m2);
+          if (res != nullptr) a[e] += rv[e];
+        }
+        *out_v = pack_vec(a);
       }
-      *reinterpret_cast<uint4*>(dx + (size_t)row * C + (v * G + j) * 8) =
-          make_uint4(o[0], o[1], o[2], o[3]);
     }
-    cur = nxt;
+    if constexpr (S::PREFETCH) {
+      cur = nxt;
+    } else if (next < steps) {
+      load(next * S::ROWS + group, cur);
+    }
   }
 
   // The CTA's partial row: the groups of a warp (same channels, lanes j
@@ -289,7 +329,7 @@ layernorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
 #pragma unroll
   for (int v = 0; v < V; ++v)
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
+    for (int e = 0; e < E; ++e)
 #pragma unroll
       for (int o = G; o < 32; o <<= 1) {
         gw[v][e] += __shfl_xor_sync(0xffffffffu, gw[v][e], o);
@@ -309,10 +349,10 @@ layernorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
       for (int v = 0; v < V; ++v)
         if (has[v])
 #pragma unroll
-          for (int e = 0; e < 8; ++e)
+          for (int e = 0; e < E; ++e)
 #pragma unroll
             for (int q = 0; q < S::PAIRS; ++q)
-              red[q][warp][(v * G + j) * 8 + e] = p0 + q == 0 ? gw[v][e] : gb[v][e];
+              red[q][warp][(v * G + j) * E + e] = p0 + q == 0 ? gw[v][e] : gb[v][e];
     }
     __syncthreads();
     for (int c = tid; c < S::PAIRS * C; c += THREADS) {
@@ -380,32 +420,53 @@ CSWIN_API int cswin_layernorm_f32(const void* x, const void* w, const void* b, v
 // and ceil(grid / 16) group rows of 2C (unused when grid == 1); arrival:
 // 1 + ceil(grid / 16) ints, zero, left zero. `grid` CTAs of 256 threads;
 // C % 32 == 0, C <= 512 or C = 768 (checked by the wrapper).
-CSWIN_API int cswin_layernorm_bwd(const void* x, const void* dy, const void* w,
-                                  const void* res, void* dx, void* out, void* arrival,
-                                  int rows, int C, int grid, float eps, void* stream) {
+// cswin_layernorm_bwd_f32: the same with x, dy, res and dx float32.
+template <typename T>
+static int ln_bwd_entry(const void* x, const void* dy, const void* w, const void* res, void* dx,
+                        void* out, void* arrival, int rows, int C, int grid, float eps,
+                        void* stream) {
   if (grid < 1) return (int)cudaErrorInvalidValue;
-#define CSWIN_LN_BWD(CH)                                                                   \
-  case CH:                                                                                 \
-    layernorm_bwd_kernel<CH><<<grid, THREADS, 0, (cudaStream_t)stream>>>(        \
-        (const bf16*)x, (const bf16*)dy, (const float*)w, (const bf16*)res, (bf16*)dx,     \
-        (float*)out, (int*)arrival, rows, eps);                                            \
+#define CSWIN_LN_BWD(CH)                                                                \
+  case CH:                                                                              \
+    layernorm_bwd_kernel<T, CH><<<grid, THREADS, 0, (cudaStream_t)stream>>>(            \
+        (const T*)x, (const T*)dy, (const float*)w, (const T*)res, (T*)dx, (float*)out, \
+        (int*)arrival, rows, eps);                                                      \
     return (int)cudaGetLastError();
   switch (C) { CSWIN_LN_BWD_CHANNELS(CSWIN_LN_BWD) }
 #undef CSWIN_LN_BWD
   return (int)cudaErrorInvalidValue;
 }
 
-// CTAs of the backward at C that an SM runs at once (the occupancy API), or
-// -1: what sizes the wrapper's one wave.
-CSWIN_API int cswin_layernorm_bwd_ctas_per_sm(int C) {
+// CTAs of the backward for T at C that an SM runs at once (the occupancy
+// API), or -1: what sizes the wrapper's one wave.
+template <typename T>
+static int ln_bwd_ctas_per_sm(int C) {
   int n = -1;
   cudaError_t err = cudaErrorInvalidValue;
-#define CSWIN_LN_BWD(CH)                                                                   \
-  case CH:                                                                                 \
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, layernorm_bwd_kernel<CH>, \
-                                                        THREADS, 0);                  \
+#define CSWIN_LN_BWD(CH)                                                                     \
+  case CH:                                                                                   \
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, layernorm_bwd_kernel<T, CH>, \
+                                                        THREADS, 0);                     \
     break;
   switch (C) { CSWIN_LN_BWD_CHANNELS(CSWIN_LN_BWD) }
 #undef CSWIN_LN_BWD
   return err == cudaSuccess ? n : -1;
+}
+
+CSWIN_API int cswin_layernorm_bwd(const void* x, const void* dy, const void* w,
+                                  const void* res, void* dx, void* out, void* arrival,
+                                  int rows, int C, int grid, float eps, void* stream) {
+  return ln_bwd_entry<bf16>(x, dy, w, res, dx, out, arrival, rows, C, grid, eps, stream);
+}
+
+CSWIN_API int cswin_layernorm_bwd_f32(const void* x, const void* dy, const void* w,
+                                      const void* res, void* dx, void* out, void* arrival,
+                                      int rows, int C, int grid, float eps, void* stream) {
+  return ln_bwd_entry<float>(x, dy, w, res, dx, out, arrival, rows, C, grid, eps, stream);
+}
+
+CSWIN_API int cswin_layernorm_bwd_ctas_per_sm(int C) { return ln_bwd_ctas_per_sm<bf16>(C); }
+
+CSWIN_API int cswin_layernorm_bwd_f32_ctas_per_sm(int C) {
+  return ln_bwd_ctas_per_sm<float>(C);
 }

@@ -59,6 +59,35 @@
 //   * the LePE weight and bias partials come last: a lane per (channel pair,
 //     token group of 8) with all ten sums in flight, the groups added by
 //     shuffles.
+//
+// The float32 instance (cswin_stripe_attention_bwd_f32, TPU.COMPUTE_DTYPE
+// float32) computes the same function with nothing rounded: S = q·scale·Kᵀ,
+// P = softmax(S), dV = Pᵀ·dO + the LePE transpose conv, dS = P∘(dP −
+// rowsum(dP∘P)), dQ = dS·K·scale, dK = dSᵀ·(q·scale), with float32 LePE
+// taps. Its products are FFMA (no tensor-core format keeps float32's), and
+// the bf16 plan's shared memory does not carry over: float32 q, k, v and dO
+// of a 288-token window at d = 24 take 110 KB, and P and dS tiles of a
+// 64-key block over all 288 queries 147 KB more. So it splits the work
+// another way, with no L x L or L x key-block tile at all:
+//   * rows: each warp takes QR = 4 query rows at a time, as the forward's
+//     float32 tile does: their scores and dP rows (a lane per key, from
+//     16-byte reads of q, dO and of k, v at a row stride of d + 4) into the
+//     warp's two row buffers, the softmax's max and sum and rowsum(dP∘P) as
+//     warp reductions, P and dS in place, then dQ (a lane per output) from
+//     the dS rows and K, written to dqkv; the rows' max, sum and
+//     rowsum(dP∘P) go to shared memory.
+//   * keys, 32 at a time: lane l holds key j = 32·kb + l's k and v in
+//     registers, and warp w walks the rows i ≡ w (mod 4): it recomputes S_ij
+//     and dP_ij in the rows' order of operations (so P_ij is the rows'
+//     value, bit for bit), forms P_ij and dS_ij from the saved statistics,
+//     and adds dS_ij·q_i and P_ij·dO_i into the key's dK and dV in
+//     registers. The four warps' partials are added in warp order through
+//     shared memory, dV gets the LePE transpose conv, and both leave in
+//     16-byte row chunks.
+//   That recomputes S and dP once (7·d FMAs a pair, against 5·d at least)
+//   for shared memory that grows with L·d only: 158 KB at L = 288, d = 24
+//   (smem_bytes_f32; kernels.stripe_attention_bwd_f32_smem mirrors it).
+//   * the LePE partials as the bf16 instance's, from float32 dO and V.
 
 #include "common.cuh"
 
@@ -518,6 +547,315 @@ cudaError_t launch(const bf16* qkv, const bf16* dout, const bf16* lw, bf16* dqkv
   return cudaGetLastError();
 }
 
+// --- the float32 instance (TPU.COMPUTE_DTYPE float32) ----------------------
+
+constexpr int QR = 4;   // query rows a warp takes at once in the row phase
+constexpr int KEYS = 32;  // keys of the key phase's block, a lane each
+
+__host__ __device__ constexpr int p_stride_f32(int L) { return (L + 3) / 4 * 4; }
+
+// Shared memory of one (window, head) at float32: q·scale and dO at a row
+// stride of D, k and v at D + 4; the rows' statistics (float4: max, sum,
+// rowsum(dP∘P)); the LePE taps; then one region the two phases take in
+// turn: the row phase's per-warp S / P and dP / dS rows, the key phase's
+// per-warp dK | dV partials and the summed rows on their way out.
+template <int D>
+__host__ __device__ constexpr size_t smem_bytes_f32(int L) {
+  const size_t rows = (size_t)WARPS * QR * 2 * p_stride_f32(L);
+  const size_t keys = (size_t)WARPS * KEYS * 2 * D + (size_t)KEYS * (2 * D + 4);
+  return sizeof(float) * ((size_t)L * D * 2 + (size_t)L * (D + 4) * 2 + (size_t)L * 4 +
+                          9 * D + (rows > keys ? rows : keys));
+}
+
+template <int D>
+__global__ void __launch_bounds__(WARPS * 32)
+stripe_attention_bwd_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+                                const float* __restrict__ lepe_w, float* __restrict__ dqkv,
+                                float* __restrict__ dl_part, int H, int W, int C, int ch_off,
+                                int cb, int h_sp, int w_sp, float scale) {
+  static_assert(D % 8 == 0 && D <= 32, "head dims 16, 24, 32");
+  constexpr int KS = D + 4;  // row stride of k and v
+  constexpr int CH = D / 4;  // 16-byte chunks of a token's head slice
+  constexpr int U = (QR * D + 31) / 32;  // dQ outputs a lane takes in a row group
+  constexpr int FS = 2 * D + 4;          // row stride of the summed dK | dV rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int L = h_sp * w_sp, PS = p_stride_f32(L);
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // q·scale, L x D
+  float* Os = Qs + L * D;                            // dO, L x D
+  float* Ks = Os + L * D;                            // L x KS
+  float* Vs = Ks + L * KS;
+  float4* St = reinterpret_cast<float4*>(Vs + L * KS);  // max, sum, rowsum(dP∘P)
+  float* Tw = reinterpret_cast<float*>(St + L);          // LePE taps, 9 x D
+  float* Rg = Tw + 9 * D;                                // the phases' region
+
+  const int n_wh = H / h_sp, n_ww = W / w_sp;
+  const int win = blockIdx.x;
+  const int b = win / (n_wh * n_ww);
+  const int row0 = (win / n_ww) % n_wh * h_sp, col0 = win % n_ww * w_sp;
+  const int head = blockIdx.y;
+  const int hc = head * D;
+  const int c0 = ch_off + hc;
+  const size_t C3 = 3 * (size_t)C;
+  const auto pixel = [&](int t) {
+    return ((size_t)b * H + row0 + t / w_sp) * W + col0 + t % w_sp;
+  };
+
+  for (int i = threadIdx.x; i < L * CH; i += blockDim.x) {
+    const int t = i / CH, c = i % CH * 4;
+    const size_t m = pixel(t);
+    const float* src = qkv + m * C3 + c0 + c;
+    cp_async16(Ks + t * KS + c, src + C);
+    cp_async16(Vs + t * KS + c, src + 2 * C);
+    cp_async16(Os + t * D + c, dout + m * C + c0 + c);
+    float4 q4 = __ldg(reinterpret_cast<const float4*>(src));
+    q4.x *= scale;
+    q4.y *= scale;
+    q4.z *= scale;
+    q4.w *= scale;
+    *reinterpret_cast<float4*>(Qs + t * D + c) = q4;
+  }
+  cp_async_commit();
+  for (int i = threadIdx.x; i < 9 * D; i += blockDim.x) Tw[i] = lepe_w[i / D * cb + hc + i % D];
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // Rows: S, P, dP, dS of QR query rows, dQ, and the rows' statistics.
+  {
+    float* P = Rg + warp * QR * 2 * PS;  // S, then P
+    float* G = P + QR * PS;              // dP, then dS
+    for (int r0 = warp * QR; r0 < L; r0 += WARPS * QR) {
+      const float* qr[QR];
+      const float* orow[QR];
+#pragma unroll
+      for (int r = 0; r < QR; ++r) {  // a row past L repeats row L - 1, unstored
+        qr[r] = Qs + min(r0 + r, L - 1) * D;
+        orow[r] = Os + min(r0 + r, L - 1) * D;
+      }
+      float mx[QR], sum[QR], dl[QR];
+#pragma unroll
+      for (int r = 0; r < QR; ++r) mx[r] = -INFINITY;
+      for (int j = lane; j < L; j += 32) {
+        float sc[QR] = {}, dp[QR] = {};
+#pragma unroll
+        for (int d = 0; d < D; d += 4) {
+          const float4 k4 = *reinterpret_cast<const float4*>(Ks + j * KS + d);
+          const float4 v4 = *reinterpret_cast<const float4*>(Vs + j * KS + d);
+#pragma unroll
+          for (int r = 0; r < QR; ++r) {
+            const float4 q4 = *reinterpret_cast<const float4*>(qr[r] + d);
+            const float4 o4 = *reinterpret_cast<const float4*>(orow[r] + d);
+            sc[r] = fmaf(q4.x, k4.x, sc[r]);
+            sc[r] = fmaf(q4.y, k4.y, sc[r]);
+            sc[r] = fmaf(q4.z, k4.z, sc[r]);
+            sc[r] = fmaf(q4.w, k4.w, sc[r]);
+            dp[r] = fmaf(o4.x, v4.x, dp[r]);
+            dp[r] = fmaf(o4.y, v4.y, dp[r]);
+            dp[r] = fmaf(o4.z, v4.z, dp[r]);
+            dp[r] = fmaf(o4.w, v4.w, dp[r]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < QR; ++r) {
+          P[r * PS + j] = sc[r];
+          G[r * PS + j] = dp[r];
+          mx[r] = fmaxf(mx[r], sc[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < QR; ++r) {
+        mx[r] = warp_max(mx[r]);
+        sum[r] = 0.f;
+        dl[r] = 0.f;
+      }
+      for (int j = lane; j < L; j += 32)
+#pragma unroll
+        for (int r = 0; r < QR; ++r) {
+          const float e = expf(P[r * PS + j] - mx[r]);
+          P[r * PS + j] = e;
+          sum[r] += e;
+        }
+#pragma unroll
+      for (int r = 0; r < QR; ++r) sum[r] = warp_sum(sum[r]);
+      for (int j = lane; j < L; j += 32)
+#pragma unroll
+        for (int r = 0; r < QR; ++r) {
+          const float p = P[r * PS + j] / sum[r];
+          P[r * PS + j] = p;
+          dl[r] += G[r * PS + j] * p;
+        }
+#pragma unroll
+      for (int r = 0; r < QR; ++r) dl[r] = warp_sum(dl[r]);
+      // dS in place, and zeros past L up to PS (the 16-byte reads below).
+      for (int j = lane; j < PS; j += 32)
+#pragma unroll
+        for (int r = 0; r < QR; ++r)
+          G[r * PS + j] = j < L ? P[r * PS + j] * (G[r * PS + j] - dl[r]) : 0.f;
+#pragma unroll
+      for (int r = 0; r < QR; ++r)
+        if (lane == r && r0 + r < L) St[r0 + r] = make_float4(mx[r], sum[r], dl[r], 0.f);
+      __syncwarp();
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int o = lane + 32 * u, r = o / D, dd = o % D, i = r0 + r;
+        if (o >= QR * D || i >= L) continue;
+        const float* gr = G + r * PS;
+        float acc = 0.f;
+        for (int j = 0; j < L; j += 4) {
+          const float4 g4 = *reinterpret_cast<const float4*>(gr + j);
+          acc = fmaf(g4.x, Ks[j * KS + dd], acc);
+          if (j + 1 < L) acc = fmaf(g4.y, Ks[(j + 1) * KS + dd], acc);
+          if (j + 2 < L) acc = fmaf(g4.z, Ks[(j + 2) * KS + dd], acc);
+          if (j + 3 < L) acc = fmaf(g4.w, Ks[(j + 3) * KS + dd], acc);
+        }
+        dqkv[pixel(i) * C3 + c0 + dd] = acc * scale;
+      }
+      __syncwarp();  // the group's rows are rewritten by the next
+    }
+  }
+  __syncthreads();  // the statistics are complete; the region is the key phase's
+
+  // Keys, KEYS at a time: lane l holds key j's k and v; warp w the rows
+  // i ≡ w (mod WARPS).
+  float* Red = Rg;                        // WARPS x 2D x KEYS partials
+  float* Fin = Rg + WARPS * KEYS * 2 * D; // KEYS x FS summed rows
+  for (int kb = 0; kb * KEYS < L; ++kb) {
+    const int j = kb * KEYS + lane;
+    const bool key = j < L;
+    float kr[D], vr[D], dk[D], dv[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      kr[d] = key ? Ks[j * KS + d] : 0.f;
+      vr[d] = key ? Vs[j * KS + d] : 0.f;
+      dk[d] = dv[d] = 0.f;
+    }
+    for (int i = warp; i < L; i += WARPS) {
+      const float4 st = St[i];
+      const float* qi = Qs + i * D;
+      const float* oi = Os + i * D;
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; d += 4) {
+        const float4 q4 = *reinterpret_cast<const float4*>(qi + d);
+        const float4 o4 = *reinterpret_cast<const float4*>(oi + d);
+        s = fmaf(q4.x, kr[d], s);
+        s = fmaf(q4.y, kr[d + 1], s);
+        s = fmaf(q4.z, kr[d + 2], s);
+        s = fmaf(q4.w, kr[d + 3], s);
+        dp = fmaf(o4.x, vr[d], dp);
+        dp = fmaf(o4.y, vr[d + 1], dp);
+        dp = fmaf(o4.z, vr[d + 2], dp);
+        dp = fmaf(o4.w, vr[d + 3], dp);
+      }
+      const float p = key ? expf(s - st.x) / st.y : 0.f;
+      const float ds = p * (dp - st.z);
+#pragma unroll
+      for (int d = 0; d < D; d += 4) {
+        const float4 q4 = *reinterpret_cast<const float4*>(qi + d);
+        const float4 o4 = *reinterpret_cast<const float4*>(oi + d);
+        dk[d] = fmaf(ds, q4.x, dk[d]);
+        dk[d + 1] = fmaf(ds, q4.y, dk[d + 1]);
+        dk[d + 2] = fmaf(ds, q4.z, dk[d + 2]);
+        dk[d + 3] = fmaf(ds, q4.w, dk[d + 3]);
+        dv[d] = fmaf(p, o4.x, dv[d]);
+        dv[d + 1] = fmaf(p, o4.y, dv[d + 1]);
+        dv[d + 2] = fmaf(p, o4.z, dv[d + 2]);
+        dv[d + 3] = fmaf(p, o4.w, dv[d + 3]);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      Red[(warp * 2 * D + d) * KEYS + lane] = dk[d];
+      Red[(warp * 2 * D + D + d) * KEYS + lane] = dv[d];
+    }
+    __syncthreads();
+    // The warps' partials in warp order; dV with the LePE transpose conv.
+    for (int idx = threadIdx.x; idx < 2 * D * KEYS; idx += blockDim.x) {
+      const int l = idx % KEYS, c2 = idx / KEYS, jj = kb * KEYS + l;
+      float v = 0.f;
+#pragma unroll
+      for (int q = 0; q < WARPS; ++q) v += Red[(q * 2 * D + c2) * KEYS + l];
+      if (c2 >= D && jj < L) {
+        const int dd = c2 - D, tr = jj / w_sp, tc = jj % w_sp;
+        float lp = 0.f;
+        for (int di = -1; di <= 1; ++di) {
+          const int r = tr - di;
+          if (r < 0 || r >= h_sp) continue;
+          for (int dj = -1; dj <= 1; ++dj) {
+            const int c = tc - dj;
+            if (c < 0 || c >= w_sp) continue;
+            lp = fmaf(Tw[((di + 1) * 3 + dj + 1) * D + dd], Os[(r * w_sp + c) * D + dd], lp);
+          }
+        }
+        v += lp;
+      }
+      Fin[l * FS + c2] = v;
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < KEYS * 2 * CH; idx += blockDim.x) {
+      const int l = idx / (2 * CH), ch = idx % (2 * CH), jj = kb * KEYS + l;
+      if (jj >= L) continue;
+      const int third = ch < CH ? 1 : 2, c = (ch % CH) * 4;
+      *reinterpret_cast<float4*>(dqkv + pixel(jj) * C3 + third * C + c0 + c) =
+          *reinterpret_cast<const float4*>(Fin + l * FS + ch * 4);
+    }
+    __syncthreads();  // Red and Fin are rewritten by the next key block
+  }
+
+  // LePE weight (9 taps) and bias partials of this (window, head), as the
+  // bf16 instance's: lane (channel pair, token group of 8), the groups added
+  // by shuffles, (cb, 10) a window.
+  {
+    const int g = lane >> 2, q4 = lane & 3;
+    const int cp = warp * 4 + q4, dd = 2 * cp;
+    if (cp < D / 2) {
+      float acc[10][2] = {};
+      for (int t = g; t < L; t += 8) {
+        const int tr = t / w_sp, tc = t % w_sp;
+        const float2 o2 = *reinterpret_cast<const float2*>(Os + t * D + dd);
+        acc[9][0] += o2.x;
+        acc[9][1] += o2.y;
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          const int r = tr + tap / 3 - 1, c = tc + tap % 3 - 1;
+          if (r < 0 || r >= h_sp || c < 0 || c >= w_sp) continue;
+          const float2 v2 = *reinterpret_cast<const float2*>(Vs + (r * w_sp + c) * KS + dd);
+          acc[tap][0] = fmaf(o2.x, v2.x, acc[tap][0]);
+          acc[tap][1] = fmaf(o2.y, v2.y, acc[tap][1]);
+        }
+      }
+#pragma unroll
+      for (int tap = 0; tap < 10; ++tap)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1)
+            acc[tap][e] += __shfl_xor_sync(__activemask(), acc[tap][e], o);
+      if (g == 0) {
+        float* dst = dl_part + ((size_t)win * cb + hc + dd) * 10;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int tap = 0; tap < 10; ++tap) dst[e * 10 + tap] = acc[tap][e];
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_f32(const float* qkv, const float* dout, const float* lw, float* dqkv,
+                       float* dl, int B, int H, int W, int C, int ch_off, int cb, int heads,
+                       int h_sp, int w_sp, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes_f32<D>(h_sp * w_sp);
+  cudaError_t err = allow_smem(stripe_attention_bwd_f32_kernel<D>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * (H / h_sp) * (W / w_sp), heads);
+  stripe_attention_bwd_f32_kernel<D><<<grid, WARPS * 32, smem, stream>>>(
+      qkv, dout, lw, dqkv, dl, H, W, C, ch_off, cb, h_sp, w_sp, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Bytes of shared memory the kernel takes for a window of L tokens at head
@@ -554,6 +892,40 @@ CSWIN_API int cswin_stripe_attention_bwd(const void* qkv, const void* dout,
     case 16: return (int)launch<16>(q, o, lw, g, dl, B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, s);
     case 24: return (int)launch<24>(q, o, lw, g, dl, B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, s);
     case 32: return (int)launch<32>(q, o, lw, g, dl, B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The float32 instance's shared memory (smem_bytes_f32), as
+// cswin_stripe_attention_bwd_smem gives the bf16 one's.
+CSWIN_API long long cswin_stripe_attention_bwd_f32_smem(int L, int D) {
+  switch (D) {
+    case 16: return (long long)smem_bytes_f32<16>(L);
+    case 24: return (long long)smem_bytes_f32<24>(L);
+    case 32: return (long long)smem_bytes_f32<32>(L);
+    default: return 0;
+  }
+}
+
+// The float32 instance: qkv, dout, dqkv float32, lepe_w (9, cb) float32,
+// dl_part as above; C and ch_off multiples of 4 and qkv, dout, dqkv
+// 16-byte aligned; smem_bytes_f32(L) at most 227 KB (checked by the
+// wrapper).
+CSWIN_API int cswin_stripe_attention_bwd_f32(const void* qkv, const void* dout,
+                                             const void* lepe_w, void* dqkv, void* dl_part,
+                                             int B, int H, int W, int C, int ch_off, int cb,
+                                             int heads, int h_sp, int w_sp, float scale,
+                                             void* stream) {
+  const float* q = (const float*)qkv;
+  const float* o = (const float*)dout;
+  const float* lw = (const float*)lepe_w;
+  float* g = (float*)dqkv;
+  float* dl = (float*)dl_part;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (cb / heads) {
+    case 16: return (int)launch_f32<16>(q, o, lw, g, dl, B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, s);
+    case 24: return (int)launch_f32<24>(q, o, lw, g, dl, B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, s);
+    case 32: return (int)launch_f32<32>(q, o, lw, g, dl, B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

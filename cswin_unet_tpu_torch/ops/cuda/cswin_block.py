@@ -130,13 +130,19 @@ class CSWinBlockFn(torch.autograd.Function):
 
     Saved for the backward: the block input, LN1 out, qkv (3C), attention
     out, x1, LN2 out, fc1 pre-activation h (4C) and GELU out (4C, after the
-    fc1 site's dropout) — 16·M·C bf16 values for M rows. At bs 24:
-    tiny-224's stages 1-4 154, 77, 38.5 and 19.3 MB a block; base-384's
-    679, 340, 170 and 85 MB. All but h are the forward chain's own outputs,
-    kept instead of recomputed; no L x L score is kept (the attention
-    backward recomputes its probabilities). Dropout adds nothing of size
-    M x C: the backward GEMMs regenerate both masks from the sites' keys
-    (two int64 a block).
+    fc1 site's dropout) — 16·M·C values for M rows, 32·M·C bytes in bf16
+    and 64·M·C at float32. At bs 24: tiny-224's stages 1-4 154, 77, 38.5
+    and 19.3 MB a block in bf16 (308, 154, 77 and 38.5 at float32);
+    base-384's 679, 340, 170 and 85 MB (1359, 679, 340 and 170). All but h
+    are the forward chain's own outputs, kept instead of recomputed; no
+    L x L score is kept (the attention backward recomputes its
+    probabilities). Dropout adds nothing of size M x C: the backward GEMMs
+    regenerate both masks from the sites' keys (two int64 a block).
+
+    At float32 (``TPU.COMPUTE_DTYPE float32``) every step launches its
+    kernel's float32 instance and nothing in the backward chain is
+    rounded: the cotangents stay float32, the drop-path multipliers are
+    the float32 ones.
 
     A last-stage block (``last_stage``) runs one branch over the whole
     window with every head: its LePE is passed in both slots and its
@@ -210,8 +216,9 @@ def fused_cswin_block(x: torch.Tensor, p: BlockParams, *, heads: int,
     attention and MLP branches before their residual adds. ``drops``: None,
     or the MLP's dropout sites (after the GELU, after fc2), over the rows
     (b, h, w) of this call. On a CUDA tensor
-    every step is a CUDA kernel (bf16 activations); on a CPU tensor each
-    step runs that kernel's plain version. Where autograd needs gradients,
+    every step is a CUDA kernel (the bf16 or float32 instance, by the
+    activations' dtype); on a CPU tensor each step runs that kernel's plain
+    version. Where autograd needs gradients,
     the call goes through ``CSWinBlockFn``, whose backward is kernels too.
     """
     if needs_grad(x, *p):

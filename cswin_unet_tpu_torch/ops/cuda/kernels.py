@@ -8,24 +8,25 @@ the launch returned a CUDA error; there is no fallback. Each wrapper counts
 its launches in a plain integer attribute, ``<wrapper>.launches``, so a run
 can show that it went through the kernel.
 
-The serving path's kernels (``layernorm``, ``gemm``, ``stripe_attention``,
-``cswin_attention``, ``carafe_reassemble``, ``block_pair``) have a bf16
-instance and a float32 one (``TPU.COMPUTE_DTYPE float32``: float32 products
-and nothing rounded to bf16), chosen by the dtype of the activations; any
-other dtype raises ``TypeError``. A float32 launch also counts in
-``<wrapper>.launches_f32`` (``launch_counts`` reports it as
-``<name>_f32``). The training kernels take bf16 only.
+The serving and training paths' kernels (``layernorm``, ``gemm``,
+``stripe_attention``, ``cswin_attention``, ``carafe_reassemble``,
+``block_pair``; ``layernorm_bwd``, ``gemm_dgrad``, ``gemm_wgrad``,
+``stripe_attention_bwd``) have a bf16 instance and a float32 one
+(``TPU.COMPUTE_DTYPE float32``: float32 products and nothing rounded to
+bf16), chosen by the dtype of the activations; any other dtype raises
+``TypeError``. A float32 launch also counts in ``<wrapper>.launches_f32``
+(``launch_counts`` reports it as ``<name>_f32``).
 
 Kernels (``csrc/``):
   layernorm.cu             LN over channels, float32 statistics
                            (``layernorm``, bf16 or float32), and its
                            backward (``layernorm_bwd``)
   gemm.cu                  bf16 GEMM with bias / residual / drop-path / GELU
-                           epilogues (``gemm``; the float32 instance on
-                           FFMA, serving epilogues), the backward's dX products
+                           epilogues (``gemm``), the backward's dX products
                            with a GELU-backward epilogue (``gemm_dgrad``) and
                            the split-M weight gradient (``gemm_wgrad``); all
-                           three with dropout masks (``ops.dropout``)
+                           three with dropout masks (``ops.dropout``) and
+                           float32 instances on FFMA
   stripe_attention.cu      CSWin stripe-window attention + LePE, one branch:
                            from the qkv GEMM output with the composition's
                            rounding (``stripe_attention``), or from separate
@@ -33,7 +34,8 @@ Kernels (``csrc/``):
                            (``cswin_attention``); and the attention alone,
                            without LePE, with its stubbed modes
                            (``window_attention``, for the block lab)
-  stripe_attention_bwd.cu  the backward of ``stripe_attention``
+  stripe_attention_bwd.cu  the backward of ``stripe_attention`` (bf16 on
+                           tensor cores, float32 on FFMA)
   carafe.cu                CARAFE kernel prediction, softmax and reassembly
   block_pair.cu            two consecutive dual-branch CSWin blocks in one
                            cooperative launch (``block_pair``), on the
@@ -65,7 +67,7 @@ from .. import dropout as _dropout
 from ..attention import (cswin_attention_pallas_plain, cswin_attention_xla,
                          depthwise_conv3x3)
 from ..dropout import Drop
-from ..precision import conv_precision
+from ..precision import conv2d, conv_precision
 from ..windows import window_merge, window_partition
 from .build import check, library
 
@@ -105,8 +107,8 @@ _ACT_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _act_dtype(t: torch.Tensor, name: str) -> torch.dtype:
-    """The instance a serving-path wrapper launches: bf16 or float32, by
-    the dtype of its activations; ``TypeError`` for any other."""
+    """The instance a wrapper launches: bf16 or float32, by the dtype of its
+    activations; ``TypeError`` for any other."""
     if t.dtype not in _ACT_DTYPES:
         raise TypeError(f"{name} is {t.dtype}; the kernels have bfloat16 and float32 "
                         "instances")
@@ -292,12 +294,12 @@ def layernorm_bwd_plain(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
 
 
 class LnBwdPlan(NamedTuple):
-    """How ``layernorm_bwd`` cuts its rows (``layernorm.cu``'s ``Shape<C>``):
-    ``lanes`` lanes a row in 16-byte vectors, a row a lane group,
-    ``rows_per_step`` rows a CTA per step; ``grid`` CTAs (at
-    most one wave) stride over the steps, each writing one partial row of
-    dγ | dβ, summed within ``groups`` groups of 16 CTAs and then across
-    them."""
+    """How ``layernorm_bwd`` cuts its rows (``layernorm.cu``'s
+    ``Shape<T, C>``): ``lanes`` lanes a row in 16-byte vectors (8 bf16, 4
+    float32), a row a lane group, ``rows_per_step`` rows a CTA per step;
+    ``grid`` CTAs (at most one wave) stride over the steps, each writing one
+    partial row of dγ | dβ, summed within ``groups`` groups of 16 CTAs and
+    then across them."""
     grid: int
     rows_per_step: int
     lanes: int
@@ -307,13 +309,14 @@ class LnBwdPlan(NamedTuple):
 _LN_GROUP = 16     # layernorm.cu GROUP
 
 
-def layernorm_bwd_plan(rows: int, C: int, ctas_per_sm: int = 1, sms: int = _SMS) -> LnBwdPlan:
+def layernorm_bwd_plan(rows: int, C: int, ctas_per_sm: int = 1, sms: int = _SMS,
+                       dtype: torch.dtype = torch.bfloat16) -> LnBwdPlan:
     """One wave of ``sms * ctas_per_sm`` CTAs (the wrapper asks the
     occupancy API for ``ctas_per_sm``), fewer where the rows run out first:
     every CTA gets at least one step of rows. Only the grid reaches the
     kernel, which cuts its rows itself: a plan that differed from
-    ``Shape<C>`` would size the wave wrongly, never drop a row."""
-    n = C // 8
+    ``Shape<T, C>`` would size the wave wrongly, never drop a row."""
+    n = C // _vec(dtype)
     lanes = 4 if n <= 4 else 8 if n <= 8 else 16 if n <= 16 else 32
     step = _LN_THREADS // lanes
     grid = max(1, min(sms * ctas_per_sm, -(-rows // step)))
@@ -331,24 +334,27 @@ def layernorm_bwd_rows(plan: LnBwdPlan, rows: int, cta: int) -> list[int]:
 
 
 _ln_bwd_fit: dict[tuple, int] = {}
-_ln_bwd_plans: dict[tuple, LnBwdPlan] = {}  # by (device, rows, C): planned once a shape
+_ln_bwd_plans: dict[tuple, LnBwdPlan] = {}  # by (device, rows, C, dtype): once a shape
 _ln_bwd_arrival: dict[torch.device, torch.Tensor] = {}
 
 
-def _layernorm_bwd_plan(dev: torch.device, rows: int, C: int) -> LnBwdPlan:
-    plan = _ln_bwd_plans.get((dev, rows, C))
+def _layernorm_bwd_plan(dev: torch.device, rows: int, C: int,
+                        dtype: torch.dtype = torch.bfloat16) -> LnBwdPlan:
+    plan = _ln_bwd_plans.get((dev, rows, C, dtype))
     if plan is None:
         with torch.cuda.device(dev):
-            key = (torch.cuda.current_device(), C)
+            key = (torch.cuda.current_device(), C, dtype)
             if key not in _ln_bwd_fit:
-                n = library().cswin_layernorm_bwd_ctas_per_sm(C)
+                fit = (library().cswin_layernorm_bwd_ctas_per_sm if dtype == torch.bfloat16
+                       else library().cswin_layernorm_bwd_f32_ctas_per_sm)
+                n = fit(C)
                 if n < 1:
                     raise RuntimeError(f"layernorm_bwd: the occupancy API gave {n} CTAs "
-                                       f"an SM at C={C}")
+                                       f"an SM at C={C} ({dtype})")
                 _ln_bwd_fit[key] = n
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            plan = _ln_bwd_plans[dev, rows, C] = layernorm_bwd_plan(rows, C, _ln_bwd_fit[key],
-                                                                    sms)
+            plan = _ln_bwd_plans[dev, rows, C, dtype] = layernorm_bwd_plan(
+                rows, C, _ln_bwd_fit[key], sms, dtype)
     return plan
 
 
@@ -356,25 +362,27 @@ def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
                   residual: torch.Tensor | None = None, eps: float = 1e-5):
     """Backward of ``layernorm`` with float32 statistics recomputed from x.
 
-    x, dy, residual: (rows, C) in ``x.dtype``; weight (C,) float32. Returns
-    (dx = residual + LN-vjp(dy) in ``x.dtype``, dweight, dbias), the last
-    two float32 (C,). On the GPU one launch (``layernorm_bwd_plan``) sums
-    dweight and dbias itself, in a fixed order: two calls give the same
-    bits."""
+    x, dy, residual: (rows, C) in ``x.dtype`` (bf16 or float32); weight (C,)
+    float32. Returns (dx = residual + LN-vjp(dy) in ``x.dtype``, dweight,
+    dbias), the last two float32 (C,). On the GPU one launch
+    (``layernorm_bwd_plan``) sums dweight and dbias itself, in a fixed
+    order: two calls give the same bits. Float32 launches the float32
+    instance (dx unrounded)."""
     if _on_cpu(x):
         return layernorm_bwd_plain(x, dy, weight, residual, eps)
     rows, C = x.shape
     dev = x.device
-    _require(x, "x", torch.bfloat16, dev)
-    _require(dy, "dy", torch.bfloat16, dev, (rows, C))
+    dt = _act_dtype(x, "x")
+    _require(x, "x", dt, dev)
+    _require(dy, "dy", dt, dev, (rows, C))
     _require(weight, "weight", torch.float32, dev, (C,))
     if residual is not None:
-        _require(residual, "residual", torch.bfloat16, dev, (rows, C))
+        _require(residual, "residual", dt, dev, (rows, C))
     if C % 32 or (C > 512 and C != 768):
         raise ValueError(f"layernorm_bwd takes C % 32 == 0 and C <= 512, or C = 768, got {C}")
     if any(_ptr(t) % 16 for t in (x, dy, residual)):
         raise ValueError("layernorm_bwd needs 16-byte aligned x, dy and residual")
-    plan = _layernorm_bwd_plan(dev, rows, C)
+    plan = _layernorm_bwd_plan(dev, rows, C, dt)
     arrival = _ln_bwd_arrival.get(dev)
     if arrival is None or arrival.numel() < 1 + plan.groups:
         # zero, and left zero by every launch (each counter's last CTA resets it)
@@ -385,15 +393,16 @@ def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
     # CTA and one a group of CTAs.
     out = torch.empty(2 * C * (1 + (plan.grid + plan.groups if plan.grid > 1 else 0)),
                       dtype=torch.float32, device=dev)
-    err = library().cswin_layernorm_bwd(
-        x.data_ptr(), dy.data_ptr(), weight.data_ptr(), _ptr(residual), dx.data_ptr(),
-        out.data_ptr(), arrival.data_ptr(), rows, C, plan.grid, eps, _stream(dev))
+    fn = (library().cswin_layernorm_bwd if dt == torch.bfloat16
+          else library().cswin_layernorm_bwd_f32)
+    err = fn(x.data_ptr(), dy.data_ptr(), weight.data_ptr(), _ptr(residual), dx.data_ptr(),
+             out.data_ptr(), arrival.data_ptr(), rows, C, plan.grid, eps, _stream(dev))
     check(err, "layernorm_bwd")
-    layernorm_bwd.launches += 1
+    _counted(layernorm_bwd, dt)
     return dx, out[:C], out[C:2 * C]
 
 
-layernorm_bwd.launches = 0
+layernorm_bwd.launches = layernorm_bwd.launches_f32 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -442,8 +451,7 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
     ``"residual"`` on the branch before ``dp`` and for ``"gelu"`` on the
     GELU's output: a kept value becomes round(round(v) / keep), a dropped
     one 0. ``a`` in float32 launches the float32 instance (FFMA products,
-    nothing rounded), which has the serving epilogues: no ``pre``, no
-    ``drop``.
+    nothing rounded: ``pre`` float32, a kept value v / keep).
     """
     if epilogue not in _EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
@@ -463,31 +471,22 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
     dev = a.device
     dt = _act_dtype(a, "a")
     _require(a, "a", dt, dev)
-    if dt == torch.float32 and (pre is not None or drop is not None):
-        raise TypeError("gemm's float32 instance has the serving epilogues; pre and drop "
-                        "(training) take bfloat16")
     _require(w, "w", dt, dev, (N, K))
     if bias is not None:
         _require(bias, "bias", torch.float32, dev, (N,))
     if residual is not None:
         _require(residual, "residual", dt, dev, (M, N))
     if pre is not None:
-        _require(pre, "pre", torch.bfloat16, dev, (M, N))
+        _require(pre, "pre", dt, dev, (M, N))
     if dp is not None:
         _check_scale(dp, M, rows_per_sample, dev)
     _check_gemm_operands(a, w)
     out = torch.empty((M, N), dtype=dt, device=dev)
-    if dt == torch.float32:
-        err = library().cswin_gemm_f32(
-            a.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(residual), _ptr(dp),
-            out.data_ptr(), M, N, K, max(rows_per_sample, 1), _EPILOGUES[epilogue],
-            _stream(dev))
-    else:
-        key, row0, kd, thr = _drop_args(drop, N, a.dtype, dev)
-        err = library().cswin_gemm(
-            a.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(residual), _ptr(pre), 0,
-            _ptr(dp), out.data_ptr(), M, N, K, max(rows_per_sample, 1),
-            _EPILOGUES[epilogue], 0, key, row0, kd, thr, _stream(dev))
+    key, row0, kd, thr = _drop_args(drop, N, dt, dev)
+    fn = library().cswin_gemm if dt == torch.bfloat16 else library().cswin_gemm_f32
+    err = fn(a.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(residual), _ptr(pre), 0, _ptr(dp),
+             out.data_ptr(), M, N, K, max(rows_per_sample, 1), _EPILOGUES[epilogue], 0, key,
+             row0, kd, thr, _stream(dev))
     check(err, "gemm")
     _counted(gemm, dt)
     return out
@@ -554,7 +553,8 @@ def gemm_dgrad(dy: torch.Tensor, w: torch.Tensor, *,
                gelu_h: torch.Tensor | None = None, drop_dy: Drop | None = None,
                drop_dx: Drop | None = None) -> torch.Tensor:
     """Input gradient of a Linear layer, ``dX = dY' · w``, float32
-    accumulation, out in ``dy.dtype``.
+    accumulation, out in ``dy.dtype`` (bf16, or float32: the float32
+    instance, nothing rounded).
 
     dy: (M, N); w: (N, K), the torch Linear layout (the kernel reads it
     pre-transposed); dY' is dy with row m scaled by the drop-path multiplier
@@ -572,12 +572,13 @@ def gemm_dgrad(dy: torch.Tensor, w: torch.Tensor, *,
     M, N = dy.shape
     K = w.shape[1]
     dev = dy.device
-    _require(dy, "dy", torch.bfloat16, dev)
+    dt = _act_dtype(dy, "dy")
+    _require(dy, "dy", dt, dev)
     if w.device != dev or tuple(w.shape) != (N, K):
         raise ValueError(f"w: {tuple(w.shape)} on {w.device}, expected ({N}, {K}) "
                          f"on {dev}")
     if gelu_h is not None:
-        _require(gelu_h, "gelu_h", torch.bfloat16, dev, (M, K))
+        _require(gelu_h, "gelu_h", dt, dev, (M, K))
     if dp is not None:
         _check_scale(dp, M, rows_per_sample, dev)
     wt = w.to(dy.dtype).t().contiguous()                     # (K, N)
@@ -588,18 +589,18 @@ def gemm_dgrad(dy: torch.Tensor, w: torch.Tensor, *,
     if drop_dy is not None and drop_dx is not None and (
             (drop_dy.rate, drop_dy.row0) != (drop_dx.rate, drop_dx.row0)):
         raise ValueError("drop_dy and drop_dx are one block's sites: one rate, one row0")
-    out = torch.empty((M, K), dtype=dy.dtype, device=dev)
-    err = library().cswin_gemm(
-        dy.data_ptr(), wt.data_ptr(), 0, 0, _ptr(gelu_h), _ptr(dp), 0,
-        out.data_ptr(), M, K, N, max(rows_per_sample, 1),
-        _GELU_BWD if gelu_h is not None else _EPILOGUES["bias"], key_a, key_out,
-        row0_out, kd, thr, _stream(dev))
+    out = torch.empty((M, K), dtype=dt, device=dev)
+    fn = library().cswin_gemm if dt == torch.bfloat16 else library().cswin_gemm_f32
+    err = fn(dy.data_ptr(), wt.data_ptr(), 0, 0, _ptr(gelu_h), _ptr(dp), 0,
+             out.data_ptr(), M, K, N, max(rows_per_sample, 1),
+             _GELU_BWD if gelu_h is not None else _EPILOGUES["bias"], key_a, key_out,
+             row0_out, kd, thr, _stream(dev))
     check(err, "gemm_dgrad")
-    gemm_dgrad.launches += 1
+    _counted(gemm_dgrad, dt)
     return out
 
 
-gemm_dgrad.launches = 0
+gemm_dgrad.launches = gemm_dgrad.launches_f32 = 0
 
 
 def gemm_wgrad_plain(x: torch.Tensor, dy: torch.Tensor, *,
@@ -668,19 +669,23 @@ def wgrad_plan(M: int, N: int, K: int, max_clusters=None) -> WgradPlan:
 
 _wgrad_arrivals: dict[torch.device, torch.Tensor] = {}
 _wgrad_fit: dict[tuple, int] = {}
-_wgrad_plans: dict[tuple, WgradPlan] = {}  # by (device, M, N, K): planned once a shape
+_wgrad_plans: dict[tuple, WgradPlan] = {}  # by (device, M, N, K, dtype): once a shape
 
 
-def _wgrad_max_clusters(bn: int, bk: int, cl: int) -> int:
+def _wgrad_max_clusters(bn: int, bk: int, cl: int,
+                        dtype: torch.dtype = torch.bfloat16) -> int:
     """Clusters of ``cl`` CTAs of the ``bn`` x ``bk`` weight-gradient kernel
-    the card runs at once, from the occupancy API (asked once a shape); 0
-    where none fits, and the planner then takes a smaller cluster."""
-    key = (torch.cuda.current_device(), bn, bk, cl)
+    for ``dtype`` the card runs at once, from the occupancy API (asked once a
+    shape); 0 where none fits, and the planner then takes a smaller
+    cluster."""
+    key = (torch.cuda.current_device(), bn, bk, cl, dtype)
     if key not in _wgrad_fit:
-        n = library().cswin_gemm_wgrad_max_clusters(bn, bk, cl)
+        fit = (library().cswin_gemm_wgrad_max_clusters if dtype == torch.bfloat16
+               else library().cswin_gemm_wgrad_f32_max_clusters)
+        n = fit(bn, bk, cl)
         if n < 0 or (cl == 1 and n == 0):
             raise RuntimeError(f"gemm_wgrad: the occupancy API gave {n} for clusters of "
-                               f"{cl} CTAs of the {bn}x{bk} tile")
+                               f"{cl} CTAs of the {bn}x{bk} tile ({dtype})")
         _wgrad_fit[key] = n
     return _wgrad_fit[key]
 
@@ -702,45 +707,49 @@ def gemm_wgrad(x: torch.Tensor, dy: torch.Tensor, *,
     """Weight and bias gradients of a Linear layer ``y = x·Wᵀ + b``:
     ``(dW = dY'ᵀ·x (N, K), db = Σ_rows dY' (N,))``, both float32.
 
-    x: (M, K), dy: (M, N) in one dtype; dY' as in ``gemm_dgrad``, with
-    ``drop`` as its ``drop_dy``. On the GPU one launch (``wgrad_plan``)
-    splits M over one wave of CTAs and sums the splits itself, in a fixed
-    order: two calls give the same bits."""
+    x: (M, K), dy: (M, N) in one dtype (bf16, or float32: the float32
+    instance, FFMA products); dY' as in ``gemm_dgrad``, with ``drop`` as its
+    ``drop_dy``. On the GPU one launch (``wgrad_plan``) splits M over one
+    wave of CTAs and sums the splits itself, in a fixed order: two calls
+    give the same bits."""
     if _on_cpu(x):
         return gemm_wgrad_plain(x, dy, dp=dp, rows_per_sample=rows_per_sample, drop=drop)
     M, K = x.shape
     N = dy.shape[1]
     dev = x.device
-    _require(x, "x", torch.bfloat16, dev)
-    _require(dy, "dy", torch.bfloat16, dev, (M, N))
+    dt = _act_dtype(x, "x")
+    _require(x, "x", dt, dev)
+    _require(dy, "dy", dt, dev, (M, N))
     if dp is not None:
         _check_scale(dp, M, rows_per_sample, dev)
     if K % 8 or N % 8 or x.data_ptr() % 16 or dy.data_ptr() % 16:
         raise ValueError("gemm_wgrad needs K % 8 == N % 8 == 0 and 16-byte "
                          "aligned operands")
-    key, row0, kd, thr = _drop_args(drop, N, dy.dtype, dev)
-    plan = _wgrad_plans.get((dev, M, N, K))
+    key, row0, kd, thr = _drop_args(drop, N, dt, dev)
+    plan = _wgrad_plans.get((dev, M, N, K, dt))
     if plan is None:
         with torch.cuda.device(dev):
-            plan = _wgrad_plans[dev, M, N, K] = wgrad_plan(M, N, K, _wgrad_max_clusters)
+            plan = _wgrad_plans[dev, M, N, K, dt] = wgrad_plan(
+                M, N, K, lambda bn, bk, cl: _wgrad_max_clusters(bn, bk, cl, dt))
     if plan.tiles > 65535 or plan.splits * plan.chunk >= 2**31:
         raise ValueError(f"gemm_wgrad: M={M}, N={N}, K={K} exceed the grid limit")
     dw = torch.empty((N, K), dtype=torch.float32, device=dev)
     db = torch.empty((N,), dtype=torch.float32, device=dev)
     part = torch.empty((plan.partial_bytes // 4,), dtype=torch.float32, device=dev)
     part_b = part[plan.tiles * (plan.splits // plan.cluster) * plan.bn * plan.bk:]
-    err = library().cswin_gemm_wgrad(
-        x.data_ptr(), dy.data_ptr(), _ptr(dp), dw.data_ptr(), db.data_ptr(),
-        part.data_ptr(), part_b.data_ptr(),
-        _arrivals(dev, plan.tiles * _WGRAD_CLUSTER).data_ptr(), M, N, K,
-        max(rows_per_sample, 1), plan.chunk, plan.splits, plan.cluster, plan.bn, plan.bk,
-        key, row0, kd, thr, _stream(dev))
+    fn = (library().cswin_gemm_wgrad if dt == torch.bfloat16
+          else library().cswin_gemm_wgrad_f32)
+    err = fn(x.data_ptr(), dy.data_ptr(), _ptr(dp), dw.data_ptr(), db.data_ptr(),
+             part.data_ptr(), part_b.data_ptr(),
+             _arrivals(dev, plan.tiles * _WGRAD_CLUSTER).data_ptr(), M, N, K,
+             max(rows_per_sample, 1), plan.chunk, plan.splits, plan.cluster, plan.bn, plan.bk,
+             key, row0, kd, thr, _stream(dev))
     check(err, "gemm_wgrad")
-    gemm_wgrad.launches += 1
+    _counted(gemm_wgrad, dt)
     return dw, db
 
 
-gemm_wgrad.launches = 0
+gemm_wgrad.launches = gemm_wgrad.launches_f32 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -973,7 +982,8 @@ def stripe_attention_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor,
     v_img = window_partition(v, h_sp, w_sp).reshape(-1, h_sp, w_sp, cb).float()
     do_img = window_partition(do, h_sp, w_sp).reshape(-1, h_sp, w_sp, cb).float()
     do_nchw = do_img.permute(0, 3, 1, 2)
-    dv_lepe = F.conv_transpose2d(do_nchw, w, padding=1, groups=cb)
+    with conv_precision(dt):
+        dv_lepe = F.conv_transpose2d(do_nchw, w, padding=1, groups=cb)
     dv_lepe = dv_lepe.permute(0, 2, 3, 1).reshape(-1, h_sp * w_sp, cb)
     v_pad = F.pad(v_img, (0, 0, 1, 1, 1, 1))
     dw = torch.stack([(do_img * v_pad[:, a:a + h_sp, b:b + w_sp]).sum((0, 1, 2))
@@ -1005,6 +1015,24 @@ def stripe_attention_bwd_smem(L: int, d: int) -> int:
     return size
 
 
+_ATT_BWD_F32_ROWS, _ATT_BWD_F32_KEYS = 4, 32  # stripe_attention_bwd.cu QR, KEYS
+
+
+def stripe_attention_bwd_f32_smem(L: int, d: int) -> int:
+    """Bytes of dynamic shared memory of the float32 backward at a window of
+    L tokens and head dim d; mirrors ``smem_bytes_f32`` of
+    ``stripe_attention_bwd.cu`` (the C entry
+    ``cswin_stripe_attention_bwd_f32_smem`` returns the same count): q·scale
+    and dO at a row stride of d floats, k and v at d + 4, the rows'
+    statistics (a float4 a row), the LePE taps, and the larger of the row
+    phase's buffers (``QR`` rows a warp, two of L rounded up to 4 floats
+    each) and the key phase's dK | dV partials (``KEYS`` keys at a time)
+    with their summed rows."""
+    rows = _ATT_BWD_WARPS * _ATT_BWD_F32_ROWS * 2 * (-(-L // 4) * 4)
+    keys = _ATT_BWD_WARPS * _ATT_BWD_F32_KEYS * 2 * d + _ATT_BWD_F32_KEYS * (2 * d + 4)
+    return 4 * (2 * L * d + 2 * L * (d + 4) + 4 * L + 9 * d + max(rows, keys))
+
+
 def stripe_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
                          lepe_weight: torch.Tensor, dqkv: torch.Tensor, *,
                          ch_off: int, heads: int, h_sp: int, w_sp: int,
@@ -1016,6 +1044,8 @@ def stripe_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
     ``[ch_off, ch_off + cb)``. Writes dq, dk, dv (LePE included) into the
     branch's channels of the q, k and v thirds of ``dqkv`` (B, H, W, 3C) and
     returns the float32 LePE gradients (weight (cb, 1, 3, 3), bias (cb,)).
+    A float32 ``qkv`` launches the float32 instance (nothing rounded, the
+    LePE taps float32; ``stripe_attention_bwd_f32_smem``).
     """
     if _on_cpu(qkv):
         return stripe_attention_bwd_plain(qkv, dout, lepe_weight, dqkv,
@@ -1025,36 +1055,40 @@ def stripe_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
     C = C3 // 3
     cb = lepe_weight.shape[0]
     dev = qkv.device
-    _require(qkv, "qkv", torch.bfloat16, dev)
-    _require(dout, "dout", torch.bfloat16, dev, (B, H, W, C))
-    _require(dqkv, "dqkv", torch.bfloat16, dev, (B, H, W, C3))
+    dt = _act_dtype(qkv, "qkv")
+    _require(qkv, "qkv", dt, dev)
+    _require(dout, "dout", dt, dev, (B, H, W, C))
+    _require(dqkv, "dqkv", dt, dev, (B, H, W, C3))
     if H % h_sp or W % w_sp or ch_off + cb > C:
         raise ValueError(f"bad branch geometry H={H} W={W} window=({h_sp},"
                          f"{w_sp}) cb={cb} heads={heads} ch_off={ch_off}")
     _check_head_dim(cb, heads)
     L, d = h_sp * w_sp, cb // heads
-    if stripe_attention_bwd_smem(L, d) > SMEM_LIMIT:
-        raise ValueError(f"a window of {L} tokens at head dim {d} needs "
-                         f"{stripe_attention_bwd_smem(L, d)} bytes of shared memory, "
-                         f"more than the {SMEM_LIMIT} a block may use")
-    if C % 8 or ch_off % 8 or any(t.data_ptr() % 16 for t in (qkv, dout, dqkv)):
-        raise ValueError("stripe_attention_bwd copies 16-byte chunks: C % 8 == 0, "
-                         "ch_off % 8 == 0 and 16-byte aligned qkv, dout and dqkv")
+    smem = (stripe_attention_bwd_smem(L, d) if dt == torch.bfloat16
+            else stripe_attention_bwd_f32_smem(L, d))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"a window of {L} tokens at head dim {d} needs {smem} bytes of "
+                         f"shared memory ({dt}), more than the {SMEM_LIMIT} a block may use")
+    E = _vec(dt)
+    if C % E or ch_off % E or any(t.data_ptr() % 16 for t in (qkv, dout, dqkv)):
+        raise ValueError(f"stripe_attention_bwd copies 16-byte chunks: C % {E} == 0, "
+                         f"ch_off % {E} == 0 and 16-byte aligned qkv, dout and dqkv")
     windows = B * (H // h_sp) * (W // w_sp)
     if windows > 2**31 - 1:
         raise ValueError("too many windows for one launch")
-    w9 = lepe_weight.reshape(cb, 9).t().to(torch.bfloat16).contiguous()
+    w9 = lepe_weight.reshape(cb, 9).t().to(dt).contiguous()
     part = torch.empty((windows, cb, 10), dtype=torch.float32, device=dev)
-    err = library().cswin_stripe_attention_bwd(
-        qkv.data_ptr(), dout.data_ptr(), w9.data_ptr(), dqkv.data_ptr(),
-        part.data_ptr(), B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, _stream(dev))
+    fn = (library().cswin_stripe_attention_bwd if dt == torch.bfloat16
+          else library().cswin_stripe_attention_bwd_f32)
+    err = fn(qkv.data_ptr(), dout.data_ptr(), w9.data_ptr(), dqkv.data_ptr(),
+             part.data_ptr(), B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, _stream(dev))
     check(err, "stripe_attention_bwd")
-    stripe_attention_bwd.launches += 1
+    _counted(stripe_attention_bwd, dt)
     lepe = part.sum(0)  # (cb, 10): the nine taps, then the bias
     return lepe[:, :9].reshape(cb, 1, 3, 3), lepe[:, 9]
 
 
-stripe_attention_bwd.launches = 0
+stripe_attention_bwd.launches = stripe_attention_bwd.launches_f32 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1067,8 +1101,7 @@ def carafe_reassemble_plain(gy: torch.Tensor, encoder_weight: torch.Tensor,
     B, H, W, _ = gy.shape
     nc = bias.shape[0]
     mid = gy[..., :c_mid].float().permute(0, 3, 1, 2)
-    with conv_precision(gy.dtype):
-        enc = F.conv2d(mid, encoder_weight.to(gy.dtype).float(), padding=1)
+    enc = conv2d(mid, encoder_weight.to(gy.dtype).float(), padding=1, dtype=gy.dtype)
     enc = enc.permute(0, 2, 3, 1) + encoder_bias.float()
     kern = torch.softmax(enc.reshape(B, H, W, 9, up * up), dim=3).to(gy.dtype)
     y = F.pad(gy[..., c_mid:c_mid + nc].float(), (0, 0, 1, 1, 1, 1))
@@ -2302,7 +2335,7 @@ KERNELS = (layernorm, gemm, stripe_attention, carafe_reassemble, layernorm_bwd,
            block_pair, lepe_windows, window_attention, ln_mlp, block_one)
 # The wrappers with a float32 instance (``launches_f32``).
 F32_KERNELS = (layernorm, gemm, stripe_attention, cswin_attention, carafe_reassemble,
-               block_pair)
+               block_pair, layernorm_bwd, gemm_dgrad, gemm_wgrad, stripe_attention_bwd)
 
 
 def reset_launch_counts() -> None:

@@ -23,7 +23,12 @@ in every process. Recorded at the tiny-224 stage geometries:
   * the three CARAFE sites through their public entries (the padded GEMM
     and ``carafe_reassemble``): ``carafe_up`` at (32, 28, 28, 128), and
     ``carafe_tail`` logits and ``carafe_tail_argmax`` labels at (32, 56,
-    56, 64).
+    56, 64);
+  * ``layernorm_bwd`` with a residual at every width it has an instance
+    for (C = 32, 64, ..., 512 and 768: tiny-224's last stage and base-384's
+    four among them), 3456 rows (base-384's last stage at B = 24): the
+    backward is compiled once a width, and the training probes above reach
+    only tiny-224's stages 1-3.
 
 ``--compare`` prints each tensor's max abs difference and exits non-zero
 unless every one is 0.
@@ -118,6 +123,11 @@ def probe(dev) -> dict:
         out["carafe_up"] = CT.carafe_up(x28, *up)
         out["carafe_tail"] = CT.carafe_tail(x56, *tail)
         out["carafe_tail_argmax"] = CT.carafe_tail_argmax(x56, *tail)
+    for C in (*range(32, 513, 32), 768):
+        x, dy, res = (t(3456, C, sc=1.0).bfloat16() for _ in range(3))
+        grads = K.layernorm_bwd(x, dy, t(C, sc=0.3, off=1.0), residual=res)
+        for name, g in zip(("dx", "dweight", "dbias"), grads):
+            out[f"ln_bwd_c{C}_{name}"] = g
     torch.cuda.synchronize()
     return {k: v.detach().cpu() for k, v in out.items()}
 

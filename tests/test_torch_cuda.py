@@ -829,10 +829,16 @@ def test_f32_gemm_ragged_edges(dev, M, N, K_):
 
 
 def test_f32_gemm_refuses_training_epilogues(dev):
+    """The float32 instance takes the training epilogues (``pre``, ``drop``);
+    a dtype with no instance (float16) is refused, and so is K % 4."""
     a = torch.zeros(64, 64, device=dev)
     w = torch.zeros(64, 64, device=dev)
+    pre = torch.empty_like(a)
+    d1, _ = _drops(dev, 1)
+    got = K.gemm(a, w, torch.ones(64, device=dev), epilogue="gelu", pre=pre, drop=d1)
+    assert got.dtype == torch.float32 and torch.equal(pre, torch.ones_like(pre))
     with pytest.raises(TypeError):
-        K.gemm(a, w, None, epilogue="gelu", pre=torch.empty_like(a))
+        K.gemm(a.half(), w.half(), None, epilogue="gelu", pre=pre.half())
     with pytest.raises(ValueError):  # K % 4
         K.gemm(torch.zeros(8, 6, device=dev), torch.zeros(8, 6, device=dev))
 
@@ -990,6 +996,269 @@ def test_f32_model_routes(dev, impl):
     assert launched == ({"cswin_attention"} if impl == "pallas" else
                         {"layernorm", "gemm", "stripe_attention", "carafe_reassemble",
                          "block_pair"}), counts
+
+
+# --- the float32 backward (training at TPU.COMPUTE_DTYPE float32) ----------
+#
+# Each float32 backward instance against its plain float32 version at
+# relative L2 <= F32_TOL. A sum over M (gemm_wgrad's dW and db, LN's dγ and
+# dβ, the LePE partials) that misses it passes only if its error against a
+# float64 oracle is at most twice the plain version's (two float32 sums of
+# ~10^4-10^5 terms in different orders differ by more than 1e-5 at worst).
+
+# (H, C, heads, split, last) of every training geometry: tiny-224's four
+# stages and base-384's four (head dim 24; windows of 96, 96, 288, 144).
+F32_TRAIN = F32_STAGES[:8]
+
+
+def _reduction_ok(got, plain, oracle64) -> bool:
+    if _rel_l2(got, plain) <= F32_TOL:
+        return True
+    return _rel_l2(got, oracle64) <= 2 * _rel_l2(plain, oracle64)
+
+
+def _train_batch(H):
+    """B = 4 at tiny-224's stages, 2 at base-384's (the geometry, not the
+    batch, sets the kernels' paths; the plans follow M)."""
+    return 4 if H in (56, 28, 14, 7) else 2
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("H,C,heads,split,last", F32_TRAIN + [(1, 32, 1, 1, True)])
+def test_f32_layernorm_bwd(dev, H, C, heads, split, last, residual):
+    """Every trained width (C = 64-512 and 768), and rows that leave CTAs
+    short; deterministic."""
+    rng = np.random.default_rng(50)
+    for M in (_train_batch(H) * H * H, 65, 1):
+        x, dy, res = (_rnd(rng, dev, M, C, sc=2.0, off=0.3) for _ in range(3))
+        w = _rnd(rng, dev, C, sc=0.3, off=1.0)
+        r = res if residual else None
+        before = (K.layernorm_bwd.launches, K.layernorm_bwd.launches_f32)
+        got = K.layernorm_bwd(x, dy, w, residual=r)
+        again = K.layernorm_bwd(x, dy, w, residual=r)
+        assert (K.layernorm_bwd.launches, K.layernorm_bwd.launches_f32) == (
+            before[0] + 2, before[1] + 2)
+        want = K.layernorm_bwd_plain(x, dy, w, residual=r)
+        x64, dy64 = x.double(), dy.double()
+        mu = x64.mean(-1, keepdim=True)
+        xhat = (x64 - mu) * torch.rsqrt(((x64 - mu) ** 2).mean(-1, keepdim=True) + 1e-5)
+        oracle = ((dy64 * xhat).sum(0), dy64.sum(0))
+        assert got[0].dtype == torch.float32
+        assert _rel_l2(got[0], want[0]) <= F32_TOL, (M, C)
+        for g, p, o in zip(got[1:], want[1:], oracle):
+            assert _reduction_ok(g, p, o), (M, C, _rel_l2(g, p), _rel_l2(g, o), _rel_l2(p, o))
+        for g, a in zip(got, again):
+            assert torch.equal(g, a)  # deterministic
+
+
+def _f32_dgrad_cases(rng, dev, M, C, hw, B):
+    """The block's four dX products: fc2 with the GELU backward (and the
+    drop-path scale), fc1, proj (drop-path), qkv."""
+    dp = torch.from_numpy((rng.random(B) < 0.7).astype(np.float32) / 0.7).to(dev)
+    h = _rnd(rng, dev, M, 4 * C)
+    return [("fc2-gelu_bwd", C, 4 * C, dict(dp=dp, rows_per_sample=hw, gelu_h=h)),
+            ("fc2-gelu_bwd", C, 4 * C, dict(gelu_h=h)),
+            ("fc1", 4 * C, C, {}), ("proj+droppath", C, C, dict(dp=dp, rows_per_sample=hw)),
+            ("qkv", 3 * C, C, {})]
+
+
+@pytest.mark.parametrize("H,C,heads,split,last", F32_TRAIN)
+def test_f32_gemm_dgrad(dev, H, C, heads, split, last):
+    rng = np.random.default_rng(51)
+    B = _train_batch(H)
+    M, hw = B * H * H, H * H
+    for what, n, k, kw in _f32_dgrad_cases(rng, dev, M, C, hw, B):
+        d, w = _rnd(rng, dev, M, n), _rnd(rng, dev, n, k, sc=n ** -0.5)
+        before = K.gemm_dgrad.launches_f32
+        got = K.gemm_dgrad(d, w, **kw)
+        assert K.gemm_dgrad.launches_f32 == before + 1 and got.dtype == torch.float32
+        assert _rel_l2(got, K.gemm_dgrad_plain(d, w, **kw)) <= F32_TOL, what
+
+
+@pytest.mark.parametrize("droppath", [False, True])
+@pytest.mark.parametrize("H,C,heads,split,last", F32_TRAIN)
+def test_f32_gemm_wgrad(dev, H, C, heads, split, last, droppath):
+    """The block's four weight gradients (fc2, fc1, proj, qkv) at each
+    geometry; dW and db by the reduction rule; two calls the same bits."""
+    rng = np.random.default_rng(52)
+    B = _train_batch(H)
+    M, hw = B * H * H, H * H
+    dp = torch.from_numpy((rng.random(B) < 0.7).astype(np.float32) / 0.7).to(dev)
+    kw = dict(dp=dp, rows_per_sample=hw) if droppath else {}
+    for k, n in ((4 * C, C), (C, 4 * C), (C, C), (C, 3 * C)):
+        x, d = _rnd(rng, dev, M, k), _rnd(rng, dev, M, n)
+        before = K.gemm_wgrad.launches_f32
+        got, again = K.gemm_wgrad(x, d, **kw), K.gemm_wgrad(x, d, **kw)
+        assert K.gemm_wgrad.launches_f32 == before + 2
+        want = K.gemm_wgrad_plain(x, d, **kw)
+        d64 = d.double() * (dp.double().repeat_interleave(hw)[:, None] if droppath else 1)
+        oracle = (d64.t() @ x.double(), d64.sum(0))
+        for g, a, p, o in zip(got, again, want, oracle):
+            assert g.dtype == torch.float32 and g.shape == p.shape
+            assert _reduction_ok(g, p, o), (k, n, _rel_l2(g, p), _rel_l2(g, o), _rel_l2(p, o))
+            assert torch.equal(g, a)
+
+
+def _lepe_grads64(qkv, dout, ch_off, cb, h_sp, w_sp):
+    """The LePE weight and bias gradients of one branch in float64."""
+    from cswin_unet_tpu_torch.ops.windows import window_partition
+
+    C = dout.shape[-1]
+    v = qkv[..., 2 * C + ch_off:2 * C + ch_off + cb].double()
+    do = dout[..., ch_off:ch_off + cb].double()
+    v_img = window_partition(v, h_sp, w_sp).reshape(-1, h_sp, w_sp, cb)
+    do_img = window_partition(do, h_sp, w_sp).reshape(-1, h_sp, w_sp, cb)
+    v_pad = torch.nn.functional.pad(v_img, (0, 0, 1, 1, 1, 1))
+    dw = torch.stack([(do_img * v_pad[:, a:a + h_sp, b:b + w_sp]).sum((0, 1, 2))
+                      for a in range(3) for b in range(3)], dim=-1)
+    return dw.reshape(cb, 1, 3, 3), do_img.sum((0, 1, 2))
+
+
+@pytest.mark.parametrize("H,C,heads,split,last", F32_STAGES)
+def test_f32_stripe_attention_bwd(dev, H, C, heads, split, last):
+    """Both branches of every training geometry (and the narrow head dim 16
+    one): dq, dk, dv within F32_TOL, the LePE partials by the reduction
+    rule, two calls the same bits."""
+    rng = np.random.default_rng(53)
+    B = _train_batch(H)
+    qkv, dout = _rnd(rng, dev, B, H, H, 3 * C), _rnd(rng, dev, B, H, H, C)
+    for off, cb, nh, hs, ws in _f32_branches(H, C, heads, split, last):
+        lw = _rnd(rng, dev, cb, 1, 3, 3, sc=0.3)
+        kw = dict(ch_off=off, heads=nh, h_sp=hs, w_sp=ws, scale=(C // heads) ** -0.5)
+        chans = torch.cat([torch.arange(off, off + cb) + i * C for i in range(3)]).to(dev)
+
+        def run(fn):
+            dqkv = torch.zeros(B, H, H, 3 * C, device=dev)
+            dw, db = fn(qkv, dout, lw, dqkv, **kw)
+            return dqkv[..., chans], dw, db
+
+        before = K.stripe_attention_bwd.launches_f32
+        got, again = run(K.stripe_attention_bwd), run(K.stripe_attention_bwd)
+        assert K.stripe_attention_bwd.launches_f32 == before + 2
+        want = run(K.stripe_attention_bwd_plain)
+        assert _rel_l2(got[0], want[0]) <= F32_TOL, (hs, ws)
+        for g, p, o in zip(got[1:], want[1:], _lepe_grads64(qkv, dout, off, cb, hs, ws)):
+            assert _reduction_ok(g, p, o), (hs, ws, _rel_l2(g, p), _rel_l2(g, o))
+        for g, a in zip(got, again):
+            assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("L,d", [(49, 32), (56, 32), (98, 32), (96, 24), (144, 24),
+                                 (288, 24), (288, 32), (30, 16)])
+def test_f32_attention_bwd_plan_is_the_kernels(dev, L, d):
+    from cswin_unet_tpu_torch.ops.cuda.build import library
+
+    smem = K.stripe_attention_bwd_f32_smem(L, d)
+    assert library().cswin_stripe_attention_bwd_f32_smem(L, d) == smem
+    assert smem <= K.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("row0", [0, 123457])
+def test_f32_dropout_masks_are_the_plain_bits(dev, row0):
+    """The float32 instances' masks, read as in the bf16 test: the fc1 and
+    fc2 epilogues, the dX product's masks on its output and on dY, the
+    weight gradient's on dY; kept values v / keep."""
+    M, N = 512, 192
+    d1, d2 = _drops(dev, 3, 0.1, row0)
+    mask = lambda d, rows, cols: D.keep_mask(d.key, d.row0, rows, cols, d.rate)
+    zeros, ones = torch.zeros(M, 64, device=dev), torch.ones(M, N, device=dev)
+    w0, bias1, res0 = torch.zeros(N, 64, device=dev), torch.ones(N, device=dev), \
+        torch.zeros(M, N, device=dev)
+    got = K.gemm(zeros, w0, bias1, epilogue="gelu", drop=d1) != 0
+    assert torch.equal(got, mask(d1, M, N))
+    got = K.gemm(zeros, w0, bias1, residual=res0, epilogue="residual", drop=d2)
+    assert torch.equal(got != 0, mask(d2, M, N))
+    kd = D.keep_divisor(0.1, torch.float32)
+    assert torch.equal(got[got != 0], torch.full_like(got[got != 0], 1.0 / kd))
+    h10 = torch.full((M, N), 10.0, device=dev)
+    got = K.gemm_dgrad(ones, torch.ones(N, N, device=dev), gelu_h=h10, drop_dx=d1) != 0
+    assert torch.equal(got, mask(d1, M, N))
+    got = K.gemm_dgrad(ones, torch.eye(N, device=dev), gelu_h=h10, drop_dy=d2) != 0
+    assert torch.equal(got, mask(d2, M, N))
+    dw, db = K.gemm_wgrad(torch.eye(M, device=dev), ones, drop=d2)
+    assert torch.equal(dw.t() != 0, mask(d2, M, N))
+
+
+@pytest.mark.parametrize("H,C,heads,split,last", F32_TRAIN[:4])
+def test_f32_gemm_dropout_vs_plain(dev, H, C, heads, split, last):
+    """The float32 GEMMs' dropout instances (with drop-path) at tiny-224's
+    shapes, rate 0.1: the forward's fc1 (keeping its pre-activation) and
+    fc2, the fc2 dX product with both masks, its weight gradient."""
+    rng = np.random.default_rng(54)
+    B = _train_batch(H)
+    M, hw = B * H * H, H * H
+    d1, d2 = _drops(dev, 5, 0.1, row0=M)
+    dp = torch.from_numpy((rng.random(B) < 0.7).astype(np.float32) / 0.7).to(dev)
+    x, res, h = _rnd(rng, dev, M, C), _rnd(rng, dev, M, C), _rnd(rng, dev, M, 4 * C)
+    w1, b1 = _rnd(rng, dev, 4 * C, C, sc=C ** -0.5), _rnd(rng, dev, 4 * C, sc=0.1)
+    w2, b2 = _rnd(rng, dev, C, 4 * C, sc=(4 * C) ** -0.5), _rnd(rng, dev, C, sc=0.1)
+    pre_k, pre_p = torch.empty(M, 4 * C, device=dev), torch.empty(M, 4 * C, device=dev)
+    got = K.gemm(x, w1, b1, epilogue="gelu", pre=pre_k, drop=d1)
+    want = K.gemm_plain(x, w1, b1, epilogue="gelu", pre=pre_p, drop=d1)
+    assert _rel_l2(got, want) <= F32_TOL and _rel_l2(pre_k, pre_p) <= F32_TOL
+    assert torch.equal(got == 0, want == 0)
+    kw = dict(epilogue="residual", residual=res, drop=d2, dp=dp, rows_per_sample=hw)
+    assert _rel_l2(K.gemm(h, w2, b2, **kw), K.gemm_plain(h, w2, b2, **kw)) <= F32_TOL
+    dy, wt = _rnd(rng, dev, M, C), _rnd(rng, dev, C, 4 * C, sc=C ** -0.5)
+    kw = dict(gelu_h=h, drop_dy=d2, drop_dx=d1, dp=dp, rows_per_sample=hw)
+    assert _rel_l2(K.gemm_dgrad(dy, wt, **kw), K.gemm_dgrad_plain(dy, wt, **kw)) <= F32_TOL
+    kw = dict(drop=d2, dp=dp, rows_per_sample=hw)
+    for g, p in zip(K.gemm_wgrad(h, dy, **kw), K.gemm_wgrad_plain(h, dy, **kw)):
+        o = None
+        if _rel_l2(g, p) > F32_TOL:  # the reduction rule, against float64
+            m = D.keep_mask(d2.key, d2.row0, M, C, 0.1).double() / D.keep_divisor(
+                0.1, torch.float32)
+            d64 = dy.double() * dp.double().repeat_interleave(hw)[:, None] * m
+            o = d64.t() @ h.double() if g.dim() == 2 else d64.sum(0)
+        assert o is None or _reduction_ok(g, p, o)
+
+
+@pytest.mark.parametrize("H,C,heads,split,last", F32_TRAIN)
+def test_f32_block_fn_grads(dev, H, C, heads, split, last):
+    """``CSWinBlockFn`` at float32 (drop-path live) against autograd through
+    the float32 composition: output and every gradient within 1e-4 (a chain
+    of 14 kernels a block, each within 1e-5 of its plain version); only
+    float32 instances launched."""
+    p, x, g, kw = _block_fn_case(dev, H, C, heads, split, last, 59)
+    x, g = x.float(), g.float()
+    K.reset_launch_counts()
+    res = [_block_fn_grads(fn, p, x, g, kw, last)
+           for fn in (fused_cswin_block, composed_block)]
+    counts = K.launch_counts()
+    for i, (a, b) in enumerate(zip(*res)):
+        assert a.dtype == torch.float32
+        assert _rel_l2(a, b) <= 1e-4, i
+    for k in ("layernorm_bwd", "gemm_dgrad", "gemm_wgrad", "stripe_attention_bwd"):
+        assert counts[k] == counts[f"{k}_f32"] > 0, counts
+
+
+def test_f32_conv_weight_grad_is_float32(dev):
+    """One float32 convolution's weight gradient through the port's conv
+    (``ops.precision.conv2d``) with cuDNN's TF32 flag at PyTorch's default
+    (True): within 1e-5 of float64, as the backward runs with TF32 off; the
+    stock ``F.conv2d``'s is printed beside it."""
+    from cswin_unet_tpu_torch.ops.precision import conv2d
+
+    rng = np.random.default_rng(55)
+    x, w = _rnd(rng, dev, 8, 64, 56, 56), _rnd(rng, dev, 128, 64, 3, 3, sc=0.05)
+    gy = _rnd(rng, dev, 8, 128, 28, 28)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        grads = []
+        for fn in (conv2d, torch.nn.functional.conv2d):
+            wl = w.clone().requires_grad_()
+            out = fn(x, wl, None, 2, 1)
+            grads.append(torch.autograd.grad(out, wl, gy)[0])
+        assert torch.backends.cudnn.allow_tf32  # the port's conv left the flag as it was
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    w64 = w.double().requires_grad_()
+    out = torch.nn.functional.conv2d(x.double(), w64, None, 2, 1)
+    want = torch.autograd.grad(out, w64, gy.double())[0]
+    errs = [_rel_l2(gw, want) for gw in grads]
+    print(f"conv weight gradient vs float64: port {errs[0]:.3e}, F.conv2d with TF32 "
+          f"{errs[1]:.3e}")
+    assert errs[0] <= 1e-5
 
 
 @pytest.mark.parametrize("shape", [(6, 24, 24), (5, 17, 33), (3, 40, 512), (48, 64, 70)])

@@ -269,7 +269,8 @@ def test_float32_entries_are_defined_and_bound():
     called = set(re.findall(r"library\(\)\.(cswin_\w+_f32)\b", wrappers))
     assert called == {"cswin_layernorm_f32", "cswin_gemm_f32", "cswin_stripe_attention_f32",
                       "cswin_cswin_attention_f32", "cswin_carafe_f32",
-                      "cswin_block_pair_f32"}
+                      "cswin_block_pair_f32", "cswin_layernorm_bwd_f32",
+                      "cswin_gemm_wgrad_f32", "cswin_stripe_attention_bwd_f32"}
     built = {p.name for p in build._sources()}
     defined = {}
     for src in CSRC.glob("*.cu"):
