@@ -353,6 +353,8 @@ F32_OF = {f"{k}_f32": k for k in ("layernorm", "gemm", "stripe_attention",
                                   "layernorm_bwd", "gemm_dgrad", "gemm_wgrad",
                                   "stripe_attention_bwd")}
 SOURCES.update({k: SOURCES[w] for k, w in F32_OF.items()})
+for k in ("gemm_f32", "gemm_dgrad_f32", "gemm_wgrad_f32"):  # their own source since PR 19
+    SOURCES[k] = ("cswin_unet_tpu_torch/ops/cuda/csrc/gemm_f32.cu", SOURCES[k][1])
 SOURCES["block_pair_f32"] = ("cswin_unet_tpu_torch/ops/cuda/csrc/block_pair_f32.cu",
                              SOURCES["block_pair"][1])
 F32_OPTS = ["TPU.COMPUTE_DTYPE", "float32"]
@@ -852,8 +854,11 @@ def pair_ab(cfg, dev, batches=(SERVE_BATCH, 128), rounds: int = 8, reps: int = 1
 def probe_vs_parent(dev) -> None:
     """``tools/probe_chain.py``'s tensors (the block chain, its training
     forward and backward, the ``pallas`` route's kernel, the pair, the three
-    CARAFE sites, the LayerNorm backward at every width) from this build, held bit for bit to the digests of the
-    parent commit's build (``probe_chain.REFERENCE``): a change to the
+    CARAFE sites, the LayerNorm backward at every width; the float32 GEMM and
+    dX products in every epilogue, the float32 chain, its training forward
+    and input gradient, and the float32 pair) from this build, held bit for
+    bit to the digests of the parent commit's build
+    (``probe_chain.REFERENCE``): a change to the
     shared device bodies moved no result. A change meant to move these bits
     (a redesign of ``stripe_attention`` or ``gemm``, say) prints
     ``probe_chain.py --compare`` of the parent's build against its own, then
@@ -863,7 +868,8 @@ def probe_vs_parent(dev) -> None:
     from cswin_unet_tpu_torch.tools import probe_chain
 
     ok, report = probe_chain.check(probe_chain.digests(probe_chain.probe(dev)))
-    print(f"[probe] chain, pallas route, pair, CARAFE and LN backward vs the parent's build: "
+    print(f"[probe] chain, pallas route, pair, CARAFE, LN backward and float32 GEMMs vs the "
+          f"parent's build: "
           f"{report} {'ok' if ok else 'FAIL'}", flush=True)
     require(ok, f"probe_chain: {report}")
 

@@ -61,7 +61,8 @@ _SIGNATURES = {
     # the float32 instances of the serving path (TPU.COMPUTE_DTYPE float32)
     "cswin_layernorm_f32": (_P, _P, _P, _P, _I, _I, _F, _P),
     "cswin_gemm_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _LL,
-                       _F, _U, _P),
+                       _F, _U, _I, _I, _I, _P),
+    "cswin_gemm_f32_smem": (_I, _I, _I),
     "cswin_stripe_attention_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _F, _P),
     "cswin_cswin_attention_f32": (_P, _P, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -1,8 +1,7 @@
 // Tiled bf16 GEMMs of the CSWin block, forward and backward, float32
-// accumulation; and their float32 instances for TPU.COMPUTE_DTYPE float32
-// (cswin_gemm_f32: epilogues 0-3 and the dropout instances on
-// gemm_tile::tile_f32's FFMA products; cswin_gemm_wgrad_f32:
-// wgrad_f32_kernel's FFMA outer products on the same plan and sums).
+// accumulation. Their float32 instances (TPU.COMPUTE_DTYPE float32) are
+// gemm_f32.cu's; the weight gradients' cross-split sums (sum_tile) are
+// wgrad_sum.cuh's, shared by both.
 //
 // cswin_gemm: out = epilogue(A' · Bᵀ + bias), bf16 out. A is (M, K)
 // row-major activations; B is (N, K) row-major, the torch Linear weight
@@ -78,11 +77,8 @@
 //   partials in L2, which the planner keeps under an eighth of the
 //   operands' bytes.
 
-#include <cooperative_groups.h>
-
-#include <type_traits>
-
 #include "gemm_tile.cuh"
+#include "wgrad_sum.cuh"
 
 namespace {
 
@@ -105,29 +101,12 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
                                               sm, drop);
 }
 
-// The float32 instances (TPU.COMPUTE_DTYPE float32), one output tile per
-// CTA as gemm_kernel, on gemm_tile::tile_f32.
-template <int EPI, bool EXTRA, bool A_SCALED, bool DROP>
-__global__ void __launch_bounds__(THREADS)
-gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                const float* __restrict__ bias, const float* __restrict__ res,
-                float* __restrict__ aux, const float* __restrict__ a_scale,
-                const float* __restrict__ out_scale, float* __restrict__ out, int M, int N,
-                int K, int rows_per_sample, int tn, DropArgs drop) {
-  __shared__ gemm_tile::SmemF32 sm;
-  const int t = blockIdx.x;
-  gemm_tile::tile_f32<EPI, EXTRA, A_SCALED, DROP>(
-      A, B, bias, res, out_scale, out, M, N, K, rows_per_sample, t / tn * gemm_tile::BM,
-      t % tn * gemm_tile::BN, sm, aux, a_scale, drop);
-}
-
 // --- the weight gradient --------------------------------------------------
 
 namespace wgrad {
 
 constexpr int MS = 64;           // rows of M a ring stage (the split chunks are multiples)
 constexpr int STAGES = 4;        // three stages in flight during the products
-constexpr int MAX_CLUSTER = 8;   // CTAs of a cluster (the portable limit)
 constexpr uint32_t ONES = 0x3F803F80u;  // two bf16 1.0: the B operand of the bias sum
 
 // The ring of a BN x BK output tile (BN rows of dW over N, BK columns over
@@ -139,141 +118,13 @@ struct __align__(128) Smem {
   float sc[STAGES][MS];        // the drop-path multiplier of each staged row
 };
 
-// The float32 ring (TPU.COMPUTE_DTYPE float32): MS_F rows a stage of dY and
-// X unpadded (a warp reads one row m at a time: dY as a broadcast, X as
-// consecutive 16-byte words), and the staged rows' scales.
-constexpr int MS_F = 32, STAGES_F = 3;
-template <int BN, int BK>
-struct __align__(128) SmemF32 {
-  float D[STAGES_F][MS_F][BN];
-  float X[STAGES_F][MS_F][BK];
-  float sc[STAGES_F][MS_F];
-};
-
-// Copy 4 bytes from global to shared memory without registers (src_bytes
-// 0 writes zeros): the scales ride the ring instead of stalling a warp.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
 // Both halves of a bf16x2 register, each times its own scale, rounded back.
 __device__ __forceinline__ uint32_t scale2(uint32_t v, float s0, float s1) {
   const float2 f = unpack_bf16(v);
   return pack_bf16(f.x * s0, f.y * s1);
 }
 
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
-
 }  // namespace wgrad
-
-// The sums of a weight-gradient tile, after each CTA has written its partial
-// tile to its idle ring (Cs: BN rows of BK floats at a stride of BK + 4,
-// then Bs: BN floats of db where with_bias): the cluster adds its CTAs'
-// tiles in rank order through distributed shared memory, rank r taking rows
-// [r·BN/cl, +BN/cl) of the tile; with one cluster per tile those rows are
-// dW itself, else the cluster's partial, and the last cluster to finish a
-// tile's row slice (an arrival counter) adds the clusters' partials in
-// cluster order. Every sum runs in an order fixed by the grid, so two calls
-// give the same bits. Shared by the bf16 and float32 kernels.
-template <int BN, int BK, int NT>
-__device__ __forceinline__ void sum_tile(unsigned char* smem_raw, float* __restrict__ dw,
-                                         float* __restrict__ db, float* __restrict__ part_w,
-                                         float* __restrict__ part_b,
-                                         int* __restrict__ arrivals, int N, int K, int tile,
-                                         int nt, int n0, int k0, bool with_bias) {
-  using namespace wgrad;
-  constexpr int LDC = BK + 4;
-  __shared__ int last;
-  namespace cg = cooperative_groups;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int tid = threadIdx.x;
-  float (*Cs)[LDC] = reinterpret_cast<float (*)[LDC]>(smem_raw);
-  float* Bs = &Cs[BN][0];
-  cluster.sync();  // every CTA of the cluster holds its tile
-
-  const int cl = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int rows = BN / cl, r0 = rank * rows;
-  const int clusters = gridDim.x / cl, cid = blockIdx.x / cl;
-  // Rank r sums rows [r0, r0 + rows) over the cluster's CTAs in rank order,
-  // into dW directly or into the cluster's partial.
-  float* pw = part_w + ((size_t)tile * clusters + cid) * BN * BK;
-  float* pb = part_b + ((size_t)nt * clusters + cid) * BN;
-  for (int idx = tid; idx < rows * (BK / 4); idx += NT) {
-    const int r = r0 + idx / (BK / 4), c = idx % (BK / 4) * 4;
-    float4 v[MAX_CLUSTER];  // all loads in flight, then the sum in rank order
-#pragma unroll
-    for (int q = 0; q < MAX_CLUSTER; ++q)
-      if (q < cl) v[q] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(&Cs[r][c], q));
-    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int q = 0; q < MAX_CLUSTER; ++q)
-      if (q < cl) s = add4(s, v[q]);
-    if (clusters > 1) {
-      *reinterpret_cast<float4*>(pw + r * BK + c) = s;
-    } else if (n0 + r < N) {
-      const float e[4] = {s.x, s.y, s.z, s.w};
-      for (int t = 0; t < 4 && k0 + c + t < K; ++t) dw[(size_t)(n0 + r) * K + k0 + c + t] = e[t];
-    }
-  }
-  if (with_bias && tid < rows) {
-    float v[MAX_CLUSTER], s = 0.f;
-#pragma unroll
-    for (int q = 0; q < MAX_CLUSTER; ++q)
-      if (q < cl) v[q] = *cluster.map_shared_rank(&Bs[r0 + tid], q);
-#pragma unroll
-    for (int q = 0; q < MAX_CLUSTER; ++q)
-      if (q < cl) s += v[q];
-    if (clusters > 1) pb[r0 + tid] = s;
-    else if (n0 + r0 + tid < N) db[n0 + r0 + tid] = s;
-  }
-  cluster.sync();  // no CTA leaves while another still reads its tile
-  if (clusters == 1) return;
-
-  // The last cluster to deliver this row slice adds the partials in cluster order.
-  __threadfence();
-  __syncthreads();
-  int* arrived = arrivals + (size_t)tile * MAX_CLUSTER + rank;
-  if (tid == 0) last = atomicAdd(arrived, 1) == clusters - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  const float* pw0 = part_w + (size_t)tile * clusters * BN * BK;
-  for (int idx = tid; idx < rows * (BK / 4); idx += NT) {
-    const int r = r0 + idx / (BK / 4), c = idx % (BK / 4) * 4;
-    if (n0 + r >= N) continue;
-    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int q0 = 0; q0 < clusters; q0 += 8) {  // eight loads in flight, summed in order
-      float4 v[8];
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        if (q0 + q < clusters)
-          v[q] = __ldcg(reinterpret_cast<const float4*>(pw0 + ((size_t)(q0 + q) * BN + r) * BK + c));
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        if (q0 + q < clusters) s = add4(s, v[q]);
-    }
-    const float e[4] = {s.x, s.y, s.z, s.w};
-    for (int t = 0; t < 4 && k0 + c + t < K; ++t) dw[(size_t)(n0 + r) * K + k0 + c + t] = e[t];
-  }
-  if (with_bias && tid < rows && n0 + r0 + tid < N) {
-    const float* pb0 = part_b + (size_t)nt * clusters * BN;
-    float s = 0.f;
-    for (int q0 = 0; q0 < clusters; q0 += 8) {
-      float v[8];
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        if (q0 + q < clusters) v[q] = __ldcg(pb0 + (size_t)(q0 + q) * BN + r0 + tid);
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        if (q0 + q < clusters) s += v[q];
-    }
-    db[n0 + r0 + tid] = s;
-  }
-  if (tid == 0) *arrived = 0;  // ready for the next call on the stream
-}
 
 // Grid (splits, tiles), clusters of `cluster` CTAs along the splits; warps
 // of 32x32 over the BN x BK tile. CTA (split, tile) reduces rows
@@ -327,8 +178,8 @@ wgrad_kernel(const bf16* __restrict__ X, const bf16* __restrict__ dY,
     }
     if (scaled && tid < MS) {
       const bool ok = m0 + tid < m_end;
-      cp_async4(&sm.sc[slot][tid], ok ? dy_scale + (m0 + tid) / rows_per_sample : dy_scale,
-                ok ? 4 : 0);
+      wgrad_sum::cp_async4(&sm.sc[slot][tid],
+                           ok ? dy_scale + (m0 + tid) / rows_per_sample : dy_scale, ok ? 4 : 0);
     }
   };
 
@@ -436,185 +287,22 @@ wgrad_kernel(const bf16* __restrict__ X, const bf16* __restrict__ dY,
             make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
       if (with_bias && wk == 0 && q4 == 0) Bs[r] = bacc[i][2 * h];
     }
-  sum_tile<BN, BK, NT>(smem_raw, dw, db, part_w, part_b, arrivals, N, K, tile, nt, n0, k0,
-                       with_bias);
+  wgrad_sum::sum_tile<BN, BK, NT>(smem_raw, dw, db, part_w, part_b, arrivals, N, K, tile, nt,
+                                  n0, k0, with_bias);
 }
 
-// The float32 weight gradient (TPU.COMPUTE_DTYPE float32): the same grid,
-// split plan and sums (sum_tile) as wgrad_kernel, with the product an FFMA
-// outer product along M. Both operands are m-major, so a stage of MS_F rows
-// is MS_F rank-one updates of the tile: thread (tn, tk) = (tid / (BK/4),
-// tid % (BK/4)) owns dW rows 8tn..8tn+7 and columns 4tk..4tk+3 and, a row m
-// at a time, reads its eight dY' values (two 16-byte broadcasts) and four X
-// values (one 16-byte word) for 32 FMAs; its sums run over m in order.
-// dY' is dY times its row's float32 scale (in registers), or with DROP
-// scaled and masked in the ring (kept values v / kd); db sums the same
-// values in the k0 = 0 tiles' tk = 0 threads. Bound: at the block's shapes
-// the operations (2·M·N·K at 67 TFLOP/s of FFMA) and the operands' bytes
-// (4·M·(N + K) at 3.35 TB/s) are within 2x of each other.
+// The cluster launch of one tile shape of the kernel; `probe` asks only how
+// many clusters of that size fit on the card at once.
 template <int BN, int BK, bool DROP>
-__global__ void __launch_bounds__(BN * BK / 32, 1)
-wgrad_f32_kernel(const float* __restrict__ X, const float* __restrict__ dY,
-                 const float* __restrict__ dy_scale, float* __restrict__ dw,
-                 float* __restrict__ db, float* __restrict__ part_w,
-                 float* __restrict__ part_b, int* __restrict__ arrivals, int M, int N, int K,
-                 int rows_per_sample, int chunk, int tk, DropArgs drop) {
-  using namespace wgrad;
-  constexpr int NT = BN * BK / 32;  // threads: 32 outputs each
-  constexpr int TK = BK / 4;        // threads along k
-  constexpr int LDC = BK + 4;
-  using Ring = SmemF32<BN, BK>;
-  static_assert(sizeof(float) * (BN * LDC + BN) <= sizeof(Ring), "the sum tile fits the ring");
-  static_assert((BN / 8) * TK == NT, "8 x 4 outputs a thread");
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Ring& sm = *reinterpret_cast<Ring*>(smem_raw);
-
-  const int tid = threadIdx.x, tkk = tid % TK, tnn = tid / TK;
-  const int tile = blockIdx.y, nt = tile / tk;
-  const int n0 = nt * BN, k0 = tile % tk * BK;
-  const int m_begin = min(M, blockIdx.x * chunk), m_end = min(M, m_begin + chunk);
-  const int steps = (m_end - m_begin + MS_F - 1) / MS_F;
-  const bool with_bias = db != nullptr && k0 == 0;
-  const bool scaled = dy_scale != nullptr;
-
-  const auto load = [&](int step, int slot) {
-    const int m0 = m_begin + step * MS_F;
-    constexpr int CD = BN / 4, CX = BK / 4;  // 16-byte chunks a row
-    static_assert(MS_F * (CD + CX) % NT == 0, "whole passes");
-#pragma unroll
-    for (int it = 0; it < MS_F * (CD + CX) / NT; ++it) {
-      const int i = tid + it * NT;
-      if (i < MS_F * CD) {
-        const int r = i / CD, c = i % CD * 4, gm = m0 + r;
-        const bool ok = gm < m_end && n0 + c < N;
-        cp_async16(&sm.D[slot][r][c], ok ? dY + (size_t)gm * N + n0 + c : dY, ok ? 16 : 0);
-      } else {
-        const int j = i - MS_F * CD, r = j / CX, c = j % CX * 4, gm = m0 + r;
-        const bool ok = gm < m_end && k0 + c < K;
-        cp_async16(&sm.X[slot][r][c], ok ? X + (size_t)gm * K + k0 + c : X, ok ? 16 : 0);
-      }
-    }
-    if (scaled && tid < MS_F) {
-      const bool ok = m0 + tid < m_end;
-      cp_async4(&sm.sc[slot][tid], ok ? dy_scale + (m0 + tid) / rows_per_sample : dy_scale,
-                ok ? 4 : 0);
-    }
-  };
-
-  float acc[8][4], bacc[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    bacc[i] = 0.f;
-  }
-#pragma unroll
-  for (int s = 0; s < STAGES_F - 1; ++s) {
-    if (s < steps) load(s, s);
-    cp_async_commit();
-  }
-  const unsigned long long key = DROP ? *drop.key_a : 0ull;
-  const bool sums_bias = with_bias && tkk == 0;
-  for (int step = 0; step < steps; ++step) {
-    cp_async_wait<STAGES_F - 2>();
-    __syncthreads();
-    const int nx = step + STAGES_F - 1;
-    if (nx < steps) load(nx, nx % STAGES_F);
-    cp_async_commit();
-    const int slot = step % STAGES_F;
-    if constexpr (DROP) {
-      // dY' in place: each value times its row's scale, then v / kd where
-      // kept, else 0 (one Philox block a four columns; N % 8 == 0).
-      const int m0 = m_begin + step * MS_F;
-      constexpr int QUADS = BN / 4;
-      for (int i = tid; i < MS_F * QUADS; i += NT) {
-        const int r = i / QUADS, c = i % QUADS * 4, gm = m0 + r, gn = n0 + c;
-        if (gm >= m_end || gn >= N) continue;
-        const uint32_t bits =
-            keep4(key, ((unsigned long long)(drop.row0 + gm) * N + gn) >> 2, drop.thr);
-        float4* p = reinterpret_cast<float4*>(&sm.D[slot][r][c]);
-        float v[4] = {p->x, p->y, p->z, p->w};
-        const float sv = scaled ? sm.sc[slot][r] : 1.f;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (scaled) v[e] *= sv;
-          v[e] = (bits >> e & 1u) ? v[e] / drop.kd : 0.f;
-        }
-        *p = make_float4(v[0], v[1], v[2], v[3]);
-      }
-      __syncthreads();
-    }
-#pragma unroll 4
-    for (int m = 0; m < MS_F; ++m) {
-      const float4 d0 = *reinterpret_cast<const float4*>(&sm.D[slot][m][tnn * 8]);
-      const float4 d1 = *reinterpret_cast<const float4*>(&sm.D[slot][m][tnn * 8 + 4]);
-      const float4 x4 = *reinterpret_cast<const float4*>(&sm.X[slot][m][tkk * 4]);
-      float d[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
-      if (scaled && !DROP) {
-        const float sv = sm.sc[slot][m];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) d[i] *= sv;
-      }
-      const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(d[i], xv[j], acc[i][j]);
-      if (sums_bias) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) bacc[i] += d[i];
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is idle: the float32 tile goes there
-
-  float (*Cs)[LDC] = reinterpret_cast<float (*)[LDC]>(smem_raw);
-  float* Bs = &Cs[BN][0];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    *reinterpret_cast<float4*>(&Cs[tnn * 8 + i][tkk * 4]) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    if (sums_bias) Bs[tnn * 8 + i] = bacc[i];
-  }
-  sum_tile<BN, BK, NT>(smem_raw, dw, db, part_w, part_b, arrivals, N, K, tile, nt, n0, k0,
-                       with_bias);
-}
-
-// The cluster launch of one tile shape of the kernel for T (bf16 or float);
-// `probe` asks only how many clusters of that size fit on the card at once.
-template <typename T, int BN, int BK, bool DROP>
-cudaError_t launch_wgrad(const T* X, const T* dY, const float* dy_scale, float* dw,
+cudaError_t launch_wgrad(const bf16* X, const bf16* dY, const float* dy_scale, float* dw,
                          float* db, float* part_w, float* part_b, int* arrivals, int M, int N,
                          int K, int rows_per_sample, int chunk, int splits, int cluster,
                          const DropArgs& drop, cudaStream_t stream, int* probe) {
-  constexpr bool F32 = std::is_same_v<T, float>;
-  using Ring = std::conditional_t<F32, wgrad::SmemF32<BN, BK>, wgrad::Smem<BN, BK>>;
-  void (*kernel)(const T*, const T*, const float*, float*, float*, float*, float*, int*, int,
-                 int, int, int, int, int, DropArgs);
-  if constexpr (F32)
-    kernel = wgrad_f32_kernel<BN, BK, DROP>;
-  else
-    kernel = wgrad_kernel<BN, BK, DROP>;
-  cudaError_t err = allow_smem(kernel, sizeof(Ring));
-  if (err != cudaSuccess) return err;
   const int tk = (K + BK - 1) / BK, tiles = (N + BN - 1) / BN * tk;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)splits, (unsigned)tiles, 1);
-  cfg.blockDim = dim3(BN * BK / 32, 1, 1);
-  cfg.dynamicSmemBytes = sizeof(Ring);
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (probe != nullptr) return cudaOccupancyMaxActiveClusters(probe, kernel, &cfg);
-  err = cudaLaunchKernelEx(&cfg, kernel, X, dY, dy_scale, dw, db, part_w, part_b, arrivals, M,
-                           N, K, rows_per_sample, chunk, tk, drop);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return wgrad_sum::launch_clusters(wgrad_kernel<BN, BK, DROP>, splits, tiles, cluster,
+                                    BN * BK / 32, sizeof(wgrad::Smem<BN, BK>), stream, probe, X,
+                                    dY, dy_scale, dw, db, part_w, part_b, arrivals, M, N, K,
+                                    rows_per_sample, chunk, tk, drop);
 }
 
 template <int EPI, bool A_SCALED, bool EXTRA, bool DROP = false>
@@ -630,22 +318,6 @@ int launch_gemm(const void* A, const void* B, const void* bias, const void* res,
       (const bf16*)A, (const bf16*)B, (const float*)bias, (const bf16*)res,
       (bf16*)aux, (const float*)a_scale, (const float*)out_scale, (bf16*)out, M,
       N, K, rows_per_sample, tn, drop);
-  return (int)cudaGetLastError();
-}
-
-template <int EPI, bool EXTRA, bool A_SCALED = false, bool DROP = false>
-int launch_gemm_f32(const void* A, const void* B, const void* bias, const void* res,
-                    void* aux, const void* a_scale, const void* out_scale, void* out, int M,
-                    int N, int K, int rows_per_sample, void* stream,
-                    const DropArgs& drop = DropArgs()) {
-  const int tn = (N + gemm_tile::BN - 1) / gemm_tile::BN;
-  const long long tiles = (long long)((M + gemm_tile::BM - 1) / gemm_tile::BM) * tn;
-  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  gemm_f32_kernel<EPI, EXTRA, A_SCALED, DROP><<<(unsigned)tiles, THREADS, 0,
-                                                (cudaStream_t)stream>>>(
-      (const float*)A, (const float*)B, (const float*)bias, (const float*)res, (float*)aux,
-      (const float*)a_scale, (const float*)out_scale, (float*)out, M, N, K, rows_per_sample,
-      tn, drop);
   return (int)cudaGetLastError();
 }
 
@@ -712,65 +384,6 @@ CSWIN_API int cswin_gemm(const void* A, const void* B, const void* bias,
   return (int)cudaErrorInvalidValue;
 }
 
-// The float32 instances: every pointer and argument as cswin_gemm's, with
-// A, B, res, aux and out float32. Epilogues 0-3 and their operand scales and
-// dropout masks as there, with nothing rounded: epilogue 1 out = res +
-// D(acc + bias)·dp, epilogue 2 aux = acc + bias, out = D(GELU(acc + bias)),
-// epilogue 3 out = D(acc)·(Φ(h) + h·φ(h)), a kept value v / kd. Requires
-// K % 4 == 0 and 16-byte aligned A and B (checked by the wrapper); at most
-// 2^31 - 1 output tiles of 64 x 64.
-CSWIN_API int cswin_gemm_f32(const void* A, const void* B, const void* bias,
-                             const void* res, void* aux, const void* a_scale,
-                             const void* out_scale, void* out, int M, int N, int K,
-                             int rows_per_sample, int epilogue, const void* key_a,
-                             const void* key_out, long long row0, float kd, unsigned thr,
-                             void* stream) {
-  const bool as = a_scale != nullptr;
-  if (key_a != nullptr || key_out != nullptr) {
-    if (N % 8 || epilogue < 1 || epilogue > 3 || (key_a != nullptr && epilogue != 3))
-      return (int)cudaErrorInvalidValue;
-    DropArgs drop;
-    drop.key_a = (const unsigned long long*)key_a;
-    drop.key_out = (const unsigned long long*)key_out;
-    drop.row0 = row0;
-    drop.kd = kd;
-    drop.thr = thr;
-#define CSWIN_GEMM_F32_DROP(EPI, EX, AS)                                                    \
-  launch_gemm_f32<EPI, EX, AS, true>(A, B, bias, res, aux, a_scale, out_scale, out, M, N, K, \
-                                     rows_per_sample, stream, drop)
-    switch (epilogue) {
-      case 1:
-        if (as) break;
-        return out_scale != nullptr ? CSWIN_GEMM_F32_DROP(1, true, false)
-                                    : CSWIN_GEMM_F32_DROP(1, false, false);
-      case 2:
-        if (as) break;
-        return aux != nullptr ? CSWIN_GEMM_F32_DROP(2, true, false)
-                              : CSWIN_GEMM_F32_DROP(2, false, false);
-      case 3:
-        return as ? CSWIN_GEMM_F32_DROP(3, false, true) : CSWIN_GEMM_F32_DROP(3, false, false);
-    }
-#undef CSWIN_GEMM_F32_DROP
-    return (int)cudaErrorInvalidValue;
-  }
-#define CSWIN_GEMM_F32(EPI, EX, AS)                                                  \
-  launch_gemm_f32<EPI, EX, AS>(A, B, bias, res, aux, a_scale, out_scale, out, M, N, K, \
-                               rows_per_sample, stream)
-  switch (epilogue) {
-    case 0: return as ? CSWIN_GEMM_F32(0, false, true) : CSWIN_GEMM_F32(0, false, false);
-    case 1:
-      if (as) break;
-      return out_scale != nullptr ? CSWIN_GEMM_F32(1, true, false)
-                                  : CSWIN_GEMM_F32(1, false, false);
-    case 2:
-      if (as) break;
-      return aux != nullptr ? CSWIN_GEMM_F32(2, true, false) : CSWIN_GEMM_F32(2, false, false);
-    case 3: return as ? CSWIN_GEMM_F32(3, false, true) : CSWIN_GEMM_F32(3, false, false);
-  }
-#undef CSWIN_GEMM_F32
-  return (int)cudaErrorInvalidValue;
-}
-
 // X: (M, K) bf16; dY: (M, N) bf16; dy_scale: per-sample float32 or null;
 // key: dY's 64-bit dropout key on the device or null (row0, kd, thr as in
 // cswin_gemm);
@@ -782,15 +395,12 @@ CSWIN_API int cswin_gemm_f32(const void* A, const void* B, const void* bias,
 // part_b (N tiles, clusters, bn), float32, and `arrivals` (tiles x 8 ints,
 // zero, left zero); else those are unread. Requires N % 8 == 0, K % 8 ==
 // 0, chunk % 64 == 0 and 16-byte aligned X and dY (checked by the wrapper).
-// cswin_gemm_wgrad_f32: the same with X and dY float32 (and no rounding of
-// dY').
-template <typename T>
 static int wgrad_entry(const void* X, const void* dY, const void* dy_scale, void* dw,
                        void* db, void* part_w, void* part_b, void* arrivals, int M, int N,
                        int K, int rows_per_sample, int chunk, int splits, int cluster, int bn,
                        int bk, const void* key, long long row0, float kd, unsigned thr,
                        void* stream, int* probe) {
-  if (cluster < 1 || cluster > wgrad::MAX_CLUSTER || (cluster & (cluster - 1)) ||
+  if (cluster < 1 || cluster > wgrad_sum::MAX_CLUSTER || (cluster & (cluster - 1)) ||
       splits % cluster || chunk % wgrad::MS)
     return (int)cudaErrorInvalidValue;
   DropArgs drop;
@@ -798,11 +408,11 @@ static int wgrad_entry(const void* X, const void* dY, const void* dy_scale, void
   drop.row0 = row0;
   drop.kd = kd;
   drop.thr = thr;
-#define CSWIN_WGRAD_AS(BN, BK, DROP)                                                        \
-  launch_wgrad<T, BN, BK, DROP>((const T*)X, (const T*)dY, (const float*)dy_scale,          \
-                                (float*)dw, (float*)db, (float*)part_w, (float*)part_b,     \
-                                (int*)arrivals, M, N, K, rows_per_sample, chunk, splits,    \
-                                cluster, drop, (cudaStream_t)stream, probe)
+#define CSWIN_WGRAD_AS(BN, BK, DROP)                                                          \
+  launch_wgrad<BN, BK, DROP>((const bf16*)X, (const bf16*)dY, (const float*)dy_scale,         \
+                             (float*)dw, (float*)db, (float*)part_w, (float*)part_b,          \
+                             (int*)arrivals, M, N, K, rows_per_sample, chunk, splits, cluster, \
+                             drop, (cudaStream_t)stream, probe)
 #define CSWIN_WGRAD(BN, BK) \
   (key != nullptr ? CSWIN_WGRAD_AS(BN, BK, true) : CSWIN_WGRAD_AS(BN, BK, false))
   if (bn == 64 && bk == 64) return (int)CSWIN_WGRAD(64, 64);
@@ -819,38 +429,18 @@ CSWIN_API int cswin_gemm_wgrad(const void* X, const void* dY, const void* dy_sca
                                int N, int K, int rows_per_sample, int chunk, int splits,
                                int cluster, int bn, int bk, const void* key, long long row0,
                                float kd, unsigned thr, void* stream) {
-  return wgrad_entry<bf16>(X, dY, dy_scale, dw, db, part_w, part_b, arrivals, M, N, K,
-                           rows_per_sample, chunk, splits, cluster, bn, bk, key, row0, kd, thr,
-                           stream, nullptr);
-}
-
-CSWIN_API int cswin_gemm_wgrad_f32(const void* X, const void* dY, const void* dy_scale,
-                                   void* dw, void* db, void* part_w, void* part_b,
-                                   void* arrivals, int M, int N, int K, int rows_per_sample,
-                                   int chunk, int splits, int cluster, int bn, int bk,
-                                   const void* key, long long row0, float kd, unsigned thr,
-                                   void* stream) {
-  return wgrad_entry<float>(X, dY, dy_scale, dw, db, part_w, part_b, arrivals, M, N, K,
-                            rows_per_sample, chunk, splits, cluster, bn, bk, key, row0, kd,
-                            thr, stream, nullptr);
+  return wgrad_entry(X, dY, dy_scale, dw, db, part_w, part_b, arrivals, M, N, K,
+                     rows_per_sample, chunk, splits, cluster, bn, bk, key, row0, kd, thr, stream,
+                     nullptr);
 }
 
 // How many clusters of `cluster` CTAs of the bn x bk weight-gradient kernel
-// for T the card runs at once (cudaOccupancyMaxActiveClusters), or -1: what
-// sizes the wrapper's one wave.
-template <typename T>
-static int wgrad_clusters(int bn, int bk, int cluster) {
-  int n = -1;
-  const int err = wgrad_entry<T>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                 nullptr, 64, bn, bk, 1, 64, cluster, cluster, bn, bk, nullptr,
-                                 0, 1.f, 0u, nullptr, &n);
-  return err == (int)cudaSuccess ? n : -1;
-}
-
+// the card runs at once (cudaOccupancyMaxActiveClusters), or -1: what sizes
+// the wrapper's one wave.
 CSWIN_API int cswin_gemm_wgrad_max_clusters(int bn, int bk, int cluster) {
-  return wgrad_clusters<bf16>(bn, bk, cluster);
-}
-
-CSWIN_API int cswin_gemm_wgrad_f32_max_clusters(int bn, int bk, int cluster) {
-  return wgrad_clusters<float>(bn, bk, cluster);
+  int n = -1;
+  const int err = wgrad_entry(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                              nullptr, 64, bn, bk, 1, 64, cluster, cluster, bn, bk, nullptr, 0,
+                              1.f, 0u, nullptr, &n);
+  return err == (int)cudaSuccess ? n : -1;
 }

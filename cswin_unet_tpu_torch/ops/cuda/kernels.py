@@ -483,10 +483,14 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *,
     _check_gemm_operands(a, w)
     out = torch.empty((M, N), dtype=dt, device=dev)
     key, row0, kd, thr = _drop_args(drop, N, dt, dev)
-    fn = library().cswin_gemm if dt == torch.bfloat16 else library().cswin_gemm_f32
-    err = fn(a.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(residual), _ptr(pre), 0, _ptr(dp),
-             out.data_ptr(), M, N, K, max(rows_per_sample, 1), _EPILOGUES[epilogue], 0, key,
-             row0, kd, thr, _stream(dev))
+    args = (a.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(residual), _ptr(pre), 0, _ptr(dp),
+            out.data_ptr(), M, N, K, max(rows_per_sample, 1), _EPILOGUES[epilogue], 0, key,
+            row0, kd, thr)
+    if dt == torch.bfloat16:
+        err = library().cswin_gemm(*args, _stream(dev))
+    else:
+        plan = gemm_f32_plan(M, N)
+        err = library().cswin_gemm_f32(*args, plan.bm, plan.bn, 0, _stream(dev))
     check(err, "gemm")
     _counted(gemm, dt)
     return out
@@ -506,30 +510,67 @@ def _check_gemm_operands(a: torch.Tensor, w: torch.Tensor) -> None:
 
 
 class GemmF32Plan(NamedTuple):
-    """The float32 GEMM tile (``gemm_tile.cuh::tile_f32``): ``bm`` x ``bn``
-    outputs a CTA of ``threads`` threads, each thread 8 x 4 of them; a ring
-    of ``stages`` k-blocks ``bk`` deep of both operands at a row stride of
-    ``lds`` floats (``smem_bytes`` of static shared memory); ``ctas`` one
-    per output tile."""
+    """The float32 GEMM of ``gemm`` and ``gemm_dgrad`` (``gemm_f32.cu``):
+    ``bm`` x ``bn`` outputs a CTA of ``threads`` threads, each thread 8 x 4
+    of them, over a ring of k-blocks 32 deep (``smem_bytes`` of dynamic
+    shared memory, the staged output tile sharing it); ``ctas`` one per
+    output tile; ``kn``: B is given as (K, N), the dX product's weight as
+    stored."""
     bm: int
     bn: int
-    bk: int
-    stages: int
-    lds: int
+    kn: bool
     threads: int
     smem_bytes: int
     ctas: int
 
 
-# gemm_tile.cuh: BM, BN, THREADS; BK_F, STAGES_F, LDF
+# gemm_tile.cuh: BM, BN, THREADS; BK_F, STAGES_F, LDF (the bf16 tile, and
+# tile_f32, which the float32 pair runs as a phase)
 _GEMM_BM, _GEMM_BN, _GEMM_THREADS = 64, 64, 128
 _GEMM_F32_BK, _GEMM_F32_STAGES, _GEMM_F32_LDS = 16, 3, 20
+# gemm_f32.cu: gemm_f32::STAGES, BK, TN; the planner's tiles (Tile64x64,
+# Tile128x32) as (bm, bn)
+_F32_STAGES, _F32_BK, _F32_TN = 3, 32, 4
+_F32_TILES = ((64, 64), (128, 32))
 
 
-def gemm_f32_plan(M: int, N: int) -> GemmF32Plan:
-    smem = 2 * _GEMM_F32_STAGES * 64 * _GEMM_F32_LDS * 4
-    return GemmF32Plan(_GEMM_BM, _GEMM_BN, _GEMM_F32_BK, _GEMM_F32_STAGES, _GEMM_F32_LDS,
-                       _GEMM_THREADS, smem, -(-M // _GEMM_BM) * -(-N // _GEMM_BN))
+def tile_f32_smem() -> int:
+    """Static shared memory of ``gemm_tile::tile_f32`` (``SmemF32``), the
+    float32 pair's GEMM phase."""
+    return 2 * _GEMM_F32_STAGES * 64 * _GEMM_F32_LDS * 4
+
+
+def gemm_f32_smem(bm: int, bn: int, kn: bool = False) -> int:
+    """Dynamic shared memory of a float32 GEMM tile (``gemm_f32::Smem``):
+    the ring of both operands (A's rows of ``BK + 4`` floats; B's the same,
+    or with ``kn`` ``BK`` rows of ``bn + 4``) or, once it is idle, the
+    staged output (rows of ``bn + bn / TN``), and a scale a row, 128-byte
+    aligned."""
+    bk = _F32_BK
+    ring = _F32_STAGES * (bm * (bk + 4) + (bk * (bn + 4) if kn else bn * (bk + 4)))
+    return -(-4 * (max(ring, bm * (bn + bn // _F32_TN)) + bm) // 128) * 128
+
+
+def gemm_f32_plan(M: int, N: int, kn: bool = False) -> GemmF32Plan:
+    """The 64 x 64 tile, or the 128 x 32 one where N's 32-column tiles waste
+    fewer columns than its 64-column ones (N = 96: 128 columns computed
+    against 96). Measured on the H100 at every forward and dX shape of
+    tiny-224 and base-384 at bs 24, against 8 x 8 tiles of 128 x 128 and
+    128 x 64 and other 8 x 4 shapes (``PERF.md``, PR 19): these two were
+    the fastest or within a few percent of it. Either gives the same bits:
+    each output is one fmaf chain over k in order. ``kn``: B as (K, N) (the
+    dX product)."""
+    key = (M, N, kn)
+    plan = _gemm_f32_plans.get(key)
+    if plan is None:
+        bm, bn = _F32_TILES[1] if -(-N // 32) * 32 < -(-N // 64) * 64 else _F32_TILES[0]
+        plan = _gemm_f32_plans[key] = GemmF32Plan(
+            bm, bn, kn, bm * bn // (8 * _F32_TN), gemm_f32_smem(bm, bn, kn),
+            -(-M // bm) * -(-N // bn))
+    return plan
+
+
+_gemm_f32_plans: dict[tuple, GemmF32Plan] = {}  # by (M, N, kn): once a shape
 
 
 gemm.launches = gemm.launches_f32 = 0
@@ -556,8 +597,9 @@ def gemm_dgrad(dy: torch.Tensor, w: torch.Tensor, *,
     accumulation, out in ``dy.dtype`` (bf16, or float32: the float32
     instance, nothing rounded).
 
-    dy: (M, N); w: (N, K), the torch Linear layout (the kernel reads it
-    pre-transposed); dY' is dy with row m scaled by the drop-path multiplier
+    dy: (M, N); w: (N, K), the torch Linear layout (the bf16 kernel reads a
+    transposed copy, the float32 one w as stored); dY' is dy with row m
+    scaled by the drop-path multiplier
     ``dp[m // rows_per_sample]`` and rounded, when ``dp`` is given. With
     ``gelu_h`` (M, K), the saved pre-activation of the GELU that feeds this
     layer, the output is ``(dY'·w) · GELU'(h)`` (the fc2 -> fc1 step).
@@ -581,8 +623,13 @@ def gemm_dgrad(dy: torch.Tensor, w: torch.Tensor, *,
         _require(gelu_h, "gelu_h", dt, dev, (M, K))
     if dp is not None:
         _check_scale(dp, M, rows_per_sample, dev)
-    wt = w.to(dy.dtype).t().contiguous()                     # (K, N)
-    _check_gemm_operands(dy, wt)
+    if dt == torch.bfloat16:
+        b = w.to(dy.dtype).t().contiguous()                  # (K, N), the tile's B
+    else:
+        b = w.to(dt).contiguous()  # (N, K): the float32 tile reads it as stored
+        if K % 4:
+            raise ValueError(f"gemm_dgrad at float32 needs K % 4 == 0, got {K}")
+    _check_gemm_operands(dy, b if dt == torch.bfloat16 else b.t())
     key_a, row0, kd, thr = _drop_args(drop_dy, N, dy.dtype, dev)
     key_out, row0_out, kd, thr = (_drop_args(drop_dx, K, dy.dtype, dev)
                                   if drop_dx is not None else (0, row0, kd, thr))
@@ -590,11 +637,15 @@ def gemm_dgrad(dy: torch.Tensor, w: torch.Tensor, *,
             (drop_dy.rate, drop_dy.row0) != (drop_dx.rate, drop_dx.row0)):
         raise ValueError("drop_dy and drop_dx are one block's sites: one rate, one row0")
     out = torch.empty((M, K), dtype=dt, device=dev)
-    fn = library().cswin_gemm if dt == torch.bfloat16 else library().cswin_gemm_f32
-    err = fn(dy.data_ptr(), wt.data_ptr(), 0, 0, _ptr(gelu_h), _ptr(dp), 0,
-             out.data_ptr(), M, K, N, max(rows_per_sample, 1),
-             _GELU_BWD if gelu_h is not None else _EPILOGUES["bias"], key_a, key_out,
-             row0_out, kd, thr, _stream(dev))
+    args = (dy.data_ptr(), b.data_ptr(), 0, 0, _ptr(gelu_h), _ptr(dp), 0, out.data_ptr(), M,
+            K, N, max(rows_per_sample, 1),
+            _GELU_BWD if gelu_h is not None else _EPILOGUES["bias"], key_a, key_out, row0_out,
+            kd, thr)
+    if dt == torch.bfloat16:
+        err = library().cswin_gemm(*args, _stream(dev))
+    else:
+        plan = gemm_f32_plan(M, K, kn=True)
+        err = library().cswin_gemm_f32(*args, plan.bm, plan.bn, 1, _stream(dev))
     check(err, "gemm_dgrad")
     _counted(gemm_dgrad, dt)
     return out
@@ -667,6 +718,73 @@ def wgrad_plan(M: int, N: int, K: int, max_clusters=None) -> WgradPlan:
                key=lambda p: (p.cluster, p.splits))
 
 
+_WGRAD_F32_ROWS = 32   # gemm_f32.cu wgrad_f32::MS, the rows of a float32 ring stage
+# The float32 planner's model, fitted to the H100 (PERF.md, PR 19): a
+# dependent load of the cross-split sums costs as much as _WGRAD_F32_STEP
+# rows of a 128 x 128 tile's products, a split tile _WGRAD_F32_FIXED rows
+# more (its barriers and fences).
+_WGRAD_F32_STEP, _WGRAD_F32_FIXED = 6.0, 20.0
+
+
+def _wgrad_f32_cost(tiles: int, bn: int, bk: int, chunk: int, splits: int, cl: int,
+                    sms: int) -> float:
+    """Modelled time of a float32 weight-gradient cut, in rows of a 128 x 128
+    tile's products at the full FFMA rate of an SM: the busiest SM's CTAs
+    (``c``, all in one wave) each stream ``chunk`` rows at a rate that
+    rises with the warps the SM holds (0.4 + 0.6·warps/16 of it, all of it
+    from 16 warps); then each thread's dependent loads of the sums, its ``items``
+    16-byte words of the cluster's tile through distributed shared memory
+    (every rank's at once) and, with several clusters a tile, the last
+    cluster's pass over their partials in L2, eight at a time."""
+    threads = bn * bk // 64
+    c = -(-tiles * splits // sms)
+    rate = min(1.0, 0.4 + 0.6 * c * threads / 32 / 16)
+    t = c * chunk * bn * bk / 16384 / rate
+    if splits > 1:
+        clusters = splits // cl
+        items = bn // cl * (bk // 4) / threads
+        loads = items + (items * -(-clusters // 8) if clusters > 1 else 0)
+        t += _WGRAD_F32_STEP * loads + _WGRAD_F32_FIXED
+    return t
+
+
+def wgrad_f32_plan(M: int, N: int, K: int, max_clusters=None, sms: int = _SMS) -> WgradPlan:
+    """The float32 weight gradient's cut (``gemm_f32.cu::wgrad_f32_kernel``,
+    8 x 8 outputs a thread, ``bn * bk / 64`` threads): tiles as
+    ``wgrad_plan``'s; then, of every cut of each tile's M into splits of
+    whole ``_WGRAD_F32_ROWS``-row stages, in clusters of 8, 4, 2 or 1 CTAs,
+    within one wave (``max_clusters(bn, bk, cl)`` clusters at once, from the
+    occupancy API; by default one CTA on each of ``sms`` SMs) and with
+    partials no larger than the float32 operands' bytes ``4·M·(N + K)``,
+    the one of least modelled time (``_wgrad_f32_cost``: a CTA's FFMA work
+    against its share of the cross-split sums); ties go to fewer splits,
+    then the larger cluster. Where the tiles alone fill the wave, one split
+    a tile: no sums."""
+    bn = 128 if N % 128 == 0 else 64
+    bk = 128 if K % 128 == 0 else 64
+    tn = -(-N // bn)
+    tiles = tn * -(-K // bk)
+    steps = -(-M // _WGRAD_F32_ROWS)
+    fit = max_clusters or (lambda bn_, bk_, cl: sms // cl)
+    cap = 4 * M * (N + K)
+    best = (_wgrad_f32_cost(tiles, bn, bk, steps * _WGRAD_F32_ROWS, 1, 1, sms), 1, -1), \
+        WgradPlan(steps * _WGRAD_F32_ROWS, 1, 1, tiles, 0, bn, bk)
+    for cl in (8, 4, 2, 1):
+        for want in range(cl, min(steps, fit(bn, bk, cl) * cl // tiles) + 1, cl):
+            chunk = -(-steps // want) * _WGRAD_F32_ROWS
+            splits = -(-(-(-M // chunk)) // cl) * cl
+            if splits != want:
+                continue  # the same cut as a smaller count
+            clusters = splits // cl
+            partial = 4 * clusters * bn * (tiles * bk + tn) if clusters > 1 else 0
+            if splits == 1 or partial > cap:
+                continue  # one split is the cut above
+            key = (_wgrad_f32_cost(tiles, bn, bk, chunk, splits, cl, sms), splits, -cl)
+            if key < best[0]:
+                best = key, WgradPlan(chunk, splits, cl, tiles, partial, bn, bk)
+    return best[1]
+
+
 _wgrad_arrivals: dict[torch.device, torch.Tensor] = {}
 _wgrad_fit: dict[tuple, int] = {}
 _wgrad_plans: dict[tuple, WgradPlan] = {}  # by (device, M, N, K, dtype): once a shape
@@ -709,9 +827,9 @@ def gemm_wgrad(x: torch.Tensor, dy: torch.Tensor, *,
 
     x: (M, K), dy: (M, N) in one dtype (bf16, or float32: the float32
     instance, FFMA products); dY' as in ``gemm_dgrad``, with ``drop`` as its
-    ``drop_dy``. On the GPU one launch (``wgrad_plan``) splits M over one
-    wave of CTAs and sums the splits itself, in a fixed order: two calls
-    give the same bits."""
+    ``drop_dy``. On the GPU one launch (``wgrad_plan``, at float32
+    ``wgrad_f32_plan``) splits M over one wave of CTAs and sums the splits
+    itself, in a fixed order: two calls give the same bits."""
     if _on_cpu(x):
         return gemm_wgrad_plain(x, dy, dp=dp, rows_per_sample=rows_per_sample, drop=drop)
     M, K = x.shape
@@ -729,8 +847,9 @@ def gemm_wgrad(x: torch.Tensor, dy: torch.Tensor, *,
     plan = _wgrad_plans.get((dev, M, N, K, dt))
     if plan is None:
         with torch.cuda.device(dev):
-            plan = _wgrad_plans[dev, M, N, K, dt] = wgrad_plan(
-                M, N, K, lambda bn, bk, cl: _wgrad_max_clusters(bn, bk, cl, dt))
+            fit = lambda bn, bk, cl: _wgrad_max_clusters(bn, bk, cl, dt)
+            plan = _wgrad_plans[dev, M, N, K, dt] = (
+                wgrad_plan(M, N, K, fit) if dt == torch.bfloat16 else wgrad_f32_plan(M, N, K, fit))
     if plan.tiles > 65535 or plan.splits * plan.chunk >= 2**31:
         raise ValueError(f"gemm_wgrad: M={M}, N={N}, K={K} exceed the grid limit")
     dw = torch.empty((N, K), dtype=torch.float32, device=dev)
@@ -1344,7 +1463,7 @@ def block_pair_f32_smem(H: int, W: int, C: int, heads: int, split: int) -> int:
     """Dynamic shared memory of the float32 pair (``block_phases::
     smem_bytes<D, float>``): the larger of the float32 GEMM tile's ring and
     the widest window's float32 attention staging."""
-    return max(gemm_f32_plan(1, 1).smem_bytes,
+    return max(tile_f32_smem(),
                attention_f32_plan(max(H, W) * split, C // heads).smem_bytes)
 
 

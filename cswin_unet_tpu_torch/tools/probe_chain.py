@@ -28,7 +28,20 @@ in every process. Recorded at the tiny-224 stage geometries:
     for (C = 32, 64, ..., 512 and 768: tiny-224's last stage and base-384's
     four among them), 3456 rows (base-384's last stage at B = 24): the
     backward is compiled once a width, and the training probes above reach
-    only tiny-224's stages 1-3.
+    only tiny-224's stages 1-3;
+  * the float32 instances (``f32_*``, TPU.COMPUTE_DTYPE float32) at the
+    stage geometries of tiny-224 (B = 24, the training batch) and base-384
+    (B = 2): ``gemm`` in every epilogue (bias; residual with and without
+    the drop-path scale; GELU with and without the kept pre-activation; the
+    dropout instances of the residual and GELU epilogues) and
+    ``gemm_dgrad`` (plain, with the operand scale, with the GELU backward,
+    and with both dropout masks), so that every tile the float32 planner
+    picks at those shapes is reached; the float32 chain
+    (``fused_cswin_block``) at B = 8 / 2, ``CSWinBlockFn``'s float32
+    forward and input gradient (which no weight gradient reaches) at
+    tiny-224's stages 1-3, B = 4, and ``block_pair`` at float32 at tiny-224's
+    stages 2 and 3 and base-384's stage 3. The float32 weight gradient is
+    not probed: its split plan sets its bits (the float64 rule holds it).
 
 ``--compare`` prints each tensor's max abs difference and exits non-zero
 unless every one is 0.
@@ -60,6 +73,9 @@ REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "probe_refe
 # stage, H, C, heads, split, last (tiny-224)
 STAGES = ((1, 56, 64, 2, 1, False), (2, 28, 128, 4, 2, False),
           (3, 14, 256, 8, 7, False), (4, 7, 512, 16, 7, True))
+# the same for base-384 (head dim 24)
+STAGES384 = ((1, 96, 96, 4, 1, False), (2, 48, 192, 8, 2, False),
+             (3, 24, 384, 16, 12, False), (4, 12, 768, 32, 12, True))
 
 
 def probe(dev) -> dict:
@@ -128,8 +144,90 @@ def probe(dev) -> dict:
         grads = K.layernorm_bwd(x, dy, t(C, sc=0.3, off=1.0), residual=res)
         for name, g in zip(("dx", "dweight", "dbias"), grads):
             out[f"ln_bwd_c{C}_{name}"] = g
+    out.update(probe_f32(dev))
     torch.cuda.synchronize()
     return {k: v.detach().cpu() for k, v in out.items()}
+
+
+def probe_f32(dev) -> dict:
+    """The float32 instances' outputs (``f32_*``): the GEMM and dX products
+    in every epilogue, the float32 chain, its training forward and input
+    gradient, and the float32 pair; inputs from their own seeded generator,
+    so that the bf16 probes' inputs stay as they were."""
+    import torch
+
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.ops.cuda.cswin_block import BlockParams, fused_cswin_block
+    from cswin_unet_tpu_torch.ops.dropout import Drop
+
+    rng = np.random.default_rng(21)
+    t = lambda *s, sc=0.1, off=0.0: torch.from_numpy(
+        (rng.standard_normal(s) * sc + off).astype(np.float32)).to(dev)
+    key = lambda: torch.from_numpy(rng.integers(-2**62, 2**62, 1)).to(dev)
+
+    def params(C, last):
+        cb = C if last else C // 2
+        lk0, lb0 = t(cb, 1, 3, 3, sc=0.3), t(cb)
+        lk1, lb1 = (lk0, lb0) if last else (t(cb, 1, 3, 3, sc=0.3), t(cb))
+        return BlockParams(t(C, sc=0.3, off=1.0), t(C), t(3 * C, C, sc=C ** -0.5), t(3 * C),
+                           lk0, lb0, lk1, lb1, t(C, C, sc=C ** -0.5), t(C),
+                           t(C, sc=0.3, off=1.0), t(C), t(4 * C, C, sc=C ** -0.5), t(4 * C),
+                           t(C, 4 * C, sc=(4 * C) ** -0.5), t(C))
+
+    out = {}
+    for cfg, stages, B in (("tiny", STAGES, 24), ("base", STAGES384, 2)):
+        for s, H, C, heads, split, last in stages:
+            tag = f"f32_{cfg}_s{s}"
+            M, hw = B * H * H, H * H
+            x, h, res = t(M, C, sc=1.0), t(M, 4 * C, sc=1.0), t(M, C, sc=1.0)
+            dp = torch.from_numpy((rng.random(B) < 0.8).astype(np.float32) / 0.8).to(dev)
+            w_qkv, w_proj, w1, w2 = (t(3 * C, C, sc=C ** -0.5), t(C, C, sc=C ** -0.5),
+                                     t(4 * C, C, sc=C ** -0.5), t(C, 4 * C, sc=(4 * C) ** -0.5))
+            b_qkv, b_proj, b1, b2 = t(3 * C), t(C), t(4 * C), t(C)
+            d1, d2 = Drop(key(), 0.1), Drop(key(), 0.1)
+            pre = torch.empty(M, 4 * C, device=dev)
+            pre_d = torch.empty(M, 4 * C, device=dev)
+            out[f"{tag}_qkv"] = K.gemm(x, w_qkv, b_qkv)
+            out[f"{tag}_proj"] = K.gemm(x, w_proj, b_proj, residual=res, epilogue="residual")
+            out[f"{tag}_proj_dp"] = K.gemm(x, w_proj, b_proj, residual=res,
+                                           epilogue="residual", dp=dp, rows_per_sample=hw)
+            out[f"{tag}_fc1"] = K.gemm(x, w1, b1, epilogue="gelu")
+            out[f"{tag}_fc1_pre"] = K.gemm(x, w1, b1, epilogue="gelu", pre=pre)
+            out[f"{tag}_fc1_pre_h"] = pre
+            out[f"{tag}_fc2_dp"] = K.gemm(h, w2, b2, residual=res, epilogue="residual",
+                                          dp=dp, rows_per_sample=hw)
+            out[f"{tag}_fc2_dp_drop"] = K.gemm(h, w2, b2, residual=res, epilogue="residual",
+                                               dp=dp, rows_per_sample=hw, drop=d2)
+            out[f"{tag}_fc1_pre_drop"] = K.gemm(x, w1, b1, epilogue="gelu", pre=pre_d, drop=d1)
+            out[f"{tag}_fc1_pre_drop_h"] = pre_d
+            out[f"{tag}_dx_fc2_gelu_dp"] = K.gemm_dgrad(res, w2, dp=dp, rows_per_sample=hw,
+                                                        gelu_h=h)
+            out[f"{tag}_dx_fc2_gelu_drop"] = K.gemm_dgrad(res, w2, dp=dp, rows_per_sample=hw,
+                                                          gelu_h=h, drop_dy=d2, drop_dx=d1)
+            out[f"{tag}_dx_fc1"] = K.gemm_dgrad(h, w1)
+            out[f"{tag}_dx_proj_dp"] = K.gemm_dgrad(res, w_proj, dp=dp, rows_per_sample=hw)
+            out[f"{tag}_dx_qkv"] = K.gemm_dgrad(t(M, 3 * C, sc=1.0), w_qkv)
+            del h, pre, pre_d
+            kw = dict(heads=heads, split=split, last_stage=last, scale=(C // heads) ** -0.5)
+            p = params(C, last)
+            xb = t(8 if cfg == "tiny" else 2, H, H, C, sc=1.0)
+            with torch.inference_mode():
+                out[f"{tag}_block"] = fused_cswin_block(xb, p, **kw)
+            if last:
+                continue
+            if cfg == "tiny" and s < 4:
+                leaves = [t(4, H, H, C, sc=1.0).requires_grad_()]
+                leaves += [q.clone().requires_grad_() for q in params(C, False)]
+                g = t(4, H, H, C, sc=1.0)
+                dps = tuple(torch.from_numpy((rng.random(4) < 0.8).astype(np.float32) / 0.8)
+                            .to(dev) for _ in range(2))
+                y = fused_cswin_block(leaves[0], BlockParams(*leaves[1:]), dps=dps, **kw)
+                out[f"{tag}_train_out"] = y.detach()
+                out[f"{tag}_train_dx"] = torch.autograd.grad(y, leaves[0], g)[0]
+            if (cfg, s) in (("tiny", 2), ("tiny", 3), ("base", 3)):
+                pkw = dict(heads=heads, split=split, scale=kw["scale"])
+                out[f"{tag}_pair"] = K.block_pair(xb, p, params(C, False), **pkw)
+    return out
 
 
 def digests(tensors: dict) -> dict[str, str]:

@@ -44,6 +44,19 @@ modes' outputs (``torch.save``, ~260 MB: keep it out of ``chiprun_out/``);
 ``--ulps A B`` prints, per mode, the largest difference of two such files in
 bf16 ulps (adjacent bf16 values are one apart) and how many values differ.
 
+``--f32`` times the float32 instances instead: the harness's
+``compare_f32_kernels`` (every float32 forward kernel at the shapes of one
+32-slice float32 serving forward) and ``f32_backward_kernels`` (per bs-24
+train step at float32, with the forward GEMM's training epilogues) at
+tiny-224's and then at base-384's training geometries, each case behind the
+spin kernel, each case's output digested (``sha256`` per ``[f32:...]``
+line's case, the elements of a tuple in order). ``--table`` then prints the
+per-kernel sums, each case's ms a call and, per case, the output bits by
+file: over parent, change, change, parent the float32 GEMM and dX cases read
+``A A A A`` where the change keeps the parent's bits; a weight gradient with
+a new split plan reads ``A B B A`` (its bits follow the plan; the float64
+rule holds it).
+
 ``--forward`` times instead the root's whole serving forward end to end:
 one 32-slice tiny-224 chunk to labels (``model(x, emit="labels")`` on the
 fused route, random weights from a seed), CUDA events around 5 back-to-back
@@ -53,6 +66,15 @@ of a forward (the root's ``utils.profiling.device_busy_ms``, or the
 harness's ``device_busy_ms`` for a root from before it moved there: then give
 ``--harness`` a checkout of the root's age). ``--table`` prints such files as
 one row each.
+
+``--step`` times the root's whole bs-24 train step instead (the recipe's
+step, ``train.make_train_step``, every block through ``CSWinBlockFn``, on
+seeded slices at the config's size, random weights from a seed): CUDA
+events around 2 steps in each of ``--rounds`` rounds, the device busy ms of
+a step and its peak device memory. ``--cfg`` names the config (default
+tiny-224) and ``--opts`` its overrides (``TPU.COMPUTE_DTYPE float32`` for
+the float32 step); ``--forward`` takes them too. ``--table`` prints such
+files as one row each.
 
 A root runs under a harness that calls only what the root has. This
 checkout's harness reads nothing of the training route from the root, so
@@ -210,6 +232,46 @@ def measure(root: str, harness: str) -> dict:
                 lab=lab)
 
 
+def measure_f32(root: str, harness: str) -> dict:
+    import torch
+
+    chip_smoke = _load(root, harness)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    digests: dict[str, str] = {}
+    case = chip_smoke.KernelTally.case
+
+    def digested(self, name, label, kernel_fn, *args, **kw):
+        case(self, name, label, kernel_fn, *args, **kw)
+        got = kernel_fn()
+        parts = got if isinstance(got, tuple) else (got,)
+        digests[f"[{self.tag}] {name} {label}"] = "/".join(digest(t) for t in parts)
+
+    chip_smoke.KernelTally.case = digested
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        tally = chip_smoke.compare_f32_kernels(chip_smoke.smoke_config(), dev,
+                                               chip_smoke.SERVE_BATCH)
+        chip_smoke.f32_backward_kernels(chip_smoke.smoke_config(), dev,
+                                        chip_smoke.TRAIN_BATCH, tally)
+        tally384 = chip_smoke.KernelTally("f32:base384:kernel")
+        chip_smoke.f32_backward_kernels(chip_smoke.smoke_config(cfg=chip_smoke.CFG384), dev,
+                                        chip_smoke.TRAIN_BATCH, tally384)
+    chip_smoke.KernelTally.case = case
+    print(printed.getvalue(), end="")
+    keys = ("ms", "bound_ms", "plain_ms", "library_ms", "library_vs_ms")
+    names = [k for k in tally.rows if k.endswith("_f32") and tally.rows[k]["ms"] > 0]
+    return dict(root=root, harness=harness, device=torch.cuda.get_device_name(0),
+                nvidia_smi=_smi(),
+                kernel_lines=[ln for ln in printed.getvalue().splitlines()
+                              if ln.startswith(("[f32:kernel]", "[f32:base384:kernel]"))],
+                kernels={k: {f: tally.rows[k][f] for f in keys} for k in names},
+                kernels384={k: {f: tally384.rows[k][f] for f in keys}
+                            for k in names if tally384.rows[k]["ms"] > 0},
+                digests=digests)
+
+
 def measure_lab(root: str, harness: str, save: str | None) -> dict:
     import torch
 
@@ -224,7 +286,43 @@ def measure_lab(root: str, harness: str, save: str | None) -> dict:
                 nvidia_smi=_smi(), lab=lab)
 
 
-def measure_forward(root: str, harness: str) -> dict:
+def measure_step(root: str, harness: str, cfg_path: str | None, opts, rounds: int) -> dict:
+    import numpy as np
+    import torch
+
+    chip_smoke = _load(root, harness)
+    from cswin_unet_tpu_torch.models import build_model
+    from cswin_unet_tpu_torch.train import make_optimizer, make_train_step
+    from cswin_unet_tpu_torch.utils.profiling import device_busy_ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = chip_smoke.smoke_config(opts, cfg=cfg_path or chip_smoke.CFG)
+    batch, size = chip_smoke.TRAIN_BATCH, cfg.DATA.IMG_SIZE
+    model = build_model(cfg, num_classes=9, device=dev, seed=0, train=True)
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(rng.standard_normal((batch, size, size, 1)).astype(
+        np.float32)).to(dev)
+    lab = torch.from_numpy(rng.integers(0, 9, (batch, size, size)).astype(np.int64)).to(dev)
+    opt, sched = make_optimizer(model.parameters(), 0.01, 30000)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step = make_train_step(model, opt, sched, 9)
+    ms = [chip_smoke.time_ms(lambda: step(img, lab, gen), reps=2, rounds=1)
+          for _ in range(rounds)]
+    busy = device_busy_ms(lambda: step(img, lab, gen), 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(img, lab, gen)
+    torch.cuda.synchronize()
+    return dict(root=root, harness=harness, device=torch.cuda.get_device_name(0),
+                nvidia_smi=_smi(), step=dict(config=cfg.MODEL.NAME, img_size=size,
+                                             dtype=cfg.TPU.COMPUTE_DTYPE, batch=batch, ms=ms,
+                                             busy_ms=busy,
+                                             peak_gib=torch.cuda.max_memory_allocated() / 2**30))
+
+
+def measure_forward(root: str, harness: str, cfg_path: str | None = None, opts=None) -> dict:
     import numpy as np
     import torch
 
@@ -244,9 +342,11 @@ def measure_forward(root: str, harness: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     batch = chip_smoke.SERVE_BATCH
-    model = build_model(chip_smoke.smoke_config(), num_classes=9, device=dev, seed=1)
+    cfg = chip_smoke.smoke_config(opts, cfg=cfg_path or chip_smoke.CFG)
+    size = cfg.DATA.IMG_SIZE
+    model = build_model(cfg, num_classes=9, device=dev, seed=1)
     x = torch.from_numpy(np.random.default_rng(2).standard_normal(
-        (batch, 224, 224, 1)).astype(np.float32)).to(dev)
+        (batch, size, size, 1)).astype(np.float32)).to(dev)
 
     def forward():
         with torch.inference_mode():
@@ -255,7 +355,9 @@ def measure_forward(root: str, harness: str) -> dict:
     ms = [chip_smoke.time_ms(forward, reps=5, rounds=1) for _ in range(10)]
     busy = device_busy_ms(forward, 5)
     return dict(root=root, harness=harness, device=torch.cuda.get_device_name(0),
-                nvidia_smi=_smi(), forward=dict(batch=batch, ms=ms, busy_ms=busy))
+                nvidia_smi=_smi(), forward=dict(config=cfg.MODEL.NAME, img_size=size,
+                                                dtype=cfg.TPU.COMPUTE_DTYPE, batch=batch,
+                                                ms=ms, busy_ms=busy))
 
 
 def table(paths: list[str]) -> None:
@@ -265,14 +367,17 @@ def table(paths: list[str]) -> None:
             runs.append(json.load(f))
     print("cards: " + "; ".join(f"{os.path.basename(p)} {r['nvidia_smi']}"
                                 for p, r in zip(paths, runs)))
-    if "forward" in runs[0]:
-        print("forward of one chunk to labels: ms median [min-max] of the rounds, "
-              "device busy ms, root")
+    if "forward" in runs[0] or "step" in runs[0]:
+        what = "forward" if "forward" in runs[0] else "step"
+        print(f"{'forward of one chunk to labels' if what == 'forward' else 'bs-24 train step'}"
+              f": ms median [min-max] of the rounds, device busy ms, peak GiB, root")
         for p, r in zip(paths, runs):
-            ms, busy = r["forward"]["ms"], r["forward"]["busy_ms"]
-            print(f"{os.path.basename(p)}: {statistics.median(ms):.3f} [{min(ms):.3f}-"
-                  f"{max(ms):.3f}] busy {'unread' if busy is None else f'{busy:.3f}'} "
-                  f"{r['root']}")
+            row = r[what]
+            ms, busy, peak = row["ms"], row["busy_ms"], row.get("peak_gib")
+            print(f"{os.path.basename(p)}: {row.get('config', '')} {row.get('dtype', '')} "
+                  f"{statistics.median(ms):.3f} [{min(ms):.3f}-{max(ms):.3f}] busy "
+                  f"{'unread' if busy is None else f'{busy:.3f}'}"
+                  f"{'' if peak is None else f' peak {peak:.3f} GiB'} {r['root']}")
         return
     head = " | ".join(os.path.basename(p) for p in paths)
     if "kernels" not in runs[0]:  # --lab
@@ -280,12 +385,15 @@ def table(paths: list[str]) -> None:
         return
     print(f"kernel (per unit of work): ms {head} | bound_ms | library_ms / the kernel's ms "
           f"on the same cases, per file")
-    for k in KERNELS:
-        cells = " | ".join(f"{r['kernels'][k]['ms']:.4f}" for r in runs)
-        lib = " | ".join("none" if r["kernels"][k]["library_ms"] is None else
-                         f"{r['kernels'][k]['library_ms']:.4f} / "
-                         f"{r['kernels'][k]['library_vs_ms']:.4f}" for r in runs)
-        print(f"{k}: {cells} | {runs[0]['kernels'][k]['bound_ms']:.4f} | {lib}")
+    for part in ("kernels", "kernels384"):
+        for k in runs[0].get(part, {}):
+            rows = [r[part][k] for r in runs]
+            cells = " | ".join(f"{row['ms']:.4f}" for row in rows)
+            lib = " | ".join("none" if row["library_ms"] is None else
+                             f"{row['library_ms']:.4f} / {row['library_vs_ms']:.4f}"
+                             for row in rows)
+            name = k if part == "kernels" else f"{k} (base-384)"
+            print(f"{name}: {cells} | {rows[0]['bound_ms']:.4f} | {lib}")
     cases: dict[str, list] = {}  # each case's ms a call, by file ('-': not run)
     for i, r in enumerate(runs):
         for ln in r.get("kernel_lines", []):
@@ -298,6 +406,14 @@ def table(paths: list[str]) -> None:
     for p, r in zip(paths, runs):
         if r.get("base384_refused"):
             print(f"{os.path.basename(p)} base-384 refused: {r['base384_refused']}")
+    if "digests" in runs[0]:
+        print("case: output bits by file (each distinct digest a letter, in file order)")
+        for case in runs[0]["digests"]:
+            letters: dict[str, str] = {}
+            print(f"{case}: " + " ".join(
+                "-" if case not in r["digests"] else
+                letters.setdefault(r["digests"][case], "ABCD"[len(letters)]) for r in runs))
+        return
     lab_table(paths, runs, head)
 
 
@@ -349,6 +465,16 @@ def main() -> int:
     ap.add_argument("--table", nargs="+", metavar="JSON", help="print result files side by side")
     ap.add_argument("--forward", action="store_true",
                     help="time the root's 32-slice serving forward end to end instead")
+    ap.add_argument("--step", action="store_true",
+                    help="time the root's bs-24 train step end to end instead")
+    ap.add_argument("--cfg", help="with --step or --forward: the config YAML "
+                    "(default tiny-224)")
+    ap.add_argument("--opts", nargs="+", default=None,
+                    help="with --step or --forward: config overrides, KEY VALUE pairs")
+    ap.add_argument("--rounds", type=int, default=10,
+                    help="with --step: timed rounds of 2 steps (default 10)")
+    ap.add_argument("--f32", action="store_true",
+                    help="time the float32 instances, with their output digests")
     ap.add_argument("--lab", action="store_true",
                     help="time only the block lab's cases, with their output digests")
     ap.add_argument("--save", help="with --lab: where to write ln_mlp's five outputs")
@@ -366,8 +492,10 @@ def main() -> int:
         print("tile_ab: no CUDA device available", file=sys.stderr)
         return 2
     root, harness = os.path.abspath(args.root), os.path.abspath(args.harness or args.root)
-    result = (measure_forward(root, harness) if args.forward
+    result = (measure_forward(root, harness, args.cfg, args.opts) if args.forward
+              else measure_step(root, harness, args.cfg, args.opts, args.rounds) if args.step
               else measure_lab(root, harness, args.save) if args.lab
+              else measure_f32(root, harness) if args.f32
               else measure(root, harness))
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)

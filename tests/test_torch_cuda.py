@@ -18,6 +18,7 @@ model to its plain route at 1e-4, and the float32 pair to two float32
 chains bit for bit; both TF32 flags are off (the ``dev`` fixture).
 """
 
+import itertools
 import os
 
 import numpy as np
@@ -1259,6 +1260,118 @@ def test_f32_conv_weight_grad_is_float32(dev):
     print(f"conv weight gradient vs float64: port {errs[0]:.3e}, F.conv2d with TF32 "
           f"{errs[1]:.3e}")
     assert errs[0] <= 1e-5
+
+
+# --- the float32 GEMM tiles and the float32 weight gradient's plan ---------
+#
+# gemm_f32.cu's forward / dX kernel runs one of its tiles, chosen by
+# kernels.gemm_f32_plan from the shape; every tile sums each output as one
+# fmaf chain over k in order and applies the epilogue in tile_f32's order, so
+# all give the same bits (and the pair's tile_f32 too: test_f32_block_pair).
+# The weight gradient's split plan (kernels.wgrad_f32_plan) is its own.
+
+def _f32_stage_batches():
+    """(H, C, B) of every training geometry of tiny-224 (B = 4) and base-384
+    (B = 2)."""
+    return [(H, C, _train_batch(H)) for H, C, *_ in F32_TRAIN]
+
+
+@pytest.mark.parametrize("H,C,B", _f32_stage_batches())
+def test_f32_gemm_tiles_give_the_same_bits(dev, monkeypatch, H, C, B):
+    """Each epilogue (bias; residual with and without the drop-path scale;
+    GELU with the kept pre-activation; the dropout instances) and each dX
+    product (plain, scaled, GELU backward, both masks) through every tile:
+    equal bits across tiles, within F32_TOL of plain."""
+    rng = np.random.default_rng(60)
+    M, hw = B * H * H, H * H
+    x, h, r = _rnd(rng, dev, M, C), _rnd(rng, dev, M, 4 * C), _rnd(rng, dev, M, C)
+    dp = torch.from_numpy((rng.random(B) < 0.7).astype(np.float32) / 0.7).to(dev)
+    w1, b1 = _rnd(rng, dev, 4 * C, C, sc=C ** -0.5), _rnd(rng, dev, 4 * C, sc=0.1)
+    w2, b2 = _rnd(rng, dev, C, 4 * C, sc=(4 * C) ** -0.5), _rnd(rng, dev, C, sc=0.1)
+    wp = _rnd(rng, dev, C, C, sc=C ** -0.5)
+    d1, d2 = _drops(dev, 61)
+    pre = {}
+
+    def fc1(drop):
+        pre[drop is None] = torch.empty(M, 4 * C, device=dev)
+        return K.gemm(x, w1, b1, epilogue="gelu", pre=pre[drop is None], drop=drop)
+
+    cases = {
+        "qkv": (lambda: K.gemm(x, w1, b1),
+                lambda: K.gemm_plain(x, w1, b1)),
+        "proj": (lambda: K.gemm(x, wp, b2, residual=r, epilogue="residual"),
+                 lambda: K.gemm_plain(x, wp, b2, residual=r, epilogue="residual")),
+        "fc2+dp": (lambda: K.gemm(h, w2, b2, residual=r, epilogue="residual", dp=dp,
+                                  rows_per_sample=hw),
+                   lambda: K.gemm_plain(h, w2, b2, residual=r, epilogue="residual", dp=dp,
+                                        rows_per_sample=hw)),
+        "fc2+dp+drop": (lambda: K.gemm(h, w2, b2, residual=r, epilogue="residual", dp=dp,
+                                       rows_per_sample=hw, drop=d2),
+                        lambda: K.gemm_plain(h, w2, b2, residual=r, epilogue="residual",
+                                             dp=dp, rows_per_sample=hw, drop=d2)),
+        "fc1+pre": (lambda: (fc1(None), pre[True]),
+                    lambda: K.gemm_plain(x, w1, b1, epilogue="gelu")),
+        "fc1+pre+drop": (lambda: (fc1(d1), pre[False]),
+                         lambda: K.gemm_plain(x, w1, b1, epilogue="gelu", drop=d1)),
+        "dx-fc1": (lambda: K.gemm_dgrad(h, w1), lambda: K.gemm_dgrad_plain(h, w1)),
+        "dx-proj+dp": (lambda: K.gemm_dgrad(r, wp, dp=dp, rows_per_sample=hw),
+                       lambda: K.gemm_dgrad_plain(r, wp, dp=dp, rows_per_sample=hw)),
+        "dx-fc2-gelu+dp+drops": (
+            lambda: K.gemm_dgrad(r, w2, dp=dp, rows_per_sample=hw, gelu_h=h, drop_dy=d2,
+                                 drop_dx=d1),
+            lambda: K.gemm_dgrad_plain(r, w2, dp=dp, rows_per_sample=hw, gelu_h=h,
+                                       drop_dy=d2, drop_dx=d1)),
+    }
+    plan = K.gemm_f32_plan
+    for name, (kernel, plain) in cases.items():
+        outs = []
+        for bm, bn in K._F32_TILES:
+            monkeypatch.setattr(K, "gemm_f32_plan", lambda M_, N_, kn=False, t=(bm, bn):
+                                plan(M_, N_, kn)._replace(bm=t[0], bn=t[1]))
+            got = kernel()
+            outs.append(got if isinstance(got, tuple) else (got,))
+        monkeypatch.setattr(K, "gemm_f32_plan", plan)
+        for o in outs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(o, outs[0])), name
+        want = plain()
+        assert _rel_l2(outs[0][0], want) <= F32_TOL, name
+
+
+def test_f32_gemm_smem_is_the_kernels(dev):
+    for (bm, bn), kn in itertools.product(K._F32_TILES, (False, True)):
+        assert K.library().cswin_gemm_f32_smem(bm, bn, kn) == K.gemm_f32_smem(bm, bn, kn)
+
+
+def _f32_wgrad_shapes():
+    """(H, C, k, n) of the four weight gradients of every training geometry
+    of tiny-224 and base-384."""
+    return [(H, C, k, n) for H, C, *_ in F32_TRAIN
+            for k, n in ((4 * C, C), (C, 4 * C), (C, C), (C, 3 * C))]
+
+
+@pytest.mark.parametrize("H,C,k,n", _f32_wgrad_shapes())
+def test_f32_wgrad_plan_at_the_training_batch(dev, H, C, k, n):
+    """At bs 24 (the plan follows M), with the drop-path scale and dY's
+    dropout mask: dW and db by the reduction rule against plain, equal bits
+    from two calls, one launch each; the plan the wrapper used is
+    ``wgrad_f32_plan`` with the card's occupancy."""
+    rng = np.random.default_rng(62)
+    M, hw = 24 * H * H, H * H
+    x, d = _rnd(rng, dev, M, k), _rnd(rng, dev, M, n)
+    dp = torch.from_numpy((rng.random(24) < 0.7).astype(np.float32) / 0.7).to(dev)
+    _, drop = _drops(dev, 63)
+    kw = dict(dp=dp, rows_per_sample=hw, drop=drop)
+    before = K.gemm_wgrad.launches_f32
+    got, again = K.gemm_wgrad(x, d, **kw), K.gemm_wgrad(x, d, **kw)
+    assert K.gemm_wgrad.launches_f32 == before + 2
+    plan = K._wgrad_plans[(x.device, M, n, k, torch.float32)]
+    fit = lambda bn, bk, cl: K._wgrad_max_clusters(bn, bk, cl, torch.float32)
+    assert plan == K.wgrad_f32_plan(M, n, k, fit)
+    want = K.gemm_wgrad_plain(x, d, **kw)
+    d64 = D.dropout(d * dp.repeat_interleave(hw)[:, None], drop).double()
+    for g, a, p, o in zip(got, again, want, (d64.t() @ x.double(), d64.sum(0))):
+        assert torch.equal(g, a)
+        assert _reduction_ok(g, p, o), (plan, _rel_l2(g, p), _rel_l2(g, o), _rel_l2(p, o))
 
 
 @pytest.mark.parametrize("shape", [(6, 24, 24), (5, 17, 33), (3, 40, 512), (48, 64, 70)])

@@ -87,14 +87,20 @@ def _constants(name: str) -> dict[str, int]:
 
 
 GEMM, ATT = _constants("gemm.cu"), _constants("stripe_attention_bwd.cu")
+# gemm_f32.cu's weight-gradient ring (namespace wgrad_f32): MS rows a stage,
+# STAGES stages
+WGRAD_F32 = dict(re.findall(r"constexpr int (MS|STAGES) = (\d+);",
+                            re.search(r"namespace wgrad_f32 \{(.*?)\}  // namespace wgrad_f32",
+                                      (CSRC / "gemm_f32.cu").read_text(), re.S).group(1)))
+WGRAD_F32 = {k: int(v) for k, v in WGRAD_F32.items()}
 
 
 def _wgrad_f32_smem(bn: int, bk: int) -> int:
     """Bytes of dynamic shared memory of the float32 weight-gradient kernel
-    of a ``bn`` x ``bk`` tile (``wgrad::SmemF32``): ``STAGES_F`` stages of
-    ``MS_F`` unpadded float32 rows of dY and X with the rows' scales, a
+    of a ``bn`` x ``bk`` tile (``wgrad_f32::Smem``): ``STAGES`` stages of
+    ``MS`` unpadded float32 rows of dY and X with the rows' scales, a
     128-byte aligned struct."""
-    size = GEMM["STAGES_F"] * GEMM["MS_F"] * (bn + bk + 1) * 4
+    size = WGRAD_F32["STAGES"] * WGRAD_F32["MS"] * (bn + bk + 1) * 4
     return -(-size // 128) * 128
 
 
@@ -124,8 +130,10 @@ def _att_bwd_f32_plan(L: int, d: int) -> _AttBwdF32Plan:
 
 def test_backward_plan_constants_are_the_sources():
     g = GEMM
-    assert (g["MS"], g["MAX_CLUSTER"]) == (K._WGRAD_ROWS, K._WGRAD_CLUSTER)
-    assert g["MS"] % g["MS_F"] == 0  # a planned chunk is whole float32 stages
+    assert g["MS"] == K._WGRAD_ROWS
+    assert _constants("wgrad_sum.cuh")["MAX_CLUSTER"] == K._WGRAD_CLUSTER
+    # the float32 weight gradient plans its own chunks, in whole float32 stages
+    assert WGRAD_F32["MS"] == K._WGRAD_F32_ROWS
     a = ATT
     assert (a["WARPS"], a["KB"], a["QR"], a["KEYS"]) == (
         K._ATT_BWD_WARPS, K._ATT_BWD_KEYS, K._ATT_BWD_F32_ROWS, K._ATT_BWD_F32_KEYS)
@@ -134,10 +142,10 @@ def test_backward_plan_constants_are_the_sources():
     assert (ln["THREADS"], ln["GROUP"]) == (K._LN_THREADS, K._LN_GROUP)
     # the float32 rows wider than 512 load the next row only after this one
     assert "PREFETCH = sizeof(T) == 2 || C <= 512;" in (CSRC / "layernorm.cu").read_text()
-    # the float32 ring: unpadded rows of MS_F floats of dY and X, and the scales
-    src = (CSRC / "gemm.cu").read_text()
-    assert re.search(r"float D\[STAGES_F\]\[MS_F\]\[BN\];\s*float X\[STAGES_F\]\[MS_F\]\[BK\];"
-                     r"\s*float sc\[STAGES_F\]\[MS_F\];", src)
+    # the float32 ring: unpadded rows of MS floats of dY and X, and the scales
+    src = (CSRC / "gemm_f32.cu").read_text()
+    assert re.search(r"float D\[STAGES\]\[MS\]\[BN\];\s*float X\[STAGES\]\[MS\]\[BK\];"
+                     r"\s*float sc\[STAGES\]\[MS\];", src)
 
 
 @pytest.mark.parametrize("C", [32, 64, 96, 128, 192, 256, 384, 512, 768])
@@ -170,12 +178,14 @@ def test_float32_backward_plans_fit_every_training_geometry(cfg_name, img):
     for H, C, heads, split, last in _geometries(cfg):
         M = 24 * H * H
         for n, k in ((C, 4 * C), (4 * C, C), (C, C), (3 * C, C)):
-            wp = K.wgrad_plan(M, n, k)
+            wp = K.wgrad_f32_plan(M, n, k)
             smem = _wgrad_f32_smem(wp.bn, wp.bk)
             assert smem <= K.SMEM_LIMIT, (H, n, k)
-            assert 4 * (wp.bn * (wp.bk + 4) + wp.bn) <= smem  # the summed tile fits the ring
-            assert wp.chunk % GEMM["MS_F"] == 0
-            assert K.gemm_f32_plan(M, k).smem_bytes <= 48 * 1024  # the dX tile, static
+            # the summed tile, db and its row-group partials fit the ring
+            groups = wp.bn * wp.bk // 64 // (wp.bn // 4)
+            assert 4 * (wp.bn * (wp.bk + 4) + wp.bn + groups * wp.bn) <= smem
+            assert wp.chunk % WGRAD_F32["MS"] == 0
+            assert K.gemm_f32_plan(M, k).smem_bytes <= K.SMEM_LIMIT  # the dX tile, dynamic
         windows = [(H, H)] if last else [(H, split), (split, H)]
         for hs, ws in windows:
             plan = _att_bwd_f32_plan(hs * ws, C // heads)
@@ -347,12 +357,15 @@ def test_backward_float32_entries_are_defined_and_bound():
         for name, args in re.findall(r"CSWIN_API \w+(?: \w+)? (cswin_\w+)\(([^)]*)\)",
                                      src.read_text()):
             defined[name] = (src.name, len([a for a in args.split(",") if a.strip()]))
-    for name in called | {"cswin_stripe_attention_bwd_f32_smem"}:
+    for name in called | {"cswin_stripe_attention_bwd_f32_smem", "cswin_gemm_f32_smem"}:
         assert name in defined, name
         assert defined[name][0] in built
         assert len(build._SIGNATURES[name]) == defined[name][1], name
-    # the float32 GEMM entry takes the bf16 entry's arguments (training epilogues)
-    assert build._SIGNATURES["cswin_gemm_f32"] == build._SIGNATURES["cswin_gemm"]
+    # the float32 GEMM entry takes the bf16 entry's arguments (training
+    # epilogues) and, before the stream, its tile (bm, bn) and B's layout
+    c_int = build.ctypes.c_int
+    assert build._SIGNATURES["cswin_gemm_f32"] == (
+        *build._SIGNATURES["cswin_gemm"][:-1], c_int, c_int, c_int, build.ctypes.c_void_p)
     assert build._RESTYPES["cswin_stripe_attention_bwd_f32_smem"] is build.ctypes.c_longlong
 
 
