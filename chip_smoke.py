@@ -1018,7 +1018,8 @@ def check_attention_bwd_smem() -> None:
     """``stripe_attention_bwd``'s shared memory, held to the wrapper's count
     at every window this run gives the kernel: tiny-224's 56, 98 and 49
     tokens at head dim 32, base-384's 96, 288 and 144 (beyond one key block)
-    at 24."""
+    at 24; and the float32 instance's plan (both kernels' shared memory, the
+    row and key split) held to ``kernels.stripe_attention_bwd_f32_plan``."""
     from cswin_unet_tpu_torch.ops.cuda import build
     from cswin_unet_tpu_torch.ops.cuda import kernels as K
 
@@ -1028,6 +1029,14 @@ def check_attention_bwd_smem() -> None:
         print(f"[kernel] stripe_attention_bwd shared memory at L={L} d={d}: kernel {got} "
               f"B, wrapper {want} B {'ok' if got == want else 'FAIL'}", flush=True)
         require(got == want, f"stripe_attention_bwd smem at L={L} d={d}: {got} != {want}")
+        # the float32 instance's two kernels: shared memory, rows of a row-kernel
+        # CTA, key blocks of a key-kernel CTA
+        plan = K.stripe_attention_bwd_f32_plan(L, d)
+        want = (plan.rows_smem, plan.keys_smem, plan.row_block, plan.key_blocks_per_cta)
+        got = tuple(lib.cswin_stripe_attention_bwd_f32_smem(L, d, w) for w in range(4))
+        print(f"[kernel] stripe_attention_bwd_f32 plan at L={L} d={d}: kernel {got}, wrapper "
+              f"{want} {'ok' if got == want else 'FAIL'}", flush=True)
+        require(got == want, f"stripe_attention_bwd_f32 plan at L={L} d={d}: {got} != {want}")
 
 
 def flash_attention_bwd(q, k, v, do, scale: float):
@@ -1543,9 +1552,10 @@ def expected_f32(want: dict[str, int]) -> dict[str, int]:
     return {k: want[F32_OF[k]] if k in F32_OF else want[k] for k in SOURCES}
 
 
-def compare_f32_kernels(cfg, dev, B: int) -> KernelTally:
+def compare_f32_kernels(cfg, dev, B: int, tag: str = "f32:kernel") -> KernelTally:
     """Each float32 instance at every shape one float32 forward of B slices
-    gives it, against its plain float32 version (``F32_TOL``), weighted by
+    of ``cfg`` gives it (tiny-224, or base-384 as ``[f32:base384:kernel]``
+    lines), against its plain float32 version (``F32_TOL``), weighted by
     its calls in that forward (pairing as committed), each timed behind
     the lab's spin kernel (device time); the CARAFE tail's labels by the
     margin rule; ``block_pair`` also equal to two float32 chains bit for
@@ -1564,7 +1574,7 @@ def compare_f32_kernels(cfg, dev, B: int) -> KernelTally:
     rng = np.random.default_rng(17)
     rnd = lambda *s, sc=1.0: torch.from_numpy(
         (rng.standard_normal(s) * sc).astype(np.float32)).to(dev)
-    tally = KernelTally("f32:kernel")
+    tally = KernelTally(tag)
     kw_t = dict(tol=F32_TOL, reps=5, rounds=3, primed=True)  # device time
     for g in stage_geometries(cfg):
         H, C, depth = g["H"], g["C"], g["depth"]
@@ -1632,7 +1642,7 @@ def compare_f32_kernels(cfg, dev, B: int) -> KernelTally:
                                       last_stage=False, **pkw)
             torch.cuda.synchronize()
             txt, ok, _ = judge(f"block_pair_f32 vs chain {label}", got, chain, "exact")
-            print(f"[f32:kernel] block_pair_f32 vs two float32 chains {label}: {txt}; grid "
+            print(f"[{tag}] block_pair_f32 vs two float32 chains {label}: {txt}; grid "
                   f"{K.block_pair.grid} {'ok' if ok else 'FAIL'}", flush=True)
             require(ok, f"block_pair_f32 vs two chains {label}: {txt}")
     *ups, (Ht, Ct, _, _) = carafe_sites(cfg)
@@ -4622,7 +4632,9 @@ def main() -> int:
         for entry in ("block_one_kernel", "layernorm_kernel", "layernorm_bwd_kernel",
                       "carafe_kernel", "edt_pass_kernel", "lepe_windows_kernel",
                       "ln_mlp_kernel", "gemm_kernel", "wgrad_kernel", "gemm_f32_kernel",
-                      "wgrad_f32_kernel", "stripe_attention_bwd_f32_kernel"):
+                      "wgrad_f32_kernel", "stripe_attention_f32_kernel",
+                      "stripe_attention_bwd_f32_rows_kernel",
+                      "stripe_attention_bwd_f32_keys_kernel"):
             res = ptxas_resources(build.build_log, entry)
             print(f"[build] {entry} (entry, registers, spill stores, spill loads): {res}",
                   flush=True)
@@ -4630,9 +4642,10 @@ def main() -> int:
             if entry not in ("block_one_kernel", "layernorm_kernel", "carafe_kernel",
                              "edt_pass_kernel"):
                 # the lab's persistent kernels; the GEMMs' dropout instances,
-                # which hold the Philox state beside the tile; the backward's
-                # float32 instances (LN's 768 channels: twice the bytes a lane;
-                # the attention backward's k, v, dK and dV of a key a lane)
+                # which hold the Philox state beside the tile; the float32
+                # instances (LN's 768 channels: twice the bytes a lane; the
+                # attention backward's k, v, dK and dV of a key a lane; the
+                # attention tile's 8 x 3 score and 8 x d/4 product blocks)
                 require(all(st == ld == 0 for _, _, st, ld in res), f"{entry}: spills {res}")
     # The tiles' products run on the tensor cores: the SASS of the attention
     # and GEMM kernels, of the backward's weight gradient and attention, of
@@ -4660,6 +4673,8 @@ def main() -> int:
         serve_counts, pallas_counts, pair_counts = serve_volumes(cfg, dev, workdir)
         t_f32 = time.perf_counter()
         tally_f32 = compare_f32_kernels(cfg, dev, SERVE_BATCH)
+        tally_f32_384 = compare_f32_kernels(smoke_config(cfg=CFG384), dev, SERVE_BATCH,
+                                            tag="f32:base384:kernel")
         f32_counts = f32_serve(cfg, dev, workdir, smi)
         f32_counts["eval_f32"] = f32_eval(cfg, dev, os.path.join(workdir, "tiny224_seed0.npz"))
         f32_counts["base384_f32"] = f32_base384(dev, smi)
@@ -4697,7 +4712,7 @@ def main() -> int:
     kernels = []
     for k, (src, rep) in SOURCES.items():
         row = dict((tally_f32 if k in F32_OF else tally).rows[k])
-        row384 = dict(tally384.rows[k])
+        row384 = dict((tally_f32_384 if k in F32_OF else tally384).rows[k])
         bound_by = "bytes" if row.pop("bytes_ms") >= row.pop("ops_ms") else "operations"
         by384 = "bytes" if row384.pop("bytes_ms") >= row384.pop("ops_ms") else "operations"
         if row384["bound_ms"] > 0:  # the kernels base-384's paths run, at its shapes

@@ -77,9 +77,9 @@ _SIGNATURES = {
     "cswin_gemm_wgrad_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P, _LL, _F, _U, _P),
     "cswin_gemm_wgrad_f32_max_clusters": (_I, _I, _I),
-    "cswin_stripe_attention_bwd_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                       _I, _I, _F, _P),
-    "cswin_stripe_attention_bwd_f32_smem": (_I, _I),
+    "cswin_stripe_attention_bwd_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                       _I, _I, _I, _F, _P),
+    "cswin_stripe_attention_bwd_f32_smem": (_I, _I, _I),
 }
 
 # Entry points that return something other than a cudaError_t (a count).

@@ -389,31 +389,258 @@ __device__ __forceinline__ void copy_tile(const bf16* __restrict__ qp,
 // (q·scale)·kᵀ, the softmax, P·V and LePE all in float32, nothing rounded
 // between them (at float32 the composition's and the Pallas kernel's
 // roundings coincide: out = P·V + (conv(V, w) + b)). The products are FFMA
-// on the CUDA cores: no tensor-core format keeps float32's products, and
-// the function is bound by its bytes (4·L·d flops a token against 16·d
-// bytes of q, k, v and the output; ~20 operations a byte is the card's
-// FFMA ridge).
-// Design: q (scaled as it lands), k and v of the (window, head) staged in
-// shared memory, q at a row stride of D floats (its reads are broadcasts),
-// k and v at D + 4 (a quarter-warp's 16-byte reads of eight consecutive
-// rows fall in distinct banks); the LePE taps and bias beside them. Each
-// warp takes QR = 4 query rows at a time: a lane takes keys lane, lane +
-// 32, ... and forms their four scores from 16-byte reads of q and k, into
-// the warp's rows of P in shared memory (a row stride of L rounded up to 4);
-// the softmax's max and sum are warp reductions, and P is normalised in
-// place (e / sum, as the reference divides); then a lane takes outputs
-// (row, channel) lane, lane + 32, ... of the four rows, P·V from 16-byte
-// reads of P's row and V's column, and adds LePE from the staged V. Shared
-// memory grows with L·d (smem_bytes_f32), ~109 KB at L = 288, d = 24
-// (base-384's stage 3): two CTAs an SM there, four at tiny-224's L <= 98.
-constexpr int QR = 4;  // query rows a warp takes at once
+// on the CUDA cores: no tensor-core format keeps float32's products. Bound:
+// the FFMA work (4·L·d flops a token: 2·L·d for S, 2·L·d for P·V) against
+// 16·d bytes of q, k, v and the output, so operations bound the card's time
+// at L >= ~100 and bytes below; shared-memory loads and latency bound a
+// simple kernel's long before either.
+// Design (register micro-tiles; shared memory that grows with L·d only):
+//   * k and v of the (window, head) staged by 16-byte cp.async copies at a
+//     row stride of D + 4 floats (a quarter-warp's 16-byte reads of eight
+//     consecutive rows fall in distinct banks), the LePE taps and bias
+//     beside them.
+//   * each warp takes QR = 8 query rows at a time, independently of the
+//     other warps (no block barrier after the staging): their q rows arrive
+//     by cp.async in the warp's own double buffer, the next group's while
+//     this one computes, and are scaled in place.
+//   * S: a lane takes keys lane, lane + 32, ... in up to SLOTS = 3 key
+//     slots at once, an 8 x 3 block of scores in registers; a 16-byte read
+//     of q (a broadcast) feeds three keys and a 16-byte read of k eight
+//     rows. Each score is one fmaf chain over d in order. The scores go to
+//     the warp's rows of shared memory, a key's eight rows as two 16-byte
+//     quads (quad order swizzled by key, so that eight lanes' stores fall in
+//     distinct banks); exp(s - max) replaces them, and the rows' sums are
+//     warp reductions.
+//   * P·V: lane (key group kg = lane / 4, channel group cg = lane % 4) sums
+//     the eight rows' e·V over keys kg, kg + 8, ... for channels cg·D/4 ..,
+//     an 8 x D/4 block in registers from 16-byte reads of e and V; a
+//     reduce-scatter over the eight key groups (three shuffle rounds, a
+//     fixed tree) leaves lane (kg, cg) row kg's sum of its channels, which
+//     it scales by 1 / sum (the softmax's division, once an output) and to
+//     which it adds LePE from the staged V.
+// ~106 KB at L = 288, d = 24 (base-384's stage 3): two CTAs an SM.
+constexpr int QR = 8;     // query rows a warp takes at once
+constexpr int SLOTS = 3;  // key slots of 32 keys a lane scores at once
 
-__host__ __device__ constexpr int p_stride_f32(int L) { return (L + 3) / 4 * 4; }
+__host__ __device__ constexpr int key_slots(int L) { return (L + 31) / 32; }
 
+// Dynamic shared memory of the float32 tile at a window of L tokens: k and
+// v, the LePE taps and bias, and per warp two QR-row q buffers and QR rows
+// of scores over the window's key slots.
 template <int D>
 __host__ __device__ constexpr size_t smem_bytes_f32(int L) {
-  return sizeof(float) * ((size_t)L * D + 2 * (size_t)L * (D + 4) +
-                          (size_t)WARPS * QR * p_stride_f32(L) + 10 * D);
+  return sizeof(float) * (2 * (size_t)L * (D + 4) + 10 * (size_t)D +
+                          (size_t)WARPS * QR * (2 * D + 32 * (size_t)key_slots(L)));
+}
+
+// The position of (key j, quad q) in a warp's score rows: QR / 4 quads of
+// four rows a key, the quad order swizzled by key bit 2 where there are two.
+template <int ROWS>
+__device__ __forceinline__ int quad_pos(int j, int q) {
+  if constexpr (ROWS == 4)
+    return j * 4;
+  else
+    return j * 8 + 4 * (q ^ ((j >> 2) & 1));
+}
+
+// acc[m][r] = Σ_d A[r][d]·B[key_m][d], one fmaf chain in d's order, for ROWS
+// rows of A (row stride D; the same address in every lane) and keys key_m =
+// j0 + 32·m + lane of B (row stride D + 4), clamped to the window's last.
+template <int D, int ROWS, int M>
+__device__ __forceinline__ void dots(const float* A, const float* B, int j0, int L, int lane,
+                                     float (&acc)[M][ROWS]) {
+  constexpr int KS = D + 4;
+  const float* b[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) b[m] = B + min(j0 + 32 * m + lane, L - 1) * KS;
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) acc[m][r] = 0.f;
+#pragma unroll
+  for (int d = 0; d < D; d += 4) {
+    float4 b4[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) b4[m] = *reinterpret_cast<const float4*>(b[m] + d);
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const float4 a4 = *reinterpret_cast<const float4*>(A + r * D + d);
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        acc[m][r] = fmaf(a4.x, b4[m].x, acc[m][r]);
+        acc[m][r] = fmaf(a4.y, b4[m].y, acc[m][r]);
+        acc[m][r] = fmaf(a4.z, b4[m].z, acc[m][r]);
+        acc[m][r] = fmaf(a4.w, b4[m].w, acc[m][r]);
+      }
+    }
+  }
+}
+
+// The scores of ROWS rows against M key slots from slot m0, stored at
+// quad_pos in S; with MAX, mx[r] takes the maximum over the keys inside the
+// window.
+template <int D, int ROWS, int M, bool MAX>
+__device__ __forceinline__ void score_slots(const float* A, const float* B, float* S, int m0,
+                                            int L, int lane, float (&mx)[ROWS]) {
+  float acc[M][ROWS];
+  dots<D, ROWS, M>(A, B, 32 * m0, L, lane, acc);
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int j = 32 * (m0 + m) + lane;
+#pragma unroll
+    for (int q = 0; q < ROWS / 4; ++q)
+      *reinterpret_cast<float4*>(S + quad_pos<ROWS>(j, q)) =
+          make_float4(acc[m][4 * q], acc[m][4 * q + 1], acc[m][4 * q + 2], acc[m][4 * q + 3]);
+    if constexpr (MAX)  // no branch: a key past the window adds -inf
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) mx[r] = fmaxf(mx[r], j < L ? acc[m][r] : -INFINITY);
+  }
+}
+
+// All the window's key slots, SLOTS at a time.
+template <int D, int ROWS, bool MAX = true>
+__device__ __forceinline__ void scores(const float* A, const float* B, float* S, int L,
+                                       int lane, float (&mx)[ROWS]) {
+  const int ns = key_slots(L);
+  int m0 = 0;
+  for (; m0 + SLOTS <= ns; m0 += SLOTS)
+    score_slots<D, ROWS, SLOTS, MAX>(A, B, S, m0, L, lane, mx);
+  if (ns - m0 == 2)
+    score_slots<D, ROWS, 2, MAX>(A, B, S, m0, L, lane, mx);
+  else if (ns - m0 == 1)
+    score_slots<D, ROWS, 1, MAX>(A, B, S, m0, L, lane, mx);
+}
+
+// Σ_{j < L} E[j][r]·B[j][c] for the ROWS rows of a warp's score rows E
+// (quad_pos) and every channel c of B (row stride D + 4), reduced over the
+// lanes' eight key groups and scattered: lane (kg = lane / 4, cg = lane %
+// 4) returns in out[u] row row_of(lane)'s sum for channel cg·D/4 + u (ROWS
+// = 8), or for channel cg·D/4 + (kg % 2)·D/8 + u (ROWS = 4: two lanes share
+// a row's channel group). Each lane sums its keys kg, kg + 8, ... in
+// order, the key groups in a fixed tree.
+template <int D, int ROWS>
+__device__ __forceinline__ void products(const float* E, const float* B, int L, int lane,
+                                         float (&out)[ROWS == 8 ? D / 4 : D / 8]) {
+  constexpr int KS = D + 4, CL = D / 4;
+  static_assert(CL % 2 == 0, "channel groups of an even width");
+  const int kg = lane >> 2, cg = lane & 3;
+  float a[ROWS][CL];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int u = 0; u < CL; ++u) a[r][u] = 0.f;
+  for (int j = kg; j < L; j += 8) {
+    float e[ROWS];
+#pragma unroll
+    for (int q = 0; q < ROWS / 4; ++q) {
+      const float4 e4 = *reinterpret_cast<const float4*>(E + quad_pos<ROWS>(j, q));
+      e[4 * q] = e4.x;
+      e[4 * q + 1] = e4.y;
+      e[4 * q + 2] = e4.z;
+      e[4 * q + 3] = e4.w;
+    }
+    float b[CL];
+    const float* bj = B + j * KS + cg * CL;
+    if constexpr (CL % 4 == 0) {
+#pragma unroll
+      for (int u = 0; u < CL; u += 4) {
+        const float4 b4 = *reinterpret_cast<const float4*>(bj + u);
+        b[u] = b4.x;
+        b[u + 1] = b4.y;
+        b[u + 2] = b4.z;
+        b[u + 3] = b4.w;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < CL; u += 2) {
+        const float2 b2 = *reinterpret_cast<const float2*>(bj + u);
+        b[u] = b2.x;
+        b[u + 1] = b2.y;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int u = 0; u < CL; ++u) a[r][u] = fmaf(e[r], b[u], a[r][u]);
+  }
+  // Reduce-scatter over the key groups (lane bits 4, 3, 2): each round a
+  // lane keeps half of what it holds and adds its partner's copy of it.
+  constexpr unsigned FULL = 0xffffffffu;
+  const bool hi16 = lane & 16, hi8 = lane & 8, hi4 = lane & 4;
+  if constexpr (ROWS == 8) {
+    float h[4][CL], g[2][CL];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int u = 0; u < CL; ++u) {
+        const float keep = hi16 ? a[r + 4][u] : a[r][u], give = hi16 ? a[r][u] : a[r + 4][u];
+        h[r][u] = keep + __shfl_xor_sync(FULL, give, 16);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int u = 0; u < CL; ++u) {
+        const float keep = hi8 ? h[r + 2][u] : h[r][u], give = hi8 ? h[r][u] : h[r + 2][u];
+        g[r][u] = keep + __shfl_xor_sync(FULL, give, 8);
+      }
+#pragma unroll
+    for (int u = 0; u < CL; ++u) {
+      const float keep = hi4 ? g[1][u] : g[0][u], give = hi4 ? g[0][u] : g[1][u];
+      out[u] = keep + __shfl_xor_sync(FULL, give, 4);
+    }
+  } else {
+    float h[2][CL], g[CL];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int u = 0; u < CL; ++u) {
+        const float keep = hi16 ? a[r + 2][u] : a[r][u], give = hi16 ? a[r][u] : a[r + 2][u];
+        h[r][u] = keep + __shfl_xor_sync(FULL, give, 16);
+      }
+#pragma unroll
+    for (int u = 0; u < CL; ++u) {
+      const float keep = hi8 ? h[1][u] : h[0][u], give = hi8 ? h[0][u] : h[1][u];
+      g[u] = keep + __shfl_xor_sync(FULL, give, 8);
+    }
+#pragma unroll
+    for (int u = 0; u < CL / 2; ++u) {
+      const float keep = hi4 ? g[u + CL / 2] : g[u], give = hi4 ? g[u] : g[u + CL / 2];
+      out[u] = keep + __shfl_xor_sync(FULL, give, 4);
+    }
+  }
+}
+
+// The row of the warp's ROWS rows that products() leaves a lane.
+template <int ROWS>
+__device__ __forceinline__ int row_of(int lane) {
+  return ROWS == 8 ? lane >> 2 : lane >> 3;
+}
+
+// v[r] of the row that products() leaves a lane, without indexing a
+// register array by a lane-dependent value.
+template <int ROWS>
+__device__ __forceinline__ float pick(const float (&v)[ROWS], int lane) {
+  const int r = row_of<ROWS>(lane);
+  float out = v[0];
+#pragma unroll
+  for (int i = 1; i < ROWS; ++i)
+    if (r == i) out = v[i];
+  return out;
+}
+
+// cp.async copies of ROWS rows of a window's (L, D) head slice from row i0
+// (a row past L repeats row L - 1) into a warp's buffer (row stride D); one
+// commit group. src: the head's channel 0 at the window's first pixel (the
+// image's row r, column c at src + ((r·W) + c)·ps).
+template <int D, int ROWS>
+__device__ __forceinline__ void fetch_rows(float* dst, const float* src, size_t ps, int W,
+                                           int w_sp, int i0, int L, int lane) {
+  constexpr int CH = D / 4;
+  for (int idx = lane; idx < ROWS * CH; idx += 32) {
+    const int r = idx / CH, c = idx % CH * 4, t = min(i0 + r, L - 1);
+    cp_async16(dst + r * D + c, src + ((size_t)(t / w_sp) * W + t % w_sp) * ps + c);
+  }
+  cp_async_commit();
 }
 
 // q, k, v point at channel 0 of the branch; pixel p of each starts at
@@ -430,15 +657,16 @@ __device__ __forceinline__ void tile_f32(const float* __restrict__ qp,
                                          int cb, int h_sp, int w_sp, float scale, int win,
                                          int head, float* smem) {
   static_assert(D % 8 == 0 && D <= 32, "head dims 16, 24, 32");
-  constexpr int KS = D + 4;          // row stride of k and v
-  constexpr int CH = D / 4;          // 16-byte chunks of a pixel's head slice
-  constexpr int U = (QR * D + 31) / 32;  // outputs a lane takes in a row group
-  const int L = h_sp * w_sp, PS = p_stride_f32(L);
-  float* Qs = smem;
-  float* Ks = Qs + L * D;
+  constexpr int KS = D + 4;  // row stride of k and v
+  constexpr int CH = D / 4;  // 16-byte chunks of a pixel's head slice
+  constexpr int CL = D / 4;  // channels of a lane's output
+  const int L = h_sp * w_sp, LS = 32 * key_slots(L);
+  float* Ks = smem;
   float* Vs = Ks + L * KS;
-  float* Ps = Vs + L * KS;                 // WARPS x QR rows of PS
-  float* Tw = Ps + WARPS * QR * PS;        // 9 taps, then the bias; D each
+  float* Tw = Vs + L * KS;  // 9 taps, then the bias; D each
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* Qb = Tw + 10 * D + warp * QR * (2 * D + LS);  // the warp's two q buffers
+  float* Sb = Qb + 2 * QR * D;                          // and its score rows
 
   const int n_wh = H / h_sp, n_ww = W / w_sp;
   const int b = win / (n_wh * n_ww);
@@ -453,51 +681,34 @@ __device__ __forceinline__ void tile_f32(const float* __restrict__ qp,
     const size_t p = pixel(t) * in_ps + hc + c;
     cp_async16(Ks + t * KS + c, kp + p);
     cp_async16(Vs + t * KS + c, vp + p);
-    float4 q4 = __ldg(reinterpret_cast<const float4*>(qp + p));
-    q4.x *= scale;
-    q4.y *= scale;
-    q4.z *= scale;
-    q4.w *= scale;
-    *reinterpret_cast<float4*>(Qs + t * D + c) = q4;
   }
   cp_async_commit();
   for (int i = threadIdx.x; i < 10 * D; i += blockDim.x) {
     const int tap = i / D, dd = i % D;
     Tw[i] = tap < 9 ? lepe_w[tap * cb + hc + dd] : lepe_b[hc + dd];
   }
+  const int groups = (L + QR - 1) / QR;
+  const float* q0 = qp + pixel(0) * in_ps + hc;  // the window's first pixel
+  if (warp < groups) fetch_rows<D, QR>(Qb, q0, in_ps, W, w_sp, warp * QR, L, lane);
   cp_async_wait<0>();
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* P = Ps + warp * QR * PS;
-  for (int r0 = warp * QR; r0 < L; r0 += WARPS * QR) {
-    // Scores of the group's rows (a row past L repeats row L - 1, unstored).
-    const float* qr[QR];
-#pragma unroll
-    for (int r = 0; r < QR; ++r) qr[r] = Qs + min(r0 + r, L - 1) * D;
-    float mx[QR], sum[QR];
+  const int kg = lane >> 2, cg = lane & 3;
+  for (int g = warp, t = 0; g < groups; g += WARPS, ++t) {
+    float* Q = Qb + (t & 1) * QR * D;
+    if (t > 0) {
+      cp_async_wait<0>();
+      __syncwarp();
+    }
+    for (int i = lane; i < QR * D; i += 32) Q[i] *= scale;
+    __syncwarp();
+    if (g + WARPS < groups)
+      fetch_rows<D, QR>(Qb + ((t + 1) & 1) * QR * D, q0, in_ps, W, w_sp, (g + WARPS) * QR, L,
+                        lane);
+    float mx[QR], sum[QR], inv[QR];
 #pragma unroll
     for (int r = 0; r < QR; ++r) mx[r] = -INFINITY;
-    for (int j = lane; j < L; j += 32) {
-      float sc[QR] = {};
-#pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 k4 = *reinterpret_cast<const float4*>(Ks + j * KS + d);
-#pragma unroll
-        for (int r = 0; r < QR; ++r) {
-          const float4 q4 = *reinterpret_cast<const float4*>(qr[r] + d);
-          sc[r] = fmaf(q4.x, k4.x, sc[r]);
-          sc[r] = fmaf(q4.y, k4.y, sc[r]);
-          sc[r] = fmaf(q4.z, k4.z, sc[r]);
-          sc[r] = fmaf(q4.w, k4.w, sc[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < QR; ++r) {
-        P[r * PS + j] = sc[r];
-        mx[r] = fmaxf(mx[r], sc[r]);
-      }
-    }
+    scores<D, QR>(Q, Ks, Sb, L, lane, mx);
 #pragma unroll
     for (int r = 0; r < QR; ++r) {
       mx[r] = warp_max(mx[r]);
@@ -505,46 +716,50 @@ __device__ __forceinline__ void tile_f32(const float* __restrict__ qp,
     }
     for (int j = lane; j < L; j += 32)
 #pragma unroll
-      for (int r = 0; r < QR; ++r) {
-        const float e = expf(P[r * PS + j] - mx[r]);
-        P[r * PS + j] = e;
-        sum[r] += e;
+      for (int q = 0; q < QR / 4; ++q) {
+        float4* p = reinterpret_cast<float4*>(Sb + quad_pos<QR>(j, q));
+        float4 e = *p;
+        e.x = expf(e.x - mx[4 * q]);
+        e.y = expf(e.y - mx[4 * q + 1]);
+        e.z = expf(e.z - mx[4 * q + 2]);
+        e.w = expf(e.w - mx[4 * q + 3]);
+        *p = e;
+        sum[4 * q] += e.x;
+        sum[4 * q + 1] += e.y;
+        sum[4 * q + 2] += e.z;
+        sum[4 * q + 3] += e.w;
       }
 #pragma unroll
-    for (int r = 0; r < QR; ++r) sum[r] = warp_sum(sum[r]);
-    // Normalised in place, and zeros past L up to PS (the 16-byte reads).
-    for (int j = lane; j < PS; j += 32)
-#pragma unroll
-      for (int r = 0; r < QR; ++r) P[r * PS + j] = j < L ? P[r * PS + j] / sum[r] : 0.f;
+    for (int r = 0; r < QR; ++r) inv[r] = 1.f / warp_sum(sum[r]);
     __syncwarp();
-
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int o = lane + 32 * u, r = o / D, dd = o % D, i = r0 + r;
-      if (o >= QR * D || i >= L) continue;
-      const float* pr = P + r * PS;
-      float acc = 0.f;
-      for (int j = 0; j < L; j += 4) {
-        const float4 p4 = *reinterpret_cast<const float4*>(pr + j);
-        acc = fmaf(p4.x, Vs[j * KS + dd], acc);
-        if (j + 1 < L) acc = fmaf(p4.y, Vs[(j + 1) * KS + dd], acc);
-        if (j + 2 < L) acc = fmaf(p4.z, Vs[(j + 2) * KS + dd], acc);
-        if (j + 3 < L) acc = fmaf(p4.w, Vs[(j + 3) * KS + dd], acc);
-      }
+    float o[CL];
+    products<D, QR>(Sb, Vs, L, lane, o);
+    const int i = g * QR + kg;
+    if (i < L) {
+      const float iv = pick<QR>(inv, lane);
       const int ti = i / w_sp, tj = i % w_sp;
-      float c = 0.f;
-      for (int di = -1; di <= 1; ++di) {
-        const int rr = ti + di;
-        if (rr < 0 || rr >= h_sp) continue;
-        for (int dj = -1; dj <= 1; ++dj) {
-          const int cc = tj + dj;
-          if (cc < 0 || cc >= w_sp) continue;
-          c = fmaf(Tw[((di + 1) * 3 + dj + 1) * D + dd], Vs[(rr * w_sp + cc) * KS + dd], c);
+      float y[CL];
+#pragma unroll
+      for (int u = 0; u < CL; ++u) {
+        const int dd = cg * CL + u;
+        float c = 0.f;
+        for (int di = -1; di <= 1; ++di) {
+          const int rr = ti + di;
+          if (rr < 0 || rr >= h_sp) continue;
+          for (int dj = -1; dj <= 1; ++dj) {
+            const int cc = tj + dj;
+            if (cc < 0 || cc >= w_sp) continue;
+            c = fmaf(Tw[((di + 1) * 3 + dj + 1) * D + dd], Vs[(rr * w_sp + cc) * KS + dd], c);
+          }
         }
+        y[u] = o[u] * iv + (c + Tw[9 * D + dd]);
       }
-      out[pixel(i) * out_ps + hc + dd] = acc + (c + Tw[9 * D + dd]);
+      float* dst = out + pixel(i) * out_ps + hc + cg * CL;
+#pragma unroll
+      for (int u = 0; u < CL; u += 2)
+        *reinterpret_cast<float2*>(dst + u) = make_float2(y[u], y[u + 1]);
     }
-    __syncwarp();  // the group's P is rewritten by the next
+    __syncwarp();  // the group's scores are rewritten by the next
   }
 }
 

@@ -99,8 +99,11 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, size_t in_ps,
 }
 
 // The float32 instances: one (window, head) per CTA on attn_tile::tile_f32.
+// Four CTAs an SM is the register budget (128 a thread: the 8 x d/4 product
+// block and its reduce-scatter fit without spilling; left free, ptxas has
+// picked 96 and spilled at d = 24).
 template <int D>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(WARPS * 32, 4)
 stripe_attention_f32_kernel(const float* __restrict__ qp, const float* __restrict__ kp,
                             const float* __restrict__ vp, size_t in_ps,
                             const float* __restrict__ lepe_w, const float* __restrict__ lepe_b,

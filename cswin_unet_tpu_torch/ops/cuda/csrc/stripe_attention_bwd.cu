@@ -64,32 +64,46 @@
 // float32) computes the same function with nothing rounded: S = q·scale·Kᵀ,
 // P = softmax(S), dV = Pᵀ·dO + the LePE transpose conv, dS = P∘(dP −
 // rowsum(dP∘P)), dQ = dS·K·scale, dK = dSᵀ·(q·scale), with float32 LePE
-// taps. Its products are FFMA (no tensor-core format keeps float32's), and
-// the bf16 plan's shared memory does not carry over: float32 q, k, v and dO
-// of a 288-token window at d = 24 take 110 KB, and P and dS tiles of a
-// 64-key block over all 288 queries 147 KB more. So it splits the work
-// another way, with no L x L or L x key-block tile at all:
-//   * rows: each warp takes QR = 4 query rows at a time, as the forward's
-//     float32 tile does: their scores and dP rows (a lane per key, from
-//     16-byte reads of q, dO and of k, v at a row stride of d + 4) into the
-//     warp's two row buffers, the softmax's max and sum and rowsum(dP∘P) as
-//     warp reductions, P and dS in place, then dQ (a lane per output) from
-//     the dS rows and K, written to dqkv; the rows' max, sum and
-//     rowsum(dP∘P) go to shared memory.
-//   * keys, 32 at a time: lane l holds key j = 32·kb + l's k and v in
-//     registers, and warp w walks the rows i ≡ w (mod 4): it recomputes S_ij
-//     and dP_ij in the rows' order of operations (so P_ij is the rows'
-//     value, bit for bit), forms P_ij and dS_ij from the saved statistics,
+// taps. Its products are FFMA (no tensor-core format keeps float32's).
+// Bound: the FFMA work (five L x L x d products a (window, head)), so
+// operations bound the card's time. float32 P and dS tiles over all queries
+// do not fit beside q, k, v and dO, and one CTA a (window, head) would hold
+// one CTA an SM at L = 288, so the work is split in two kernels on one
+// stream, each many CTAs a (window, head), each output written by one CTA,
+// every sum in a fixed order, no atomics:
+//   * rows (stripe_attention_bwd_f32_rows_kernel): a CTA takes about
+//     ROW_TARGET query rows (rows_per_cta) with k and v of the whole window
+//     staged once (row stride D + 4); each warp takes ROWS_B rows at a
+//     time, independently, their q and dO rows arriving by cp.async in the
+//     warp's double buffer. S and dP come from attention_tile.cuh's score
+//     blocks (a lane up to three keys, one fmaf chain over d a score) into
+//     the warp's rows; the softmax's max and sum and rowsum(dP∘P) are warp
+//     reductions, dS is formed in place, and dQ = dS·K as the forward's P·V
+//     (key groups of lanes, a reduce-scatter in a fixed tree). The rows'
+//     max, 1 / sum and rowsum(dP∘P) go to a float32 buffer of the wrapper.
+//   * keys (stripe_attention_bwd_f32_keys_kernel): a CTA takes up to
+//     KEY_BLOCKS blocks of KEYS keys (key_blocks_per_cta), a warp each, with
+//     q·scale, dO and the rows' statistics of the whole window staged once
+//     by cp.async; lane l of a warp takes key l of its block, its k and v in
+//     registers, and walks every row i of the window, two at a time:
+//     recomputes S_ij and dP_ij (two fmaf chains each, over even and odd d,
+//     added; no branch on the key), forms P_ij from the rows' statistics
 //     and adds dS_ij·q_i and P_ij·dO_i into the key's dK and dV in
-//     registers. The four warps' partials are added in warp order through
-//     shared memory, dV gets the LePE transpose conv, and both leave in
-//     16-byte row chunks.
-//   That recomputes S and dP once (7·d FMAs a pair, against 5·d at least)
-//   for shared memory that grows with L·d only: 158 KB at L = 288, d = 24
-//   (smem_bytes_f32; kernels.stripe_attention_bwd_f32_smem mirrors it).
-//   * the LePE partials as the bf16 instance's, from float32 dO and V.
+//     registers, from one broadcast read of q_i and dO_i. dV gets the LePE
+//     transpose conv and both leave in 16-byte chunks, with no reduction
+//     across warps; the LePE weight and bias partials of the block's tokens
+//     (its V against the staged dO; lane (channel pair, token parity)) go to
+//     a (windows · key blocks, cb, 10) buffer that the wrapper sums.
+//   A CTA stages a window's k and v, or q and dO, once for about 96 rows
+//   or 96 keys, and a warp takes whole rows or keys: what a CTA pays before
+//   its first product and after its last (staging, cross-warp sums) is a
+//   fifth to two thirds of the time at 32 rows or keys a CTA of 4 warps on
+//   an H100. S and dP are computed twice (7·d FMAs a pair against 5·d), for
+//   shared memory that grows with L·d only: ~105 KB (rows, two CTAs an SM)
+//   and ~68 KB (keys, three) at L = 288, d = 24
+//   (kernels.stripe_attention_bwd_f32_plan mirrors both).
 
-#include "common.cuh"
+#include "attention_tile.cuh"
 
 namespace {
 
@@ -549,44 +563,221 @@ cudaError_t launch(const bf16* qkv, const bf16* dout, const bf16* lw, bf16* dqkv
 
 // --- the float32 instance (TPU.COMPUTE_DTYPE float32) ----------------------
 
-constexpr int QR = 4;   // query rows a warp takes at once in the row phase
-constexpr int KEYS = 32;  // keys of the key phase's block, a lane each
+constexpr int ROWS_B = 4;       // query rows a warp of the row kernel takes at once
+constexpr int ROW_TARGET = 96;  // query rows a row-kernel CTA takes, at most about
+constexpr int KEYS = 32;        // keys of a key block, a lane each
+constexpr int KEY_BLOCKS = 3;   // key blocks a key-kernel CTA takes, at most
 
-__host__ __device__ constexpr int p_stride_f32(int L) { return (L + 3) / 4 * 4; }
+// Query rows of a row-kernel CTA at a window of L tokens: the window in
+// ceil(L / ROW_TARGET) near-equal parts, each whole row groups of every
+// warp, so that a CTA stages k and v once for about ROW_TARGET rows.
+__host__ __device__ constexpr int rows_per_cta(int L) {
+  return ((L + (L + ROW_TARGET - 1) / ROW_TARGET - 1) / ((L + ROW_TARGET - 1) / ROW_TARGET) +
+          ROWS_B * WARPS - 1) / (ROWS_B * WARPS) * (ROWS_B * WARPS);
+}
 
-// Shared memory of one (window, head) at float32: q·scale and dO at a row
-// stride of D, k and v at D + 4; the rows' statistics (float4: max, sum,
-// rowsum(dP∘P)); the LePE taps; then one region the two phases take in
-// turn: the row phase's per-warp S / P and dP / dS rows, the key phase's
-// per-warp dK | dV partials and the summed rows on their way out.
+// Key blocks of a key-kernel CTA: the window's blocks in ceil(blocks /
+// KEY_BLOCKS) near-equal parts, so that a CTA stages q and dO once for up
+// to KEY_BLOCKS blocks.
+__host__ __device__ constexpr int key_blocks_per_cta(int L) {
+  return ((L + KEYS - 1) / KEYS + ((L + KEYS - 1) / KEYS + KEY_BLOCKS - 1) / KEY_BLOCKS - 1) /
+         (((L + KEYS - 1) / KEYS + KEY_BLOCKS - 1) / KEY_BLOCKS);
+}
+
+// Shared memory of the row kernel at a window of L tokens: k and v, and per
+// warp two buffers of ROWS_B rows of q·scale and dO and ROWS_B rows of S /
+// P and dP / dS over the window's key slots.
 template <int D>
-__host__ __device__ constexpr size_t smem_bytes_f32(int L) {
-  const size_t rows = (size_t)WARPS * QR * 2 * p_stride_f32(L);
-  const size_t keys = (size_t)WARPS * KEYS * 2 * D + (size_t)KEYS * (2 * D + 4);
-  return sizeof(float) * ((size_t)L * D * 2 + (size_t)L * (D + 4) * 2 + (size_t)L * 4 +
-                          9 * D + (rows > keys ? rows : keys));
+__host__ __device__ constexpr size_t smem_rows_f32(int L) {
+  return sizeof(float) * (2 * (size_t)L * (D + 4) +
+                          (size_t)WARPS * (4 * ROWS_B * D + 2 * ROWS_B * 32 *
+                                                                (size_t)attn_tile::key_slots(L)));
+}
+
+// Shared memory of the key kernel: q·scale and dO of the window, the rows'
+// statistics, the LePE taps, and per warp its key block's v rows.
+template <int D>
+__host__ __device__ constexpr size_t smem_keys_f32(int L) {
+  return sizeof(float) * (2 * (size_t)L * D + 4 * (size_t)L + 9 * D +
+                          (size_t)key_blocks_per_cta(L) * KEYS * D);
 }
 
 template <int D>
-__global__ void __launch_bounds__(WARPS * 32)
-stripe_attention_bwd_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
-                                const float* __restrict__ lepe_w, float* __restrict__ dqkv,
-                                float* __restrict__ dl_part, int H, int W, int C, int ch_off,
-                                int cb, int h_sp, int w_sp, float scale) {
+__global__ void __launch_bounds__(WARPS * 32, 2)
+stripe_attention_bwd_f32_rows_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+                              float* __restrict__ dqkv, float4* __restrict__ stats, int H,
+                              int W, int C, int ch_off, int h_sp, int w_sp, float scale) {
   static_assert(D % 8 == 0 && D <= 32, "head dims 16, 24, 32");
-  constexpr int KS = D + 4;  // row stride of k and v
-  constexpr int CH = D / 4;  // 16-byte chunks of a token's head slice
-  constexpr int U = (QR * D + 31) / 32;  // dQ outputs a lane takes in a row group
-  constexpr int FS = 2 * D + 4;          // row stride of the summed dK | dV rows
+  constexpr int KS = D + 4;            // row stride of k and v
+  constexpr int CH = D / 4;            // 16-byte chunks of a token's head slice
+  constexpr int R = ROWS_B;
+  constexpr int CO = D / 8;            // dQ channels a lane writes
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int L = h_sp * w_sp, PS = p_stride_f32(L);
-  float* Qs = reinterpret_cast<float*>(smem_raw);  // q·scale, L x D
-  float* Os = Qs + L * D;                            // dO, L x D
-  float* Ks = Os + L * D;                            // L x KS
+  const int L = h_sp * w_sp, LS = 32 * attn_tile::key_slots(L);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* Ks = reinterpret_cast<float*>(smem_raw);
   float* Vs = Ks + L * KS;
-  float4* St = reinterpret_cast<float4*>(Vs + L * KS);  // max, sum, rowsum(dP∘P)
-  float* Tw = reinterpret_cast<float*>(St + L);          // LePE taps, 9 x D
-  float* Rg = Tw + 9 * D;                                // the phases' region
+  float* Wb = Vs + L * KS + warp * (4 * R * D + 2 * R * LS);  // q | dO, two buffers
+  float* Sb = Wb + 4 * R * D;                                  // S, then P's numerators
+  float* Gb = Sb + R * LS;                                     // dP, then dS
+
+  const int n_wh = H / h_sp, n_ww = W / w_sp;
+  const int win = blockIdx.x;
+  const int b = win / (n_wh * n_ww);
+  const int row0 = (win / n_ww) % n_wh * h_sp, col0 = win % n_ww * w_sp;
+  const int head = blockIdx.y;
+  const int c0 = ch_off + head * D;
+  const size_t C3 = 3 * (size_t)C;
+  const auto pixel = [&](int t) {
+    return ((size_t)b * H + row0 + t / w_sp) * W + col0 + t % w_sp;
+  };
+  float4* st_out = stats + ((size_t)win * gridDim.y + head) * L;
+
+  for (int i = threadIdx.x; i < L * CH; i += blockDim.x) {
+    const int t = i / CH, c = i % CH * 4;
+    const float* src = qkv + pixel(t) * C3 + c0 + c;
+    cp_async16(Ks + t * KS + c, src + C);
+    cp_async16(Vs + t * KS + c, src + 2 * C);
+  }
+  cp_async_commit();
+  // the warp's groups of R rows: g0, g0 + WARPS, ... inside the CTA's block
+  const int per_cta = rows_per_cta(L) / R;
+  const int g0 = blockIdx.z * per_cta + warp;
+  const int g_end = min((blockIdx.z + 1) * per_cta, (L + R - 1) / R);
+  const float* q0 = qkv + pixel(0) * C3 + c0;  // the window's first pixel
+  const float* o0 = dout + pixel(0) * C + c0;
+  const auto fetch = [&](int g, float* buf) {
+    attn_tile::fetch_rows<D, R>(buf, q0, C3, W, w_sp, g * R, L, lane);
+    attn_tile::fetch_rows<D, R>(buf + R * D, o0, C, W, w_sp, g * R, L, lane);
+  };
+  if (g0 < g_end) fetch(g0, Wb);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int cg = lane & 3, kg = lane >> 2;
+  for (int g = g0, t = 0; g < g_end; g += WARPS, ++t) {
+    float* Q = Wb + (t & 1) * 2 * R * D;
+    const float* O = Q + R * D;
+    if (t > 0) {
+      cp_async_wait<0>();
+      __syncwarp();
+    }
+    for (int i = lane; i < R * D; i += 32) Q[i] *= scale;
+    __syncwarp();
+    if (g + WARPS < g_end) fetch(g + WARPS, Wb + ((t + 1) & 1) * 2 * R * D);
+    float mx[R], sum[R], inv[R], dl[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) mx[r] = -INFINITY;
+    attn_tile::scores<D, R>(Q, Ks, Sb, L, lane, mx);
+    attn_tile::scores<D, R, false>(O, Vs, Gb, L, lane, mx);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      mx[r] = warp_max(mx[r]);
+      sum[r] = dl[r] = 0.f;
+    }
+    // exp(s - max) in place, its sum and Σ dP·exp(s - max) (rowsum(dP∘P)
+    // before the division by the sum), in one pass
+    for (int j = lane; j < L; j += 32) {
+      float4* p = reinterpret_cast<float4*>(Sb + j * R);
+      const float4 d = *reinterpret_cast<const float4*>(Gb + j * R);
+      float4 e = *p;
+      e.x = expf(e.x - mx[0]);
+      e.y = expf(e.y - mx[1]);
+      e.z = expf(e.z - mx[2]);
+      e.w = expf(e.w - mx[3]);
+      *p = e;
+      sum[0] += e.x;
+      sum[1] += e.y;
+      sum[2] += e.z;
+      sum[3] += e.w;
+      dl[0] = fmaf(d.x, e.x, dl[0]);
+      dl[1] = fmaf(d.y, e.y, dl[1]);
+      dl[2] = fmaf(d.z, e.z, dl[2]);
+      dl[3] = fmaf(d.w, e.w, dl[3]);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      inv[r] = 1.f / warp_sum(sum[r]);
+      dl[r] = warp_sum(dl[r]) * inv[r];
+    }
+    for (int j = lane; j < L; j += 32) {  // dS in place
+      const float4 e = *reinterpret_cast<const float4*>(Sb + j * R);
+      float4* p = reinterpret_cast<float4*>(Gb + j * R);
+      const float4 d = *p;
+      *p = make_float4((e.x * inv[0]) * (d.x - dl[0]), (e.y * inv[1]) * (d.y - dl[1]),
+                       (e.z * inv[2]) * (d.z - dl[2]), (e.w * inv[3]) * (d.w - dl[3]));
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (lane == r && g * R + r < L) st_out[g * R + r] = make_float4(mx[r], inv[r], dl[r], 0.f);
+    __syncwarp();
+    float o[CO];
+    attn_tile::products<D, R>(Gb, Ks, L, lane, o);
+    const int i = g * R + attn_tile::row_of<R>(lane);
+    if (i < L) {
+      float* dst = dqkv + pixel(i) * C3 + c0 + cg * (D / 4) + (kg & 1) * CO;
+#pragma unroll
+      for (int u = 0; u < CO; ++u) dst[u] = o[u] * scale;
+    }
+    __syncwarp();  // the group's rows are rewritten by the next
+  }
+}
+
+// The key kernel's query row i: q·scale and dO into registers (the same
+// address in every lane), and the row's statistics returned.
+template <int D>
+__device__ __forceinline__ float4 key_row(const float* Qs, const float* Os, const float4* St,
+                                          int i, float (&qi)[D], float (&oi)[D]) {
+#pragma unroll
+  for (int d = 0; d < D; d += 4) {
+    const float4 q4 = *reinterpret_cast<const float4*>(Qs + i * D + d);
+    const float4 o4 = *reinterpret_cast<const float4*>(Os + i * D + d);
+    qi[d] = q4.x, qi[d + 1] = q4.y, qi[d + 2] = q4.z, qi[d + 3] = q4.w;
+    oi[d] = o4.x, oi[d + 1] = o4.y, oi[d + 2] = o4.z, oi[d + 3] = o4.w;
+  }
+  return St[i];
+}
+
+// One (row, key) pair of the key kernel: S and dP as two fmaf chains each
+// (even and odd d), added; P from the row's statistics (max, 1 / sum) and
+// dS = P·(dP − rowsum(dP∘P)); P = dS = 0 past the window.
+template <int D>
+__device__ __forceinline__ void key_pair(const float (&qi)[D], const float (&oi)[D],
+                                         const float (&kr)[D], const float (&vr)[D], float4 st,
+                                         bool key, float& p, float& ds) {
+  float s0 = 0.f, s1 = 0.f, g0 = 0.f, g1 = 0.f;
+#pragma unroll
+  for (int d = 0; d < D; d += 2) {
+    s0 = fmaf(qi[d], kr[d], s0);
+    s1 = fmaf(qi[d + 1], kr[d + 1], s1);
+    g0 = fmaf(oi[d], vr[d], g0);
+    g1 = fmaf(oi[d + 1], vr[d + 1], g1);
+  }
+  // no branch on the key: a key past the window scores the window's last
+  // row and its P is scaled by 0 (a branch here serialises the chains)
+  p = expf((s0 + s1) - st.x) * (key ? st.y : 0.f);
+  ds = p * ((g0 + g1) - st.z);
+}
+
+// Three CTAs an SM at head dims up to 24 (k, v, dK, dV and two rows' q and
+// dO of a lane fit 168 registers); two at 32, so that its lane state does not
+// spill.
+template <int D>
+__global__ void __launch_bounds__(KEY_BLOCKS * 32, D <= 24 ? 3 : 2)
+stripe_attention_bwd_f32_keys_kernel(const float* __restrict__ qkv,
+                                     const float* __restrict__ dout,
+                                     const float* __restrict__ lepe_w, float* __restrict__ dqkv,
+                                     float* __restrict__ dl_part,
+                                     const float4* __restrict__ stats, int H, int W, int C,
+                                     int ch_off, int cb, int h_sp, int w_sp, float scale) {
+  static_assert(D % 8 == 0 && D <= 32, "head dims 16, 24, 32");
+  constexpr int CH = D / 4;  // 16-byte chunks of a token's head slice
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int L = h_sp * w_sp;
+  float* Qs = reinterpret_cast<float*>(smem_raw);      // q·scale, L x D
+  float* Os = Qs + L * D;                              // dO, L x D
+  float4* St = reinterpret_cast<float4*>(Os + L * D);  // max, 1 / sum, rowsum(dP∘P)
+  float* Tw = reinterpret_cast<float*>(St + L);        // LePE taps, 9 x D
 
   const int n_wh = H / h_sp, n_ww = W / w_sp;
   const int win = blockIdx.x;
@@ -595,264 +786,178 @@ stripe_attention_bwd_f32_kernel(const float* __restrict__ qkv, const float* __re
   const int head = blockIdx.y;
   const int hc = head * D;
   const int c0 = ch_off + hc;
+  const int nkb = (L + KEYS - 1) / KEYS;
   const size_t C3 = 3 * (size_t)C;
   const auto pixel = [&](int t) {
     return ((size_t)b * H + row0 + t / w_sp) * W + col0 + t % w_sp;
   };
+  const float4* st_in = stats + ((size_t)win * gridDim.y + head) * L;
 
   for (int i = threadIdx.x; i < L * CH; i += blockDim.x) {
     const int t = i / CH, c = i % CH * 4;
     const size_t m = pixel(t);
-    const float* src = qkv + m * C3 + c0 + c;
-    cp_async16(Ks + t * KS + c, src + C);
-    cp_async16(Vs + t * KS + c, src + 2 * C);
+    cp_async16(Qs + t * D + c, qkv + m * C3 + c0 + c);
     cp_async16(Os + t * D + c, dout + m * C + c0 + c);
-    float4 q4 = __ldg(reinterpret_cast<const float4*>(src));
+  }
+  for (int i = threadIdx.x; i < L; i += blockDim.x) cp_async16(St + i, st_in + i);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < 9 * D; i += blockDim.x) Tw[i] = lepe_w[i / D * cb + hc + i % D];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // The warp's key block; lane l holds key kb·KEYS + l: its k and v, and its
+  // dK and dV sums over every row of the window.
+  const int kb = blockIdx.z * (blockDim.x >> 5) + warp;
+  const int j = kb * KEYS + lane;
+  const bool key = j < L;
+  float kr[D], vr[D], dk[D], dv[D];
+  if (kb < nkb) {
+    const float* src = qkv + pixel(key ? j : L - 1) * C3 + c0;
+#pragma unroll
+    for (int d = 0; d < D; d += 4) {
+      const float4 k4 = __ldg(reinterpret_cast<const float4*>(src + C + d));
+      const float4 v4 = __ldg(reinterpret_cast<const float4*>(src + 2 * C + d));
+      kr[d] = k4.x, kr[d + 1] = k4.y, kr[d + 2] = k4.z, kr[d + 3] = k4.w;
+      vr[d] = v4.x, vr[d + 1] = v4.y, vr[d + 2] = v4.z, vr[d + 3] = v4.w;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int i = threadIdx.x; i < L * D / 4; i += blockDim.x) {  // q -> q·scale
+    float4* p = reinterpret_cast<float4*>(Qs) + i;
+    float4 q4 = *p;
     q4.x *= scale;
     q4.y *= scale;
     q4.z *= scale;
     q4.w *= scale;
-    *reinterpret_cast<float4*>(Qs + t * D + c) = q4;
+    *p = q4;
   }
-  cp_async_commit();
-  for (int i = threadIdx.x; i < 9 * D; i += blockDim.x) Tw[i] = lepe_w[i / D * cb + hc + i % D];
-  cp_async_wait<0>();
   __syncthreads();
+  if (kb >= nkb) return;  // a last CTA's spare warp; no barrier follows
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  // Rows: S, P, dP, dS of QR query rows, dQ, and the rows' statistics.
-  {
-    float* P = Rg + warp * QR * 2 * PS;  // S, then P
-    float* G = P + QR * PS;              // dP, then dS
-    for (int r0 = warp * QR; r0 < L; r0 += WARPS * QR) {
-      const float* qr[QR];
-      const float* orow[QR];
 #pragma unroll
-      for (int r = 0; r < QR; ++r) {  // a row past L repeats row L - 1, unstored
-        qr[r] = Qs + min(r0 + r, L - 1) * D;
-        orow[r] = Os + min(r0 + r, L - 1) * D;
+  for (int d = 0; d < D; ++d) dk[d] = dv[d] = 0.f;
+  int i = 0;
+  if constexpr (D <= 24) {  // rows i and i + 1 together: twice the chains in flight
+    for (; i + 1 < L; i += 2) {
+      float qa[D], oa[D], qb[D], ob[D], pa, dsa, pb, dsb;
+      const float4 sa = key_row(Qs, Os, St, i, qa, oa);
+      const float4 sb = key_row(Qs, Os, St, i + 1, qb, ob);
+      key_pair(qa, oa, kr, vr, sa, key, pa, dsa);
+      key_pair(qb, ob, kr, vr, sb, key, pb, dsb);
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        dk[d] = fmaf(dsb, qb[d], fmaf(dsa, qa[d], dk[d]));
+        dv[d] = fmaf(pb, ob[d], fmaf(pa, oa[d], dv[d]));
       }
-      float mx[QR], sum[QR], dl[QR];
+    }
+  }
+  for (; i < L; ++i) {
+    float qi[D], oi[D], p, ds;
+    const float4 st = key_row(Qs, Os, St, i, qi, oi);
+    key_pair(qi, oi, kr, vr, st, key, p, ds);
 #pragma unroll
-      for (int r = 0; r < QR; ++r) mx[r] = -INFINITY;
-      for (int j = lane; j < L; j += 32) {
-        float sc[QR] = {}, dp[QR] = {};
+    for (int d = 0; d < D; ++d) {
+      dk[d] = fmaf(ds, qi[d], dk[d]);
+      dv[d] = fmaf(p, oi[d], dv[d]);
+    }
+  }
+
+  // The block's v rows for the LePE partials below; dV gets the LePE
+  // transpose conv of dO at the key; dK and dV leave in 16-byte chunks.
+  float* Vw = Tw + 9 * D + warp * KEYS * D;
+  if (key) {
+#pragma unroll
+    for (int d = 0; d < D; d += 4)
+      *reinterpret_cast<float4*>(Vw + lane * D + d) =
+          make_float4(vr[d], vr[d + 1], vr[d + 2], vr[d + 3]);
+    float lp[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) lp[d] = 0.f;
+    const int tr = j / w_sp, tc = j % w_sp;
+    for (int di = -1; di <= 1; ++di) {
+      const int r = tr - di;
+      if (r < 0 || r >= h_sp) continue;
+      for (int dj = -1; dj <= 1; ++dj) {
+        const int c = tc - dj;
+        if (c < 0 || c >= w_sp) continue;
+        const float* w = Tw + ((di + 1) * 3 + dj + 1) * D;
+        const float* o = Os + (r * w_sp + c) * D;
 #pragma unroll
         for (int d = 0; d < D; d += 4) {
-          const float4 k4 = *reinterpret_cast<const float4*>(Ks + j * KS + d);
-          const float4 v4 = *reinterpret_cast<const float4*>(Vs + j * KS + d);
-#pragma unroll
-          for (int r = 0; r < QR; ++r) {
-            const float4 q4 = *reinterpret_cast<const float4*>(qr[r] + d);
-            const float4 o4 = *reinterpret_cast<const float4*>(orow[r] + d);
-            sc[r] = fmaf(q4.x, k4.x, sc[r]);
-            sc[r] = fmaf(q4.y, k4.y, sc[r]);
-            sc[r] = fmaf(q4.z, k4.z, sc[r]);
-            sc[r] = fmaf(q4.w, k4.w, sc[r]);
-            dp[r] = fmaf(o4.x, v4.x, dp[r]);
-            dp[r] = fmaf(o4.y, v4.y, dp[r]);
-            dp[r] = fmaf(o4.z, v4.z, dp[r]);
-            dp[r] = fmaf(o4.w, v4.w, dp[r]);
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < QR; ++r) {
-          P[r * PS + j] = sc[r];
-          G[r * PS + j] = dp[r];
-          mx[r] = fmaxf(mx[r], sc[r]);
+          const float4 w4 = *reinterpret_cast<const float4*>(w + d);
+          const float4 o4 = *reinterpret_cast<const float4*>(o + d);
+          lp[d] = fmaf(w4.x, o4.x, lp[d]);
+          lp[d + 1] = fmaf(w4.y, o4.y, lp[d + 1]);
+          lp[d + 2] = fmaf(w4.z, o4.z, lp[d + 2]);
+          lp[d + 3] = fmaf(w4.w, o4.w, lp[d + 3]);
         }
       }
+    }
+    float* dst = dqkv + pixel(j) * C3 + c0;
 #pragma unroll
-      for (int r = 0; r < QR; ++r) {
-        mx[r] = warp_max(mx[r]);
-        sum[r] = 0.f;
-        dl[r] = 0.f;
-      }
-      for (int j = lane; j < L; j += 32)
-#pragma unroll
-        for (int r = 0; r < QR; ++r) {
-          const float e = expf(P[r * PS + j] - mx[r]);
-          P[r * PS + j] = e;
-          sum[r] += e;
-        }
-#pragma unroll
-      for (int r = 0; r < QR; ++r) sum[r] = warp_sum(sum[r]);
-      for (int j = lane; j < L; j += 32)
-#pragma unroll
-        for (int r = 0; r < QR; ++r) {
-          const float p = P[r * PS + j] / sum[r];
-          P[r * PS + j] = p;
-          dl[r] += G[r * PS + j] * p;
-        }
-#pragma unroll
-      for (int r = 0; r < QR; ++r) dl[r] = warp_sum(dl[r]);
-      // dS in place, and zeros past L up to PS (the 16-byte reads below).
-      for (int j = lane; j < PS; j += 32)
-#pragma unroll
-        for (int r = 0; r < QR; ++r)
-          G[r * PS + j] = j < L ? P[r * PS + j] * (G[r * PS + j] - dl[r]) : 0.f;
-#pragma unroll
-      for (int r = 0; r < QR; ++r)
-        if (lane == r && r0 + r < L) St[r0 + r] = make_float4(mx[r], sum[r], dl[r], 0.f);
-      __syncwarp();
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int o = lane + 32 * u, r = o / D, dd = o % D, i = r0 + r;
-        if (o >= QR * D || i >= L) continue;
-        const float* gr = G + r * PS;
-        float acc = 0.f;
-        for (int j = 0; j < L; j += 4) {
-          const float4 g4 = *reinterpret_cast<const float4*>(gr + j);
-          acc = fmaf(g4.x, Ks[j * KS + dd], acc);
-          if (j + 1 < L) acc = fmaf(g4.y, Ks[(j + 1) * KS + dd], acc);
-          if (j + 2 < L) acc = fmaf(g4.z, Ks[(j + 2) * KS + dd], acc);
-          if (j + 3 < L) acc = fmaf(g4.w, Ks[(j + 3) * KS + dd], acc);
-        }
-        dqkv[pixel(i) * C3 + c0 + dd] = acc * scale;
-      }
-      __syncwarp();  // the group's rows are rewritten by the next
+    for (int d = 0; d < D; d += 4) {
+      *reinterpret_cast<float4*>(dst + C + d) = make_float4(dk[d], dk[d + 1], dk[d + 2], dk[d + 3]);
+      *reinterpret_cast<float4*>(dst + 2 * C + d) = make_float4(
+          dv[d] + lp[d], dv[d + 1] + lp[d + 1], dv[d + 2] + lp[d + 2], dv[d + 3] + lp[d + 3]);
     }
   }
-  __syncthreads();  // the statistics are complete; the region is the key phase's
+  __syncwarp();
 
-  // Keys, KEYS at a time: lane l holds key j's k and v; warp w the rows
-  // i ≡ w (mod WARPS).
-  float* Red = Rg;                        // WARPS x 2D x KEYS partials
-  float* Fin = Rg + WARPS * KEYS * 2 * D; // KEYS x FS summed rows
-  for (int kb = 0; kb * KEYS < L; ++kb) {
-    const int j = kb * KEYS + lane;
-    const bool key = j < L;
-    float kr[D], vr[D], dk[D], dv[D];
+  // LePE weight (9 taps) and bias partials of the block's tokens t: lane
+  // (channel pair cp = lane % 16, token parity) adds V[t]·dO[t - tap] and
+  // dO[t] over its sixteen tokens, ten sums in flight; the two parities are
+  // added by a shuffle and written channel-major, (cb, 10) a window and key
+  // block.
+  const int cp = lane & 15, dd = 2 * cp;
+  if (cp < D / 2) {
+    float acc[10][2] = {};
+    for (int t = kb * KEYS + (lane >> 4); t < min(L, (kb + 1) * KEYS); t += 2) {
+      const int tr = t / w_sp, tc = t % w_sp;
+      const float2 o2 = *reinterpret_cast<const float2*>(Os + t * D + dd);
+      const float2 v2 = *reinterpret_cast<const float2*>(Vw + (t - kb * KEYS) * D + dd);
+      acc[9][0] += o2.x;
+      acc[9][1] += o2.y;
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      kr[d] = key ? Ks[j * KS + d] : 0.f;
-      vr[d] = key ? Vs[j * KS + d] : 0.f;
-      dk[d] = dv[d] = 0.f;
-    }
-    for (int i = warp; i < L; i += WARPS) {
-      const float4 st = St[i];
-      const float* qi = Qs + i * D;
-      const float* oi = Os + i * D;
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 q4 = *reinterpret_cast<const float4*>(qi + d);
-        const float4 o4 = *reinterpret_cast<const float4*>(oi + d);
-        s = fmaf(q4.x, kr[d], s);
-        s = fmaf(q4.y, kr[d + 1], s);
-        s = fmaf(q4.z, kr[d + 2], s);
-        s = fmaf(q4.w, kr[d + 3], s);
-        dp = fmaf(o4.x, vr[d], dp);
-        dp = fmaf(o4.y, vr[d + 1], dp);
-        dp = fmaf(o4.z, vr[d + 2], dp);
-        dp = fmaf(o4.w, vr[d + 3], dp);
-      }
-      const float p = key ? expf(s - st.x) / st.y : 0.f;
-      const float ds = p * (dp - st.z);
-#pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 q4 = *reinterpret_cast<const float4*>(qi + d);
-        const float4 o4 = *reinterpret_cast<const float4*>(oi + d);
-        dk[d] = fmaf(ds, q4.x, dk[d]);
-        dk[d + 1] = fmaf(ds, q4.y, dk[d + 1]);
-        dk[d + 2] = fmaf(ds, q4.z, dk[d + 2]);
-        dk[d + 3] = fmaf(ds, q4.w, dk[d + 3]);
-        dv[d] = fmaf(p, o4.x, dv[d]);
-        dv[d + 1] = fmaf(p, o4.y, dv[d + 1]);
-        dv[d + 2] = fmaf(p, o4.z, dv[d + 2]);
-        dv[d + 3] = fmaf(p, o4.w, dv[d + 3]);
+      for (int tap = 0; tap < 9; ++tap) {
+        const int r = tr - (tap / 3 - 1), c = tc - (tap % 3 - 1);
+        if (r < 0 || r >= h_sp || c < 0 || c >= w_sp) continue;
+        const float2 n2 = *reinterpret_cast<const float2*>(Os + (r * w_sp + c) * D + dd);
+        acc[tap][0] = fmaf(n2.x, v2.x, acc[tap][0]);
+        acc[tap][1] = fmaf(n2.y, v2.y, acc[tap][1]);
       }
     }
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      Red[(warp * 2 * D + d) * KEYS + lane] = dk[d];
-      Red[(warp * 2 * D + D + d) * KEYS + lane] = dv[d];
-    }
-    __syncthreads();
-    // The warps' partials in warp order; dV with the LePE transpose conv.
-    for (int idx = threadIdx.x; idx < 2 * D * KEYS; idx += blockDim.x) {
-      const int l = idx % KEYS, c2 = idx / KEYS, jj = kb * KEYS + l;
-      float v = 0.f;
+    for (int tap = 0; tap < 10; ++tap)
 #pragma unroll
-      for (int q = 0; q < WARPS; ++q) v += Red[(q * 2 * D + c2) * KEYS + l];
-      if (c2 >= D && jj < L) {
-        const int dd = c2 - D, tr = jj / w_sp, tc = jj % w_sp;
-        float lp = 0.f;
-        for (int di = -1; di <= 1; ++di) {
-          const int r = tr - di;
-          if (r < 0 || r >= h_sp) continue;
-          for (int dj = -1; dj <= 1; ++dj) {
-            const int c = tc - dj;
-            if (c < 0 || c >= w_sp) continue;
-            lp = fmaf(Tw[((di + 1) * 3 + dj + 1) * D + dd], Os[(r * w_sp + c) * D + dd], lp);
-          }
-        }
-        v += lp;
-      }
-      Fin[l * FS + c2] = v;
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < KEYS * 2 * CH; idx += blockDim.x) {
-      const int l = idx / (2 * CH), ch = idx % (2 * CH), jj = kb * KEYS + l;
-      if (jj >= L) continue;
-      const int third = ch < CH ? 1 : 2, c = (ch % CH) * 4;
-      *reinterpret_cast<float4*>(dqkv + pixel(jj) * C3 + third * C + c0 + c) =
-          *reinterpret_cast<const float4*>(Fin + l * FS + ch * 4);
-    }
-    __syncthreads();  // Red and Fin are rewritten by the next key block
-  }
-
-  // LePE weight (9 taps) and bias partials of this (window, head), as the
-  // bf16 instance's: lane (channel pair, token group of 8), the groups added
-  // by shuffles, (cb, 10) a window.
-  {
-    const int g = lane >> 2, q4 = lane & 3;
-    const int cp = warp * 4 + q4, dd = 2 * cp;
-    if (cp < D / 2) {
-      float acc[10][2] = {};
-      for (int t = g; t < L; t += 8) {
-        const int tr = t / w_sp, tc = t % w_sp;
-        const float2 o2 = *reinterpret_cast<const float2*>(Os + t * D + dd);
-        acc[9][0] += o2.x;
-        acc[9][1] += o2.y;
+      for (int e = 0; e < 2; ++e) acc[tap][e] += __shfl_xor_sync(__activemask(), acc[tap][e], 16);
+    if (lane < 16) {
+      float* dst = dl_part + (((size_t)win * nkb + kb) * cb + hc + dd) * 10;
 #pragma unroll
-        for (int tap = 0; tap < 9; ++tap) {
-          const int r = tr + tap / 3 - 1, c = tc + tap % 3 - 1;
-          if (r < 0 || r >= h_sp || c < 0 || c >= w_sp) continue;
-          const float2 v2 = *reinterpret_cast<const float2*>(Vs + (r * w_sp + c) * KS + dd);
-          acc[tap][0] = fmaf(o2.x, v2.x, acc[tap][0]);
-          acc[tap][1] = fmaf(o2.y, v2.y, acc[tap][1]);
-        }
-      }
+      for (int e = 0; e < 2; ++e)
 #pragma unroll
-      for (int tap = 0; tap < 10; ++tap)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-#pragma unroll
-          for (int o = 4; o < 32; o <<= 1)
-            acc[tap][e] += __shfl_xor_sync(__activemask(), acc[tap][e], o);
-      if (g == 0) {
-        float* dst = dl_part + ((size_t)win * cb + hc + dd) * 10;
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-#pragma unroll
-          for (int tap = 0; tap < 10; ++tap) dst[e * 10 + tap] = acc[tap][e];
-      }
+        for (int tap = 0; tap < 10; ++tap) dst[e * 10 + tap] = acc[tap][e];
     }
   }
 }
 
 template <int D>
 cudaError_t launch_f32(const float* qkv, const float* dout, const float* lw, float* dqkv,
-                       float* dl, int B, int H, int W, int C, int ch_off, int cb, int heads,
-                       int h_sp, int w_sp, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes_f32<D>(h_sp * w_sp);
-  cudaError_t err = allow_smem(stripe_attention_bwd_f32_kernel<D>, smem);
+                       float* dl, float4* stats, int B, int H, int W, int C, int ch_off, int cb,
+                       int heads, int h_sp, int w_sp, float scale, cudaStream_t stream) {
+  const int L = h_sp * w_sp, windows = B * (H / h_sp) * (W / w_sp);
+  const size_t rows = smem_rows_f32<D>(L), keys = smem_keys_f32<D>(L);
+  cudaError_t err = allow_smem(stripe_attention_bwd_f32_rows_kernel<D>, rows);
+  if (err == cudaSuccess) err = allow_smem(stripe_attention_bwd_f32_keys_kernel<D>, keys);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * (H / h_sp) * (W / w_sp), heads);
-  stripe_attention_bwd_f32_kernel<D><<<grid, WARPS * 32, smem, stream>>>(
-      qkv, dout, lw, dqkv, dl, H, W, C, ch_off, cb, h_sp, w_sp, scale);
+  const int row_ctas = (L + rows_per_cta(L) - 1) / rows_per_cta(L);
+  const int per_cta = key_blocks_per_cta(L);  // a warp a key block
+  const int key_ctas = ((L + KEYS - 1) / KEYS + per_cta - 1) / per_cta;
+  stripe_attention_bwd_f32_rows_kernel<D><<<dim3(windows, heads, row_ctas), WARPS * 32, rows,
+                                            stream>>>(qkv, dout, dqkv, stats, H, W, C, ch_off,
+                                                      h_sp, w_sp, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  stripe_attention_bwd_f32_keys_kernel<D><<<dim3(windows, heads, key_ctas), per_cta * 32, keys,
+                                            stream>>>(qkv, dout, lw, dqkv, dl, stats, H, W, C,
+                                                      ch_off, cb, h_sp, w_sp, scale);
   return cudaGetLastError();
 }
 
@@ -896,36 +1001,44 @@ CSWIN_API int cswin_stripe_attention_bwd(const void* qkv, const void* dout,
   }
 }
 
-// The float32 instance's shared memory (smem_bytes_f32), as
-// cswin_stripe_attention_bwd_smem gives the bf16 one's.
-CSWIN_API long long cswin_stripe_attention_bwd_f32_smem(int L, int D) {
+// The float32 instance's plan at a window of L tokens, head dim D: what = 0
+// the row kernel's shared memory (smem_rows_f32), 1 the key kernel's
+// (smem_keys_f32), 2 the rows of a row-kernel CTA (rows_per_cta), 3 the key
+// blocks of a key-kernel CTA (key_blocks_per_cta); else 0.
+CSWIN_API long long cswin_stripe_attention_bwd_f32_smem(int L, int D, int what) {
+  if (what == 2) return rows_per_cta(L);
+  if (what == 3) return key_blocks_per_cta(L);
+  if (what != 0 && what != 1) return 0;
   switch (D) {
-    case 16: return (long long)smem_bytes_f32<16>(L);
-    case 24: return (long long)smem_bytes_f32<24>(L);
-    case 32: return (long long)smem_bytes_f32<32>(L);
+    case 16: return (long long)(what ? smem_keys_f32<16>(L) : smem_rows_f32<16>(L));
+    case 24: return (long long)(what ? smem_keys_f32<24>(L) : smem_rows_f32<24>(L));
+    case 32: return (long long)(what ? smem_keys_f32<32>(L) : smem_rows_f32<32>(L));
     default: return 0;
   }
 }
 
-// The float32 instance: qkv, dout, dqkv float32, lepe_w (9, cb) float32,
-// dl_part as above; C and ch_off multiples of 4 and qkv, dout, dqkv
-// 16-byte aligned; smem_bytes_f32(L) at most 227 KB (checked by the
-// wrapper).
+// The float32 instance, two launches on the stream: qkv, dout, dqkv
+// float32, lepe_w (9, cb) float32; dl_part (windows · key blocks, cb, 10)
+// float32, key blocks of KEYS tokens, laid out as above; stats (windows,
+// heads, L) float4 scratch between the two kernels; C and ch_off multiples
+// of 4 and qkv, dout, dqkv, stats 16-byte aligned; both kernels' shared
+// memory at most 227 KB (checked by the wrapper).
 CSWIN_API int cswin_stripe_attention_bwd_f32(const void* qkv, const void* dout,
                                              const void* lepe_w, void* dqkv, void* dl_part,
-                                             int B, int H, int W, int C, int ch_off, int cb,
-                                             int heads, int h_sp, int w_sp, float scale,
-                                             void* stream) {
+                                             void* stats, int B, int H, int W, int C,
+                                             int ch_off, int cb, int heads, int h_sp,
+                                             int w_sp, float scale, void* stream) {
   const float* q = (const float*)qkv;
   const float* o = (const float*)dout;
   const float* lw = (const float*)lepe_w;
   float* g = (float*)dqkv;
   float* dl = (float*)dl_part;
+  float4* st = (float4*)stats;
   cudaStream_t s = (cudaStream_t)stream;
   switch (cb / heads) {
-    case 16: return (int)launch_f32<16>(q, o, lw, g, dl, B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, s);
-    case 24: return (int)launch_f32<24>(q, o, lw, g, dl, B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, s);
-    case 32: return (int)launch_f32<32>(q, o, lw, g, dl, B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, s);
+    case 16: return (int)launch_f32<16>(q, o, lw, g, dl, st, B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, s);
+    case 24: return (int)launch_f32<24>(q, o, lw, g, dl, st, B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, s);
+    case 32: return (int)launch_f32<32>(q, o, lw, g, dl, st, B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

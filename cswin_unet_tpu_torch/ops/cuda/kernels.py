@@ -946,31 +946,41 @@ stripe_attention.launches = stripe_attention.launches_f32 = 0
 
 _SM_SMEM = 233472  # shared memory of an H100 SM (228 KB), 1 KB of it reserved a CTA
 _ATT_WARPS = 4  # attention_tile.cuh WARPS
-_ATT_F32_QR = 4  # attention_tile.cuh QR: query rows a warp takes at once
+_ATT_F32_QR = 8  # attention_tile.cuh QR: query rows a warp takes at once
+_ATT_F32_SLOTS = 3  # attention_tile.cuh SLOTS: key slots of 32 keys a lane scores at once
 
 
 class AttentionF32Plan(NamedTuple):
     """The float32 attention tile (``attention_tile.cuh::tile_f32``) at a
-    window of L tokens and head dim d: q staged at a row stride of d floats,
-    k and v at ``kv_stride``; each of ``warps`` warps takes ``rows`` query
-    rows at a time into its rows of P (``p_stride`` floats, L rounded up to
-    4); ``smem_bytes`` of dynamic shared memory; one CTA a (window, head),
-    ``ctas_per_sm`` of them an SM by shared memory (at most 16 by threads)."""
+    window of L tokens and head dim d: k and v staged at a row stride of
+    ``kv_stride`` floats; each of ``warps`` warps takes ``rows`` query rows
+    at a time (two q buffers of its own) and holds their scores over
+    ``score_keys`` keys (L rounded up to 32), a lane scoring up to ``slots``
+    keys at once; ``smem_bytes`` of dynamic shared memory; one CTA a
+    (window, head), ``ctas_per_sm`` of them an SM by shared memory (at most
+    16 by threads)."""
     kv_stride: int
-    p_stride: int
+    score_keys: int
     rows: int
+    slots: int
     warps: int
     smem_bytes: int
     ctas_per_sm: int
 
 
+def _ctas_per_sm(smem: int) -> int:
+    """CTAs of ``_ATT_WARPS`` warps an H100 SM holds at ``smem`` bytes of
+    dynamic shared memory each (at most 16 by threads)."""
+    return min(_SM_SMEM // (smem + 1024), 2048 // (32 * _ATT_WARPS))
+
+
 def attention_f32_plan(L: int, d: int) -> AttentionF32Plan:
     """Mirrors ``attn_tile::smem_bytes_f32`` (the C entry
     ``cswin_stripe_attention_f32_smem`` returns the same count)."""
-    ps = -(-L // 4) * 4
-    smem = 4 * (L * d + 2 * L * (d + 4) + _ATT_WARPS * _ATT_F32_QR * ps + 10 * d)
-    per_sm = min(_SM_SMEM // (smem + 1024), 2048 // (32 * _ATT_WARPS))
-    return AttentionF32Plan(d + 4, ps, _ATT_F32_QR, _ATT_WARPS, smem, per_sm)
+    ls = -(-L // 32) * 32
+    smem = 4 * (2 * L * (d + 4) + 10 * d + _ATT_WARPS * _ATT_F32_QR * (2 * d + ls))
+    return AttentionF32Plan(d + 4, ls, _ATT_F32_QR, _ATT_F32_SLOTS, _ATT_WARPS, smem,
+                            _ctas_per_sm(smem))
 
 
 def _check_attention_f32_smem(L: int, d: int) -> None:
@@ -1134,22 +1144,60 @@ def stripe_attention_bwd_smem(L: int, d: int) -> int:
     return size
 
 
-_ATT_BWD_F32_ROWS, _ATT_BWD_F32_KEYS = 4, 32  # stripe_attention_bwd.cu QR, KEYS
+# stripe_attention_bwd.cu ROWS_B, ROW_TARGET, KEYS, KEY_BLOCKS
+_ATT_BWD_F32_ROWS, _ATT_BWD_F32_ROW_TARGET = 4, 96
+_ATT_BWD_F32_KEYS, _ATT_BWD_F32_KEY_BLOCKS = 32, 3
 
 
-def stripe_attention_bwd_f32_smem(L: int, d: int) -> int:
-    """Bytes of dynamic shared memory of the float32 backward at a window of
-    L tokens and head dim d; mirrors ``smem_bytes_f32`` of
-    ``stripe_attention_bwd.cu`` (the C entry
-    ``cswin_stripe_attention_bwd_f32_smem`` returns the same count): q·scale
-    and dO at a row stride of d floats, k and v at d + 4, the rows'
-    statistics (a float4 a row), the LePE taps, and the larger of the row
-    phase's buffers (``QR`` rows a warp, two of L rounded up to 4 floats
-    each) and the key phase's dK | dV partials (``KEYS`` keys at a time)
-    with their summed rows."""
-    rows = _ATT_BWD_WARPS * _ATT_BWD_F32_ROWS * 2 * (-(-L // 4) * 4)
-    keys = _ATT_BWD_WARPS * _ATT_BWD_F32_KEYS * 2 * d + _ATT_BWD_F32_KEYS * (2 * d + 4)
-    return 4 * (2 * L * d + 2 * L * (d + 4) + 4 * L + 9 * d + max(rows, keys))
+class AttentionBwdF32Plan(NamedTuple):
+    """The float32 attention backward of one (window, head) at a window of
+    L tokens and head dim d, in two kernels (``stripe_attention_bwd.cu``):
+    the row kernel's ``row_ctas`` CTAs take ``row_block`` query rows each
+    (k and v staged once at ``kv_stride`` floats; each warp ``rows`` rows at
+    a time, their scores over ``score_keys`` keys, L rounded up to 32); the
+    key kernel's ``key_ctas`` CTAs take ``key_blocks_per_cta`` of the
+    window's ``key_blocks`` blocks of ``keys`` keys each (q and dO staged
+    once), a warp a block and a lane a key; ``warps`` warps a row-kernel
+    CTA; the dynamic shared memory and the CTAs an SM by shared memory of
+    each."""
+    kv_stride: int
+    score_keys: int
+    rows: int
+    row_block: int
+    row_ctas: int
+    keys: int
+    key_blocks: int
+    key_blocks_per_cta: int
+    key_ctas: int
+    warps: int
+    rows_smem: int
+    keys_smem: int
+    rows_ctas_per_sm: int
+    keys_ctas_per_sm: int
+
+
+def stripe_attention_bwd_f32_plan(L: int, d: int) -> AttentionBwdF32Plan:
+    """Mirrors ``rows_per_cta``, ``key_blocks_per_cta``, ``smem_rows_f32``
+    and ``smem_keys_f32`` of ``stripe_attention_bwd.cu`` (the C entry
+    ``cswin_stripe_attention_bwd_f32_smem`` returns the same counts): the
+    window in near-equal parts of about ``ROW_TARGET`` rows (whole row
+    groups of every warp) and of up to ``KEY_BLOCKS`` key blocks; the row
+    kernel's k and v, and per warp two buffers of q·scale and dO rows and
+    the rows' S / P and dP / dS; the key kernel's q·scale and dO of the
+    window, the rows' statistics (a float4 a row), the LePE taps and each
+    warp's key block's v."""
+    R, KB = _ATT_BWD_F32_ROWS, _ATT_BWD_F32_KEYS
+    group = R * _ATT_BWD_WARPS
+    parts = -(-L // _ATT_BWD_F32_ROW_TARGET)
+    row_block = -(-(-(-L // parts)) // group) * group
+    blocks = -(-L // KB)
+    per_cta = -(-blocks // -(-blocks // _ATT_BWD_F32_KEY_BLOCKS))
+    ls = -(-L // 32) * 32
+    rows = 4 * (2 * L * (d + 4) + _ATT_BWD_WARPS * (4 * R * d + 2 * R * ls))
+    keys = 4 * (2 * L * d + 4 * L + 9 * d + per_cta * KB * d)
+    return AttentionBwdF32Plan(d + 4, ls, R, row_block, -(-L // row_block), KB, blocks, per_cta,
+                               -(-blocks // per_cta), _ATT_BWD_WARPS, rows, keys,
+                               _ctas_per_sm(rows), _ctas_per_sm(keys))
 
 
 def stripe_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
@@ -1164,7 +1212,7 @@ def stripe_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
     branch's channels of the q, k and v thirds of ``dqkv`` (B, H, W, 3C) and
     returns the float32 LePE gradients (weight (cb, 1, 3, 3), bias (cb,)).
     A float32 ``qkv`` launches the float32 instance (nothing rounded, the
-    LePE taps float32; ``stripe_attention_bwd_f32_smem``).
+    LePE taps float32; two kernels, ``stripe_attention_bwd_f32_plan``).
     """
     if _on_cpu(qkv):
         return stripe_attention_bwd_plain(qkv, dout, lepe_weight, dqkv,
@@ -1183,8 +1231,9 @@ def stripe_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
                          f"{w_sp}) cb={cb} heads={heads} ch_off={ch_off}")
     _check_head_dim(cb, heads)
     L, d = h_sp * w_sp, cb // heads
-    smem = (stripe_attention_bwd_smem(L, d) if dt == torch.bfloat16
-            else stripe_attention_bwd_f32_smem(L, d))
+    plan = None if dt == torch.bfloat16 else stripe_attention_bwd_f32_plan(L, d)
+    smem = (stripe_attention_bwd_smem(L, d) if plan is None
+            else max(plan.rows_smem, plan.keys_smem))
     if smem > SMEM_LIMIT:
         raise ValueError(f"a window of {L} tokens at head dim {d} needs {smem} bytes of "
                          f"shared memory ({dt}), more than the {SMEM_LIMIT} a block may use")
@@ -1196,11 +1245,16 @@ def stripe_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
     if windows > 2**31 - 1:
         raise ValueError("too many windows for one launch")
     w9 = lepe_weight.reshape(cb, 9).t().to(dt).contiguous()
-    part = torch.empty((windows, cb, 10), dtype=torch.float32, device=dev)
-    fn = (library().cswin_stripe_attention_bwd if dt == torch.bfloat16
-          else library().cswin_stripe_attention_bwd_f32)
-    err = fn(qkv.data_ptr(), dout.data_ptr(), w9.data_ptr(), dqkv.data_ptr(),
-             part.data_ptr(), B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, _stream(dev))
+    head = (qkv.data_ptr(), dout.data_ptr(), w9.data_ptr(), dqkv.data_ptr())
+    tail = (B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, _stream(dev))
+    if plan is None:
+        part = torch.empty((windows, cb, 10), dtype=torch.float32, device=dev)
+        err = library().cswin_stripe_attention_bwd(*head, part.data_ptr(), *tail)
+    else:  # LePE partials a window and key block; the rows' statistics between the kernels
+        part = torch.empty((windows * plan.key_blocks, cb, 10), dtype=torch.float32, device=dev)
+        stats = torch.empty((windows, heads, L, 4), dtype=torch.float32, device=dev)
+        err = library().cswin_stripe_attention_bwd_f32(*head, part.data_ptr(), stats.data_ptr(),
+                                                       *tail)
     check(err, "stripe_attention_bwd")
     _counted(stripe_attention_bwd, dt)
     lepe = part.sum(0)  # (cb, 10): the nine taps, then the bias
@@ -2474,3 +2528,9 @@ def launch_counts() -> dict[str, int]:
 def total_launches() -> int:
     """Launches of every kernel, each once."""
     return sum(k.launches for k in KERNELS)
+
+
+def device_launches() -> int:
+    """Device kernels the wrappers launched: one a launch, two a float32
+    ``stripe_attention_bwd`` launch (its row and key kernels)."""
+    return total_launches() + stripe_attention_bwd.launches_f32

@@ -41,7 +41,13 @@ in every process. Recorded at the tiny-224 stage geometries:
     forward and input gradient (which no weight gradient reaches) at
     tiny-224's stages 1-3, B = 4, and ``block_pair`` at float32 at tiny-224's
     stages 2 and 3 and base-384's stage 3. The float32 weight gradient is
-    not probed: its split plan sets its bits (the float64 rule holds it).
+    not probed: its split plan sets its bits (the float64 rule holds it);
+  * the float32 attention kernels directly (``f32att_*``, inputs from their
+    own generator): ``stripe_attention_bwd`` (dq, dk, dv in the branch's
+    channels of dqkv, and the summed LePE weight and bias partials) on both
+    branches at tiny-224's stages 1-3 (B = 24) and base-384's stage 3 (B =
+    2), and ``cswin_attention`` (the ``pallas`` route's entry) on both
+    branches at every stage of both configs (B = 8 / 2).
 
 ``--compare`` prints each tensor's max abs difference and exits non-zero
 unless every one is 0.
@@ -63,11 +69,13 @@ import sys
 
 import numpy as np
 
-# Digests of the probe's tensors from the build of the LayerNorm forward
-# row on lane groups of 16-byte vectors (layernorm_row.cuh), beside the
-# one-launch LayerNorm backward, the tensor-core CARAFE kernel, weight
-# gradient, attention backward, attention and GEMM tiles, on an NVIDIA H100
-# 80GB HBM3.
+# Digests of the probe's tensors from the build of the float32 attention
+# tile and backward on register blocks (attention_tile.cuh::tile_f32, the
+# row and key kernels of stripe_attention_bwd.cu), beside the LayerNorm
+# forward row on lane groups of 16-byte vectors, the one-launch LayerNorm
+# backward, the tensor-core CARAFE kernel, weight gradient, attention
+# backward, attention and GEMM tiles and the float32 GEMMs, on an NVIDIA
+# H100 80GB HBM3.
 REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "probe_reference.json")
 
 # stage, H, C, heads, split, last (tiny-224)
@@ -145,6 +153,7 @@ def probe(dev) -> dict:
         for name, g in zip(("dx", "dweight", "dbias"), grads):
             out[f"ln_bwd_c{C}_{name}"] = g
     out.update(probe_f32(dev))
+    out.update(probe_f32_attention(dev))
     torch.cuda.synchronize()
     return {k: v.detach().cpu() for k, v in out.items()}
 
@@ -227,6 +236,44 @@ def probe_f32(dev) -> dict:
             if (cfg, s) in (("tiny", 2), ("tiny", 3), ("base", 3)):
                 pkw = dict(heads=heads, split=split, scale=kw["scale"])
                 out[f"{tag}_pair"] = K.block_pair(xb, p, params(C, False), **pkw)
+    return out
+
+
+def probe_f32_attention(dev) -> dict:
+    """The float32 attention backward and ``cswin_attention`` on their own
+    (``f32att_*``), from their own seeded generator."""
+    import torch
+
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+
+    rng = np.random.default_rng(22)
+    t = lambda *s, sc=1.0: torch.from_numpy(
+        (rng.standard_normal(s) * sc).astype(np.float32)).to(dev)
+    out = {}
+    for cfg, stages, B in (("tiny", STAGES, 24), ("base", STAGES384, 2)):
+        for s, H, C, heads, split, last in stages:
+            tag = f"f32att_{cfg}_s{s}"
+            branches = ([(0, C, heads, H, H)] if last else
+                        [(0, C // 2, heads // 2, H, split), (C // 2, C // 2, heads // 2, split, H)])
+            scale = (C // heads) ** -0.5
+            qkv = t(8 if cfg == "tiny" else 2, H, H, 3 * C)
+            for n, (off, cb, nh, hs, ws) in enumerate(branches):
+                q, k, v = (qkv[..., i * C + off:i * C + off + cb] for i in range(3))
+                lw, lb = t(cb, 1, 3, 3, sc=0.3), t(cb, sc=0.1)
+                out[f"{tag}_cswin_b{n}"] = K.cswin_attention(q, k, v, lw, lb, h_sp=hs, w_sp=ws,
+                                                             num_heads=nh, scale=scale)
+            if (cfg, s) not in (("tiny", 1), ("tiny", 2), ("tiny", 3), ("base", 3)):
+                continue
+            qkv, dout = t(B, H, H, 3 * C), t(B, H, H, C)
+            for n, (off, cb, nh, hs, ws) in enumerate(branches):
+                lw = t(cb, 1, 3, 3, sc=0.3)
+                dqkv = torch.zeros(B, H, H, 3 * C, device=dev)
+                dw, db = K.stripe_attention_bwd(qkv, dout, lw, dqkv, ch_off=off, heads=nh,
+                                                h_sp=hs, w_sp=ws, scale=scale)
+                chans = torch.cat([torch.arange(off, off + cb) + i * C for i in range(3)])
+                out[f"{tag}_bwd_b{n}_dqkv"] = dqkv[..., chans.to(dev)]
+                out[f"{tag}_bwd_b{n}_dlepe_w"] = dw
+                out[f"{tag}_bwd_b{n}_dlepe_b"] = db
     return out
 
 

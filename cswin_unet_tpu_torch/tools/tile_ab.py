@@ -48,7 +48,7 @@ bf16 ulps (adjacent bf16 values are one apart) and how many values differ.
 ``compare_f32_kernels`` (every float32 forward kernel at the shapes of one
 32-slice float32 serving forward) and ``f32_backward_kernels`` (per bs-24
 train step at float32, with the forward GEMM's training epilogues) at
-tiny-224's and then at base-384's training geometries, each case behind the
+tiny-224's and then at base-384's geometries, each case behind the
 spin kernel, each case's output digested (``sha256`` per ``[f32:...]``
 line's case, the elements of a tuple in order). ``--table`` then prints the
 per-kernel sums, each case's ms a call and, per case, the output bits by
@@ -61,11 +61,15 @@ rule holds it).
 one 32-slice tiny-224 chunk to labels (``model(x, emit="labels")`` on the
 fused route, random weights from a seed), CUDA events around 5 back-to-back
 forwards in each of 10 rounds, unprimed, so that a forward whose
-host work outlasts its device work reads the host, and the device busy ms
-of a forward (the root's ``utils.profiling.device_busy_ms``, or the
+host work outlasts its device work reads the host, their peak device
+memory, and the device busy ms of a forward (the root's ``utils.profiling.device_busy_ms``, or the
 harness's ``device_busy_ms`` for a root from before it moved there: then give
 ``--harness`` a checkout of the root's age). ``--table`` prints such files as
 one row each.
+
+``--no-pair`` runs that forward with no geometry paired (the stage runner's
+``cswin_block.PAIR_GEOMETRIES`` emptied), for holding the pair route
+against two chains in turns.
 
 ``--step`` times the root's whole bs-24 train step instead (the recipe's
 step, ``train.make_train_step``, every block through ``CSWinBlockFn``, on
@@ -255,9 +259,10 @@ def measure_f32(root: str, harness: str) -> dict:
                                                chip_smoke.SERVE_BATCH)
         chip_smoke.f32_backward_kernels(chip_smoke.smoke_config(), dev,
                                         chip_smoke.TRAIN_BATCH, tally)
-        tally384 = chip_smoke.KernelTally("f32:base384:kernel")
-        chip_smoke.f32_backward_kernels(chip_smoke.smoke_config(cfg=chip_smoke.CFG384), dev,
-                                        chip_smoke.TRAIN_BATCH, tally384)
+        cfg384 = chip_smoke.smoke_config(cfg=chip_smoke.CFG384)
+        tally384 = chip_smoke.compare_f32_kernels(cfg384, dev, chip_smoke.SERVE_BATCH,
+                                                  tag="f32:base384:kernel")
+        chip_smoke.f32_backward_kernels(cfg384, dev, chip_smoke.TRAIN_BATCH, tally384)
     chip_smoke.KernelTally.case = case
     print(printed.getvalue(), end="")
     keys = ("ms", "bound_ms", "plain_ms", "library_ms", "library_vs_ms")
@@ -322,13 +327,18 @@ def measure_step(root: str, harness: str, cfg_path: str | None, opts, rounds: in
                                              peak_gib=torch.cuda.max_memory_allocated() / 2**30))
 
 
-def measure_forward(root: str, harness: str, cfg_path: str | None = None, opts=None) -> dict:
+def measure_forward(root: str, harness: str, cfg_path: str | None = None, opts=None,
+                    no_pair: bool = False) -> dict:
     import numpy as np
     import torch
 
     chip_smoke = _load(root, harness)
     from cswin_unet_tpu_torch.models import build_model
+    from cswin_unet_tpu_torch.ops.cuda import cswin_block
     from cswin_unet_tpu_torch.utils import profiling
+
+    if no_pair:  # the stage runner reads the geometries at call time
+        cswin_block.PAIR_GEOMETRIES = frozenset()
 
     # A root from before the busy reading moved into utils.profiling reads it
     # through a harness of its own age, whose chip_smoke defines it.
@@ -352,12 +362,17 @@ def measure_forward(root: str, harness: str, cfg_path: str | None = None, opts=N
         with torch.inference_mode():
             return model(x, emit="labels")
 
+    forward()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ms = [chip_smoke.time_ms(forward, reps=5, rounds=1) for _ in range(10)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
     busy = device_busy_ms(forward, 5)
     return dict(root=root, harness=harness, device=torch.cuda.get_device_name(0),
                 nvidia_smi=_smi(), forward=dict(config=cfg.MODEL.NAME, img_size=size,
                                                 dtype=cfg.TPU.COMPUTE_DTYPE, batch=batch,
-                                                ms=ms, busy_ms=busy))
+                                                pairs=sorted(cswin_block.PAIR_GEOMETRIES),
+                                                ms=ms, busy_ms=busy, peak_gib=peak))
 
 
 def table(paths: list[str]) -> None:
@@ -374,7 +389,8 @@ def table(paths: list[str]) -> None:
         for p, r in zip(paths, runs):
             row = r[what]
             ms, busy, peak = row["ms"], row["busy_ms"], row.get("peak_gib")
-            print(f"{os.path.basename(p)}: {row.get('config', '')} {row.get('dtype', '')} "
+            pairs = "" if "pairs" not in row else f" pairs {row['pairs'] or 'off'}"
+            print(f"{os.path.basename(p)}: {row.get('config', '')} {row.get('dtype', '')}{pairs} "
                   f"{statistics.median(ms):.3f} [{min(ms):.3f}-{max(ms):.3f}] busy "
                   f"{'unread' if busy is None else f'{busy:.3f}'}"
                   f"{'' if peak is None else f' peak {peak:.3f} GiB'} {r['root']}")
@@ -465,6 +481,9 @@ def main() -> int:
     ap.add_argument("--table", nargs="+", metavar="JSON", help="print result files side by side")
     ap.add_argument("--forward", action="store_true",
                     help="time the root's 32-slice serving forward end to end instead")
+    ap.add_argument("--no-pair", action="store_true",
+                    help="with --forward: pair no geometry (cswin_block.PAIR_GEOMETRIES "
+                    "emptied) instead of the committed ones")
     ap.add_argument("--step", action="store_true",
                     help="time the root's bs-24 train step end to end instead")
     ap.add_argument("--cfg", help="with --step or --forward: the config YAML "
@@ -492,7 +511,7 @@ def main() -> int:
         print("tile_ab: no CUDA device available", file=sys.stderr)
         return 2
     root, harness = os.path.abspath(args.root), os.path.abspath(args.harness or args.root)
-    result = (measure_forward(root, harness, args.cfg, args.opts) if args.forward
+    result = (measure_forward(root, harness, args.cfg, args.opts, args.no_pair) if args.forward
               else measure_step(root, harness, args.cfg, args.opts, args.rounds) if args.step
               else measure_lab(root, harness, args.save) if args.lab
               else measure_f32(root, harness) if args.f32

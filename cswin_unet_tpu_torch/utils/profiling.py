@@ -93,12 +93,13 @@ def block_and_time(fn, *args, iters: int = 3, **kwargs) -> tuple[float, object]:
 
 
 # The port's __global__ functions (each kernel wrapper launches one of them
-# per call; all in anonymous namespaces), as the profiler names them,
-# demangled or not: what device_busy_ms holds to the launch counters.
+# per call, the float32 attention backward two: its row and key kernels; all
+# in anonymous namespaces), as the profiler names them, demangled or not:
+# what device_busy_ms holds to the launch counters (``device_launches``).
 KERNEL_SYMBOLS = re.compile(
     r"(?:\(anonymous namespace\)::|_GLOBAL__N_\w*?\d)(?:layernorm|layernorm_bwd|gemm|"
     r"wgrad|stripe_attention|stripe_attention_bwd|carafe|edt_pass|block_pair|lepe_windows|"
-    r"ln_mlp|block_one)(?:_f32)?_kernel")
+    r"ln_mlp|block_one)(?:_f32)?(?:_rows|_keys)?_kernel")
 
 
 def device_events(prof) -> list:
@@ -123,12 +124,12 @@ def device_busy_ms(fn, reps: int) -> float | None:
 
     fn()
     torch.cuda.synchronize()
-    before = K.total_launches()
+    before = K.device_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    launched = K.total_launches() - before
+    launched = K.device_launches() - before
     events = device_events(prof)
     records = sum(1 for e in events if KERNEL_SYMBOLS.search(e.name))
     if records != launched:

@@ -1144,14 +1144,46 @@ def test_f32_stripe_attention_bwd(dev, H, C, heads, split, last):
             assert torch.equal(g, a)
 
 
+@pytest.mark.parametrize("source,entries", [
+    ("stripe_attention.cu", ("stripe_attention_f32_kernel",)),
+    ("stripe_attention_bwd.cu", ("stripe_attention_bwd_f32_rows_kernel",
+                                 "stripe_attention_bwd_f32_keys_kernel"))])
+def test_f32_attention_kernels_do_not_spill(dev, tmp_path, source, entries):
+    """ptxas -v of the float32 attention kernels (every head dim): registers
+    and no spill stores or loads."""
+    import re
+    import subprocess
+
+    from cswin_unet_tpu_torch.ops.cuda import build
+
+    log = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-c", str(build.CSRC / source),
+                          "-o", str(tmp_path / "k.o")], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, check=True).stdout
+    seen, current = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current:  # the first such line after an entry is the entry's
+            if any(e in current for e in entries):
+                seen.append(current)
+                assert m.group(1) == m.group(2) == "0", (current, line)
+            current = None
+    assert len(seen) == 3 * len(entries), seen  # head dims 16, 24, 32
+
+
 @pytest.mark.parametrize("L,d", [(49, 32), (56, 32), (98, 32), (96, 24), (144, 24),
                                  (288, 24), (288, 32), (30, 16)])
 def test_f32_attention_bwd_plan_is_the_kernels(dev, L, d):
     from cswin_unet_tpu_torch.ops.cuda.build import library
 
-    smem = K.stripe_attention_bwd_f32_smem(L, d)
-    assert library().cswin_stripe_attention_bwd_f32_smem(L, d) == smem
-    assert smem <= K.SMEM_LIMIT
+    plan = K.stripe_attention_bwd_f32_plan(L, d)
+    want = (plan.rows_smem, plan.keys_smem, plan.row_block, plan.key_blocks_per_cta)
+    got = tuple(library().cswin_stripe_attention_bwd_f32_smem(L, d, what) for what in range(4))
+    assert got == want
+    assert max(plan.rows_smem, plan.keys_smem) <= K.SMEM_LIMIT
+    assert library().cswin_stripe_attention_bwd_f32_smem(L, d, 4) == 0
 
 
 @pytest.mark.parametrize("row0", [0, 123457])

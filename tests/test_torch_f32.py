@@ -152,14 +152,15 @@ def test_float32_plans_fit_every_serving_geometry(cfg_name, img):
 
 def test_attention_plan_walks_every_row_once():
     """Each warp takes QR rows at a time, warps striding: every query row of
-    a window is some warp's, once."""
+    a window is some warp's, once; a warp's score rows hold the window's
+    keys in whole slots of 32."""
     for L in (49, 56, 96, 98, 144, 288):
         plan = K.attention_f32_plan(L, 32)
         rows = [r0 + r for w in range(plan.warps)
                 for r0 in range(w * plan.rows, L, plan.warps * plan.rows)
                 for r in range(plan.rows) if r0 + r < L]
         assert sorted(rows) == list(range(L))
-        assert plan.p_stride % 4 == 0 and plan.p_stride >= L
+        assert plan.score_keys % 32 == 0 and L <= plan.score_keys < L + 32
         # a quarter-warp's 16-byte reads of k rows fall in distinct banks
         assert len({j * plan.kv_stride % 32 for j in range(8)}) == 8
 

@@ -18,7 +18,6 @@ and batches.
 import inspect
 import re
 from pathlib import Path
-from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -104,30 +103,6 @@ def _wgrad_f32_smem(bn: int, bk: int) -> int:
     return -(-size // 128) * 128
 
 
-class _AttBwdF32Plan(NamedTuple):
-    """The float32 attention backward at a window of L tokens and head dim
-    d, from ``stripe_attention_bwd.cu``: k and v rows at ``kv_stride``
-    floats; the row phase's warps take ``rows`` query rows at a time into
-    two row buffers each (``p_stride`` floats, L rounded up to 4); the key
-    phase takes ``keys`` keys at a time, a lane each; one CTA of ``warps``
-    warps a (window, head), ``ctas_per_sm`` of them an SM by shared
-    memory."""
-    kv_stride: int
-    p_stride: int
-    rows: int
-    keys: int
-    warps: int
-    smem_bytes: int
-    ctas_per_sm: int
-
-
-def _att_bwd_f32_plan(L: int, d: int) -> _AttBwdF32Plan:
-    smem = K.stripe_attention_bwd_f32_smem(L, d)
-    per_sm = min(K._SM_SMEM // (smem + 1024), 2048 // (32 * ATT["WARPS"]))
-    return _AttBwdF32Plan(d + 4, -(-L // 4) * 4, ATT["QR"], ATT["KEYS"], ATT["WARPS"], smem,
-                          per_sm)
-
-
 def test_backward_plan_constants_are_the_sources():
     g = GEMM
     assert g["MS"] == K._WGRAD_ROWS
@@ -135,8 +110,9 @@ def test_backward_plan_constants_are_the_sources():
     # the float32 weight gradient plans its own chunks, in whole float32 stages
     assert WGRAD_F32["MS"] == K._WGRAD_F32_ROWS
     a = ATT
-    assert (a["WARPS"], a["KB"], a["QR"], a["KEYS"]) == (
-        K._ATT_BWD_WARPS, K._ATT_BWD_KEYS, K._ATT_BWD_F32_ROWS, K._ATT_BWD_F32_KEYS)
+    assert (a["WARPS"], a["KB"], a["ROWS_B"], a["ROW_TARGET"], a["KEYS"], a["KEY_BLOCKS"]) == (
+        K._ATT_BWD_WARPS, K._ATT_BWD_KEYS, K._ATT_BWD_F32_ROWS, K._ATT_BWD_F32_ROW_TARGET,
+        K._ATT_BWD_F32_KEYS, K._ATT_BWD_F32_KEY_BLOCKS)
     assert a["KEYS"] == 32  # a lane a key
     ln = _constants("layernorm.cu")
     assert (ln["THREADS"], ln["GROUP"]) == (K._LN_THREADS, K._LN_GROUP)
@@ -188,16 +164,20 @@ def test_float32_backward_plans_fit_every_training_geometry(cfg_name, img):
             assert K.gemm_f32_plan(M, k).smem_bytes <= K.SMEM_LIMIT  # the dX tile, dynamic
         windows = [(H, H)] if last else [(H, split), (split, H)]
         for hs, ws in windows:
-            plan = _att_bwd_f32_plan(hs * ws, C // heads)
-            assert plan.smem_bytes <= K.SMEM_LIMIT and plan.ctas_per_sm >= 1, (H, hs, ws)
-            assert plan.p_stride % 4 == 0 and plan.p_stride >= hs * ws
+            plan = K.stripe_attention_bwd_f32_plan(hs * ws, C // heads)
+            for smem, ctas in ((plan.rows_smem, plan.rows_ctas_per_sm),
+                               (plan.keys_smem, plan.keys_ctas_per_sm)):
+                assert smem <= K.SMEM_LIMIT and ctas >= 2, (H, hs, ws)
+            assert plan.score_keys % 32 == 0 and plan.score_keys >= hs * ws
             # a quarter-warp's 16-byte reads of k and v rows fall in distinct banks
             assert len({j * plan.kv_stride % 32 for j in range(8)}) == 8
     if img == 384:
         # stage 3's 288-token windows at head dim 24: the bf16 plan's tiles of
-        # a 64-key block over all queries would not fit at float32.
-        plan = _att_bwd_f32_plan(288, 24)
-        assert plan.smem_bytes == 162144 and plan.ctas_per_sm == 1
+        # a 64-key block over all queries would not fit at float32, so the
+        # rows and the keys are two kernels, two CTAs an SM each.
+        plan = K.stripe_attention_bwd_f32_plan(288, 24)
+        assert (plan.rows_smem, plan.keys_smem) == (107520, 69984)
+        assert (plan.rows_ctas_per_sm, plan.keys_ctas_per_sm) == (2, 3)
         q_k_v_do, tiles = 4 * 288 * 24 * 4, 2 * 288 * 64 * 4
         assert q_k_v_do + tiles > K.SMEM_LIMIT
     for bn, bk in ((64, 64), (128, 64), (64, 128), (128, 128)):
@@ -205,19 +185,22 @@ def test_float32_backward_plans_fit_every_training_geometry(cfg_name, img):
 
 
 def test_attention_bwd_plan_covers_rows_and_keys():
-    """The row phase gives every query row to one warp; the key phase every
-    key to one lane of one key block and every row to one warp."""
+    """The row kernel gives every query row to one CTA's block and one warp
+    of it; the key kernel every key to one lane of one warp's key block of
+    one CTA."""
     for L in (49, 56, 96, 98, 144, 288):
-        plan = _att_bwd_f32_plan(L, 24)
-        rows = [r0 + r for w in range(plan.warps)
-                for r0 in range(w * plan.rows, L, plan.warps * plan.rows)
-                for r in range(plan.rows) if r0 + r < L]
+        plan = K.stripe_attention_bwd_f32_plan(L, 24)
+        per_cta = plan.row_block // plan.rows
+        rows = [g * plan.rows + r for z in range(plan.row_ctas) for w in range(plan.warps)
+                for g in range(z * per_cta + w, min((z + 1) * per_cta, -(-L // plan.rows)),
+                               plan.warps)
+                for r in range(plan.rows) if g * plan.rows + r < L]
         assert sorted(rows) == list(range(L))
-        keys = [kb * plan.keys + lane for kb in range(-(-L // plan.keys))
+        keys = [kb * plan.keys + lane for z in range(plan.key_ctas)
+                for kb in range(z * plan.key_blocks_per_cta,
+                                min(plan.key_blocks, (z + 1) * plan.key_blocks_per_cta))
                 for lane in range(32) if kb * plan.keys + lane < L]
         assert keys == list(range(L))
-        assert sorted(i for w in range(plan.warps) for i in range(w, L, plan.warps)) == \
-            list(range(L))
 
 
 # --- (b) cuDNN's TF32 flag in the backward of the stock convolutions -------
