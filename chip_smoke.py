@@ -99,14 +99,17 @@ Phases, each of which raises on failure (the process then exits non-zero):
      shape a float32 32-slice tiny-224 forward gives it, against its plain
      float32 version within ``F32_TOL`` (1e-5), the tail's labels by the
      margin rule, ``block_pair`` also bit for bit against two float32
-     chains; bounds at 67 TFLOP/s of float32 FFMA, cuBLAS float32 and
+     chains at the geometries paired at bf16 and timed by phase (the
+     float32 routing pairs none); bounds at 67 TFLOP/s of float32 FFMA, cuBLAS float32 and
      ``F.layer_norm`` as yardsticks. Then ``python -m
      cswin_unet_tpu_torch.serve``'s ``main`` at ``--opts TPU.COMPUTE_DTYPE
      float32`` on a (64, 224, 224) volume, on the fused route and with
      ``TPU.ATTN_IMPL pallas``: every launch a float32 instance's as routed,
      the NIfTI labels by the margin rule and each route's logits within
-     ``F32_MODEL_TOL`` (1e-4) of the plain float32 route; the float32
-     forward timed beside the bf16 one; ``eval.inference.inference`` of one
+     ``F32_MODEL_TOL`` (1e-4) of the plain float32 route; one chunk with
+     the float32 pair forced on, equal to the committed route bit for bit;
+     the float32 forward timed beside the bf16 one and the forced pair;
+     ``eval.inference.inference`` of one
      (48, 512, 512) organ-like volume at float32 (launches as routed,
      device metrics equal to the host's); and one base-384 float32
      32-slice forward against its plain float32 route.
@@ -375,9 +378,11 @@ PER.update(dict.fromkeys(("lepe_windows", "window_attention", "ln_mlp"),
 PER["block_one"] = (f"the whole block at stages 1-4 (every part on), once each, "
                     f"B = {LAB_BATCH}; chain_ms the block chain on the same four")
 PER.update(dict.fromkeys(("layernorm_f32", "gemm_f32", "stripe_attention_f32",
-                          "carafe_reassemble_f32", "block_pair_f32"),
+                          "carafe_reassemble_f32"),
                          "32-slice serving forward at TPU.COMPUTE_DTYPE float32, fused "
                          "route (pairing as committed)"))
+PER["block_pair_f32"] = ("32-slice serving forward at TPU.COMPUTE_DTYPE float32, fused "
+                         "route, the bf16 route's pairs forced on")
 PER["cswin_attention_f32"] = ("32-slice serving forward at TPU.COMPUTE_DTYPE float32, "
                               "pallas route")
 PER.update(dict.fromkeys(("layernorm_bwd_f32", "gemm_dgrad_f32", "gemm_wgrad_f32",
@@ -816,9 +821,9 @@ def pair_ab(cfg, dev, batches=(SERVE_BATCH, 128), rounds: int = 8, reps: int = 1
         H, C = g["H"], g["C"]
         p1, p2 = block_params(rng, C, False, dev), block_params(rng, C, False, dev)
         kw = dict(heads=g["heads"], split=g["split"], scale=(C // g["heads"]) ** -0.5)
-        for b in batches:
+        for b, dt in [(b, torch.bfloat16) for b in batches] + [(SERVE_BATCH, torch.float32)]:
             x = torch.from_numpy(rng.standard_normal((b, H, H, C)).astype(np.float32)).to(
-                dev, torch.bfloat16)
+                dev, dt)
             fns = dict(chain=lambda: CB.fused_cswin_block(
                 CB.fused_cswin_block(x, p1, last_stage=False, **kw), p2,
                 last_stage=False, **kw), pair=lambda: K.block_pair(x, p1, p2, **kw))
@@ -839,13 +844,14 @@ def pair_ab(cfg, dev, batches=(SERVE_BATCH, 128), rounds: int = 8, reps: int = 1
                     f"{max(times[(first, n)]):.4f}]" for n in fns))
             busy_txt = " ".join(f"{n} {'not measured' if v is None else f'{v:.4f}'}"
                                 for n, v in busy.items())
-            print(f"[pair] stage{g['stage']} ({b},{H},{H},{C}) ms per pair of blocks, "
+            print(f"[pair] stage{g['stage']} ({b},{H},{H},{C}){' float32' * (dt == torch.float32)}"
+                  f" ms per pair of blocks, "
                   f"median [min-max] of {rounds // 2} rounds per order: "
                   f"{'; '.join(parts)}; device busy ms: {busy_txt}; pair wins in both "
                   f"orders by more than the spread: {'yes' if wins_both else 'no'}",
                   flush=True)
             if b == SERVE_BATCH and wins_both:
-                wins.add((H, H, C))
+                wins.add((H, H, C, str(dt).removeprefix("torch.")))
     print(f"[pair] measured routing (wins at B={SERVE_BATCH}): {sorted(wins)}; "
           f"cswin_block.PAIR_GEOMETRIES: {sorted(CB.PAIR_GEOMETRIES)}; agree: "
           f"{'yes' if wins == set(CB.PAIR_GEOMETRIES) else 'no'}", flush=True)
@@ -1336,20 +1342,24 @@ def compare_modules(cfg, dev) -> None:
 # phase 4: serve three volumes
 # ---------------------------------------------------------------------------
 
-def expected_launches(cfg, forwards: int) -> dict[str, int]:
+def expected_launches(cfg, forwards: int, dtype: str = "bfloat16") -> dict[str, int]:
     """Kernel launches per the routing: in a dual-branch stage that
-    ``cswin_block.pair_fuse_ok`` accepts (looked up now, so a patched
-    routing counts), each two adjacent blocks are one ``block_pair``
+    ``cswin_block.pair_fuse_ok`` accepts at the activations' ``dtype``
+    (looked up now, so a patched routing counts), each two adjacent blocks
+    are one ``block_pair``
     launch; every other block runs 2 layernorms, 4 GEMMs and one attention
     launch per branch; each fused CARAFE site (upsamplers at stage
     resolution >= 28, and the tail) one GEMM and one CARAFE launch; no
     backward kernel runs."""
+    import torch
+
     from cswin_unet_tpu_torch.ops.cuda import cswin_block
 
     blocks = dual = pairs = 0
     for g in stage_geometries(cfg):
         n = 2 * g["depth"]  # encoder and decoder
-        if not g["last"] and cswin_block.pair_fuse_ok(g["H"], g["H"], g["C"]):
+        if not g["last"] and cswin_block.pair_fuse_ok(g["H"], g["H"], g["C"],
+                                                       getattr(torch, dtype)):
             pairs += 2 * (g["depth"] // 2)
             n = 2 * (g["depth"] % 2)
         blocks += n
@@ -1499,8 +1509,8 @@ def serve_volumes(cfg, dev, workdir: str) -> tuple[dict[str, int], ...]:
     # timed in interleaved rounds of the three routings (the host's load
     # moves it), with device busy beside.
     model, committed = server.inferencer.model, cswin_block.pair_fuse_ok
-    routings = dict(off=lambda H, W, C: False, committed=committed,
-                    forced=lambda H, W, C: True)
+    routings = dict(off=lambda H, W, C, dtype=None: False, committed=committed,
+                    forced=lambda H, W, C, dtype=None: True)
     times = {k: [] for k in routings}
     try:
         cswin_block.pair_fuse_ok = routings["off"]
@@ -1546,6 +1556,16 @@ def serve_volumes(cfg, dev, workdir: str) -> tuple[dict[str, int], ...]:
 # phase 5b: serving at TPU.COMPUTE_DTYPE float32
 # ---------------------------------------------------------------------------
 
+def pair_routed(cswin_block, H: int, C: int, dtype) -> bool:
+    """Whether the stage runner pairs (H, H, C) at ``dtype``; a root from
+    before the routing named its dtype (``tools/tile_ab.py --root``) pairs
+    a geometry at both."""
+    try:
+        return cswin_block.pair_fuse_ok(H, H, C, dtype)
+    except TypeError:
+        return cswin_block.pair_fuse_ok(H, H, C)
+
+
 def expected_f32(want: dict[str, int]) -> dict[str, int]:
     """The launches of a float32 run routed as ``want``: each wrapper's
     launches all of its float32 instance."""
@@ -1578,7 +1598,11 @@ def compare_f32_kernels(cfg, dev, B: int, tag: str = "f32:kernel") -> KernelTall
     kw_t = dict(tol=F32_TOL, reps=5, rounds=3, primed=True)  # device time
     for g in stage_geometries(cfg):
         H, C, depth = g["H"], g["C"], g["depth"]
-        paired = not g["last"] and cswin_block.pair_fuse_ok(H, H, C)
+        paired = not g["last"] and pair_routed(cswin_block, H, C, torch.float32)
+        # the float32 pair at the geometries paired at bf16, held to two
+        # chains whether or not the float32 forward routes it (its weight:
+        # a forward with those pairs forced on, chip_smoke's f32_serve)
+        pairable = not g["last"] and pair_routed(cswin_block, H, C, torch.bfloat16)
         chained = 2 * (depth % 2 if paired else depth)  # blocks through the chain
         M = B * H * H
         tag = f"@{H}x{H}x{C}"
@@ -1626,7 +1650,7 @@ def compare_f32_kernels(cfg, dev, B: int, tag: str = "f32:kernel") -> KernelTall
                        lambda: K.cswin_attention(q, k, v, lw, lb, **akw),
                        lambda: cswin_attention_pallas_plain(q, k, v, lw, lb, **akw),
                        2 * depth, **work, **kw_t)
-        if paired:
+        if pairable:
             p1, p2 = block_params(rng, C, False, dev), block_params(rng, C, False, dev)
             xb = rnd(B, H, H, C)
             pkw = dict(heads=g["heads"], split=g["split"], scale=scale)
@@ -1645,6 +1669,19 @@ def compare_f32_kernels(cfg, dev, B: int, tag: str = "f32:kernel") -> KernelTall
             print(f"[{tag}] block_pair_f32 vs two float32 chains {label}: {txt}; grid "
                   f"{K.block_pair.grid} {'ok' if ok else 'FAIL'}", flush=True)
             require(ok, f"block_pair_f32 vs two chains {label}: {txt}")
+            if not hasattr(K, "block_pair_phases"):  # a root from before the stops
+                continue
+            # its phases (the first block stopped after each) and the pair
+            t = {stop: time_ms(lambda: K.block_pair_phases(xb, p1, p2, stop=stop, **pkw),
+                               reps=5, rounds=3, primed=True)
+                 for stop in ("qkv", "attention", "proj")}
+            t["pair"] = time_ms(lambda: K.block_pair(xb, p1, p2, **pkw), reps=5, rounds=3,
+                                primed=True)
+            print(f"[{tag}] block_pair_f32 by phase {label}, ms a block (device time; two "
+                  f"chains: the [pair] A/B): ln1+qkv {t['qkv']:.4f} attention "
+                  f"{t['attention'] - t['qkv']:.4f} proj {t['proj'] - t['attention']:.4f} "
+                  f"ln2+fc1+fc2 {t['pair'] / 2 - t['proj']:.4f}; the pair {t['pair']:.4f}",
+                  flush=True)
     *ups, (Ht, Ct, _, _) = carafe_sites(cfg)
     rows = [(f"up@{H}", H, C, C // 4, C_out, 2, False, 1) for H, C, C_out, _ in ups]
     rows += [(f"tail-{kind}@{Ht}", Ht, Ct, Ct // 4, 9, 4, kind == "labels",
@@ -1667,6 +1704,10 @@ def compare_f32_kernels(cfg, dev, B: int, tag: str = "f32:kernel") -> KernelTall
                                                    labels=False)) \
             if labels else (lambda: K.carafe_reassemble_plain(gy, ew, eb, bo, **ckw))
         px, taps = B * H * H, 9 * up * up
+        plan = K.carafe_f32_plan(cm, nc, N, up)
+        print(f"[{tag}] carafe_reassemble_f32 plan {label}: {plan.threads} threads of "
+              f"{getattr(plan, 'pixels', 1)} pixels, {plan.ctas_per_sm} CTAs an SM, "
+              f"{plan.smem_bytes} B", flush=True)
         tally.case("carafe_reassemble_f32", label,
                    lambda: K.carafe_reassemble(gy, ew, eb, bo, **ckw), plain, calls,
                    check="labels" if labels else "rel",
@@ -1683,12 +1724,16 @@ def f32_serve(cfg, dev, workdir: str, smi: str) -> dict[str, dict[str, int]]:
     (every one a float32 instance's, as routed) and its NIfTI labels
     against the plain float32 route by the margin rule; on the first chunk
     both routes' logits within ``F32_MODEL_TOL`` of the plain float32
-    route's; then the 32-slice float32 forward timed beside the bf16 and
-    the plain float32 ones. Returns the launch counts of the two CLI runs."""
+    route's; one chunk with the float32 pair forced on (the routing pairs
+    no float32 geometry), equal to the committed route bit for bit; then
+    the 32-slice float32 forward timed beside the bf16 and the plain
+    float32 ones and the forced pair. Returns the launch counts of the two
+    CLI runs and of the forced-pair chunk."""
     import torch
 
     from cswin_unet_tpu_torch import serve
     from cswin_unet_tpu_torch.models import build_model
+    from cswin_unet_tpu_torch.ops.cuda import cswin_block
     from cswin_unet_tpu_torch.ops.cuda import kernels as K
     from cswin_unet_tpu_torch.utils.checkpoint import load_checkpoint, load_into
     from cswin_unet_tpu_torch.utils.profiling import device_busy_ms
@@ -1722,7 +1767,7 @@ def f32_serve(cfg, dev, workdir: str, smi: str) -> dict[str, dict[str, int]]:
     forwards = -(-shape[0] // batch) + 1  # the volume's chunks and the CLI's warmup
     counts = {}
     for route, opts, routed in (
-            ("fused", [], expected_launches(cfg, forwards)),
+            ("fused", [], expected_launches(cfg, forwards, "float32")),
             ("pallas", ["TPU.ATTN_IMPL", "pallas"], expected_pallas_launches(cfg, forwards))):
         out_dir = os.path.join(workdir, f"served_f32_{route}")
         K.reset_launch_counts()
@@ -1746,15 +1791,48 @@ def f32_serve(cfg, dev, workdir: str, smi: str) -> dict[str, dict[str, int]]:
         require(ok, f"float32 serve, {route} route: launches {counts[route]} != {want} or "
                 f"{above} above the margin or logits rel_l2 {err:.3e}")
 
-    def forward(model):
+    # The float32 pair, which the routing leaves out at float32
+    # (cswin_block.PAIR_GEOMETRIES): the first chunk with the bf16 route's
+    # pairs forced on at float32, its launches as so routed and its logits
+    # equal to the committed route's bit for bit; timed below as fused_pair.
+    committed = cswin_block.pair_fuse_ok
+    f32_pairs = lambda H, W, C, dtype=None: committed(H, W, C, torch.bfloat16)
+    try:
+        cswin_block.pair_fuse_ok = f32_pairs
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
         with torch.inference_mode():
-            return model(x, emit="labels")
+            paired = models["fused"](x)
+        torch.cuda.synchronize()
+        counts["pair"] = K.launch_counts()
+    finally:
+        cswin_block.pair_fuse_ok = committed
+    with torch.inference_mode():
+        unpaired = models["fused"](x)
+    want = expected_f32(expected_launches(cfg, 1))
+    same = torch.equal(paired, unpaired)
+    print(f"[f32:serve] chunk ct64[0:{batch}] with the float32 pair forced on at "
+          f"{sorted(g[:3] for g in cswin_block.PAIR_GEOMETRIES)}: launches {counts['pair']} "
+          f"expected {want}; logits equal to the committed (unpaired) route's bit for bit: "
+          f"{'yes' if same else 'NO'}", flush=True)
+    require(same and counts["pair"] == want, "float32 forced-pair chunk")
 
-    times = {k: [] for k in models}
+    def forward(model, pairs=None):
+        try:
+            if pairs is not None:
+                cswin_block.pair_fuse_ok = pairs
+            with torch.inference_mode():
+                return model(x, emit="labels")
+        finally:
+            cswin_block.pair_fuse_ok = committed
+
+    runs = {k: (lambda k=k: forward(models[k])) for k in models}
+    runs["fused_pair"] = lambda: forward(models["fused"], f32_pairs)
+    times = {k: [] for k in runs}
     for r in range(4):
-        for k in list(models)[::1 if r % 2 == 0 else -1]:
-            times[k].append(time_ms(lambda: forward(models[k]), reps=2, rounds=1))
-    busy = {k: device_busy_ms(lambda: forward(models[k]), 2) for k in ("fused", "bf16")}
+        for k in list(runs)[::1 if r % 2 == 0 else -1]:
+            times[k].append(time_ms(runs[k], reps=2, rounds=1))
+    busy = {k: device_busy_ms(runs[k], 2) for k in ("fused", "fused_pair", "bf16")}
     print(f"[f32:e2e] forward {batch} slices to labels, tiny-224, ms median [min-max] of 4 "
           f"interleaved rounds: " + "; ".join(
               f"{k} {statistics.median(v):.3f} [{min(v):.3f}-{max(v):.3f}] "
@@ -1762,9 +1840,11 @@ def f32_serve(cfg, dev, workdir: str, smi: str) -> dict[str, dict[str, int]]:
               + (f" busy {'not measured' if busy[k] is None else f'{busy[k]:.3f}'}"
                  if k in busy else "")
               for k, v in times.items())
-          + f" (fused, plain and pallas at float32; bf16 the committed route); on {smi}; "
+          + f" (fused, plain and pallas at float32, fused_pair with the float32 pair "
+          f"forced on; bf16 the committed route); on {smi}; "
           f"phase {time.perf_counter() - t0:.1f}s", flush=True)
-    return dict(serve_f32=counts["fused"], serve_f32_pallas=counts["pallas"])
+    return dict(serve_f32=counts["fused"], serve_f32_pallas=counts["pallas"],
+                serve_f32_pair=counts["pair"])
 
 
 def f32_eval(cfg, dev, ck: str) -> dict[str, int]:
@@ -1825,7 +1905,7 @@ def f32_eval(cfg, dev, ck: str) -> dict[str, int]:
     finally:
         root.handlers[:] = saved_handlers
         root.setLevel(saved_level)
-    want = expected_f32(expected_launches(cfg, -(-shape[0] // SERVE_BATCH)))
+    want = expected_f32(expected_launches(cfg, -(-shape[0] // SERVE_BATCH), "float32"))
     want["edt_pass"] = (nc - 1) * 2 * 3
     ok = counts == want and len(dev_means) == nc - 1 and metrics_agree(dev_means, host_means)
     print(f"[f32:eval] inference() of a {shape} volume at float32, device metrics "
@@ -1866,7 +1946,7 @@ def f32_base384(dev, smi: str) -> dict[str, int]:
         torch.cuda.synchronize()
         counts = K.launch_counts()
         labels = fused(x, emit="labels")
-    want = expected_f32(expected_launches(cfg, 1))
+    want = expected_f32(expected_launches(cfg, 1, "float32"))
     err = rel_l2(logits, ref)
     raw, above = margin_mismatches(labels, ref)
     ok = err <= F32_MODEL_TOL and above == 0 and counts == want
@@ -4629,7 +4709,8 @@ def main() -> int:
               flush=True)
         require(bool(spills) and all(st == ld == 0 for _, _, st, ld in spills),
                 f"block_pair: ptxas reports spills {spills}")
-        for entry in ("block_one_kernel", "layernorm_kernel", "layernorm_bwd_kernel",
+        for entry in ("block_pair_f32_kernel", "carafe_f32_kernel",
+                      "block_one_kernel", "layernorm_kernel", "layernorm_bwd_kernel",
                       "carafe_kernel", "edt_pass_kernel", "lepe_windows_kernel",
                       "ln_mlp_kernel", "gemm_kernel", "wgrad_kernel", "gemm_f32_kernel",
                       "wgrad_f32_kernel", "stripe_attention_f32_kernel",
@@ -4639,8 +4720,11 @@ def main() -> int:
             print(f"[build] {entry} (entry, registers, spill stores, spill loads): {res}",
                   flush=True)
             require(bool(res), f"{entry}: no ptxas resource line")
+            # the float32 pair at its 3-CTA cap spills a few hundred bytes
+            # outside its attention phase (PERF.md, the float32 pair); it runs on no
+            # committed route
             if entry not in ("block_one_kernel", "layernorm_kernel", "carafe_kernel",
-                             "edt_pass_kernel"):
+                             "edt_pass_kernel", "block_pair_f32_kernel"):
                 # the lab's persistent kernels; the GEMMs' dropout instances,
                 # which hold the Philox state beside the tile; the float32
                 # instances (LN's 768 channels: twice the bytes a lane; the

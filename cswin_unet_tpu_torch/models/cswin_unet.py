@@ -335,7 +335,8 @@ class CSWinUNet(nn.Module):
         first = blocks[0]
         pair_ok = (len(blocks) > 1 and self.impl == "fused" and not self.training
                    and not first.last
-                   and cswin_block.pair_fuse_ok(first.reso, first.reso, x.shape[-1]))
+                   and cswin_block.pair_fuse_ok(first.reso, first.reso, x.shape[-1],
+                                                x.dtype))
         i = 0
         while i < len(blocks):
             if pair_ok and i + 1 < len(blocks):

@@ -70,7 +70,7 @@ _SIGNATURES = {
     "cswin_stripe_attention_f32_smem": (_I, _I),
     "cswin_carafe_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "cswin_carafe_f32_smem": (_I, _I, _I, _I),
-    "cswin_block_pair_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P, _P),
+    "cswin_block_pair_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P, _P),
     # and of the training path's backward (training at float32)
     "cswin_layernorm_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     "cswin_layernorm_bwd_f32_ctas_per_sm": (_I,),

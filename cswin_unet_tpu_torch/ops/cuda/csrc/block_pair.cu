@@ -23,9 +23,10 @@
 //   (the GEMM's four warps; the attention's four warps; four LayerNorm rows
 //   per pass). The union of the phases takes the registers of the heaviest,
 //   the attention phase beside the two blocks' state: held to 128 (4 CTAs
-//   an SM, block_one's bound) it spills a few bytes, so the pair takes what
-//   ptxas gives it and runs the CTAs an SM the occupancy API allows for that
-//   (chip_smoke.py prints the grid), where the chain's own kernels run 4-8.
+//   an SM, block_one's bound) it spills a few bytes, so the bf16 pair takes
+//   what ptxas gives it and runs the CTAs an SM the occupancy API allows for
+//   that (chip_smoke.py prints the grid), where the chain's own kernels run
+//   4-8; the float32 pair is held to block_pair.cuh's F32_CTAS.
 //   Latency-bound phases have fewer warps to hide behind than in the chain. Dynamic shared memory is the larger of the
 //   GEMM tile's and the widest window's attention staging, reused by every
 //   phase. cooperative_groups' grid sync separates the phases (the grid
@@ -48,6 +49,6 @@ CSWIN_API int cswin_block_pair(const void* x, const void* const* params, void* s
                                void* out, int B, int H, int W, int C, int heads,
                                int split, float scale, float eps, int* info,
                                void* stream) {
-  return dispatch<bf16>(x, params, scratch, out, B, H, W, C, heads, split, scale, eps, info,
-                        stream);
+  return dispatch<bf16>(x, params, scratch, out, B, H, W, C, heads, split, scale, eps,
+                        block_phases::STOP_ALL, info, stream);
 }

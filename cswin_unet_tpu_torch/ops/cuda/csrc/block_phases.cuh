@@ -14,7 +14,7 @@
 // lab's ablation and build-up, block_one.cu); the pair runs every part.
 // The activations' type T is bf16, or float for TPU.COMPUTE_DTYPE float32
 // (block_pair.cu's float32 instance): the float phases run the float32
-// tiles (layernorm_row.cuh at T = float, gemm_tile::tile_f32,
+// tiles (layernorm_row.cuh at T = float, gemm_f32_tile.cuh,
 // attn_tile::tile_f32), which the chain's float32 kernels run too.
 #pragma once
 
@@ -23,6 +23,7 @@
 #include <type_traits>
 
 #include "attention_tile.cuh"
+#include "gemm_f32_tile.cuh"
 #include "gemm_tile.cuh"
 #include "layernorm_row.cuh"
 
@@ -40,6 +41,12 @@ constexpr int MIN_CTAS = 4;
 // (the one-tile kernels hold 112), so that it fits beside the kernels'
 // other state. The result does not depend on it.
 constexpr int ATTN_KT = 8;
+// The widest rows the float32 phases take: LN_ROW_INSTANCE_F32's instances
+// up to 4 vectors of 4 floats a lane (ln_phase).
+constexpr int F32_MAX_C = 512;
+// The float32 GEMM phases' shared memory: gemm_f32.cu's 64 x 64 tile.
+using GemmF32Smem = gemm_f32::Smem<64, 64, false>;
+static_assert(gemm_f32::Shape<64, 64, false>::THREADS == THREADS, "the float32 tile's threads");
 
 // One block's parameters as the kernels read them: matrices, LePE taps
 // (9, cb) tap-major and LePE biases in the activations' type T; LN and GEMM
@@ -116,7 +123,20 @@ inline PlanT<T> full_dual_plan(const BlockWT<T>& p, const Geom& g) {
 template <typename T>
 __device__ __forceinline__ void ln_phase(const T* x, const float* w, const float* b, T* y,
                                          int rows, int C, float eps) {
-  ln_row::rows_any<false>(x, C, w, b, y, C, rows, C, eps, THREADS, blockIdx.x, gridDim.x);
+  if constexpr (std::is_same_v<T, float>) {
+    // The float32 pair's widths (C <= F32_MAX_C): the chain's instances for
+    // them; the instances of wider rows would hold the whole kernel at their
+    // registers (8 vectors of 4 floats a lane, double-buffered).
+#define BLOCK_PHASES_LN_ROWS(G, V) \
+  ln_row::rows<G, V, false>(x, C, w, b, y, C, rows, C, eps, THREADS, blockIdx.x, gridDim.x)
+    C <= 16 ? BLOCK_PHASES_LN_ROWS(4, 1) : C <= 32 ? BLOCK_PHASES_LN_ROWS(8, 1)
+    : C <= 64 ? BLOCK_PHASES_LN_ROWS(16, 1) : C <= 128 ? BLOCK_PHASES_LN_ROWS(32, 1)
+    : C <= 256 ? BLOCK_PHASES_LN_ROWS(32, 2) : C <= 384 ? BLOCK_PHASES_LN_ROWS(32, 3)
+    : BLOCK_PHASES_LN_ROWS(32, 4);
+#undef BLOCK_PHASES_LN_ROWS
+  } else {
+    ln_row::rows_any<false>(x, C, w, b, y, C, rows, C, eps, THREADS, blockIdx.x, gridDim.x);
+  }
 }
 
 template <int EPI>
@@ -134,17 +154,20 @@ __device__ __forceinline__ void gemm_phase(const bf16* A, const bf16* Bw,
   }
 }
 
-// The float32 GEMM tiles (gemm_tile::tile_f32).
+// The float32 GEMM phase on the chain's float32 tile (gemm_f32_tile.cuh),
+// 64 x 64 outputs a CTA: the chain's planner picks 128 x 32 where N's
+// 32-column tiles waste fewer columns, and either gives the same bits.
 template <int EPI>
 __device__ __forceinline__ void gemm_phase(const float* A, const float* Bw,
                                            const float* bias, const float* res,
-                                           float* out, int M, int N, int K,
-                                           gemm_tile::SmemF32& sm) {
-  const int tn = (N + gemm_tile::BN - 1) / gemm_tile::BN;
-  const int tiles = (M + gemm_tile::BM - 1) / gemm_tile::BM * tn;
+                                           float* out, int M, int N, int K, GemmF32Smem& sm) {
+  constexpr int BM = 64, BN = 64;
+  const int tn = (N + BN - 1) / BN;
+  const int tiles = (M + BM - 1) / BM * tn;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    gemm_tile::tile_f32<EPI>(A, Bw, bias, res, nullptr, out, M, N, K, 1,
-                             t / tn * gemm_tile::BM, t % tn * gemm_tile::BN, sm);
+    gemm_f32::tile<BM, BN, false, EPI, false, false, false>(
+        A, Bw, bias, res, nullptr, nullptr, nullptr, out, M, N, K, 1, t / tn * BM,
+        t % tn * BN, DropArgs(), sm);
     __syncthreads();  // the next tile restages the shared memory
   }
 }
@@ -187,8 +210,7 @@ __device__ __forceinline__ void block(cg::grid_group& grid, const T* x, const Bl
                                       const PlanT<T>& plan, unsigned char* smem) {
   static_assert(std::is_same_v<T, float> ? MODE == attn_tile::FULL : true,
                 "the float32 phases run the full block");
-  using GemmSmem =
-      std::conditional_t<std::is_same_v<T, float>, gemm_tile::SmemF32, gemm_tile::Smem>;
+  using GemmSmem = std::conditional_t<std::is_same_v<T, float>, GemmF32Smem, gemm_tile::Smem>;
   auto& gs = *reinterpret_cast<GemmSmem*>(smem);
   const int M = g.B * g.H * g.W, C = g.C;
   if (plan.stop < STOP_QKV) return;
@@ -277,7 +299,7 @@ template <int D, typename T = bf16>
 size_t smem_bytes(int L) {
   if constexpr (std::is_same_v<T, float>) {
     const size_t a = attn_tile::smem_bytes_f32<D>(L);
-    return a < sizeof(gemm_tile::SmemF32) ? sizeof(gemm_tile::SmemF32) : a;
+    return a < sizeof(GemmF32Smem) ? sizeof(GemmF32Smem) : a;
   } else {
     const size_t a = attn_tile::smem_bytes<D>(L);
     return a < sizeof(gemm_tile::Smem) ? sizeof(gemm_tile::Smem) : a;

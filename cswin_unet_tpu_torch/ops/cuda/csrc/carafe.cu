@@ -392,113 +392,239 @@ cudaError_t launch(const bf16* gy, const bf16* wenc, const float* benc, const fl
 // the softmax (expf, one division a tap) and the reassembly in float32, the
 // logits written as float32 (or the labels, first maximum wins). The products
 // are FFMA on the CUDA cores (the bf16 kernel's tensor-core conv would round
-// the operands), one thread an (up-position, low-res pixel) of the tile.
-// Persistent CTAs of F32_THREADS threads loop over 8x8 tiles: the encoder
-// weight, laid out by the wrapper as (tap, ci, encoder channel) so that the
-// lanes of one pixel read consecutive words, is staged once a CTA; each
-// tile's halo of gy (mid and y, G channels at a row stride of G + 4, so that
-// a warp's eight pixels of a tile row fall in distinct banks) arrives by
-// 16-byte cp.async with zeros outside the image.
-constexpr int F32_THREADS = 256;
+// the operands). Each output keeps one order of operations: the encoder
+// bias, then tap-major over ci by fmaf; the softmax; the reassembly over the
+// 9 taps in order by fmaf, plus the bias.
+// Design: persistent CTAs of 128 threads loop over 8x8 tiles of low-res
+//   pixels. A thread takes one up-position s (the lane's fastest index) and
+//   PX consecutive pixels of a tile row (up 4: the whole row of 8; up 2: 2)
+//   and holds the 9 tap accumulators of each: a 16-byte word of the weight
+//   read from shared memory feeds PX·4 FMAs and one of mid 9·4 (up 4: ~4.2
+//   FMAs a float read). Sliding the taps along the row would read mid less
+//   often but would add a tap's terms in another order. The
+//   weight is staged once a CTA in the wrapper's layout (tap, s, encoder tap
+//   t, ci; ci padded to a multiple of 4 by zeros; a (tap, s) row padded to
+//   an odd number of 16-byte words, so that eight lanes' up-positions fall
+//   in distinct banks). A tile's halo is staged as mid (cm channels padded
+//   to cmp) in two buffers, the next tile's arriving by cp.async during
+//   this one's work, and as y (nc classes padded to ncp) in one, the next
+//   tile's issued once this one's reassembly has read it: both sit in
+//   shared memory, since scattered reads of y through L1 (most of it given
+//   to shared memory) wait on L2. Zeros outside the image and in the
+//   padding. Logits leave as 16-byte runs of a pixel's classes (nc % 4 ==
+//   0), else one value at a time; labels go to a stage laid out as the
+//   tile's high-res rows (the depth-to-space in the stage's addresses) and
+//   leave as 16-byte runs.
+constexpr int F32_VEC = 4;       // floats in a 16-byte word
+constexpr int F32_THREADS = 128;
 
+template <int UP>
+struct F32Shape {
+  static constexpr int UP2 = UP * UP, ENC = 9 * UP2;
+  static constexpr int PX = UP == 4 ? TW : 2;  // consecutive pixels a thread
+  static constexpr int XG = TW / PX;           // threads along a tile row for one s
+  static constexpr int PAD = UP == 4 ? 0 : F32_VEC;  // halo pixels' padding
+  static_assert(UP2 * TH * XG == F32_THREADS, "one CTA shape");
+};
+
+// Shared memory of one CTA, in bytes: the encoder weight (9·up² (tap, s)
+// rows of Ws floats: 9 encoder taps of cmp floats, padded to an odd number
+// of 16-byte words), two halo tiles of mid (HALO_PX pixels of Ms floats),
+// one of y (HALO_PX pixels of Ys floats), the labels' stage (the tile's
+// up·TH x up·TW high-res pixels, int32; reserved in both modes), the
+// encoder bias and the bias. At up 4 a warp's lanes read one or two halo
+// pixels at a time (broadcasts); at up 2 eight, hence the padding there.
 struct LayoutF32 {
-  int Gs, w_off, halo_off, benc_off, bias_off, total;
+  int cmp, ncp, Ws, Ms, Ys, w_off, mid_off, y_off, stage_off, benc_off, bias_off, total;
 };
 
 template <int UP>
-__host__ __device__ LayoutF32 make_layout_f32(int cm, int nc, int G) {
-  constexpr int ENC = 9 * UP * UP;
+__host__ __device__ LayoutF32 make_layout_f32(int cm, int nc) {
+  using S = F32Shape<UP>;
   LayoutF32 L;
-  L.Gs = G + 4;
+  L.cmp = round_up(cm, F32_VEC);
+  L.ncp = round_up(nc, F32_VEC);
+  L.Ws = 9 * L.cmp + (9 * L.cmp / F32_VEC % 2 ? 0 : F32_VEC);
+  L.Ms = L.cmp + S::PAD;
+  L.Ys = L.ncp + S::PAD;
   L.w_off = 0;
-  L.halo_off = L.w_off + 9 * cm * ENC * 4;
-  L.benc_off = L.halo_off + HALO_PX * L.Gs * 4;
-  L.bias_off = L.benc_off + round_up(ENC * 4, 16);
+  L.mid_off = L.w_off + 9 * S::UP2 * L.Ws * 4;
+  L.y_off = L.mid_off + 2 * HALO_PX * L.Ms * 4;
+  L.stage_off = L.y_off + HALO_PX * L.Ys * 4;
+  L.benc_off = L.stage_off + TH * UP * TW * UP * 4;
+  L.bias_off = L.benc_off + round_up(S::ENC * 4, 16);
   L.total = L.bias_off + round_up(nc * 4, 16);
   return L;
 }
 
+// At most two CTAs an SM fit the shared memory of the sites, so the
+// registers are not held below what the accumulators take.
 template <int UP, bool LABELS>
-__global__ void __launch_bounds__(F32_THREADS)
+__global__ void __launch_bounds__(F32_THREADS, 2)
 carafe_f32_kernel(const float* __restrict__ gy, const float* __restrict__ wenc,
                   const float* __restrict__ benc, const float* __restrict__ bias,
                   void* __restrict__ out, int B, int H, int W, int G, int cm, int nc) {
-  constexpr int UP2 = UP * UP, ENC = 9 * UP2;
+  using S = F32Shape<UP>;
+  constexpr int UP2 = S::UP2, ENC = S::ENC, PX = S::PX, XG = S::XG, NT = F32_THREADS;
+  constexpr int RW = TW * UP;  // a staged high-res row
   extern __shared__ __align__(16) unsigned char smem[];
-  const LayoutF32 L = make_layout_f32<UP>(cm, nc, G);
-  float* Ws = reinterpret_cast<float*>(smem + L.w_off);
-  float* hs = reinterpret_cast<float*>(smem + L.halo_off);
+  const LayoutF32 L = make_layout_f32<UP>(cm, nc);
+  const int cmp = L.cmp, Ms = L.Ms, Ys = L.Ys;
+  float* Wsm = reinterpret_cast<float*>(smem + L.w_off);
+  float* mids = reinterpret_cast<float*>(smem + L.mid_off);
+  float* ys = reinterpret_cast<float*>(smem + L.y_off);
+  int* stage = reinterpret_cast<int*>(smem + L.stage_off);
   float* benc_s = reinterpret_cast<float*>(smem + L.benc_off);
   float* bias_s = reinterpret_cast<float*>(smem + L.bias_off);
   const int tid = threadIdx.x;
+  const int s = tid % UP2, grp = tid / UP2, ly = grp / XG, lx0 = grp % XG * PX;
   const int TX = (W + TW - 1) / TW, TY = (H + TH - 1) / TH, tiles = B * TX * TY;
   const int HU = H * UP, WU = W * UP;
+  const bool out_vec = nc % F32_VEC == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
 
-  for (int i = tid; i < 9 * cm * ENC / 4; i += F32_THREADS) cp_async16(Ws + 4 * i, wenc + 4 * i);
-  for (int i = tid; i < ENC; i += F32_THREADS) benc_s[i] = benc[i];
-  for (int i = tid; i < nc; i += F32_THREADS) bias_s[i] = bias[i];
-  cp_async_commit();
+  for (int i = tid; i < 9 * UP2 * L.Ws / 4; i += NT) cp_async16(Wsm + 4 * i, wenc + 4 * i);
+  for (int i = tid; i < ENC; i += NT) benc_s[i] = benc[i];
+  for (int i = tid; i < nc; i += NT) bias_s[i] = bias[i];
 
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    __syncthreads();  // every thread is done with the last tile's halo
+  // The copies of channels [c0, c0 + n) of a tile's halo pixels into `dst`
+  // (rows of `stride` floats, `chunks` 16-byte chunks a pixel): the values
+  // past n and every pixel outside the image zero-filled. cp.async where c0
+  // keeps the 16-byte words aligned, else one value at a time.
+  const auto load_halo = [&](int tile, float* dst, int stride, int c0, int n, int chunks) {
     const int b = tile / (TX * TY), y0 = tile / TX % TY * TH, x0 = tile % TX * TW;
-    const int chunks = G / 4;
-    for (int i = tid; i < HALO_PX * chunks; i += F32_THREADS) {
+    for (int i = tid; i < HALO_PX * chunks; i += NT) {
       const int p = i / chunks, c = i % chunks * 4;
       const int y = y0 - 1 + p / HWD, x = x0 - 1 + p % HWD;
       const bool ok = y >= 0 && y < H && x >= 0 && x < W;
-      cp_async16(hs + p * L.Gs + c, ok ? gy + (((size_t)b * H + y) * W + x) * G + c : gy,
-                 ok ? 16 : 0);
+      const float* src = gy + (((size_t)b * H + y) * W + x) * G + c0 + c;
+      if (c0 % F32_VEC == 0) {
+        cp_async16(dst + p * stride + c, ok ? src : gy, ok ? 4 * min(F32_VEC, n - c) : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < F32_VEC; ++e)
+          dst[p * stride + c + e] = ok && c + e < n ? src[e] : 0.f;
+      }
     }
+  };
+  if (blockIdx.x < tiles) {
+    load_halo(blockIdx.x, mids, Ms, 0, cm, cmp / 4);
+    load_halo(blockIdx.x, ys, Ys, cm, nc, L.ncp / 4);
+  }
+  cp_async_commit();  // the weight and the first tile's halo
+
+  for (int tile = blockIdx.x, it = 0; tile < tiles; tile += gridDim.x, ++it) {
+    const int next = tile + gridDim.x;
+    if (next < tiles) load_halo(next, mids + ((it + 1) & 1) * HALO_PX * Ms, Ms, 0, cm, cmp / 4);
     cp_async_commit();
-    cp_async_wait<0>();  // the halo (and, first, the weight) landed
+    cp_async_wait<1>();  // this tile's mid and y (and, first, the weight) landed
     __syncthreads();
-    for (int item = tid; item < TH * TW * UP2; item += F32_THREADS) {
-      const int px = item / UP2, s = item % UP2, ly = px / TW, lx = px % TW;
-      const int y = y0 + ly, x = x0 + lx;
-      if (y >= H || x >= W) continue;
-      float e[9];
+    const int b = tile / (TX * TY), y0 = tile / TX % TY * TH, x0 = tile % TX * TW;
+    const float* hm = mids + (it & 1) * HALO_PX * Ms;
+
+    // The encoder conv: e[j][t] = benc, then tap-major over ci.
+    float e[PX][9];
 #pragma unroll
-      for (int t = 0; t < 9; ++t) e[t] = benc_s[t * UP2 + s];
-      for (int tap = 0; tap < 9; ++tap) {
-        const float* m = hs + ((ly + tap / 3) * HWD + lx + tap % 3) * L.Gs;
-        const float* wt = Ws + tap * cm * ENC + s;
-        for (int ci = 0; ci < cm; ++ci) {
-          const float mv = m[ci];
+    for (int j = 0; j < PX; ++j)
 #pragma unroll
-          for (int t = 0; t < 9; ++t) e[t] = fmaf(mv, wt[ci * ENC + t * UP2], e[t]);
+      for (int t = 0; t < 9; ++t) e[j][t] = benc_s[t * UP2 + s];
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const float* w = Wsm + (tap * UP2 + s) * L.Ws;
+      const float* m = hm + ((ly + tap / 3) * HWD + lx0 + tap % 3) * Ms;
+#pragma unroll 2
+      for (int ci = 0; ci < cmp; ci += 4) {
+        float4 mv[PX];
+#pragma unroll
+        for (int j = 0; j < PX; ++j) mv[j] = *reinterpret_cast<const float4*>(m + j * Ms + ci);
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+          const float4 wv = *reinterpret_cast<const float4*>(w + t * cmp + ci);
+#pragma unroll
+          for (int j = 0; j < PX; ++j) {
+            float a = e[j][t];
+            a = fmaf(mv[j].x, wv.x, a);
+            a = fmaf(mv[j].y, wv.y, a);
+            a = fmaf(mv[j].z, wv.z, a);
+            a = fmaf(mv[j].w, wv.w, a);
+            e[j][t] = a;
+          }
         }
       }
-      float mx = e[0];
+    }
+
+    // The softmax over the 9 taps, then the reassembly, 4 classes at a
+    // time: out[n] = Σ_t k[t]·y[tap t][n] + bias[n].
 #pragma unroll
-      for (int t = 1; t < 9; ++t) mx = fmaxf(mx, e[t]);
+    for (int j = 0; j < PX; ++j) {
+      float mx = e[j][0];
+#pragma unroll
+      for (int t = 1; t < 9; ++t) mx = fmaxf(mx, e[j][t]);
       float sum = 0.f;
 #pragma unroll
       for (int t = 0; t < 9; ++t) {
-        e[t] = expf(e[t] - mx);
-        sum += e[t];
+        e[j][t] = expf(e[j][t] - mx);
+        sum += e[j][t];
       }
 #pragma unroll
-      for (int t = 0; t < 9; ++t) e[t] = e[t] / sum;
+      for (int t = 0; t < 9; ++t) e[j][t] = e[j][t] / sum;
+    }
+#pragma unroll
+    for (int j = 0; j < PX; ++j) {
+      const int lx = lx0 + j, y = y0 + ly, x = x0 + lx;
+      const bool here = y < H && x < W;
+      const float* yb = ys + (ly * HWD + lx) * Ys;
       const size_t opx = ((size_t)b * HU + y * UP + s / UP) * WU + x * UP + s % UP;
       float best = -INFINITY;
       int arg = 0;
-      for (int n = 0; n < nc; ++n) {
-        float o = 0.f;
+      for (int n0 = 0; n0 < nc; n0 += 4) {
+        float o[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int t = 0; t < 9; ++t)
-          o = fmaf(e[t], hs[((ly + t / 3) * HWD + lx + t % 3) * L.Gs + cm + n], o);
-        o += bias_s[n];
+        for (int t = 0; t < 9; ++t) {
+          const float4 v = *reinterpret_cast<const float4*>(yb + ((t / 3) * HWD + t % 3) * Ys + n0);
+          o[0] = fmaf(e[j][t], v.x, o[0]);
+          o[1] = fmaf(e[j][t], v.y, o[1]);
+          o[2] = fmaf(e[j][t], v.z, o[2]);
+          o[3] = fmaf(e[j][t], v.w, o[3]);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) o[c] += n0 + c < nc ? bias_s[n0 + c] : 0.f;
         if constexpr (LABELS) {
-          if (o > best) {
-            best = o;
-            arg = n;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (n0 + c < nc && o[c] > best) {
+              best = o[c];
+              arg = n0 + c;
+            }
           }
-        } else {
-          reinterpret_cast<float*>(out)[opx * nc + n] = o;
+        } else if (here) {
+          float* dst = reinterpret_cast<float*>(out) + opx * nc + n0;
+          if (out_vec) {
+            *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+          } else {
+            for (int c = 0; c < 4 && n0 + c < nc; ++c) dst[c] = o[c];
+          }
         }
       }
-      if constexpr (LABELS) reinterpret_cast<int*>(out)[opx] = arg;
+      if constexpr (LABELS) stage[(ly * UP + s / UP) * RW + lx * UP + s % UP] = arg;
+    }
+    __syncthreads();  // y and the stage are read; y's buffer takes the next tile
+    if (next < tiles) load_halo(next, ys, Ys, cm, nc, L.ncp / 4);
+    cp_async_commit();
+
+    if constexpr (LABELS) {
+      // The staged high-res rows leave as 16-byte runs where whole and
+      // aligned (W·up % 4 == 0), else one label at a time.
+      constexpr int Q = RW / 4;
+      for (int i = tid; i < TH * UP * Q; i += NT) {
+        const int r = i / Q, c = i % Q * 4, gyr = y0 * UP + r, gx = x0 * UP + c;
+        if (gyr >= HU || gx >= WU) continue;
+        int* dst = reinterpret_cast<int*>(out) + ((size_t)b * HU + gyr) * WU + gx;
+        if (WU % 4 == 0 && gx + 4 <= WU) {
+          *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(stage + r * RW + c);
+        } else {
+          for (int e2 = 0; e2 < 4 && gx + e2 < WU; ++e2) dst[e2] = stage[r * RW + c + e2];
+        }
+      }
     }
   }
   cp_async_wait<0>();
@@ -508,12 +634,13 @@ template <int UP, bool LABELS>
 cudaError_t launch_f32(const float* gy, const float* wenc, const float* benc,
                        const float* bias, void* out, int B, int H, int W, int G, int cm,
                        int nc, cudaStream_t stream) {
-  const LayoutF32 L = make_layout_f32<UP>(cm, nc, G);
+  constexpr int NT = F32_THREADS;
+  const LayoutF32 L = make_layout_f32<UP>(cm, nc);
   const auto kernel = carafe_f32_kernel<UP, LABELS>;
   cudaError_t err = allow_smem(kernel, L.total);
   if (err != cudaSuccess) return err;
   int per_sm = 0, dev = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, F32_THREADS, L.total);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, L.total);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidValue;  // the weight and the halo exceed shared memory
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
@@ -523,16 +650,19 @@ cudaError_t launch_f32(const float* gy, const float* wenc, const float* benc,
   if (tiles == 0) return cudaSuccess;
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int grid = (int)(tiles < (long long)sms * per_sm ? tiles : (long long)sms * per_sm);
-  kernel<<<grid, F32_THREADS, L.total, stream>>>(gy, wenc, benc, bias, out, B, H, W, G, cm, nc);
+  kernel<<<grid, NT, L.total, stream>>>(gy, wenc, benc, bias, out, B, H, W, G, cm, nc);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // The float32 instances: gy (B, H, W, G) float32, 16-byte aligned, G >= cm +
-// nc, G % 4 == 0; wenc: (3, 3, cm, 9·up²) float32 (kh, kw, ci, then the
-// encoder's output channel o = tap·up² + s), 16-byte aligned; benc, bias
-// as below; out: (B, up·H, up·W, nc) float32 logits, or int32 labels.
+// nc, G % 4 == 0; wenc: (3, 3, up², 9, cmp) float32 (kh, kw, the
+// up-position s, the encoder tap t of output channel o = t·up² + s, then
+// ci, zero from cm to cmp = cm rounded up to 4), 16-byte aligned; benc,
+// bias as below; out: (B, up·H, up·W, nc) float32 logits, or int32 labels.
+// Each (kh, kw, s) row of 9·cmp floats is padded by zeros to Ws
+// (make_layout_f32; kernels.carafe_f32_plan mirrors it).
 CSWIN_API int cswin_carafe_f32(const void* gy, const void* wenc, const void* benc,
                                const void* bias, void* out, int B, int H, int W, int G,
                                int cm, int nc, int up, int labels, void* stream) {
@@ -551,12 +681,14 @@ CSWIN_API int cswin_carafe_f32(const void* gy, const void* wenc, const void* ben
   return (int)cudaErrorInvalidValue;
 }
 
-// The float32 kernel's dynamic shared memory, or -1 for an up it does not
-// take: what kernels.py::carafe_f32_smem mirrors.
+// The float32 kernel's dynamic shared memory (G does not enter it: only
+// mid is staged), or -1 for an up it does not take: what
+// kernels.py::carafe_f32_plan mirrors.
 CSWIN_API int cswin_carafe_f32_smem(int cm, int nc, int G, int up) {
+  (void)G;
   switch (up) {
-    case 2: return make_layout_f32<2>(cm, nc, G).total;
-    case 4: return make_layout_f32<4>(cm, nc, G).total;
+    case 2: return make_layout_f32<2>(cm, nc).total;
+    case 4: return make_layout_f32<4>(cm, nc).total;
   }
   return -1;
 }

@@ -311,216 +311,12 @@ __device__ __forceinline__ void tile(
   }
 }
 
-// --- the float32 tile (TPU.COMPUTE_DTYPE float32) --------------------------
-//
-// The same 64x64 output tile, operands, epilogues 0-3 and masking as
-// tile(), in float32 throughout: the products are FFMA on the CUDA cores,
-// each output a float32 sum over k in order, and nothing is rounded (a
-// drop-path scale is one float32 product, a kept dropout value v / kd).
-// No tensor-core format keeps float32's products (TF32 drops 13 bits of
-// each operand), and at the block's shapes the tile is bound by bytes
-// (K <= 2048; 67 TFLOP/s of FFMA against 3.35 TB/s is a ridge of ~20
-// operations a byte), so FFMA costs little here.
-// Design: a ring of STAGES_F k-blocks of A and B, BK_F = 16 deep, fed by
-// 16-byte cp.async copies (4 floats; K % 4 == 0), rows padded to LDF = 20
-// floats. Thread (tx, ty) = (tid % 16, tid / 16) owns rows ty + 8i (i < 8)
-// and columns tx + 16j (j < 4): a quarter-warp's 16-byte loads of A read
-// one row (a broadcast) and of B eight rows whose 16-byte words fall in
-// distinct banks, and the outputs leave as 64-byte row runs a half-warp.
-// A_SCALED multiplies A's values by their row's scale as they are read;
-// DROP masks A's k-block in shared memory once it has landed (scaled
-// there, as tile() does) and the outputs in the epilogue, one Philox
-// block an element (a thread's columns are 16 apart).
-constexpr int BK_F = 16, STAGES_F = 3, LDF = BK_F + 4;
-
-struct __align__(128) SmemF32 {
-  float A[STAGES_F][BM][LDF];
-  float B[STAGES_F][BN][LDF];
-};
-
-__device__ __forceinline__ void load_kblock_f32(const float* __restrict__ A,
-                                                const float* __restrict__ B, int M, int N,
-                                                int K, int m0, int n0, int k0, SmemF32& sm,
-                                                int slot, int tid) {
-  constexpr int CHUNKS = BK_F / 4;
-  static_assert(BM * CHUNKS % THREADS == 0 && BN * CHUNKS % THREADS == 0, "whole passes");
-#pragma unroll
-  for (int it = 0; it < BM * CHUNKS / THREADS; ++it) {
-    const int i = tid + it * THREADS, r = i / CHUNKS, c = i % CHUNKS * 4;
-    const bool ok = m0 + r < M && k0 + c < K;
-    cp_async16(&sm.A[slot][r][c], ok ? A + (size_t)(m0 + r) * K + k0 + c : A, ok ? 16 : 0);
-  }
-#pragma unroll
-  for (int it = 0; it < BN * CHUNKS / THREADS; ++it) {
-    const int i = tid + it * THREADS, r = i / CHUNKS, c = i % CHUNKS * 4;
-    const bool ok = n0 + r < N && k0 + c < K;
-    cp_async16(&sm.B[slot][r][c], ok ? B + (size_t)(n0 + r) * K + k0 + c : B, ok ? 16 : 0);
-  }
-}
-
 // The keep bit of element i of a dropout site.
 __device__ __forceinline__ bool keep1(unsigned long long key, unsigned long long i,
                                       uint32_t thr) {
   const uint4 w = philox::philox4x32_10(i >> 2, key);
   const uint32_t e = (uint32_t)(i & 3);
   return (e == 0 ? w.x : e == 1 ? w.y : e == 2 ? w.z : w.w) < thr;
-}
-
-// Dropout of A's k-block in ring slot `slot`, in place: each value (first
-// times its row's a_scale, with A_SCALED) becomes v / kd where its bit is
-// kept, else 0. K % 4 == 0, so a group of four columns is one Philox block.
-template <bool A_SCALED>
-__device__ __forceinline__ void drop_kblock_f32(unsigned long long key, const DropArgs& drop,
-                                                const float* __restrict__ a_scale, int M,
-                                                int K, int rows_per_sample, int m0, int k0,
-                                                SmemF32& sm, int slot, int tid) {
-  constexpr int QUADS = BK_F / 4;
-#pragma unroll
-  for (int it = 0; it < BM * QUADS / THREADS; ++it) {
-    const int i = tid + it * THREADS, r = i / QUADS, c = i % QUADS * 4;
-    const int gm = m0 + r, gk = k0 + c;
-    if (gm >= M || gk >= K) continue;
-    const uint32_t bits =
-        keep4(key, ((unsigned long long)(drop.row0 + gm) * K + gk) >> 2, drop.thr);
-    float4* p = reinterpret_cast<float4*>(&sm.A[slot][r][c]);
-    float v[4] = {p->x, p->y, p->z, p->w};
-    const float s = A_SCALED ? a_scale[gm / rows_per_sample] : 1.f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if constexpr (A_SCALED) v[e] *= s;
-      v[e] = (bits >> e & 1u) ? v[e] / drop.kd : 0.f;
-    }
-    *p = make_float4(v[0], v[1], v[2], v[3]);
-  }
-}
-
-// EPI 0-3 as tile()'s; EXTRA: epilogue 1 scales the branch by
-// out_scale[m / rows_per_sample], epilogue 2 writes the pre-activation to
-// aux; A_SCALED scales A's rows by a_scale (epilogues 0 and 3); DROP
-// applies `drop`'s masks (epilogues 1-3). A caller that runs another tile
-// in the same shared memory syncs the CTA first.
-template <int EPI, bool EXTRA = false, bool A_SCALED = false, bool DROP = false>
-__device__ __forceinline__ void tile_f32(const float* __restrict__ A,
-                                         const float* __restrict__ B,
-                                         const float* __restrict__ bias,
-                                         const float* __restrict__ res,
-                                         const float* __restrict__ out_scale,
-                                         float* __restrict__ out, int M, int N, int K,
-                                         int rows_per_sample, int m0, int n0, SmemF32& sm,
-                                         float* __restrict__ aux = nullptr,
-                                         const float* __restrict__ a_scale = nullptr,
-                                         const DropArgs& drop = DropArgs()) {
-  static_assert(EPI >= 0 && EPI <= 3, "epilogues 0-3");
-  int tid;
-  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tid));
-  const int tx = tid & 15, ty = tid >> 4;
-
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  const int kblocks = (K + BK_F - 1) / BK_F;
-#pragma unroll
-  for (int s = 0; s < STAGES_F - 1; ++s) {
-    if (s < kblocks) load_kblock_f32(A, B, M, N, K, m0, n0, s * BK_F, sm, s, tid);
-    cp_async_commit();
-  }
-  // A_SCALED: the scale of each of this thread's A rows.
-  float sc[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + ty + 8 * i;
-    sc[i] = A_SCALED && gm < M ? a_scale[gm / rows_per_sample] : 1.f;
-  }
-  const bool drop_a = DROP && drop.key_a != nullptr, drop_out = DROP && drop.key_out != nullptr;
-  const unsigned long long key_a = drop_a ? *drop.key_a : 0ull;
-  for (int kb = 0; kb < kblocks; ++kb) {
-    cp_async_wait<STAGES_F - 2>();
-    __syncthreads();
-    const int nk = kb + STAGES_F - 1;
-    if (nk < kblocks) load_kblock_f32(A, B, M, N, K, m0, n0, nk * BK_F, sm, nk % STAGES_F, tid);
-    cp_async_commit();
-    const int slot = kb % STAGES_F;
-    if constexpr (DROP) {
-      if (drop_a) {  // scaled and masked in place, so the reads are not scaled again
-        drop_kblock_f32<A_SCALED>(key_a, drop, a_scale, M, K, rows_per_sample, m0, kb * BK_F,
-                                  sm, slot, tid);
-        __syncthreads();
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK_F; kk += 4) {
-      float4 a[8], b[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        a[i] = *reinterpret_cast<const float4*>(&sm.A[slot][ty + 8 * i][kk]);
-        if constexpr (A_SCALED) {
-          if (!drop_a) {
-            a[i].x *= sc[i];
-            a[i].y *= sc[i];
-            a[i].z *= sc[i];
-            a[i].w *= sc[i];
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        b[j] = *reinterpret_cast<const float4*>(&sm.B[slot][tx + 16 * j][kk]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float t = acc[i][j];
-          t = fmaf(a[i].x, b[j].x, t);
-          t = fmaf(a[i].y, b[j].y, t);
-          t = fmaf(a[i].z, b[j].z, t);
-          t = fmaf(a[i].w, b[j].w, t);
-          acc[i][j] = t;
-        }
-    }
-  }
-  cp_async_wait<0>();
-
-  const unsigned long long key_out = drop_out ? *drop.key_out : 0ull;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + ty + 8 * i;
-    if (gm >= M) continue;
-    float dp = 1.f;
-    if constexpr (EPI == 1 && EXTRA) dp = out_scale[gm / rows_per_sample];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn >= N) continue;
-      const size_t o = (size_t)gm * N + gn;
-      float v = acc[i][j] + (bias != nullptr ? bias[gn] : 0.f);
-      bool keep = true;
-      if constexpr (DROP) {
-        if (drop_out) keep = keep1(key_out, (unsigned long long)(drop.row0 + gm) * N + gn,
-                                   drop.thr);
-      }
-      const auto dropped = [&](float x) { return keep ? x / drop.kd : 0.f; };
-      if constexpr (EPI == 1) {
-        if constexpr (DROP) {
-          if (drop_out) v = dropped(v);
-        }
-        if constexpr (EXTRA) v *= dp;
-        v = res[o] + v;
-      } else if constexpr (EPI == 2) {
-        if constexpr (EXTRA) aux[o] = v;
-        v = gelu_erf(v);
-        if constexpr (DROP) {
-          if (drop_out) v = dropped(v);
-        }
-      } else if constexpr (EPI == 3) {
-        if constexpr (DROP) {
-          if (drop_out) v = dropped(v);
-        }
-        v *= gelu_erf_grad(aux[o]);
-      }
-      out[o] = v;
-    }
-  }
 }
 
 }  // namespace gemm_tile

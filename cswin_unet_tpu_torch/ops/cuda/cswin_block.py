@@ -229,24 +229,28 @@ def fused_cswin_block(x: torch.Tensor, p: BlockParams, *, heads: int,
                   scale=scale, keep=False)[0]
 
 
-# (H, W, C) geometries whose adjacent blocks the stage runner pairs: those
-# where one block_pair launch beats two block chains on an H100 at B = 32 by
-# more than the spread in both orders (the [pair] A/B of chip_smoke.py).
-# 14x14x256, tiny-224's stage 3: on the tensor-core tiles the pair (0.51-0.72
-# ms a pair of blocks) beat the chain (0.67-1.22) beyond the spread in three
-# of four runs, and by 0.16-0.20 ms inside a wider spread in the fourth. Not
-# 28x28x128, stage 2: the pair (0.57-0.63 ms) beat the chain in two runs
-# (0.83-1.07) and lost in two (0.48-0.54); the chain's time at B = 32 is
-# mostly its 16 launches' host work. Both lose at B = 128. The JAX package's
-# _pair_fuse_ok is off everywhere, from a TPU measurement that does not
-# carry over.
-PAIR_GEOMETRIES: frozenset[tuple[int, int, int]] = frozenset({(14, 14, 256)})
+# (H, W, C, activations' dtype) geometries whose adjacent blocks the stage
+# runner pairs: those where one block_pair launch beats two block chains on
+# an H100 at B = 32 by more than the spread in both orders (the [pair] A/B
+# of chip_smoke.py, tile_ab.py --phases at float32). 14x14x256, tiny-224's
+# stage 3, bf16: on the tensor-core tiles the pair (0.51-0.72 ms a pair of
+# blocks) beat the chain (0.67-1.22) beyond the spread in three of four
+# runs, and by 0.16-0.20 ms inside a wider spread in the fourth. Not at
+# float32: the float32 pair on the chain's GEMM tile at 3 CTAs an SM reads
+# 0.95 ms a pair against 0.79 for two float32 chains, each phase slower
+# than the chain's kernel (PERF.md, the float32 pair). Not 28x28x128, stage 2: the pair
+# (0.57-0.63 ms) beat the chain in two runs (0.83-1.07) and lost in two
+# (0.48-0.54); the chain's time at B = 32 is mostly its 16 launches' host
+# work. Both lose at B = 128. The JAX package's _pair_fuse_ok is off
+# everywhere, from a TPU measurement that does not carry over.
+PAIR_GEOMETRIES: frozenset[tuple[int, int, int, str]] = frozenset({(14, 14, 256, "bfloat16")})
 
 
-def pair_fuse_ok(H: int, W: int, C: int) -> bool:
+def pair_fuse_ok(H: int, W: int, C: int, dtype: torch.dtype = torch.bfloat16) -> bool:
     """Whether the stage runner fuses adjacent blocks of this geometry into
-    one ``fused_block_pair`` (counterpart of ``_pair_fuse_ok``)."""
-    return (H, W, C) in PAIR_GEOMETRIES
+    one ``fused_block_pair`` at activations of ``dtype`` (counterpart of
+    ``_pair_fuse_ok``)."""
+    return (H, W, C, str(dtype).removeprefix("torch.")) in PAIR_GEOMETRIES
 
 
 def fused_block_pair(x: torch.Tensor, p1: BlockParams, p2: BlockParams, *,

@@ -524,20 +524,16 @@ class GemmF32Plan(NamedTuple):
     ctas: int
 
 
-# gemm_tile.cuh: BM, BN, THREADS; BK_F, STAGES_F, LDF (the bf16 tile, and
-# tile_f32, which the float32 pair runs as a phase)
+# gemm_tile.cuh: BM, BN, THREADS (the bf16 tile)
 _GEMM_BM, _GEMM_BN, _GEMM_THREADS = 64, 64, 128
-_GEMM_F32_BK, _GEMM_F32_STAGES, _GEMM_F32_LDS = 16, 3, 20
-# gemm_f32.cu: gemm_f32::STAGES, BK, TN; the planner's tiles (Tile64x64,
-# Tile128x32) as (bm, bn)
+# gemm_f32_tile.cuh: gemm_f32::STAGES, BK, TN; gemm_f32.cu: the planner's
+# tiles (Tile64x64, Tile128x32) as (bm, bn); block_phases.cuh: the float32
+# pair's GEMM phases on the 64 x 64 one
 _F32_STAGES, _F32_BK, _F32_TN = 3, 32, 4
 _F32_TILES = ((64, 64), (128, 32))
-
-
-def tile_f32_smem() -> int:
-    """Static shared memory of ``gemm_tile::tile_f32`` (``SmemF32``), the
-    float32 pair's GEMM phase."""
-    return 2 * _GEMM_F32_STAGES * 64 * _GEMM_F32_LDS * 4
+_PAIR_F32_TILE = (64, 64)
+_PAIR_F32_CTAS = 3  # block_pair.cuh F32_CTAS: the float32 pair's CTAs an SM (its register cap)
+_PAIR_F32_MAX_C = 512  # block_phases.cuh F32_MAX_C: the float32 pair's widest rows
 
 
 def gemm_f32_smem(bm: int, bn: int, kn: bool = False) -> int:
@@ -1346,28 +1342,70 @@ carafe_reassemble.launches = carafe_reassemble.launches_f32 = 0
 class CarafeF32Plan(NamedTuple):
     """The float32 CARAFE kernel (``carafe.cu::carafe_f32_kernel``):
     persistent CTAs of ``threads`` threads over 8x8 tiles of low-res pixels,
-    one thread an (up-position, pixel); shared memory ``smem_bytes`` (the
-    encoder weight once, the halo of gy at a row stride of ``halo_stride``
-    floats, the encoder bias and the bias), ``ctas_per_sm`` CTAs an SM by
-    shared memory and threads."""
+    a thread one up-position (the lane's fastest index) of ``pixels``
+    consecutive pixels of a tile row, the encoder's ci in 16-byte words of
+    4 (``c_pad``: c_mid rounded up to 4, the weight's and mid's padding
+    zeros); shared memory ``smem_bytes``: the encoder weight once (9·up²
+    rows of ``weight_row`` floats, 9·c_pad padded to an odd number of
+    16-byte words), two halos of mid (``halo_stride`` floats a pixel), one
+    of y (``y_stride`` floats a pixel: nc rounded up to 4, padded at up 2),
+    the labels' stage, the encoder bias and the bias; ``ctas_per_sm`` CTAs
+    an SM by shared memory and threads."""
     threads: int
+    pixels: int
+    c_pad: int
+    weight_row: int
     halo_stride: int
+    y_stride: int
     smem_bytes: int
     ctas_per_sm: int
 
 
-_CARAFE_F32_THREADS = 256  # carafe.cu F32_THREADS
+_CARAFE_TILE = 8           # carafe.cu TW = TH: a tile of 8x8 low-res pixels
 _CARAFE_HALO_PX = 100      # carafe.cu HALO_PX: the 8x8 tile and a one-pixel halo
+_CARAFE_F32_VEC = 4        # carafe.cu F32_VEC: floats in a 16-byte word
+_CARAFE_F32_THREADS = 128  # carafe.cu F32_THREADS
 
 
 def carafe_f32_plan(c_mid: int, nc: int, G: int, up: int) -> CarafeF32Plan:
-    """Mirrors ``carafe.cu::make_layout_f32`` (the C entry
-    ``cswin_carafe_f32_smem`` returns the same count)."""
-    enc = 9 * up * up
+    """Mirrors ``carafe.cu::F32Shape`` and ``make_layout_f32`` (the C entry
+    ``cswin_carafe_f32_smem`` returns the same count). G does not enter it:
+    the halos hold mid's and y's channels, not the padding between."""
+    del G
+    up2, t, vec = up * up, _CARAFE_TILE, _CARAFE_F32_VEC
+    pixels = t if up == 4 else 2
+    pad = 0 if up == 4 else vec
+    cmp = -(-c_mid // vec) * vec
+    ncp = -(-nc // vec) * vec
+    ws = 9 * cmp + (0 if 9 * cmp // vec % 2 else vec)
     r16 = lambda b: -(-b // 16) * 16
-    smem = 9 * c_mid * enc * 4 + _CARAFE_HALO_PX * (G + 4) * 4 + r16(enc * 4) + r16(nc * 4)
-    per_sm = min(_SM_SMEM // (smem + 1024), 2048 // _CARAFE_F32_THREADS)
-    return CarafeF32Plan(_CARAFE_F32_THREADS, G + 4, smem, per_sm)
+    smem = (9 * up2 * ws * 4 + 2 * _CARAFE_HALO_PX * (cmp + pad) * 4
+            + _CARAFE_HALO_PX * (ncp + pad) * 4 + t * up * t * up * 4 + r16(9 * up2 * 4)
+            + r16(nc * 4))
+    per_sm = min(_SM_SMEM // (smem + 1024), 2)  # carafe_f32_kernel's launch bounds
+    return CarafeF32Plan(_CARAFE_F32_THREADS, pixels, cmp, ws, cmp + pad, ncp + pad, smem,
+                         per_sm)
+
+
+def carafe_f32_items(H: int, W: int, up: int) -> list[tuple[int, int, int]]:
+    """The (low-res y, x, up-position) items the float32 kernel's threads
+    take over an H x W image, in the order (tile, thread, pixel), each
+    inside the image: the kernel's thread mapping (``carafe_f32_kernel``),
+    for holding it to cover every item once."""
+    t = _CARAFE_TILE
+    plan = carafe_f32_plan(4, 1, 8, up)
+    xg_n = t // plan.pixels
+    items = []
+    for y0 in range(0, H, t):
+        for x0 in range(0, W, t):
+            for tid in range(plan.threads):
+                grp, s = divmod(tid, up * up)
+                ly, xg = divmod(grp, xg_n)
+                for j in range(plan.pixels):
+                    y, x = y0 + ly, x0 + xg * plan.pixels + j
+                    if y < H and x < W:
+                        items.append((y, x, s))
+    return items
 
 
 def _carafe_f32(gy, encoder_weight, encoder_bias, bias, *, c_mid: int, up: int,
@@ -1385,8 +1423,15 @@ def _carafe_f32(gy, encoder_weight, encoder_bias, bias, *, c_mid: int, up: int,
     if plan.smem_bytes > SMEM_LIMIT:
         raise ValueError(f"the float32 carafe kernel needs {plan.smem_bytes} bytes of shared "
                          f"memory at c_mid {c_mid}, G {G}, up {up}: more than {SMEM_LIMIT}")
-    # (kh, kw, ci, encoder channel): the lanes of a pixel read consecutive words
-    wenc = encoder_weight.permute(2, 3, 1, 0).float().contiguous()
+    # (kh, kw, s, t, ci), ci padded to c_pad by zeros, each (kh, kw, s) row
+    # to plan.weight_row (the kernel reads no float past 9·c_pad): a thread's
+    # 9 taps of one up-position s as 16-byte words along ci, in one copy
+    u2 = up * up
+    wenc = torch.empty((3, 3, u2, plan.weight_row), dtype=torch.float32, device=dev)
+    dst = wenc[..., :9 * plan.c_pad].unflatten(-1, (9, plan.c_pad))
+    if plan.c_pad != c_mid:
+        dst[..., c_mid:].zero_()
+    dst[..., :c_mid].copy_(encoder_weight.reshape(9, u2, c_mid, 3, 3).permute(3, 4, 1, 0, 2))
     benc = encoder_bias.float().contiguous()
     if gy.data_ptr() % 16 or wenc.data_ptr() % 16:
         raise ValueError("carafe kernel needs a 16-byte aligned gy and encoder weight")
@@ -1477,13 +1522,19 @@ def block_pair(x: torch.Tensor, p1, p2, *, heads: int, split: int, scale: float,
     steps in the same order, so the two agree bit for bit; on the GPU the
     same device code per tile. Matrices and LePE are cast to bf16 per call,
     as the chain casts them; a float32 ``x`` launches the float32 instance,
-    on the chain's float32 tiles (equal to two float32 chains bit for bit).
-    A last-stage geometry (one full-window branch, ``split >= H``) is
-    refused.
+    on the chain's float32 tiles (equal to two float32 chains bit for bit)
+    at C <= 512, every dual-branch width of the configs. A last-stage
+    geometry (one full-window branch, ``split >= H``) is refused.
     """
     if _on_cpu(x):
         return block_pair_plain(x, p1, p2, heads=heads, split=split, scale=scale,
                                 eps=eps)
+    return _block_pair(x, p1, p2, heads=heads, split=split, scale=scale, eps=eps,
+                       stop=PAIR_STOPS["all"])
+
+
+def _block_pair(x: torch.Tensor, p1, p2, *, heads: int, split: int, scale: float,
+                eps: float, stop: int) -> torch.Tensor:
     B, H, W, C = x.shape
     dev = x.device
     dt = _act_dtype(x, "x")
@@ -1495,6 +1546,8 @@ def block_pair(x: torch.Tensor, p1, p2, *, heads: int, split: int, scale: float,
     half = C // 2
     _check_head_dim(half, heads // 2)
     if dt == torch.float32:
+        if C > _PAIR_F32_MAX_C:
+            raise ValueError(f"the float32 block_pair takes C <= {_PAIR_F32_MAX_C}, got {C}")
         _check_attention_f32_smem(max(H, W) * split, half // (heads // 2))
     keep = _block_weights(p1, C, half, dev, dt) + _block_weights(p2, C, half, dev, dt)
     if any(_ptr(t) % 16 for t in keep):
@@ -1504,20 +1557,49 @@ def block_pair(x: torch.Tensor, p1, p2, *, heads: int, split: int, scale: float,
     info = (ctypes.c_int * 3)()
     scratch = torch.empty(7 * x.numel(), dtype=dt, device=dev)
     out = torch.empty_like(x)
-    fn = library().cswin_block_pair if dt == torch.bfloat16 else library().cswin_block_pair_f32
-    err = fn(x.data_ptr(), ctypes.addressof(ptrs), scratch.data_ptr(), out.data_ptr(), B, H,
-             W, C, heads, split, scale, eps, ctypes.addressof(info), _stream(dev))
+    args = (x.data_ptr(), ctypes.addressof(ptrs), scratch.data_ptr(), out.data_ptr(), B, H, W,
+            C, heads, split, scale, eps)
+    if dt == torch.bfloat16:
+        err = library().cswin_block_pair(*args, ctypes.addressof(info), _stream(dev))
+    else:
+        err = library().cswin_block_pair_f32(*args, stop, ctypes.addressof(info), _stream(dev))
     check(err, "block_pair")
-    _counted(block_pair, dt)
     block_pair.grid = dict(ctas=info[0], ctas_per_sm=info[1], smem_bytes=info[2])
-    return out
+    if stop == PAIR_STOPS["all"]:
+        _counted(block_pair, dt)
+        return out
+    mc = x.numel()  # the phase's output in the scratch (block_pair.cuh's ScratchT)
+    if stop == PAIR_STOPS["qkv"]:
+        return scratch[mc:4 * mc].view(B * H * W, 3 * C)
+    return scratch[:mc].view_as(x) if stop == PAIR_STOPS["attention"] else \
+        scratch[5 * mc:6 * mc].view_as(x)
+
+
+# block_phases.cuh Stop: the first block's last phase of a stopped float32
+# pair (``block_pair_phases``)
+PAIR_STOPS = {"qkv": 2, "attention": 3, "proj": 4, "all": 7}
+
+
+def block_pair_phases(x: torch.Tensor, p1, p2, *, stop: str, heads: int, split: int,
+                      scale: float, eps: float = 1e-5) -> torch.Tensor:
+    """The float32 pair's first block up to phase ``stop`` (``qkv``,
+    ``attention`` or ``proj``) in one launch of the pair kernel, for timing
+    the phases one by one: returns that phase's output (qkv (M, 3C), the
+    attention's (B, H, W, C), x1 (B, H, W, C)). Counts no launch of
+    ``block_pair``; a CUDA float32 ``x`` only."""
+    if _on_cpu(x) or x.dtype != torch.float32 or stop not in ("qkv", "attention", "proj"):
+        raise ValueError("block_pair_phases takes a CUDA float32 x and a stop of qkv, "
+                         "attention or proj")
+    return _block_pair(x, p1, p2, heads=heads, split=split, scale=scale, eps=eps,
+                       stop=PAIR_STOPS[stop])
 
 
 def block_pair_f32_smem(H: int, W: int, C: int, heads: int, split: int) -> int:
     """Dynamic shared memory of the float32 pair (``block_phases::
-    smem_bytes<D, float>``): the larger of the float32 GEMM tile's ring and
-    the widest window's float32 attention staging."""
-    return max(tile_f32_smem(),
+    smem_bytes<D, float>``): the larger of the float32 GEMM tile's
+    (``gemm_f32::Smem<64, 64, false>``, the chain's ring and staged output)
+    and the widest window's float32 attention staging."""
+    return max(gemm_f32_smem(*_PAIR_F32_TILE),
                attention_f32_plan(max(H, W) * split, C // heads).smem_bytes)
 
 

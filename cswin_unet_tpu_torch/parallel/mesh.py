@@ -44,7 +44,7 @@ def launched() -> bool:
 
 
 def init_distributed(device: torch.device | str, *, backend: str | None = None,
-                     timeout: timedelta | None = None
+                     timeout: timedelta | None = None, init_method: str = "env://"
                      ) -> tuple[int, int, torch.device]:
     """Join the process group the environment names and pick the rank's
     device. Returns (rank, world, device).
@@ -56,8 +56,11 @@ def init_distributed(device: torch.device | str, *, backend: str | None = None,
     device before any model is built (the kernels launch on the current
     device). ``backend``: NCCL for CUDA, gloo for the CPU, unless given
     (gloo also reduces CUDA tensors, and takes two ranks on one card, which
-    NCCL refuses). A failed initialisation raises; nothing carries on in
-    one process."""
+    NCCL refuses). ``init_method``: where the ranks meet, the launcher's
+    ``MASTER_ADDR`` / ``MASTER_PORT`` by default, or a ``file://`` path
+    that no earlier group used (a store no other process can take, as a
+    released TCP port can be). A failed initialisation raises; nothing
+    carries on in one process."""
     device = torch.device(device)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -71,7 +74,7 @@ def init_distributed(device: torch.device | str, *, backend: str | None = None,
     if backend is None:
         backend = "nccl" if device.type == "cuda" else "gloo"
     kw = {} if timeout is None else {"timeout": timeout}
-    dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world,
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world,
                             **kw)
     return rank, world, device
 

@@ -71,6 +71,13 @@ one row each.
 ``cswin_block.PAIR_GEOMETRIES`` emptied), for holding the pair route
 against two chains in turns.
 
+``--phases`` times the float32 stage-3 pair of a tiny-224 forward (B =
+32) by phase instead (``measure_phases``: the pair stopped after LN1 + qkv,
+the attention and proj, the whole pair, and the same two blocks as two
+float32 chains, in ``--rounds`` rounds of the cases in turns), with the
+pair's grid (CTAs, CTAs an SM, shared memory) and each case's digest: the
+pair's and the chains' agree where the pair keeps their bits.
+
 ``--step`` times the root's whole bs-24 train step instead (the recipe's
 step, ``train.make_train_step``, every block through ``CSWinBlockFn``, on
 seeded slices at the config's size, random weights from a seed): CUDA
@@ -275,6 +282,64 @@ def measure_f32(root: str, harness: str) -> dict:
                 kernels384={k: {f: tally384.rows[k][f] for f in keys}
                             for k in names if tally384.rows[k]["ms"] > 0},
                 digests=digests)
+
+
+PHASES = ("qkv", "attention", "proj")
+
+
+def measure_phases(root: str, harness: str, rounds: int) -> dict:
+    """The float32 stage-3 pair of a tiny-224 serving forward (B = 32, (14,
+    14, 256), heads 8, split 7) timed by phase: the pair stopped after its
+    first block's qkv (LN1 + qkv), attention and proj phases
+    (``kernels.block_pair_phases``), the whole pair, and the same two blocks
+    as two float32 chains, each behind the spin kernel, in ``rounds``
+    rounds (the cases in turns within a round, in both orders). Differences of the stops
+    give each phase: LN1 + qkv, attention, proj, then LN2 + fc1 + fc2 as
+    half the pair less the first three. A root whose kernels lack the stops
+    (before they existed) times the pair and the chains only. Each case's
+    output is digested; the pair's grid is recorded."""
+    import numpy as np
+    import torch
+
+    chip_smoke = _load(root, harness)
+    from cswin_unet_tpu_torch.ops.cuda import kernels as K
+    from cswin_unet_tpu_torch.ops.cuda.cswin_block import fused_cswin_block
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    B, H, C, heads, split = chip_smoke.SERVE_BATCH, 14, 256, 8, 7
+    rng = np.random.default_rng(17)
+    p1 = chip_smoke.block_params(rng, C, False, dev)
+    p2 = chip_smoke.block_params(rng, C, False, dev)
+    x = torch.from_numpy(rng.standard_normal((B, H, H, C)).astype(np.float32)).to(dev)
+    kw = dict(heads=heads, split=split, scale=(C // heads) ** -0.5)
+    cases = {"pair": lambda: K.block_pair(x, p1, p2, **kw),
+             "chains": lambda: fused_cswin_block(fused_cswin_block(
+                 x, p1, last_stage=False, **kw), p2, last_stage=False, **kw)}
+    stops = hasattr(K, "block_pair_phases")
+    if stops:
+        for stop in PHASES:
+            cases[stop] = (lambda stop=stop: K.block_pair_phases(x, p1, p2, stop=stop, **kw))
+    ms = {name: [] for name in cases}
+    for r in range(rounds):  # the cases in turns, the order reversed every other round
+        for name in list(cases)[::1 if r % 2 == 0 else -1]:
+            ms[name].append(chip_smoke.time_ms(cases[name], reps=10, rounds=1, primed=True))
+    K.block_pair(x, p1, p2, **kw)
+    grid = dict(K.block_pair.grid)
+    digests = {name: digest(fn()) for name, fn in cases.items()}
+    med = {name: statistics.median(v) for name, v in ms.items()}
+    phases = None
+    if stops:
+        phases = {"ln1+qkv": med["qkv"], "attention": med["attention"] - med["qkv"],
+                  "proj": med["proj"] - med["attention"],
+                  "ln2+fc1+fc2": med["pair"] / 2 - med["proj"]}
+    for name in cases:
+        print(f"[phases] {name}: {med[name]:.4f} ms [{min(ms[name]):.4f}-{max(ms[name]):.4f}] "
+              f"sha256 {digests[name]}", flush=True)
+    print(f"[phases] pair grid {grid}; by phase (ms a block) {phases}", flush=True)
+    return dict(root=root, harness=harness, device=torch.cuda.get_device_name(0),
+                nvidia_smi=_smi(), phases=dict(ms=ms, median=med, by_phase=phases, grid=grid,
+                                               digests=digests))
 
 
 def measure_lab(root: str, harness: str, save: str | None) -> dict:
@@ -494,6 +559,8 @@ def main() -> int:
                     help="with --step: timed rounds of 2 steps (default 10)")
     ap.add_argument("--f32", action="store_true",
                     help="time the float32 instances, with their output digests")
+    ap.add_argument("--phases", action="store_true",
+                    help="time the float32 stage-3 pair by phase and two chains instead")
     ap.add_argument("--lab", action="store_true",
                     help="time only the block lab's cases, with their output digests")
     ap.add_argument("--save", help="with --lab: where to write ln_mlp's five outputs")
@@ -513,6 +580,7 @@ def main() -> int:
     root, harness = os.path.abspath(args.root), os.path.abspath(args.harness or args.root)
     result = (measure_forward(root, harness, args.cfg, args.opts, args.no_pair) if args.forward
               else measure_step(root, harness, args.cfg, args.opts, args.rounds) if args.step
+              else measure_phases(root, harness, args.rounds) if args.phases
               else measure_lab(root, harness, args.save) if args.lab
               else measure_f32(root, harness) if args.f32
               else measure(root, harness))

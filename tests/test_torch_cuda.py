@@ -926,6 +926,49 @@ def test_f32_carafe_sites(dev, label, C, C_out, up, nc, H):
             assert _margin_mismatches(labels, want) == 0
 
 
+@pytest.mark.parametrize("nc", [9, 12, 14])
+@pytest.mark.parametrize("H,W", [(13, 21), (56, 56)])
+def test_f32_carafe_tied_labels(dev, nc, H, W):
+    """The float32 tail's labels where classes tie: y's classes come in
+    equal pairs (2i, 2i + 1), so every maximum is tied and the first wins:
+    every label is even; against the plain float32 logits by the margin
+    rule; the logits within 1e-5 of plain."""
+    rng = np.random.default_rng(49)
+    cm, up = 16, 4
+    G = -(-(cm + nc) // 8) * 8
+    mid = _rnd(rng, dev, 4, H, W, cm)
+    half = _rnd(rng, dev, 4, H, W, (nc + 1) // 2)
+    y = half.repeat_interleave(2, dim=-1)[..., :nc]
+    gy = torch.cat([mid, y, torch.zeros(4, H, W, G - cm - nc, device=dev)], -1).contiguous()
+    ew, eb = _rnd(rng, dev, 9 * up * up, cm, 3, 3, sc=0.2), _rnd(rng, dev, 9 * up * up)
+    bo = _rnd(rng, dev, (nc + 1) // 2).repeat_interleave(2)[:nc].contiguous()
+    kw = dict(c_mid=cm, up=up)
+    labels = K.carafe_reassemble(gy, ew, eb, bo, labels=True, **kw)
+    logits = K.carafe_reassemble(gy, ew, eb, bo, labels=False, **kw)
+    want = K.carafe_reassemble_plain(gy, ew, eb, bo, labels=False, **kw)
+    assert labels.shape == (4, H * up, W * up) and bool((labels % 2 == 0).all())
+    assert _margin_mismatches(labels, want) == 0
+    assert _rel_l2(logits, want) <= F32_TOL
+
+
+@pytest.mark.parametrize("cm,nc,up", [(6, 5, 2), (6, 7, 4), (10, 3, 4)])
+def test_f32_carafe_odd_channels(dev, cm, nc, up):
+    """The float32 kernel at a c_mid and nc that are no multiples of 4 (mid
+    zero-padded in the halo, y and the logits one value at a time), on an
+    image that is no multiple of the tile: within 1e-5 of plain; the labels
+    by the margin rule."""
+    rng = np.random.default_rng(50)
+    G = -(-(cm + nc) // 4) * 4
+    gy = _rnd(rng, dev, 3, 11, 13, G)
+    ew, eb = _rnd(rng, dev, 9 * up * up, cm, 3, 3, sc=0.2), _rnd(rng, dev, 9 * up * up)
+    bo = _rnd(rng, dev, nc)
+    kw = dict(c_mid=cm, up=up)
+    want = K.carafe_reassemble_plain(gy, ew, eb, bo, labels=False, **kw)
+    assert _rel_l2(K.carafe_reassemble(gy, ew, eb, bo, labels=False, **kw), want) <= F32_TOL
+    labels = K.carafe_reassemble(gy, ew, eb, bo, labels=True, **kw)
+    assert _margin_mismatches(labels, want) == 0
+
+
 @pytest.mark.parametrize("cm,nc,G,up", [(16, 9, 32, 4), (32, 64, 96, 2), (24, 9, 40, 4),
                                         (48, 96, 144, 2), (16, 14, 32, 4)])
 def test_f32_carafe_plan_is_the_kernels(dev, cm, nc, G, up):
@@ -948,11 +991,36 @@ def test_f32_block_pair(dev, H, C, heads, split):
     before = K.block_pair.launches_f32
     got = K.block_pair(x, p1, p2, **kw)
     assert K.block_pair.launches_f32 == before + 1 and got.dtype == torch.float32
-    assert K.block_pair.grid["smem_bytes"] == K.block_pair_f32_smem(H, H, C, heads, split)
+    smem = K.block_pair_f32_smem(H, H, C, heads, split)
+    grid = K.block_pair.grid
+    print(f"block_pair_f32 @{H}x{H}x{C}: grid {grid}")
+    assert grid["smem_bytes"] == smem
+    # the register cap's CTAs an SM, where shared memory leaves room for them
+    assert grid["ctas_per_sm"] == min(K._PAIR_F32_CTAS, K._SM_SMEM // (smem + 1024)), grid
     chain = fused_cswin_block(fused_cswin_block(x, p1, last_stage=False, **kw), p2,
                               last_stage=False, **kw)
     assert torch.equal(got, chain)
     assert _rel_l2(got, K.block_pair_plain(x, p1, p2, **kw)) <= F32_TOL
+
+
+def test_f32_block_pair_phases(dev):
+    """The float32 pair stopped after its first block's qkv phase gives the
+    chain's LN1 + qkv bit for bit; after the attention and proj phases
+    finite outputs of the block's shape; no stop counts a pair launch."""
+    rng = np.random.default_rng(48)
+    H, C, heads, split = 14, 256, 8, 7
+    p1, p2 = _block_params(rng, dev, C), _block_params(rng, dev, C)
+    x = _rnd(rng, dev, 32, H, H, C)
+    kw = dict(heads=heads, split=split, scale=(C // heads) ** -0.5)
+    before = K.block_pair.launches_f32
+    qkv = K.block_pair_phases(x, p1, p2, stop="qkv", **kw)
+    rows = x.reshape(-1, C)
+    want = K.gemm(K.layernorm(rows, p1.norm1_w, p1.norm1_b), p1.qkv_w, p1.qkv_b)
+    assert torch.equal(qkv, want)
+    for stop in ("attention", "proj"):
+        out = K.block_pair_phases(x, p1, p2, stop=stop, **kw)
+        assert out.shape == x.shape and bool(torch.isfinite(out).all())
+    assert K.block_pair.launches_f32 == before
 
 
 @pytest.mark.parametrize("H,C,heads,split,last", F32_STAGES)
@@ -967,12 +1035,15 @@ def test_f32_block_chain(dev, H, C, heads, split, last):
 
 
 @pytest.mark.parametrize("impl", ["fused", "pallas"])
-def test_f32_model_routes(dev, impl):
-    """The tiny-224 model (full width, depth cut to 2 at every stage, so
-    that stages 2 and 3 pair) at float32 on the kernel route against the
-    plain route: logits within 1e-4, labels by the margin rule, and only
-    float32 instances launched."""
+def test_f32_model_routes(dev, impl, monkeypatch):
+    """The tiny-224 model (full width, depth cut to 2 at every stage) at
+    float32 on the kernel route against the plain route: logits within
+    1e-4, labels by the margin rule, and only float32 instances launched.
+    The routing pairs no geometry at float32 (``PAIR_GEOMETRIES``); with
+    the bf16 route's pairs forced on at float32 the fused route launches
+    the float32 pair too and gives the same logits bit for bit."""
     from cswin_unet_tpu_torch.models import CSwinUnet, CSWinUNet
+    from cswin_unet_tpu_torch.ops.cuda import cswin_block
 
     rng = np.random.default_rng(48)
     torch.manual_seed(0)
@@ -995,8 +1066,16 @@ def test_f32_model_routes(dev, impl):
     assert all(counts[n] == counts[f"{n}_f32"] for n in names), counts
     launched = {n for n in names if counts[n]}
     assert launched == ({"cswin_attention"} if impl == "pallas" else
-                        {"layernorm", "gemm", "stripe_attention", "carafe_reassemble",
-                         "block_pair"}), counts
+                        {"layernorm", "gemm", "stripe_attention", "carafe_reassemble"}), counts
+    if impl == "fused":
+        committed = cswin_block.pair_fuse_ok
+        monkeypatch.setattr(cswin_block, "pair_fuse_ok",
+                            lambda H, W, C, dtype=None: committed(H, W, C, torch.bfloat16))
+        with torch.inference_mode():
+            K.reset_launch_counts()
+            paired = model(x)
+            counts = K.launch_counts()
+        assert counts["block_pair_f32"] > 0 and torch.equal(paired, got), counts
 
 
 # --- the float32 backward (training at TPU.COMPUTE_DTYPE float32) ----------

@@ -1,9 +1,12 @@
 """Data-parallel training on the CPU: two gloo ranks against one process.
 
 Each multi-process case spawns its ranks with ``multiprocessing``'s spawn
-context on a free port, initialises gloo through ``parallel.init_distributed``
-with a 60 s timeout and joins its processes with a deadline, failing rather
-than waiting when one is left. The train CLI runs under
+context, initialises gloo through ``parallel.init_distributed`` with a 60 s
+timeout, the ranks meeting at a ``file://`` store in the case's own output
+directory (no TCP port is picked, released and bound again, which another
+process could take in between), and joins its processes with a deadline,
+failing rather than waiting when one is left; a failed rank's exit code and
+traceback are reported. The train CLI runs under
 ``python -m torch.distributed.run --nproc_per_node 2``.
 
 A data-parallel step is held to one process's step on the ranks'
@@ -27,10 +30,10 @@ import argparse
 import functools
 import os
 import re
-import socket
 import subprocess
 import sys
 import time
+import traceback
 from datetime import timedelta
 
 import numpy as np
@@ -66,21 +69,20 @@ def _rel_l2(got, want):
     return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-12))
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _rank_main(rank, port, fn_name, args, out):
-    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
-                      WORLD_SIZE=str(WORLD), LOCAL_RANK="0")
+def _rank_main(rank, fn_name, args, out):
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(WORLD), LOCAL_RANK="0")
     torch.set_num_threads(1)
-    init_distributed("cpu", timeout=timedelta(seconds=60))
     try:
-        torch.save(globals()[fn_name](rank, *args), os.path.join(out, f"rank{rank}.pt"))
-    finally:
-        destroy_distributed()
+        init_distributed("cpu", timeout=timedelta(seconds=60),
+                         init_method=f"file://{os.path.join(out, 'rendezvous')}")
+        try:
+            torch.save(globals()[fn_name](rank, *args), os.path.join(out, f"rank{rank}.pt"))
+        finally:
+            destroy_distributed()
+    except BaseException:
+        with open(os.path.join(out, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
 
 
 def _run_ranks(fn, out, *args):
@@ -88,8 +90,7 @@ def _run_ranks(fn, out, *args):
     order. Fails when a rank fails or outlives the deadline."""
     os.makedirs(out, exist_ok=True)
     ctx = mp.get_context("spawn")
-    port = _free_port()
-    procs = [ctx.Process(target=_rank_main, args=(r, port, fn.__name__, args, str(out)))
+    procs = [ctx.Process(target=_rank_main, args=(r, fn.__name__, args, str(out)))
              for r in range(WORLD)]
     for p in procs:
         p.start()
@@ -100,8 +101,12 @@ def _run_ranks(fn, out, *args):
     for p in left:
         p.kill()
         p.join(10)
-    assert not left, f"{len(left)} rank(s) still running after {JOIN_S} s"
-    assert [p.exitcode for p in procs] == [0] * WORLD
+    codes = [p.exitcode for p in procs]
+    if left or codes != [0] * WORLD:
+        errs = {r: open(e).read() for r in range(WORLD)
+                if os.path.exists(e := os.path.join(out, f"rank{r}.err"))}
+        pytest.fail(f"{fn.__name__}: exit codes {codes} (None: killed at the {JOIN_S} s "
+                    f"deadline); tracebacks by rank: {errs or 'none written'}")
     return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
             for r in range(WORLD)]
 
@@ -508,10 +513,8 @@ def test_train_cli_under_torchrun_two_ranks(synapse, tmp_path, monkeypatch):
     cfg = work / "tiny.yaml"
     cfg.write_text(TINY_YAML.format(dp=0.0))
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
-           "--nproc_per_node", "2", "--master_addr", "127.0.0.1",
-           "--master_port", str(_free_port()), "-m", "cswin_unet_tpu_torch.train",
-           *_cli("two", cfg)]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m", "cswin_unet_tpu_torch.train", *_cli("two", cfg)]
     res = subprocess.run(cmd, cwd=work, env=env, capture_output=True, text=True,
                          timeout=JOIN_S)
     assert res.returncode == 0, res.stderr[-3000:]

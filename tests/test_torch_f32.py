@@ -79,17 +79,31 @@ def _constants(name: str) -> dict[str, int]:
     return out
 
 
-def test_plan_constants_are_the_sources():
-    g = _constants("gemm_tile.cuh")
-    assert (g["BM"], g["BN"], g["THREADS"], g["BK_F"], g["STAGES_F"], g["LDF"]) == (
-        K._GEMM_BM, K._GEMM_BN, K._GEMM_THREADS, K._GEMM_F32_BK, K._GEMM_F32_STAGES,
-        K._GEMM_F32_LDS)
-    a = _constants("attention_tile.cuh")
-    assert (a["WARPS"], a["QR"]) == (K._ATT_WARPS, K._ATT_F32_QR)
-    c = _constants("carafe.cu")
-    assert (c["F32_THREADS"], c["HALO_PX"]) == (K._CARAFE_F32_THREADS, K._CARAFE_HALO_PX)
-    # the 16-byte rows of the tile: a multiple of 4 floats, 8 rows of B in distinct banks
-    assert K._GEMM_F32_LDS % 4 == 0 and len({r * K._GEMM_F32_LDS % 32 for r in range(8)}) == 8
+@pytest.mark.parametrize("source", ["gemm_tile.cuh", "gemm_f32_tile.cuh", "block_pair.cuh",
+                                    "attention_tile.cuh", "carafe.cu"])
+def test_plan_constants_are_the_sources(source):
+    c = _constants(source)
+    if source == "gemm_tile.cuh":
+        assert (c["BM"], c["BN"], c["THREADS"]) == (K._GEMM_BM, K._GEMM_BN, K._GEMM_THREADS)
+    elif source == "gemm_f32_tile.cuh":  # the float32 tile of the chain and of the pair
+        assert (c["STAGES"], c["BK"], c["TN"]) == (K._F32_STAGES, K._F32_BK, K._F32_TN)
+        # its 16-byte rows: BK + 4 floats, 8 rows of B in distinct banks
+        lds = K._F32_BK + 4
+        assert lds % 4 == 0 and len({r * lds % 32 for r in range(8)}) == 8
+    elif source == "block_pair.cuh":  # the float32 pair: its GEMM phases' tile, its cap
+        phases = (CSRC / "block_phases.cuh").read_text()
+        tile = re.search(r"using GemmF32Smem = gemm_f32::Smem<(\d+), (\d+), false>;", phases)
+        assert tuple(map(int, tile.groups())) == K._PAIR_F32_TILE
+        assert re.search(r"constexpr int BM = (\d+), BN = (\d+);", phases).groups() == \
+            tuple(map(str, K._PAIR_F32_TILE))
+        assert c["F32_CTAS"] == K._PAIR_F32_CTAS
+        assert _constants("block_phases.cuh")["F32_MAX_C"] == K._PAIR_F32_MAX_C
+    elif source == "attention_tile.cuh":
+        assert (c["WARPS"], c["QR"]) == (K._ATT_WARPS, K._ATT_F32_QR)
+    else:
+        assert (c["TW"], c["TH"], c["HALO_PX"], c["F32_VEC"], c["F32_THREADS"]) == (
+            K._CARAFE_TILE, K._CARAFE_TILE, K._CARAFE_HALO_PX, K._CARAFE_F32_VEC,
+            K._CARAFE_F32_THREADS)
 
 
 def _macro_instances(name: str) -> list[tuple[int, int, int]]:
@@ -148,6 +162,76 @@ def test_float32_plans_fit_every_serving_geometry(cfg_name, img):
         assert plan.smem_bytes <= K.SMEM_LIMIT and plan.ctas_per_sm >= 1, (cm, nc, up)
     if img == 384:  # the widest window: stage 3's 24 x 12 = 288 tokens, head dim 24
         assert K.attention_f32_plan(288, 24).ctas_per_sm == 2
+
+
+# (H, W, C, heads, split): the pairable float32 geometries, tiny-224's stages
+# 2 and 3 and base-384's
+PAIR_GEOMETRIES = [(28, 28, 128, 4, 2), (14, 14, 256, 8, 7), (48, 48, 192, 8, 2),
+                   (24, 24, 384, 16, 12)]
+
+
+@pytest.mark.parametrize("H,W,C,heads,split", PAIR_GEOMETRIES)
+def test_block_pair_f32_smem_is_the_sources(H, W, C, heads, split):
+    """The float32 pair's shared memory is the larger of the chain's 64 x
+    64 float32 GEMM tile (``gemm_f32::Smem``: the ring of A and B, rows of
+    BK + 4 floats, or the staged outputs, rows of BN + BN / TN, and a scale
+    a row, 128-byte aligned) and the widest window's float32 attention
+    staging; at tiny-224's stage 3 it leaves room for the F32_CTAS CTAs an
+    SM the register cap is chosen for."""
+    bm, bn = K._PAIR_F32_TILE
+    ring = K._F32_STAGES * 2 * 64 * (K._F32_BK + 4)
+    gemm = -(-4 * (max(ring, bm * (bn + bn // K._F32_TN)) + bm) // 128) * 128
+    assert gemm == K.gemm_f32_smem(bm, bn) == 55552
+    att = K.attention_f32_plan(max(H, W) * split, C // heads).smem_bytes
+    assert K.block_pair_f32_smem(H, W, C, heads, split) == max(gemm, att)
+    assert C <= K._PAIR_F32_MAX_C  # the rows its LN phases take
+    if (H, C) == (14, 256):
+        assert K._PAIR_F32_CTAS * (K.block_pair_f32_smem(H, W, C, heads, split) + 1024) \
+            <= K._SM_SMEM
+
+
+# (c_mid, nc, up): tiny-224's upsample2 and tail (its 9 classes and the
+# continual heads' 12 and 14), base-384's
+CARAFE_F32_SITES = [(32, 64, 2), (16, 9, 4), (16, 12, 4), (16, 14, 4), (48, 96, 2),
+                    (24, 9, 4), (24, 12, 4), (24, 14, 4)]
+
+
+@pytest.mark.parametrize("cm,nc,up", CARAFE_F32_SITES)
+def test_carafe_f32_plan_is_the_layout(cm, nc, up):
+    """``carafe_f32_plan`` at every float32 CARAFE site: 128 threads, a
+    thread one up-position of 8 pixels (up 4) or 2 (up 2); the weight of
+    9·up² rows of 9 x c_mid padded to 4, each an odd number of 16-byte
+    words; two mid halos and one y halo (padded at up 2), the labels'
+    stage of the tile's (8·up)² labels and the biases; every site fits the
+    227 KB of a block, tiny-224's two CTAs an SM."""
+    from cswin_unet_tpu_torch.ops.cuda.carafe_tail import gy_channels
+
+    plan = K.carafe_f32_plan(cm, nc, gy_channels(cm, nc), up)
+    cmp, ncp, pad = -(-cm // 4) * 4, -(-nc // 4) * 4, 4 * (up == 2)
+    assert (plan.threads, plan.pixels, plan.c_pad, plan.halo_stride, plan.y_stride) == (
+        128, 8 if up == 4 else 2, cmp, cmp + pad, ncp + pad)
+    # eight consecutive up-positions' 16-byte words fall in distinct banks
+    assert plan.weight_row in (9 * cmp, 9 * cmp + 4) and plan.weight_row // 4 % 2 == 1
+    assert len({s * plan.weight_row // 4 % 8 for s in range(8)}) == 8
+    r16 = lambda b: -(-b // 16) * 16
+    assert plan.smem_bytes == (9 * up * up * plan.weight_row * 4 + 2 * 100 * (cmp + pad) * 4
+                               + 100 * (ncp + pad) * 4 + (8 * up) ** 2 * 4
+                               + r16(36 * up * up) + r16(4 * nc))
+    assert plan.smem_bytes <= K.SMEM_LIMIT and plan.ctas_per_sm >= 1
+    if cm in (16, 32):
+        assert plan.ctas_per_sm == 2
+
+
+@pytest.mark.parametrize("H,W", [(8, 8), (28, 28), (56, 56), (11, 13), (7, 9), (1, 17)])
+@pytest.mark.parametrize("up", [2, 4])
+def test_carafe_f32_threads_cover_each_item_once(H, W, up):
+    """The float32 kernel's register blocking (``kernels.carafe_f32_items``,
+    the kernel's thread mapping): over the 8x8 tiles, ragged ones included,
+    every (low-res pixel, up-position) is one thread's, once."""
+    items = K.carafe_f32_items(H, W, up)
+    assert len(items) == len(set(items)) == H * W * up * up
+    assert set(items) == {(y, x, s) for y in range(H) for x in range(W)
+                          for s in range(up * up)}
 
 
 def test_attention_plan_walks_every_row_once():

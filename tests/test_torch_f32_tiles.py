@@ -54,7 +54,7 @@ def _namespace_constants(path: Path, namespace: str) -> dict[str, int]:
     return out
 
 
-GEMM_F32 = _namespace_constants(CSRC / "gemm_f32.cu", "gemm_f32")
+GEMM_F32 = _namespace_constants(CSRC / "gemm_f32_tile.cuh", "gemm_f32")
 WGRAD_F32 = _namespace_constants(CSRC / "gemm_f32.cu", "wgrad_f32")
 WGRAD_SUM = _namespace_constants(CSRC / "wgrad_sum.cuh", "wgrad_sum")
 
@@ -86,13 +86,15 @@ def test_constants_are_the_sources():
                       src)
     assert tuple(aliases[name] for *_, name in arms) == K._F32_TILES
     assert all(aliases[name][:2] == (int(bm), int(bn)) for bm, bn, name in arms)
-    # the GEMM ring (or the staged output) and the weight gradient's ring,
-    # as gemm_f32_smem and the wgrad mirror below size them
+    # the GEMM ring (or the staged output; gemm_f32_tile.cuh, the tile the
+    # chain's kernel and the float32 pair share) and the weight gradient's
+    # ring, as gemm_f32_smem and the wgrad mirror below size them
+    tile = (CSRC / "gemm_f32_tile.cuh").read_text()
     assert re.search(r"float A\[STAGES\]\[BM\]\[S::LDS\];"
                      r"\s*float B\[STAGES\]\[S::BR\]\[S::BC\];\s*\} ring;"
-                     r"\s*float C\[BM\]\[S::LDC\];.*?\s*\};\s*float sc\[BM\];", src, re.S)
+                     r"\s*float C\[BM\]\[S::LDC\];.*?\s*\};\s*float sc\[BM\];", tile, re.S)
     assert re.search(r"LDS = BK \+ 4,\s*LDC = BN \+ TX,"
-                     r" BR = KN \? BK : BN, BC = KN \? BN \+ 4 : LDS;", src)
+                     r" BR = KN \? BK : BN, BC = KN \? BN \+ 4 : LDS;", tile)
     assert re.search(r"float D\[STAGES\]\[MS\]\[BN\];\s*float X\[STAGES\]\[MS\]\[BK\];"
                      r"\s*float sc\[STAGES\]\[MS\];", src)
 

@@ -157,7 +157,7 @@ def test_model_with_pairs_matches_jax_model_with_pairs(jax_params, images, monke
     with torch.inference_mode():
         unpaired = model(x)
         port_pair = Spy(cswin_block.fused_block_pair)
-        monkeypatch.setattr(cswin_block, "pair_fuse_ok", lambda H, W, C: True)
+        monkeypatch.setattr(cswin_block, "pair_fuse_ok", lambda H, W, C, dtype=None: True)
         monkeypatch.setattr(cswin_block, "fused_block_pair", port_pair)
         got = model(x)
         labels = model(x, emit="labels")
@@ -197,7 +197,7 @@ def test_pair_routing(monkeypatch, case, geom, impl, train, grad, forced, pairs,
     torch.manual_seed(0)
     model = _port_model(None, torch.float32, impl, embed_dim=16, **geom).train(train)
     pair, single = Spy(cswin_block.fused_block_pair), Spy(CSWinBlock.forward)
-    monkeypatch.setattr(cswin_block, "pair_fuse_ok", lambda H, W, C: forced)
+    monkeypatch.setattr(cswin_block, "pair_fuse_ok", lambda H, W, C, dtype=None: forced)
     monkeypatch.setattr(cswin_block, "fused_block_pair", pair)
     monkeypatch.setattr(CSWinBlock, "forward", single)
     x = torch.from_numpy(np.random.default_rng(2).standard_normal(
