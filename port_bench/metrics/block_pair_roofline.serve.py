@@ -1,0 +1,13 @@
+"""Kernels (``ops/cuda/csrc``): the block_pair family's bound over its device
+time in the traced volumes (``trace.FAMILY_KERNELS["block_pair"]``). The bound sums each
+launch's work (``work.serve_calls``, every chunk at its batch), on the
+route the launch counters show; unread where no route matches them, the
+family did not run or the trace lost records."""
+
+from port_bench import rooflines
+
+UNIT = "%"
+
+
+def read(ctx):
+    return rooflines.share(ctx, "serve_volumes", "block_pair")
