@@ -22,8 +22,9 @@ Layer map (entry point down to the kernels):
   metrics     -> cswin_unet_tpu_torch.metrics (host Dice / HD95: the C++ EDT
                  of utils.native, else scipy) and cswin_unet_tpu_torch.ops.edt
                  (the same on the device)
-  profiling   -> cswin_unet_tpu_torch.utils.profiling (StepTimer,
-                 device_trace, block_and_time)
+  profiling   -> cswin_unet_tpu_torch.utils.profiling (span: the serve,
+                 infer, train and model layers' ranges on torch.profiler;
+                 device_trace, device_busy_ms)
   model       -> cswin_unet_tpu_torch.models (CSwinUnet wrapper, CSWinUNet)
   checkpoint  -> cswin_unet_tpu_torch.utils.checkpoint (the JAX .npz format,
                  JAX <-> torch parameter names and layouts)

@@ -43,6 +43,7 @@ from scipy.ndimage import zoom as nd_zoom
 from ..metrics import volume_metrics
 from ..parallel import devices_for_batch, local_devices, world_size
 from ..utils.nifti import write_nifti
+from ..utils.profiling import span
 
 
 class VolumeInferencer:
@@ -91,19 +92,24 @@ class VolumeInferencer:
     def _chunk(self, x: np.ndarray, start: int):
         """The chunk at ``start``, padded to its bucket, segmented: (real,
         [labels of each part, on its device])."""
-        real = min(self.batch, x.shape[0] - start)
-        size = next(b for b in self._buckets if b >= real)
-        chunk = x[start:start + real]
-        if real < size:  # pad to the bucket's shape
-            pad = np.repeat(chunk[-1:], size - real, axis=0)
-            chunk = np.concatenate([chunk, pad], axis=0)
-        per = size // len(self.devices)
-        preds = []
-        for i, (d, replica) in enumerate(zip(self.devices, self.replicas)):
-            part = torch.from_numpy(chunk[i * per:(i + 1) * per]).to(d, non_blocking=True)
-            with torch.cuda.device(d) if d.type == "cuda" else nullcontext():
-                preds.append(self._forward(part, replica))
-        return real, preds
+        with span("infer.chunk"):
+            real = min(self.batch, x.shape[0] - start)
+            size = next(b for b in self._buckets if b >= real)
+            chunk = x[start:start + real]
+            if real < size:  # pad to the bucket's shape
+                with span("infer.pad"):
+                    pad = np.repeat(chunk[-1:], size - real, axis=0)
+                    chunk = np.concatenate([chunk, pad], axis=0)
+            per = size // len(self.devices)
+            preds = []
+            for i, (d, replica) in enumerate(zip(self.devices, self.replicas)):
+                with span("infer.copy_in"):
+                    part = torch.from_numpy(chunk[i * per:(i + 1) * per]).to(
+                        d, non_blocking=True)
+                with (torch.cuda.device(d) if d.type == "cuda" else nullcontext()), \
+                        span("infer.forward"):
+                    preds.append(self._forward(part, replica))
+            return real, preds
 
     def predict_slices(self, slices: np.ndarray) -> np.ndarray:
         """(N, H, W) float32 at patch size -> (N, H, W) int32 labels.
@@ -111,42 +117,45 @@ class VolumeInferencer:
         Every chunk is queued on the device before the results are copied
         back, keeping at most a few in flight, so host copies overlap the
         device's work."""
-        n = slices.shape[0]
-        out = np.empty((n,) + self.patch, dtype=np.int32)
-        x = np.ascontiguousarray(slices, dtype=np.float32)[..., None]  # NHWC
-        pending = []
+        with span("infer.volume"):
+            n = slices.shape[0]
+            out = np.empty((n,) + self.patch, dtype=np.int32)
+            x = np.ascontiguousarray(slices, dtype=np.float32)[..., None]  # NHWC
+            pending = []
 
-        def drain(item):
-            start, real, preds = item
-            for pred in preds:  # the parts in order; the bucket's padding dropped
-                k = min(pred.shape[0], real)
-                out[start:start + k] = pred[:k].cpu().numpy()
-                start, real = start + k, real - k
+            def drain(item):
+                start, real, preds = item
+                with span("infer.drain"):
+                    for pred in preds:  # the parts in order; the bucket's padding dropped
+                        k = min(pred.shape[0], real)
+                        out[start:start + k] = pred[:k].cpu().numpy()
+                        start, real = start + k, real - k
 
-        start = 0
-        while start < n:
-            real, preds = self._chunk(x, start)
-            pending.append((start, real, preds))
-            if len(pending) > 6:
-                drain(pending.pop(0))
-            start += real
-        for item in pending:
-            drain(item)
-        return out
+            start = 0
+            while start < n:
+                real, preds = self._chunk(x, start)
+                pending.append((start, real, preds))
+                if len(pending) > 6:
+                    drain(pending.pop(0))
+                start += real
+            for item in pending:
+                drain(item)
+            return out
 
     def predict_slices_device(self, slices: np.ndarray) -> torch.Tensor:
         """(N, H, W) float32 at patch size -> (N, H, W) int32 labels kept on
         the device (``device``; the device-metrics path copies no volume
         back)."""
-        n = slices.shape[0]
-        x = np.ascontiguousarray(slices, dtype=np.float32)[..., None]
-        parts = []
-        start = 0
-        while start < n:
-            real, preds = self._chunk(x, start)
-            parts.append(torch.cat([p.to(self.device) for p in preds])[:real])
-            start += real
-        return torch.cat(parts) if len(parts) > 1 else parts[0]
+        with span("infer.volume"):
+            n = slices.shape[0]
+            x = np.ascontiguousarray(slices, dtype=np.float32)[..., None]
+            parts = []
+            start = 0
+            while start < n:
+                real, preds = self._chunk(x, start)
+                parts.append(torch.cat([p.to(self.device) for p in preds])[:real])
+                start += real
+            return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
 def _indexed(device: torch.device) -> torch.device:

@@ -82,6 +82,7 @@ from ..ops.cuda.kernels import needs_grad
 from ..ops.dropout import Drop, draw_keys, dropout
 from ..ops.precision import conv2d
 from ..parallel import process_shard_info, rank_rows, world_size
+from ..utils.profiling import span
 
 IMPLS = ("fused", "pallas", "plain")
 
@@ -369,14 +370,16 @@ class CSWinUNet(nn.Module):
 
         skips = []
         for s in range(4):
-            x = self._run_stage(getattr(self, f"stage{s + 1}"), x, generator)
+            with span(f"model.stage{s + 1}"):
+                x = self._run_stage(getattr(self, f"stage{s + 1}"), x, generator)
             if s < 3:
                 skips.append(x)
                 x = getattr(self, f"merge{s + 1}")(x)
         x = layer_norm(x, self.norm)
 
         for s in range(3, -1, -1):
-            x = self._run_stage(getattr(self, f"stage_up{s + 1}"), x, generator)
+            with span(f"model.stage_up{s + 1}"):
+                x = self._run_stage(getattr(self, f"stage_up{s + 1}"), x, generator)
             if s > 0:
                 up = getattr(self, f"upsample{s + 1}")
                 x = up(x, fused=fused and self.resos[s] >= 28)
@@ -384,13 +387,14 @@ class CSWinUNet(nn.Module):
                 x = linear(x, getattr(self, f"concat_linear{s + 1}"))
         x = layer_norm(x, self.norm_up)
 
-        tail = (*self.upsample1.weights(), self.output.weight)
-        if fused and emit == "labels":
-            return carafe_tail_argmax(x, *tail, up_factor=4)
-        if fused:
-            logits = carafe_tail(x, *tail, up_factor=4)
-        else:
-            logits = carafe_with_classifier(x, *tail, up_factor=4)
-        if emit == "labels":
-            return logits.float().argmax(-1).to(torch.int32)
-        return logits.float()
+        with span("model.tail"):
+            tail = (*self.upsample1.weights(), self.output.weight)
+            if fused and emit == "labels":
+                return carafe_tail_argmax(x, *tail, up_factor=4)
+            if fused:
+                logits = carafe_tail(x, *tail, up_factor=4)
+            else:
+                logits = carafe_with_classifier(x, *tail, up_factor=4)
+            if emit == "labels":
+                return logits.float().argmax(-1).to(torch.int32)
+            return logits.float()

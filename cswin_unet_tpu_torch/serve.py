@@ -11,6 +11,15 @@ CUDA device:
 ``--checkpoint`` takes the JAX package's ``.npz`` files. The server warms the
 forward once before the first volume; each volume prints one JSON stats
 line. Watch mode moves inputs to ``done/`` (or ``failed/`` with the error).
+
+``--trace_dir DIR`` processes the first volume after the warm-up under
+``torch.profiler`` (``utils.profiling.device_trace``) and writes
+``DIR/trace.json``, a Chrome trace (Perfetto, ``chrome://tracing``) that
+holds the program's spans (``serve.read``, ``serve.segment`` with
+``serve.prepare``, the inferencer's ``infer.*`` and ``serve.finish``, then
+``serve.write``), the model's ``model.*`` stages, torch's ops and, on a
+card, the kernels and copies, with each span drawn over the device work it
+launched. That volume's stats line includes the profiler's cost.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from scipy.ndimage import zoom as nd_zoom
 
 from .eval.inference import VolumeInferencer
 from .utils.nifti import write_nifti
+from .utils.profiling import device_trace, span
 
 VOLUME_SUFFIXES = (".npy.h5", ".h5", ".npz", ".npy")
 
@@ -56,13 +66,17 @@ def read_volume(path: str) -> np.ndarray:
 
 
 class VolumeServer:
-    """Warm-once volume segmentation server on one device."""
+    """Warm-once volume segmentation server on one device. With
+    ``trace_dir`` the first volume ``process_file`` takes is traced into
+    ``<trace_dir>/trace.json`` (``device_trace``)."""
 
     def __init__(self, model: torch.nn.Module, *, device: torch.device | str,
                  img_size: int = 224, batch_slices: int = 32,
-                 class_indices=None, z_spacing: int = 1):
+                 class_indices=None, z_spacing: int = 1,
+                 trace_dir: str | None = None):
         self.patch = (img_size, img_size)
         self.z_spacing = z_spacing
+        self.trace_dir = trace_dir
         self.device = torch.device(device)
         self.inferencer = VolumeInferencer(
             model, device=self.device, patch_size=self.patch,
@@ -80,29 +94,36 @@ class VolumeServer:
         d, x, y = volume.shape
         ph, pw = self.patch
         needs_zoom = (x, y) != (ph, pw)
-        with ThreadPoolExecutor(8) as pool:
-            if needs_zoom:
-                slices = np.stack(list(pool.map(
-                    lambda s: nd_zoom(s, (ph / x, pw / y), order=3), volume
-                ))).astype(np.float32)
-            else:
-                slices = volume.astype(np.float32)
+        with span("serve.segment"), ThreadPoolExecutor(8) as pool:
+            with span("serve.prepare"):
+                if needs_zoom:
+                    slices = np.stack(list(pool.map(
+                        lambda s: nd_zoom(s, (ph / x, pw / y), order=3), volume
+                    ))).astype(np.float32)
+                else:
+                    slices = volume.astype(np.float32)
             preds = self.inferencer.predict_slices(slices)
-            if needs_zoom:
-                preds = np.stack(list(pool.map(
-                    lambda s: nd_zoom(s, (x / ph, y / pw), order=0), preds
-                )))
-        return preds.astype(np.int32)
+            with span("serve.finish"):
+                if needs_zoom:
+                    preds = np.stack(list(pool.map(
+                        lambda s: nd_zoom(s, (x / ph, y / pw), order=0), preds
+                    )))
+                return preds.astype(np.int32)
 
     def process_file(self, path: str, output_dir: str) -> dict:
         """Segment one volume file; write <case>_pred.nii.gz; return stats."""
+        if self.trace_dir is not None:
+            trace_dir, self.trace_dir = self.trace_dir, None
+            with device_trace(trace_dir):
+                return self.process_file(path, output_dir)
         case = os.path.basename(path)
         for suf in VOLUME_SUFFIXES:
             if case.endswith(suf):
                 case = case[: -len(suf)]
                 break
         t0 = time.perf_counter()
-        vol = read_volume(path)
+        with span("serve.read"):
+            vol = read_volume(path)
         t_read = time.perf_counter() - t0
         t0 = time.perf_counter()
         pred = self.segment(vol)
@@ -110,7 +131,8 @@ class VolumeServer:
         os.makedirs(output_dir, exist_ok=True)
         out_path = os.path.join(output_dir, f"{case}_pred.nii.gz")
         t0 = time.perf_counter()
-        write_nifti(out_path, pred.astype(np.float32), (1, 1, self.z_spacing))
+        with span("serve.write"):
+            write_nifti(out_path, pred.astype(np.float32), (1, 1, self.z_spacing))
         t_write = time.perf_counter() - t0
         return {
             "case": case,
@@ -242,6 +264,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(continual-learning task heads)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to serve on")
+    p.add_argument("--trace_dir", type=str, default=None, metavar="DIR",
+                   help="trace the first volume after the warm-up into DIR/trace.json")
     p.add_argument("--opts", default=None, nargs="+")
     return p
 
@@ -268,7 +292,7 @@ def main(argv=None) -> None:
     server = VolumeServer(
         model, device=device, img_size=args.img_size,
         batch_slices=args.batch_slices, class_indices=args.class_indices,
-        z_spacing=args.z_spacing)
+        z_spacing=args.z_spacing, trace_dir=args.trace_dir)
     warm_s = server.warmup()
     print(json.dumps({"ready": True, "warmup_s": round(warm_s, 2),
                       "checkpoint": args.checkpoint,

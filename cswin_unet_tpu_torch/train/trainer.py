@@ -45,6 +45,7 @@ from ..parallel import multihost_barrier, process_shard_info, wrap_ddp
 from ..utils.checkpoint import (TRAIN_STATE, restore_train_state, save_checkpoint,
                                 save_train_state)
 from ..utils.logging_utils import MetricBuffer, SummaryWriter, setup_logging
+from ..utils.profiling import span
 
 
 def poly_lr(step: int, base_lr: float, max_iterations: int,
@@ -83,17 +84,23 @@ def make_train_step(model, optimizer, scheduler, num_classes: int, *,
 
     def step(image: torch.Tensor, label: torch.Tensor,
              generator: torch.Generator | None) -> dict:
-        optimizer.zero_grad(set_to_none=True)
-        if device_augment:
-            image, label = augment_batch(image, label, generator)
-        logits = model(image, generator=generator)
-        total, aux = loss_fn(logits, label)
-        total.backward()
-        optimizer.step()
-        scheduler.step()
-        out = {k: v.detach() for k, v in aux.items()}
-        out["pred_vis"] = logits[min(1, logits.shape[0] - 1)].detach().argmax(-1)
-        return out
+        with span("train.step"):
+            optimizer.zero_grad(set_to_none=True)
+            if device_augment:
+                with span("train.augment"):
+                    image, label = augment_batch(image, label, generator)
+            with span("train.forward"):
+                logits = model(image, generator=generator)
+            with span("train.loss"):
+                total, aux = loss_fn(logits, label)
+            with span("train.backward"):
+                total.backward()
+            with span("train.optimizer"):
+                optimizer.step()
+                scheduler.step()
+            out = {k: v.detach() for k, v in aux.items()}
+            out["pred_vis"] = logits[min(1, logits.shape[0] - 1)].detach().argmax(-1)
+            return out
 
     return step
 

@@ -1,15 +1,16 @@
-"""Profiling: a steady-state step timer, device traces, a synchronised
-best-of-N timer and the device-busy reading of the port's kernels.
+"""Profiling: the program's spans, device traces and the device-busy
+reading of the port's kernels.
 
-Counterpart of ``cswin_unet_tpu.utils.profiling``: ``StepTimer`` has the
-same semantics (host clock between ticks, the first ``skip_first``
-intervals dropped, a rolling window); ``device_trace`` wraps
-``torch.profiler`` where the JAX package wraps ``jax.profiler`` and writes a
-Chrome trace (``chrome://tracing``, Perfetto); ``block_and_time`` waits for
-the result's device (``torch.cuda.synchronize``) where JAX blocks on the
-array. ``device_busy_ms`` (the port's own) reads the union of a call's
-device intervals from ``torch.profiler``, held to the kernels' launch
-counters.
+``span(name)`` marks a stretch of the program's host work on
+``torch.profiler``: while a profiler records (``device_trace``, or any
+``torch.profiler.profile``) it is a ``record_function`` range, on the same
+clock as the kernel and copy records, and a Chrome trace also draws it over
+the device work it launched; otherwise it is one shared no-op, so the
+program pays one check a span. Names are ``<layer>.<part>`` (``SPAN_NAMES``).
+``device_trace`` wraps ``torch.profiler`` where the JAX package wraps
+``jax.profiler`` and writes a Chrome trace (``chrome://tracing``,
+Perfetto). ``device_busy_ms`` reads the union of a call's device intervals
+from ``torch.profiler``, held to the kernels' launch counters.
 """
 
 from __future__ import annotations
@@ -17,38 +18,33 @@ from __future__ import annotations
 import contextlib
 import os
 import re
-import time
 
 import torch
 
+# Every span the program opens, by layer: the server (serve.py), the
+# inferencer (eval/inference.py), the train step (train/trainer.py) and the
+# model's stages and CARAFE tail (models/cswin_unet.py).
+SPAN_NAMES = (
+    "serve.read", "serve.segment", "serve.prepare", "serve.finish", "serve.write",
+    "infer.volume", "infer.chunk", "infer.pad", "infer.copy_in", "infer.forward",
+    "infer.drain",
+    "train.step", "train.augment", "train.forward", "train.loss", "train.backward",
+    "train.optimizer",
+    "model.stage1", "model.stage2", "model.stage3", "model.stage4",
+    "model.stage_up4", "model.stage_up3", "model.stage_up2", "model.stage_up1",
+    "model.tail",
+)
 
-class StepTimer:
-    """Rolling steady-state step timing (skips warm-up steps)."""
+_OFF = contextlib.nullcontext()
 
-    def __init__(self, skip_first: int = 2, window: int = 50):
-        self.skip_first = skip_first
-        self.window = window
-        self._count = 0
-        self._times: list[float] = []
-        self._last: float | None = None
 
-    def tick(self) -> None:
-        now = time.perf_counter()
-        if self._last is not None:
-            self._count += 1
-            if self._count > self.skip_first:
-                self._times.append(now - self._last)
-                if len(self._times) > self.window:
-                    self._times.pop(0)
-        self._last = now
-
-    @property
-    def mean_step_s(self) -> float:
-        return sum(self._times) / len(self._times) if self._times else float("nan")
-
-    def throughput(self, items_per_step: int) -> float:
-        s = self.mean_step_s
-        return items_per_step / s if s == s and s > 0 else float("nan")
+def span(name: str):
+    """``with span("infer.chunk"): ...``: a ``record_function`` range named
+    ``name`` while a profiler records, else a shared no-op that creates
+    nothing and reads no clock."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
@@ -67,29 +63,6 @@ def device_trace(logdir: str):
         if cuda:
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-def _sync(out) -> None:
-    """Wait for every CUDA device that holds a tensor of ``out``."""
-    tensors = out if isinstance(out, (list, tuple)) else (
-        list(out.values()) if isinstance(out, dict) else [out])
-    for d in {t.device for t in tensors if isinstance(t, torch.Tensor)}:
-        if d.type == "cuda":
-            torch.cuda.synchronize(d)
-
-
-def block_and_time(fn, *args, iters: int = 3, **kwargs) -> tuple[float, object]:
-    """Best-of-N wall time of ``fn`` with its result's device synchronised
-    (the first call, a warm-up, excluded)."""
-    out = fn(*args, **kwargs)
-    _sync(out)
-    best = float("inf")
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        _sync(out)
-        best = min(best, time.perf_counter() - t0)
-    return best, out
 
 
 # The port's __global__ functions (each kernel wrapper launches one of them

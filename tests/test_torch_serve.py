@@ -144,6 +144,31 @@ def test_cli_serves_a_checkpoint_on_cpu(port_model, tmp_path, capsys):
     assert os.path.exists(tmp_path / "out" / "v_pred.nii.gz")
 
 
+def test_cli_traces_the_first_volume(port_model, tmp_path, capsys):
+    """``--trace_dir``: the first volume after the warm-up, read, segmented
+    and written, is in ``trace.json`` with its spans; the second is not."""
+    cfg = tmp_path / "small.yaml"
+    cfg.write_text("MODEL:\n  CSWIN:\n    EMBED_DIM: 16\n    DEPTH: [1, 1, 1, 1]\n"
+                   "    NUM_HEADS: [2, 2, 4, 8]\n    SPLIT_SIZE: [1, 2, 2, 1]\n"
+                   "TPU:\n  COMPUTE_DTYPE: float32\n")
+    ck = save_checkpoint(str(tmp_path / "ck.npz"), port_model.cswin_unet.state_dict())
+    vols = [tmp_path / "a.npy", tmp_path / "b.npy"]
+    for i, vol in enumerate(vols):
+        np.save(vol, np.random.default_rng(6 + i).normal(size=(3, 32, 32)).astype(np.float32))
+    main(["--cfg", str(cfg), "--checkpoint", ck, "--img_size", "32",
+          "--num_classes", "4", "--device", "cpu", "--batch_slices", "8",
+          "--output_dir", str(tmp_path / "out"), "--trace_dir", str(tmp_path / "trace"),
+          *map(str, vols)])
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x.get("case") for x in lines[1:]] == ["a", "b"]
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+    names = [ev.get("name") for ev in events]
+    for span in ("serve.read", "serve.segment", "serve.prepare", "infer.volume",
+                 "infer.chunk", "infer.pad", "infer.copy_in", "infer.forward",
+                 "infer.drain", "model.tail", "serve.finish", "serve.write"):
+        assert names.count(span) == 1, span
+
+
 def test_cli_cuda_without_gpu_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
