@@ -1021,11 +1021,14 @@ def dropout_cases(tally: KernelTally, dev, rnd, x, res, h, dp, hw: int, C: int,
 
 
 def check_attention_bwd_smem() -> None:
-    """``stripe_attention_bwd``'s shared memory, held to the wrapper's count
-    at every window this run gives the kernel: tiny-224's 56, 98 and 49
-    tokens at head dim 32, base-384's 96, 288 and 144 (beyond one key block)
-    at 24; and the float32 instance's plan (both kernels' shared memory, the
-    row and key split) held to ``kernels.stripe_attention_bwd_f32_plan``."""
+    """``stripe_attention_bwd``'s whole-window shared memory, held to the
+    wrapper's count at every window this run gives the backward: tiny-224's
+    56, 98 and 49 tokens at head dim 32, base-384's 96, 288 and 144 at 24
+    (0 past one key block, where the whole-window kernel takes nothing); the
+    bf16 plan (the route, the split's two kernels' shared memory,
+    its row and key blocks) held to ``kernels.stripe_attention_bwd_plan``;
+    and the float32 instance's plan (both kernels' shared memory, the row
+    and key split) held to ``kernels.stripe_attention_bwd_f32_plan``."""
     from cswin_unet_tpu_torch.ops.cuda import build
     from cswin_unet_tpu_torch.ops.cuda import kernels as K
 
@@ -1035,6 +1038,13 @@ def check_attention_bwd_smem() -> None:
         print(f"[kernel] stripe_attention_bwd shared memory at L={L} d={d}: kernel {got} "
               f"B, wrapper {want} B {'ok' if got == want else 'FAIL'}", flush=True)
         require(got == want, f"stripe_attention_bwd smem at L={L} d={d}: {got} != {want}")
+        bp = K.stripe_attention_bwd_plan(L, d)
+        want = ((1, bp.rows_smem, bp.keys_smem, bp.row_block, bp.key_tiles_per_cta)
+                if bp.split else (0,))
+        got = tuple(lib.cswin_stripe_attention_bwd_plan(L, d, w) for w in range(len(want)))
+        print(f"[kernel] stripe_attention_bwd plan at L={L} d={d}: kernel {got}, wrapper "
+              f"{want} {'ok' if got == want else 'FAIL'}", flush=True)
+        require(got == want, f"stripe_attention_bwd plan at L={L} d={d}: {got} != {want}")
         # the float32 instance's two kernels: shared memory, rows of a row-kernel
         # CTA, key blocks of a key-kernel CTA
         plan = K.stripe_attention_bwd_f32_plan(L, d)

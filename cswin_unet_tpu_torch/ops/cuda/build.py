@@ -45,6 +45,9 @@ _SIGNATURES = {
     "cswin_stripe_attention_bwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                    _I, _I, _F, _P),
     "cswin_stripe_attention_bwd_smem": (_I, _I),
+    "cswin_stripe_attention_bwd_split": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                         _I, _I, _I, _F, _P),
+    "cswin_stripe_attention_bwd_plan": (_I, _I, _I),
     "cswin_carafe": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "cswin_edt_pass": (_P, _P, _LL, _I, _LL, _P),
     "cswin_edt_pass_lines": (_I, _I),
@@ -84,6 +87,7 @@ _SIGNATURES = {
 
 # Entry points that return something other than a cudaError_t (a count).
 _RESTYPES = {"cswin_stripe_attention_bwd_smem": ctypes.c_longlong,
+             "cswin_stripe_attention_bwd_plan": ctypes.c_longlong,
              "cswin_stripe_attention_f32_smem": ctypes.c_longlong,
              "cswin_stripe_attention_bwd_f32_smem": ctypes.c_longlong}
 

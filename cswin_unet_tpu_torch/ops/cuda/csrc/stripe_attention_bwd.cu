@@ -14,7 +14,7 @@
 // zero padded at the window's borders, added in float32 before dV's one
 // rounding; per-window float32 partials of the LePE weight gradient
 // dW[tap][c] = Σ_t dO[t][c]·V[t + tap][c] and of the bias gradient
-// Σ_t dO[t][c] (the wrapper sums them over windows, one reduction). dQ, dK
+// Σ_t dO[t][c] (the wrapper sums them, one reduction). dQ, dK
 // and dV land in bf16 at the branch's channel offset of the q, k and v thirds of a
 // (B, H, W, 3C) dqkv buffer, so both branches of a block fill one buffer
 // that feeds the qkv weight-gradient and dX products directly.
@@ -24,41 +24,71 @@
 //   _attn_windows_bwd (:617-661) and _lepe_windows_bwd (:753-800). The port
 //   has one NHWC layout, so there is no transposed (xt) copy of the vertical
 //   branch and no column un-split of dW_qkv afterwards.
-// Bound on the H100: many tiny problems (L = 56 at the trained stages, d =
-//   32): five L x L x d products a (window, head) on 14·d bytes a token, so
-//   bytes bound the card's time, and latency and launch shape set the
-//   kernel's.
-// Design (tensor cores; the roundings of the function, not of its sums),
-//   after the forward tile (attention_tile.cuh):
+// Bound on the H100: five L x L x d products a (window, head) on 14·d
+//   bytes a token. base-384 trains at L = 96, 96, 288 and 144 (d = 24),
+//   tiny-224 at 56, 56, 98 and 49 (d = 32): bytes bound the card's time
+//   (2.17 ms a base-384 bs-24 step), so latency, occupancy and the launch
+//   shape set the kernel's.
+// Route by L (the wrapper's stripe_attention_bwd_plan mirrors it): a window
+//   of up to one key block (L <= KB = 64) takes one CTA a (window, head);
+//   a longer one a row kernel and then a key kernel on the stream, each
+//   many CTAs a (window, head) with shared memory that grows with L·d only.
+//   All three are stripe_attention_bwd_kernel instances (<D> the whole
+//   window, <D, Part> the split's), the name a trace reads as the attention
+//   family. Every sum has a fixed order, no atomics: two calls give the
+//   same bits.
+// The whole window (tensor cores, after the forward tile attention_tile.cuh;
+//   the roundings of the function, not of its sums):
+//   * up to one key block of L <= KB = 64 tokens, the window's keys all in
+//     one pass: no statistics pass, nothing accumulated across blocks.
 //   * staging: q, k, v and dO of the (window, head) land in shared memory
 //     as bf16 through 16-byte cp.async copies, rows padded for ldmatrix, L
 //     padded to a multiple of 16 with zero rows and D = 24 to a depth of 32
 //     with zero columns; q is then scaled and rounded to bf16 in place (the
 //     q·scale that both S and dK use).
 //   * each warp owns 16-query slabs. S = Q·Kᵀ and dP = dO·Vᵀ run on
-//     mma.sync m16n8k16 (bf16 in, float32 out) over a key block of 64 keys,
+//     mma.sync m16n8k16 (bf16 in, float32 out) over the window's keys,
 //     padded keys masked to -inf; the softmax, the row sum of dP∘P and dS
 //     run on the accumulator fragments (a row lives in one quad of lanes:
 //     two shuffles a reduction); P = exp(s - max) · (1 / sum), one division
-//     a row (no rounding point of the function lies there). dQ = dS_b·K takes dS_b repacked from C to
-//     A fragments and K through ldmatrix.trans, in registers.
-//   * dK and dV contract over queries, which span warps: P_b and dS_b of
-//     the key block go to shared memory as bf16 tiles (LP x 64, 18 KB at L
-//     = 56; no L x L float32 tile), and after one barrier each warp owns
+//     a row (no rounding point of the function lies there). dQ = dS_b·K
+//     takes dS_b repacked from C to A fragments and K through
+//     ldmatrix.trans, in registers.
+//   * dK and dV contract over queries, which span warps: P_b and dS_b go
+//     to shared memory as bf16 tiles (LP x 64, 18 KB at L = 56; no L x L
+//     float32 tile), and after one barrier each warp owns
 //     16-key slabs, dK = dS_bᵀ·Q and dV = P_bᵀ·dO with both operands through
 //     ldmatrix.trans; the LePE transpose conv is added in the accumulator
 //     layout before dV's rounding. dQ, dK and dV leave through a per-warp
 //     staging tile in 16-byte row chunks (whole sectors; stores straight
 //     from the fragments write eight rows' half sectors).
-//   * windows longer than one key block (base-384's 288 tokens) take, per
-//     query slab, three passes over the key blocks for the row max, the sum
-//     and rowsum(dP∘P) (kept in shared memory), then one pass per key block
-//     as above, dQ accumulated in shared memory across blocks: P is the same
-//     rounding of the same softmax, with no online rescale. smem_bytes(L)
-//     fits 227 KB up to L = 288 at d = 32, 304 at d = 24.
 //   * the LePE weight and bias partials come last: a lane per (channel pair,
 //     token group of 8) with all ten sums in flight, the groups added by
 //     shuffles.
+// The split (L > KB), after the float32 instance's two kernels:
+//   * rows (ROW_PART, row_part): a CTA takes about ROW_PART_TARGET query rows
+//     with k and v of the window staged once; a warp takes RG = 8 rows at a
+//     time, their q·scale and dO as B fragments from device memory, and
+//     computes Sᵀ = K·(q·scale)ᵀ with keys as the mma's 16 rows, so that the
+//     scores of 8 rows over up to SPLIT_TILES 16-key tiles fit in registers:
+//     S once, the max, sum and P from it, rowsum(dP∘P) and then dS from dPᵀ
+//     = V·dOᵀ a tile at a time, dQᵀ = Kᵀ·dS_bᵀ with dS_b moved to B
+//     fragments by movmatrix. The rows' max, 1 / sum and rowsum(dP∘P) go to
+//     a float32 buffer of the wrapper.
+//   * keys (KEY_PART, key_part): a CTA takes up to KEY_PART_TILES tiles of 16
+//     keys, a warp each, q·scale, dO and the statistics of the window staged
+//     once, k and v of its keys as A fragments in registers; it walks the
+//     rows in 16-row steps, recomputes Sᵀ and dPᵀ, forms P and dS from the
+//     statistics, P_b and dS_b straight into A fragments, and adds dV =
+//     P_bᵀ·dO and dK = dS_bᵀ·(q·scale) in registers; dV gets the LePE
+//     transpose conv; the LePE partials of its keys take a row (window, key
+//     CTA) of the wrapper's buffer.
+//   * at L = 288, d = 24 (base-384's stage 3): rows 48,640 B, four CTAs an
+//     SM (127 registers); keys 58,080 B, three CTAs of six warps (96
+//     registers); 3 + 3 CTAs a (window, head), where one CTA holding the
+//     whole window would take 217 KB, one CTA an SM, and compute S four
+//     times in passes over its key blocks. S is computed once in each
+//     kernel, dP twice in the row kernel and once in the key kernel.
 //
 // The float32 instance (cswin_stripe_attention_bwd_f32, TPU.COMPUTE_DTYPE
 // float32) computes the same function with nothing rounded: S = q·scale·Kᵀ,
@@ -120,18 +150,113 @@ __host__ __device__ constexpr int row_stride() {
   return (D + 15) / 16 * 16 + 8;
 }
 
-// Shared memory of one (window, head); kernels.stripe_attention_bwd_smem
-// mirrors it: q, k, v, dO; P_b and dS_b of a key block; each warp's two
-// 16-row output tiles; the LePE taps; beyond one key block also the row
-// statistics and the dQ accumulators.
+// Shared memory of the whole-window kernel at a window of L tokens, 0 past
+// one key block (the kernel takes no such window);
+// kernels.stripe_attention_bwd_smem mirrors it: q, k, v, dO; P_b and dS_b;
+// each warp's two 16-row output tiles; the LePE taps.
 template <int D>
 __host__ __device__ constexpr size_t smem_bytes(int L) {
   const int LP = (L + 15) / 16 * 16;
-  return (size_t)4 * LP * row_stride<D>() * sizeof(bf16) +
-         (size_t)2 * LP * LDP * sizeof(bf16) +
-         (size_t)WARPS * 2 * 16 * row_stride<D>() * sizeof(bf16) +
-         (size_t)9 * D * sizeof(float) +
-         (LP > KB ? (size_t)LP * (3 + D) * sizeof(float) : 0);
+  return LP > KB ? 0
+                 : (size_t)4 * LP * row_stride<D>() * sizeof(bf16) +
+                       (size_t)2 * LP * LDP * sizeof(bf16) +
+                       (size_t)WARPS * 2 * 16 * row_stride<D>() * sizeof(bf16) +
+                       (size_t)9 * D * sizeof(float);
+}
+
+// The split route: windows longer than one key block (L > KB) go to a row
+// kernel and a key kernel, many CTAs a (window, head) each.
+constexpr int RG = 8;            // query rows of a row-kernel warp's group: the n of Sᵀ = K·Qᵀ
+constexpr int ROW_PART_TARGET = 96;  // query rows a row-kernel CTA takes, about
+constexpr int KEY_TILE = 16;     // keys of a key-kernel warp: the m of Sᵀ
+constexpr int KEY_PART_TILES = 6;    // key tiles a key-kernel CTA takes, at most (a warp each)
+constexpr int SPLIT_TILES = 19;  // key tiles of a row group's scores in registers: L <= 304
+
+// The split route's two kernels.
+enum BwdPart : int { ROW_PART = 1, KEY_PART = 2 };
+
+struct BwdArgs {
+  const bf16* qkv;
+  const bf16* dout;
+  const bf16* lepe_w;
+  bf16* dqkv;
+  float* dl_part;
+  float* stats;  // the split route's row statistics: (windows, heads, 3, LP)
+  int H, W, C, ch_off, cb, h_sp, w_sp;
+  float scale;
+  int part;      // rows of a row-kernel CTA, or key tiles of a key-kernel CTA
+};
+
+// Query rows of a row-kernel CTA at a window of L tokens: the window in
+// ceil(L / ROW_PART_TARGET) near-equal parts, each whole row groups of every
+// warp.
+__host__ __device__ constexpr int split_rows_per_cta(int L) {
+  return ((L + (L + ROW_PART_TARGET - 1) / ROW_PART_TARGET - 1) /
+              ((L + ROW_PART_TARGET - 1) / ROW_PART_TARGET) +
+          RG * WARPS - 1) / (RG * WARPS) * (RG * WARPS);
+}
+
+// Key tiles of a key-kernel CTA: the window's tiles in ceil(tiles /
+// KEY_PART_TILES) near-equal parts.
+__host__ __device__ constexpr int split_key_tiles_per_cta(int L) {
+  return ((L + KEY_TILE - 1) / KEY_TILE +
+          ((L + KEY_TILE - 1) / KEY_TILE + KEY_PART_TILES - 1) / KEY_PART_TILES - 1) /
+         (((L + KEY_TILE - 1) / KEY_TILE + KEY_PART_TILES - 1) / KEY_PART_TILES);
+}
+
+// Shared memory of the row kernel: k and v of the window, and per warp its
+// row group's dQ on the way out.
+template <int D>
+__host__ __device__ constexpr size_t smem_rows_split(int L) {
+  return (size_t)2 * ((L + 15) / 16 * 16) * row_stride<D>() * sizeof(bf16) +
+         (size_t)WARPS * RG * row_stride<D>() * sizeof(bf16);
+}
+
+// Shared memory of the key kernel: q·scale and dO of the window, the rows'
+// statistics, the LePE taps, and per warp its key tile's dK or dV on the
+// way out.
+template <int D>
+__host__ __device__ constexpr size_t smem_keys_split(int L) {
+  return (size_t)2 * ((L + 15) / 16 * 16) * row_stride<D>() * sizeof(bf16) +
+         (size_t)3 * ((L + 15) / 16 * 16) * sizeof(float) + (size_t)9 * D * sizeof(float) +
+         (size_t)split_key_tiles_per_cta(L) * KEY_TILE * row_stride<D>() * sizeof(bf16);
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+// An 8x8 b16 matrix held a row a quad of lanes (lane l: row l / 4, columns
+// 2(l % 4) and 2(l % 4) + 1), transposed across the warp.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// Sum and max over the eight lanes of a quad position (lanes q4, q4 + 4, ...).
+__device__ __forceinline__ float column_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
+}
+__device__ __forceinline__ float column_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
+}
+
+// The rows [L, LP) of a staged (LP, DP) tile zeroed up to the products'
+// depth, and the depth's padding [D, DZ) of the rows below L.
+template <int D>
+__device__ __forceinline__ void zero_padding(bf16* T, int L, int LP) {
+  constexpr int DP = row_stride<D>(), DZ = (D + 15) / 16 * 16;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = threadIdx.x; i < (LP - L) * (DZ / 8); i += blockDim.x)
+    *reinterpret_cast<uint4*>(T + (L + i / (DZ / 8)) * DP + i % (DZ / 8) * 8) = zero;
+  if constexpr (DZ > D)
+    for (int t = threadIdx.x; t < L; t += blockDim.x)
+      *reinterpret_cast<uint4*>(T + t * DP + D) = zero;
 }
 
 template <int D>
@@ -148,19 +273,15 @@ stripe_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict
   constexpr int CH = D / 8;          // 16-byte chunks of a token's head slice
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int L = h_sp * w_sp, LP = (L + 15) & ~15;
-  const int nt = LP / 8, nkb = (nt + KT - 1) / KT;
+  const int nt = LP / 8;    // n8 key tiles of the window, at most KT
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* Ks = Qs + LP * DP;
   bf16* Vs = Ks + LP * DP;
   bf16* Os = Vs + LP * DP;  // dO
-  bf16* Pb = Os + LP * DP;  // P_b of the key block, LP x KB
-  bf16* Sb = Pb + LP * LDP; // dS_b of the key block
+  bf16* Pb = Os + LP * DP;  // P_b, LP x KB
+  bf16* Sb = Pb + LP * LDP; // dS_b
   bf16* Ow = Sb + LP * LDP; // per warp: two 16-row output tiles on their way out
   float* Tw = reinterpret_cast<float*>(Ow + WARPS * 2 * 16 * DP);  // LePE taps, 9 x D
-  float* Mx = Tw + 9 * D;   // beyond one key block: row max, 1 / sum, rowsum(dP∘P)
-  float* Iv = Mx + LP;
-  float* Dl = Iv + LP;
-  float* Qa = Dl + LP;      // and the dQ accumulators, LP x D
 
   const int n_wh = H / h_sp, n_ww = W / w_sp;
   const int win = blockIdx.x;
@@ -225,23 +346,23 @@ stripe_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict
     for (int kk = 0; kk < DK; ++kk)
       ldsm_x4(a[kk], T + (r0 + (lane & 15)) * DP + kk * 16 + (lane >> 4) * 8);
   };
-  // acc = A·Tᵀ over key block kb (T = K for the scores, V for dP); n8 tiles
-  // past the window's padded length stay 0.
-  const auto block_product = [&](const uint32_t (&a)[DK][4], const bf16* T, int kb,
+  // acc = A·Tᵀ over the window's keys (T = K for the scores, V for dP); n8
+  // tiles past the window's padded length stay 0.
+  const auto block_product = [&](const uint32_t (&a)[DK][4], const bf16* T,
                                   float (&acc)[KT][4]) {
 #pragma unroll
     for (int t2 = 0; t2 < KT / 2; ++t2) {
-      const int t = kb * KT + 2 * t2;
+      const int t = 2 * t2;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[2 * t2][e] = acc[2 * t2 + 1][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[t][e] = acc[t + 1][e] = 0.f;
       if (t >= nt) continue;
 #pragma unroll
       for (int kk = 0; kk < DK; ++kk) {
         uint32_t b4[4];
         ldsm_x4(b4, T + (t * 8 + (lane >> 4) * 8 + (lane & 7)) * DP + kk * 16 +
                         ((lane >> 3) & 1) * 8);
-        mma_bf16(acc[2 * t2], a[kk], b4[0], b4[1]);
-        mma_bf16(acc[2 * t2 + 1], a[kk], b4[2], b4[3]);
+        mma_bf16(acc[t], a[kk], b4[0], b4[1]);
+        mma_bf16(acc[t + 1], a[kk], b4[2], b4[3]);
       }
     }
   };
@@ -263,7 +384,7 @@ stripe_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict
     *reinterpret_cast<uint32_t*>(own + (tile * 16 + g + 8 * h) * DP + 8 * u + 2 * q4) =
         pack_bf16(v0, v1);
   };
-  const auto key_ok = [&](int kb, int t, int e) { return (kb * KT + t) * 8 + 2 * q4 + (e & 1) < L; };
+  const auto key_ok = [&](int t, int e) { return t * 8 + 2 * q4 + (e & 1) < L; };
   const auto quad_max = [](float v) {
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
     return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -273,237 +394,155 @@ stripe_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict
     return v + __shfl_xor_sync(0xffffffffu, v, 2);
   };
 
-  // Beyond one key block: the row statistics, per query slab, in passes.
-  if (nkb > 1) {
-    for (int s = warp; s < LP / 16; s += WARPS) {
-      const int r0 = s * 16;
-      uint32_t qa[DK][4], oa[DK][4];
-      rows_a(Qs, r0, qa);
-      rows_a(Os, r0, oa);
-      float S[KT][4], dP[KT][4];
-      float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
-      for (int kb = 0; kb < nkb; ++kb) {
-        block_product(qa, Ks, kb, S);
+  // P_b and dS_b for every query slab, and dQ.
+  for (int s = warp; s < LP / 16; s += WARPS) {
+    const int r0 = s * 16;
+    uint32_t qa[DK][4], oa[DK][4];
+    rows_a(Qs, r0, qa);
+    rows_a(Os, r0, oa);
+    float S[KT][4], dP[KT][4];
+    block_product(qa, Ks, S);
+    block_product(oa, Vs, dP);
+    float mx[2] = {-INFINITY, -INFINITY};  // row max
 #pragma unroll
-        for (int t = 0; t < KT; ++t)
+    for (int t = 0; t < KT; ++t)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (key_ok(kb, t, e)) mx[e >> 1] = fmaxf(mx[e >> 1], S[t][e]);
+      for (int e = 0; e < 4; ++e)
+        if (key_ok(t, e)) mx[e >> 1] = fmaxf(mx[e >> 1], S[t][e]);
+    mx[0] = quad_max(mx[0]);
+    mx[1] = quad_max(mx[1]);
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int t = 0; t < KT; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float ex = key_ok(t, e) ? expf(S[t][e] - mx[e >> 1]) : 0.f;
+        S[t][e] = ex;
+        sum[e >> 1] += ex;
       }
-      mx[0] = quad_max(mx[0]);
-      mx[1] = quad_max(mx[1]);
-      for (int kb = 0; kb < nkb; ++kb) {
-        block_product(qa, Ks, kb, S);
+    const float inv[2] = {1.f / quad_sum(sum[0]), 1.f / quad_sum(sum[1])};
+    float dl[2] = {0.f, 0.f};  // rowsum(dP∘P)
 #pragma unroll
-        for (int t = 0; t < KT; ++t)
+    for (int t = 0; t < KT; ++t)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (key_ok(kb, t, e)) sum[e >> 1] += expf(S[t][e] - mx[e >> 1]);
+      for (int e = 0; e < 4; ++e) {
+        S[t][e] *= inv[e >> 1];  // P, float32
+        dl[e >> 1] += dP[t][e] * S[t][e];
       }
-      const float inv[2] = {1.f / quad_sum(sum[0]), 1.f / quad_sum(sum[1])};
-      for (int kb = 0; kb < nkb; ++kb) {
-        block_product(qa, Ks, kb, S);
-        block_product(oa, Vs, kb, dP);
+    dl[0] = quad_sum(dl[0]);
+    dl[1] = quad_sum(dl[1]);
+    // P_b and dS_b (rows past L are zero), to shared memory; dS_b stays in
+    // S for dQ.
 #pragma unroll
-        for (int t = 0; t < KT; ++t)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (key_ok(kb, t, e))
-              dl[e >> 1] += dP[t][e] * (expf(S[t][e] - mx[e >> 1]) * inv[e >> 1]);
-      }
-      dl[0] = quad_sum(dl[0]);
-      dl[1] = quad_sum(dl[1]);
-      if (q4 == 0) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          Mx[r0 + g + 8 * h] = mx[h];
-          Iv[r0 + g + 8 * h] = inv[h];
-          Dl[r0 + g + 8 * h] = dl[h];
-        }
-      }
-    }
-    __syncwarp();  // each slab's statistics are read back by the warp that wrote them
-  }
-
-  for (int kb = 0; kb < nkb; ++kb) {
-    // P_b and dS_b of this key block for every query slab, and dQ.
-    for (int s = warp; s < LP / 16; s += WARPS) {
-      const int r0 = s * 16;
-      uint32_t qa[DK][4], oa[DK][4];
-      rows_a(Qs, r0, qa);
-      rows_a(Os, r0, oa);
-      float S[KT][4], dP[KT][4];
-      block_product(qa, Ks, kb, S);
-      block_product(oa, Vs, kb, dP);
-      float mx[2], inv[2], dl[2];  // row max, 1 / row sum, rowsum(dP∘P)
-      if (nkb == 1) {
-        mx[0] = mx[1] = -INFINITY;
-#pragma unroll
-        for (int t = 0; t < KT; ++t)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (key_ok(0, t, e)) mx[e >> 1] = fmaxf(mx[e >> 1], S[t][e]);
-        mx[0] = quad_max(mx[0]);
-        mx[1] = quad_max(mx[1]);
-        float sum[2] = {0.f, 0.f};
-#pragma unroll
-        for (int t = 0; t < KT; ++t)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float ex = key_ok(0, t, e) ? expf(S[t][e] - mx[e >> 1]) : 0.f;
-            S[t][e] = ex;
-            sum[e >> 1] += ex;
-          }
-        inv[0] = 1.f / quad_sum(sum[0]);
-        inv[1] = 1.f / quad_sum(sum[1]);
-        dl[0] = dl[1] = 0.f;
-#pragma unroll
-        for (int t = 0; t < KT; ++t)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            S[t][e] *= inv[e >> 1];  // P, float32
-            dl[e >> 1] += dP[t][e] * S[t][e];
-          }
-        dl[0] = quad_sum(dl[0]);
-        dl[1] = quad_sum(dl[1]);
-      } else {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          mx[h] = Mx[r0 + g + 8 * h];
-          inv[h] = Iv[r0 + g + 8 * h];
-          dl[h] = Dl[r0 + g + 8 * h];
-        }
-#pragma unroll
-        for (int t = 0; t < KT; ++t)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            S[t][e] = key_ok(kb, t, e) ? expf(S[t][e] - mx[e >> 1]) * inv[e >> 1] : 0.f;
-      }
-      // P_b and dS_b (rows past L are zero), to shared memory; dS_b stays
-      // in S for dQ.
-#pragma unroll
-      for (int t = 0; t < KT; ++t) {
-        if (kb * KT + t >= nt) continue;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int i = r0 + g + 8 * h;
-          const bool row = i < L;
-          const float p0 = row ? S[t][2 * h] : 0.f, p1 = row ? S[t][2 * h + 1] : 0.f;
-          const uint32_t pb = pack_bf16(p0, p1);
-          const uint32_t sb = pack_bf16(p0 * (dP[t][2 * h] - dl[h]), p1 * (dP[t][2 * h + 1] - dl[h]));
-          *reinterpret_cast<uint32_t*>(Pb + i * LDP + t * 8 + 2 * q4) = pb;
-          *reinterpret_cast<uint32_t*>(Sb + i * LDP + t * 8 + 2 * q4) = sb;
-          const float2 sf = unpack_bf16(sb);
-          S[t][2 * h] = sf.x;
-          S[t][2 * h + 1] = sf.y;
-        }
-      }
-      float dq[DN][4];
-#pragma unroll
-      for (int u = 0; u < DN; ++u)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dq[u][e] = kb == 0 ? 0.f : Qa[(r0 + g + 8 * (e >> 1)) * D + 8 * u + 2 * q4 + (e & 1)];
-#pragma unroll
-      for (int t2 = 0; t2 < KT / 2; ++t2) {
-        const int t = kb * KT + 2 * t2;
-        if (t >= nt) continue;
-        const uint32_t pa[4] = {pack_bf16(S[2 * t2][0], S[2 * t2][1]),
-                                pack_bf16(S[2 * t2][2], S[2 * t2][3]),
-                                pack_bf16(S[2 * t2 + 1][0], S[2 * t2 + 1][1]),
-                                pack_bf16(S[2 * t2 + 1][2], S[2 * t2 + 1][3])};
-        const bf16* krow = Ks + (t * 8 + ((lane >> 3) & 1) * 8 + (lane & 7)) * DP;
-#pragma unroll
-        for (int u = 0; u + 1 < DN; u += 2) {
-          uint32_t kb4[4];
-          ldsm_x4<true>(kb4, krow + (u + (lane >> 4)) * 8);
-          mma_bf16(dq[u], pa, kb4[0], kb4[1]);
-          mma_bf16(dq[u + 1], pa, kb4[2], kb4[3]);
-        }
-        if constexpr (DN % 2) {
-          uint32_t kb2[2];
-          ldsm_x2_trans(kb2, krow + (DN - 1) * 8);
-          mma_bf16(dq[DN - 1], pa, kb2[0], kb2[1]);
-        }
-      }
-      if (kb + 1 < nkb) {
-#pragma unroll
-        for (int u = 0; u < DN; ++u)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            Qa[(r0 + g + 8 * (e >> 1)) * D + 8 * u + 2 * q4 + (e & 1)] = dq[u][e];
-      } else {
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int u = 0; u < DN; ++u) stage(0, h, u, dq[u][2 * h] * scale, dq[u][2 * h + 1] * scale);
-        store_rows(0, r0, c0);
-      }
-    }
-    __syncthreads();  // the key block's P_b and dS_b are complete
-
-    // dK and dV of the key block's 16-key slabs, over all queries.
-    const int kbase = kb * KB, kn = min(KB, LP - kbase);
-    for (int js = warp; js < kn / 16; js += WARPS) {
-      const int j0 = js * 16;
-      float dk[DN][4], dv[DN][4];
-#pragma unroll
-      for (int u = 0; u < DN; ++u)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dk[u][e] = dv[u][e] = 0.f;
-      for (int i0 = 0; i0 < LP; i0 += 16) {
-        // A = P_bᵀ, dS_bᵀ (rows keys, columns queries) from the query-major tiles.
-        uint32_t ap[4], as[4];
-        const int aoff = (i0 + (lane & 7) + (lane >> 4) * 8) * LDP + j0 + ((lane >> 3) & 1) * 8;
-        ldsm_x4<true>(ap, Pb + aoff);
-        ldsm_x4<true>(as, Sb + aoff);
-        const int brow = (i0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * DP;
-#pragma unroll
-        for (int u = 0; u + 1 < DN; u += 2) {
-          uint32_t ob[4], qb[4];
-          ldsm_x4<true>(ob, Os + brow + (u + (lane >> 4)) * 8);
-          ldsm_x4<true>(qb, Qs + brow + (u + (lane >> 4)) * 8);
-          mma_bf16(dv[u], ap, ob[0], ob[1]);
-          mma_bf16(dv[u + 1], ap, ob[2], ob[3]);
-          mma_bf16(dk[u], as, qb[0], qb[1]);
-          mma_bf16(dk[u + 1], as, qb[2], qb[3]);
-        }
-        if constexpr (DN % 2) {
-          uint32_t ob[2], qb[2];
-          ldsm_x2_trans(ob, Os + brow + (DN - 1) * 8);
-          ldsm_x2_trans(qb, Qs + brow + (DN - 1) * 8);
-          mma_bf16(dv[DN - 1], ap, ob[0], ob[1]);
-          mma_bf16(dk[DN - 1], as, qb[0], qb[1]);
-        }
-      }
+    for (int t = 0; t < KT; ++t) {
+      if (t >= nt) continue;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int j = kbase + j0 + g + 8 * h;
-        const int tr = j / w_sp, tc = j % w_sp;  // rows past L are staged, not stored
-#pragma unroll
-        for (int u = 0; u < DN; ++u) {
-          const int dd = 8 * u + 2 * q4;
-          float l0 = 0.f, l1 = 0.f;  // the transposed LePE conv of dO
-          for (int di = -1; j < L && di <= 1; ++di) {
-            const int r = tr - di;
-            if (r < 0 || r >= h_sp) continue;
-            for (int dj = -1; dj <= 1; ++dj) {
-              const int c = tc - dj;
-              if (c < 0 || c >= w_sp) continue;
-              const float2 w2 = *reinterpret_cast<const float2*>(Tw + ((di + 1) * 3 + dj + 1) * D + dd);
-              const float2 o2 = unpack_bf16(*reinterpret_cast<const uint32_t*>(Os + (r * w_sp + c) * DP + dd));
-              l0 += w2.x * o2.x;
-              l1 += w2.y * o2.y;
-            }
-          }
-          stage(0, h, u, dk[u][2 * h], dk[u][2 * h + 1]);
-          stage(1, h, u, dv[u][2 * h] + l0, dv[u][2 * h + 1] + l1);
-        }
+        const int i = r0 + g + 8 * h;
+        const bool row = i < L;
+        const float p0 = row ? S[t][2 * h] : 0.f, p1 = row ? S[t][2 * h + 1] : 0.f;
+        const uint32_t pb = pack_bf16(p0, p1);
+        const uint32_t sb = pack_bf16(p0 * (dP[t][2 * h] - dl[h]), p1 * (dP[t][2 * h + 1] - dl[h]));
+        *reinterpret_cast<uint32_t*>(Pb + i * LDP + t * 8 + 2 * q4) = pb;
+        *reinterpret_cast<uint32_t*>(Sb + i * LDP + t * 8 + 2 * q4) = sb;
+        const float2 sf = unpack_bf16(sb);
+        S[t][2 * h] = sf.x;
+        S[t][2 * h + 1] = sf.y;
       }
-      store_rows(0, kbase + j0, C + c0);
-      store_rows(1, kbase + j0, 2 * C + c0);
     }
-    if (kb + 1 < nkb) __syncthreads();  // before the next block overwrites P_b and dS_b
+    float dq[DN][4];
+#pragma unroll
+    for (int u = 0; u < DN; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[u][e] = 0.f;
+#pragma unroll
+    for (int t2 = 0; t2 < KT / 2; ++t2) {
+      const int t = 2 * t2;
+      if (t >= nt) continue;
+      const uint32_t pa[4] = {pack_bf16(S[t][0], S[t][1]), pack_bf16(S[t][2], S[t][3]),
+                              pack_bf16(S[t + 1][0], S[t + 1][1]),
+                              pack_bf16(S[t + 1][2], S[t + 1][3])};
+      const bf16* krow = Ks + (t * 8 + ((lane >> 3) & 1) * 8 + (lane & 7)) * DP;
+#pragma unroll
+      for (int u = 0; u + 1 < DN; u += 2) {
+        uint32_t kb4[4];
+        ldsm_x4<true>(kb4, krow + (u + (lane >> 4)) * 8);
+        mma_bf16(dq[u], pa, kb4[0], kb4[1]);
+        mma_bf16(dq[u + 1], pa, kb4[2], kb4[3]);
+      }
+      if constexpr (DN % 2) {
+        uint32_t kb2[2];
+        ldsm_x2_trans(kb2, krow + (DN - 1) * 8);
+        mma_bf16(dq[DN - 1], pa, kb2[0], kb2[1]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int u = 0; u < DN; ++u) stage(0, h, u, dq[u][2 * h] * scale, dq[u][2 * h + 1] * scale);
+    store_rows(0, r0, c0);
+  }
+  __syncthreads();  // P_b and dS_b are complete
+
+  // dK and dV of the window's 16-key slabs, over all queries.
+  for (int js = warp; js < LP / 16; js += WARPS) {
+    const int j0 = js * 16;
+    float dk[DN][4], dv[DN][4];
+#pragma unroll
+    for (int u = 0; u < DN; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[u][e] = dv[u][e] = 0.f;
+    for (int i0 = 0; i0 < LP; i0 += 16) {
+      // A = P_bᵀ, dS_bᵀ (rows keys, columns queries) from the query-major tiles.
+      uint32_t ap[4], as[4];
+      const int aoff = (i0 + (lane & 7) + (lane >> 4) * 8) * LDP + j0 + ((lane >> 3) & 1) * 8;
+      ldsm_x4<true>(ap, Pb + aoff);
+      ldsm_x4<true>(as, Sb + aoff);
+      const int brow = (i0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * DP;
+#pragma unroll
+      for (int u = 0; u + 1 < DN; u += 2) {
+        uint32_t ob[4], qb[4];
+        ldsm_x4<true>(ob, Os + brow + (u + (lane >> 4)) * 8);
+        ldsm_x4<true>(qb, Qs + brow + (u + (lane >> 4)) * 8);
+        mma_bf16(dv[u], ap, ob[0], ob[1]);
+        mma_bf16(dv[u + 1], ap, ob[2], ob[3]);
+        mma_bf16(dk[u], as, qb[0], qb[1]);
+        mma_bf16(dk[u + 1], as, qb[2], qb[3]);
+      }
+      if constexpr (DN % 2) {
+        uint32_t ob[2], qb[2];
+        ldsm_x2_trans(ob, Os + brow + (DN - 1) * 8);
+        ldsm_x2_trans(qb, Qs + brow + (DN - 1) * 8);
+        mma_bf16(dv[DN - 1], ap, ob[0], ob[1]);
+        mma_bf16(dk[DN - 1], as, qb[0], qb[1]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = j0 + g + 8 * h;
+      const int tr = j / w_sp, tc = j % w_sp;  // rows past L are staged, not stored
+#pragma unroll
+      for (int u = 0; u < DN; ++u) {
+        const int dd = 8 * u + 2 * q4;
+        float l0 = 0.f, l1 = 0.f;  // the transposed LePE conv of dO
+        for (int di = -1; j < L && di <= 1; ++di) {
+          const int r = tr - di;
+          if (r < 0 || r >= h_sp) continue;
+          for (int dj = -1; dj <= 1; ++dj) {
+            const int c = tc - dj;
+            if (c < 0 || c >= w_sp) continue;
+            const float2 w2 = *reinterpret_cast<const float2*>(Tw + ((di + 1) * 3 + dj + 1) * D + dd);
+            const float2 o2 = unpack_bf16(*reinterpret_cast<const uint32_t*>(Os + (r * w_sp + c) * DP + dd));
+            l0 += w2.x * o2.x;
+            l1 += w2.y * o2.y;
+          }
+        }
+        stage(0, h, u, dk[u][2 * h], dk[u][2 * h + 1]);
+        stage(1, h, u, dv[u][2 * h] + l0, dv[u][2 * h + 1] + l1);
+      }
+    }
+    store_rows(0, j0, C + c0);
+    store_rows(1, j0, 2 * C + c0);
   }
 
   // LePE weight (9 taps) and bias partials of this (window, head). Lane
@@ -548,16 +587,477 @@ stripe_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict
   }
 }
 
+// The row kernel: a CTA takes split_rows_per_cta(L) query rows of a (window,
+// head), k and v of the window staged once; each warp takes groups of RG
+// rows, one at a time, their q·scale and dO as B fragments straight from
+// device memory. Sᵀ = K·(q·scale)ᵀ of every 16-key tile stays in registers
+// (the lane holds keys g and g + 8 of each tile for rows 2·q4 and 2·q4 + 1),
+// so the rows' max, sum and P come from one product; rowsum(dP∘P) and then
+// dS take dPᵀ = V·dOᵀ a tile at a time, twice. dQᵀ = Kᵀ·dS_bᵀ takes dS_b as
+// B fragments by transposing its two 8x8 halves across the warp
+// (movmatrix). The rows' max, 1 / sum and rowsum(dP∘P) go to the stats
+// buffer for the key kernel.
+template <int D>
+__device__ __forceinline__ void row_part(const BwdArgs& a) {
+  static_assert(D % 8 == 0 && D <= 32, "head dims 16, 24, 32");
+  constexpr int DP = row_stride<D>();
+  constexpr int DK = (D + 15) / 16;  // k16 steps over the head dim; m16 tiles of dQᵀ
+  constexpr int CH = D / 8;          // 16-byte chunks of a token's head slice
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int L = a.h_sp * a.w_sp, LP = (L + 15) & ~15, nt = LP / KEY_TILE;
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + LP * DP;
+  bf16* Ow = Vs + LP * DP;  // per warp: its row group's dQ on the way out
+
+  const int n_wh = a.H / a.h_sp, n_ww = a.W / a.w_sp;
+  const int win = blockIdx.x;
+  const int b = win / (n_wh * n_ww);
+  const int row0 = (win / n_ww) % n_wh * a.h_sp, col0 = win % n_ww * a.w_sp;
+  const int head = blockIdx.y;
+  const int c0 = a.ch_off + head * D;
+  const size_t C3 = 3 * (size_t)a.C;
+  const auto pixel = [&](int t) {
+    return ((size_t)b * a.H + row0 + t / a.w_sp) * a.W + col0 + t % a.w_sp;
+  };
+
+  for (int i = threadIdx.x; i < L * CH; i += blockDim.x) {
+    const int t = i / CH, c = i % CH * 8;
+    const bf16* src = a.qkv + pixel(t) * C3 + c0 + c;
+    cp_async16(Ks + t * DP + c, src + a.C);
+    cp_async16(Vs + t * DP + c, src + 2 * a.C);
+  }
+  cp_async_commit();
+  zero_padding<D>(Ks, L, LP);
+  zero_padding<D>(Vs, L, LP);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q4 = lane & 3;
+  const int per_cta = a.part / RG;  // row groups of the CTA
+  const int g_end = min((int)(blockIdx.z + 1) * per_cta, (L + RG - 1) / RG);
+  float* st = a.stats + ((size_t)win * gridDim.y + head) * 3 * LP;
+  bf16* own = Ow + warp * RG * DP;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  for (int grp = blockIdx.z * per_cta + warp; grp < g_end; grp += WARPS) {
+    const int r0 = grp * RG;
+    // q·scale and dO of row r0 + g as B fragments (k the head dim, n the row)
+    uint32_t qb[DK][2], ob[DK][2];
+    {
+      const bool row = r0 + g < L;
+      const size_t m = pixel(row ? r0 + g : 0);
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int d = kk * 16 + h * 8 + 2 * q4;
+          const bool in = row && kk * 16 + h * 8 < D;
+          qb[kk][h] = in ? scale_bf16x2(ld_u32(a.qkv + m * C3 + c0 + d), a.scale) : 0u;
+          ob[kk][h] = in ? ld_u32(a.dout + m * a.C + c0 + d) : 0u;
+        }
+    }
+    // dPᵀ of key tile t: V·dOᵀ
+    const auto dp_tile = [&](int t, float (&dp)[4]) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk) {
+        uint32_t va[4];
+        ldsm_x4(va, Vs + (t * KEY_TILE + (lane & 15)) * DP + kk * 16 + (lane >> 4) * 8);
+        mma_bf16(dp, va, ob[kk][0], ob[kk][1]);
+      }
+    };
+    const auto key_ok = [&](int t, int e) { return t * KEY_TILE + g + 8 * (e >> 1) < L; };
+
+    float S[SPLIT_TILES][4];
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int t = 0; t < SPLIT_TILES; ++t) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) S[t][e] = 0.f;
+      if (t < nt) {
+#pragma unroll
+        for (int kk = 0; kk < DK; ++kk) {
+          uint32_t ka[4];
+          ldsm_x4(ka, Ks + (t * KEY_TILE + (lane & 15)) * DP + kk * 16 + (lane >> 4) * 8);
+          mma_bf16(S[t], ka, qb[kk][0], qb[kk][1]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (key_ok(t, e)) mx[e & 1] = fmaxf(mx[e & 1], S[t][e]);
+      }
+    }
+    mx[0] = column_max(mx[0]);
+    mx[1] = column_max(mx[1]);
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int t = 0; t < SPLIT_TILES; ++t)
+      if (t < nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float ex = key_ok(t, e) ? expf(S[t][e] - mx[e & 1]) : 0.f;
+          S[t][e] = ex;
+          sum[e & 1] += ex;
+        }
+    const float inv[2] = {1.f / column_sum(sum[0]), 1.f / column_sum(sum[1])};
+    float dl[2] = {0.f, 0.f};  // rowsum(dP∘P)
+#pragma unroll
+    for (int t = 0; t < SPLIT_TILES; ++t)
+      if (t < nt) {
+        float dp[4];
+        dp_tile(t, dp);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          S[t][e] *= inv[e & 1];  // P, float32
+          dl[e & 1] += dp[e] * S[t][e];
+        }
+      }
+    dl[0] = column_sum(dl[0]);
+    dl[1] = column_sum(dl[1]);
+
+    // dS = P∘(dP − rowsum(dP∘P)), dS_b = bf16(dS); dQᵀ += Kᵀ·dS_bᵀ over the tiles
+    float dq[DK][4];
+#pragma unroll
+    for (int mt = 0; mt < DK; ++mt) dq[mt][0] = dq[mt][1] = dq[mt][2] = dq[mt][3] = 0.f;
+#pragma unroll
+    for (int t = 0; t < SPLIT_TILES; ++t)
+      if (t < nt) {
+        float dp[4];
+        dp_tile(t, dp);
+        const uint32_t b0 = movmatrix_trans(
+            pack_bf16(S[t][0] * (dp[0] - dl[0]), S[t][1] * (dp[1] - dl[1])));
+        const uint32_t b1 = movmatrix_trans(
+            pack_bf16(S[t][2] * (dp[2] - dl[0]), S[t][3] * (dp[3] - dl[1])));
+#pragma unroll
+        for (int mt = 0; mt < DK; ++mt) {
+          uint32_t ka[4];  // A = Kᵀ: rows the head dim, columns the tile's keys
+          ldsm_x4<true>(ka, Ks + (t * KEY_TILE + ((lane >> 4) & 1) * 8 + (lane & 7)) * DP +
+                                mt * 16 + ((lane >> 3) & 1) * 8);
+          mma_bf16(dq[mt], ka, b0, b1);
+        }
+      }
+
+    // dQ = dQᵀ·scale, rounded once, out through the warp's tile in 16-byte
+    // chunks; the rows' statistics (lanes 0-3 hold rows 2·q4 and 2·q4 + 1)
+#pragma unroll
+    for (int mt = 0; mt < DK; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = mt * 16 + g + 8 * (e >> 1);
+        if (d < D) own[(2 * q4 + (e & 1)) * DP + d] = f2bf(dq[mt][e] * a.scale);
+      }
+    __syncwarp();
+    for (int i = lane; i < RG * CH; i += 32) {
+      const int r = i / CH, c = i % CH * 8;
+      if (r0 + r < L)
+        *reinterpret_cast<uint4*>(a.dqkv + pixel(r0 + r) * C3 + c0 + c) =
+            *reinterpret_cast<const uint4*>(own + r * DP + c);
+    }
+    if (g == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = r0 + 2 * q4 + h;
+        if (i < L) {
+          st[i] = mx[h];
+          st[LP + i] = inv[h];
+          st[2 * LP + i] = dl[h];
+        }
+      }
+    }
+    __syncwarp();  // the tile is rewritten by the warp's next group
+  }
+}
+
+// The key kernel: a CTA takes split_key_tiles_per_cta(L) tiles of 16 keys
+// of a (window, head), a warp each, with q·scale, dO and the rows'
+// statistics of the window staged once; the warp's k and v are A fragments
+// in registers. It walks the rows in 16-row steps, as the whole-window
+// kernel's dK and dV do: Sᵀ = K·(q·scale)ᵀ and dPᵀ = V·dOᵀ, P = exp(S −
+// max) · (1 / sum) and dS = P∘(dP − rowsum(dP∘P)) from the statistics, then
+// dV += P_bᵀ·dO and dK += dS_bᵀ·(q·scale) with P_b and dS_b repacked from C
+// to A fragments in registers. dV gets the LePE transpose conv before its
+// one rounding; the LePE weight and bias partials of the CTA's keys go to
+// row (window, key CTA) of dl_part. Padded rows read zero statistics: P =
+// dS = 0 there.
+template <int D>
+__device__ __forceinline__ void key_part(const BwdArgs& a) {
+  static_assert(D % 8 == 0 && D <= 32, "head dims 16, 24, 32");
+  constexpr int DP = row_stride<D>();
+  constexpr int DK = (D + 15) / 16;  // k16 steps over the head dim
+  constexpr int DN = D / 8;          // n8 tiles over the head dim
+  constexpr int CH = D / 8;          // 16-byte chunks of a token's head slice
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int L = a.h_sp * a.w_sp, LP = (L + 15) & ~15, nkt = LP / KEY_TILE;
+  const int h_sp = a.h_sp, w_sp = a.w_sp;
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // q·scale
+  bf16* Os = Qs + LP * DP;                       // dO
+  float* St = reinterpret_cast<float*>(Os + LP * DP);  // max, 1 / sum, rowsum(dP∘P); LP each
+  float* Tw = St + 3 * LP;                              // LePE taps, 9 x D
+  bf16* Ow = reinterpret_cast<bf16*>(Tw + 9 * D);       // per warp: dK or dV on the way out
+
+  const int n_wh = a.H / h_sp, n_ww = a.W / w_sp;
+  const int win = blockIdx.x;
+  const int b = win / (n_wh * n_ww);
+  const int row0 = (win / n_ww) % n_wh * h_sp, col0 = win % n_ww * w_sp;
+  const int head = blockIdx.y;
+  const int hc = head * D, c0 = a.ch_off + hc;
+  const size_t C3 = 3 * (size_t)a.C;
+  const auto pixel = [&](int t) {
+    return ((size_t)b * a.H + row0 + t / w_sp) * a.W + col0 + t % w_sp;
+  };
+
+  for (int i = threadIdx.x; i < L * CH; i += blockDim.x) {
+    const int t = i / CH, c = i % CH * 8;
+    const size_t m = pixel(t);
+    cp_async16(Qs + t * DP + c, a.qkv + m * C3 + c0 + c);
+    cp_async16(Os + t * DP + c, a.dout + m * a.C + c0 + c);
+  }
+  const float* st_in = a.stats + ((size_t)win * gridDim.y + head) * 3 * LP;
+  for (int i = threadIdx.x; i < 3 * LP / 4; i += blockDim.x) cp_async16(St + 4 * i, st_in + 4 * i);
+  cp_async_commit();
+  zero_padding<D>(Qs, L, LP);
+  zero_padding<D>(Os, L, LP);
+  for (int i = threadIdx.x; i < 9 * D; i += blockDim.x)
+    Tw[i] = bf2f(a.lepe_w[i / D * a.cb + hc + i % D]);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q4 = lane & 3;
+  const int tile = blockIdx.z * a.part + warp;
+  const int j0 = tile * KEY_TILE;
+  // k and v of keys j0 + g and j0 + g + 8 as A fragments (m the key, k the head dim)
+  uint32_t ka[DK][4], va[DK][4];
+#pragma unroll
+  for (int kk = 0; kk < DK; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = j0 + g + 8 * (r & 1), d = kk * 16 + 8 * (r >> 1) + 2 * q4;
+      const bool in = tile < nkt && j < L && kk * 16 + 8 * (r >> 1) < D;
+      const size_t m = pixel(in ? j : 0) * C3 + c0 + d;
+      ka[kk][r] = in ? ld_u32(a.qkv + m + a.C) : 0u;
+      va[kk][r] = in ? ld_u32(a.qkv + m + 2 * a.C) : 0u;
+    }
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int i = threadIdx.x; i < L * CH; i += blockDim.x) {  // q -> bf16(q·scale)
+    uint4* p = reinterpret_cast<uint4*>(Qs + i / CH * DP + i % CH * 8);
+    uint4 v = *p;
+    v.x = scale_bf16x2(v.x, a.scale);
+    v.y = scale_bf16x2(v.y, a.scale);
+    v.z = scale_bf16x2(v.z, a.scale);
+    v.w = scale_bf16x2(v.w, a.scale);
+    *p = v;
+  }
+  for (int i = L + threadIdx.x; i < LP; i += blockDim.x) St[i] = St[LP + i] = St[2 * LP + i] = 0.f;
+  __syncthreads();
+
+  if (tile < nkt) {
+    float dk[DN][4], dv[DN][4];
+#pragma unroll
+    for (int u = 0; u < DN; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[u][e] = dv[u][e] = 0.f;
+    for (int i0 = 0; i0 < LP; i0 += 16) {
+      // q·scale and dO of rows i0 .. i0 + 15 as B fragments (k the head
+      // dim, n the row) of the two n8 row tiles
+      uint32_t qb[2][DK][2], ob[2][DK][2];
+      if constexpr (DK == 2) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          uint32_t r4[4];
+          const int off = (i0 + 8 * n + (lane & 7)) * DP + (lane >> 3) * 8;
+          ldsm_x4(r4, Qs + off);
+          qb[n][0][0] = r4[0], qb[n][0][1] = r4[1], qb[n][1][0] = r4[2], qb[n][1][1] = r4[3];
+          ldsm_x4(r4, Os + off);
+          ob[n][0][0] = r4[0], ob[n][0][1] = r4[1], ob[n][1][0] = r4[2], ob[n][1][1] = r4[3];
+        }
+      } else {
+        uint32_t r4[4];
+        const int off = (i0 + 8 * (lane >> 4) + (lane & 7)) * DP + ((lane >> 3) & 1) * 8;
+        ldsm_x4(r4, Qs + off);
+        qb[0][0][0] = r4[0], qb[0][0][1] = r4[1], qb[1][0][0] = r4[2], qb[1][0][1] = r4[3];
+        ldsm_x4(r4, Os + off);
+        ob[0][0][0] = r4[0], ob[0][0][1] = r4[1], ob[1][0][0] = r4[2], ob[1][0][1] = r4[3];
+      }
+      uint32_t ap[4], as[4];  // P_bᵀ and dS_bᵀ as A fragments (m the key, k the row)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < DK; ++kk) {
+          mma_bf16(s, ka[kk], qb[n][kk][0], qb[n][kk][1]);
+          mma_bf16(dp, va[kk], ob[n][kk][0], ob[n][kk][1]);
+        }
+        const int i = i0 + 8 * n + 2 * q4;  // the lane's rows i and i + 1
+        const float2 m2 = *reinterpret_cast<const float2*>(St + i);
+        const float2 v2 = *reinterpret_cast<const float2*>(St + LP + i);
+        const float2 l2 = *reinterpret_cast<const float2*>(St + 2 * LP + i);
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool odd = e & 1;
+          p[e] = expf(s[e] - (odd ? m2.y : m2.x)) * (odd ? v2.y : v2.x);
+          ds[e] = p[e] * (dp[e] - (odd ? l2.y : l2.x));
+        }
+        ap[2 * n] = pack_bf16(p[0], p[1]);
+        ap[2 * n + 1] = pack_bf16(p[2], p[3]);
+        as[2 * n] = pack_bf16(ds[0], ds[1]);
+        as[2 * n + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      const int brow = (i0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * DP;
+#pragma unroll
+      for (int u = 0; u + 1 < DN; u += 2) {
+        uint32_t o4[4], q4b[4];
+        ldsm_x4<true>(o4, Os + brow + (u + (lane >> 4)) * 8);
+        ldsm_x4<true>(q4b, Qs + brow + (u + (lane >> 4)) * 8);
+        mma_bf16(dv[u], ap, o4[0], o4[1]);
+        mma_bf16(dv[u + 1], ap, o4[2], o4[3]);
+        mma_bf16(dk[u], as, q4b[0], q4b[1]);
+        mma_bf16(dk[u + 1], as, q4b[2], q4b[3]);
+      }
+      if constexpr (DN % 2) {
+        uint32_t o2[2], q2[2];
+        ldsm_x2_trans(o2, Os + brow + (DN - 1) * 8);
+        ldsm_x2_trans(q2, Qs + brow + (DN - 1) * 8);
+        mma_bf16(dv[DN - 1], ap, o2[0], o2[1]);
+        mma_bf16(dk[DN - 1], as, q2[0], q2[1]);
+      }
+    }
+
+    // dK, then dV with the transposed LePE conv of dO, out through the
+    // warp's tile in 16-byte chunks; rows past L are not stored
+    bf16* own = Ow + warp * KEY_TILE * DP;
+    const auto store = [&](int off) {
+      __syncwarp();
+      for (int i = lane; i < KEY_TILE * CH; i += 32) {
+        const int r = i / CH, c = i % CH * 8;
+        if (j0 + r < L)
+          *reinterpret_cast<uint4*>(a.dqkv + pixel(j0 + r) * C3 + off + c) =
+              *reinterpret_cast<const uint4*>(own + r * DP + c);
+      }
+      __syncwarp();
+    };
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int u = 0; u < DN; ++u)
+        *reinterpret_cast<uint32_t*>(own + (g + 8 * h) * DP + 8 * u + 2 * q4) =
+            pack_bf16(dk[u][2 * h], dk[u][2 * h + 1]);
+    store(a.C + c0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = j0 + g + 8 * h;
+      const int tr = j / w_sp, tc = j % w_sp;
+#pragma unroll
+      for (int u = 0; u < DN; ++u) {
+        const int dd = 8 * u + 2 * q4;
+        float l0 = 0.f, l1 = 0.f;  // the transposed LePE conv of dO
+        for (int di = -1; j < L && di <= 1; ++di) {
+          const int r = tr - di;
+          if (r < 0 || r >= h_sp) continue;
+          for (int dj = -1; dj <= 1; ++dj) {
+            const int c = tc - dj;
+            if (c < 0 || c >= w_sp) continue;
+            const float2 w2 = *reinterpret_cast<const float2*>(Tw + ((di + 1) * 3 + dj + 1) * D + dd);
+            const float2 o2 = unpack_bf16(*reinterpret_cast<const uint32_t*>(Os + (r * w_sp + c) * DP + dd));
+            l0 += w2.x * o2.x;
+            l1 += w2.y * o2.y;
+          }
+        }
+        *reinterpret_cast<uint32_t*>(own + (g + 8 * h) * DP + dd) =
+            pack_bf16(dv[u][2 * h] + l0, dv[u][2 * h + 1] + l1);
+      }
+    }
+    store(2 * a.C + c0);
+  }
+
+  // LePE weight (9 taps) and bias partials of the CTA's keys u: lane
+  // (channel pair, token group of 8) adds V[u]·dO[u - tap] and dO[u] over
+  // its tokens, ten sums in flight; the eight groups are added by shuffles
+  // in a fixed order and written channel-major, (cb, 10) a window and key
+  // CTA. The staged dO is all it reads of shared memory: no barrier.
+  const int u0 = blockIdx.z * a.part * KEY_TILE, u1 = min(L, u0 + a.part * KEY_TILE);
+  const unsigned group = 0x11111111u << q4;  // the lanes of the quad position
+  for (int cp = warp * 4 + q4; cp < D / 2; cp += (blockDim.x >> 5) * 4) {
+    const int dd = 2 * cp;
+    float acc[10][2] = {};
+    for (int u = u0 + g; u < u1; u += 8) {
+      const int tr = u / w_sp, tc = u % w_sp;
+      const float2 v2 = unpack_bf16(ld_u32(a.qkv + pixel(u) * C3 + 2 * a.C + c0 + dd));
+      const float2 o2 = unpack_bf16(*reinterpret_cast<const uint32_t*>(Os + u * DP + dd));
+      acc[9][0] += o2.x;
+      acc[9][1] += o2.y;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int r = tr - (tap / 3 - 1), c = tc - (tap % 3 - 1);
+        if (r < 0 || r >= h_sp || c < 0 || c >= w_sp) continue;
+        const float2 n2 = unpack_bf16(*reinterpret_cast<const uint32_t*>(Os + (r * w_sp + c) * DP + dd));
+        acc[tap][0] += n2.x * v2.x;
+        acc[tap][1] += n2.y * v2.y;
+      }
+    }
+#pragma unroll
+    for (int tap = 0; tap < 10; ++tap)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) acc[tap][e] += __shfl_xor_sync(group, acc[tap][e], o);
+    if (g == 0) {
+      float* dst = a.dl_part + (((size_t)win * gridDim.z + blockIdx.z) * a.cb + hc + dd) * 10;
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int tap = 0; tap < 10; ++tap) dst[e * 10 + tap] = acc[tap][e];
+    }
+  }
+}
+
+// The split's two kernels: instances of the whole-window kernel's name, so
+// that a trace reads all three as one family. Registers for four row-kernel
+// CTAs an SM and three key-kernel CTAs of their widest (two at head dim 32,
+// whose lane state does not fit 112 registers).
+template <int D, int Part>
+__global__ void __launch_bounds__(Part == KEY_PART ? KEY_PART_TILES * 32 : WARPS * 32,
+                                  Part == ROW_PART ? 4 : D > 24 ? 2 : 3)
+stripe_attention_bwd_kernel(const BwdArgs a) {
+  static_assert(Part == ROW_PART || Part == KEY_PART, "the split's parts");
+  if constexpr (Part == ROW_PART)
+    row_part<D>(a);
+  else
+    key_part<D>(a);
+}
+
 template <int D>
 cudaError_t launch(const bf16* qkv, const bf16* dout, const bf16* lw, bf16* dqkv,
                    float* dl, int B, int H, int W, int C, int ch_off, int cb, int heads,
                    int h_sp, int w_sp, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>(h_sp * w_sp);
-  cudaError_t err = allow_smem(stripe_attention_bwd_kernel<D>, smem);
+  // the whole-window instance among the name's overloads
+  void (*kernel)(const bf16*, const bf16*, const bf16*, bf16*, float*, int, int, int, int, int,
+                 int, int, float) = stripe_attention_bwd_kernel<D>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * (H / h_sp) * (W / w_sp), heads);
   stripe_attention_bwd_kernel<D><<<grid, WARPS * 32, smem, stream>>>(
       qkv, dout, lw, dqkv, dl, H, W, C, ch_off, cb, h_sp, w_sp, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_split(BwdArgs a, int B, int heads, cudaStream_t stream) {
+  const int L = a.h_sp * a.w_sp, windows = B * (a.H / a.h_sp) * (a.W / a.w_sp);
+  const size_t rows = smem_rows_split<D>(L), keys = smem_keys_split<D>(L);
+  void (*row_kernel)(const BwdArgs) = stripe_attention_bwd_kernel<D, ROW_PART>;
+  void (*key_kernel)(const BwdArgs) = stripe_attention_bwd_kernel<D, KEY_PART>;
+  cudaError_t err = allow_smem(row_kernel, rows);
+  if (err == cudaSuccess) err = allow_smem(key_kernel, keys);
+  if (err != cudaSuccess) return err;
+  a.part = split_rows_per_cta(L);
+  stripe_attention_bwd_kernel<D, ROW_PART>
+      <<<dim3(windows, heads, (L + a.part - 1) / a.part), WARPS * 32, rows, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int tiles = (L + KEY_TILE - 1) / KEY_TILE;
+  a.part = split_key_tiles_per_cta(L);
+  stripe_attention_bwd_kernel<D, KEY_PART>
+      <<<dim3(windows, heads, (tiles + a.part - 1) / a.part), a.part * 32, keys, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -963,9 +1463,10 @@ cudaError_t launch_f32(const float* qkv, const float* dout, const float* lw, flo
 
 }  // namespace
 
-// Bytes of shared memory the kernel takes for a window of L tokens at head
-// dim D (16, 24 or 32; else 0): what kernels.stripe_attention_bwd_smem
-// computes, for holding the two to one another on the card.
+// Bytes of shared memory the whole-window kernel takes for a window of L
+// tokens at head dim D (16, 24 or 32; else 0; 0 past one key block too):
+// what kernels.stripe_attention_bwd_smem computes, for holding the two to
+// one another on the card.
 CSWIN_API long long cswin_stripe_attention_bwd_smem(int L, int D) {
   switch (D) {
     case 16: return (long long)smem_bytes<16>(L);
@@ -980,8 +1481,9 @@ CSWIN_API long long cswin_stripe_attention_bwd_smem(int L, int D) {
 // channels [ch_off, ch_off + cb) of each third; dl_part: (windows, cb, 10)
 // float32, per channel the LePE weight partials of taps 0-8, then the bias
 // partial. head_dim = cb / heads must be 16, 24 or 32; C, ch_off
-// multiples of 8 and qkv, dout, dqkv 16-byte aligned (16-byte copies);
-// smem_bytes(L) at most 227 KB (checked by the wrapper).
+// multiples of 8 and qkv, dout, dqkv 16-byte aligned (16-byte copies).
+// The whole window in one CTA: the route of windows of up to one key block
+// (L <= 64); a longer one is refused (cudaErrorInvalidValue).
 CSWIN_API int cswin_stripe_attention_bwd(const void* qkv, const void* dout,
                                          const void* lepe_w, void* dqkv, void* dl_part,
                                          int B, int H, int W, int C, int ch_off, int cb,
@@ -993,11 +1495,53 @@ CSWIN_API int cswin_stripe_attention_bwd(const void* qkv, const void* dout,
   bf16* g = (bf16*)dqkv;
   float* dl = (float*)dl_part;
   cudaStream_t s = (cudaStream_t)stream;
+  if (h_sp * w_sp > KB) return (int)cudaErrorInvalidValue;
   switch (cb / heads) {
     case 16: return (int)launch<16>(q, o, lw, g, dl, B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, s);
     case 24: return (int)launch<24>(q, o, lw, g, dl, B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, s);
     case 32: return (int)launch<32>(q, o, lw, g, dl, B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, s);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The split route (windows longer than one key block, up to SPLIT_TILES
+// key tiles), two launches on the stream: the tensors as above, but
+// dl_part (windows · key CTAs, cb, 10) float32, a row a window and key-kernel
+// CTA; stats (windows, heads, 3, LP) float32 scratch between the two
+// kernels (LP = L rounded up to 16), 16-byte aligned.
+CSWIN_API int cswin_stripe_attention_bwd_split(const void* qkv, const void* dout,
+                                               const void* lepe_w, void* dqkv, void* dl_part,
+                                               void* stats, int B, int H, int W, int C,
+                                               int ch_off, int cb, int heads, int h_sp,
+                                               int w_sp, float scale, void* stream) {
+  if (h_sp * w_sp > SPLIT_TILES * KEY_TILE) return (int)cudaErrorInvalidValue;
+  const BwdArgs a{(const bf16*)qkv, (const bf16*)dout, (const bf16*)lepe_w, (bf16*)dqkv,
+                  (float*)dl_part, (float*)stats, H, W, C, ch_off, cb, h_sp, w_sp, scale, 0};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (cb / heads) {
+    case 16: return (int)launch_split<16>(a, B, heads, s);
+    case 24: return (int)launch_split<24>(a, B, heads, s);
+    case 32: return (int)launch_split<32>(a, B, heads, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 plan at a window of L tokens, head dim D (16, 24 or 32): what = 0
+// the route (1 the split, 0 the whole window), 1 the row kernel's shared
+// memory (smem_rows_split), 2 the key kernel's (smem_keys_split), 3 the
+// rows of a row-kernel CTA (split_rows_per_cta), 4 the key tiles of a
+// key-kernel CTA (split_key_tiles_per_cta); else 0.
+CSWIN_API long long cswin_stripe_attention_bwd_plan(int L, int D, int what) {
+  if (D != 16 && D != 24 && D != 32) return 0;
+  switch (what) {
+    case 0: return (L + 15) / 16 * 16 > KB ? 1 : 0;
+    case 1: return (long long)(D == 16 ? smem_rows_split<16>(L)
+                               : D == 24 ? smem_rows_split<24>(L) : smem_rows_split<32>(L));
+    case 2: return (long long)(D == 16 ? smem_keys_split<16>(L)
+                               : D == 24 ? smem_keys_split<24>(L) : smem_keys_split<32>(L));
+    case 3: return split_rows_per_cta(L);
+    case 4: return split_key_tiles_per_cta(L);
+    default: return 0;
   }
 }
 

@@ -1125,19 +1125,74 @@ _ATT_BWD_WARPS = 4        # and its warps (WARPS), each with two 16-row output t
 
 
 def stripe_attention_bwd_smem(L: int, d: int) -> int:
-    """Bytes of shared memory ``stripe_attention_bwd`` takes for a window of
-    ``L`` tokens at head dim ``d``, as ``stripe_attention_bwd.cu::smem_bytes``
-    counts them: q, k, v and dO in bf16 rows padded for ldmatrix, the bf16
-    P_b and dS_b tiles of one key block, each warp's two 16-row output tiles,
-    the LePE taps; beyond one key block also the row statistics and the
-    float32 dQ accumulators."""
+    """Bytes of shared memory the bf16 whole-window kernel takes for a
+    window of ``L`` tokens at head dim ``d``, as
+    ``stripe_attention_bwd.cu::smem_bytes`` counts them: q, k, v and dO in
+    bf16 rows padded for ldmatrix, the bf16 P_b and dS_b tiles, each warp's
+    two 16-row output tiles, the LePE taps. 0 past one key block: such a
+    window takes the split route (``stripe_attention_bwd_plan``)."""
+    lp = -(-L // 16) * 16
+    if lp > _ATT_BWD_KEYS:
+        return 0
+    stride = -(-d // 16) * 16 + 8
+    return (4 * lp * stride * 2 + 2 * lp * (_ATT_BWD_KEYS + 8) * 2
+            + _ATT_BWD_WARPS * 2 * 16 * stride * 2 + 9 * d * 4)
+
+
+# stripe_attention_bwd.cu RG, ROW_PART_TARGET, KEY_TILE, KEY_PART_TILES, SPLIT_TILES: the
+# bf16 split route's row groups, rows a row-kernel CTA takes about, keys of a key tile,
+# key tiles a key-kernel CTA takes at most, key tiles a window holds at most
+_ATT_BWD_SPLIT_RG, _ATT_BWD_SPLIT_ROW_TARGET = 8, 96
+_ATT_BWD_SPLIT_KEY_TILE, _ATT_BWD_SPLIT_KEY_TILES, _ATT_BWD_SPLIT_TILES = 16, 6, 19
+
+
+class AttentionBwdPlan(NamedTuple):
+    """The bf16 attention backward at a window of L tokens and head dim d
+    (``stripe_attention_bwd.cu``). ``split`` False: one CTA a (window,
+    head) takes the whole window (L up to one key block) in ``whole_smem``
+    bytes (0 on the split). ``split`` True: a row kernel, ``row_ctas`` CTAs a (window, head)
+    of ``row_block`` query rows (``_ATT_BWD_WARPS`` warps, k and v of the
+    window staged), then a key kernel, ``key_ctas`` CTAs of ``key_tiles_per_cta``
+    of the window's ``key_tiles`` 16-key tiles (a warp a tile; q·scale, dO
+    and the rows' statistics staged); each kernel's dynamic shared memory and
+    the CTAs an SM it leaves room for (0 off the split)."""
+    split: bool
+    whole_smem: int
+    row_block: int
+    row_ctas: int
+    key_tiles: int
+    key_tiles_per_cta: int
+    key_ctas: int
+    rows_smem: int
+    keys_smem: int
+    rows_ctas_per_sm: int
+    keys_ctas_per_sm: int
+
+
+def stripe_attention_bwd_plan(L: int, d: int) -> AttentionBwdPlan:
+    """Mirrors ``split_rows_per_cta``, ``split_key_tiles_per_cta``,
+    ``smem_rows_split`` and ``smem_keys_split`` of ``stripe_attention_bwd.cu``
+    (the C entry ``cswin_stripe_attention_bwd_plan`` returns the same
+    counts): the split takes every window longer than one key block, in
+    near-equal parts of about ``ROW_PART_TARGET`` rows (whole 8-row groups of
+    every warp) and of up to ``KEY_PART_TILES`` key tiles."""
     lp = -(-L // 16) * 16
     stride = -(-d // 16) * 16 + 8
-    size = (4 * lp * stride * 2 + 2 * lp * (_ATT_BWD_KEYS + 8) * 2
-            + _ATT_BWD_WARPS * 2 * 16 * stride * 2 + 9 * d * 4)
-    if lp > _ATT_BWD_KEYS:
-        size += lp * (3 + d) * 4
-    return size
+    whole = stripe_attention_bwd_smem(L, d)
+    if lp <= _ATT_BWD_KEYS:
+        return AttentionBwdPlan(False, whole, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+    group = _ATT_BWD_SPLIT_RG * _ATT_BWD_WARPS
+    parts = -(-L // _ATT_BWD_SPLIT_ROW_TARGET)
+    row_block = -(-(-(-L // parts)) // group) * group
+    tiles = -(-L // _ATT_BWD_SPLIT_KEY_TILE)
+    per_cta = -(-tiles // -(-tiles // _ATT_BWD_SPLIT_KEY_TILES))
+    rows = 2 * lp * stride * 2 + _ATT_BWD_WARPS * _ATT_BWD_SPLIT_RG * stride * 2
+    keys = (2 * lp * stride * 2 + 3 * lp * 4 + 9 * d * 4
+            + per_cta * _ATT_BWD_SPLIT_KEY_TILE * stride * 2)
+    per_sm = lambda smem, warps: min(_SM_SMEM // (smem + 1024), 2048 // (32 * warps))
+    return AttentionBwdPlan(True, whole, row_block, -(-L // row_block), tiles, per_cta,
+                            -(-tiles // per_cta), rows, keys,
+                            per_sm(rows, _ATT_BWD_WARPS), per_sm(keys, per_cta))
 
 
 # stripe_attention_bwd.cu ROWS_B, ROW_TARGET, KEYS, KEY_BLOCKS
@@ -1207,8 +1262,11 @@ def stripe_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
     ``[ch_off, ch_off + cb)``. Writes dq, dk, dv (LePE included) into the
     branch's channels of the q, k and v thirds of ``dqkv`` (B, H, W, 3C) and
     returns the float32 LePE gradients (weight (cb, 1, 3, 3), bias (cb,)).
-    A float32 ``qkv`` launches the float32 instance (nothing rounded, the
-    LePE taps float32; two kernels, ``stripe_attention_bwd_f32_plan``).
+    A bf16 window longer than one key block takes the split route (a row
+    kernel and a key kernel, ``stripe_attention_bwd_plan``), counted in
+    ``stripe_attention_bwd.launches_split`` too. A float32 ``qkv`` launches
+    the float32 instance (nothing rounded, the LePE taps float32; two
+    kernels, ``stripe_attention_bwd_f32_plan``).
     """
     if _on_cpu(qkv):
         return stripe_attention_bwd_plain(qkv, dout, lepe_weight, dqkv,
@@ -1227,9 +1285,16 @@ def stripe_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
                          f"{w_sp}) cb={cb} heads={heads} ch_off={ch_off}")
     _check_head_dim(cb, heads)
     L, d = h_sp * w_sp, cb // heads
-    plan = None if dt == torch.bfloat16 else stripe_attention_bwd_f32_plan(L, d)
-    smem = (stripe_attention_bwd_smem(L, d) if plan is None
-            else max(plan.rows_smem, plan.keys_smem))
+    if dt == torch.bfloat16:
+        plan = stripe_attention_bwd_plan(L, d)
+        smem = max(plan.rows_smem, plan.keys_smem) if plan.split else plan.whole_smem
+        if L > _ATT_BWD_SPLIT_TILES * _ATT_BWD_SPLIT_KEY_TILE:
+            raise ValueError(f"a window of {L} tokens is longer than the "
+                             f"{_ATT_BWD_SPLIT_TILES * _ATT_BWD_SPLIT_KEY_TILE} the bf16 "
+                             "backward holds")
+    else:
+        plan = stripe_attention_bwd_f32_plan(L, d)
+        smem = max(plan.rows_smem, plan.keys_smem)
     if smem > SMEM_LIMIT:
         raise ValueError(f"a window of {L} tokens at head dim {d} needs {smem} bytes of "
                          f"shared memory ({dt}), more than the {SMEM_LIMIT} a block may use")
@@ -1243,21 +1308,32 @@ def stripe_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
     w9 = lepe_weight.reshape(cb, 9).t().to(dt).contiguous()
     head = (qkv.data_ptr(), dout.data_ptr(), w9.data_ptr(), dqkv.data_ptr())
     tail = (B, H, W, C, ch_off, cb, heads, h_sp, w_sp, scale, _stream(dev))
-    if plan is None:
-        part = torch.empty((windows, cb, 10), dtype=torch.float32, device=dev)
-        err = library().cswin_stripe_attention_bwd(*head, part.data_ptr(), *tail)
-    else:  # LePE partials a window and key block; the rows' statistics between the kernels
+    split = False
+    if dt == torch.float32:  # LePE partials a window and key block; the rows' statistics
         part = torch.empty((windows * plan.key_blocks, cb, 10), dtype=torch.float32, device=dev)
         stats = torch.empty((windows, heads, L, 4), dtype=torch.float32, device=dev)
         err = library().cswin_stripe_attention_bwd_f32(*head, part.data_ptr(), stats.data_ptr(),
                                                        *tail)
+    elif plan.split:  # LePE partials a window and key CTA; the rows' statistics
+        split = True
+        part = torch.empty((windows * plan.key_ctas, cb, 10), dtype=torch.float32, device=dev)
+        stats = torch.empty((windows, heads, 3, -(-L // 16) * 16), dtype=torch.float32,
+                            device=dev)
+        err = library().cswin_stripe_attention_bwd_split(*head, part.data_ptr(), stats.data_ptr(),
+                                                         *tail)
+    else:
+        part = torch.empty((windows, cb, 10), dtype=torch.float32, device=dev)
+        err = library().cswin_stripe_attention_bwd(*head, part.data_ptr(), *tail)
     check(err, "stripe_attention_bwd")
     _counted(stripe_attention_bwd, dt)
+    stripe_attention_bwd.launches_split += split
     lepe = part.sum(0)  # (cb, 10): the nine taps, then the bias
     return lepe[:, :9].reshape(cb, 1, 3, 3), lepe[:, 9]
 
 
 stripe_attention_bwd.launches = stripe_attention_bwd.launches_f32 = 0
+# bf16 launches on the split route: two device kernels each (its row and key kernels)
+stripe_attention_bwd.launches_split = 0
 
 
 # ---------------------------------------------------------------------------
@@ -2598,6 +2674,7 @@ def reset_launch_counts() -> None:
         k.launches = 0
     for k in F32_KERNELS:
         k.launches_f32 = 0
+    stripe_attention_bwd.launches_split = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -2614,5 +2691,7 @@ def total_launches() -> int:
 
 def device_launches() -> int:
     """Device kernels the wrappers launched: one a launch, two a float32
-    ``stripe_attention_bwd`` launch (its row and key kernels)."""
-    return total_launches() + stripe_attention_bwd.launches_f32
+    ``stripe_attention_bwd`` launch and two a bf16 one on the split route
+    (their row and key kernels)."""
+    return (total_launches() + stripe_attention_bwd.launches_f32
+            + stripe_attention_bwd.launches_split)

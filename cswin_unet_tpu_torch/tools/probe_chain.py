@@ -69,9 +69,11 @@ import sys
 
 import numpy as np
 
-# Digests of the probe's tensors from the build of the float32 attention
-# tile and backward on register blocks (attention_tile.cuh::tile_f32, the
-# row and key kernels of stripe_attention_bwd.cu), beside the LayerNorm
+# Digests of the probe's tensors from the build of the bf16 attention
+# backward's row and key kernels (stripe_attention_bwd.cu's split route,
+# windows longer than one key block: tiny-224's stage 3), beside the float32
+# attention tile and backward on register blocks (attention_tile.cuh::
+# tile_f32, the float32 row and key kernels), the LayerNorm
 # forward row on lane groups of 16-byte vectors, the one-launch LayerNorm
 # backward, the tensor-core CARAFE kernel, weight gradient, attention
 # backward, attention and GEMM tiles and the float32 GEMMs, on an NVIDIA

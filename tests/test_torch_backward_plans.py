@@ -147,23 +147,29 @@ def _attention_windows():
 
 @pytest.mark.parametrize("yaml,L,d", sorted(set(_attention_windows())))
 def test_attention_bwd_smem_fits_every_geometry(yaml, L, d):
-    assert K.stripe_attention_bwd_smem(L, d) <= K.SMEM_LIMIT
+    """The whole-window kernel takes the windows of up to one key block and
+    fits them; it takes no longer one (0 bytes: the split route's)."""
+    smem = K.stripe_attention_bwd_smem(L, d)
+    assert (smem > 0) == (L <= 64)
+    assert smem <= K.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("d", [24, 32])
 def test_attention_bwd_smem_takes_base384_windows(d):
-    assert (24 * 12, 24) in {(L, dd) for _, L, dd in _attention_windows()}
-    assert K.stripe_attention_bwd_smem(288, d) <= K.SMEM_LIMIT
-    # its parts: four staged bf16 tiles, two key-block tiles, four warps'
-    # two 16-row output tiles, the taps, and beyond one key block the row
-    # statistics and dQ accumulators
-    lp, stride = 288, 40
+    """base-384's windows (96, 144, 288 tokens) are longer than one key
+    block: the whole-window kernel takes none of them (0 bytes) and the
+    split route takes each. Its own parts at one key block: four staged
+    bf16 tiles, the P_b and dS_b tiles, four warps' two 16-row output
+    tiles, the taps."""
+    windows = {(L, dd) for _, L, dd in _attention_windows()}
+    assert (24 * 12, 24) in windows
+    for L in sorted({L for L, dd in windows if dd == 24}):
+        assert K.stripe_attention_bwd_smem(L, d) == 0
+        assert K.stripe_attention_bwd_plan(L, d).split
+    stride = 40
     fixed = 4 * 2 * 16 * stride * 2 + 9 * d * 4
-    assert K.stripe_attention_bwd_smem(288, d) == (
-        4 * lp * stride * 2 + 2 * lp * 72 * 2 + fixed + lp * (3 + d) * 4)
-    # one key block holds no statistics; past the limit the wrapper refuses
     assert K.stripe_attention_bwd_smem(64, d) == 4 * 64 * stride * 2 + 2 * 64 * 72 * 2 + fixed
-    assert K.stripe_attention_bwd_smem(304, 32) > K.SMEM_LIMIT
+    assert K.stripe_attention_bwd_smem(65, d) == K.stripe_attention_bwd_smem(304, d) == 0
 
 
 def _ln_bwd_shapes():
@@ -195,3 +201,100 @@ def test_layernorm_bwd_plan_covers_every_row_once(rows, C, ctas_per_sm):
     assert all(taken), "a CTA without rows"
     flat = sorted(r for t in taken for r in t)
     assert flat == list(range(rows))
+
+
+# ---- the bf16 attention backward's split route ------------------------------
+
+BWD_SRC = os.path.join(REPO, "cswin_unet_tpu_torch", "ops", "cuda", "csrc",
+                       "stripe_attention_bwd.cu")
+
+
+@pytest.mark.parametrize("yaml,L,d", sorted(set(_attention_windows())))
+def test_attention_bwd_split_plan_fits_every_geometry(yaml, L, d):
+    """Windows longer than one key block take the row and key kernels, each
+    in shared memory that leaves room for three CTAs an SM or more; the
+    rest keep the whole-window kernel."""
+    p = K.stripe_attention_bwd_plan(L, d)
+    assert p.split == (L > 64)
+    assert p.whole_smem == K.stripe_attention_bwd_smem(L, d)
+    if not p.split:
+        return
+    assert max(p.rows_smem, p.keys_smem) <= K.SMEM_LIMIT
+    assert p.rows_ctas_per_sm >= 3 and p.keys_ctas_per_sm >= 3
+    # the row CTAs cover the window's rows once, in whole 8-row groups of
+    # every warp; the key CTAs its 16-key tiles, a warp a tile
+    assert p.row_block % (8 * K._ATT_BWD_WARPS) == 0
+    assert (p.row_ctas - 1) * p.row_block < L <= p.row_ctas * p.row_block
+    assert p.key_tiles == -(-L // 16) and 1 <= p.key_tiles_per_cta <= 6
+    assert (p.key_ctas - 1) * p.key_tiles_per_cta < p.key_tiles <= p.key_ctas * p.key_tiles_per_cta
+
+
+def test_attention_bwd_split_plan_at_base384_stage3():
+    """L = 288, d = 24: k and v of the window (46,080 B) and four warps' dQ
+    tiles in the row kernel, four CTAs an SM; q·scale and dO (46,080 B),
+    the statistics, the taps and six warps' output tiles in the key kernel,
+    three CTAs an SM; three CTAs of each a (window, head)."""
+    p = K.stripe_attention_bwd_plan(288, 24)
+    assert (p.row_block, p.row_ctas, p.key_tiles_per_cta, p.key_ctas) == (96, 3, 6, 3)
+    assert p.rows_smem == 2 * 288 * 40 * 2 + 4 * 8 * 40 * 2 == 48640
+    assert p.keys_smem == 2 * 288 * 40 * 2 + 3 * 288 * 4 + 9 * 24 * 4 + 6 * 16 * 40 * 2
+    assert (p.rows_ctas_per_sm, p.keys_ctas_per_sm) == (4, 3)
+    # the whole-window kernel takes no such window
+    assert p.whole_smem == 0
+
+
+def _source_constants() -> dict[str, int]:
+    import re
+
+    text = open(BWD_SRC).read()
+    return {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+
+
+def test_attention_bwd_split_constants_are_the_source():
+    c = _source_constants()
+    assert (c["RG"], c["ROW_PART_TARGET"], c["KEY_TILE"], c["KEY_PART_TILES"],
+            c["SPLIT_TILES"]) == (K._ATT_BWD_SPLIT_RG, K._ATT_BWD_SPLIT_ROW_TARGET,
+                                  K._ATT_BWD_SPLIT_KEY_TILE, K._ATT_BWD_SPLIT_KEY_TILES,
+                                  K._ATT_BWD_SPLIT_TILES)
+    assert c["WARPS"] == K._ATT_BWD_WARPS and c["KT"] * 8 == K._ATT_BWD_KEYS
+
+
+def _global_names() -> list[str]:
+    import re
+
+    text = open(BWD_SRC).read()
+    return re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+                      text, re.S)
+
+
+@pytest.mark.parametrize("d", [16, 24, 32])
+@pytest.mark.parametrize("form", ["demangled", "mangled"])
+def test_attention_bwd_kernel_names_are_the_traces(d, form):
+    """Every bf16 ``__global__`` of the backward (the whole window,
+    ``<D>``; the split's row and key kernels, ``<D, 1>`` and ``<D, 2>``)
+    reads as the attention family (``attention_roofline``) and as one of
+    the program's kernels (``Trace.tallied``, ``device_busy_ms``); the
+    float32 instance's two kernels as the program's, outside the family."""
+    from cswin_unet_tpu_torch.utils.profiling import KERNEL_SYMBOLS
+    from port_bench import trace
+
+    names = _global_names()
+    assert names.count("stripe_attention_bwd_kernel") == 2
+    assert set(names) == {"stripe_attention_bwd_kernel", "stripe_attention_bwd_f32_rows_kernel",
+                          "stripe_attention_bwd_f32_keys_kernel"}
+    bf16_args = "PK13__nv_bfloat16S2_S2_PS0_Pfiiiiiiif"
+    instances = [("stripe_attention_bwd_kernel", (d,), bf16_args),
+                 ("stripe_attention_bwd_kernel", (d, 1), "NS_7BwdArgsE"),
+                 ("stripe_attention_bwd_kernel", (d, 2), "NS_7BwdArgsE"),
+                 ("stripe_attention_bwd_f32_rows_kernel", (d,), "PKfS1_PfP6float4iiiiiiif"),
+                 ("stripe_attention_bwd_f32_keys_kernel", (d,), "PKfS1_S1_PfS2_PK6float4iiiiiiiif")]
+    for name, targs, margs in instances:
+        if form == "demangled":
+            symbol = (f"void (anonymous namespace)::{name}<{', '.join(map(str, targs))}>"
+                      "(__nv_bfloat16 const*)")
+        else:
+            ilist = "".join(f"Li{t}E" for t in targs)
+            symbol = f"_ZN12_GLOBAL__N_1{len(name)}{name}I{ilist}EEv{margs}"
+        assert trace.PORT_KERNELS.search(symbol), symbol
+        assert KERNEL_SYMBOLS.search(symbol), symbol
+        assert bool(trace.FAMILY_KERNELS["attention"].search(symbol)) == ("f32" not in name)

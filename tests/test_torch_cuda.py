@@ -657,6 +657,9 @@ def test_gemm_dropout_vs_plain(dev, M, N, K_, hw):
     (96, 96, 4, 1, False), (48, 192, 8, 2, False), (24, 384, 16, 12, False),
     (12, 768, 32, 12, True)])
 def test_stripe_attention_bwd(dev, H, C, heads, split, last):
+    """Within 0.02 of the plain version, the same bits from two calls; a
+    window longer than one key block (L > 64) takes the split route: one
+    ``launches_split`` and two device kernels a launch."""
     rng = np.random.default_rng(8)
     qkv = _rnd(rng, dev, 2, H, H, 3 * C).bfloat16()
     dout = _rnd(rng, dev, 2, H, H, C).bfloat16()
@@ -667,12 +670,19 @@ def test_stripe_attention_bwd(dev, H, C, heads, split, last):
         kw = dict(ch_off=off, heads=nh, h_sp=hs, w_sp=ws, scale=(C // heads) ** -0.5)
         chans = torch.cat([torch.arange(off, off + cb) + i * C for i in range(3)]).to(dev)
         outs = []
-        for fn in (K.stripe_attention_bwd, K.stripe_attention_bwd_plain):
+        for fn in (K.stripe_attention_bwd, K.stripe_attention_bwd, K.stripe_attention_bwd_plain):
             dqkv = torch.zeros(2, H, H, 3 * C, dtype=torch.bfloat16, device=dev)
+            before = (K.stripe_attention_bwd.launches_split, K.device_launches())
             dw, db = fn(qkv, dout, lw, dqkv, **kw)
+            if fn is K.stripe_attention_bwd:
+                split_route = hs * ws > 64
+                assert K.stripe_attention_bwd.launches_split == before[0] + split_route
+                assert K.device_launches() == before[1] + 1 + split_route
             outs.append((dqkv[..., chans], dw, db))
-        for g, want in zip(*outs):
-            assert _rel_l2(g.float(), want.float()) <= 0.02
+        got, again, want = outs
+        for g, a, w in zip(got, again, want):
+            assert _rel_l2(g.float(), w.float()) <= 0.02
+            assert torch.equal(g, a)
 
 
 def _block_fn_case(dev, H, C, heads, split, last, seed):
@@ -1226,10 +1236,16 @@ def test_f32_stripe_attention_bwd(dev, H, C, heads, split, last):
 @pytest.mark.parametrize("source,entries", [
     ("stripe_attention.cu", ("stripe_attention_f32_kernel",)),
     ("stripe_attention_bwd.cu", ("stripe_attention_bwd_f32_rows_kernel",
-                                 "stripe_attention_bwd_f32_keys_kernel"))])
+                                 "stripe_attention_bwd_f32_keys_kernel")),
+    # the bf16 backward's split route, its row (part 1) and key (part 2)
+    # kernels at head dims 24 and 32, by their mangled instances
+    ("stripe_attention_bwd.cu", ("stripe_attention_bwd_kernelILi24ELi1E",
+                                 "stripe_attention_bwd_kernelILi24ELi2E",
+                                 "stripe_attention_bwd_kernelILi32ELi1E",
+                                 "stripe_attention_bwd_kernelILi32ELi2E"))])
 def test_f32_attention_kernels_do_not_spill(dev, tmp_path, source, entries):
-    """ptxas -v of the float32 attention kernels (every head dim): registers
-    and no spill stores or loads."""
+    """ptxas -v of the float32 attention kernels (every head dim) and of the
+    bf16 backward's split route: registers and no spill stores or loads."""
     import re
     import subprocess
 
@@ -1249,7 +1265,8 @@ def test_f32_attention_kernels_do_not_spill(dev, tmp_path, source, entries):
                 seen.append(current)
                 assert m.group(1) == m.group(2) == "0", (current, line)
             current = None
-    assert len(seen) == 3 * len(entries), seen  # head dims 16, 24, 32
+    # a name is every head dim's instance (16, 24, 32); a mangled instance one
+    assert len(seen) == sum(1 if "ILi" in e else 3 for e in entries), seen
 
 
 @pytest.mark.parametrize("L,d", [(49, 32), (56, 32), (98, 32), (96, 24), (144, 24),
@@ -1886,9 +1903,30 @@ def test_stripe_attention_bwd_windows(dev, B, H, W, C, nh, hs, ws, off):
 @pytest.mark.parametrize("L", [49, 56, 64, 65, 98, 288, 304])
 @pytest.mark.parametrize("d", [16, 24, 32])
 def test_stripe_attention_bwd_smem_matches_the_kernel(dev, L, d):
+    """The whole-window kernel's shared memory, and past one key block its
+    refusal: 0 bytes, and the launch returns cudaErrorInvalidValue before it
+    reads a pointer."""
     from cswin_unet_tpu_torch.ops.cuda.build import library
 
     assert library().cswin_stripe_attention_bwd_smem(L, d) == K.stripe_attention_bwd_smem(L, d)
+    if L > 64:
+        assert library().cswin_stripe_attention_bwd_smem(L, d) == 0
+        assert library().cswin_stripe_attention_bwd(0, 0, 0, 0, 0, 1, L, 1, d, 0, d, 1, L, 1,
+                                                    1.0, 0) == 1
+
+
+@pytest.mark.parametrize("L", [49, 56, 64, 65, 96, 98, 144, 288, 304])
+@pytest.mark.parametrize("d", [16, 24, 32])
+def test_stripe_attention_bwd_plan_is_the_kernels(dev, L, d):
+    from cswin_unet_tpu_torch.ops.cuda.build import library
+
+    plan = K.stripe_attention_bwd_plan(L, d)
+    got = tuple(library().cswin_stripe_attention_bwd_plan(L, d, what) for what in range(5))
+    assert got[0] == plan.split
+    if plan.split:
+        assert got[1:] == (plan.rows_smem, plan.keys_smem, plan.row_block,
+                           plan.key_tiles_per_cta)
+    assert library().cswin_stripe_attention_bwd_plan(L, d, 5) == 0
 
 
 # ---- data parallelism on the card ----------------------------------------
