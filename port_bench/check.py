@@ -27,28 +27,35 @@ import torch
 from . import reference as R
 
 
-def leaf_gap(prog: dict, ref: dict, keep=None) -> float:
+def leaf_gaps(prog: dict, ref: dict, keep=None) -> dict:
     med = statistics.median(ref.values())
     names = [k for k in ref if keep is None or k in keep]
-    return max(abs(prog[k] - ref[k]) / max(ref[k], med, 1e-30) for k in names)
+    return {k: abs(prog[k] - ref[k]) / max(ref[k], med, 1e-30) for k in names}
 
 
-def train_gaps(prog: dict, ref: dict) -> dict:
+def train_gaps(prog: dict, ref: dict, *, worst: bool = False) -> dict:
+    """The compared numbers; with ``worst`` also the leaf that sets each
+    leaf gap (``grad_leaf``, ``change_leaf``)."""
     losses = [abs(a - b) / abs(b) for a, b in zip(prog["losses"], ref["losses"])]
     raw = ref["raw_grad_norms"]
     med = statistics.median(raw.values())
     moved = {k for k, v in raw.items() if v >= 1e-3 * med}
-    return {"loss_gap": max(losses),
-            "grad_gap": leaf_gap(prog["grad_norms"], ref["grad_norms"]),
-            "change_gap": leaf_gap(prog["change_norms"], ref["change_norms"], moved)}
+    grad = leaf_gaps(prog["grad_norms"], ref["grad_norms"])
+    change = leaf_gaps(prog["change_norms"], ref["change_norms"], moved)
+    out = {"loss_gap": max(losses), "grad_gap": max(grad.values()),
+           "change_gap": max(change.values())}
+    if worst:
+        out.update(grad_leaf=max(grad, key=grad.get), change_leaf=max(change, key=change.get))
+    return out
 
 
 def reference_train(cfg: dict, traffic: dict, weights: dict, batches: list, generator,
-                    *, rows: int, fp8: bool = False, steps: int | None = None) -> dict:
+                    *, rows: int, control: bool = False, steps: int | None = None) -> dict:
     """The reference's readings over the first ``steps`` steps (default the
     traffic's ``checked_steps``) from ``weights`` (updated in place) on
-    ``batches``, drop-path drawn from ``generator``."""
-    num = R.Numerics(fp8=fp8)
+    ``batches``, drop-path drawn from ``generator``; with ``control``, of
+    the control of the configuration's ``compute_dtype`` instead."""
+    num = R.Numerics(cfg["compute_dtype"] if control else None)
     steps = steps or traffic["checked_steps"]
     w0 = {k: v.clone() for k, v in weights.items()}
     momentum: dict = {}
@@ -74,18 +81,18 @@ def reference_train(cfg: dict, traffic: dict, weights: dict, batches: list, gene
 
 @torch.no_grad()
 def serve_gap(cfg: dict, weights: dict, volumes: list, labels: list, device, *,
-              rows: int, fp8: bool = False) -> float:
+              rows: int, control: bool = False) -> float:
     """The widest logit gap of the served ``labels`` of ``volumes``; with
-    ``fp8`` the gap of the labels that the control (the reference in float8)
-    puts first instead."""
-    exact, low = R.Numerics(), R.Numerics(fp8=True)
+    ``control`` the gap of the labels that the control of the
+    configuration's ``compute_dtype`` puts first instead."""
+    exact, low = R.Numerics(), R.Numerics(cfg["compute_dtype"])
     nc, worst = cfg["num_classes"], 0.0
     with exact.exact():
         for vol, lab in zip(volumes, labels):
             for r0 in range(0, vol.shape[0], rows):
                 x = torch.from_numpy(vol[r0:r0 + rows]).to(device)[..., None]
                 ref = R.forward(exact, weights, cfg, x)
-                if fp8:
+                if control:
                     served = R.forward(low, weights, cfg, x).argmax(-1)
                 else:
                     served = torch.from_numpy(lab[r0:r0 + rows]).to(device).long()

@@ -6,9 +6,12 @@ seeds, and on a few seeds the control's and the planted faults'.
 
 Each reading is the cell's compared numbers (``check``), with the program
 as the cell runs it, against the float32 reference. The control is the
-reference computed in float8 (``reference.Numerics(fp8=True)``) in the
-program's place. A training cell also reads, on the control seeds, the
-program stepping on half of each batch (its loss the mean over that half).
+reference computed one precision below the configuration's
+``compute_dtype`` (``reference.Numerics(compute_dtype)``: float8 below
+bfloat16, TF32 below float32) in the program's place, its readings of kind
+``control_<fp8|tf32>``. A training cell also reads, on the control seeds,
+the program stepping on half of each batch (its loss the mean over that
+half), and names the leaf that sets each leaf gap.
 Not a benchmark run: nothing is timed. Prints one JSON line a reading and
 writes them all to ``--out``.
 """
@@ -28,6 +31,12 @@ import torch  # noqa: E402
 
 from port_bench import harness  # noqa: E402
 from port_bench.check import train_gaps  # noqa: E402
+from port_bench.reference import CONTROLS  # noqa: E402
+
+
+def control_kind(cfg: dict) -> str:
+    """The kind of the control's readings of a configuration."""
+    return "control_" + CONTROLS[cfg["compute_dtype"]][0]
 
 
 def train_readings(cell: dict, seed: int, control: bool, device) -> list[dict]:
@@ -45,10 +54,12 @@ def train_readings(cell: dict, seed: int, control: bool, device) -> list[dict]:
         h.free()
     r.free()
     ref = r.reference(rows)
-    out = [dict(seed=seed, kind="program", **train_gaps(prog, ref))]
+    out = [dict(seed=seed, kind="program", **train_gaps(prog, ref, worst=True))]
     if control:
-        out.append(dict(seed=seed, kind="control_fp8", **train_gaps(r.reference(rows, fp8=True), ref)))
-        out.append(dict(seed=seed, kind="fault_half_batch", **train_gaps(half, ref)))
+        out.append(dict(seed=seed, kind=control_kind(cfg),
+                        **train_gaps(r.reference(rows, control=True), ref, worst=True)))
+        out.append(dict(seed=seed, kind="fault_half_batch",
+                        **train_gaps(half, ref, worst=True)))
     return out
 
 
@@ -63,7 +74,8 @@ def serve_readings(cell: dict, seed: int, control: bool, device) -> list[dict]:
     rows = cell["reference_rows"]
     out = [dict(seed=seed, kind="program", logit_gap=r.gap(rows))]
     if control:
-        out.append(dict(seed=seed, kind="control_fp8", logit_gap=r.gap(rows, fp8=True)))
+        out.append(dict(seed=seed, kind=control_kind(cell["config_data"]),
+                        logit_gap=r.gap(rows, control=True)))
     return out
 
 

@@ -83,11 +83,12 @@ class ServeRun:
         self.model = self.server = None
         program.free(self.device)
 
-    def gap(self, rows: int, *, fp8: bool = False) -> float:
+    def gap(self, rows: int, *, control: bool = False) -> float:
         idx = [i for i in self.keep if i in self.served]
         weights = make_weights(self.cfg, T.sub_seed(self.seed, "weights"), self.device)
         return serve_gap(self.cfg, weights, [self.volumes[i] for i in idx],
-                         [self.served[i] for i in idx], self.device, rows=rows, fp8=fp8)
+                         [self.served[i] for i in idx], self.device, rows=rows,
+                         control=control)
 
 
 def percentile(xs: list[float], q: float) -> float:

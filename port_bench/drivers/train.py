@@ -69,12 +69,12 @@ class TrainRun:
         self.model = self.step_fn = self.optimizer = self.last = None
         program.free(self.device)
 
-    def reference(self, rows: int, *, fp8: bool = False) -> dict:
+    def reference(self, rows: int, *, control: bool = False) -> dict:
         weights = make_weights(self.cfg, T.sub_seed(self.seed, "weights"), self.device)
         gen = torch.Generator(device=self.device).manual_seed(
             T.sub_seed(self.seed, "drop_path"))
         return reference_train(self.cfg, self.traffic, weights, self.pool, gen,
-                               rows=rows, fp8=fp8)
+                               rows=rows, control=control)
 
 
 def run(cell: dict, seed: int, seconds: float, trace: bool, device: torch.device,

@@ -1,6 +1,8 @@
 """Model (``models/cswin_unet.py``): the forward's model FLOPs of every real
 slice returned in the measured window, over its time, against the card's
-bf16 peak."""
+peak for the configuration's ``compute_dtype`` (``work.PEAK_FLOPS``): 989
+TFLOP/s of the bf16 tensor cores at ``bfloat16``, 67 TFLOP/s of float32
+FFMA at ``float32``."""
 
 from port_bench import work
 
@@ -10,5 +12,5 @@ UNIT = "%"
 def read(ctx):
     if ctx.mode != "serve_volumes":
         return None
-    w = ctx.window
-    return 100.0 * w["slices"] * work.model_flops(ctx.cfg) / w["seconds"] / work.TC_FLOPS
+    w, peak = ctx.window, work.PEAK_FLOPS[ctx.cfg["compute_dtype"]]
+    return 100.0 * w["slices"] * work.model_flops(ctx.cfg) / w["seconds"] / peak

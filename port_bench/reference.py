@@ -18,9 +18,12 @@ Departures from the published code, none of which changes the function:
 
 ``Numerics`` decides the precision of every product (linear layers,
 convolutions, the two attention products, the reassembly): float32 with
-TF32 off (``exact()``), or the control, the same products on operands
-rounded to float8 e4m3 with a per-tensor scale (and, in training, their
-cotangents to e5m2), accumulated in float32.
+TF32 off (``exact()``), or the control of the precision a configuration
+states (``Numerics(compute_dtype)``), the precision one step below it: the
+same products on rounded operands (and, in training, rounded cotangents),
+accumulated in float32. For ``bfloat16``, operands in float8 e4m3 with a
+per-tensor scale and cotangents in e5m2; for ``float32``, operands and
+cotangents in TF32 (10 mantissa bits, as the tensor cores take float32).
 """
 
 from __future__ import annotations
@@ -42,42 +45,67 @@ def _fp8(t: torch.Tensor, dtype: torch.dtype, top: float) -> torch.Tensor:
     return ((t / scale).to(dtype).to(t.dtype) * scale)
 
 
-class _Fp8Operand(torch.autograd.Function):
-    """A product's operand in e4m3; its cotangent passes unchanged."""
+def tf32(t: torch.Tensor) -> torch.Tensor:
+    """Float32 ``t`` rounded to TF32: the nearest value with 10 mantissa
+    bits, ties to even, worked on the bit pattern; infinities and NaNs as
+    they are."""
+    bits = t.contiguous().view(torch.int32)
+    odd = (bits >> 13) & 1
+    rounded = ((bits + 0xFFF + odd) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(t), rounded, t)
+
+
+# The control of each precision a configuration may state (its
+# ``compute_dtype``): its name, the operands' rounding, the cotangents'.
+CONTROLS = {
+    "bfloat16": ("fp8", lambda t: _fp8(t, torch.float8_e4m3fn, E4M3_MAX),
+                 lambda g: _fp8(g, torch.float8_e5m2, E5M2_MAX)),
+    "float32": ("tf32", tf32, tf32),
+}
+
+
+class _Operand(torch.autograd.Function):
+    """A product's operand rounded by ``rnd``; its cotangent passes
+    unchanged."""
 
     @staticmethod
-    def forward(ctx, t):
-        return _fp8(t, torch.float8_e4m3fn, E4M3_MAX)
+    def forward(ctx, t, rnd):
+        return rnd(t)
 
     @staticmethod
     def backward(ctx, g):
-        return g
+        return g, None
 
 
-class _Fp8Cotangent(torch.autograd.Function):
-    """Identity forward; a product's output cotangent rounded to e5m2."""
+class _Cotangent(torch.autograd.Function):
+    """Identity forward; a product's output cotangent rounded by ``rnd``."""
 
     @staticmethod
-    def forward(ctx, t):
+    def forward(ctx, t, rnd):
+        ctx.rnd = rnd
         return t.view_as(t)
 
     @staticmethod
     def backward(ctx, g):
-        return _fp8(g, torch.float8_e5m2, E5M2_MAX)
+        return ctx.rnd(g), None
 
 
 class Numerics:
-    """The precision of the reference's products: ``fp8=False`` float32
-    (TF32 off while ``exact()`` is open), ``fp8=True`` the control."""
+    """The precision of the reference's products: float32 (TF32 off while
+    ``exact()`` is open), or with ``control`` a configuration's
+    ``compute_dtype`` the control of that precision (``CONTROLS``; its name
+    in ``low``)."""
 
-    def __init__(self, fp8: bool = False):
-        self.fp8 = fp8
+    def __init__(self, control: str | None = None):
+        if control is not None and control not in CONTROLS:
+            raise ValueError(f"no control for compute_dtype {control!r}")
+        self.low, self._operand, self._cotangent = CONTROLS[control] if control else (None,) * 3
 
     def op(self, t: torch.Tensor) -> torch.Tensor:
-        return _Fp8Operand.apply(t) if self.fp8 else t
+        return _Operand.apply(t, self._operand) if self.low else t
 
     def out(self, t: torch.Tensor) -> torch.Tensor:
-        return _Fp8Cotangent.apply(t) if self.fp8 and t.requires_grad else t
+        return _Cotangent.apply(t, self._cotangent) if self.low and t.requires_grad else t
 
     def linear(self, x, w, b=None):
         y = self.out(self.op(x) @ self.op(w).t())

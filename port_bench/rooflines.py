@@ -1,6 +1,6 @@
 """A kernel family's share of its roofline in a traced stretch: the sum of
 its launches' bounds (``work``) over its device time by kernel name
-(``trace.FAMILY_KERNELS``)."""
+(``trace.FAMILIES``, the instance of the configuration's ``compute_dtype``)."""
 
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ def share(ctx, mode: str, family: str) -> float | None:
     route."""
     if ctx.mode != mode or not ctx.trace.tallied:
         return None
-    device_s = ctx.trace.family_s(family)
+    device_s = ctx.trace.family_s(family, ctx.cfg["compute_dtype"])
     if device_s <= 0:
         return None
     calls = work.route_from_counts(ctx.cfg, ctx.trace.units, ctx.trace.counts, MAKERS[mode])

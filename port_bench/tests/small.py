@@ -11,12 +11,12 @@ SMALL = dict(img_size=32, in_chans=3, num_classes=9, embed_dim=16, depths=[1, 2,
              drop_path_rate=0.2, compute_dtype="bfloat16")
 
 
-
 def small_cell(name: str) -> dict:
     """The cell ``name`` with its configuration and traffic cut to a CPU
-    test's size; its limits as committed."""
+    test's size, in the configuration's precision; its limits as
+    committed."""
     cell = harness.load_cell(name)
-    cell["config_data"] = dict(SMALL)
+    cell["config_data"] = dict(SMALL, compute_dtype=cell["config_data"]["compute_dtype"])
     if cell["traffic_data"]["mode"] == "train":
         cell["traffic_data"].update(batch=4)
         cell["reference_rows"] = 2

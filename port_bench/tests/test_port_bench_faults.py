@@ -13,7 +13,7 @@ from port_bench.run import run_cell
 
 from .small import small_cell
 
-TRAIN, SERVE = "base384-train-bs24", "tiny224-serve-vol"
+TRAIN, SERVE, TRAIN_F32 = "base384-train-bs24", "tiny224-serve-vol", "base384-train-f32"
 
 
 def _run(name):
@@ -38,28 +38,59 @@ def _patch_step(monkeypatch, wrap):
     monkeypatch.setattr(trainer, "make_train_step", make)
 
 
-def test_step_that_leaves_its_state_unchanged(monkeypatch):
+def _unchanged(step, model, optimizer, nc):
     from cswin_unet_tpu_torch.losses import segmentation_loss
 
-    def wrap(step, model, optimizer, nc):
-        def frozen(image, label, generator):  # forward and loss, no update
-            _, aux = segmentation_loss(model(image, generator=generator), label, nc)
-            return aux
-        return frozen
+    def frozen(image, label, generator):  # forward and loss, no update
+        _, aux = segmentation_loss(model(image, generator=generator), label, nc)
+        return aux
+    return frozen
 
-    _patch_step(monkeypatch, wrap)
+
+def _half_batch(step, model, optimizer, nc):
+    return lambda image, label, gen: step(image[: len(image) // 2],
+                                          label[: len(label) // 2], gen)
+
+
+def test_step_that_leaves_its_state_unchanged(monkeypatch):
+    _patch_step(monkeypatch, _unchanged)
     out = _run(TRAIN)
     assert not out["correct"], out["checks"]
     assert out["checks"]["change_gap"]["value"] > out["checks"]["change_gap"]["limit"]
 
 
 def test_step_on_half_of_the_batch(monkeypatch):
-    def wrap(step, model, optimizer, nc):
-        return lambda image, label, gen: step(image[: len(image) // 2],
-                                              label[: len(label) // 2], gen)
-
-    _patch_step(monkeypatch, wrap)
+    _patch_step(monkeypatch, _half_batch)
     out = _run(TRAIN)
+    assert not out["correct"], out["checks"]
+
+
+def test_float32_sound_run_is_correct():
+    out = _run(TRAIN_F32)
+    assert out["correct"], out["checks"]
+
+
+@pytest.mark.parametrize("fault", [_unchanged, _half_batch], ids=["unchanged", "half_batch"])
+def test_float32_step_fault(monkeypatch, fault):
+    _patch_step(monkeypatch, fault)
+    out = _run(TRAIN_F32)
+    assert not out["correct"], out["checks"]
+
+
+def test_float32_tf32_control_in_the_programs_place(monkeypatch):
+    """The readings of the reference in TF32 take the program's: the run
+    steps the program as ever, and its check reads the control."""
+    from port_bench.drivers import train
+
+    rows = small_cell(TRAIN_F32)["reference_rows"]
+    original = train.TrainRun.checked_steps
+
+    def control(self, batches=None):
+        original(self, batches)
+        return self.reference(rows, control=True)
+
+    monkeypatch.setattr(train.TrainRun, "checked_steps", control)
+    out = _run(TRAIN_F32)
     assert not out["correct"], out["checks"]
 
 

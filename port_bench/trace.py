@@ -23,13 +23,23 @@ PORT_KERNELS = re.compile(
     _NS + r"(?:layernorm|layernorm_bwd|gemm|wgrad|stripe_attention|stripe_attention_bwd|"
     r"carafe|edt_pass|block_pair|lepe_windows|ln_mlp|block_one)(?:_f32)?(?:_rows|_keys)?"
     r"_kernel")
-# Device kernels of each family the rooflines read: the GEMM family is the
-# forward and dX (gemm_kernel) and the weight gradient (wgrad_kernel).
+# Device kernels of each family the rooflines read, by the instance a
+# configuration's compute_dtype runs. bf16: the GEMM family is the forward
+# and dX (gemm_kernel) and the weight gradient (wgrad_kernel); the attention
+# family the forward and the backward (the split's row and key kernels are
+# instances of one template). float32: the same families' float32 kernels,
+# the attention backward a row and a key kernel.
 FAMILY_KERNELS = {
     "gemm": re.compile(_NS + r"(?:gemm|wgrad)_kernel"),
     "attention": re.compile(_NS + r"stripe_attention(?:_bwd)?_kernel"),
     "block_pair": re.compile(_NS + r"block_pair_kernel"),
 }
+F32_FAMILY_KERNELS = {
+    "gemm": re.compile(_NS + r"(?:gemm|wgrad)_f32_kernel"),
+    "attention": re.compile(_NS + r"stripe_attention(?:_bwd)?_f32(?:_rows|_keys)?_kernel"),
+    "block_pair": re.compile(_NS + r"block_pair_f32_kernel"),
+}
+FAMILIES = {"bfloat16": FAMILY_KERNELS, "float32": F32_FAMILY_KERNELS}
 
 
 @dataclass
@@ -80,8 +90,10 @@ class Trace:
         sets)."""
         return sum(1 for n, _, _ in self.device if not n.startswith(("Memcpy", "Memset")))
 
-    def family_s(self, family: str) -> float:
-        pat = FAMILY_KERNELS[family]
+    def family_s(self, family: str, compute_dtype: str) -> float:
+        """Device seconds of ``family``'s kernels of the instance that
+        ``compute_dtype`` runs."""
+        pat = FAMILIES[compute_dtype][family]
         return sum(e - s for n, s, e in self.device if pat.search(n)) / 1e6
 
     def breakdown(self, top: int = 10) -> dict:
